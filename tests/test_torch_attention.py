@@ -1,0 +1,130 @@
+"""Port parity for attention: ``mxnet_tpu_torch.ops.attention.flash_forward``
+(O and the natural-log lse) against the JAX package's Pallas forward
+``_flash_forward``, run in interpret mode as tests/test_attention.py runs it,
+on identical numpy inputs.  On CPU tensors the port's wrapper takes its
+plain version; the CUDA kernel itself is held against that plain version on
+the card by chip_smoke.py.  float32 tolerance 1e-5."""
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu_torch as mt
+from mxnet_tpu.ops.attention import _flash_forward
+from mxnet_tpu_torch.ops import OpContext, get_op
+from mxnet_tpu_torch.ops import attention as att
+
+TOL = 1e-5
+
+
+def _qkv(b, sq, sk, h, d, seed):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, sq, h, d).astype(np.float32)
+    k = rng.randn(b, sk, h, d).astype(np.float32)
+    v = rng.randn(b, sk, h, d).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal,sq,sk,block", [
+    (False, 64, 64, 32),
+    (True, 64, 64, 16),
+    (True, 32, 64, 16),
+    (False, 64, 32, 32),
+    (True, 64, 32, 32),
+])
+def test_flash_forward_matches_pallas(causal, sq, sk, block):
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(2, sq, sk, 2, 16, seed=sq + sk + int(causal))
+    scale = 1.0 / np.sqrt(16)
+    jo, jlse = _flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal, scale, block, block, True)
+    o, lse = att.flash_forward(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal, scale)
+    assert o.shape == jo.shape and lse.shape == jlse.shape
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=TOL,
+                               atol=TOL)
+
+
+def test_flash_op_matches_jax_op():
+    """``_contrib_FlashAttention`` through both registries, with the block
+    attrs the JAX op uses for its tiles (the port accepts and ignores
+    them)."""
+    import jax.numpy as jnp
+    from mxnet_tpu.ops import OpContext as JOpContext, get_op as jget_op
+
+    q, k, v = _qkv(1, 64, 64, 2, 32, seed=3)
+    attrs = {"causal": True, "block_q": 32, "block_k": 32}
+    jop = jget_op("_contrib_FlashAttention")
+    (jo,), _ = jop.apply(JOpContext(), jop.parse_attrs(attrs),
+                         [jnp.asarray(x) for x in (q, k, v)])
+    op = get_op("_contrib_FlashAttention")
+    (o,), _ = op.apply(OpContext(), op.parse_attrs(attrs),
+                       [torch.from_numpy(x) for x in (q, k, v)])
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), rtol=TOL,
+                               atol=TOL)
+    # functional form: output only
+    o2 = att.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                             causal=True)
+    np.testing.assert_allclose(o2.numpy(), o.detach().numpy())
+
+
+def test_flash_forward_strided_views_and_bf16():
+    """The serving path hands the kernel strided q/k/v views of one packed
+    projection; the plain version takes them as they are.  bf16 inputs give
+    a bf16 O and a float32 lse."""
+    rng = np.random.RandomState(0)
+    qkv = torch.from_numpy(rng.randn(2, 40, 3, 2, 16).astype(np.float32))
+    q, k, v = (t.squeeze(2) for t in qkv.split(1, dim=2))
+    assert not q.is_contiguous()
+    o, lse = att.flash_forward(q, k, v, True)
+    o_c, lse_c = att.flash_forward(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), True)
+    np.testing.assert_allclose(o.numpy(), o_c.numpy())
+    np.testing.assert_allclose(lse.numpy(), lse_c.numpy())
+    ob, lseb = att.flash_forward(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 True)
+    assert ob.dtype == torch.bfloat16 and lseb.dtype == torch.float32
+    np.testing.assert_allclose(ob.float().numpy(), o.numpy(), atol=2e-2)
+
+
+def test_flash_forward_on_meta_tensors():
+    q = torch.empty((2, 48, 4, 32), device="meta")
+    k = torch.empty((2, 40, 4, 32), device="meta")
+    o, lse = att.flash_forward(q, k, k, True)
+    assert o.shape == (2, 48, 4, 32) and lse.shape == (8, 48)
+
+
+def test_flash_forward_rejects_bad_shapes():
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(mt.MXNetError):
+        att.flash_forward(q, torch.zeros((1, 8, 3, 16)),
+                          torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(mt.MXNetError):
+        att.flash_forward(q, torch.zeros((1, 0, 2, 16)),
+                          torch.zeros((1, 0, 2, 16)))
+
+
+def test_backward_not_ported_raises():
+    q = torch.randn(1, 8, 1, 16, requires_grad=True)
+    op = get_op("_contrib_FlashAttention")
+    (o,), _ = op.apply(OpContext(), op.parse_attrs({"causal": True}),
+                       [q, q, q])
+    with pytest.raises(NotImplementedError):
+        o.sum().backward()
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No silent fallback: without a compiler the kernel library cannot be
+    had, and asking for it raises."""
+    from mxnet_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "_BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "_LIBS", {})
+    before = kernels.LAUNCHES["flash_fwd"]
+    with pytest.raises(mt.MXNetError, match="nvcc"):
+        kernels.library("flash_fwd")
+    assert kernels.LAUNCHES["flash_fwd"] == before
