@@ -9,7 +9,11 @@ on the card (``gpu(0)``) unless the caller passes ``mx.cpu()``.
 
 Ported so far: the serving path — ``Predictor`` over a transformer LM
 (``models.transformer.get_transformer_lm``) with the flash-attention
-forward kernel.  This package imports neither ``jax`` nor ``mxnet_tpu``.
+forward kernel — and the training path — ``mod.Module`` with
+``forward_backward``/``update`` (the fused step), SGD and Adam, the
+initializers, ``io.NDArrayIter``, metrics and checkpoints, with the
+flash-attention backward kernels.  This package imports neither ``jax``
+nor ``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -28,4 +32,15 @@ from . import kernels
 from . import models
 from .predictor import Predictor
 from .ops import register_kernel_op, Param
+from . import random
+from . import initializer
+from . import initializer as init
+from . import lr_scheduler
+from . import optimizer
+from . import io
+from . import metric
+from . import callback
+from . import model
+from . import module
+from . import module as mod
 from . import convert

@@ -30,14 +30,16 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 
-#: kernel name -> source file under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu"}
+#: kernel name -> source file under csrc/ (one library per source file)
+SOURCES = {"flash_fwd": "flash_fwd.cu",
+           "flash_bwd_dq": "flash_bwd.cu",
+           "flash_bwd_dkv": "flash_bwd.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
-#: the compiler's report (registers, shared memory, spills) per built kernel
+#: the compiler's report (registers, shared memory, spills) per built source
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -62,18 +64,21 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, SOURCES[name]), "rb") as f:
+def _lib_path(source: str) -> str:
+    with open(os.path.join(_CSRC, source), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(_BUILD, "lib%s-%s.so" % (name, digest.hexdigest()[:16]))
+    stem = os.path.splitext(source)[0]
+    return os.path.join(_BUILD, "lib%s-%s.so" % (stem, digest.hexdigest()[:16]))
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> float:
-    """Compile every named kernel (default: all) whose library is missing,
-    one ``nvcc`` per source, all started together.  Returns the seconds it
-    took; raises with the compiler's output if any build fails."""
+    """Compile the sources of every named kernel (default: all) whose
+    library is missing, one ``nvcc`` per source, all started together.
+    Returns the seconds it took; raises with the compiler's output if any
+    build fails."""
     names = list(SOURCES if names is None else names)
-    todo = [n for n in names if not os.path.exists(_lib_path(n))]
+    sources = sorted({SOURCES[n] for n in names})
+    todo = [s for s in sources if not os.path.exists(_lib_path(s))]
     t0 = time.perf_counter()
     if not todo:
         return 0.0
@@ -83,7 +88,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> float:
     for n in todo:
         out = _lib_path(n)
         tmp = "%s.%d.tmp" % (out, os.getpid())
-        cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp, os.path.join(_CSRC, SOURCES[n])]
+        cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp, os.path.join(_CSRC, n)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)
@@ -103,10 +108,11 @@ def build_all(names: Optional[Iterable[str]] = None) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+    """The loaded library holding kernel ``name``, built first if needed."""
+    source = SOURCES[name]
+    lib = _LIBS.get(source)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(_lib_path(name))
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(_lib_path(source))
+        _LIBS[source] = lib
     return lib

@@ -91,6 +91,18 @@ class NDArray:
             return self
         return NDArray(self._data.to(context.torch_device()), context)
 
+    def copy(self) -> "NDArray":
+        return NDArray(self._data.clone(), self._ctx)
+
+    def _set(self, data: torch.Tensor) -> None:
+        """Rebind the array to ``data`` (no copy): how executors and
+        optimizers hand back new buffers to the holders of this array."""
+        self._data = data
+
+    def __getitem__(self, key) -> "NDArray":
+        """A view of the selected rows (basic indexing)."""
+        return NDArray(self._data[key], self._ctx)
+
     def __setitem__(self, key, value):
         if isinstance(value, NDArray):
             value = value._data
@@ -245,3 +257,9 @@ def load(fname: str, ctx: Optional[Context] = None):
     if names:
         return dict(zip(names, arrays))
     return arrays
+
+
+# the fused optimizer updates, called as nd.<name>(weight, grad, ..., out=)
+from .ops.optimizer_ops import (adam_update, rmsprop_update,  # noqa: E402
+                                rmspropalex_update, sgd_mom_update,
+                                sgd_update)

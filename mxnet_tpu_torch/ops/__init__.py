@@ -1,5 +1,5 @@
 """Operator library of the port.  Importing this package registers every
-op family of the serving slice into the central registry
+op family ported so far into the central registry
 (``mxnet_tpu_torch.ops.registry``), from which ``mx.sym`` is generated.
 """
 from .registry import Op, OpContext, register, get_op, registered_ops
@@ -11,6 +11,7 @@ from . import matrix  # noqa: F401
 from . import indexing  # noqa: F401
 from . import nn  # noqa: F401
 from . import attention  # noqa: F401
+from . import optimizer_ops  # noqa: F401
 
 __all__ = ["Op", "OpContext", "register", "get_op", "registered_ops",
            "Param", "register_kernel_op"]

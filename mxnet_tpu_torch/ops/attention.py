@@ -1,13 +1,16 @@
-"""Fused attention — the flash-attention forward as a hand-written CUDA
-kernel (``csrc/flash_fwd.cu``), counterpart of ``mxnet_tpu/ops/attention.py``
-whose Pallas ``_fwd_kernel`` it replaces.
+"""Fused attention — the flash-attention forward and backward as
+hand-written CUDA kernels, counterpart of ``mxnet_tpu/ops/attention.py``:
+``csrc/flash_fwd.cu`` replaces its Pallas ``_fwd_kernel``,
+``csrc/flash_bwd.cu`` its ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
 
-``flash_forward`` is the kernel's wrapper.  On a CUDA tensor it launches
-the kernel or raises; it takes the plain version, ``attention_reference``,
-only for tensors on the CPU (the tests) or on the meta device (shape
-inference).  The op ``_contrib_FlashAttention`` keeps the JAX package's
-params, so graph JSON is identical; its ``block_q``/``block_k`` attrs size
-the TPU's tiles and are not read here — the card's kernel picks its own.
+``flash_forward`` and ``flash_backward`` are the kernels' wrappers.  On a
+CUDA tensor they launch the kernels or raise; they take the plain versions,
+``attention_reference`` and ``attention_backward_reference``, only for
+tensors on the CPU (the tests) or on the meta device (shape inference).
+The op ``_contrib_FlashAttention`` keeps the JAX package's params, so graph
+JSON is identical; its ``block_q``/``block_k`` attrs size the TPU's tiles
+and are not read here — the card's kernels pick their own.  Its gradient
+is ``flash_backward``.
 """
 from __future__ import annotations
 
@@ -19,13 +22,21 @@ import torch
 from .. import kernels
 from ..base import MXNetError
 
-__all__ = ["attention_reference", "flash_forward", "flash_attention"]
+__all__ = ["attention_reference", "attention_backward_reference",
+           "flash_forward", "flash_backward", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_attention"]
 
 _NEG = -1e30
 _LOG2E = 1.4426950408889634
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_BLOCK_Q = 64  # query rows per thread block (kBQ in flash_fwd.cu)
+_KERNEL_BLOCK_BWD = 64  # query and key rows per thread block (kB in flash_bwd.cu)
+
+
+def _causal_mask(sq, sk, device):
+    return (torch.arange(sq, device=device)[:, None]
+            >= torch.arange(sk, device=device)[None, :])
 
 
 def attention_reference(q, k, v, causal: bool, scale: float):
@@ -39,15 +50,70 @@ def attention_reference(q, k, v, causal: bool, scale: float):
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * scale
     if causal:
-        mask = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(sk, device=q.device)[None, :])
-        s = torch.where(mask, s, torch.full((), _NEG, device=q.device))
+        s = torch.where(_causal_mask(sq, sk, q.device), s,
+                        torch.full((), _NEG, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhqk,bkhd->bqhd", p / denom, v.to(torch.float32))
     lse = (m + torch.log(denom)).reshape(b * h, sq)
     return o.to(q.dtype), lse
+
+
+def _row_delta(o, do):
+    """Δ = rowsum(dO ∘ O) in float32, [b*h, sq] — ``_flash_bwd_precompute``
+    of the JAX package."""
+    b, sq, h, _ = o.shape
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+    return delta.transpose(1, 2).reshape(b * h, sq)
+
+
+def attention_backward_reference(q, k, v, o, lse, do, causal: bool,
+                                 scale: float):
+    """Plain attention backward in float32: P recomputed from the natural-
+    log ``lse`` [b*h, sq], then the five products written out densely
+    (S = QKᵀ, dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K, dK = dSᵀ·Q).  Returns
+    (dq, dk, dv) in the dtypes of q, k, v."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    qf, kf, vf, dof = (t.to(torch.float32) for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    if causal:
+        p = torch.where(_causal_mask(sq, sk, q.device), p,
+                        torch.zeros((), device=q.device))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = _row_delta(o, do).reshape(b, h, sq, 1)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(what, tensors):
+    """The kernels' contract: one device, one dtype of float32 or bfloat16,
+    head dim 64 or 128, unit stride in the head dim."""
+    first = tensors[0]
+    if any(t.device != first.device for t in tensors):
+        raise MXNetError("%s: inputs on different devices" % what)
+    if first.dtype not in _KERNEL_DTYPES or \
+            any(t.dtype != first.dtype for t in tensors):
+        raise MXNetError("%s: the kernel takes float32 or bfloat16 inputs of "
+                         "one dtype, got %s" % (what, [t.dtype for t in tensors]))
+    if first.shape[-1] not in _KERNEL_HEAD_DIMS:
+        raise MXNetError("%s: head dim %d not supported by the kernel "
+                         "(supported: %s)" % (what, first.shape[-1],
+                                              _KERNEL_HEAD_DIMS))
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise MXNetError("%s: inputs need unit stride in the head dim" % what)
+
+
+def _strides(*tensors):
+    """(b, s, h) strides of each tensor, in elements, as a host int64
+    array the kernels read."""
+    return torch.tensor([t.stride(i) for t in tensors for i in range(3)],
+                        dtype=torch.int64)
 
 
 def _kernel_fn():
@@ -64,19 +130,7 @@ def _kernel_fn():
 def _flash_forward_cuda(q, k, v, causal: bool, scale: float):
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if not (k.device == q.device and v.device == q.device):
-        raise MXNetError("flash_forward: q, k, v on different devices")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
-        raise MXNetError("flash_forward: the kernel takes float32 or "
-                         "bfloat16 q, k, v of one dtype, got %s %s %s"
-                         % (q.dtype, k.dtype, v.dtype))
-    if d not in _KERNEL_HEAD_DIMS:
-        raise MXNetError("flash_forward: head dim %d not supported by the "
-                         "kernel (supported: %s)" % (d, _KERNEL_HEAD_DIMS))
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise MXNetError("flash_forward: q, k, v need unit stride in the "
-                         "head dim")
+    _check_kernel_inputs("flash_forward", (q, k, v))
     if (sq + _KERNEL_BLOCK_Q - 1) // _KERNEL_BLOCK_Q > 65535:
         raise MXNetError("flash_forward: sequence of %d query rows exceeds "
                          "the kernel's grid" % sq)
@@ -84,10 +138,7 @@ def _flash_forward_cuda(q, k, v, causal: bool, scale: float):
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    strides = torch.tensor(
-        [q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
-         k.stride(2), v.stride(0), v.stride(1), v.stride(2)],
-        dtype=torch.int64)
+    strides = _strides(q, k, v)
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -120,6 +171,96 @@ def flash_forward(q, k, v, causal: bool = False, scale=None):
     if q.device.type in ("cpu", "meta"):
         return attention_reference(q, k, v, causal, scale)
     raise MXNetError("flash_forward: no kernel for device %s" % q.device)
+
+
+def _bwd_fn(name):
+    fn = getattr(kernels.library(name), "mxtt_" + name)
+    if fn.argtypes is None:
+        n_out = 1 if name == "flash_bwd_dq" else 2
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_void_p] * n_out + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    _check_kernel_inputs(name, (q, k, v, do))
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if t.device != q.device or t.dtype != torch.float32 or \
+                tuple(t.shape) != (b * h, sq) or not t.is_contiguous():
+            raise MXNetError("%s: %s must be contiguous float32 [b*h, sq] = "
+                             "%s on %s, got %s %s on %s" % (
+                                 name, what, (b * h, sq), q.device, t.dtype,
+                                 tuple(t.shape), t.device))
+    if -(-max(sq, sk) // _KERNEL_BLOCK_BWD) > 65535:
+        raise MXNetError("%s: sequence of %d rows exceeds the kernel's grid"
+                         % (name, max(sq, sk)))
+    if outs[0].numel() == 0:
+        return
+    strides = _strides(q, k, v, do)  # held: the kernel reads it on the host
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_fn(name)(
+            _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs), b, h, sq, sk,
+            strides.data_ptr(), float(scale), int(causal), stream)
+    if err != 0:
+        raise MXNetError("%s: kernel launch failed (cudaError %d)"
+                         % (name, err))
+    kernels.count(name)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """dQ [b, sq, h, d] from the K2 kernel (CUDA tensors only); ``delta``
+    is Δ = rowsum(dO ∘ O), float32 [b*h, sq]."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
+                scale)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """(dK, dV) [b, sk, h, d] from the K3 kernel (CUDA tensors only)."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
+                scale)
+    return dk, dv
+
+
+def flash_backward(q, k, v, o, lse, do, causal: bool = False, scale=None):
+    """Flash-attention backward: (dq, dk, dv) for the forward's q, k, v
+    [b, s, h, d], its output o, its lse [b*h, sq] and the output cotangent
+    do — the counterpart of ``mxnet_tpu.ops.attention._flash_backward``.
+    q, k, v and do are read through their strides (the views
+    ``SliceChannel`` hands out); the gradients come back contiguous."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            o.shape != q.shape or do.shape != q.shape or \
+            k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise MXNetError("flash_backward: expected q, o, do [b, sq, h, d] and "
+                         "k, v [b, sk, h, d], got %s %s %s %s %s" % tuple(
+                             tuple(t.shape) for t in (q, k, v, o, do)))
+    if k.shape[1] == 0:
+        raise MXNetError("flash_backward: no keys to attend to")
+    if scale is None:
+        scale = 1.0 / np.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        if o.device != q.device:
+            raise MXNetError("flash_backward: o on %s, q on %s"
+                             % (o.device, q.device))
+        delta = _row_delta(o, do).contiguous()
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        return dq, dk, dv
+    if q.device.type in ("cpu", "meta"):
+        return attention_backward_reference(q, k, v, o, lse, do, causal,
+                                            scale)
+    raise MXNetError("flash_backward: no kernel for device %s" % q.device)
 
 
 def flash_attention(q, k, v, causal: bool = False, scale=None,
@@ -155,10 +296,9 @@ def _fa_fwd(attrs, query, key, value):
 
 
 def _fa_bwd(attrs, res, ct):
-    raise NotImplementedError(
-        "_contrib_FlashAttention backward: the dQ and dK/dV kernels "
-        "(mxnet_tpu/ops/attention.py _bwd_dq_kernel, _bwd_dkv_kernel) are "
-        "not ported yet")
+    q, k, v, o, lse = res
+    causal, scale = _attrs_config(attrs, q)
+    return flash_backward(q, k, v, o, lse, ct, causal, scale)
 
 
 def _register():

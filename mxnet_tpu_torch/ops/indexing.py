@@ -32,7 +32,8 @@ def _gather(a, indices, axis):
           params={"input_dim": Param(int, required=True),
                   "output_dim": Param(int, required=True),
                   "dtype": Param("dtype", "float32")},
-          infer_shape=_embedding_infer, hint="embedding")
+          infer_shape=_embedding_infer, no_grad_inputs=("data",),
+          hint="embedding")
 def _embedding(opctx, attrs, data, weight):
     ids = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
     return _gather(weight, ids, 0)
@@ -40,7 +41,8 @@ def _embedding(opctx, attrs, data, weight):
 
 @register("take", inputs=("a", "indices"),
           params={"axis": Param(int, 0),
-                  "mode": Param(str, "clip", enum=("clip", "wrap", "raise"))})
+                  "mode": Param(str, "clip", enum=("clip", "wrap", "raise"))},
+          no_grad_inputs=("indices",))
 def _take(opctx, attrs, a, indices):
     axis = attrs.get("axis", 0)
     n = a.shape[axis]

@@ -41,7 +41,8 @@ def register_kernel_op(name: str, fn: Callable, bwd: Optional[Callable] = None,
     bwd : optional gradient, ``bwd(attrs, residuals, cotangent) -> input
         cotangents`` (the bare output cotangent for single-output ops).
     fwd : optional ``fwd(attrs, *tensors) -> (out, residuals)``; defaults to
-        saving the inputs as residuals.
+        saving the inputs as residuals.  Residuals are a tuple; its tensors
+        are kept with ``save_for_backward``.
     inputs / params / infer_shape / num_outputs / aliases : the registry
         surface, identical to internal op registration (ops/registry.py).
     """
@@ -70,12 +71,24 @@ def register_kernel_op(name: str, fn: Callable, bwd: Optional[Callable] = None,
                 else:
                     out, res = fn(attrs, *tensors), tensors
                 ctx.attrs = attrs
-                ctx.res = res
+                # tensor residuals go through save_for_backward: an output
+                # held on ctx directly would form a reference cycle that
+                # keeps every step's activations alive until the next GC
+                res = tuple(res)
+                is_tensor = [isinstance(r, torch.Tensor) for r in res]
+                ctx.save_for_backward(*(r for r, t in zip(res, is_tensor)
+                                        if t))
+                ctx.is_tensor = is_tensor
+                ctx.others = [None if t else r
+                              for r, t in zip(res, is_tensor)]
                 return out
 
             @staticmethod
             def backward(ctx, ct):
-                return (None,) + tuple(bwd(ctx.attrs, ctx.res, ct))
+                saved = iter(ctx.saved_tensors)
+                res = tuple(next(saved) if t else r
+                            for r, t in zip(ctx.others, ctx.is_tensor))
+                return (None,) + tuple(bwd(ctx.attrs, res, ct))
 
         def _op(opctx, attrs, *tensors):
             return _Fn.apply(attrs, *tensors)

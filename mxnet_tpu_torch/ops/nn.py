@@ -1,9 +1,11 @@
-"""Layer ops of the serving slice: ``FullyConnected``, ``LayerNorm`` and
-``SoftmaxOutput`` (forward).
+"""Layer ops of the transformer LM: ``FullyConnected``, ``LayerNorm`` and
+the ``SoftmaxOutput`` loss.
 
 Counterparts of ``mxnet_tpu/ops/nn.py`` (``:118-128``, ``:458-482``,
-``:541-602``).  FullyConnected is a plain ``torch.matmul``, the product the
-JAX package leaves to XLA.
+``:540-602``).  FullyConnected is a plain ``torch.matmul``, the product the
+JAX package leaves to XLA.  FullyConnected and LayerNorm differentiate
+under autograd; SoftmaxOutput carries its own loss gradient, as the JAX
+package's custom vjp does.
 """
 from __future__ import annotations
 
@@ -106,6 +108,52 @@ def _softmax_label_infer(attrs, in_shapes):
     return [d, lshape], [tuple(d)], []
 
 
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward is the loss gradient
+    ``_softmax_output_bwd`` of the JAX package: the head gradient is
+    ignored (softmax_output-inl.h:131), the data gradient is
+    (softmax - onehot(label)) · grad_scale / norm, ignored labels get none,
+    and the label gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, multi_output,
+                use_ignore, normalization):
+        out = torch.softmax(data, dim=1 if multi_output else -1)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (grad_scale, ignore_label, multi_output, use_ignore,
+                   normalization)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, multi_output, use_ignore, normalization = \
+            ctx.cfg
+        axis = 1 if multi_output else out.ndim - 1
+        nclass = out.shape[axis]
+        ilabel = label.to(torch.int64)
+        cls_shape = [1] * out.ndim
+        cls_shape[axis] = nclass
+        classes = torch.arange(nclass, device=out.device).reshape(cls_shape)
+        # out-of-range labels (the ignore label among them) one-hot to zeros,
+        # as jax.nn.one_hot does
+        onehot = (ilabel.unsqueeze(axis) == classes).to(out.dtype)
+        grad = out - onehot
+        valid = torch.ones(label.shape, dtype=out.dtype, device=out.device)
+        if use_ignore:
+            valid = (label != ignore_label).to(out.dtype)
+            grad = grad * valid.unsqueeze(axis)
+        if normalization == "batch":
+            norm = float(label.shape[0])
+        elif normalization == "valid":
+            norm = torch.clamp(valid.sum(), min=1.0)
+        else:
+            norm = 1.0
+        grad = grad * (grad_scale / norm)
+        return (grad.to(out.dtype), torch.zeros_like(label), None, None, None,
+                None, None)
+
+
 @register("SoftmaxOutput", inputs=("data", "label"),
           params={"grad_scale": Param(float, 1.0),
                   "ignore_label": Param(float, -1.0),
@@ -115,9 +163,12 @@ def _softmax_label_infer(attrs, in_shapes):
                   "normalization": Param(str, "null",
                                          enum=("null", "batch", "valid")),
                   "out_grad": Param(bool, False)},
-          infer_shape=_softmax_label_infer, aliases=("Softmax",),
-          hint="softmaxoutput")
+          infer_shape=_softmax_label_infer, no_grad_inputs=("label",),
+          aliases=("Softmax",), hint="softmaxoutput")
 def _softmax_output(opctx, attrs, data, label):
-    """Forward: softmax over the class axis (the last, or axis 1 with
-    ``multi_output``).  The loss gradient comes with the training slice."""
-    return torch.softmax(data, dim=1 if attrs.get("multi_output") else -1)
+    """Softmax over the class axis (the last, or axis 1 with
+    ``multi_output``); its gradient is the cross-entropy loss gradient."""
+    return _SoftmaxOutput.apply(
+        data, label, attrs.get("grad_scale", 1.0),
+        attrs.get("ignore_label", -1.0), bool(attrs.get("multi_output")),
+        bool(attrs.get("use_ignore")), attrs.get("normalization", "null"))

@@ -37,6 +37,7 @@ class Op:
         infer_shape: Optional[Callable] = None,
         hint: Optional[str] = None,
         doc: str = "",
+        no_grad_inputs: Sequence[str] = (),
     ):
         self.name = name
         self.fn = fn
@@ -47,6 +48,9 @@ class Op:
         self.infer_shape = infer_shape
         self.hint = hint or name.lower().lstrip("_")
         self.doc = doc
+        # inputs that never take a gradient (labels, indices): the executor
+        # forces their grad_req to "null"
+        self.no_grad_inputs = tuple(no_grad_inputs)
 
     # -- metadata ----------------------------------------------------------
     def input_names(self, attrs: Dict[str, Any]) -> List[str]:

@@ -1,9 +1,10 @@
 """Symbol — the symbolic graph layer.
 
-Counterpart of ``mxnet_tpu/symbol.py`` for the serving slice.  A Symbol is
+Counterpart of ``mxnet_tpu/symbol.py`` for the ported slices.  A Symbol is
 a list of output entries of an immutable DAG of ``_Node``s.  Kept surface:
 composition with auto-created parameter variables and NameManager naming,
-``infer_shape`` with parameter shape filling, ``list_arguments/outputs/
+``infer_shape`` with parameter shape filling, ``infer_type`` (no
+propagation through ops), ``attr_dict``, ``list_arguments/outputs/
 auxiliary_states``, ``Group``, graph JSON save/load identical to the JAX
 package's, and ``bind``.  Each registered op is exposed as ``mx.sym.<op>``.
 
@@ -125,6 +126,19 @@ class Symbol:
     def attr(self, key: str) -> Optional[str]:
         return self._outputs[0][0].attr_dict.get(key)
 
+    def attr_dict(self) -> Dict[str, Dict[str, str]]:
+        """{node name: {attr: string value}} for every node with attrs —
+        graph attrs (``__lr_mult__``, ``__init__`` ...) and op params."""
+        out = {}
+        for n in self._nodes():
+            d = dict(n.attr_dict)
+            if n.op is not None:
+                d.update(attrs_to_strs({k: v for k, v in n.attrs.items()
+                                        if k in n.op.params}))
+            if d:
+                out[n.name] = d
+        return out
+
     # ------------------------------------------------------------------
     # shape inference
     # ------------------------------------------------------------------
@@ -147,6 +161,25 @@ class Symbol:
         if any(s is None for s in arg_out + out_out):
             return None, None, None
         return arg_out, out_out, aux_out
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) as numpy dtypes.  Arguments
+        take the given type, else their ``__dtype__`` attr, else float32;
+        outputs and aux states are float32 — the port does not propagate
+        types through ops (every op of the ported paths keeps float32)."""
+        import numpy as np
+
+        names = self.list_arguments()
+        known = {n: np.dtype(t) for n, t in zip(names, args) if t is not None}
+        known.update({k: np.dtype(v) for k, v in kwargs.items()
+                      if v is not None})
+        f32 = np.dtype(np.float32)
+        attrs = {n.name: n.attr_dict for n in self._nodes() if n.is_variable}
+        arg_types = [known.get(n) or np.dtype(attrs[n].get("__dtype__",
+                                                           "float32"))
+                     for n in names]
+        return (arg_types, [f32] * len(self._outputs),
+                [f32] * len(self.list_auxiliary_states()))
 
     # ------------------------------------------------------------------
     # save / load (reference graph JSON format)

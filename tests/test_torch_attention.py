@@ -107,12 +107,23 @@ def test_flash_forward_rejects_bad_shapes():
 
 
 def test_backward_not_ported_raises():
-    q = torch.randn(1, 8, 1, 16, requires_grad=True)
+    """The op's gradient is ported (it once raised here): autograd through
+    ``_contrib_FlashAttention`` reaches ``flash_backward`` and matches
+    autograd of plain dense attention."""
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rng.randn(1, 8, 1, 16).astype(np.float32))
+               .requires_grad_(True) for _ in range(3))
     op = get_op("_contrib_FlashAttention")
     (o,), _ = op.apply(OpContext(), op.parse_attrs({"causal": True}),
-                       [q, q, q])
-    with pytest.raises(NotImplementedError):
-        o.sum().backward()
+                       [q, k, v])
+    grads = torch.autograd.grad(o.sum(), (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0
+    s = s.masked_fill(~torch.ones(8, 8, dtype=torch.bool).tril(), -1e30)
+    ref = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v)
+    refs = torch.autograd.grad(ref.sum(), (q, k, v))
+    for g, r in zip(grads, refs):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

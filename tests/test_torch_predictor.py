@@ -137,16 +137,27 @@ def test_default_context_is_the_card(checkpoint):
 
 
 def test_executor_is_inference_only(checkpoint):
+    """The executor trains too (it once was inference only): binding with
+    grad_req="write" (the default), backward fills grad_dict for every
+    parameter and none for the token ids; forward(is_train=True) and backward run; a
+    grad_req="null" bind still serves."""
     prefix, _, _ = checkpoint
     net = mt.sym.load("%s-symbol.json" % prefix)
-    args = {n: mt.nd.zeros(s, mt.cpu()) for n, s in
+    params = mt.nd.load("%s-0001.params" % prefix, mt.cpu())
+    args = {n: params.get("arg:" + n, mt.nd.zeros(s, mt.cpu())) for n, s in
             zip(net.list_arguments(), net.infer_shape(**SHAPES)[0])}
-    with pytest.raises(NotImplementedError):
-        net.bind(mt.cpu(), args)  # grad_req defaults to "write"
+    ex = net.bind(mt.cpu(), args)  # grad_req defaults to "write"
+    tokens = np.ones(SHAPES["data"], np.float32)
+    out = ex.forward(is_train=True, data=tokens)[0]
+    assert out.shape == (64, LM["vocab_size"])
+    ex.backward()
+    assert "data" not in ex.grad_dict
+    assert "tok_embed_weight" in ex.grad_dict
+    g = ex.grad_dict["lm_head_weight"].asnumpy()
+    assert g.shape == (LM["vocab_size"], 32) and np.abs(g).max() > 0
     ex = net.bind(mt.cpu(), args, grad_req="null")
-    with pytest.raises(NotImplementedError):
-        ex.forward(is_train=True)
-    out = ex.forward(data=np.ones(SHAPES["data"], np.float32))[0]
+    assert ex.grad_dict == {}
+    out = ex.forward(data=tokens)[0]
     assert out.shape == (64, LM["vocab_size"])
     assert list(ex.output_dict) == net.list_outputs()
 
