@@ -2,20 +2,27 @@
 """Drive the PyTorch/CUDA port (``mxnet_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                  # from the repository root
-    python3 chip_smoke.py --profile DIR    # also trace one extra request
-                                           # and one extra train step
+    python3 chip_smoke.py --profile DIR    # also trace one extra request,
+                                           # one extra train step and one
+                                           # extra rtc_gelu train step
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build   — compile every CUDA kernel of the ported paths from
              ``mxnet_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
-             source, all started together;
+             source, all started together; load NVRTC (a missing libnvrtc is
+             fatal) and print its version;
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at several shapes and both dtypes, the main paths' own shapes
              included: K1 (flash forward) on O and lse, K2/K3 (flash
              backward) on dQ, dK and dV; time kernels, plain versions and the
              library calls (``scaled_dot_product_attention`` forward and
-             backward, timed only as yardsticks);
+             backward, timed only as yardsticks).  Then the user kernels of
+             ``mxnet_tpu_torch/rtc_kernels.py``, compiled by ``MXRtc`` with
+             NVRTC: axpy (2-D launch), sgd_update, gelu_fwd and gelu_bwd
+             (float32 and bf16) at ragged and full-width shapes, timed
+             beside their bytes bound, the plain versions and the library
+             calls (``F.gelu`` and its backward, ``torch.add``);
 3. serve   — save a full-width transformer LM checkpoint (vocab 32000,
              6 x 2048, 16 heads, seq 4096, batch 4, float32; random weights
              from a seed), load it with ``Predictor.from_checkpoint`` on the
@@ -28,9 +35,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
              fall, and each step must launch each kernel once per layer;
              then the fused step and the two-phase path (forward_backward,
              then the updater over the gradients) are timed side by side;
-5. agree   — a small LM served, and trained 3 adam steps in float32 and in
+5. extend  — the user extension path at full width: an axpy pushed
+             through ``mt.rtc.MXRtc`` on NDArrays with explicit launch dims;
+             ``sgd_update`` pushed over every parameter array of the LM
+             (441,646,336 parameters) against the port's ``sgd_update`` on
+             copies; the train phase's LM with its six gelu nodes swapped for
+             the user op ``rtc_gelu`` in the symbol JSON, trained 2 + 3
+             steps: each step launches gelu_fwd, gelu_bwd and K1-K3 six
+             times, and its loss matches the train phase's loss at that step;
+6. agree   — a small LM served, and trained 3 adam steps in float32 and in
              bf16, on the card and on the CPU from one numpy init, must
-             agree.
+             agree; so must the small LM with ``rtc_gelu``, a net with the
+             ``CustomOp`` sigmoid and softmax loss, and a few ``mt.nd``
+             ops.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -53,6 +70,17 @@ SEED = 0
 SMALL = dict(vocab_size=64, num_layers=2, num_heads=2, hidden=128, seq_len=40)
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 2, 5, 3e-4
 SOURCE_DIR = "mxnet_tpu_torch/csrc/"
+RTC_SOURCE = "mxnet_tpu_torch/rtc_kernels.py"
+AXPY_PY_SRC = """
+def kernel(x_ref, out_ref):
+    out_ref[...] = 2.0 * x_ref[...]
+"""
+EXTEND_WARMUP, EXTEND_STEPS = 2, 3
+# the user kernels' full-width shape: the gelu input of the train phase's
+# LM, (batch x seq, 4 x hidden)
+WIDE = (BATCH * FULL["seq_len"], 4 * FULL["hidden"])
+# sgd_update's hyperparameters in the extend phase
+SGD = dict(lr=0.01, rescale_grad=1.0 / BATCH, wd=1e-4)
 
 # Data-sheet peaks per H100 variant (dense): float32 on the CUDA cores and
 # bf16 on the tensor cores (TFLOP/s), device memory (TB/s).  nvidia-smi
@@ -294,6 +322,159 @@ def kernel_phase(torch, att, device):
     ]
 
 
+def ulps(torch, got, ref):
+    """Largest distance in units in the last place between two float32 or
+    bf16 tensors of one dtype (0 = the same bits; +0 and -0 are equal)."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[ref.dtype]
+    top = -(2 ** (8 * ref.element_size() - 1))
+
+    def ordered(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i >= 0, i, top - i)
+
+    return int((ordered(got) - ordered(ref)).abs().max().item())
+
+
+def elementwise_bound(torch, n, nbytes_per, flops_per, dtype):
+    """bound_ms of an elementwise pass over ``n`` elements."""
+    return bound_ms(torch, (float(flops_per) * n, float(nbytes_per) * n),
+                    dtype)
+
+
+def rtc_kernel_phase(torch, mt, device):
+    """The user kernels (``rtc_kernels``, compiled by MXRtc with NVRTC)
+    against their plain versions: axpy and sgd_update exactly or within
+    1 float32 ulp (an FMA rounds once), gelu within 1 bf16 ulp and, in
+    float32, within 1e-6 of max |ref|; then timed at WIDE.  Returns the
+    rows of axpy, gelu_fwd and gelu_bwd."""
+    from mxnet_tpu_torch import rtc_kernels as rk
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+
+    def randn(shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    err = {}
+    for shape in ((1000, 777), WIDE):
+        x, y = randn(shape), randn(shape)
+        out = torch.empty_like(x)
+        rk.axpy(x, y, out)
+        err["axpy"] = (ulps(torch, out, rk.axpy_plain(x, y)),
+                       (out - rk.axpy_plain(x, y)).abs().max().item())
+        print("kernel rtc:axpy %s f32, grid/block %s: %d ulps from plain"
+              % (shape, rk.axpy_dims(shape), err["axpy"][0]), flush=True)
+        check(err["axpy"][0] <= 1, "rtc:axpy disagrees with its plain "
+              "version at %s" % (shape,))
+        del x, y, out
+    for wd in (0.0, SGD["wd"]):
+        w, g = randn((100003,), 0.02), randn((100003,))
+        ref = w.clone()
+        hp = rk.sgd_hyper(SGD["lr"], SGD["rescale_grad"], wd, device)
+        for _ in range(2):
+            rk.sgd_update(w, g, hp)
+            mt.nd.sgd_update(ref, g, out=ref, lr=SGD["lr"],
+                             rescale_grad=SGD["rescale_grad"], wd=wd)
+        d = ulps(torch, w, ref)
+        print("kernel rtc:sgd_update (100003,) f32 wd=%g, 2 in-place pushes: "
+              "%d ulps from the port's sgd_update" % (wd, d), flush=True)
+        check(d <= 1, "rtc:sgd_update disagrees with sgd_update")
+    for shape, dtype in (((3001, 517), f32), ((3001, 517), bf16),
+                         (WIDE, f32), (WIDE, bf16)):
+        x, dy = randn(shape, 3.0, dtype), randn(shape, 1.0, dtype)
+        got = (rk.gelu_forward(x), rk.gelu_backward(x, dy))
+        ref = (rk.gelu_plain(x), rk.gelu_grad_plain(x, dy))
+        for name, a, b in zip(("gelu_fwd", "gelu_bwd"), got, ref):
+            d = ulps(torch, a, b)
+            rel = ((a.float() - b.float()).abs().max()
+                   / b.float().abs().max()).item()
+            print("kernel rtc:%s %s %s: %d ulps, max|err|/max|ref| %.3g "
+                  "(tolerance %s)" % (name, shape, str(dtype)[6:], d, rel,
+                                      "1 ulp" if dtype == bf16 else "1e-6"),
+                  flush=True)
+            check(d <= 1 if dtype == bf16 else rel <= 1e-6,
+                  "rtc:%s disagrees with its plain version at %s %s"
+                  % (name, shape, dtype))
+            if shape == WIDE and dtype == bf16:
+                err[name] = (d, (a.float() - b.float()).abs().max().item())
+        del x, dy, got, ref
+    torch.cuda.empty_cache()
+
+    # each route refuses the other device, and NVRTC's log reaches the user
+    arr = mt.nd.zeros((4,))
+    for what, src, want in (
+            ("a CUDA body that does not compile", "out[0] = no_such_name;",
+             "no_such_name"),
+            ("a Python source on CUDA arrays", AXPY_PY_SRC, "CPU arrays only")):
+        try:
+            mt.rtc.MXRtc("probe", [("x", arr)], [("out", arr)], src).push(
+                [arr], [arr])
+            raised = ""
+        except mt.MXNetError as e:
+            raised = str(e)
+        print("kernel rtc: %s raises: %s" % (what, raised.splitlines()[:3]),
+              flush=True)
+        check(want in raised, "%s did not raise as it should" % what)
+
+    n = WIDE[0] * WIDE[1]
+    t = {}
+    x, y = randn(WIDE), randn(WIDE)
+    out = torch.empty_like(x)
+    t["axpy"] = (cuda_ms(lambda: rk.axpy(x, y, out), 10),
+                 cuda_ms(lambda: rk.axpy_plain(x, y), 10),
+                 cuda_ms(lambda: torch.add(y, x, alpha=2.0), 10),
+                 elementwise_bound(torch, n, 12, 2, f32))
+    del x, y, out
+    x, dy = randn(WIDE, 3.0, bf16), randn(WIDE, 1.0, bf16)
+    gelu_bwd_lib = torch.ops.aten.gelu_backward
+    t["gelu_fwd"] = (cuda_ms(lambda: rk.gelu_forward(x), 10),
+                     cuda_ms(lambda: rk.gelu_plain(x), 10),
+                     cuda_ms(lambda: torch.nn.functional.gelu(x), 10),
+                     elementwise_bound(torch, n, 4, 5, f32))
+    t["gelu_bwd"] = (cuda_ms(lambda: rk.gelu_backward(x, dy), 10),
+                     cuda_ms(lambda: rk.gelu_grad_plain(x, dy), 10),
+                     cuda_ms(lambda: gelu_bwd_lib(dy, x), 10),
+                     elementwise_bound(torch, n, 6, 12, f32))
+    # what holds gelu back, printed only: float32 data (4-byte loads), and
+    # a grid-stride launch of a few blocks per SM instead of one element a
+    # thread
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for k in (4, 16):
+        y = torch.empty_like(x)
+        ms = cuda_ms(lambda: rk._push("gelu_fwd", [x], [y], (sms * k,),
+                                      (256,)), 10)
+        print("kernel timing rtc:gelu_fwd %s bf16 grid-stride over %d blocks "
+              "of 256: %.4f ms" % (WIDE, sms * k, ms), flush=True)
+    del x, dy, y
+    x, dy = randn(WIDE, 3.0), randn(WIDE)
+    print("kernel timing rtc:gelu_fwd/bwd %s f32: %.4f / %.4f ms (bounds "
+          "%.4f / %.4f by bytes; F.gelu %.4f ms)" % (
+              WIDE, cuda_ms(lambda: rk.gelu_forward(x), 10),
+              cuda_ms(lambda: rk.gelu_backward(x, dy), 10),
+              elementwise_bound(torch, n, 8, 5, f32)[0],
+              elementwise_bound(torch, n, 12, 12, f32)[0],
+              cuda_ms(lambda: torch.nn.functional.gelu(x), 10)), flush=True)
+    del x, dy
+    torch.cuda.empty_cache()
+    rows = []
+    for name, replaces in (("axpy", "mxnet_tpu/rtc.py:81"),
+                           ("gelu_fwd", "mxnet_tpu/ops/pallas_op.py:33"),
+                           ("gelu_bwd", "mxnet_tpu/ops/pallas_op.py:33")):
+        ms, plain, lib, (bound, by) = t[name]
+        print("kernel timing rtc:%s %s %s: %.4f ms (plain %.4f, library "
+              "%.4f, bound %.4f by %s: %.1f%% of it)"
+              % (name, WIDE, "f32" if name == "axpy" else "bf16", ms, plain,
+                 lib, bound, by, 100 * bound / ms), flush=True)
+        rows.append({"name": "rtc:" + name, "route": "cuda",
+                     "source": RTC_SOURCE, "replaces": replaces,
+                     "launches": None, "max_abs_err": err[name][1],
+                     "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib})
+    return rows
+
+
 def lm_params(mt, sym, shapes, rng, std):
     """Random LM weights from numpy: N(0, std) matrices and embeddings,
     unit LayerNorm gains, zero biases and shifts.  CPU NDArrays keyed as a
@@ -498,7 +679,169 @@ def train_phase(torch, mt):
           % (torch.cuda.max_memory_allocated() / 1e9), flush=True)
     print("train: loss %.6f -> %.6f over %d steps on one batch; launches %s"
           % (losses[0], losses[-1], len(losses), launches), flush=True)
-    return mod, batch, launches
+    return mod, batch, launches, losses, steady * 1e3
+
+
+def extend_phase(torch, mt, train_losses, train_step_ms, profile_dir=None):
+    """The user extension path at full width, with every launch count set
+    to 0 before it and read after.  Returns the counts and the
+    sgd_update row."""
+    from mxnet_tpu_torch import rtc_kernels as rk
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    mt.kernels.reset_launches()
+
+    # (a0) a user's imperative push: MXRtc on NDArrays, explicit 2-D dims
+    x = mt.nd.NDArray(torch.randn(WIDE, generator=gen, device=device),
+                      mt.gpu(0))
+    y = mt.nd.ones(WIDE)
+    out = mt.nd.zeros(WIDE)
+    krnl = mt.rtc.MXRtc("axpy", [("x", x), ("y", y)], [("out", out)],
+                        rk.AXPY_CUDA)
+    grid, block = rk.axpy_dims(WIDE)
+    krnl.push([x, y], [out], grid_dims=grid, block_dims=block)
+    d = ulps(torch, out._data, 2.0 * x._data + 1.0)
+    print("extend: axpy pushed on %s NDArrays with grid %s block %s: %d ulps "
+          "from 2x + 1" % (WIDE, grid, block, d), flush=True)
+    check(d == 0, "the axpy push disagrees with 2x + 1")
+    del x, y, out
+
+    # (a) sgd_update pushed over every parameter array of the LM
+    with mt.NameManager():
+        net = get_transformer_lm(**FULL)
+    shape = (BATCH, FULL["seq_len"])
+    arg_shapes, _, _ = net.infer_shape(data=shape, softmax_label=shape)
+    weights, grads = [], []
+    for name, ashape in zip(net.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            w = torch.ones(ashape, device=device)
+        elif name.endswith(("_beta", "_bias")):
+            w = torch.zeros(ashape, device=device)
+        else:
+            w = torch.randn(ashape, generator=gen, device=device) * 0.02
+        weights.append(w)
+        grads.append(torch.randn(ashape, generator=gen, device=device))
+    n_params = sum(w.numel() for w in weights)
+    refs = [w.clone() for w in weights]
+    hp = rk.sgd_hyper(SGD["lr"], SGD["rescale_grad"], SGD["wd"], device)
+
+    def pushes():
+        for w, g in zip(weights, grads):
+            rk.sgd_update(w, g, hp)
+
+    def plain():
+        for w, g in zip(refs, grads):
+            mt.nd.sgd_update(w, g, out=w, **SGD)
+
+    t0 = time.perf_counter()
+    pushes()  # compiles one kernel per distinct shape
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    plain()
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    ms, plain_ms = timed(pushes), timed(plain)
+    t0 = time.perf_counter()  # the host's share: enqueue a pass, no sync
+    pushes()
+    host_us = (time.perf_counter() - t0) / len(weights) * 1e6
+    torch.cuda.synchronize()
+    plain()
+    d = max(ulps(torch, w, r) for w, r in zip(weights, refs))
+    check(d <= 1, "the sgd_update pushes disagree with sgd_update (%d ulps)"
+          % d)
+    lib_w = [w.clone() for w in weights]
+    lib_g = [g.clone() for g in grads]
+    scale = torch.tensor(1.0 / SGD["rescale_grad"], device=device)
+    lib_ms = cuda_ms(lambda: torch._fused_sgd_(
+        lib_w, lib_g, [], weight_decay=SGD["wd"], momentum=0.0,
+        lr=SGD["lr"], dampening=0.0, nesterov=False, maximize=False,
+        is_first_step=False, grad_scale=scale), 3)
+    bound, by = elementwise_bound(torch, n_params, 12, 5, torch.float32)
+    n_pushes = mt.kernels.LAUNCHES["rtc:sgd_update"]
+    print("extend: sgd_update pushed over %d parameter arrays (%d parameters,"
+          " %d distinct shapes compiled in %.2f s with the first pass): %.4f "
+          "ms per pass of %d pushes (%d counted over all passes), plain "
+          "sgd_update %.4f ms, torch._fused_sgd_ %.4f ms, bound %.4f ms by "
+          "%s; %d ulps from sgd_update after 3 passes; %.1f us of host time "
+          "per push (enqueue, not synchronized)" % (
+              len(weights), n_params, len({tuple(w.shape) for w in weights}),
+              first, ms, len(weights), n_pushes, plain_ms, lib_ms, bound, by,
+              d, host_us),
+          flush=True)
+    sgd_row = {"name": "rtc:sgd_update", "route": "cuda",
+               "source": RTC_SOURCE, "replaces": "mxnet_tpu/rtc.py:81",
+               "launches": None,
+               "max_abs_err": max((w - r).abs().max().item()
+                                  for w, r in zip(weights, refs)),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by, "library_ms": lib_ms}
+    del weights, grads, refs, lib_w, lib_g
+    torch.cuda.empty_cache()
+
+    # (b) the train phase's LM with rtc_gelu in place of gelu
+    b, s, vocab = BATCH, FULL["seq_len"], FULL["vocab_size"]
+    rng = np.random.RandomState(SEED)
+    X = rng.randint(0, vocab, size=(b, s)).astype(np.float32)
+    Y = (X + 1) % vocab
+    batch = mt.io.NDArrayIter(X, Y, batch_size=b,
+                              label_name="softmax_label").next()
+    with mt.NameManager():
+        net = rk.with_rtc_gelu(get_transformer_lm(**FULL))
+    mt.random.seed(SEED)
+    mod = train_module(mt, net, None, (b, s),
+                       init=mt.init.Xavier(factor_type="in", magnitude=2.34),
+                       compute_dtype="bfloat16")
+    per_step = FULL["num_layers"]
+    names = ("rtc:gelu_fwd", "rtc:gelu_bwd", "flash_fwd", "flash_bwd_dq",
+             "flash_bwd_dkv")
+    times = []
+    for step in range(EXTEND_WARMUP + EXTEND_STEPS):
+        before = {n: mt.kernels.LAUNCHES.get(n, 0) for n in names}
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        delta = {n: mt.kernels.LAUNCHES.get(n, 0) - before[n] for n in names}
+        loss = lm_loss(torch, mod.get_outputs()[0], Y)
+        rel = abs(loss - train_losses[step]) / abs(train_losses[step])
+        print("extend: rtc_gelu step %d: %.2f ms, loss %.6f (train phase "
+              "%.6f, relative difference %.3g, tolerance 1e-3), launches %s"
+              % (step, times[-1] * 1e3, loss, train_losses[step], rel, delta),
+              flush=True)
+        check(rel <= 1e-3, "step %d loss with rtc_gelu differs from the "
+              "train phase's" % step)
+        check(all(v == per_step for v in delta.values()),
+              "step %d launched %s, expected %d of each" % (step, delta,
+                                                            per_step))
+    launches = dict(mt.kernels.LAUNCHES)
+    if profile_dir:
+        def step():
+            mod.forward_backward(batch)
+            mod.update()
+        profile(torch, step, profile_dir, "train_step_rtc_gelu")
+    steady = float(np.mean(times[EXTEND_WARMUP:])) * 1e3
+    print("extend: rtc_gelu step ms %.2f (mean of %d timed steps after %d "
+          "warm-up), train phase step ms %.2f (gelu)" % (
+              steady, EXTEND_STEPS, EXTEND_WARMUP, train_step_ms), flush=True)
+    print("extend: launches %s" % launches, flush=True)
+    del mod
+    torch.cuda.empty_cache()
+    return launches, sgd_row
 
 
 def small_agreement(mt):
@@ -533,20 +876,26 @@ def small_agreement(mt):
 AGREE = {None: (0.3, 1e-4, 1e-4), "bfloat16": (0.02, 1e-3, 3e-2)}
 
 
-def small_train_agreement(torch, mt, dtype):
+def small_train_agreement(torch, mt, dtype, rtc_gelu=False):
     """A small LM trained 3 adam steps on the card (kernels) and on the CPU
     (plain versions) from one numpy init, in float32 or with bf16
-    compute, must agree (limits in ``AGREE``).  Adam's epsilon is 1e-4:
+    compute, must agree (limits in ``AGREE``); with ``rtc_gelu`` its gelu
+    nodes are the user op (NVRTC kernels on the card, Python source on the
+    CPU).  Adam's epsilon is 1e-4:
     with the usual 1e-8 its first steps are ±lr for any gradient, so
     roundoff in a gradient that is 0 in exact arithmetic (the key bias:
     softmax ignores a per-row shift) would become a full step of either
     sign."""
     from mxnet_tpu_torch.models.transformer import get_transformer_lm
 
+    from mxnet_tpu_torch.rtc_kernels import with_rtc_gelu
+
     std, loss_tol, param_tol = AGREE[dtype]
     shape = (2, SMALL["seq_len"])
     with mt.NameManager():
         net = get_transformer_lm(**SMALL)
+    if rtc_gelu:
+        net = with_rtc_gelu(net)
     rng = np.random.default_rng(SEED + 2)
     params = lm_params(mt, net, {"data": shape, "softmax_label": shape}, rng,
                        std)
@@ -585,22 +934,159 @@ def small_train_agreement(torch, mt, dtype):
         den = sum(float((c ** 2).sum()) for c in change.values())
         param_err = (num / den) ** 0.5
         what = "parameter change error %.3g of its norm" % param_err
-    print("check: small LM trained 3 adam steps (%s, init std %g) on the card "
+    print("check: small LM%s trained 3 adam steps (%s, init std %g) on the "
+          "card "
           "vs the CPU: losses %s vs %s, relative loss error %.3g (tolerance "
           "%g), %s (tolerance %g; the steps moved parameters by up to %.3g "
           "of the largest)"
-          % (dtype or "float32", std, ["%.6f" % x for x in lg],
+          % (" with rtc_gelu" if rtc_gelu else "", dtype or "float32", std,
+             ["%.6f" % x for x in lg],
              ["%.6f" % x for x in lc], loss_err, loss_tol, what, param_tol,
              moved), flush=True)
     check(loss_err <= loss_tol and param_err <= param_tol,
-          "small LM trained on the card (%s) disagrees with the CPU"
-          % (dtype or "float32"))
+          "small LM%s trained on the card (%s) disagrees with the CPU"
+          % (" with rtc_gelu" if rtc_gelu else "", dtype or "float32"))
+
+
+def register_custom_props(mt):
+    """The sigmoid and softmax-loss CustomOps of tests/test_custom_op.py."""
+
+    @mt.operator.register("_smoke_sigmoid")
+    class SigmoidProp(mt.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class Sigmoid(mt.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    x = in_data[0].asnumpy()
+                    self.assign(out_data[0], req[0],
+                                (1.0 / (1.0 + np.exp(-x))).astype(x.dtype))
+
+                def backward(self, req, out_grad, in_data, out_data, in_grad,
+                             aux):
+                    y = out_data[0].asnumpy()
+                    g = out_grad[0].asnumpy()
+                    self.assign(in_grad[0], req[0],
+                                (g * y * (1.0 - y)).astype(y.dtype))
+
+            return Sigmoid()
+
+    @mt.operator.register("_smoke_softmax_loss")
+    class SoftmaxLossProp(mt.operator.CustomOpProp):
+        def __init__(self):
+            super(SoftmaxLossProp, self).__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], [in_shape[0][0]]], [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class SoftmaxLoss(mt.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    x = in_data[0].asnumpy()
+                    e = np.exp(x - x.max(axis=1, keepdims=True))
+                    self.assign(out_data[0], req[0],
+                                (e / e.sum(axis=1, keepdims=True))
+                                .astype(x.dtype))
+
+                def backward(self, req, out_grad, in_data, out_data, in_grad,
+                             aux):
+                    lab = in_data[1].asnumpy().astype(np.int64)
+                    y = out_data[0].asnumpy().copy()
+                    y[np.arange(lab.shape[0]), lab] -= 1.0
+                    self.assign(in_grad[0], req[0], y)
+                    self.assign(in_grad[1], req[1],
+                                np.zeros_like(in_data[1].asnumpy()))
+
+            return SoftmaxLoss()
+
+
+def custom_op_agreement(mt):
+    """A net with the CustomOp sigmoid and softmax loss, trained 3 SGD
+    steps through Module on the card and on the CPU from one numpy init:
+    parameters within 1e-4 of the largest, outputs within 1e-4."""
+    register_custom_props(mt)
+    rng = np.random.default_rng(SEED + 5)
+    X = rng.standard_normal((32, 10), dtype=np.float32)
+    L = rng.integers(0, 3, 32).astype(np.float32)
+    init = {"fc1_weight": rng.standard_normal((16, 10), dtype=np.float32) * .3,
+            "fc1_bias": np.zeros(16, np.float32),
+            "fc2_weight": rng.standard_normal((3, 16), dtype=np.float32) * .3,
+            "fc2_bias": np.zeros(3, np.float32)}
+    runs = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        net = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=16,
+                                    name="fc1")
+        net = mt.sym.Custom(net, op_type="_smoke_sigmoid", name="sig")
+        net = mt.sym.FullyConnected(net, num_hidden=3, name="fc2")
+        net = mt.sym.Custom(net, mt.sym.Variable("label"),
+                            op_type="_smoke_softmax_loss", name="loss")
+        mod = mt.mod.Module(net, label_names=("label",), context=ctx)
+        mod.bind(data_shapes=[("data", X.shape)],
+                 label_shapes=[("label", L.shape)])
+        mod.init_params(arg_params={k: mt.nd.array(v, mt.cpu())
+                                    for k, v in init.items()})
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.5})
+        batch = mt.io.DataBatch([mt.nd.array(X, mt.cpu())],
+                                [mt.nd.array(L, mt.cpu())])
+        for _ in range(3):
+            mod.forward_backward(batch)
+            mod.update()
+        runs[ctx.device_type] = (mod.get_outputs()[0].asnumpy(), {
+            k: v.asnumpy() for k, v in mod.get_params()[0].items()})
+    (og, pg), (oc, pc) = runs["gpu"], runs["cpu"]
+    scale = max(float(np.abs(v).max()) for v in pc.values())
+    param_err = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc) / scale
+    moved = max(float(np.abs(pc[k] - init[k]).max()) for k in pc)
+    out_err = float(np.abs(og - oc).max())
+    print("check: CustomOp sigmoid + softmax-loss net trained 3 SGD steps on "
+          "the card vs the CPU: parameter error %.3g of the largest, output "
+          "error %.3g (tolerance 1e-4; the steps moved parameters by up to "
+          "%.3g)" % (param_err, out_err, moved), flush=True)
+    check(param_err <= 1e-4 and out_err <= 1e-4 and moved > 1e-2,
+          "the CustomOp net trained on the card disagrees with the CPU")
+
+
+def nd_agreement(mt):
+    """A few ``mt.nd`` ops and operators on the card against the CPU,
+    within 1e-5 of the largest value."""
+    rng = np.random.default_rng(SEED + 6)
+    a_np = rng.standard_normal((64, 33), dtype=np.float32)
+    b_np = rng.standard_normal((1, 33), dtype=np.float32)
+    got = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        a, b = mt.nd.array(a_np, ctx), mt.nd.array(b_np, ctx)
+        onehot = mt.nd.zeros((64, 40), ctx)
+        mt.nd.onehot_encode(mt.nd.arange(64, ctx=ctx) % 37, onehot)
+        got[ctx.device_type] = {
+            "exp": mt.nd.exp(a), "broadcast_add": mt.nd.broadcast_add(a, b),
+            "sum": mt.nd.sum(a, axis=1), "softmax": mt.nd.softmax(a),
+            "arith": (a * 2.0 - b) / (abs(a) + 1.0), "compare": a > b,
+            "add_n": mt.nd.add_n(a, a, a), "norm": mt.nd.norm(a),
+            "argmax": mt.nd.argmax(a, axis=0), "onehot": onehot,
+            "gelu": mt.nd.gelu(a), "T": a.T.copy()}
+    errs = {}
+    for name, ref in got["cpu"].items():
+        on_card = got["gpu"][name]
+        check(on_card.context == mt.gpu(0), "nd.%s ran on %s"
+              % (name, on_card.context))
+        r = ref.asnumpy()
+        errs[name] = float(np.abs(on_card.asnumpy() - r).max()) / max(
+            float(np.abs(r).max()), 1e-30)
+    print("check: mt.nd ops on the card vs the CPU, max|err|/max|ref|: %s "
+          "(tolerance 1e-5)" % {k: float("%.3g" % v) for k, v in
+                                errs.items()}, flush=True)
+    check(all(e <= 1e-5 for e in errs.values()),
+          "mt.nd ops on the card disagree with the CPU")
 
 
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
-    for key, group in (("flash_bwd_dkv", "K3 flash_bwd_dkv"),
+    for key, group in (("gelu_fwd", "rtc:gelu_fwd"),
+                       ("gelu_bwd", "rtc:gelu_bwd"),
+                       ("flash_bwd_dkv", "K3 flash_bwd_dkv"),
                        ("flash_bwd_dq", "K2 flash_bwd_dq"),
                        ("flash_fwd", "K1 flash_fwd")):
         if key in name:
@@ -621,8 +1107,9 @@ def device_op_group(event):
 
 def profile(torch, fn, outdir, label):
     """Run ``fn`` once under torch.profiler: device time by kernel name
-    (table in DIR/<label>.txt, timeline in DIR/<label>.json) and the
-    device's idle share between the first and the last device op."""
+    (table in DIR/<label>.txt, timeline in DIR/<label>.json; the groups
+    printed) and the device's idle share between the first and the last
+    device op."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     os.makedirs(outdir, exist_ok=True)
@@ -642,7 +1129,6 @@ def profile(torch, fn, outdir, label):
     span = max(e["ts"] + e["dur"] for e in events) - \
         min(e["ts"] for e in events)
     busy = sum(e["dur"] for e in events)
-    print(table, flush=True)
     groups = {}
     for e in events:
         group = device_op_group(e)
@@ -659,8 +1145,8 @@ def profile(torch, fn, outdir, label):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="trace one extra request and one extra train step "
-                         "with torch.profiler")
+                    help="trace one extra request, one extra train step and "
+                         "one extra rtc_gelu train step with torch.profiler")
     opts = ap.parse_args()
 
     import torch
@@ -677,6 +1163,10 @@ def main():
     secs = mt.kernels.build_all()
     print("build: %s built in %.2f s" % (
         sorted(set(mt.kernels.SOURCES.values())), secs), flush=True)
+    print("build: NVRTC %d.%d from %s, options %s" % (
+        mt.cuda_rtc.nvrtc_version() + (mt.cuda_rtc._LIBS["nvrtc"]._name,
+                                       " ".join(mt.cuda_rtc.nvrtc_options()))),
+          flush=True)
     for source, log in sorted(mt.kernels.BUILD_LOGS.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or \
@@ -684,16 +1174,15 @@ def main():
                 print("  ptxas %s: %s" % (source, line.strip()), flush=True)
 
     rows = kernel_phase(torch, att, torch.device("cuda", 0))
+    rtc_rows = rtc_kernel_phase(torch, mt, torch.device("cuda", 0))
     pred, tokens = serve_phase(torch, mt)
-    mod, batch, launches = train_phase(torch, mt)
-    for name, count in launches.items():
-        check(count > 0, "the training path never launched %s" % name)
+    mod, batch, launches, losses, step_ms = train_phase(torch, mt)
+    for name in mt.kernels.SOURCES:
+        check(launches[name] > 0, "the training path never launched %s"
+              % name)
     for r in rows:
         r["launches"] = launches[r["name"]]
     step_paths(torch, mod, batch)
-    small_agreement(mt)
-    for dtype in (None, "bfloat16"):
-        small_train_agreement(torch, mt, dtype)
     if opts.profile:
         profile(torch, lambda: pred.forward(data=tokens), opts.profile,
                 "serve_request")
@@ -702,6 +1191,22 @@ def main():
             mod.forward_backward(batch)
             mod.update()
         profile(torch, step, opts.profile, "train_step")
+    del pred, mod, batch
+    torch.cuda.empty_cache()
+    ext_launches, sgd_row = extend_phase(torch, mt, losses, step_ms,
+                                         opts.profile)
+    rtc_rows.insert(1, sgd_row)
+    for r in rtc_rows:
+        r["launches"] = ext_launches.get(r["name"], 0)
+        check(r["launches"] > 0, "the extension path never launched %s"
+              % r["name"])
+    rows += rtc_rows
+    small_agreement(mt)
+    for dtype in (None, "bfloat16"):
+        small_train_agreement(torch, mt, dtype)
+    small_train_agreement(torch, mt, None, rtc_gelu=True)
+    custom_op_agreement(mt)
+    nd_agreement(mt)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -12,8 +12,13 @@ Ported so far: the serving path — ``Predictor`` over a transformer LM
 forward kernel — and the training path — ``mod.Module`` with
 ``forward_backward``/``update`` (the fused step), SGD and Adam, the
 initializers, ``io.NDArrayIter``, metrics and checkpoints, with the
-flash-attention backward kernels.  This package imports neither ``jax``
-nor ``mxnet_tpu``.
+flash-attention backward kernels — and the user extension path: the
+imperative ``nd.<op>`` surface, ``Symbol`` arithmetic and ``simple_bind``,
+``rtc.MXRtc`` compiling a user's CUDA C at run time with NVRTC
+(``cuda_rtc``), user kernels as trainable ops through
+``register_kernel_op`` (``rtc_kernels`` registers ``rtc_gelu`` so), and
+``operator.CustomOp``.  This package imports neither ``jax`` nor
+``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -29,6 +34,9 @@ from .symbol import Symbol
 from . import executor
 from .executor import Executor
 from . import kernels
+from . import cuda_rtc
+from . import rtc
+from . import operator
 from . import models
 from .predictor import Predictor
 from .ops import register_kernel_op, Param

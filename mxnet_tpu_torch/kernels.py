@@ -9,7 +9,9 @@ a launch on a CUDA tensor needs the build.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made.  A wrapper
 adds one right after a launch that returned no error, and nowhere else, so a
-caller can show which kernels a run went through.
+caller can show which kernels a run went through.  Kernels compiled at run
+time by ``rtc.MXRtc`` count under ``rtc:<name>``, added at their first
+launch.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def count(name: str) -> None:
-    LAUNCHES[name] += 1
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def reset_launches() -> None:

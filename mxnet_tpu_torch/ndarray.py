@@ -1,17 +1,24 @@
 """NDArray — the imperative n-dim array over a ``torch.Tensor``.
 
-Counterpart of ``mxnet_tpu/ndarray.py`` for the serving slice: the array
-type, ``array``/``zeros``/``empty``, and ``save``/``load`` in the
-reference's binary ``.params`` container, bit for bit
-(src/ndarray/ndarray.cc:633-714: magic 0x112, TShape uint32s, Context two
-int32s, mshadow type flag, raw buffer; dmlc vector<string> keys).  A file
-written by either package loads in the other, and re-saving a loaded file
-reproduces its bytes.
+Counterpart of ``mxnet_tpu/ndarray.py``: the array type with its
+arithmetic, comparison and shape methods; the creation functions; the
+``mx.nd.<op>`` surface, one function per registered op, generated from the
+op registry at import and refreshed when an op is registered later
+(``register_kernel_op``, ``operator.register``'s ``Custom``); and
+``save``/``load`` in the reference's binary ``.params`` container, bit for
+bit (src/ndarray/ndarray.cc:633-714: magic 0x112, TShape uint32s, Context
+two int32s, mshadow type flag, raw buffer; dmlc vector<string> keys).  A
+file written by either package loads in the other, and re-saving a loaded
+file reproduces its bytes.
 
 Arrays live on their context's ``torch.device``; creation functions default
 to the current context, which is ``gpu(0)`` unless the caller enters
-another.  ``a[:] = x`` writes into the existing tensor in place, so holders
-of the NDArray (executors, predictors) see the update.
+another.  An op runs on the context of its first NDArray input, else on its
+``ctx`` attr, else on the current context.  ``a[:] = x``, ``a += b`` and
+``out=`` write into the existing tensor in place, so holders of the NDArray
+(executors, predictors) see the update; ``reshape``, ``T``, ``slice`` and
+basic indexing are views of the parent's storage, as in the reference.
+An op's result never aliases its inputs.
 """
 from __future__ import annotations
 
@@ -23,8 +30,11 @@ import torch
 
 from .base import MXNetError, mx_real_t
 from .context import Context, cpu, gpu, current_context
+from .ops import OpContext, registered_ops
 
-__all__ = ["NDArray", "array", "zeros", "empty", "load", "save"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "concatenate", "moveaxis", "onehot_encode", "waitall", "load",
+           "save"]
 
 _TORCH_DTYPES = {
     "float32": torch.float32, "float64": torch.float64,
@@ -47,6 +57,11 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 def _default_ctx(ctx) -> Context:
     return ctx if ctx is not None else current_context()
+
+
+def _context_of(device: torch.device) -> Context:
+    """The Context naming a torch device."""
+    return gpu(device.index or 0) if device.type == "cuda" else cpu()
 
 
 class NDArray:
@@ -79,12 +94,39 @@ class NDArray:
 
     ctx = context
 
+    @property
+    def ndim(self):
+        return self._data.dim()
+
     def asnumpy(self) -> np.ndarray:
-        """Host copy.  bfloat16 arrays come back widened to float32."""
+        """A host copy (never a view of a CPU array's storage, as in the
+        reference).  bfloat16 arrays come back widened to float32."""
         x = self._data.detach()
         if x.dtype == torch.bfloat16:
             x = x.to(torch.float32)
-        return x.cpu().numpy()
+        return np.array(x.cpu().numpy())
+
+    def asscalar(self):
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self.asnumpy().reshape(-1)[0]
+
+    def astype(self, dtype) -> "NDArray":
+        """A copy converted to ``dtype``."""
+        return NDArray(self._data.to(_torch_dtype(dtype), copy=True),
+                       self._ctx)
+
+    def copyto(self, other) -> "NDArray":
+        """Copy into an array (in place, converting to its dtype) or to a
+        context (a new array there)."""
+        if isinstance(other, NDArray):
+            if other.shape != self.shape:
+                raise ValueError("shape mismatch in copyto")
+            with torch.no_grad():
+                other._data.copy_(self._data)
+            return other
+        ctx = Context(other)
+        return NDArray(self._data.to(ctx.torch_device(), copy=True), ctx)
 
     def as_in_context(self, context: Context) -> "NDArray":
         if context == self._ctx:
@@ -99,8 +141,58 @@ class NDArray:
         optimizers hand back new buffers to the holders of this array."""
         self._data = data
 
+    # -- shape (views of the parent's storage, reference ndarray.h:286-352)
+    def reshape(self, shape) -> "NDArray":
+        """A view with MXNet's reshape codes (0 copy, -1 infer, -2 rest,
+        -3 merge, -4 split)."""
+        from .ops.matrix import _reshape_target
+
+        if isinstance(shape, int):
+            shape = (shape,)
+        return NDArray(self._data.reshape(_reshape_target(self.shape, shape)),
+                       self._ctx)
+
+    def broadcast_to(self, shape) -> "NDArray":
+        """Broadcast along extent-1 axes to ``shape``; a shorter current
+        shape is left-padded with 1s, and 0 in the target keeps the input's
+        extent (the ``broadcast_to`` op's convention: this calls it)."""
+        shape = tuple(int(d) for d in shape)
+        cur = self
+        if len(self.shape) < len(shape):
+            cur = self.reshape((1,) * (len(shape) - len(self.shape))
+                               + self.shape)
+        if len(cur.shape) != len(shape):
+            raise ValueError("cannot broadcast %s to lower-rank %s"
+                             % (self.shape, shape))
+        if any(c != t and c != 1 and t != 0
+               for c, t in zip(cur.shape, shape)):
+            raise ValueError("cannot broadcast %s to %s (only extent-1 axes "
+                             "broadcast)" % (self.shape, shape))
+        return _invoke("broadcast_to", (cur,), {"shape": shape})
+
+    @property
+    def T(self) -> "NDArray":
+        """The axes reversed (a view)."""
+        return NDArray(self._data.permute(*reversed(range(self.ndim))),
+                       self._ctx)
+
+    def slice(self, start, stop) -> "NDArray":
+        """Rows ``start:stop`` of axis 0, a view of this array's storage
+        (the reference's Slice)."""
+        return NDArray(self._data[start:stop], self._ctx)
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __iter__(self):
+        for i in range(self.shape[0]):
+            yield self[i]
+
     def __getitem__(self, key) -> "NDArray":
-        """A view of the selected rows (basic indexing)."""
+        """A view of the selected elements (basic indexing); an NDArray
+        key gathers rows (a copy)."""
+        if isinstance(key, NDArray):
+            key = key._data.to(torch.int64)
         return NDArray(self._data[key], self._ctx)
 
     def __setitem__(self, key, value):
@@ -108,12 +200,234 @@ class NDArray:
             value = value._data
         elif not isinstance(value, torch.Tensor):
             value = torch.tensor(np.asarray(value))
+        if isinstance(key, NDArray):
+            key = key._data.to(torch.int64)
         with torch.no_grad():
             self._data[key] = value.to(self._data.device, self._data.dtype)
+
+    # -- arithmetic (reference python/mxnet/ndarray.py operators) ----------
+    def _binary(self, other, op, scalar_op, reverse=False):
+        if isinstance(other, NDArray):
+            a, b = (other, self) if reverse else (self, other)
+            return _invoke(op, (a, b), {})
+        if np.isscalar(other):
+            return _invoke(scalar_op, (self,), {"scalar": float(other)})
+        raise TypeError("unsupported operand type %s" % type(other))
+
+    def __add__(self, o):
+        return self._binary(o, "broadcast_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "broadcast_sub", "_rminus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "broadcast_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "broadcast_div", "_rdiv_scalar", reverse=True)
+
+    def __mod__(self, o):
+        return self._binary(o, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, o):
+        return self._binary(o, "broadcast_mod", "_rmod_scalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, o):
+        return self._binary(o, "broadcast_power", "_rpower_scalar",
+                            reverse=True)
+
+    def __neg__(self):
+        return _invoke("negative", (self,), {})
+
+    def __abs__(self):
+        return _invoke("abs", (self,), {})
+
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._binary(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._binary(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o):
+        return self._binary(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "broadcast_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "broadcast_lesser_equal", "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+    def _inplace(self, out: "NDArray") -> "NDArray":
+        """``a op= b``: written into this array's tensor when the shape
+        holds, else rebound (a broadcast that grows the array)."""
+        if out.shape == self.shape:
+            with torch.no_grad():
+                self._data.copy_(out._data)
+        else:
+            self._set(out._data)
+        return self
+
+    def __iadd__(self, o):
+        return self._inplace(self.__add__(o))
+
+    def __isub__(self, o):
+        return self._inplace(self.__sub__(o))
+
+    def __imul__(self, o):
+        return self._inplace(self.__mul__(o))
+
+    def __itruediv__(self, o):
+        return self._inplace(self.__truediv__(o))
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("The truth value of an NDArray with multiple "
+                         "elements is ambiguous")
 
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(str(d) for d in self.shape),
                                      self._ctx)
+
+
+# ---------------------------------------------------------------------------
+# Imperative invoke — the analogue of MXImperativeInvoke
+# (reference src/c_api/c_api_ndarray.cc:323)
+# ---------------------------------------------------------------------------
+
+
+def _is_tensor_arg(v) -> bool:
+    """True for array kwargs (NDArray, numpy array, torch tensor); numpy
+    scalars are attrs."""
+    return isinstance(v, (NDArray, np.ndarray, torch.Tensor))
+
+
+def _as_tensor(x, device) -> torch.Tensor:
+    """A non-NDArray input on ``device``: python lists and scalars default
+    to float32, as ``array`` does."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, np.ndarray):
+        return array(x, _context_of(device))._data
+    return torch.tensor(np.asarray(x, dtype=mx_real_t), device=device)
+
+
+def _parse_ctx(value) -> Context:
+    if isinstance(value, Context):
+        return value
+    dev_type, _, dev_id = str(value).partition("(")
+    return Context(dev_type, int(dev_id.rstrip(")")) if dev_id else 0)
+
+
+def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.device == b.device and \
+        a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+def _invoke(op_name: str, args, kwargs):
+    """Run registered op ``op_name`` on NDArrays: positional inputs, array
+    kwargs by input name, every other kwarg an attr; ``out=`` receives the
+    result in place; updated aux states are written back to their
+    arrays."""
+    op = registered_ops()[op_name]
+    kwargs = dict(kwargs)
+    out = kwargs.pop("out", None)
+    kwargs.pop("name", None)
+    nd_kwargs = {k: v for k, v in kwargs.items() if _is_tensor_arg(v)}
+    attrs = {k: v for k, v in kwargs.items() if k not in nd_kwargs}
+    pos_inputs = [a for a in args if a is not None]
+    if op.key_var_num_args and op.key_var_num_args not in attrs:
+        attrs[op.key_var_num_args] = len(pos_inputs)
+    parsed = op.parse_attrs(attrs)
+    names = op.input_names(parsed) + op.aux_names(parsed)
+    inputs = list(pos_inputs)
+    if nd_kwargs:
+        slot = dict(zip(names, inputs))
+        slot.update(nd_kwargs)
+        inputs = [slot[n] for n in names if n in slot]
+    ctx = next((a.context for a in inputs if isinstance(a, NDArray)), None)
+    if ctx is None:
+        ctx = _parse_ctx(parsed["ctx"]) if parsed.get("ctx") \
+            else current_context()
+    device = ctx.torch_device()
+    tensors = [a._data if isinstance(a, NDArray) else _as_tensor(a, device)
+               for a in inputs]
+    n_aux = len(op.aux_names(parsed))
+    main_in = tensors[:len(tensors) - n_aux]
+    aux_in = tuple(tensors[len(tensors) - n_aux:])
+    with torch.no_grad():
+        outs, aux_updates = op.apply(OpContext(is_train=False), parsed,
+                                     main_in, aux_in)
+    for holder, new in zip(inputs[len(inputs) - n_aux:], aux_updates):
+        if isinstance(holder, NDArray) and new is not holder._data:
+            holder._set(new)
+    # a result that is a view of an input (identity, Reshape, BlockGrad)
+    # becomes a copy: an op's output never aliases its inputs
+    outs = [o.clone() if any(_shares_storage(o, t) for t in tensors) else o
+            for o in outs]
+    results = [NDArray(o, ctx) for o in outs]
+    if out is not None:
+        for dst, src in zip(out if isinstance(out, (list, tuple)) else [out],
+                            results):
+            if dst.shape == src.shape:
+                with torch.no_grad():
+                    dst._data.copy_(src._data)
+            else:
+                dst._set(src._data.to(dst._data.dtype))
+        return out
+    return results[0] if len(results) == 1 else results
+
+
+def _make_imperative(op_name: str, op):
+    def fn(*args, **kwargs):
+        return _invoke(op_name, args, kwargs)
+
+    fn.__name__ = op_name
+    fn.__doc__ = op.doc or "Imperative function of op %s" % op_name
+    return fn
+
+
+# the module's own functions, which no generated op function replaces
+_OWN_NAMES = frozenset(__all__) | {"sgd_update", "sgd_mom_update",
+                                   "adam_update", "rmsprop_update",
+                                   "rmspropalex_update"}
+
+
+def _init_ops():
+    """One function per registered op, ``nd.<op>(*arrays, **attrs)``.
+    The generated names shadow builtins (``sum``, ``max``, ``abs``,
+    ``round``) at this module's scope: code here must not call those."""
+    g = globals()
+    for name, op in registered_ops().items():
+        if name in _OWN_NAMES:
+            continue
+        g[name] = _make_imperative(name, op)
+        if not name.startswith("_") and name not in __all__:
+            __all__.append(name)
 
 
 def array(source_array, ctx=None, dtype=None) -> NDArray:
@@ -156,6 +470,53 @@ def empty(shape, ctx=None, dtype=mx_real_t) -> NDArray:
     """An array whose contents are unspecified (zero-filled here, as in
     the JAX package)."""
     return zeros(shape, ctx, dtype)
+
+
+def ones(shape, ctx=None, dtype=mx_real_t) -> NDArray:
+    return full(shape, 1, ctx, dtype)
+
+
+def full(shape, val, ctx=None, dtype=mx_real_t) -> NDArray:
+    if isinstance(shape, int):
+        shape = (shape,)
+    ctx = _default_ctx(ctx)
+    return NDArray(torch.full(tuple(shape), val, dtype=_torch_dtype(dtype),
+                              device=ctx.torch_device()), ctx)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
+           dtype=mx_real_t) -> NDArray:
+    """Evenly spaced values in [start, stop), each repeated ``repeat``
+    times (computed in float64 as numpy does, then converted)."""
+    vals = np.arange(start, stop, step) if stop is not None \
+        else np.arange(start)
+    if repeat > 1:
+        vals = np.repeat(vals, repeat)
+    return array(vals, ctx, dtype=dtype)
+
+
+def moveaxis(tensor: NDArray, source, destination) -> NDArray:
+    return NDArray(torch.movedim(tensor._data, source, destination).clone(),
+                   tensor.context)
+
+
+def concatenate(arrays, axis=0, always_copy=True) -> NDArray:
+    if not arrays:
+        raise MXNetError("concatenate: arrays must not be empty")
+    return NDArray(torch.cat([a._data for a in arrays], dim=axis),
+                   arrays[0].context)
+
+
+def onehot_encode(indices: NDArray, out: NDArray) -> NDArray:
+    """One-hot rows of ``indices`` written into ``out`` (its shape and
+    dtype)."""
+    return _invoke("_onehot_encode", (indices, out), {"out": out})
+
+
+def waitall() -> None:
+    """Block until every pending device operation is done."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -263,3 +624,5 @@ def load(fname: str, ctx: Optional[Context] = None):
 from .ops.optimizer_ops import (adam_update, rmsprop_update,  # noqa: E402
                                 rmspropalex_update, sgd_mom_update,
                                 sgd_update)
+
+_init_ops()

@@ -1,6 +1,6 @@
-"""Gather ops of the serving slice: ``Embedding`` and ``take``.
+"""Gather ops: ``Embedding``, ``take`` and ``_onehot_encode``.
 
-Counterparts of ``mxnet_tpu/ops/indexing.py`` (``:27``, ``:60``).  Indices
+Counterparts of ``mxnet_tpu/ops/indexing.py`` (``:27``, ``:60``, ``:129``).  Indices
 arrive as floats or ints and are truncated toward zero, as ``astype(int32)``
 does in the JAX package.  Out-of-range Embedding ids are clipped to the
 table (the reference's Take semantics); JAX fills such rows with NaN, so the
@@ -52,3 +52,12 @@ def _take(opctx, attrs, a, indices):
     else:
         ids = ids.clamp(0, n - 1)
     return _gather(a, ids, axis)
+
+
+@register("_onehot_encode", inputs=("lhs", "rhs"), no_grad_inputs=("lhs",))
+def _onehot_encode(opctx, attrs, lhs, rhs):
+    """One-hot rows of ``lhs``'s indices in ``rhs``'s shape and dtype (the
+    NDArray function behind ``nd.onehot_encode``).  An index outside
+    [0, depth) gives a row of zeros, as ``jax.nn.one_hot`` does."""
+    classes = torch.arange(rhs.shape[1], device=lhs.device)
+    return (lhs.to(torch.int64).unsqueeze(-1) == classes).to(rhs.dtype)

@@ -1,8 +1,11 @@
-"""Kernel-backed ops — ``register_kernel_op``, the counterpart of
-``mxnet_tpu/ops/pallas_op.py::register_pallas_op``.
+"""Kernel-backed ops — ``register_kernel_op``, the port's counterpart of
+``mx.register_pallas_op`` (``mxnet_tpu/ops/pallas_op.py``).
 
-A caller hands in a function that wraps a hand-written kernel and gets a
-first-class registered op back, visible as ``mx.sym.<name>``:
+A caller hands in a function that wraps a hand-written kernel (a CUDA
+kernel of ``csrc/``, or a user's kernel compiled at run time by
+``mx.rtc.MXRtc``) and gets a first-class registered op back, visible as
+``mx.sym.<name>`` and ``mx.nd.<name>`` and trainable through executors and
+``Module``:
 
     def kernel(attrs, x):          # attrs: parsed op params
         return my_cuda_wrapper(x)
@@ -25,7 +28,7 @@ from __future__ import annotations
 import sys
 from typing import Callable, Optional
 
-__all__ = ["register_kernel_op"]
+__all__ = ["register_kernel_op", "refresh_surfaces"]
 
 
 def register_kernel_op(name: str, fn: Callable, bwd: Optional[Callable] = None,
@@ -96,11 +99,19 @@ def register_kernel_op(name: str, fn: Callable, bwd: Optional[Callable] = None,
     _op.__name__ = "kernel_op_%s" % name
     decorator(_op)
 
-    # late registration: ops registered after package import also appear on
-    # the already-generated mx.sym surface (during the package's own import
-    # the symbol module generates its surface after every op has loaded)
+    refresh_surfaces()
+    return _op
+
+
+def refresh_surfaces() -> None:
+    """Late registration: ops registered after package import also appear
+    on the already-generated ``mx.sym`` and ``mx.nd`` surfaces.  During the
+    package's own import each of those modules generates its surface after
+    every op has loaded, so only a module that has finished is refreshed."""
     pkg = __package__.rsplit(".", 1)[0]
     sym_mod = sys.modules.get(pkg + ".symbol")
     if sym_mod is not None and hasattr(sym_mod, "_init_symbol_module"):
         sym_mod._init_symbol_module()
-    return _op
+    nd_mod = sys.modules.get(pkg + ".ndarray")
+    if nd_mod is not None and hasattr(nd_mod, "_init_ops"):
+        nd_mod._init_ops()

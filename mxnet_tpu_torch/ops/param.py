@@ -89,10 +89,11 @@ def _parse_shape(value, cast=int):
 
 
 def parse_attrs(spec: Optional[Dict[str, Param]], attrs: Dict[str, Any],
-                op_name: str = "") -> Dict[str, Any]:
+                op_name: str = "", allow_extra: bool = False) -> Dict[str, Any]:
     """Coerce raw attrs (strings or python values) against the spec.
     Graph-level attrs (``__ctx_group__`` etc.) pass through; unknown plain
-    kwargs are rejected like the reference's dmlc::Parameter::Init."""
+    kwargs are rejected like the reference's dmlc::Parameter::Init, or kept
+    as strings with ``allow_extra`` (the Custom op's user kwargs)."""
     out: Dict[str, Any] = {}
     spec = spec or {}
     for key, param in spec.items():
@@ -107,6 +108,8 @@ def parse_attrs(spec: Optional[Dict[str, Param]], attrs: Dict[str, Any],
         if key not in out:
             if key.startswith("__") or key in ("ctx", "name"):
                 out[key] = value
+            elif allow_extra:
+                out[key] = value if isinstance(value, str) else str(value)
             else:
                 raise ValueError(
                     "unknown argument %r for operator %s" % (key, op_name))

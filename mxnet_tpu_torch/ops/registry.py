@@ -3,7 +3,8 @@
 The counterpart of ``mxnet_tpu/ops/registry.py`` with the same single
 registration form: a function over tensors plus declarative metadata.
 Here the function takes ``torch`` tensors.  The registry drives the
-symbolic API (``mx.sym.<op>``), graph JSON round-trip and shape inference
+imperative API (``mx.nd.<op>``), the symbolic API (``mx.sym.<op>``), graph
+JSON round-trip and shape inference
 (per-op ``infer_shape``, else the op's own function evaluated on
 ``torch.device("meta")`` tensors).
 """
@@ -38,14 +39,26 @@ class Op:
         hint: Optional[str] = None,
         doc: str = "",
         no_grad_inputs: Sequence[str] = (),
+        key_var_num_args: Optional[str] = None,
+        output_names: Optional[Callable] = None,
+        allow_extra_attrs: bool = False,
     ):
         self.name = name
         self.fn = fn
         self._inputs = inputs
         self.params = params or {}
         self._num_outputs = num_outputs
-        self.aux = tuple(aux)
+        # aux may be a callable(attrs) -> names, for ops whose auxiliary
+        # states depend on attrs (Custom: CustomOpProp.list_auxiliary_states)
+        self.aux = aux if callable(aux) else tuple(aux)
         self.infer_shape = infer_shape
+        # the attr counting variadic inputs (add_n's num_args): its inputs
+        # are named arg0, arg1, ...
+        self.key_var_num_args = key_var_num_args
+        self._output_names = output_names
+        # keep attrs outside ``params`` as strings instead of rejecting them
+        # (Custom hands them to the CustomOpProp constructor)
+        self.allow_extra_attrs = allow_extra_attrs
         self.hint = hint or name.lower().lstrip("_")
         self.doc = doc
         # inputs that never take a gradient (labels, indices): the executor
@@ -56,6 +69,8 @@ class Op:
     def input_names(self, attrs: Dict[str, Any]) -> List[str]:
         if callable(self._inputs):
             return list(self._inputs(attrs))
+        if self.key_var_num_args and self.key_var_num_args in attrs:
+            return ["arg%d" % i for i in range(int(attrs[self.key_var_num_args]))]
         return list(self._inputs)
 
     def num_outputs(self, attrs: Dict[str, Any]) -> int:
@@ -64,18 +79,23 @@ class Op:
         return int(self._num_outputs)
 
     def output_names(self, attrs: Dict[str, Any], node_name: str) -> List[str]:
+        if self._output_names is not None:
+            return ["%s_%s" % (node_name, n) for n in self._output_names(attrs)]
         n = self.num_outputs(attrs)
         if n == 1:
             return ["%s_output" % node_name]
         return ["%s_output%d" % (node_name, i) for i in range(n)]
 
     def aux_names(self, attrs: Dict[str, Any]) -> List[str]:
+        if callable(self.aux):
+            return list(self.aux(attrs))
         return list(self.aux)
 
     def parse_attrs(self, attrs: Dict[str, Any]) -> Dict[str, Any]:
         from .param import parse_attrs
 
-        return parse_attrs(self.params, attrs, self.name)
+        return parse_attrs(self.params, attrs, self.name,
+                           allow_extra=self.allow_extra_attrs)
 
     # -- application -------------------------------------------------------
     def apply(self, opctx: OpContext, attrs: Dict[str, Any], inputs, aux=()):

@@ -3,10 +3,12 @@
 Counterpart of ``mxnet_tpu/symbol.py`` for the ported slices.  A Symbol is
 a list of output entries of an immutable DAG of ``_Node``s.  Kept surface:
 composition with auto-created parameter variables and NameManager naming,
+arithmetic and comparison operators (``_Plus``, ``_MulScalar`` ... nodes),
 ``infer_shape`` with parameter shape filling, ``infer_type`` (no
 propagation through ops), ``attr_dict``, ``list_arguments/outputs/
 auxiliary_states``, ``Group``, graph JSON save/load identical to the JAX
-package's, and ``bind``.  Each registered op is exposed as ``mx.sym.<op>``.
+package's, ``bind`` and ``simple_bind``.  Each registered op is exposed as
+``mx.sym.<op>``.
 
 Shape inference runs the per-op ``infer_shape`` rules and, for an op whose
 rule leaves an output unknown, the op's own function on tensors of the
@@ -18,6 +20,8 @@ import ast
 import builtins as _builtins
 import json
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from .attribute import AttrScope
 from .base import MXNetError
@@ -126,6 +130,70 @@ class Symbol:
     def attr(self, key: str) -> Optional[str]:
         return self._outputs[0][0].attr_dict.get(key)
 
+    # ------------------------------------------------------------------
+    # arithmetic (the JAX package's operators, the same node ops)
+    # ------------------------------------------------------------------
+    def _binary(self, other, op_name, scalar_op, reverse=False):
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _create(op_name, [a, b], {})
+        if np.isscalar(other):
+            return _create(scalar_op, [self], {"scalar": float(other)})
+        raise TypeError("unsupported operand type %s" % type(other))
+
+    def __add__(self, o):
+        return self._binary(o, "_Plus", "_PlusScalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "_Minus", "_MinusScalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "_Minus", "_RMinusScalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "_Mul", "_MulScalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "_Div", "_DivScalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "_Div", "_RDivScalar", reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, "_Power", "_PowerScalar")
+
+    def __neg__(self):
+        return _create("negative", [self], {})
+
+    def __eq__(self, o):
+        if isinstance(o, (Symbol, int, float)):
+            return self._binary(o, "_equal", "_equal_scalar")
+        return NotImplemented
+
+    def __ne__(self, o):
+        if isinstance(o, (Symbol, int, float)):
+            return self._binary(o, "_not_equal", "_not_equal_scalar")
+        return NotImplemented
+
+    def __gt__(self, o):
+        return self._binary(o, "_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "_lesser_equal", "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         """{node name: {attr: string value}} for every node with attrs —
         graph attrs (``__lr_mult__``, ``__init__`` ...) and op params."""
@@ -167,8 +235,6 @@ class Symbol:
         take the given type, else their ``__dtype__`` attr, else float32;
         outputs and aux states are float32 — the port does not propagate
         types through ops (every op of the ported paths keeps float32)."""
-        import numpy as np
-
         names = self.list_arguments()
         known = {n: np.dtype(t) for n, t in zip(names, args) if t is not None}
         known.update({k: np.dtype(v) for k, v in kwargs.items()
@@ -195,8 +261,11 @@ class Symbol:
                 jnodes.append({"op": "null", "name": n.name,
                                "attr": dict(n.attr_dict), "inputs": []})
             else:
-                attr = attrs_to_strs({k: v for k, v in n.attrs.items()
-                                      if k in n.op.params})
+                attr = attrs_to_strs({
+                    k: v for k, v in n.attrs.items()
+                    if k in n.op.params or
+                    (n.op.allow_extra_attrs and not k.startswith("__") and
+                     k not in ("ctx", "name") and v is not None)})
                 attr.update(n.attr_dict)
                 jnodes.append({
                     "op": n.op.name, "name": n.name, "attr": attr,
@@ -222,6 +291,31 @@ class Symbol:
         from .executor import Executor
 
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+        """Bind with every array allocated (zero-filled) on ``ctx``: the
+        arguments from the shapes given as keyword arguments (the rest
+        inferred), their types from ``type_dict``, a gradient array for
+        each argument whose ``grad_req`` (a string, or a dict by name) is
+        not "null", and the aux states."""
+        from . import ndarray as nd
+        from .executor import Executor
+
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        if arg_shapes is None:
+            raise ValueError("Cannot infer shapes: provide input shapes")
+        arg_types, _, aux_types = self.infer_type(**(type_dict or {}))
+        names = self.list_arguments()
+        args = [nd.zeros(s, ctx, dtype=t) for s, t in zip(arg_shapes,
+                                                          arg_types)]
+        aux = [nd.zeros(s, ctx, dtype=t) for s, t in zip(aux_shapes,
+                                                         aux_types)]
+        reqs = grad_req if isinstance(grad_req, dict) else \
+            dict.fromkeys(names, grad_req)
+        args_grad = {n: nd.zeros(s, ctx, dtype=t)
+                     for n, s, t in zip(names, arg_shapes, arg_types)
+                     if reqs.get(n, "null") != "null"}
+        return Executor(self, ctx, args, args_grad or None, grad_req, aux)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +413,8 @@ def _create(op_name: str, sym_args: List[Symbol], kwargs: Dict[str, Any],
             sym_kwargs[k] = v
         else:
             attrs[k] = v
+    if op.key_var_num_args and op.key_var_num_args not in attrs and sym_args:
+        attrs[op.key_var_num_args] = len(sym_args)
     parsed = op.parse_attrs(attrs)
     name = NameManager.current().get(name, op.hint)
     input_names = op.input_names(parsed)
@@ -361,8 +457,6 @@ def _make_symbol_function(op_name: str, op):
 def Variable(name: str, attr=None, shape=None, dtype=None, init=None,
              **kwargs) -> Symbol:
     """Create a named variable (placeholder) symbol."""
-    import numpy as np
-
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     attr = AttrScope.current().get(attr)
@@ -392,9 +486,24 @@ def load(fname: str) -> Symbol:
         return load_json(f.read())
 
 
+#: scope attrs that belong to the graph, never to an op's parameters (the
+#: reference AttrScope's keys): consulted for ops that keep extra attrs
+_GRAPH_LEVEL_ATTRS = frozenset({
+    "ctx_group", "lr_mult", "wd_mult", "force_mirroring", "mirror_stage"})
+
+
+def _is_param(op, key: str) -> bool:
+    if key.startswith("__"):
+        return False
+    if key in op.params:
+        return True
+    return op.allow_extra_attrs and key not in _GRAPH_LEVEL_ATTRS
+
+
 def load_json(json_str: str) -> Symbol:
     """A Symbol from graph JSON, as written by either package.  Keys an op
-    declares are its parameters; everything else (AttrScope attrs, dunder
+    declares are its parameters (with the Custom op, every key but the
+    graph-level scope attrs); everything else (AttrScope attrs, dunder
     graph attrs) stays a node attribute."""
     data = json.loads(json_str)
     nodes: List[_Node] = []
@@ -405,8 +514,7 @@ def load_json(json_str: str) -> Symbol:
             nodes.append(_Node(None, jn["name"], {}, [], attr))
             continue
         op = get_op(jn["op"])
-        params = {k: v for k, v in attr.items()
-                  if not k.startswith("__") and k in op.params}
+        params = {k: v for k, v in attr.items() if _is_param(op, k)}
         graph_attrs = {k: v for k, v in attr.items() if k not in params}
         inputs = [(nodes[i[0]], i[1]) for i in jn["inputs"]]
         nodes.append(_Node(op, jn["name"], op.parse_attrs(params), inputs,
