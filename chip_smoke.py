@@ -10,14 +10,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build   — compile every CUDA kernel of the ported paths from
              ``mxnet_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
-             source, all started together; load NVRTC (a missing libnvrtc is
-             fatal) and print its version;
+             source, all started together; print ptxas's registers, shared
+             memory and spills, and the count of ``HGMMA`` (wgmma)
+             instructions in each backward kernel from ``cuobjdump -sass``
+             (a bf16 backward kernel without any is fatal: it would not run
+             on the tensor cores); load NVRTC (a missing libnvrtc is fatal)
+             and print its version;
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at several shapes and both dtypes, the main paths' own shapes
              included: K1 (flash forward) on O and lse, K2/K3 (flash
-             backward) on dQ, dK and dV; time kernels, plain versions and the
-             library calls (``scaled_dot_product_attention`` forward and
-             backward, timed only as yardsticks).  Then the user kernels of
+             backward) on dQ, dK and dV, with bf16 cases for the tensor-core
+             tiling (ragged, sq != sk, causal and full, packed and
+             contiguous views, d=64 at the main length); repeated bf16
+             backward launches at the main shape must give the same bits,
+             and a view that breaks the TMA rule must raise ``MXNetError``;
+             time kernels (K2/K3 also at d=64), plain versions and the
+             library calls
+             (``scaled_dot_product_attention`` forward and backward, timed
+             only as yardsticks).  Then the user kernels of
              ``mxnet_tpu_torch/rtc_kernels.py``, compiled by ``MXRtc`` with
              NVRTC: axpy (2-D launch), sgd_update, gelu_fwd and gelu_bwd
              (float32 and bf16) at ragged and full-width shapes, timed
@@ -159,10 +169,11 @@ def bound_ms(torch, work, dtype):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def qkv_views(torch, gen, b, sq, sk, h, d, dtype, device):
+def qkv_views(torch, gen, b, sq, sk, h, d, dtype, device, packed=True):
     """q, k, v as the LM hands them to the kernels: strided views of one
-    packed [b, s, 3, h, d] projection when sq == sk."""
-    if sq == sk:
+    packed [b, s, 3, h, d] projection when sq == sk (and ``packed``), else
+    three contiguous tensors."""
+    if packed and sq == sk:
         qkv = torch.randn((b, sq, 3, h, d), generator=gen, device=device)
         return tuple(t.squeeze(2) for t in qkv.to(dtype).split(1, dim=2))
     mk = lambda s: torch.randn((b, s, h, d), generator=gen,  # noqa: E731
@@ -183,7 +194,7 @@ def kernel_phase(torch, att, device):
     f32, bf16 = torch.float32, torch.bfloat16
     main_shape = (BATCH, FULL["seq_len"], FULL["seq_len"], FULL["num_heads"],
                   FULL["hidden"] // FULL["num_heads"], True)
-    cases = [  # name, b, sq, sk, h, d, causal, dtype
+    cases = [  # name, b, sq, sk, h, d, causal, dtype[, packed]
         ("f32 causal d64", 2, 256, 256, 4, 64, True, f32),
         ("f32 full d64", 2, 256, 256, 4, 64, False, f32),
         ("f32 causal sq<sk d128 ragged", 2, 200, 333, 4, 128, True, f32),
@@ -192,16 +203,28 @@ def kernel_phase(torch, att, device):
         ("bf16 causal d128", 2, 512, 512, 4, 128, True, bf16),
         ("bf16 full sq<sk d64", 2, 192, 320, 4, 64, False, bf16),
         ("bf16 causal sq>sk d128 ragged", 2, 333, 200, 4, 128, True, bf16),
+        # the tensor-core kernels' tiling: 128 resident rows per block (two
+        # warpgroups of 64), 64 streamed rows per tile
+        ("bf16 causal d64 tiny ragged", 1, 17, 17, 2, 64, True, bf16),
+        ("bf16 full d64 tiny ragged", 1, 17, 17, 2, 64, False, bf16),
+        ("bf16 causal d128 ragged", 2, 333, 333, 4, 128, True, bf16),
+        ("bf16 full d128 ragged", 2, 333, 333, 4, 128, False, bf16),
+        ("bf16 causal sq<sk d64 ragged", 2, 200, 333, 4, 64, True, bf16),
+        ("bf16 full sq>sk d64 ragged", 2, 333, 200, 4, 64, False, bf16),
+        ("bf16 causal d128 contiguous", 2, 320, 320, 4, 128, True, bf16,
+         False),
+        ("bf16 causal d64 main length", 4, 4096, 4096, 16, 64, True, bf16),
         ("f32 causal main-path shape",) + main_shape + (f32,),
         ("bf16 causal main-path shape",) + main_shape + (bf16,),
     ]
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     main = {}
-    for name, b, sq, sk, h, d, causal, dtype in cases:
+    for name, b, sq, sk, h, d, causal, dtype, *packed in cases:
         fwd_tol = 1e-4 if dtype == f32 else 2e-2  # abs, O and lse
         bwd_tol = 1e-4 if dtype == f32 else 2e-2  # relative to max |ref|
-        q, k, v = qkv_views(torch, gen, b, sq, sk, h, d, dtype, device)
+        q, k, v = qkv_views(torch, gen, b, sq, sk, h, d, dtype, device,
+                            *packed)
         scale = 1.0 / np.sqrt(d)
         o, lse = att.flash_forward(q, k, v, causal, scale)
         o_ref, lse_ref = att.attention_reference(q, k, v, causal, scale)
@@ -239,8 +262,13 @@ def kernel_phase(torch, att, device):
         if "main-path" in name:
             main[dtype] = dict(q=q, k=k, v=v, o=o, lse=lse, do=do,
                                scale=scale, err_o=err_o, errs=errs)
+        if "main length" in name:
+            del grads, refs
+            time_backward_pair(torch, att, name, q, k, v, o, lse, do, scale)
+            continue
         del grads, refs
     torch.cuda.empty_cache()
+    bf16_contract(torch, att, main[bf16])
 
     b, sq, sk, h, d, causal = main_shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -276,8 +304,18 @@ def kernel_phase(torch, att, device):
         torch.cuda.empty_cache()
         for kind in ("fwd", "bwd_dq", "bwd_dkv", "bwd"):
             work = attention_work(kind, b, sq, sk, h, d, causal, size)
+            t[kind + "_work"] = work
             t[kind + "_bound"] = bound_ms(torch, work, dtype)
             t[kind + "_tflops"] = work[0] / (t[kind] * 1e-3) / 1e12
+        pair = t["bwd_dq"] + t["bwd_dkv"]
+        ops14 = t["bwd_dq_work"][0] + t["bwd_dkv_work"][0]
+        print("kernel timing %s K2+K3 %.4f ms: %.2f TFLOP/s on the 14·d count "
+              "(split kernels' bound %.4f ms), %.2f TFLOP/s on the 10·d count "
+              "(backward's bound %.4f ms); %.2fx sdpa bwd"
+              % (tag, pair, ops14 / (pair * 1e-3) / 1e12,
+                 bound_ms(torch, (ops14, 0.0), dtype)[0],
+                 t["bwd_work"][0] / (pair * 1e-3) / 1e12, t["bwd_bound"][0],
+                 pair / t["bwd_lib"]), flush=True)
         timings[dtype] = t
         print("kernel timing %s b=%d s=%d h=%d d=%d causal: K1 %.4f ms (plain "
               "%.4f, sdpa fwd %.4f, bound %.4f by %s, %.2f TFLOP/s); K2 %.4f "
@@ -320,6 +358,84 @@ def kernel_phase(torch, att, device):
             max(m["errs"]["dk"][0], m["errs"]["dv"][0]), t["bwd_plain"],
             t["bwd_lib"]),
     ]
+
+
+def time_backward_pair(torch, att, name, q, k, v, o, lse, do, scale):
+    """K2 and K3 (causal) beside SDPA's backward at one more shape."""
+    delta = att._row_delta(o, do).contiguous()
+    dq_ms = cuda_ms(lambda: att.flash_bwd_dq(q, k, v, do, lse, delta, True,
+                                             scale), 5)
+    dkv_ms = cuda_ms(lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                               True, scale), 5)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5)
+    b, sq, h, d = q.shape
+    ops14 = sum(attention_work(kind, b, sq, k.shape[1], h, d, True, 2)[0]
+                for kind in ("bwd_dq", "bwd_dkv"))
+    print("kernel timing [%s]: K2 %.4f ms, K3 %.4f ms, K2+K3 %.4f ms (%.2f "
+          "TFLOP/s on the 14·d count), sdpa bwd %.4f ms (%.2fx)"
+          % (name, dq_ms, dkv_ms, dq_ms + dkv_ms,
+             ops14 / ((dq_ms + dkv_ms) * 1e-3) / 1e12, lib_ms,
+             (dq_ms + dkv_ms) / lib_ms), flush=True)
+
+
+def bf16_contract(torch, att, m):
+    """The bf16 backward at the main shape: two launches of each kernel
+    give the same bits (no atomics), and a view that breaks the TMA rule
+    raises ``MXNetError`` without a launch (no copy, no fallback)."""
+    from mxnet_tpu_torch import MXNetError, kernels
+
+    q, k, v, o, lse, do, scale = (m[x] for x in ("q", "k", "v", "o", "lse",
+                                                  "do", "scale"))
+    delta = att._row_delta(o, do).contiguous()
+    runs = [(att.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),)
+            + att.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    print("kernel flash_bwd bf16 main-path shape, two launches of K2 and K3: "
+          "dq, dk, dv bitwise equal %s" % same, flush=True)
+    check(all(same), "repeated bf16 backward launches differ")
+    del runs
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    shifted = flat[1:].view(q.shape)  # base 2 bytes past a 16-byte boundary
+    before = dict(kernels.LAUNCHES)
+    try:
+        att.flash_backward(shifted, k, v, o, lse, do, True, scale)
+        raised = ""
+    except MXNetError as e:
+        raised = str(e)
+    print("kernel flash_bwd bf16 with a misaligned q view raises: %s"
+          % raised[:160], flush=True)
+    check("TMA" in raised and kernels.LAUNCHES == before,
+          "a misaligned bf16 view did not raise before any launch")
+
+
+def sass_hgmma(kernels):
+    """HGMMA (wgmma) instructions per backward kernel in the built
+    library, from ``cuobjdump -sass``: {(kernel, d): count}."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", kernels._lib_path("flash_bwd.cu")],
+                          capture_output=True, text=True, check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"(flash_bwd_(?:dq|dkv)(?:_tc)?_kernel)ILi(\d+)E",
+                              line)
+            key = (found.group(1), int(found.group(2))) if found else None
+            if key:
+                counts[key] = 0
+        elif key and "HGMMA" in line:
+            counts[key] += 1
+    return counts
 
 
 def ulps(torch, got, ref):
@@ -1170,8 +1286,17 @@ def main():
     for source, log in sorted(mt.kernels.BUILD_LOGS.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or \
-                    "Compiling entry" in line:
+                    "Compiling entry" in line or "setmaxnreg" in line:
                 print("  ptxas %s: %s" % (source, line.strip()), flush=True)
+    hgmma = sass_hgmma(mt.kernels)
+    print("build: HGMMA instructions per backward kernel (cuobjdump -sass): "
+          "%s" % ", ".join("%s<%d> %d" % (k + (n,))
+                           for k, n in sorted(hgmma.items())), flush=True)
+    for kernel in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+        for d in (64, 128):
+            check(hgmma.get((kernel, d), 0) > 0, "%s<%d> (bf16) has no HGMMA "
+                  "instruction: it does not run on the tensor cores"
+                  % (kernel, d))
 
     rows = kernel_phase(torch, att, torch.device("cuda", 0))
     rtc_rows = rtc_kernel_phase(torch, mt, torch.device("cuda", 0))

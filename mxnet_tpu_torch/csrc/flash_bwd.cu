@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), float32 and bfloat16:
-// K2 (dQ) and K3 (dK, dV), two kernels in one library.
+// Flash-attention backward for Hopper (sm_90a): K2 (dQ) and K3 (dK, dV),
+// two kernels in one library, each in a bfloat16 tensor-core version and a
+// float32 CUDA-core version.
 //
 // Replaces: mxnet_tpu/ops/attention.py::_bwd_dq_kernel (K2) and
 // ::_bwd_dkv_kernel (K3), both launched by _flash_backward.  Same function:
@@ -15,66 +16,459 @@
 //   dk, dv  [b, sk, h, d]   contiguous, the input dtype
 //   d       64 or 128
 //
-// Design: the split of the TPU kernels, no atomics.  The TPU carries each
-// accumulator across a sequential third grid axis; here one thread block
-// owns one output tile and loops over the other axis inside the block.
-// K2: one block (256 threads, 16 x 16) per (b*h, 64-row query tile); its Q
-// and dO tiles are staged once, and a loop walks the 64-row K/V tiles up to
-// the causal diagonal.  K3: one block per (b*h, 64-row key tile); its K and
-// V tiles are staged once, and a loop walks the query tiles from the
-// diagonal down.  Each iteration recomputes the 64 x 64 score tile S and
-// dP = dO Vᵀ (K3 computes their transposes, so the rows it owns are keys),
-// forms P and dS in registers, writes them to shared memory and adds the
-// tile's contribution to the float32 accumulators held in registers.
-// Thread (ty, tx) owns score rows ty + 16a and columns tx + 16b (a, b < 4)
-// and accumulator rows ty + 16a, columns 64g + 4tx .. 64g + 4tx + 3.  All
-// tiles are staged row-major at a row stride of d + 4 floats, so every
-// product reads 16-byte vectors: an operand row shared by a quarter-warp is
-// a broadcast, and eight different rows at that stride fall in eight
-// different bank groups (d/4 + 1 is odd).  Scores live in the base-2 domain
-// (scale * log2(e) folded into one multiply, lse * log2(e) subtracted,
-// exp2f), as in the forward kernel.  Causal mode is top-left aligned (query
-// i sees keys j <= i, also when sq != sk): K2 stops at the diagonal tile
-// and K3 starts at it, and the tiles on it are masked; keys past sk and
-// queries past sq are masked to P = dS = 0, and a key tile that no query
-// sees writes dK = dV = 0.  bfloat16 inputs are widened to float32 as they
-// are staged, so both types run the same float32 arithmetic; the gradients
-// are rounded to the input type when written.
+// Both versions keep the split of the TPU kernels: one thread block owns
+// one output tile and loops over the other axis inside the block (the TPU
+// carries the accumulator across a sequential grid axis instead), so there
+// are no atomics and the result is the same bits on every run.  S and dP
+// are computed in both kernels: 14·d operations per visible (query, key)
+// pair against the 10·d of a fused backward.  Causal mode is top-left
+// aligned (query i sees keys j <= i, also when sq != sk); tiles wholly above
+// the diagonal are skipped and only tiles that cross it, or the ragged end
+// of either sequence, are masked; keys past sk and queries past sq get
+// P = dS = 0, and a key tile that no query sees writes dK = dV = 0.  Scores
+// live in the base-2 domain (scale * log2(e) folded into one FMA with
+// lse * log2(e) subtracted, exp2f).  The heaviest causal tiles are
+// scheduled first.
 //
-// What bounds it on this card.  All products run on the float32 CUDA
-// cores: at b=4, s=4096, h=16, d=128 causal, K2 does 3 and K3 4 products
-// of 2·d operations per visible (query, key) pair, ~0.41 and ~0.55 TFLOP,
-// against the H100 SXM's 67 TFLOP/s float32 peak; their bytes (q, k, v,
-// dO, lse, Δ in, one or two gradients out, ~0.3-0.4 GB) take ~0.1 ms at
-// 3.35 TB/s.  Inside the SM, shared memory sets the pace: a score tile
-// step issues eight 16-byte loads per 64 FMAs and a 16-byte warp load
-// costs four wavefronts, so the loops can run at no more than about half
-// the FMA rate.  The shared-memory tiles (K2 ~149 KB, K3 ~167 KB at d=128)
-// leave room for one block of 8 warps per SM, which waits at a barrier
-// while the next tile is staged.
+// bfloat16: the tensor cores (the main path; `Module` trains in bf16).
+//   K3 runs one block of 384 threads per (b*h, 128-key tile): warpgroups 0
+//   and 1 each own 64 of the keys, and one warp of warpgroup 2 feeds them.
+//   That producer loads the K and V tiles once with TMA, then streams
+//   64-query tiles of Q and dO through a ring of kStages shared-memory slots
+//   guarded by mbarriers (a "full" barrier per slot, on which TMA counts its
+//   bytes, and an "empty" one on which every consumer warp arrives when the
+//   products reading the slot are done); its 32 lanes also stage the tile's
+//   lse * log2(e) and Δ in the slot.  Per tile each consumer warpgroup
+//   computes Sᵀ = K Qᵀ and dPᵀ = V dOᵀ with wgmma (both operands K-major
+//   in shared memory), forms Pᵀ and dSᵀ in float32 registers, rounds them to
+//   bf16 (where the JAX kernels round P and dS), and feeds them straight
+//   from the accumulator registers as the A operand of dV += Pᵀ dO and
+//   dK += dSᵀ Q, with dO and Q read MN-major through the transpose bit:
+//   P never returns to shared memory, which is why the kernel computes the
+//   transposes.  dK and dV stay in float32 registers and are rounded once.
+//   K2 mirrors it per (b*h, 128-query tile): Q, dO and the rows' lse and Δ
+//   are loaded once, K and V stream, S = Q Kᵀ and dP = dO Vᵀ, and dS feeds
+//   dQ += dS K (K MN-major).  All tiles arrive by TMA with the 128-byte
+//   swizzle that the wgmma descriptors read (hopper.cuh); TMA fills rows
+//   past the end of a sequence with zeros, and those rows are masked
+//   explicitly (a zero score is not a masked score).  The producer
+//   warpgroup gives up registers (setmaxnreg 24) so that each consumer
+//   thread can hold 240: K3 at d=128 keeps two 64 x 128 float32
+//   accumulators (128 registers) and the two 64 x 64 score tiles (64).
+//   What bounds it: operations.  At b=4, s=4096, h=16, d=128 causal the
+//   pair does 14·d operations per visible pair, ~0.96 TFLOP, 0.97 ms at the
+//   989 TFLOP/s bf16 dense peak, while its bytes take ~0.1 ms at 3.35 TB/s.
+//   Left on the table: overlap of one tile's products with the next tile's
+//   (each warpgroup waits for its own wgmma groups; the two warpgroups
+//   interleave only as the scheduler lets them), a fused 10·d kernel with
+//   dQ by atomics, fp8.
 //
-// What the simple design leaves on the table: wgmma on the tensor cores
-// (the bf16 function is bound at 989 TFLOP/s dense, ~1.5 ms at the shape
-// above); larger per-thread register tiles; TMA loads and a multi-stage
-// pipeline overlapping the next tile with the current products; a fused
-// dK/dV + dQ kernel (FA2-style, with atomics or a second pass for dQ) that
-// computes S and dP once instead of twice.
+// float32: the CUDA cores (TF32 would break the float32 contract).  K2: one
+//   block (256 threads, 16 x 16) per (b*h, 64-row query tile); its Q and dO
+//   tiles are staged once, and a loop walks the 64-row K/V tiles up to the
+//   causal diagonal.  K3: one block per (b*h, 64-row key tile); its K and V
+//   tiles are staged once, and a loop walks the query tiles from the
+//   diagonal down.  Each iteration recomputes the 64 x 64 score tile S and
+//   dP = dO Vᵀ (K3 computes their transposes, so the rows it owns are
+//   keys), forms P and dS in registers, writes them to shared memory and
+//   adds the tile's contribution to the float32 accumulators held in
+//   registers.  Thread (ty, tx) owns score rows ty + 16a and columns
+//   tx + 16b (a, b < 4) and accumulator rows ty + 16a, columns
+//   64g + 4tx .. 64g + 4tx + 3.  All tiles are staged row-major at a row
+//   stride of d + 4 floats, so every product reads 16-byte vectors: an
+//   operand row shared by a quarter-warp is a broadcast, and eight
+//   different rows at that stride fall in eight different bank groups
+//   (d/4 + 1 is odd).  What bounds it: the 67 TFLOP/s float32 peak, and
+//   inside the SM shared memory (a score tile step issues eight 16-byte
+//   loads per 64 FMAs), with one block of 8 warps per SM that waits at a
+//   barrier while the next tile is staged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ===========================================================================
+// bfloat16: tensor cores
+// ===========================================================================
+
+constexpr int kRes = 128;  // resident rows per block: 2 consumer warpgroups
+constexpr int kStr = 64;   // streamed rows per tile
+constexpr int kStages = 3;
+constexpr int kTcThreads = 384;  // warpgroups 0, 1 consume; 2 loads
+
+// Shared memory, in bytes from a 1024-aligned base: the two resident
+// tensors, kStages slots of the two streamed tensors, kStages x 128 floats
+// of per-query lse * log2(e) and Δ (K3), the barriers.
+template <int D>
+struct TcSmem {
+  static constexpr int kResBytes = D / 64 * kRes * 128;
+  static constexpr int kStrBytes = D / 64 * kStr * 128;
+  static constexpr int kRes1 = kResBytes;
+  static constexpr int kStr0 = 2 * kResBytes;
+  static constexpr int kRows = kStr0 + kStages * 2 * kStrBytes;
+  static constexpr int kBars = kRows + kStages * 2 * kStr * 4;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+// acc (+)= A * B for one 16-deep step: m64n64 or m64n128 with A in registers.
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[D / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 128)
+    hopper::wgmma_rs_n128(acc, a, db);
+  else
+    hopper::wgmma_rs_n64(acc, a, db);
+}
+
+// The body of both kernels.  Resident tensors r0, r1 (kRes rows of the
+// block, loaded once) and streamed tensors t0, t1 (kStr rows per tile):
+//   K3 (kDKV): r0 = K, r1 = V, t0 = Q, t1 = dO; out0 = dK, out1 = dV
+//   K2:        r0 = Q, r1 = dO, t0 = K, t1 = V; out0 = dQ
+template <int D, bool kDKV>
+__device__ __forceinline__ void bwd_tc(
+    const CUtensorMap* map_r0, const CUtensorMap* map_r1,
+    const CUtensorMap* map_t0, const CUtensorMap* map_t1,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ out0, __nv_bfloat16* __restrict__ out1,
+    int h, int sq, int sk, float scale, float scale_log2, int causal) {
+  using L = TcSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* res_bar = empty + kStages;
+
+  const int bh = blockIdx.x;
+  const int bi = bh / h;
+  const int hi = bh % h;
+  const int s_res = kDKV ? sk : sq;  // rows of the resident (output) side
+  // K3: the heaviest causal tiles (first keys) have the lowest index;
+  // K2: the heaviest (last queries) are scheduled first
+  const int r_begin = kRes * (kDKV ? blockIdx.y : gridDim.y - 1 - blockIdx.y);
+  int t_begin = 0, t_end;
+  if (kDKV) {
+    t_begin = causal ? r_begin : 0;  // queries before k0 see none of the keys
+    t_end = sq;
+  } else {
+    t_end = causal ? min(sk, r_begin + kRes) : sk;
+  }
+  const int n_tiles = t_end > t_begin ? (t_end - t_begin + kStr - 1) / kStr : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], kDKV ? 32 : 1);
+      hopper::mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    hopper::mbar_init(res_bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one warp issues the TMA loads ----
+    hopper::regs_release<24>();
+    const int lane = threadIdx.x % 128;
+    if (lane >= 32 || (!kDKV && lane > 0)) return;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(res_bar, 2 * L::kResBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(sm + c * kRes * 128, map_r0, res_bar, 64 * c, hi,
+                            r_begin, bi);
+        hopper::tma_load_4d(sm + L::kRes1 + c * kRes * 128, map_r1, res_bar,
+                            64 * c, hi, r_begin, bi);
+      }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int t0 = t_begin + t * kStr;
+      hopper::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      if (kDKV) {
+        float* rows = reinterpret_cast<float*>(sm + L::kRows) + s * 2 * kStr;
+        for (int i = lane; i < kStr; i += 32) {
+          const int q = t0 + i;
+          const bool ok = q < sq;
+          rows[i] = ok ? lse[(int64_t)bh * sq + q] * kLog2e : 0.f;
+          rows[kStr + i] = ok ? delta[(int64_t)bh * sq + q] : 0.f;
+        }
+      }
+      if (lane == 0) {
+        uint8_t* slot = sm + L::kStr0 + s * 2 * L::kStrBytes;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::kStrBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          hopper::tma_load_4d(slot + c * kStr * 128, map_t0, &full[s], 64 * c,
+                              hi, t0, bi);
+          hopper::tma_load_4d(slot + L::kStrBytes + c * kStr * 128, map_t1,
+                              &full[s], 64 * c, hi, t0, bi);
+        }
+      } else {
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns resident rows rw .. rw + 63 ----
+  hopper::regs_claim<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int c4 = lane % 4;
+  const int rw = r_begin + 64 * wg;
+  const bool live = rw < s_res;  // else no row of this warpgroup exists
+
+  float acc0[D / 2];
+  float acc1[kDKV ? D / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kDKV ? D / 2 : 1); ++i) acc1[i] = 0.f;
+
+  // K2: lse * log2(e) and Δ of this thread's two query rows
+  float lse2[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  if (!kDKV) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int q = rw + 16 * warp + g + 8 * x;
+      if (q < sq) {
+        lse2[x] = lse[(int64_t)bh * sq + q] * kLog2e;
+        dl[x] = delta[(int64_t)bh * sq + q];
+      }
+    }
+  }
+
+  // descriptors of this warpgroup's 64 resident rows (K-major); the step
+  // offsets below are added in 16-byte units
+  const uint64_t da0 = hopper::desc_sw128(
+      hopper::smem_addr(sm) + 64 * wg * 128, 16, 1024);
+  const uint64_t da1 = hopper::desc_sw128(
+      hopper::smem_addr(sm + L::kRes1) + 64 * wg * 128, 16, 1024);
+
+  hopper::mbar_wait(res_bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const int t0 = t_begin + t * kStr;
+    hopper::mbar_wait(&full[s], (t / kStages) & 1);
+    bool skip, masked;
+    if (kDKV) {  // rows are keys rw.., columns queries t0..
+      skip = !live || (causal && t0 + kStr <= rw);
+      masked = (causal && t0 < rw + 64) || t0 + kStr > sq;
+    } else {  // rows are queries rw.., columns keys t0..
+      skip = !live || (causal && t0 >= rw + 64);
+      masked = (causal && t0 + kStr > rw) || t0 + kStr > sk;
+    }
+    if (!skip) {
+      const uint32_t slot = hopper::smem_addr(sm + L::kStr0 + s * 2 * L::kStrBytes);
+      const uint64_t db0 = hopper::desc_sw128(slot, 16, 1024);
+      const uint64_t db1 = hopper::desc_sw128(slot + L::kStrBytes, 16, 1024);
+
+      // S (K3: Sᵀ) and dP (K3: dPᵀ), 64 x 64, reduced over d
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t oa = ((kk / 4) * kRes * 128 + (kk % 4) * 32) >> 4;
+        const uint32_t ob = ((kk / 4) * kStr * 128 + (kk % 4) * 32) >> 4;
+        hopper::wgmma_ss_n64(sc, da0 + oa, db0 + ob, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t oa = ((kk / 4) * kRes * 128 + (kk % 4) * 32) >> 4;
+        const uint32_t ob = ((kk / 4) * kStr * 128 + (kk % 4) * 32) >> 4;
+        hopper::wgmma_ss_n64(dp, da1 + oa, db1 + ob, kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // P and dS (without the scale, applied to the sums at the end);
+      // element i of a score tile: row 16 warp + g + 8 ((i >> 1) & 1),
+      // column 8 (i >> 2) + 2 c4 + (i & 1)
+      const float* rows =
+          reinterpret_cast<const float*>(sm + L::kRows) + s * 2 * kStr;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * c4;
+        float2 cl = make_float2(0.f, 0.f), cd = make_float2(0.f, 0.f);
+        if (kDKV) {
+          cl = *reinterpret_cast<const float2*>(rows + col);
+          cd = *reinterpret_cast<const float2*>(rows + kStr + col);
+        }
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int row = rw + 16 * warp + g + 8 * x;
+#pragma unroll
+          for (int y = 0; y < 2; ++y) {
+            const int i = 4 * j + 2 * x + y;
+            const int cidx = t0 + col + y;
+            const float l = kDKV ? (y ? cl.y : cl.x) : lse2[x];
+            const float dd = kDKV ? (y ? cd.y : cd.x) : dl[x];
+            float p = exp2f(fmaf(sc[i], scale_log2, -l));
+            if (masked) {
+              // K3: query cidx, key row; K2: query row, key cidx
+              const bool visible =
+                  kDKV ? (cidx < sq && (!causal || cidx >= row))
+                       : (cidx < sk && (!causal || cidx <= row));
+              if (!visible) p = 0.f;
+            }
+            sc[i] = p;
+            dp[i] = p * (dp[i] - dd);
+          }
+        }
+      }
+      // rounded to bf16: the accumulator layout of columns 16k .. 16k + 15
+      // is the A-operand layout of reduction step k
+      uint32_t pf[16], dsf[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        pf[i] = hopper::pack_bf16(sc[2 * i], sc[2 * i + 1]);
+        dsf[i] = hopper::pack_bf16(dp[2 * i], dp[2 * i + 1]);
+      }
+
+      // the streamed tiles as MN-major B: 16 rows per step, 64-column
+      // blocks kStr * 128 bytes apart
+      const uint64_t mb0 = hopper::desc_sw128(slot, kStr * 128, 1024);
+      const uint64_t mb1 = hopper::desc_sw128(slot + L::kStrBytes, kStr * 128, 1024);
+      hopper::fence_regs(acc0);
+      hopper::fence_regs(acc1);
+      hopper::fence_regs(pf);
+      hopper::fence_regs(dsf);
+      hopper::wgmma_fence();
+      if constexpr (kDKV) {
+#pragma unroll
+        for (int kk = 0; kk < kStr / 16; ++kk)
+          wgmma_rs<D>(acc1, &pf[4 * kk], mb1 + ((kk * 2048) >> 4));  // dV += Pᵀ dO
+      }
+#pragma unroll
+      for (int kk = 0; kk < kStr / 16; ++kk)
+        wgmma_rs<D>(acc0, &dsf[4 * kk], mb0 + ((kk * 2048) >> 4));  // dK += dSᵀ Q; dQ += dS K
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(acc0);
+      hopper::fence_regs(acc1);
+      hopper::fence_regs(pf);
+      hopper::fence_regs(dsf);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  if (!live) return;
+  // rows 16 warp + g + 8x of the warpgroup, columns 8j + 2 c4 (+1): the
+  // accumulator layout, stored as bf16 pairs
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int row = rw + 16 * warp + g + 8 * x;
+    if (row >= s_res) continue;
+    const int64_t off = (((int64_t)bi * s_res + row) * h + hi) * D + 2 * c4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out0 + off + 8 * j) = hopper::pack_bf16(
+          acc0[4 * j + 2 * x] * scale, acc0[4 * j + 2 * x + 1] * scale);
+      if constexpr (kDKV)
+        *reinterpret_cast<uint32_t*>(out1 + off + 8 * j) =
+            hopper::pack_bf16(acc1[4 * j + 2 * x], acc1[4 * j + 2 * x + 1]);
+    }
+  }
+}
+
+// K2, bf16: dQ for one (b*h, 128-query tile).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int h, int sq, int sk,
+                       float scale, float scale_log2, int causal) {
+  bwd_tc<D, false>(&map_q, &map_do, &map_k, &map_v, lse, delta, dq, nullptr,
+                   h, sq, sk, scale, scale_log2, causal);
+}
+
+// K3, bf16: dK and dV for one (b*h, 128-key tile).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int h, int sq, int sk,
+                        float scale, float scale_log2, int causal) {
+  bwd_tc<D, true>(&map_k, &map_v, &map_q, &map_do, lse, delta, dk, dv, h, sq,
+                  sk, scale, scale_log2, causal);
+}
+
+// strides: q, k, v, dO, each (b, s, h), in elements.  The resident tensors'
+// maps take boxes of kRes rows, the streamed ones kStr.
+template <int D, bool kDKV>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* out0, void* out1, int b, int h, int sq, int sk,
+                      const int64_t* st, float scale, int causal,
+                      cudaStream_t stream) {
+  if (kDKV && sq == 0) {  // no query: dK = dV = 0
+    const size_t bytes = (size_t)b * sk * h * D * sizeof(__nv_bfloat16);
+    cudaError_t err = cudaMemsetAsync(out0, 0, bytes, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(out1, 0, bytes, stream);
+    return err;
+  }
+  const int q_rows = kDKV ? kStr : kRes;
+  const int kv_rows = kDKV ? kRes : kStr;
+  CUtensorMap mq, mk, mv, mo;
+  if (!hopper::encode_bshd_bf16(&mq, q, b, sq, h, D, st[0], st[1], st[2], q_rows) ||
+      !hopper::encode_bshd_bf16(&mk, k, b, sk, h, D, st[3], st[4], st[5], kv_rows) ||
+      !hopper::encode_bshd_bf16(&mv, v, b, sk, h, D, st[6], st[7], st[8], kv_rows) ||
+      !hopper::encode_bshd_bf16(&mo, dout, b, sq, h, D, st[9], st[10], st[11], q_rows))
+    return cudaErrorInvalidValue;
+  const int smem = TcSmem<D>::kAlloc;
+  const dim3 grid(b * h, ((kDKV ? sk : sq) + kRes - 1) / kRes);
+  const float scale_log2 = scale * kLog2e;
+  cudaError_t err;
+  if (kDKV) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+        mk, mv, mq, mo, lse, delta, static_cast<__nv_bfloat16*>(out0),
+        static_cast<__nv_bfloat16*>(out1), h, sq, sk, scale, scale_log2,
+        causal);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+        mq, mo, mk, mv, lse, delta, static_cast<__nv_bfloat16*>(out0), h, sq,
+        sk, scale, scale_log2, causal);
+  }
+  return cudaGetLastError();
+}
+
+// ===========================================================================
+// float32: CUDA cores
+// ===========================================================================
 
 constexpr int kB = 64;           // query rows and key rows per tile
 constexpr int kThreads = 256;    // 16 x 16 threads
 constexpr int kPS = kB + 4;      // row stride of the P / dS tiles
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -82,13 +476,13 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 // dst[r * (D + 4) + c] = src[(row0 + r) * ss + c] for r < 64, c < D; rows
 // at or past nrows are zero.  Consecutive threads read consecutive columns.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int64_t ss,
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src, int64_t ss,
                                       int row0, int nrows) {
   for (int e = threadIdx.x; e < kB * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int row = row0 + r;
-    dst[r * (D + 4) + c] = row < nrows ? to_float(src[row * ss + c]) : 0.f;
+    dst[r * (D + 4) + c] = row < nrows ? src[row * ss + c] : 0.f;
   }
 }
 
@@ -158,8 +552,8 @@ __device__ __forceinline__ void tile_ab(float acc[4][D / 16], const float* P,
 }
 
 // Rows ty + 16a of a [b, s, h, D] contiguous gradient, columns 64g + 4tx + c.
-template <typename T, int D>
-__device__ __forceinline__ void write_rows(T* out, float acc[4][D / 16],
+template <int D>
+__device__ __forceinline__ void write_rows(float* out, float acc[4][D / 16],
                                            int bi, int hi, int h, int s,
                                            int row0, int ty, int tx) {
   constexpr int kG = D / 64;
@@ -167,11 +561,11 @@ __device__ __forceinline__ void write_rows(T* out, float acc[4][D / 16],
   for (int a = 0; a < 4; ++a) {
     const int row = row0 + ty + 16 * a;
     if (row >= s) continue;
-    T* orow = out + ((int64_t)(bi * (int64_t)s + row) * h + hi) * D;
+    float* orow = out + ((int64_t)(bi * (int64_t)s + row) * h + hi) * D;
 #pragma unroll
     for (int g = 0; g < kG; ++g)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) store(&orow[64 * g + 4 * tx + c], acc[a][4 * g + c]);
+      for (int c = 0; c < 4; ++c) orow[64 * g + 4 * tx + c] = acc[a][4 * g + c];
   }
 }
 
@@ -191,13 +585,13 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * kB * (D + 4) + 2 * kB * kPS + 2 * kB);
 }
 
-// K2: dQ for one (b*h, 64-row query tile).
-template <typename T, int D>
+// K2, float32: dQ for one (b*h, 64-row query tile).
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int h, int sq, int sk, Strides st, float scale,
                     float scale_log2, int causal) {
   constexpr int S = D + 4;
@@ -217,13 +611,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the heaviest causal tiles (last rows) are scheduled first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;
 
-  const T* qb = q + bi * st.q_b + hi * st.q_h;
-  const T* kb = k + bi * st.k_b + hi * st.k_h;
-  const T* vb = v + bi * st.v_b + hi * st.v_h;
-  const T* ob = dout + bi * st.o_b + hi * st.o_h;
+  const float* qb = q + bi * st.q_b + hi * st.q_h;
+  const float* kb = k + bi * st.k_b + hi * st.k_h;
+  const float* vb = v + bi * st.v_b + hi * st.v_h;
+  const float* ob = dout + bi * st.o_b + hi * st.o_h;
 
-  stage<T, D>(qs, qb, st.q_s, q0, sq);
-  stage<T, D>(dos, ob, st.o_s, q0, sq);
+  stage<D>(qs, qb, st.q_s, q0, sq);
+  stage<D>(dos, ob, st.o_s, q0, sq);
 
   float lse2[4], dl[4];
 #pragma unroll
@@ -243,8 +637,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(sk, q0 + kB) : sk;
   for (int k0 = 0; k0 < k_end; k0 += kB) {
     __syncthreads();  // the previous tile's K and dS reads are done
-    stage<T, D>(ks, kb, st.k_s, k0, sk);
-    stage<T, D>(vs, vb, st.v_s, k0, sk);
+    stage<D>(ks, kb, st.k_s, k0, sk);
+    stage<D>(vs, vb, st.v_s, k0, sk);
     __syncthreads();  // Q, dO (first tile), K and V staged
 
     float s[4][4], dp[4][4];
@@ -264,17 +658,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // dS written
     tile_ab<D>(acc, dss, ks, ty, tx);
   }
-  write_rows<T, D>(dq, acc, bi, hi, h, sq, q0, ty, tx);
+  write_rows<D>(dq, acc, bi, hi, h, sq, q0, ty, tx);
 }
 
-// K3: dK and dV for one (b*h, 64-row key tile).
-template <typename T, int D>
+// K3, float32: dK and dV for one (b*h, 64-row key tile).
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int h, int sq, int sk, Strides st,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int h, int sq, int sk, Strides st,
                      float scale, float scale_log2, int causal) {
   constexpr int S = D + 4;
   extern __shared__ float4 smem4[];
@@ -296,13 +690,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the heaviest causal tiles (first keys) have the lowest index
   const int k0 = blockIdx.y * kB;
 
-  const T* qb = q + bi * st.q_b + hi * st.q_h;
-  const T* kb = k + bi * st.k_b + hi * st.k_h;
-  const T* vb = v + bi * st.v_b + hi * st.v_h;
-  const T* ob = dout + bi * st.o_b + hi * st.o_h;
+  const float* qb = q + bi * st.q_b + hi * st.q_h;
+  const float* kb = k + bi * st.k_b + hi * st.k_h;
+  const float* vb = v + bi * st.v_b + hi * st.v_h;
+  const float* ob = dout + bi * st.o_b + hi * st.o_h;
 
-  stage<T, D>(ks, kb, st.k_s, k0, sk);
-  stage<T, D>(vs, vb, st.v_s, k0, sk);
+  stage<D>(ks, kb, st.k_s, k0, sk);
+  stage<D>(vs, vb, st.v_s, k0, sk);
 
   float dka[4][D / 16], dva[4][D / 16];
 #pragma unroll
@@ -317,8 +711,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int i_begin = causal ? k0 : 0;
   for (int i0 = i_begin; i0 < sq; i0 += kB) {
     __syncthreads();  // the previous tile's Q, dO, Pᵀ and dSᵀ reads are done
-    stage<T, D>(qs, qb, st.q_s, i0, sq);
-    stage<T, D>(dos, ob, st.o_s, i0, sq);
+    stage<D>(qs, qb, st.q_s, i0, sq);
+    stage<D>(dos, ob, st.o_s, i0, sq);
     if (tid < kB) {
       const int row = i0 + tid;
       const bool ok = row < sq;
@@ -347,8 +741,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     tile_ab<D>(dva, pts, dos, ty, tx);
     tile_ab<D>(dka, dsts, qs, ty, tx);
   }
-  write_rows<T, D>(dk, dka, bi, hi, h, sk, k0, ty, tx);
-  write_rows<T, D>(dv, dva, bi, hi, h, sk, k0, ty, tx);
+  write_rows<D>(dk, dka, bi, hi, h, sk, k0, ty, tx);
+  write_rows<D>(dv, dva, bi, hi, h, sk, k0, ty, tx);
 }
 
 Strides unpack(const int64_t* s) {
@@ -356,7 +750,7 @@ Strides unpack(const int64_t* s) {
                  s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int b, int h, int sq, int sk,
@@ -364,19 +758,19 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (sq + kB - 1) / kB);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), h, sq, sk, unpack(strides), scale,
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), h, sq, sk, unpack(strides), scale,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int b, int h, int sq, int sk,
@@ -384,24 +778,27 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (sk + kB - 1) / kB);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), h, sq, sk, unpack(strides),
-      scale, scale * kLog2e, causal);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), h, sq, sk,
+      unpack(strides), scale, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: q, k, v, dO, each (b, s, h),
-// in elements (12 values, host memory).  scale is the softmax scale (not
-// yet multiplied by log2(e)).  Each entry launches on `stream` without
-// synchronising and returns cudaGetLastError() of the launch (0 on success).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; every view
+// needs a 16-byte aligned base and (b, s, h) strides that are multiples of
+// 8 elements, or the entry returns cudaErrorInvalidValue).  strides: q, k,
+// v, dO, each (b, s, h), in elements (12 values, host memory).  scale is the
+// softmax scale (not yet multiplied by log2(e)).  Each entry launches on
+// `stream` without synchronising and returns cudaGetLastError() of the
+// launch (0 on success).
 extern "C" int mxtt_flash_bwd_dq(int dtype, int d, const void* q,
                                  const void* k, const void* v,
                                  const void* dout, const float* lse,
@@ -410,13 +807,13 @@ extern "C" int mxtt_flash_bwd_dq(int dtype, int d, const void* q,
                                  float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
-    return (int)launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, strides, scale, causal, s);
+    return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, strides, scale, causal, s);
   if (dtype == 0 && d == 128)
-    return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, strides, scale, causal, s);
+    return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, strides, scale, causal, s);
   if (dtype == 1 && d == 64)
-    return (int)launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, strides, scale, causal, s);
+    return (int)launch_tc<64, false>(q, k, v, dout, lse, delta, dq, nullptr, b, h, sq, sk, strides, scale, causal, s);
   if (dtype == 1 && d == 128)
-    return (int)launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, b, h, sq, sk, strides, scale, causal, s);
+    return (int)launch_tc<128, false>(q, k, v, dout, lse, delta, dq, nullptr, b, h, sq, sk, strides, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -429,12 +826,12 @@ extern "C" int mxtt_flash_bwd_dkv(int dtype, int d, const void* q,
                                   int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
-    return (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, strides, scale, causal, s);
+    return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, strides, scale, causal, s);
   if (dtype == 0 && d == 128)
-    return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, strides, scale, causal, s);
+    return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, strides, scale, causal, s);
   if (dtype == 1 && d == 64)
-    return (int)launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, strides, scale, causal, s);
+    return (int)launch_tc<64, true>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, strides, scale, causal, s);
   if (dtype == 1 && d == 128)
-    return (int)launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, strides, scale, causal, s);
+    return (int)launch_tc<128, true>(q, k, v, dout, lse, delta, dk, dv, b, h, sq, sk, strides, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

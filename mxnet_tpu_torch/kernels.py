@@ -2,10 +2,11 @@
 
 Each source in ``csrc/`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library under ``_build/``, named by a
-hash of the source, at first use.  The library is loaded with ``ctypes``;
-pointers and the stream are passed as integers.  Nothing here runs at
-import: a machine without ``nvcc`` or a card imports the package, and only
-a launch on a CUDA tensor needs the build.
+hash of the source and of the headers beside it (``*.cuh``), at first use.
+The library is loaded with ``ctypes``; pointers and the stream are passed
+as integers.  Nothing here runs at import: a machine without ``nvcc`` or a
+card imports the package, and only a launch on a CUDA tensor needs the
+build.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made.  A wrapper
 adds one right after a launch that returned no error, and nowhere else, so a
@@ -67,8 +68,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(_CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library built from ``source``, named by a hash of the source,
+    every header under ``csrc/`` (a source may include any of them) and
+    the flags, so that an edit to any of them builds anew."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(_BUILD, "lib%s-%s.so" % (stem, digest.hexdigest()[:16]))
 

@@ -31,7 +31,7 @@ _LOG2E = 1.4426950408889634
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_BLOCK_Q = 64  # query rows per thread block (kBQ in flash_fwd.cu)
-_KERNEL_BLOCK_BWD = 64  # query and key rows per thread block (kB in flash_bwd.cu)
+_KERNEL_BLOCK_BWD = 64  # rows per float32 thread block (kB in flash_bwd.cu)
 
 
 def _causal_mask(sq, sk, device):
@@ -109,11 +109,35 @@ def _check_kernel_inputs(what, tensors):
         raise MXNetError("%s: inputs need unit stride in the head dim" % what)
 
 
+def _view_strides(t):
+    """(b, s, h) strides of a [b, s, h, d] view, in elements.  A dim of
+    size 1 is never stepped along; it gets the stride of a packed tensor,
+    whatever the view says."""
+    b, s, h, d = t.shape
+    packed = (s * h * d, h * d, d)
+    return [t.stride(i) if t.shape[i] > 1 else packed[i] for i in range(3)]
+
+
 def _strides(*tensors):
     """(b, s, h) strides of each tensor, in elements, as a host int64
     array the kernels read."""
-    return torch.tensor([t.stride(i) for t in tensors for i in range(3)],
+    return torch.tensor([x for t in tensors for x in _view_strides(t)],
                         dtype=torch.int64)
+
+
+def _check_tma_view(what, name, t):
+    """The bf16 backward kernels load ``t`` [b, s, h, d] with TMA, which
+    needs unit stride in d, a 16-byte aligned base and (b, s, h) strides in
+    whole 16-byte units.  Raise on a view that breaks that rule: nothing
+    copies it, and no other kernel stands in for it."""
+    size = t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+            any(st * size % 16 for st in _view_strides(t)):
+        raise MXNetError(
+            "%s: %s (strides %s, base address %% 16 = %d) breaks the TMA "
+            "rule of the tensor-core kernel: unit stride in d, a 16-byte "
+            "aligned base and (b, s, h) strides that are multiples of 16 "
+            "bytes" % (what, name, tuple(t.stride()), t.data_ptr() % 16))
 
 
 def _kernel_fn():
@@ -189,6 +213,9 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_kernel_inputs(name, (q, k, v, do))
+    if q.dtype == torch.bfloat16:
+        for t, what in zip((q, k, v, do), ("q", "k", "v", "do")):
+            _check_tma_view(name, what, t)
     for t, what in ((lse, "lse"), (delta, "delta")):
         if t.device != q.device or t.dtype != torch.float32 or \
                 tuple(t.shape) != (b * h, sq) or not t.is_contiguous():
@@ -216,8 +243,9 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """dQ [b, sq, h, d] from the K2 kernel (CUDA tensors only); ``delta``
-    is Δ = rowsum(dO ∘ O), float32 [b*h, sq]."""
+    """dQ [b, sq, h, d] from the K2 kernel (CUDA tensors only: the tensor
+    cores for bf16, the CUDA cores for float32); ``delta`` is
+    Δ = rowsum(dO ∘ O), float32 [b*h, sq]."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
                 scale)

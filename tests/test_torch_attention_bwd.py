@@ -101,6 +101,74 @@ def test_flash_backward_rejects_bad_shapes():
                            torch.zeros((2, 8)), q)
 
 
+def _bf16_views(layout, b, s, h, d):
+    """q, k, v as the LM hands them over (strided views of one packed
+    [b, s, 3, h, d] projection) or as three contiguous tensors."""
+    if layout == "packed":
+        qkv = torch.zeros((b, s, 3, h, d), dtype=torch.bfloat16)
+        return tuple(t.squeeze(2) for t in qkv.split(1, dim=2))
+    return tuple(torch.zeros((b, s, h, d), dtype=torch.bfloat16)
+                 for _ in range(3))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("layout", ["packed", "contiguous"])
+@pytest.mark.parametrize("b,s,h", [(2, 40, 3), (1, 17, 1)])
+def test_tma_rule_accepts_lm_views_and_contiguous(d, layout, b, s, h):
+    for name, t in zip("qkv", _bf16_views(layout, b, s, h, d)):
+        att._check_tma_view("flash_bwd_dq", name, t)
+    st = att._strides(*_bf16_views(layout, b, s, h, d))
+    assert st.dtype == torch.int64 and st.numel() == 9
+    assert all(int(x) * 2 % 16 == 0 for x in st)
+
+
+def test_tma_rule_ignores_strides_of_size_one_dims():
+    """A dim of size 1 is never stepped along, so its stride (0 for an
+    expanded batch, anything for ``as_strided``) is replaced by a packed
+    one: the view is accepted and the kernels get strides TMA takes."""
+    s, d = 24, 64
+    base = torch.zeros((s, d), dtype=torch.bfloat16)
+    views = (base[None, :, None, :].expand(1, s, 1, d),
+             base.as_strided((1, s, 1, d), (7, d, 3, 1)))
+    for t in views:
+        att._check_tma_view("flash_bwd_dq", "q", t)
+        assert [int(x) for x in att._strides(t)] == [s * d, d, d]
+
+
+def _misaligned(kind, b=2, s=24, h=2, d=64):
+    if kind == "base":  # one element past an aligned allocation
+        flat = torch.zeros(b * s * h * d + 1, dtype=torch.bfloat16)
+        return flat[1:].view(b, s, h, d)
+    if kind == "head stride":  # heads 68 elements (136 bytes) apart
+        return torch.zeros((b, s, h, d + 4), dtype=torch.bfloat16)[..., :d]
+    if kind == "seq stride":  # rows 3 * 64 + 4 elements apart
+        return torch.zeros((b, s, 3 * d + 4), dtype=torch.bfloat16)[
+            ..., :h * d].view(b, s, h, d)
+    return torch.zeros((b, s, h, 2 * d), dtype=torch.bfloat16)[..., ::2]
+
+
+@pytest.mark.parametrize("kind", ["base", "head stride", "seq stride",
+                                  "d stride"])
+def test_tma_rule_rejects_misaligned_views(kind):
+    t = _misaligned(kind)
+    with pytest.raises(mt.MXNetError, match="TMA|unit stride"):
+        att._check_tma_view("flash_bwd_dkv", "k", t)
+
+
+def test_bf16_kernel_wrapper_refuses_misaligned_view_before_launch():
+    """The wrappers check the rule before they touch the kernel library,
+    and do not copy the view or fall back to the plain version."""
+    q, k, v = _bf16_views("packed", 2, 24, 2, 64)
+    do = torch.zeros_like(q)
+    lse = torch.zeros((4, 24))
+    delta = torch.zeros((4, 24))
+    before = dict(mt.kernels.LAUNCHES)
+    for fn in (att.flash_bwd_dq, att.flash_bwd_dkv):
+        with pytest.raises(mt.MXNetError, match="TMA"):
+            fn(q, _misaligned("base"), v, do, lse, delta, True, 0.125)
+    assert mt.kernels.LAUNCHES == before
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_op_gradients_match_jax_op(causal):
     """``_contrib_FlashAttention``'s gradient through both registries:
