@@ -3,36 +3,40 @@
 
     python3 chip_smoke.py                  # from the repository root
     python3 chip_smoke.py --profile DIR    # also trace one extra request,
-                                           # one extra train step and one
-                                           # extra rtc_gelu train step
+                                           # one extra train step (its K1
+                                           # must be the tensor-core
+                                           # kernel) and one extra
+                                           # rtc_gelu train step
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build   — compile every CUDA kernel of the ported paths from
              ``mxnet_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
              source, all started together; print ptxas's registers, shared
-             memory and spills, and the count of ``HGMMA`` (wgmma)
-             instructions in each backward kernel from ``cuobjdump -sass``
-             (a bf16 backward kernel without any is fatal: it would not run
-             on the tensor cores); load NVRTC (a missing libnvrtc is fatal)
-             and print its version;
+             memory and spills (a spill is fatal), and the count of
+             ``HGMMA`` (wgmma) instructions in each attention kernel from
+             ``cuobjdump -sass`` (a bf16 kernel, forward or backward,
+             without any is fatal: it would not run on the tensor cores);
+             load NVRTC (a missing libnvrtc is fatal) and print its
+             version;
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at several shapes and both dtypes, the main paths' own shapes
              included: K1 (flash forward) on O and lse, K2/K3 (flash
              backward) on dQ, dK and dV, with bf16 cases for the tensor-core
              tiling (ragged, sq != sk, causal and full, packed and
              contiguous views, d=64 at the main length); repeated bf16
-             backward launches at the main shape must give the same bits,
-             and a view that breaks the TMA rule must raise ``MXNetError``;
-             time kernels (K2/K3 also at d=64), plain versions and the
-             library calls
+             launches of K1 and of K2/K3 at the main shape must give the
+             same bits, and a view that breaks the TMA rule must raise
+             ``MXNetError`` in the forward and the backward; time kernels
+             (also at d=64), plain versions and the library calls
              (``scaled_dot_product_attention`` forward and backward, timed
              only as yardsticks).  Then the user kernels of
              ``mxnet_tpu_torch/rtc_kernels.py``, compiled by ``MXRtc`` with
              NVRTC: axpy (2-D launch), sgd_update, gelu_fwd and gelu_bwd
-             (float32 and bf16) at ragged and full-width shapes, timed
-             beside their bytes bound, the plain versions and the library
-             calls (``F.gelu`` and its backward, ``torch.add``);
+             (float32 and bf16) at ragged and full-width shapes, gelu_fwd
+             also on an odd length and a misaligned view, timed beside
+             their bytes bound, the plain versions and the library calls
+             (``F.gelu`` and its backward, ``torch.add``);
 3. serve   — save a full-width transformer LM checkpoint (vocab 32000,
              6 x 2048, 16 heads, seq 4096, batch 4, float32; random weights
              from a seed), load it with ``Predictor.from_checkpoint`` on the
@@ -66,6 +70,7 @@ and power limit from nvidia-smi; the last line is
 import argparse
 import json
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -204,7 +209,8 @@ def kernel_phase(torch, att, device):
         ("bf16 full sq<sk d64", 2, 192, 320, 4, 64, False, bf16),
         ("bf16 causal sq>sk d128 ragged", 2, 333, 200, 4, 128, True, bf16),
         # the tensor-core kernels' tiling: 128 resident rows per block (two
-        # warpgroups of 64), 64 streamed rows per tile
+        # warpgroups of 64), streamed tiles of 128 keys (K1) or 64 rows
+        # (K2/K3)
         ("bf16 causal d64 tiny ragged", 1, 17, 17, 2, 64, True, bf16),
         ("bf16 full d64 tiny ragged", 1, 17, 17, 2, 64, False, bf16),
         ("bf16 causal d128 ragged", 2, 333, 333, 4, 128, True, bf16),
@@ -264,7 +270,7 @@ def kernel_phase(torch, att, device):
                                scale=scale, err_o=err_o, errs=errs)
         if "main length" in name:
             del grads, refs
-            time_backward_pair(torch, att, name, q, k, v, o, lse, do, scale)
+            time_main_length(torch, att, name, q, k, v, o, lse, do, scale)
             continue
         del grads, refs
     torch.cuda.empty_cache()
@@ -279,14 +285,14 @@ def kernel_phase(torch, att, device):
                                                       "lse", "do", "scale"))
         size = torch.tensor([], dtype=dtype).element_size()
         t = {}
-        t["fwd"] = cuda_ms(lambda: att.flash_forward(q, k, v, True, scale), 5)
+        t["fwd"] = cuda_ms(lambda: att.flash_forward(q, k, v, True, scale), 20)
         t["fwd_plain"] = cuda_ms(
             lambda: att.attention_reference(q, k, v, True, scale), 2)
         torch.cuda.empty_cache()
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
                       for x in (q, k, v))
         t["fwd_lib"] = cuda_ms(
-            lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale), 5)
+            lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale), 20)
         out = sdpa(qt, kt, vt, is_causal=True, scale=scale)
         dot = do.transpose(1, 2)
         t["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
@@ -318,11 +324,13 @@ def kernel_phase(torch, att, device):
                  pair / t["bwd_lib"]), flush=True)
         timings[dtype] = t
         print("kernel timing %s b=%d s=%d h=%d d=%d causal: K1 %.4f ms (plain "
-              "%.4f, sdpa fwd %.4f, bound %.4f by %s, %.2f TFLOP/s); K2 %.4f "
+              "%.4f, sdpa fwd %.4f, %.2fx it, bound %.4f by %s, %.2f TFLOP/s "
+              "on the 4·d count); K2 %.4f "
               "ms (bound %.4f by %s); K3 %.4f ms (bound %.4f by %s); K2+K3 "
               "%.4f ms, flash_backward with Δ %.4f ms (bound %.4f by %s, "
               "%.2f TFLOP/s), plain %.4f ms, sdpa bwd %.4f ms"
               % (tag, b, sq, h, d, t["fwd"], t["fwd_plain"], t["fwd_lib"],
+                 t["fwd"] / t["fwd_lib"],
                  t["fwd_bound"][0], t["fwd_bound"][1], t["fwd_tflops"],
                  t["bwd_dq"], t["bwd_dq_bound"][0], t["bwd_dq_bound"][1],
                  t["bwd_dkv"], t["bwd_dkv_bound"][0], t["bwd_dkv_bound"][1],
@@ -360,20 +368,30 @@ def kernel_phase(torch, att, device):
     ]
 
 
-def time_backward_pair(torch, att, name, q, k, v, o, lse, do, scale):
-    """K2 and K3 (causal) beside SDPA's backward at one more shape."""
+def time_main_length(torch, att, name, q, k, v, o, lse, do, scale):
+    """K1 beside SDPA's forward, and K2 and K3 beside SDPA's backward
+    (causal), at one more shape."""
+    b, sq, h, d = q.shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
+    fwd_ms = cuda_ms(lambda: att.flash_forward(q, k, v, True, scale), 20)
+    fwd_lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale),
+                      20)
+    ops4 = attention_work("fwd", b, sq, k.shape[1], h, d, True, 2)[0]
+    print("kernel timing [%s]: K1 %.4f ms (%.2f TFLOP/s on the 4·d count), "
+          "sdpa fwd %.4f ms (%.2fx)" % (name, fwd_ms,
+                                        ops4 / (fwd_ms * 1e-3) / 1e12,
+                                        fwd_lib, fwd_ms / fwd_lib),
+          flush=True)
     delta = att._row_delta(o, do).contiguous()
     dq_ms = cuda_ms(lambda: att.flash_bwd_dq(q, k, v, do, lse, delta, True,
                                              scale), 5)
     dkv_ms = cuda_ms(lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                True, scale), 5)
-    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
-                  for x in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=scale)
+    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+    out = sdpa(qt, kt, vt, is_causal=True, scale=scale)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5)
-    b, sq, h, d = q.shape
     ops14 = sum(attention_work(kind, b, sq, k.shape[1], h, d, True, 2)[0]
                 for kind in ("bwd_dq", "bwd_dkv"))
     print("kernel timing [%s]: K2 %.4f ms, K3 %.4f ms, K2+K3 %.4f ms (%.2f "
@@ -384,13 +402,22 @@ def time_backward_pair(torch, att, name, q, k, v, o, lse, do, scale):
 
 
 def bf16_contract(torch, att, m):
-    """The bf16 backward at the main shape: two launches of each kernel
+    """The bf16 kernels at the main shape: two launches of each kernel
     give the same bits (no atomics), and a view that breaks the TMA rule
-    raises ``MXNetError`` without a launch (no copy, no fallback)."""
+    raises ``MXNetError`` without a launch (no copy, no fallback), in the
+    forward and in the backward."""
     from mxnet_tpu_torch import MXNetError, kernels
 
     q, k, v, o, lse, do, scale = (m[x] for x in ("q", "k", "v", "o", "lse",
                                                   "do", "scale"))
+    runs = [att.flash_forward(q, k, v, True, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)] + \
+        [torch.equal(runs[0][0], o)]
+    print("kernel flash_fwd bf16 main-path shape, two launches of K1 (and the "
+          "kernel phase's): o, lse (, o) bitwise equal %s" % same, flush=True)
+    check(all(same), "repeated bf16 forward launches differ")
+    del runs
     delta = att._row_delta(o, do).contiguous()
     runs = [(att.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),)
             + att.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
@@ -403,38 +430,45 @@ def bf16_contract(torch, att, m):
     del runs
     flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
     shifted = flat[1:].view(q.shape)  # base 2 bytes past a 16-byte boundary
-    before = dict(kernels.LAUNCHES)
-    try:
-        att.flash_backward(shifted, k, v, o, lse, do, True, scale)
-        raised = ""
-    except MXNetError as e:
-        raised = str(e)
-    print("kernel flash_bwd bf16 with a misaligned q view raises: %s"
-          % raised[:160], flush=True)
-    check("TMA" in raised and kernels.LAUNCHES == before,
-          "a misaligned bf16 view did not raise before any launch")
+    for what, call in (
+            ("flash_fwd", lambda: att.flash_forward(shifted, k, v, True,
+                                                    scale)),
+            ("flash_bwd", lambda: att.flash_backward(shifted, k, v, o, lse,
+                                                     do, True, scale))):
+        before = dict(kernels.LAUNCHES)
+        try:
+            call()
+            raised = ""
+        except MXNetError as e:
+            raised = str(e)
+        print("kernel %s bf16 with a misaligned q view raises: %s"
+              % (what, raised[:160]), flush=True)
+        check("TMA" in raised and kernels.LAUNCHES == before,
+              "a misaligned bf16 view did not raise before any %s launch"
+              % what)
 
 
 def sass_hgmma(kernels):
-    """HGMMA (wgmma) instructions per backward kernel in the built
-    library, from ``cuobjdump -sass``: {(kernel, d): count}."""
-    import re
+    """HGMMA (wgmma) instructions per attention kernel in the built
+    libraries, from ``cuobjdump -sass``: {(kernel, d): count}."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", kernels._lib_path("flash_bwd.cu")],
-                          capture_output=True, text=True, check=True).stdout
     counts, key = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            found = re.search(r"(flash_bwd_(?:dq|dkv)(?:_tc)?_kernel)ILi(\d+)E",
-                              line)
-            key = (found.group(1), int(found.group(2))) if found else None
-            if key:
-                counts[key] = 0
-        elif key and "HGMMA" in line:
-            counts[key] += 1
+    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+        sass = subprocess.run([tool, "-sass", kernels._lib_path(source)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for line in sass.splitlines():
+            if "Function :" in line:
+                found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?"
+                                  r"_kernel)ILi(\d+)E", line)
+                key = (found.group(1), int(found.group(2))) if found else None
+                if key:
+                    counts[key] = 0
+            elif key and "HGMMA" in line:
+                counts[key] += 1
     return counts
 
 
@@ -516,6 +550,18 @@ def rtc_kernel_phase(torch, mt, device):
             if shape == WIDE and dtype == bf16:
                 err[name] = (d, (a.float() - b.float()).abs().max().item())
         del x, dy, got, ref
+    # gelu_fwd where its 16-byte vector loop does not reach: an odd length
+    # (the scalar tail) and a contiguous view 2 bytes past a 16-byte
+    # boundary (every element by the scalar loop)
+    flat = randn((WIDE[0] * WIDE[1] + 1,), 3.0, bf16)
+    for what, x in (("odd length", flat), ("misaligned view", flat[1:])):
+        d = ulps(torch, rk.gelu_forward(x), rk.gelu_plain(x))
+        print("kernel rtc:gelu_fwd bf16 %s (%d elements, base %% 16 = %d): %d "
+              "ulps (tolerance 1 ulp)" % (what, x.numel(), x.data_ptr() % 16,
+                                          d), flush=True)
+        check(d <= 1, "rtc:gelu_fwd disagrees with its plain version on the "
+              "%s" % what)
+    del flat, x
     torch.cuda.empty_cache()
 
     # each route refuses the other device, and NVRTC's log reaches the user
@@ -553,17 +599,10 @@ def rtc_kernel_phase(torch, mt, device):
                      cuda_ms(lambda: rk.gelu_grad_plain(x, dy), 10),
                      cuda_ms(lambda: gelu_bwd_lib(dy, x), 10),
                      elementwise_bound(torch, n, 6, 12, f32))
-    # what holds gelu back, printed only: float32 data (4-byte loads), and
-    # a grid-stride launch of a few blocks per SM instead of one element a
-    # thread
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    for k in (4, 16):
-        y = torch.empty_like(x)
-        ms = cuda_ms(lambda: rk._push("gelu_fwd", [x], [y], (sms * k,),
-                                      (256,)), 10)
-        print("kernel timing rtc:gelu_fwd %s bf16 grid-stride over %d blocks "
-              "of 256: %.4f ms" % (WIDE, sms * k, ms), flush=True)
-    del x, dy, y
+    print("kernel rtc:gelu_fwd %s bf16 launch dims (grid, block) %s on %d "
+          "SMs" % (WIDE, rk.gelu_dims(n, 2, sms), sms), flush=True)
+    del x, dy
     x, dy = randn(WIDE, 3.0), randn(WIDE)
     print("kernel timing rtc:gelu_fwd/bwd %s f32: %.4f / %.4f ms (bounds "
           "%.4f / %.4f by bytes; F.gelu %.4f ms)" % (
@@ -1225,7 +1264,7 @@ def profile(torch, fn, outdir, label):
     """Run ``fn`` once under torch.profiler: device time by kernel name
     (table in DIR/<label>.txt, timeline in DIR/<label>.json; the groups
     printed) and the device's idle share between the first and the last
-    device op."""
+    device op.  Returns the device ops' names by group."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     os.makedirs(outdir, exist_ok=True)
@@ -1245,17 +1284,19 @@ def profile(torch, fn, outdir, label):
     span = max(e["ts"] + e["dur"] for e in events) - \
         min(e["ts"] for e in events)
     busy = sum(e["dur"] for e in events)
-    groups = {}
+    groups, names = {}, {}
     for e in events:
         group = device_op_group(e)
         ms, n = groups.get(group, (0.0, 0))
         groups[group] = (ms + e["dur"] / 1e3, n + 1)
+        names.setdefault(group, set()).add(e["name"])
     for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print("profile %s: %-26s %10.3f ms %7.2f%% %5d ops"
               % (label, group, ms, 100 * ms * 1e3 / busy, n), flush=True)
     print("profile %s: %d device ops, busy %.1f us of a %.1f us span: idle "
           "share %.4f" % (label, len(events), busy, span, 1 - busy / span),
           flush=True)
+    return names
 
 
 def main():
@@ -1288,11 +1329,16 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line or \
                     "Compiling entry" in line or "setmaxnreg" in line:
                 print("  ptxas %s: %s" % (source, line.strip()), flush=True)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                               r"loads", line)
+            check(not spills or spills.groups() == ("0", "0"),
+                  "a kernel of %s spills registers: %s" % (source, line))
     hgmma = sass_hgmma(mt.kernels)
-    print("build: HGMMA instructions per backward kernel (cuobjdump -sass): "
+    print("build: HGMMA instructions per attention kernel (cuobjdump -sass): "
           "%s" % ", ".join("%s<%d> %d" % (k + (n,))
                            for k, n in sorted(hgmma.items())), flush=True)
-    for kernel in ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+    for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                   "flash_bwd_dkv_tc_kernel"):
         for d in (64, 128):
             check(hgmma.get((kernel, d), 0) > 0, "%s<%d> (bf16) has no HGMMA "
                   "instruction: it does not run on the tensor cores"
@@ -1315,7 +1361,11 @@ def main():
         def step():
             mod.forward_backward(batch)
             mod.update()
-        profile(torch, step, opts.profile, "train_step")
+        k1 = sorted(profile(torch, step, opts.profile,
+                            "train_step").get("K1 flash_fwd", ()))
+        print("profile train_step: K1 kernels %s" % k1, flush=True)
+        check(k1 and all("flash_fwd_tc_kernel<128>" in n for n in k1),
+              "the bf16 train step's K1 is not flash_fwd_tc_kernel<128>")
     del pred, mod, batch
     torch.cuda.empty_cache()
     ext_launches, sgd_row = extend_phase(torch, mt, losses, step_ms,

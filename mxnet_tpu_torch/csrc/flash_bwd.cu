@@ -117,16 +117,6 @@ struct TcSmem {
   static constexpr int kAlloc = kBytes + 1024;
 };
 
-// acc (+)= A * B for one 16-deep step: m64n64 or m64n128 with A in registers.
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&acc)[D / 2], const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 128)
-    hopper::wgmma_rs_n128(acc, a, db);
-  else
-    hopper::wgmma_rs_n64(acc, a, db);
-}
-
 // The body of both kernels.  Resident tensors r0, r1 (kRes rows of the
 // block, loaded once) and streamed tensors t0, t1 (kStr rows per tile):
 //   K3 (kDKV): r0 = K, r1 = V, t0 = Q, t1 = dO; out0 = dK, out1 = dV
@@ -351,11 +341,11 @@ __device__ __forceinline__ void bwd_tc(
       if constexpr (kDKV) {
 #pragma unroll
         for (int kk = 0; kk < kStr / 16; ++kk)
-          wgmma_rs<D>(acc1, &pf[4 * kk], mb1 + ((kk * 2048) >> 4));  // dV += Pᵀ dO
+          hopper::wgmma_rs<D>(acc1, &pf[4 * kk], mb1 + ((kk * 2048) >> 4));  // dV += Pᵀ dO
       }
 #pragma unroll
       for (int kk = 0; kk < kStr / 16; ++kk)
-        wgmma_rs<D>(acc0, &dsf[4 * kk], mb0 + ((kk * 2048) >> 4));  // dK += dSᵀ Q; dQ += dS K
+        hopper::wgmma_rs<D>(acc0, &dsf[4 * kk], mb0 + ((kk * 2048) >> 4));  // dK += dSᵀ Q; dQ += dS K
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(acc0);

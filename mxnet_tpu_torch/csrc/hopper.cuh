@@ -168,6 +168,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// 2^x by the SFU alone (ex2.approx.ftz: about 2 ulp, subnormal results
+// flushed to 0, 2^-inf = 0).  exp2f adds a range fix-up around the same
+// instruction for subnormal results, which a softmax of bf16 data can drop.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two floats to one register of two bf16 (lo in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
@@ -195,6 +204,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "}\n"
       : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16),
         HOPPER_ACC8(d, 24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same with N = 128 (B is 128 x 16).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16),
+        HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40),
+        HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -238,6 +267,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
 }
 
 #undef HOPPER_ACC8
+
+// acc (+)= A * B for one 16-deep step with A in registers, N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[N / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 128)
+    wgmma_rs_n128(acc, a, db);
+  else
+    wgmma_rs_n64(acc, a, db);
+}
 
 // ---- register reallocation between warpgroups ----------------------------
 

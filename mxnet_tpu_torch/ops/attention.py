@@ -2,6 +2,13 @@
 hand-written CUDA kernels, counterpart of ``mxnet_tpu/ops/attention.py``:
 ``csrc/flash_fwd.cu`` replaces its Pallas ``_fwd_kernel``,
 ``csrc/flash_bwd.cu`` its ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
+Each dtype has its own kernels: bfloat16 (the training path) runs
+``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel`` and
+``flash_bwd_dkv_tc_kernel`` on the tensor cores (``wgmma`` fed by TMA,
+128 rows per block), so its q, k, v and dO must pass ``_check_tma_view``;
+float32 (the serving path) runs ``flash_fwd_kernel``,
+``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` on the CUDA cores
+(64 rows per block).
 
 ``flash_forward`` and ``flash_backward`` are the kernels' wrappers.  On a
 CUDA tensor they launch the kernels or raise; they take the plain versions,
@@ -30,7 +37,9 @@ _NEG = -1e30
 _LOG2E = 1.4426950408889634
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_BLOCK_Q = 64  # query rows per thread block (kBQ in flash_fwd.cu)
+#: query rows per block of the forward kernel each dtype runs (flash_fwd.cu:
+#: kBQ of the CUDA-core kernel, kRes of the tensor-core one)
+_FWD_BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}
 _KERNEL_BLOCK_BWD = 64  # rows per float32 thread block (kB in flash_bwd.cu)
 
 
@@ -126,7 +135,7 @@ def _strides(*tensors):
 
 
 def _check_tma_view(what, name, t):
-    """The bf16 backward kernels load ``t`` [b, s, h, d] with TMA, which
+    """The bf16 kernels load ``t`` [b, s, h, d] with TMA, which
     needs unit stride in d, a 16-byte aligned base and (b, s, h) strides in
     whole 16-byte units.  Raise on a view that breaks that rule: nothing
     copies it, and no other kernel stands in for it."""
@@ -151,13 +160,24 @@ def _kernel_fn():
     return fn
 
 
+def _check_forward_launch(q, k, v):
+    """What the forward kernel of q's dtype takes, checked before any
+    launch: the inputs' contract, one grid row per block of query rows,
+    and for bf16 the TMA rule on q, k and v."""
+    _check_kernel_inputs("flash_forward", (q, k, v))
+    sq = q.shape[1]
+    if -(-sq // _FWD_BLOCK_Q[q.dtype]) > 65535:
+        raise MXNetError("flash_forward: sequence of %d query rows exceeds "
+                         "the kernel's grid" % sq)
+    if q.dtype == torch.bfloat16:
+        for t, name in zip((q, k, v), "qkv"):
+            _check_tma_view("flash_forward", name, t)
+
+
 def _flash_forward_cuda(q, k, v, causal: bool, scale: float):
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    _check_kernel_inputs("flash_forward", (q, k, v))
-    if (sq + _KERNEL_BLOCK_Q - 1) // _KERNEL_BLOCK_Q > 65535:
-        raise MXNetError("flash_forward: sequence of %d query rows exceeds "
-                         "the kernel's grid" % sq)
+    _check_forward_launch(q, k, v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:

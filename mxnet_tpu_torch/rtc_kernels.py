@@ -17,6 +17,9 @@ elementwise pass, bound by the bytes it moves.
 - ``gelu_fwd``/``gelu_bwd``: the exact erf GELU, 0.5·x·(1 + erf(x/√2)) as
   ``jax.nn.gelu(approximate=False)``, and its derivative
   Φ(x) + x·φ(x), float32 or bfloat16 in and out, arithmetic in float32.
+  ``gelu_fwd`` reads and writes 16-byte vectors in a grid-stride loop over
+  the blocks that ``gelu_dims`` names; a scalar loop in the same launch
+  takes the tail and any view not 16-byte aligned.
   ``register_rtc_gelu`` makes them the op ``rtc_gelu`` through
   ``register_kernel_op``, with ``gelu_bwd`` as its gradient, and
   ``with_rtc_gelu`` swaps ``gelu`` nodes of a symbol for it.
@@ -37,7 +40,7 @@ from .rtc import MXRtc
 
 __all__ = ["AXPY_CUDA", "AXPY_PYTHON", "SGD_CUDA", "SGD_PYTHON",
            "GELU_FWD_CUDA", "GELU_FWD_PYTHON", "GELU_BWD_CUDA",
-           "GELU_BWD_PYTHON", "axpy", "axpy_dims", "axpy_plain",
+           "GELU_BWD_PYTHON", "axpy", "axpy_dims", "axpy_plain", "gelu_dims",
            "sgd_hyper", "sgd_update", "gelu_forward", "gelu_backward",
            "gelu_plain", "gelu_grad_plain", "register_rtc_gelu",
            "with_rtc_gelu"]
@@ -77,8 +80,28 @@ def sgd_update(w_ref, g_ref, hp_ref, w_out_ref):
 """
 
 GELU_FWD_CUDA = r"""
-for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-     i < y_size; i += (long long)gridDim.x * blockDim.x) {
+// grid-stride over 16-byte vectors (8 bf16 or 4 float) while x and y are
+// both 16-byte aligned; the scalar loop takes the tail, or every element
+// when either is not
+constexpr int W = 16 / sizeof(x[0]);
+const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+const long long stride = (long long)gridDim.x * blockDim.x;
+const bool aligned = ((reinterpret_cast<unsigned long long>(x) |
+                       reinterpret_cast<unsigned long long>(y)) & 15) == 0;
+const long long n_vec = aligned ? y_size / W : 0;
+for (long long i = first; i < n_vec; i += stride) {
+  const uint4 in = reinterpret_cast<const uint4*>(x)[i];
+  uint4 out;
+  const auto* xs = reinterpret_cast<decltype(&x[0])>(&in);
+  auto* ys = reinterpret_cast<decltype(&y[0])>(&out);
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    const float v = static_cast<float>(xs[e]);
+    ys[e] = v * 0.5f * (1.0f + erff(v * 0.70710678118654752440f));
+  }
+  reinterpret_cast<uint4*>(y)[i] = out;
+}
+for (long long i = n_vec * W + first; i < y_size; i += stride) {
   const float v = static_cast<float>(x[i]);
   y[i] = v * 0.5f * (1.0f + erff(v * 0.70710678118654752440f));
 }
@@ -166,6 +189,23 @@ def axpy_plain(x, y):
     return 2.0 * x + y
 
 
+#: blocks of 256 threads per SM in the gelu_fwd launch: several rounds of
+#: the blocks an SM holds at once, so that the last, partial round is a
+#: small share of the pass (a launch of one round ends with SMs that wait
+#: for the slowest block)
+GELU_BLOCKS_PER_SM = 32
+
+
+def gelu_dims(n, itemsize, sms):
+    """(grid, block) of the gelu_fwd launch over ``n`` elements of
+    ``itemsize`` bytes on a card with ``sms`` SMs: 256-thread blocks, one
+    16-byte vector a thread per pass, as many blocks as cover ``n`` up to
+    ``GELU_BLOCKS_PER_SM`` per SM (the grid-stride loop takes the rest)."""
+    per_block = 256 * (16 // itemsize)
+    blocks = max(1, min(-(-n // per_block), GELU_BLOCKS_PER_SM * sms))
+    return (blocks, 1, 1), (256, 1, 1)
+
+
 # -- sgd_update ---------------------------------------------------------------
 
 def sgd_hyper(lr, rescale_grad=1.0, wd=0.0, device="cpu") -> torch.Tensor:
@@ -201,11 +241,19 @@ def gelu_grad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return (dy.float() * (cdf + v * pdf)).to(x.dtype)
 
 
+def _sm_count(device) -> int:
+    """SMs of a CUDA device; 1 elsewhere (the CPU route ignores dims)."""
+    if device.type != "cuda":
+        return 1
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gelu_forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "meta":
         return torch.empty_like(x)
     x = x.contiguous()
-    return _push("gelu_fwd", [x], [torch.empty_like(x)])[0]
+    grid, block = gelu_dims(x.numel(), x.element_size(), _sm_count(x.device))
+    return _push("gelu_fwd", [x], [torch.empty_like(x)], grid, block)[0]
 
 
 def gelu_backward(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

@@ -139,3 +139,75 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(mt.MXNetError, match="nvcc"):
         kernels.library("flash_fwd")
     assert kernels.LAUNCHES["flash_fwd"] == before
+
+
+@pytest.mark.parametrize("causal,sq,sk", [
+    (True, 128, 128),
+    (False, 128, 128),
+    (True, 64, 128),
+])
+def test_bf16_flash_forward_matches_pallas_bf16(causal, sq, sk):
+    """bf16 in, as the train step runs: the port's plain route against the
+    Pallas forward run in bf16 (interpret mode, blocks of 64).  Both take
+    the products from bf16 operands with float32 sums; the Pallas kernel
+    rounds P to bf16 before P·V where the plain version keeps it in
+    float32, so O agrees within 2e-2 abs (one bf16 rounding of O and of
+    P); lse, summed over float32 P in both, within 1e-3."""
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(2, sq, sk, 2, 64, seed=sq + sk + int(causal) + 7)
+    scale = 1.0 / np.sqrt(64)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    jo, jlse = _flash_forward(*(jnp.asarray(t.float().numpy(),
+                                            dtype=jnp.bfloat16)
+                                for t in (tq, tk, tv)),
+                              causal, scale, 64, 64, True)
+    o, lse = att.flash_forward(tq, tk, tv, causal, scale)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert jo.dtype == jnp.bfloat16 and o.shape == jo.shape
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(jo, dtype=np.float32), rtol=0,
+                               atol=2e-2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-3)
+
+
+def _long(dtype, sq, d=64):
+    """q, k, v of ``sq`` rows that take no memory: one row expanded."""
+    row = torch.zeros((1, 1, 1, d), dtype=dtype)
+    return (row.expand(1, sq, 1, d),) * 3
+
+
+def test_forward_launch_rows_per_block_and_grid_limit():
+    """The forward kernel takes 64 query rows per block in float32 (CUDA
+    cores) and 128 in bf16 (two warpgroups of the tensor-core kernel); a
+    sequence that needs more than 65535 blocks raises before any launch."""
+    assert att._FWD_BLOCK_Q == {torch.float32: 64, torch.bfloat16: 128}
+    att._check_forward_launch(*_long(torch.float32, 65535 * 64))
+    with pytest.raises(mt.MXNetError, match="grid"):
+        att._check_forward_launch(*_long(torch.float32, 65535 * 64 + 1))
+    att._check_forward_launch(*_long(torch.bfloat16, 65535 * 64 + 1))
+    att._check_forward_launch(*_long(torch.bfloat16, 65535 * 128))
+    with pytest.raises(mt.MXNetError, match="grid"):
+        att._check_forward_launch(*_long(torch.bfloat16, 65535 * 128 + 1))
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_forward_launch_refuses_bf16_view_off_a_16_byte_boundary(which):
+    """The bf16 forward reads q, k and v with TMA: a view 2 bytes past a
+    16-byte boundary raises in the wrapper, before it touches the kernel
+    library, with no copy and no other kernel.  float32 runs the CUDA-core
+    kernel, which reads any view with unit stride in d."""
+    b, s, h, d = 2, 24, 2, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = [torch.zeros((b, s, h, d), dtype=dtype) for _ in range(3)]
+        flat = torch.zeros(b * s * h * d + 1, dtype=dtype)
+        qkv[which] = flat[1:].view(b, s, h, d)
+        assert qkv[which].data_ptr() % 16 == flat.element_size()
+        if dtype == torch.float32:
+            att._check_forward_launch(*qkv)
+            continue
+        before = dict(mt.kernels.LAUNCHES)
+        with pytest.raises(mt.MXNetError, match="TMA"):
+            att._flash_forward_cuda(*qkv, True, 0.125)
+        assert mt.kernels.LAUNCHES == before

@@ -266,3 +266,47 @@ def test_user_kernels_count_no_launch_on_the_cpu():
     assert mt.kernels.LAUNCHES["rtc:probe"] == 1
     mt.kernels.reset_launches()
     assert mt.kernels.LAUNCHES["rtc:probe"] == 0
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n", [0, 1, 7, 2048, 2049, 16384 * 8192,
+                               16384 * 8192 + 1])
+def test_gelu_dims_cover_n_at_the_vector_width(n, itemsize):
+    """256-thread blocks, one 16-byte vector (8 bf16, 4 float) a thread
+    per pass: a short input gets just the blocks that cover it in one
+    pass, a long one ``GELU_BLOCKS_PER_SM`` blocks per SM that the
+    grid-stride loop walks over it."""
+    sms = 132
+    grid, block = rk.gelu_dims(n, itemsize, sms)
+    assert block == (256, 1, 1) and grid[1:] == (1, 1)
+    per_pass = grid[0] * 256 * (16 // itemsize)
+    cap = rk.GELU_BLOCKS_PER_SM * sms
+    assert 1 <= grid[0] <= cap
+    if grid[0] < cap:
+        assert per_pass >= n and (grid[0] - 1) * 256 * (16 // itemsize) < max(n, 1)
+    else:
+        assert n > (cap - 1) * 256 * (16 // itemsize)
+    assert launch_dims(n, *rk.gelu_dims(n, itemsize, sms)) == (grid, block)
+
+
+def test_gelu_forward_cpu_route_on_odd_and_misaligned_views():
+    """The edges the card's vector loop leaves to its scalar loop: an odd
+    length and a contiguous view 2 (bf16) or 4 (float32) bytes past a
+    16-byte boundary.  The CPU route gives ``gelu_plain``'s bits and the
+    JAX package's exact gelu within 1e-6 of the largest value."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(4)
+    flat = torch.tensor((rng.randn(1001) * 3).astype(np.float32))
+    for x in (flat, flat[1:], flat[1:].view(40, 25)):
+        for t in (x, x.to(torch.bfloat16)):
+            y = rk.gelu_forward(t)
+            assert y.dtype == t.dtype and y.shape == t.shape
+            assert torch.equal(y, rk.gelu_plain(t))
+        ref = np.asarray(jax.nn.gelu(jnp.asarray(x.numpy()),
+                                     approximate=False))
+        got = rk.gelu_forward(x).numpy()
+        assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+    assert flat[1:].data_ptr() % 16 == 4
+    assert flat.to(torch.bfloat16)[1:].data_ptr() % 16 == 2
