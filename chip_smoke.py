@@ -5,8 +5,9 @@
     python3 chip_smoke.py --profile DIR    # also trace one extra request,
                                            # one extra train step (its K1
                                            # must be the tensor-core
-                                           # kernel) and one extra
-                                           # rtc_gelu train step
+                                           # kernel), one extra splash step
+                                           # (its K1 the split-P variant)
+                                           # and one extra rtc_gelu step
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -15,8 +16,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              source, all started together; print ptxas's registers, shared
              memory and spills (a spill is fatal), and the count of
              ``HGMMA`` (wgmma) instructions in each attention kernel from
-             ``cuobjdump -sass`` (a bf16 kernel, forward or backward,
-             without any is fatal: it would not run on the tensor cores);
+             ``cuobjdump -sass`` (a bf16 instantiation without any is
+             fatal: it would not run on the tensor cores; K1 plain and
+             split-P, K2 and K3 at the widths 64, 128 and 256);
              load NVRTC (a missing libnvrtc is fatal) and print its
              version;
 2. kernels — hold each kernel against its plain PyTorch version on the card
@@ -24,11 +26,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
              included: K1 (flash forward) on O and lse, K2/K3 (flash
              backward) on dQ, dK and dV, with bf16 cases for the tensor-core
              tiling (ragged, sq != sk, causal and full, packed and
-             contiguous views, d=64 at the main length); repeated bf16
-             launches of K1 and of K2/K3 at the main shape must give the
-             same bits, and a view that breaks the TMA rule must raise
-             ``MXNetError`` in the forward and the backward; time kernels
-             (also at d=64), plain versions and the library calls
+             contiguous views, d=64 at the main length), and at the main
+             length (b=4, s=4096) the main path's shape and the head dims
+             32, 96 and 256 (64/16/8 heads) in float32 and bf16.  At each
+             bf16 one of those, repeated launches of K1, K2 and K3 give the
+             same bits, and K1's split-P variant (splash's forward: P kept
+             at float32 precision for P V), on a pre-scaled q at scale 1,
+             must agree with the plain version and have at most half the
+             mean error of plain K1 on the same inputs; a view that breaks
+             the TMA rule must raise ``MXNetError`` in the forward and the
+             backward.  Each of those shapes is timed beside its bound, the
+             plain versions and the library calls
              (``scaled_dot_product_attention`` forward and backward, timed
              only as yardsticks).  Then the user kernels of
              ``mxnet_tpu_torch/rtc_kernels.py``, compiled by ``MXRtc`` with
@@ -49,7 +57,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
              fall, and each step must launch each kernel once per layer;
              then the fused step and the two-phase path (forward_backward,
              then the updater over the gradients) are timed side by side;
-5. extend  — the user extension path at full width: an axpy pushed
+5. replay  — the train phase's first 3 steps again in a new Module from
+             its initial parameters and batch: every loss and parameter
+             the same bits; then once more under
+             ``torch.use_deterministic_algorithms(True, warn_only=True)``,
+             printing the ops it alerts on, with the same bits;
+6. splash  — ``get_transformer_lm(attn_impl="splash")`` at the same
+             geometry, trained 2 + 5 steps from the train phase's init and
+             batch: each step launches K1 split-P, K2 and K3 once per
+             layer, its step-0 loss within 1e-3 of the flash LM's; then one
+             float32 request on the serve phase's weights within 1e-4 of
+             the flash LM's answer;
+7. extend  — the user extension path at full width: an axpy pushed
              through ``mt.rtc.MXRtc`` on NDArrays with explicit launch dims;
              ``sgd_update`` pushed over every parameter array of the LM
              (441,646,336 parameters) against the port's ``sgd_update`` on
@@ -57,11 +76,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
              the user op ``rtc_gelu`` in the symbol JSON, trained 2 + 3
              steps: each step launches gelu_fwd, gelu_bwd and K1-K3 six
              times, and its loss matches the train phase's loss at that step;
-6. agree   — a small LM served, and trained 3 adam steps in float32 and in
+8. agree   — a small LM served, and trained 3 adam steps in float32 and in
              bf16, on the card and on the CPU from one numpy init, must
-             agree; so must the small LM with ``rtc_gelu``, a net with the
-             ``CustomOp`` sigmoid and softmax loss, and a few ``mt.nd``
-             ops.
+             agree; so must the small splash LM (s=128), small LMs at head
+             dims 32, 96 and 256, the small LM with ``rtc_gelu``, a net
+             with the ``CustomOp`` sigmoid and softmax loss, and a few
+             ``mt.nd`` ops; and a recorded reading (``spread_witness``) of
+             how far one float32 ulp of the init moves the d=256 LM.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -83,8 +104,24 @@ BATCH = 4
 REQUESTS = 3
 SEED = 0
 SMALL = dict(vocab_size=64, num_layers=2, num_heads=2, hidden=128, seq_len=40)
+# the agree phase's other small LMs: head dims 32, 96, 256 (flash; trained
+# at the init spread of the CPU tests' 64-wide LM, std 0.3 * sqrt(64 /
+# hidden): at SMALL's spread three float32 steps of the 256-wide LM took
+# the loss from 8.09 to 3.14 and amplified summation order to 1.06e-4 of
+# the largest parameter, with K1-K3 at d=256 within 8e-7 of their plain
+# versions) and the splash LM (its sequence a multiple of 128)
+SMALL_HEAD_DIMS = {32: dict(SMALL, num_heads=4), 96: dict(SMALL, hidden=192),
+                   256: dict(SMALL, num_heads=1, hidden=256)}
+SMALL_SPLASH = dict(SMALL, seq_len=128, attn_impl="splash")
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 2, 5, 3e-4
+REPLAY_STEPS = 3
 SOURCE_DIR = "mxnet_tpu_torch/csrc/"
+# the TPU kernel each CUDA kernel replaces (the split-P K1 serves splash,
+# upstream JAX's Pallas kernel, reached from the repo at attention.py:604)
+REPLACES = {"flash_fwd": "mxnet_tpu/ops/attention.py:97",
+            "flash_fwd_splitp": "mxnet_tpu/ops/attention.py:604",
+            "flash_bwd_dq": "mxnet_tpu/ops/attention.py:216",
+            "flash_bwd_dkv": "mxnet_tpu/ops/attention.py:262"}
 RTC_SOURCE = "mxnet_tpu_torch/rtc_kernels.py"
 AXPY_PY_SRC = """
 def kernel(x_ref, out_ref):
@@ -192,13 +229,25 @@ def rel_err(torch, got, ref):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
+# the head dims the kernels take besides the main path's, at the main
+# length: (heads, d), b = BATCH, s = 4096
+HEAD_DIM_CASES = ((64, 32), (16, 96), (8, 256))
+
+
 def kernel_phase(torch, att, device):
-    """K1 against ``attention_reference`` (O, lse) and K2/K3 against
-    ``attention_backward_reference`` (dQ, dK, dV) at every case; then the
-    timings at the main paths' shape.  Returns the three kernels' rows."""
+    """K1 against the plain forward (O, lse) and K2/K3 against the plain
+    backward (dQ, dK, dV) at every case.  The cases "timed" are those at
+    the main length: the main path's shape and the head dims of
+    ``HEAD_DIM_CASES``, each in float32 and bf16, and d=64 in bf16; at each
+    bf16 one, two launches of each kernel give the same
+    bits (``repeat_check``) and K1's split-P variant is held to what it
+    adds (``splitp_check``).  Then every timed case beside its bound, its
+    plain version and SDPA (``time_case``).  Returns (the rows of the main
+    path's shape in bf16 keyed by kernel, the head dims' rows keyed
+    (kernel, d, dtype))."""
     f32, bf16 = torch.float32, torch.bfloat16
-    main_shape = (BATCH, FULL["seq_len"], FULL["seq_len"], FULL["num_heads"],
-                  FULL["hidden"] // FULL["num_heads"], True)
+    h_main, s = FULL["num_heads"], FULL["seq_len"]
+    d_main = FULL["hidden"] // h_main
     cases = [  # name, b, sq, sk, h, d, causal, dtype[, packed]
         ("f32 causal d64", 2, 256, 256, 4, 64, True, f32),
         ("f32 full d64", 2, 256, 256, 4, 64, False, f32),
@@ -219,13 +268,15 @@ def kernel_phase(torch, att, device):
         ("bf16 full sq>sk d64 ragged", 2, 333, 200, 4, 64, False, bf16),
         ("bf16 causal d128 contiguous", 2, 320, 320, 4, 128, True, bf16,
          False),
-        ("bf16 causal d64 main length", 4, 4096, 4096, 16, 64, True, bf16),
-        ("f32 causal main-path shape",) + main_shape + (f32,),
-        ("bf16 causal main-path shape",) + main_shape + (bf16,),
+        ("bf16 causal d64 main length", BATCH, s, s, 16, 64, True, bf16),
     ]
+    for h, d in ((h_main, d_main),) + HEAD_DIM_CASES:
+        what = "main-path shape" if d == d_main else "head dim %d" % d
+        cases += [("%s causal %s" % (tag, what), BATCH, s, s, h, d, True,
+                   dtype) for dtype, tag in ((f32, "f32"), (bf16, "bf16"))]
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    main = {}
+    timed = {}
     for name, b, sq, sk, h, d, causal, dtype, *packed in cases:
         fwd_tol = 1e-4 if dtype == f32 else 2e-2  # abs, O and lse
         bwd_tol = 1e-4 if dtype == f32 else 2e-2  # relative to max |ref|
@@ -233,7 +284,7 @@ def kernel_phase(torch, att, device):
                             *packed)
         scale = 1.0 / np.sqrt(d)
         o, lse = att.flash_forward(q, k, v, causal, scale)
-        o_ref, lse_ref = att.attention_reference(q, k, v, causal, scale)
+        o_ref, lse_ref = plain_forward(att, q, k, v, causal, scale)
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_l = (lse - lse_ref).abs().max().item()
@@ -249,8 +300,7 @@ def kernel_phase(torch, att, device):
 
         do = torch.randn((b, sq, h, d), generator=gen, device=device).to(dtype)
         grads = att.flash_backward(q, k, v, o, lse, do, causal, scale)
-        refs = att.attention_backward_reference(q, k, v, o, lse, do, causal,
-                                                scale)
+        refs = plain_backward(att, q, k, v, o, lse, do, causal, scale)
         torch.cuda.synchronize()
         errs = {}
         for gname, got, ref in zip(("dq", "dk", "dv"), grads, refs):
@@ -265,169 +315,216 @@ def kernel_phase(torch, att, device):
         check(all(e[1] <= bwd_tol for e in errs.values()),
               "flash_backward disagrees with its plain version in case %s"
               % name)
-        if "main-path" in name:
-            main[dtype] = dict(q=q, k=k, v=v, o=o, lse=lse, do=do,
-                               scale=scale, err_o=err_o, errs=errs)
-        if "main length" in name:
-            del grads, refs
-            time_main_length(torch, att, name, q, k, v, o, lse, do, scale)
-            continue
         del grads, refs
+        if b == BATCH and sq == s:
+            m = dict(name=name, q=q, k=k, v=v, o=o, lse=lse, do=do,
+                     scale=scale, err_o=err_o, errs=errs)
+            if dtype == bf16:
+                repeat_check(torch, att, m)
+                m.update(splitp_check(torch, att, m))
+            timed[(d, dtype)] = m
     torch.cuda.empty_cache()
-    bf16_contract(torch, att, main[bf16])
-
-    b, sq, sk, h, d, causal = main_shape
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    timings = {}
-    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
-        m = main[dtype]
-        q, k, v, o, lse, do, scale = (m[x] for x in ("q", "k", "v", "o",
-                                                      "lse", "do", "scale"))
-        size = torch.tensor([], dtype=dtype).element_size()
-        t = {}
-        t["fwd"] = cuda_ms(lambda: att.flash_forward(q, k, v, True, scale), 20)
-        t["fwd_plain"] = cuda_ms(
-            lambda: att.attention_reference(q, k, v, True, scale), 2)
-        torch.cuda.empty_cache()
-        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
-                      for x in (q, k, v))
-        t["fwd_lib"] = cuda_ms(
-            lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale), 20)
-        out = sdpa(qt, kt, vt, is_causal=True, scale=scale)
-        dot = do.transpose(1, 2)
-        t["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), 5)
-        del out, qt, kt, vt
-        delta = att._row_delta(o, do).contiguous()
-        t["bwd_dq"] = cuda_ms(lambda: att.flash_bwd_dq(
-            q, k, v, do, lse, delta, True, scale), 3)
-        t["bwd_dkv"] = cuda_ms(lambda: att.flash_bwd_dkv(
-            q, k, v, do, lse, delta, True, scale), 3)
-        t["bwd"] = cuda_ms(lambda: att.flash_backward(
-            q, k, v, o, lse, do, True, scale), 3)
-        t["bwd_plain"] = cuda_ms(lambda: att.attention_backward_reference(
-            q, k, v, o, lse, do, True, scale), 2)
-        torch.cuda.empty_cache()
-        for kind in ("fwd", "bwd_dq", "bwd_dkv", "bwd"):
-            work = attention_work(kind, b, sq, sk, h, d, causal, size)
-            t[kind + "_work"] = work
-            t[kind + "_bound"] = bound_ms(torch, work, dtype)
-            t[kind + "_tflops"] = work[0] / (t[kind] * 1e-3) / 1e12
-        pair = t["bwd_dq"] + t["bwd_dkv"]
-        ops14 = t["bwd_dq_work"][0] + t["bwd_dkv_work"][0]
-        print("kernel timing %s K2+K3 %.4f ms: %.2f TFLOP/s on the 14·d count "
-              "(split kernels' bound %.4f ms), %.2f TFLOP/s on the 10·d count "
-              "(backward's bound %.4f ms); %.2fx sdpa bwd"
-              % (tag, pair, ops14 / (pair * 1e-3) / 1e12,
-                 bound_ms(torch, (ops14, 0.0), dtype)[0],
-                 t["bwd_work"][0] / (pair * 1e-3) / 1e12, t["bwd_bound"][0],
-                 pair / t["bwd_lib"]), flush=True)
-        timings[dtype] = t
-        print("kernel timing %s b=%d s=%d h=%d d=%d causal: K1 %.4f ms (plain "
-              "%.4f, sdpa fwd %.4f, %.2fx it, bound %.4f by %s, %.2f TFLOP/s "
-              "on the 4·d count); K2 %.4f "
-              "ms (bound %.4f by %s); K3 %.4f ms (bound %.4f by %s); K2+K3 "
-              "%.4f ms, flash_backward with Δ %.4f ms (bound %.4f by %s, "
-              "%.2f TFLOP/s), plain %.4f ms, sdpa bwd %.4f ms"
-              % (tag, b, sq, h, d, t["fwd"], t["fwd_plain"], t["fwd_lib"],
-                 t["fwd"] / t["fwd_lib"],
-                 t["fwd_bound"][0], t["fwd_bound"][1], t["fwd_tflops"],
-                 t["bwd_dq"], t["bwd_dq_bound"][0], t["bwd_dq_bound"][1],
-                 t["bwd_dkv"], t["bwd_dkv_bound"][0], t["bwd_dkv_bound"][1],
-                 t["bwd_dq"] + t["bwd_dkv"], t["bwd"], t["bwd_bound"][0],
-                 t["bwd_bound"][1], t["bwd_tflops"], t["bwd_plain"],
-                 t["bwd_lib"]), flush=True)
+    tma_rule_check(torch, att, timed[(d_main, bf16)])
     variant, peak = peaks_for(torch.cuda.get_device_name(0))
     print("kernel bounds against the %s data sheet: %.0f TFLOP/s float32, "
           "%.0f TFLOP/s bf16 dense, %.2f TB/s" % (
               variant, peak["float32"], peak["bfloat16"], peak["tbs"]),
           flush=True)
-
-    # the rows describe the training path's dtype (bf16), the main path
-    from mxnet_tpu_torch.kernels import SOURCES
-
-    t, m = timings[bf16], main[bf16]
-
-    def row(name, replaces, kind, err, plain, lib):
-        return {"name": name, "route": "cuda",
-                "source": SOURCE_DIR + SOURCES[name],
-                "replaces": replaces, "launches": None, "max_abs_err": err,
-                "ms": t[kind], "plain_ms": plain, "bound_ms": t[kind + "_bound"][0],
-                "bound_by": t[kind + "_bound"][1], "library_ms": lib}
-
-    return [
-        row("flash_fwd", "mxnet_tpu/ops/attention.py:97", "fwd", m["err_o"],
-            t["fwd_plain"], t["fwd_lib"]),
-        # one library call computes dQ, dK and dV together: SDPA's backward
-        # is the yardstick of both rows, against K2 + K3
-        row("flash_bwd_dq", "mxnet_tpu/ops/attention.py:216", "bwd_dq",
-            m["errs"]["dq"][0], t["bwd_plain"], t["bwd_lib"]),
-        row("flash_bwd_dkv", "mxnet_tpu/ops/attention.py:262", "bwd_dkv",
-            max(m["errs"]["dk"][0], m["errs"]["dv"][0]), t["bwd_plain"],
-            t["bwd_lib"]),
-    ]
+    main_rows, dim_rows = {}, {}
+    for (d, dtype), m in timed.items():
+        rows = time_case(torch, att, m)
+        del m["q"], m["k"], m["v"], m["o"], m["do"]
+        torch.cuda.empty_cache()
+        if d == d_main:
+            if dtype == bf16:  # the training path's dtype: the main path
+                main_rows = rows
+            continue
+        if d not in {dim for _, dim in HEAD_DIM_CASES}:
+            continue  # d=64 at the main length: printed only
+        tag = "f32" if dtype == f32 else "bf16"
+        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            row = dict(rows[kernel])
+            row["name"] = "%s[d=%d,%s%s]" % (
+                kernel, d, tag, ",dV+dK" if kernel == "flash_bwd_dkv" and
+                dtype == bf16 and att.kernel_width(d) > 128 else "")
+            dim_rows[(kernel, d, tag)] = row
+    return main_rows, dim_rows
 
 
-def time_main_length(torch, att, name, q, k, v, o, lse, do, scale):
-    """K1 beside SDPA's forward, and K2 and K3 beside SDPA's backward
-    (causal), at one more shape."""
-    b, sq, h, d = q.shape
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
-    fwd_ms = cuda_ms(lambda: att.flash_forward(q, k, v, True, scale), 20)
-    fwd_lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale),
-                      20)
-    ops4 = attention_work("fwd", b, sq, k.shape[1], h, d, True, 2)[0]
-    print("kernel timing [%s]: K1 %.4f ms (%.2f TFLOP/s on the 4·d count), "
-          "sdpa fwd %.4f ms (%.2fx)" % (name, fwd_ms,
-                                        ops4 / (fwd_ms * 1e-3) / 1e12,
-                                        fwd_lib, fwd_ms / fwd_lib),
-          flush=True)
-    delta = att._row_delta(o, do).contiguous()
-    dq_ms = cuda_ms(lambda: att.flash_bwd_dq(q, k, v, do, lse, delta, True,
-                                             scale), 5)
-    dkv_ms = cuda_ms(lambda: att.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                               True, scale), 5)
-    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
-    out = sdpa(qt, kt, vt, is_causal=True, scale=scale)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5)
-    ops14 = sum(attention_work(kind, b, sq, k.shape[1], h, d, True, 2)[0]
-                for kind in ("bwd_dq", "bwd_dkv"))
-    print("kernel timing [%s]: K2 %.4f ms, K3 %.4f ms, K2+K3 %.4f ms (%.2f "
-          "TFLOP/s on the 14·d count), sdpa bwd %.4f ms (%.2fx)"
-          % (name, dq_ms, dkv_ms, dq_ms + dkv_ms,
-             ops14 / ((dq_ms + dkv_ms) * 1e-3) / 1e12, lib_ms,
-             (dq_ms + dkv_ms) / lib_ms), flush=True)
-
-
-def bf16_contract(torch, att, m):
-    """The bf16 kernels at the main shape: two launches of each kernel
-    give the same bits (no atomics), and a view that breaks the TMA rule
-    raises ``MXNetError`` without a launch (no copy, no fallback), in the
-    forward and in the backward."""
-    from mxnet_tpu_torch import MXNetError, kernels
-
+def repeat_check(torch, att, m):
+    """Two launches of K1, K2 and K3 on one bf16 case give the same bits as
+    the case's own (no atomics)."""
     q, k, v, o, lse, do, scale = (m[x] for x in ("q", "k", "v", "o", "lse",
                                                   "do", "scale"))
     runs = [att.flash_forward(q, k, v, True, scale) for _ in range(2)]
-    torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(*runs)] + \
-        [torch.equal(runs[0][0], o)]
-    print("kernel flash_fwd bf16 main-path shape, two launches of K1 (and the "
-          "kernel phase's): o, lse (, o) bitwise equal %s" % same, flush=True)
-    check(all(same), "repeated bf16 forward launches differ")
+        [torch.equal(runs[0][0], o), torch.equal(runs[0][1], lse)]
     del runs
     delta = att._row_delta(o, do).contiguous()
     runs = [(att.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),)
             + att.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
             for _ in range(2)]
     torch.cuda.synchronize()
-    same = [torch.equal(a, b) for a, b in zip(*runs)]
-    print("kernel flash_bwd bf16 main-path shape, two launches of K2 and K3: "
-          "dq, dk, dv bitwise equal %s" % same, flush=True)
-    check(all(same), "repeated bf16 backward launches differ")
-    del runs
+    same += [torch.equal(a, b) for a, b in zip(*runs)]
+    print("kernel [%s], two launches of K1 (and the case's own), K2, K3: o, "
+          "lse (, o, lse), dq, dk, dv bitwise equal %s" % (m["name"], same),
+          flush=True)
+    check(all(same), "repeated bf16 launches differ in case %s" % m["name"])
+
+
+def splitp_check(torch, att, m):
+    """K1's split-P variant as splash runs it (q pre-scaled in bf16, scale
+    1) against the plain version (P in float32), and what it adds: it
+    exists to keep P at float32 precision in P·V, which the limit on O
+    (2e-2 abs, one bf16 rounding of O at its largest) cannot show, since
+    plain K1, which rounds P to bf16, passes it too.  So its mean |error|
+    over O must be at most half that of plain K1 on the same inputs; lse
+    within 1e-4; two launches give the same bits.  Returns the pre-scaled q
+    and its max|error| on O."""
+    from mxnet_tpu_torch.kernels import LAUNCHES
+
+    q, k, v, scale = m["q"], m["k"], m["v"], m["scale"]
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    before = LAUNCHES["flash_fwd_splitp"]
+    o, lse = att.flash_forward(qs, k, v, True, 1.0, split_p=True)
+    check(LAUNCHES["flash_fwd_splitp"] == before + 1,
+          "split_p=True did not launch flash_fwd_splitp")
+    o_k1, _ = att.flash_forward(qs, k, v, True, 1.0)
+    again = att.flash_forward(qs, k, v, True, 1.0, split_p=True)
+    o_ref, lse_ref = plain_forward(att, qs, k, v, True, 1.0)
+    torch.cuda.synchronize()
+    err = {}
+    for what, got in (("split-P", o), ("K1", o_k1)):
+        diff = (got.float() - o_ref.float()).abs()
+        err[what] = (diff.max().item(), diff.mean().item())
+        del diff
+    err_l = (lse - lse_ref).abs().max().item()
+    same = [torch.equal(again[0], o), torch.equal(again[1], lse)]
+    ratio = err["split-P"][1] / max(err["K1"][1], 1e-30)
+    print("kernel flash_fwd_splitp [%s] (q pre-scaled, scale 1): max|dO| "
+          "%.3g, mean|dO| %.4g; K1 with P rounded on the same inputs: max|dO| "
+          "%.3g, mean|dO| %.4g; mean ratio %.3g (limit 0.5); max|dlse| %.3g "
+          "(tolerance 2e-2 on O, 1e-4 on lse); two launches bitwise equal %s"
+          % (m["name"], err["split-P"][0], err["split-P"][1], err["K1"][0],
+             err["K1"][1], ratio, err_l, same), flush=True)
+    check(err["split-P"][0] <= 2e-2 and err_l <= 1e-4,
+          "flash_fwd_splitp disagrees with its plain version in case %s"
+          % m["name"])
+    check(ratio <= 0.5, "flash_fwd_splitp is not closer than K1 to P in "
+          "float32 in case %s: its mean error is %.3g of K1's"
+          % (m["name"], ratio))
+    check(all(same), "repeated flash_fwd_splitp launches differ in case %s"
+          % m["name"])
+    return {"qs": qs, "err_sp": err["split-P"][0]}
+
+
+def time_case(torch, att, m):
+    """K1, K2, K3 (and for bf16 the split-P K1 on the pre-scaled q) of one
+    timed case beside their bounds (counted at the real d: columns padded
+    to the kernels' width are waste), the plain versions and SDPA.  Returns
+    the rows keyed by kernel name."""
+    from mxnet_tpu_torch.kernels import SOURCES
+
+    q, k, v, o, lse, do, scale = (m[x] for x in ("q", "k", "v", "o", "lse",
+                                                  "do", "scale"))
+    b, s, h, d = q.shape
+    dtype = q.dtype
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    delta = att._row_delta(o, do).contiguous()
+    t = {"fwd": cuda_ms(lambda: att.flash_forward(q, k, v, True, scale), 20),
+         "bwd_dq": cuda_ms(lambda: att.flash_bwd_dq(
+             q, k, v, do, lse, delta, True, scale), 3),
+         "bwd_dkv": cuda_ms(lambda: att.flash_bwd_dkv(
+             q, k, v, do, lse, delta, True, scale), 3),
+         "bwd": cuda_ms(lambda: att.flash_backward(
+             q, k, v, o, lse, do, True, scale), 3),
+         "fwd_plain": cuda_ms(lambda: plain_forward(att, q, k, v, True,
+                                                    scale), 1),
+         "bwd_plain": cuda_ms(lambda: plain_backward(
+             att, q, k, v, o, lse, do, True, scale), 1)}
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    t["fwd_lib"] = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        scale=scale), 20)
+    out = sdpa(qt, kt, vt, is_causal=True, scale=scale)
+    t["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 3)
+    del out, qt, kt, vt
+    size = torch.tensor([], dtype=dtype).element_size()
+    work = {kind: attention_work(kind, b, s, s, h, d, True, size)
+            for kind in ("fwd", "bwd_dq", "bwd_dkv", "bwd")}
+    bound = {kind: bound_ms(torch, w, dtype) for kind, w in work.items()}
+    tflops = {kind: work[kind][0] / (t[kind] * 1e-3) / 1e12 for kind in work}
+    pair = t["bwd_dq"] + t["bwd_dkv"]
+    ops14 = work["bwd_dq"][0] + work["bwd_dkv"][0]
+    two = dtype == torch.bfloat16 and att.kernel_width(d) > 128
+    print("kernel timing [%s] b=%d s=%d h=%d d=%d (runs at width %d) causal: "
+          "K1 %.4f ms (plain %.4f, sdpa fwd %.4f, %.2fx it, bound %.4f by %s, "
+          "%.2f TFLOP/s on the 4·d count at the real d); K2 %.4f ms (bound "
+          "%.4f by %s); K3 %.4f ms%s (bound %.4f by %s); K2+K3 %.4f ms "
+          "(%.2f TFLOP/s on the 14·d count, split kernels' bound %.4f ms; "
+          "%.2f TFLOP/s on the 10·d count), %.2fx sdpa bwd %.4f ms; "
+          "flash_backward with Δ %.4f ms (bound %.4f by %s), plain %.4f ms"
+          % (m["name"], b, s, h, d, att.kernel_width(d), t["fwd"],
+             t["fwd_plain"], t["fwd_lib"], t["fwd"] / t["fwd_lib"],
+             bound["fwd"][0], bound["fwd"][1], tflops["fwd"], t["bwd_dq"],
+             bound["bwd_dq"][0], bound["bwd_dq"][1], t["bwd_dkv"],
+             " (two launches: dV, then dK)" if two else "",
+             bound["bwd_dkv"][0], bound["bwd_dkv"][1], pair,
+             ops14 / (pair * 1e-3) / 1e12,
+             bound_ms(torch, (ops14, 0.0), dtype)[0],
+             work["bwd"][0] / (pair * 1e-3) / 1e12, pair / t["bwd_lib"],
+             t["bwd_lib"], t["bwd"], bound["bwd"][0], bound["bwd"][1],
+             t["bwd_plain"]), flush=True)
+
+    def row(name, kind, err, plain, lib, ms=None):
+        return {"name": name, "route": "cuda",
+                "source": SOURCE_DIR + SOURCES[name],
+                "replaces": REPLACES[name], "launches": None,
+                "max_abs_err": err, "ms": t[kind] if ms is None else ms,
+                "plain_ms": plain, "bound_ms": bound[kind][0],
+                "bound_by": bound[kind][1], "library_ms": lib}
+
+    errs = m["errs"]
+    rows = {
+        "flash_fwd": row("flash_fwd", "fwd", m["err_o"], t["fwd_plain"],
+                         t["fwd_lib"]),
+        # one library call computes dQ, dK and dV together: SDPA's backward
+        # is the yardstick of both rows, against K2 + K3
+        "flash_bwd_dq": row("flash_bwd_dq", "bwd_dq", errs["dq"][0],
+                            t["bwd_plain"], t["bwd_lib"]),
+        "flash_bwd_dkv": row("flash_bwd_dkv", "bwd_dkv",
+                             max(errs["dk"][0], errs["dv"][0]),
+                             t["bwd_plain"], t["bwd_lib"]),
+    }
+    if dtype == torch.bfloat16:
+        qs = m["qs"]
+        ms = cuda_ms(lambda: att.flash_forward(qs, k, v, True, 1.0,
+                                               split_p=True), 20)
+        k1_ms = cuda_ms(lambda: att.flash_forward(qs, k, v, True, 1.0), 20)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
+        lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=1.0), 20)
+        plain = cuda_ms(lambda: plain_forward(att, qs, k, v, True, 1.0), 1)
+        print("kernel timing [%s] flash_fwd_splitp on the pre-scaled q: %.4f "
+              "ms (%.2f TFLOP/s on the 4·d count), K1 on the same inputs "
+              "%.4f ms (+%.1f%%), sdpa fwd at scale 1 %.4f ms (%.2fx it), "
+              "plain %.4f ms" % (m["name"], ms, work["fwd"][0] / (ms * 1e-3)
+                                 / 1e12, k1_ms, 100 * (ms / k1_ms - 1), lib,
+                                 ms / lib, plain), flush=True)
+        rows["flash_fwd_splitp"] = row("flash_fwd_splitp", "fwd",
+                                       m["err_sp"], plain, lib, ms)
+        del m["qs"], qt, kt, vt
+    return rows
+
+
+def tma_rule_check(torch, att, m):
+    """A bf16 view that breaks the TMA rule raises ``MXNetError`` without a
+    launch (no copy, no fallback), in the forward and in the backward."""
+    from mxnet_tpu_torch import MXNetError, kernels
+
+    q, k, v, o, lse, do, scale = (m[x] for x in ("q", "k", "v", "o", "lse",
+                                                  "do", "scale"))
     flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
     shifted = flat[1:].view(q.shape)  # base 2 bytes past a 16-byte boundary
     for what, call in (
@@ -448,9 +545,45 @@ def bf16_contract(torch, att, m):
               % what)
 
 
+def plain_forward(att, q, k, v, causal, scale):
+    """``attention_reference`` one batch element and at most 16 heads at a
+    time, so that its float32 score tensors stay near 1 GB at s = 4096."""
+    import torch
+
+    b, sq, h, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        for j in range(0, h, 16):
+            cut = (slice(i, i + 1), slice(None), slice(j, j + 16))
+            o[cut], part = att.attention_reference(q[cut], k[cut], v[cut],
+                                                   causal, scale)
+            lse[i, j:j + 16] = part
+    return o, lse.view(b * h, sq)
+
+
+def plain_backward(att, q, k, v, o, lse, do, causal, scale):
+    """``attention_backward_reference`` in the pieces of ``plain_forward``."""
+    import torch
+
+    b, sq, h, _ = q.shape
+    lse3 = lse.view(b, h, sq)
+    grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    for i in range(b):
+        for j in range(0, h, 16):
+            cut = (slice(i, i + 1), slice(None), slice(j, j + 16))
+            parts = att.attention_backward_reference(
+                q[cut], k[cut], v[cut], o[cut],
+                lse3[i, j:j + 16].contiguous(), do[cut], causal, scale)
+            for g, part in zip(grads, parts):
+                g[cut] = part
+    return grads
+
+
 def sass_hgmma(kernels):
     """HGMMA (wgmma) instructions per attention kernel in the built
-    libraries, from ``cuobjdump -sass``: {(kernel, d): count}."""
+    libraries, from ``cuobjdump -sass``: {(kernel, template args): count},
+    the args as a tuple of ints (width D, then split-P or K3's outputs)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -463,8 +596,11 @@ def sass_hgmma(kernels):
         for line in sass.splitlines():
             if "Function :" in line:
                 found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?"
-                                  r"_kernel)ILi(\d+)E", line)
-                key = (found.group(1), int(found.group(2))) if found else None
+                                  r"_kernel)I((?:L[a-z]\d+E)+)E", line)
+                key = (found.group(1), tuple(
+                    int(a) for a in re.findall(r"L[a-z](\d+)E",
+                                               found.group(2)))) \
+                    if found else None
                 if key:
                     counts[key] = 0
             elif key and "HGMMA" in line:
@@ -650,20 +786,36 @@ def lm_params(mt, sym, shapes, rng, std):
     return params
 
 
+# the label is bound too (as zeros): its shape cannot be inferred back
+# through the symbol's Reshape, in this package or the JAX one
+SERVE_SHAPES = {"data": (BATCH, FULL["seq_len"]),
+                "softmax_label": (BATCH, FULL["seq_len"])}
+
+
+def serve_inputs(mt, net):
+    """The served LM's weights (N(0, 0.02) from SEED, as a checkpoint
+    stores them) and its requests, the same for every LM of the full
+    geometry whatever its attention op."""
+    rng = np.random.default_rng(SEED)
+    params = lm_params(mt, net, SERVE_SHAPES, rng, 0.02)
+    requests = [rng.integers(0, FULL["vocab_size"], SERVE_SHAPES["data"])
+                .astype(np.float32) for _ in range(REQUESTS)]
+    return params, requests
+
+
 def serve_phase(torch, mt):
+    """Returns the Predictor, the first request and its output (on the
+    host)."""
     from mxnet_tpu_torch.models.transformer import get_transformer_lm
 
     b, s, vocab = BATCH, FULL["seq_len"], FULL["vocab_size"]
-    # the label is bound too (as zeros): its shape cannot be inferred back
-    # through the symbol's Reshape, in this package or the JAX one
-    shapes = {"data": (b, s), "softmax_label": (b, s)}
-    rng = np.random.default_rng(SEED)
+    shapes = SERVE_SHAPES
     with mt.NameManager():
         net = get_transformer_lm(**FULL)
     with tempfile.TemporaryDirectory() as tmp:
         prefix = os.path.join(tmp, "lm")
         t0 = time.perf_counter()
-        params = lm_params(mt, net, shapes, rng, 0.02)
+        params, requests = serve_inputs(mt, net)
         n_params = sum(p.size for p in params.values())
         net.save(prefix + "-symbol.json")
         mt.nd.save(prefix + "-0000.params", params)
@@ -674,8 +826,6 @@ def serve_phase(torch, mt):
     print("serve: %d parameters; checkpoint written in %.2f s, Predictor "
           "built in %.2f s" % (n_params, t1 - t0, t2 - t1), flush=True)
 
-    requests = [rng.integers(0, vocab, (b, s)).astype(np.float32)
-                for _ in range(REQUESTS)]
     per_request = FULL["num_layers"]  # one attention per layer
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -702,6 +852,8 @@ def serve_phase(torch, mt):
         print("serve: request %d: %.2f ms, flash_fwd launches %d, rows sum "
               "to 1 within %.2g" % (i, times[-1] * 1e3, delta, row_err),
               flush=True)
+        if i == 0:
+            first = probs.cpu()
     launches = dict(mt.kernels.LAUNCHES)
     check(launches["flash_fwd"] > 0, "the serving path never launched "
           "flash_fwd")
@@ -710,7 +862,7 @@ def serve_phase(torch, mt):
           "request = %.1f tokens/s; peak device memory %.2f GB; launches %s"
           % (REQUESTS, b * s, times[0] * 1e3, steady * 1e3, b * s / steady,
              torch.cuda.max_memory_allocated() / 1e9, launches), flush=True)
-    return pred, requests[0]
+    return pred, requests[0], first
 
 
 def step_paths(torch, mod, batch):
@@ -805,6 +957,9 @@ def train_phase(torch, mt):
     per_step = FULL["num_layers"]
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     losses, times = [], []
+    # the replay check's reference: the parameters before the first step
+    # and after step REPLAY_STEPS
+    init = param_snapshot(mod)
     mt.kernels.reset_launches()
     for step in range(TRAIN_WARMUP + TRAIN_STEPS):
         before = dict(mt.kernels.LAUNCHES)
@@ -821,7 +976,11 @@ def train_phase(torch, mt):
         check(all(v == per_step for v in delta.values()),
               "step %d launched %s, expected %d of each" % (step, delta,
                                                             per_step))
+        if step + 1 == REPLAY_STEPS:
+            replayed = param_snapshot(mod)
     launches = dict(mt.kernels.LAUNCHES)
+    check(launches["flash_fwd_splitp"] == 0, "the flash LM launched the "
+          "split-P forward")
     check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
     check(all(ex.arg_dict[n]._data.is_cuda
               for n in mod._exec_group.param_names),
@@ -834,7 +993,149 @@ def train_phase(torch, mt):
           % (torch.cuda.max_memory_allocated() / 1e9), flush=True)
     print("train: loss %.6f -> %.6f over %d steps on one batch; launches %s"
           % (losses[0], losses[-1], len(losses), launches), flush=True)
-    return mod, batch, launches, losses, steady * 1e3
+    replay = {"net": net, "init": init, "after": replayed,
+              "losses": losses[:REPLAY_STEPS], "Y": Y}
+    return mod, batch, launches, losses, steady * 1e3, replay
+
+
+def param_snapshot(mod):
+    """Copies of a bound Module's parameters in host memory, by name (kept
+    off the card, so that they do not count in its peak memory)."""
+    ex = mod._exec_group.execs[0]
+    return {n: ex.arg_dict[n]._data.to("cpu", copy=True)
+            for n in mod._exec_group.param_names}
+
+
+def replay_phase(torch, mt, batch, replay):
+    """The train phase's first REPLAY_STEPS steps again, from its initial
+    parameters and its batch, in a new Module: every loss and every
+    parameter must be the same bits.  Then once more under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the ops
+    it warns about are the step's ops that have no deterministic CUDA
+    implementation, and that run must give the same bits too."""
+    import warnings
+
+    b, s = BATCH, FULL["seq_len"]
+    init = {n: mt.nd.NDArray(t, mt.cpu()) for n, t in replay["init"].items()}
+    for mode in ("default", "deterministic"):
+        mod = train_module(mt, replay["net"], None, (b, s), arg_params=init,
+                           compute_dtype="bfloat16")
+        losses = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if mode == "deterministic":
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for _ in range(REPLAY_STEPS):
+                    mod.forward_backward(batch)
+                    mod.update()
+                    torch.cuda.synchronize()
+                    losses.append(lm_loss(torch, mod.get_outputs()[0],
+                                          replay["Y"]))
+            finally:
+                torch.use_deterministic_algorithms(False)
+        after = param_snapshot(mod)
+        differ = sorted(n for n, t in after.items()
+                        if not torch.equal(t, replay["after"][n]))
+        alerts = sorted({str(w.message).split("\n")[0][:160]
+                         for w in caught
+                         if "deterministic" in str(w.message)})
+        print("replay (%s): %d steps from the train phase's init and batch: "
+              "losses %s vs %s, bitwise equal %s; %d of %d parameters differ "
+              "%s; nondeterministic-op alerts: %s"
+              % (mode, REPLAY_STEPS, ["%.9g" % x for x in losses],
+                 ["%.9g" % x for x in replay["losses"]],
+                 losses == replay["losses"], len(differ), len(after),
+                 differ[:5], alerts or "none"), flush=True)
+        check(losses == replay["losses"] and not differ,
+              "the bf16 train step is not reproducible (%s mode)" % mode)
+        del mod, after
+        torch.cuda.empty_cache()
+
+
+def splash_phase(torch, mt, batch, replay, flash_losses, flash_step_ms,
+                 tokens, flash_out, profile_dir=None):
+    """The splash LM (``attn_impl="splash"``) at the full geometry: trained
+    through Module in bf16 from the train phase's init and batch, 2 + 5
+    steps, each launching K1's split-P variant, K2 and K3 once per layer
+    (and the plain K1 never); its step-0 loss within 1e-3 of the flash
+    LM's.  Then one float32 request on the serve phase's weights, within
+    1e-4 of the flash LM's answer.  Returns the launch counts."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    b, s = BATCH, FULL["seq_len"]
+    with mt.NameManager():
+        net = get_transformer_lm(attn_impl="splash", **FULL)
+    init = {n: mt.nd.NDArray(t, mt.cpu()) for n, t in replay["init"].items()}
+    torch.cuda.reset_peak_memory_stats()
+    mod = train_module(mt, net, None, (b, s), arg_params=init,
+                       compute_dtype="bfloat16")
+    per_step = FULL["num_layers"]
+    want = {"flash_fwd_splitp": per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step, "flash_fwd": 0}
+    losses, times = [], []
+    mt.kernels.reset_launches()
+    for step in range(TRAIN_WARMUP + TRAIN_STEPS):
+        before = dict(mt.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        delta = {n: mt.kernels.LAUNCHES[n] - before[n] for n in want}
+        losses.append(lm_loss(torch, mod.get_outputs()[0], replay["Y"]))
+        print("splash: step %d: %.2f ms, loss %.6f (flash LM %.6f), launches "
+              "%s" % (step, times[-1] * 1e3, losses[-1], flash_losses[step],
+                      delta), flush=True)
+        check(np.isfinite(losses[-1]), "splash step %d loss is not finite"
+              % step)
+        check(delta == want, "splash step %d launched %s, expected %s"
+              % (step, delta, want))
+    launches = dict(mt.kernels.LAUNCHES)
+    rel0 = abs(losses[0] - flash_losses[0]) / abs(flash_losses[0])
+    steady = float(np.mean(times[TRAIN_WARMUP:]))
+    print("splash: step ms %.2f (mean of %d timed steps after %d warm-up; "
+          "flash LM %.2f)" % (steady * 1e3, TRAIN_STEPS, TRAIN_WARMUP,
+                              flash_step_ms), flush=True)
+    print("splash: tokens/s %.1f" % (b * s / steady), flush=True)
+    print("splash: peak device memory %.2f GB"
+          % (torch.cuda.max_memory_allocated() / 1e9), flush=True)
+    print("splash: loss %.6f -> %.6f; step-0 loss relative to the flash LM's "
+          "%.3g (tolerance 1e-3)" % (losses[0], losses[-1], rel0),
+          flush=True)
+    check(rel0 <= 1e-3, "the splash LM's step-0 loss differs from the flash "
+          "LM's")
+    check(losses[-1] < losses[0], "the splash LM's loss did not fall")
+    if profile_dir:
+        def step():
+            mod.forward_backward(batch)
+            mod.update()
+        k1 = sorted(profile(torch, step, profile_dir, "splash_step")
+                    .get("K1 flash_fwd split-P", ()))
+        print("profile splash_step: K1 kernels %s" % k1, flush=True)
+        check(k1 and all("flash_fwd_tc_kernel<128, true>" in n for n in k1),
+              "the splash step's K1 is not flash_fwd_tc_kernel<128, true>")
+    del mod, init
+    torch.cuda.empty_cache()
+
+    params, _ = serve_inputs(mt, net)
+    pred = mt.Predictor(net, params, SERVE_SHAPES)
+    del params
+    before = mt.kernels.LAUNCHES["flash_fwd"]
+    t0 = time.perf_counter()
+    out = pred.forward(data=tokens)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n_fwd = mt.kernels.LAUNCHES["flash_fwd"] - before
+    err = (out._data.cpu() - flash_out).abs().max().item()
+    print("splash: one float32 request on the serve phase's weights: %.2f ms "
+          "(first request), K1 (float32) launches %d, max|d| from the flash "
+          "LM's answer %.3g (tolerance 1e-4)" % (ms, n_fwd, err), flush=True)
+    check(out.context == mt.gpu(0) and n_fwd == per_step and err <= 1e-4,
+          "the splash LM's served answer differs from the flash LM's")
+    del pred, out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def extend_phase(torch, mt, train_losses, train_step_ms, profile_dir=None):
@@ -1031,12 +1332,33 @@ def small_agreement(mt):
 AGREE = {None: (0.3, 1e-4, 1e-4), "bfloat16": (0.02, 1e-3, 3e-2)}
 
 
-def small_train_agreement(torch, mt, dtype, rtc_gelu=False):
-    """A small LM trained 3 adam steps on the card (kernels) and on the CPU
-    (plain versions) from one numpy init, in float32 or with bf16
-    compute, must agree (limits in ``AGREE``); with ``rtc_gelu`` its gelu
+def train3(torch, mt, net, ctx, shape, arg_params, dtype, batch, Y):
+    """3 adam steps (lr 1e-3, epsilon 1e-4) of ``net`` on ``ctx`` from
+    ``arg_params`` on one batch: (losses, parameters as numpy)."""
+    mod = train_module(mt, net, ctx, shape, arg_params=arg_params,
+                       compute_dtype=dtype,
+                       optimizer_params={"learning_rate": 1e-3,
+                                         "epsilon": 1e-4})
+    losses = []
+    for _ in range(3):
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(lm_loss(torch, mod.get_outputs()[0], Y))
+    args, _ = mod.get_params()
+    return losses, {k: v.asnumpy() for k, v in args.items()}
+
+
+def small_train_agreement(torch, mt, dtype, rtc_gelu=False, cfg=None,
+                          std_width=None):
+    """A small LM (``SMALL``, or ``cfg``) trained 3 adam steps on the card
+    (kernels) and on the CPU (plain versions) from one numpy init, in
+    float32 or with bf16 compute, must agree (limits in ``AGREE``; with
+    ``std_width`` the init std is scaled by sqrt(std_width / hidden), so
+    that every width has the pre-activation spread of a std_width-wide
+    LM); with ``rtc_gelu`` its gelu
     nodes are the user op (NVRTC kernels on the card, Python source on the
-    CPU).  Adam's epsilon is 1e-4:
+    CPU).  Returns the kernel launches of the card's run.  Adam's epsilon is
+    1e-4:
     with the usual 1e-8 its first steps are ±lr for any gradient, so
     roundoff in a gradient that is 0 in exact arithmetic (the key bias:
     softmax ignores a per-row shift) would become a full step of either
@@ -1045,10 +1367,12 @@ def small_train_agreement(torch, mt, dtype, rtc_gelu=False):
 
     from mxnet_tpu_torch.rtc_kernels import with_rtc_gelu
 
+    cfg = cfg or SMALL
     std, loss_tol, param_tol = AGREE[dtype]
-    shape = (2, SMALL["seq_len"])
+    std *= np.sqrt((std_width or cfg["hidden"]) / cfg["hidden"])
+    shape = (2, cfg["seq_len"])
     with mt.NameManager():
-        net = get_transformer_lm(**SMALL)
+        net = get_transformer_lm(**cfg)
     if rtc_gelu:
         net = with_rtc_gelu(net)
     rng = np.random.default_rng(SEED + 2)
@@ -1056,25 +1380,16 @@ def small_train_agreement(torch, mt, dtype, rtc_gelu=False):
                        std)
     arg_params = {k[4:]: v for k, v in params.items()}
     init = {k: v.asnumpy() for k, v in arg_params.items()}
-    X = rng.integers(0, SMALL["vocab_size"], shape).astype(np.float32)
-    Y = (X + 1) % SMALL["vocab_size"]
+    X = rng.integers(0, cfg["vocab_size"], shape).astype(np.float32)
+    Y = (X + 1) % cfg["vocab_size"]
     batch = mt.io.DataBatch(data=[mt.nd.array(X, mt.cpu())],
                             label=[mt.nd.array(Y, mt.cpu())])
-    runs = {}
-    for ctx in (mt.gpu(0), mt.cpu()):
-        mod = train_module(mt, net, ctx, shape, arg_params=arg_params,
-                           compute_dtype=dtype,
-                           optimizer_params={"learning_rate": 1e-3,
-                                             "epsilon": 1e-4})
-        losses = []
-        for _ in range(3):
-            mod.forward_backward(batch)
-            mod.update()
-            losses.append(lm_loss(torch, mod.get_outputs()[0], Y))
-        args, _ = mod.get_params()
-        runs[ctx.device_type] = (losses, {k: v.asnumpy()
-                                          for k, v in args.items()})
-    (lg, pg), (lc, pc) = runs["gpu"], runs["cpu"]
+    mt.kernels.reset_launches()
+    lg, pg = train3(torch, mt, net, mt.gpu(0), shape, arg_params, dtype,
+                    batch, Y)
+    launches = dict(mt.kernels.LAUNCHES)
+    lc, pc = train3(torch, mt, net, mt.cpu(), shape, arg_params, dtype,
+                    batch, Y)
     loss_err = float((np.abs(np.array(lg) - np.array(lc)) / np.abs(lc)).max())
     change = {k: pc[k].astype(np.float64) - init[k] for k in pc}
     scale = max(float(np.abs(pc[k]).max()) for k in pc)
@@ -1089,18 +1404,82 @@ def small_train_agreement(torch, mt, dtype, rtc_gelu=False):
         den = sum(float((c ** 2).sum()) for c in change.values())
         param_err = (num / den) ** 0.5
         what = "parameter change error %.3g of its norm" % param_err
-    print("check: small LM%s trained 3 adam steps (%s, init std %g) on the "
+    what_lm = "%s%s" % ("" if cfg is SMALL else " %s" % {
+        k: v for k, v in cfg.items() if SMALL.get(k) != v},
+        " with rtc_gelu" if rtc_gelu else "")
+    print("check: small LM%s trained 3 adam steps (%s, init std %.3g) on the "
           "card "
           "vs the CPU: losses %s vs %s, relative loss error %.3g (tolerance "
           "%g), %s (tolerance %g; the steps moved parameters by up to %.3g "
           "of the largest)"
-          % (" with rtc_gelu" if rtc_gelu else "", dtype or "float32", std,
+          % (what_lm, dtype or "float32", std,
              ["%.6f" % x for x in lg],
              ["%.6f" % x for x in lc], loss_err, loss_tol, what, param_tol,
              moved), flush=True)
     check(loss_err <= loss_tol and param_err <= param_tol,
           "small LM%s trained on the card (%s) disagrees with the CPU"
-          % (" with rtc_gelu" if rtc_gelu else "", dtype or "float32"))
+          % (what_lm, dtype or "float32"))
+    return launches
+
+
+# one-ulp draws of the init per device and spread in ``spread_witness``
+WITNESS_DRAWS = 4
+
+
+def spread_witness(torch, mt):
+    """A recorded reading, not a check: the d=256 LM of the agree phase in
+    float32, at the spread the agree phase holds (a 64-wide LM's, std 0.3 *
+    sqrt(64 / 256)) and at a 128-wide LM's (std 0.3 * sqrt(128 / 256)),
+    where three steps amplify roundoff more: the card-vs-CPU gap beside
+    the gaps that moving the init one float32 ulp per entry (at random,
+    ``WITNESS_DRAWS`` draws) makes on the card alone and on the CPU alone.
+    A card-vs-CPU gap inside that range is amplified summation order, not
+    a fault of the kernels."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    cfg = SMALL_HEAD_DIMS[256]
+    shape = (2, cfg["seq_len"])
+    with mt.NameManager():
+        net = get_transformer_lm(**cfg)
+    for width in (64, 128):
+        std = AGREE[None][0] * np.sqrt(width / cfg["hidden"])
+        rng = np.random.default_rng(SEED + 2)  # small_train_agreement's
+        params = lm_params(mt, net, {"data": shape, "softmax_label": shape},
+                           rng, std)
+        arg_params = {k[4:]: v for k, v in params.items()}
+        X = rng.integers(0, cfg["vocab_size"], shape).astype(np.float32)
+        Y = (X + 1) % cfg["vocab_size"]
+        batch = mt.io.DataBatch(data=[mt.nd.array(X, mt.cpu())],
+                                label=[mt.nd.array(Y, mt.cpu())])
+        base = {ctx: train3(torch, mt, net, ctx, shape, arg_params, None,
+                            batch, Y)[1] for ctx in (mt.gpu(0), mt.cpu())}
+        scale = max(float(np.abs(v).max()) for v in base[mt.cpu()].values())
+
+        def gap(a, b):
+            return max(float(np.abs(a[k] - b[k]).max()) for k in a) / scale
+        off_gaps = {ctx: [] for ctx in base}
+        for draw in range(WITNESS_DRAWS):
+            flip = np.random.default_rng(SEED + 100 + draw)
+            off = {}
+            for k, v in arg_params.items():
+                a = v.asnumpy()
+                if not k.endswith(("_gamma", "_beta", "_bias")):
+                    a = np.nextafter(a, np.where(
+                        flip.random(a.shape) < 0.5, -np.inf,
+                        np.inf).astype(np.float32))
+                off[k] = mt.nd.array(a, mt.cpu())
+            for ctx in base:
+                got = train3(torch, mt, net, ctx, shape, off, None, batch,
+                             Y)[1]
+                off_gaps[ctx].append(gap(got, base[ctx]))
+        print("witness: d=256 LM at init std %.3g (a %d-wide LM's spread), "
+              "3 float32 adam steps, gaps of the largest parameter: card vs "
+              "CPU %.3g; from the init one ulp off, %d draws: card vs card "
+              "%s, CPU vs CPU %s (recorded, not checked)" % (
+                  std, width, gap(base[mt.gpu(0)], base[mt.cpu()]),
+                  WITNESS_DRAWS,
+                  ["%.3g" % g for g in off_gaps[mt.gpu(0)]],
+                  ["%.3g" % g for g in off_gaps[mt.cpu()]]), flush=True)
 
 
 def register_custom_props(mt):
@@ -1245,6 +1624,8 @@ def device_op_group(event):
                        ("flash_bwd_dq", "K2 flash_bwd_dq"),
                        ("flash_fwd", "K1 flash_fwd")):
         if key in name:
+            if key == "flash_fwd" and ", true>" in name:
+                return "K1 flash_fwd split-P"
             return group
     if event.get("cat") != "kernel":
         return event["cat"]
@@ -1335,20 +1716,30 @@ def main():
                   "a kernel of %s spills registers: %s" % (source, line))
     hgmma = sass_hgmma(mt.kernels)
     print("build: HGMMA instructions per attention kernel (cuobjdump -sass): "
-          "%s" % ", ".join("%s<%d> %d" % (k + (n,))
-                           for k, n in sorted(hgmma.items())), flush=True)
-    for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
-                   "flash_bwd_dkv_tc_kernel"):
-        for d in (64, 128):
-            check(hgmma.get((kernel, d), 0) > 0, "%s<%d> (bf16) has no HGMMA "
-                  "instruction: it does not run on the tensor cores"
-                  % (kernel, d))
+          "%s" % ", ".join("%s<%s> %d" % (k, ",".join(map(str, a)), n)
+                           for (k, a), n in sorted(hgmma.items())),
+          flush=True)
+    # every bf16 instantiation: K1 at each width, plain and split-P; K2 at
+    # each width; K3 fused (outputs 3) up to 128, as its dV (2) and dK (1)
+    # launches at 256
+    tc_kernels = [("flash_fwd_tc_kernel", (w, split)) for w in (64, 128, 256)
+                  for split in (0, 1)]
+    tc_kernels += [("flash_bwd_dq_tc_kernel", (w,)) for w in (64, 128, 256)]
+    tc_kernels += [("flash_bwd_dkv_tc_kernel", (w, 3)) for w in (64, 128)]
+    tc_kernels += [("flash_bwd_dkv_tc_kernel", (256, out)) for out in (1, 2)]
+    for kernel, args in tc_kernels:
+        check(hgmma.get((kernel, args), 0) > 0, "%s<%s> (bf16) has no HGMMA "
+              "instruction: it does not run on the tensor cores"
+              % (kernel, ",".join(map(str, args))))
 
-    rows = kernel_phase(torch, att, torch.device("cuda", 0))
-    rtc_rows = rtc_kernel_phase(torch, mt, torch.device("cuda", 0))
-    pred, tokens = serve_phase(torch, mt)
-    mod, batch, launches, losses, step_ms = train_phase(torch, mt)
-    for name in mt.kernels.SOURCES:
+    device = torch.device("cuda", 0)
+    main_rows, dim_rows = kernel_phase(torch, att, device)
+    splitp_row = main_rows.pop("flash_fwd_splitp")
+    rows = list(main_rows.values())
+    rtc_rows = rtc_kernel_phase(torch, mt, device)
+    pred, tokens, flash_out = serve_phase(torch, mt)
+    mod, batch, launches, losses, step_ms, replay = train_phase(torch, mt)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(launches[name] > 0, "the training path never launched %s"
               % name)
     for r in rows:
@@ -1364,9 +1755,19 @@ def main():
         k1 = sorted(profile(torch, step, opts.profile,
                             "train_step").get("K1 flash_fwd", ()))
         print("profile train_step: K1 kernels %s" % k1, flush=True)
-        check(k1 and all("flash_fwd_tc_kernel<128>" in n for n in k1),
-              "the bf16 train step's K1 is not flash_fwd_tc_kernel<128>")
-    del pred, mod, batch
+        check(k1 and all("flash_fwd_tc_kernel<128, false>" in n for n in k1),
+              "the bf16 train step's K1 is not "
+              "flash_fwd_tc_kernel<128, false>")
+    del pred, mod
+    torch.cuda.empty_cache()
+    replay_phase(torch, mt, batch, replay)
+    splash_launches = splash_phase(torch, mt, batch, replay, losses, step_ms,
+                                   tokens, flash_out, opts.profile)
+    splitp_row["launches"] = splash_launches["flash_fwd_splitp"]
+    check(splitp_row["launches"] > 0, "the splash path never launched "
+          "flash_fwd_splitp")
+    rows.append(splitp_row)
+    del batch, replay, flash_out
     torch.cuda.empty_cache()
     ext_launches, sgd_row = extend_phase(torch, mt, losses, step_ms,
                                          opts.profile)
@@ -1379,6 +1780,17 @@ def main():
     small_agreement(mt)
     for dtype in (None, "bfloat16"):
         small_train_agreement(torch, mt, dtype)
+        small_train_agreement(torch, mt, dtype, cfg=SMALL_SPLASH)
+        for d, cfg in sorted(SMALL_HEAD_DIMS.items()):
+            got = small_train_agreement(torch, mt, dtype, cfg=cfg,
+                                        std_width=64)
+            tag = "bf16" if dtype else "f32"
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                dim_rows[(name, d, tag)]["launches"] = got[name]
+                check(got[name] > 0, "the d=%d LM never launched %s"
+                      % (d, name))
+    rows += [dim_rows[k] for k in sorted(dim_rows)]
+    spread_witness(torch, mt)
     small_train_agreement(torch, mt, None, rtc_gelu=True)
     custom_op_agreement(mt)
     nd_agreement(mt)

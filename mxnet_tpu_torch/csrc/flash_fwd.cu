@@ -9,7 +9,22 @@
 //   k, v    [b, sk, h, d]   read through their strides (unit stride in d)
 //   o       [b, sq, h, d]   contiguous, the input dtype
 //   lse     [b*h, sq]       contiguous float32, natural log
-//   d       64 or 128
+//   d       32, 64, 96, 128 or 256
+//
+// Head dims: each kernel is instantiated at the widths D = 64, 128 and 256
+// and takes the real d as an argument.  d = 32 runs at D = 64 and d = 96 at
+// D = 128: the columns past d are zeros in shared memory (TMA fills them in
+// bf16, the staging loops in float32), so the products are exact, and the
+// stores of O are masked to the d columns.  The padding costs the products
+// 2x at d = 32 and 1.33x at d = 96.
+//
+// Splash (`_contrib_SplashAttention`, upstream JAX's splash kernel) is the
+// same function with q pre-scaled by the caller and scale 1; it keeps P in
+// float32 for P V where K1 rounds it to bf16.  The bf16 kernel's kSplitP
+// variant does that: P = P_hi + P_lo, both bf16 (P_lo the rounded
+// remainder, so the pair carries ~16 bits of mantissa), and
+// O += P_hi V + P_lo V as two groups of register-fed products.  The float32
+// kernel keeps P in float32 already and serves splash unchanged.
 //
 // Both versions: one thread block owns one query tile and walks the key /
 // value tiles in a loop inside the block, which takes the place of the TPU
@@ -47,8 +62,12 @@
 //   -inf explicitly (a zero score is not a masked score).  The producer
 //   warpgroup gives up registers (setmaxnreg 24) so that each consumer
 //   thread can hold 240: at d=128 the O accumulator takes 64 registers,
-//   the score tile 64 and P 32.  Shared memory at d=128: Q 32 KB, two
-//   slots of K and V at 32 KB each, 160 KB in all, one block per SM.  What
+//   the score tile 64 and P 32 (split-P: 64).  Shared memory at d=128: Q
+//   32 KB, two slots of K and V at 32 KB each, 160 KB in all, one block per
+//   SM.  At D=256 the key tiles are 64 rows (S is m64n64): Q 64 KB and two
+//   slots of 64-key K and V tiles (32 KB each) take 192 KB, where 128-key
+//   tiles would need 320 KB; the O accumulator (m64n256) takes 128
+//   registers.  What
 //   bounds it: operations.  At b=4, s=4096, h=16, d=128 causal it does 4·d
 //   operations per visible pair, ~0.275 TFLOP, 0.278 ms at the 989 TFLOP/s
 //   bf16 dense peak, while its bytes (Q, K, V, O, lse, ~0.54 GB) take ~0.16
@@ -92,14 +111,15 @@ constexpr float kLn2 = 0.6931471805599453f;
 // ===========================================================================
 
 constexpr int kRes = 128;  // query rows per block: 2 consumer warpgroups
-constexpr int kStr = 128;  // key rows per streamed tile (S is m64n128)
 constexpr int kStages = 2;
 constexpr int kTcThreads = 384;  // warpgroups 0, 1 consume; 2 loads
 
 // Shared memory, in bytes from a 1024-aligned base: Q, kStages slots of a
-// K tile and a V tile, the barriers.
+// K tile and a V tile, the barriers.  kStr key rows per streamed tile: 128
+// (S is m64n128), 64 at D = 256 so that the ring fits.
 template <int D>
 struct TcSmem {
+  static constexpr int kStr = D > 128 ? 64 : 128;
   static constexpr int kQBytes = D / 64 * kRes * 128;
   static constexpr int kTileBytes = D / 64 * kStr * 128;
   static constexpr int kSlots = kQBytes;
@@ -108,15 +128,17 @@ struct TcSmem {
   static constexpr int kAlloc = kBytes + 1024;
 };
 
-// O and lse for one (b*h, 128-query tile).
-template <int D>
+// O and lse for one (b*h, 128-query tile); d <= D is the real head dim.
+template <int D, bool kSplitP>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                    int h, int sq, int sk, float scale_log2, int causal) {
+                    int h, int d, int sq, int sk, float scale_log2,
+                    int causal) {
   using L = TcSmem<D>;
+  constexpr int kStr = L::kStr;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm =
       smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -209,7 +231,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t oa = ((kk / 4) * kRes * 128 + (kk % 4) * 32) >> 4;
         const uint32_t ob = ((kk / 4) * kStr * 128 + (kk % 4) * 32) >> 4;
-        hopper::wgmma_ss_n128(sc, da + oa, db + ob, kk > 0);
+        hopper::wgmma_ss<kStr>(sc, da + oa, db + ob, kk > 0);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
@@ -259,6 +281,14 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int i = 0; i < kStr / 4; ++i)
         pf[i] = hopper::pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      // split-P: the remainder P - P_hi (exact in float32), rounded to bf16
+      uint32_t pl[kSplitP ? kStr / 4 : 1];
+      if constexpr (kSplitP) {
+#pragma unroll
+        for (int i = 0; i < kStr / 4; ++i)
+          pl[i] = hopper::pack_bf16(sc[2 * i] - hopper::bf16_lo(pf[i]),
+                                    sc[2 * i + 1] - hopper::bf16_hi(pf[i]));
+      }
 
       // O += P V: V as MN-major B, 16 keys per step, 64-column blocks
       // kStr * 128 bytes apart
@@ -266,14 +296,21 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
           hopper::desc_sw128(slot + L::kTileBytes, kStr * 128, 1024);
       hopper::fence_regs(acc);
       hopper::fence_regs(pf);
+      if constexpr (kSplitP) hopper::fence_regs(pl);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kStr / 16; ++kk)
         hopper::wgmma_rs<D>(acc, &pf[4 * kk], mb + ((kk * 2048) >> 4));
+      if constexpr (kSplitP) {
+#pragma unroll
+        for (int kk = 0; kk < kStr / 16; ++kk)
+          hopper::wgmma_rs<D>(acc, &pl[4 * kk], mb + ((kk * 2048) >> 4));
+      }
       hopper::wgmma_commit();
       hopper::wgmma_wait_all();
       hopper::fence_regs(acc);
       hopper::fence_regs(pf);
+      if constexpr (kSplitP) hopper::fence_regs(pl);
     }
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
@@ -288,35 +325,38 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     if (row >= sq) continue;
     const float lsafe = lt > 0.f ? lt : 1.f;
     const float inv = 1.f / lsafe;
-    const int64_t off = (((int64_t)bi * sq + row) * h + hi) * D + 2 * c4;
+    const int64_t off = (((int64_t)bi * sq + row) * h + hi) * d + 2 * c4;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(o + off + 8 * j) = hopper::pack_bf16(
-          acc[4 * j + 2 * x] * inv, acc[4 * j + 2 * x + 1] * inv);
+      if (8 * j < d)  // columns 8j + 2c4 (+1); d is a multiple of 32
+        *reinterpret_cast<uint32_t*>(o + off + 8 * j) = hopper::pack_bf16(
+            acc[4 * j + 2 * x] * inv, acc[4 * j + 2 * x + 1] * inv);
     if (c4 == 0) lse[(int64_t)bh * sq + row] = (m[x] + log2f(lsafe)) * kLn2;
   }
 }
 
 // strides: q, k, v, each (b, s, h), in elements.  Q's map takes boxes of
-// kRes rows, K's and V's kStr.
-template <int D>
+// kRes rows, K's and V's kStr; every map has the real head dim d.
+template <int D, bool kSplitP>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int b, int h, int sq, int sk,
+                      float* lse, int b, int h, int d, int sq, int sk,
                       const int64_t* st, float scale_log2, int causal,
                       cudaStream_t stream) {
+  using L = TcSmem<D>;
   CUtensorMap mq, mk, mv;
-  if (!hopper::encode_bshd_bf16(&mq, q, b, sq, h, D, st[0], st[1], st[2], kRes) ||
-      !hopper::encode_bshd_bf16(&mk, k, b, sk, h, D, st[3], st[4], st[5], kStr) ||
-      !hopper::encode_bshd_bf16(&mv, v, b, sk, h, D, st[6], st[7], st[8], kStr))
+  if (!hopper::encode_bshd_bf16(&mq, q, b, sq, h, d, st[0], st[1], st[2], kRes) ||
+      !hopper::encode_bshd_bf16(&mk, k, b, sk, h, d, st[3], st[4], st[5], L::kStr) ||
+      !hopper::encode_bshd_bf16(&mv, v, b, sk, h, d, st[6], st[7], st[8], L::kStr))
     return cudaErrorInvalidValue;
-  const int smem = TcSmem<D>::kAlloc;
+  const int smem = L::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_tc_kernel<D, kSplitP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (sq + kRes - 1) / kRes);
-  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, h, sq, sk, scale_log2,
-      causal);
+  flash_fwd_tc_kernel<D, kSplitP><<<grid, kTcThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, h, d, sq, sk,
+      scale_log2, causal);
   return cudaGetLastError();
 }
 
@@ -348,19 +388,21 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 }
 
 // dst[c * kTS + r] = src[(row0 + r) * ss + c] for r < 64, c < D; rows at
-// or past nrows are zero.  A warp's 32 elements are 4 rows x 8 consecutive
-// columns: one 32-byte sector per row on the read side, and, as
-// kTS = 4 (mod 32), 32 distinct banks on the transposed write side.
-template <int D>
+// or past nrows, and with kPad columns at or past d, are zero.  A warp's 32
+// elements are 4 rows x 8 consecutive columns: one 32-byte sector per row
+// on the read side, and, as kTS = 4 (mod 32), 32 distinct banks on the
+// transposed write side.
+template <int D, bool kPad>
 __device__ __forceinline__ void stage_transposed(float* dst, const float* src,
                                                  int64_t ss, int row0,
-                                                 int nrows) {
+                                                 int nrows, int d) {
   for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
     const int chunk = e >> 5;
     const int c = (chunk % (D / 8)) * 8 + (e & 7);
     const int r = (chunk / (D / 8)) * 4 + ((e >> 3) & 3);
     const int row = row0 + r;
-    dst[c * kTS + r] = row < nrows ? src[row * ss + c] : 0.f;
+    const bool in = kPad ? row < nrows && c < d : row < nrows;
+    dst[c * kTS + r] = in ? src[row * ss + c] : 0.f;
   }
 }
 
@@ -371,11 +413,14 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * D * kTS + kBK * D);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+// At D = 256 the tiles take 204,800 bytes: one block per SM.  kPad: d < D
+// (the staging loops zero the columns past d, the stores skip them); the
+// full-width instantiations carry no column test.
+template <int D, bool kPad>
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int h, int sq, int sk,
+                 float* __restrict__ lse, int h, int d, int sq, int sk,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -400,7 +445,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + bi * k_sb + hi * k_sh;
   const float* vb = v + bi * v_sb + hi * v_sh;
 
-  stage_transposed<D>(qt, qb, q_ss, q0, sq);
+  stage_transposed<D, kPad>(qt, qb, q_ss, q0, sq, d);
 
   float m[4], l[4], acc[4][4 * kG];
 #pragma unroll
@@ -414,11 +459,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k_end = causal ? min(sk, q0 + kBQ) : sk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's P and V reads are done
-    stage_transposed<D>(kt, kb, k_ss, k0, sk);
+    stage_transposed<D, kPad>(kt, kb, k_ss, k0, sk, d);
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
       const int row = k0 + r;
-      vs[e] = row < sk ? vb[row * v_ss + c] : 0.f;
+      const bool in = kPad ? row < sk && c < d : row < sk;
+      vs[e] = in ? vb[row * v_ss + c] : 0.f;
     }
     __syncthreads();  // Q (first tile), K and V staged
 
@@ -493,55 +539,90 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= sq) continue;
     const float lsafe = l[i] > 0.f ? l[i] : 1.f;
     const float inv = 1.f / lsafe;
-    float* orow = o + ((int64_t)(bi * sq + row) * h + hi) * D;
+    float* orow = o + ((int64_t)(bi * sq + row) * h + hi) * d;
 #pragma unroll
     for (int g = 0; g < kG; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        orow[64 * g + 4 * tx + c] = acc[i][4 * g + c] * inv;
+        if (!kPad || 64 * g + 4 * tx + c < d)
+          orow[64 * g + 4 * tx + c] = acc[i][4 * g + c] * inv;
     if (tx == 0) lse[(int64_t)bh * sq + row] = (m[i] + log2f(lsafe)) * kLn2;
   }
 }
 
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int b, int h, int sq, int sk,
-                       const int64_t* st, float scale_log2, int causal,
-                       cudaStream_t stream) {
+template <int D, bool kPad>
+cudaError_t launch_f32_at(const void* q, const void* k, const void* v,
+                          void* o, float* lse, int b, int h, int d, int sq,
+                          int sk, const int64_t* st, float scale_log2,
+                          int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, kPad>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<D, kPad><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, h, sq, sk,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, h, d, sq, sk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       scale_log2, causal);
   return cudaGetLastError();
+}
+
+// d = D, or (D = 64, 128) the padded d = 32, 96.
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int b, int h, int d, int sq, int sk,
+                       const int64_t* st, float scale_log2, int causal,
+                       cudaStream_t stream) {
+  if (d == D)
+    return launch_f32_at<D, false>(q, k, v, o, lse, b, h, d, sq, sk, st,
+                                   scale_log2, causal, stream);
+  if constexpr (D < 256)
+    return launch_f32_at<D, true>(q, k, v, o, lse, b, h, d, sq, sk, st,
+                                  scale_log2, causal, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   void* o, float* lse, int b, int h, int d, int sq, int sk,
+                   const int64_t* st, float scale_log2, int causal,
+                   int split_p, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, lse, b, h, d, sq, sk, st, scale_log2, causal, s);
+  if (split_p)
+    return launch_tc<D, true>(q, k, v, o, lse, b, h, d, sq, sk, st, scale_log2, causal, s);
+  return launch_tc<D, false>(q, k, v, o, lse, b, h, d, sq, sk, st, scale_log2, causal, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; every view
 // needs a 16-byte aligned base and (b, s, h) strides that are multiples of
-// 8 elements, or the entry returns cudaErrorInvalidValue).  strides: q
-// (b, s, h), k (b, s, h), v (b, s, h) in elements (9 values, host memory).
-// Launches on `stream` without synchronising and returns cudaGetLastError()
-// of the launch (0 on success).
-extern "C" int mxtt_flash_fwd(int dtype, int d, const void* q, const void* k,
-                              const void* v, void* o, float* lse, int b, int h,
-                              int sq, int sk, const int64_t* strides,
-                              float scale_log2, int causal, void* stream) {
+// 8 elements, or the entry returns cudaErrorInvalidValue).  d: the head dim;
+// width: the instantiated width it runs at (64, 128 or 256, d <= width; the
+// caller's ops/attention.py::kernel_width picks it, columns past d are
+// zeros).  strides: q (b, s, h), k (b, s, h), v (b, s, h) in elements
+// (9 values, host memory).  split_p (bf16 only): keep P in float32
+// precision for P V as the split bf16 pair (splash).  Launches on `stream`
+// without synchronising and returns cudaGetLastError() of the launch (0 on
+// success).
+extern "C" int mxtt_flash_fwd(int dtype, int d, int width, const void* q,
+                              const void* k, const void* v, void* o,
+                              float* lse, int b, int h, int sq, int sk,
+                              const int64_t* strides, float scale_log2,
+                              int causal, int split_p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return (int)launch_f32<64>(q, k, v, o, lse, b, h, sq, sk, strides, scale_log2, causal, s);
-  if (dtype == 0 && d == 128)
-    return (int)launch_f32<128>(q, k, v, o, lse, b, h, sq, sk, strides, scale_log2, causal, s);
-  if (dtype == 1 && d == 64)
-    return (int)launch_tc<64>(q, k, v, o, lse, b, h, sq, sk, strides, scale_log2, causal, s);
-  if (dtype == 1 && d == 128)
-    return (int)launch_tc<128>(q, k, v, o, lse, b, h, sq, sk, strides, scale_log2, causal, s);
+  if ((dtype != 0 && dtype != 1) || d <= 0 || d > width)
+    return (int)cudaErrorInvalidValue;
+  switch (width) {
+    case 64:
+      return (int)launch<64>(dtype, q, k, v, o, lse, b, h, d, sq, sk, strides, scale_log2, causal, split_p, s);
+    case 128:
+      return (int)launch<128>(dtype, q, k, v, o, lse, b, h, d, sq, sk, strides, scale_log2, causal, split_p, s);
+    case 256:
+      return (int)launch<256>(dtype, q, k, v, o, lse, b, h, d, sq, sk, strides, scale_log2, causal, split_p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -113,9 +113,11 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // A bf16 [b, s, h, d] view with unit stride in d and (b, s, h) strides in
 // elements, mapped as the 4-d tensor {d, h, s, b} with boxes of 64 columns
-// by `box_rows` rows of one head, 128-byte swizzle.  Rows at or past s read
-// as zeros.  Returns false if cuTensorMapEncodeTiled refuses (TMA wants a
-// 16-byte aligned base and strides that are multiples of 16 bytes).
+// by `box_rows` rows of one head, 128-byte swizzle.  Rows at or past s, and
+// columns at or past d (a box reaching past a head dim of 32 or 96), read
+// as zeros; the transaction still counts the whole box.  Returns false if
+// cuTensorMapEncodeTiled refuses (TMA wants a 16-byte aligned base and
+// strides that are multiples of 16 bytes).
 inline bool encode_bshd_bf16(CUtensorMap* map, const void* base, int b, int s,
                              int h, int d, int64_t stride_b, int64_t stride_s,
                              int64_t stride_h, int box_rows) {
@@ -207,6 +209,21 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// The same with N = 32 (B is 32 x 16).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // The same with N = 128 (B is 128 x 16).
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int accumulate) {
@@ -266,16 +283,69 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same with N = 256 (B spans four 64-column blocks LBO apart).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16),
+        HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40),
+        HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56), HOPPER_ACC8(d, 64),
+        HOPPER_ACC8(d, 72), HOPPER_ACC8(d, 80), HOPPER_ACC8(d, 88),
+        HOPPER_ACC8(d, 96), HOPPER_ACC8(d, 104), HOPPER_ACC8(d, 112),
+        HOPPER_ACC8(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef HOPPER_ACC8
 
-// acc (+)= A * B for one 16-deep step with A in registers, N = 64 or 128.
+// acc (+)= A * B for one 16-deep step with A in registers, N = 64, 128 or
+// 256.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&acc)[N / 2], const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (N == 128)
+  if constexpr (N == 256)
+    wgmma_rs_n256(acc, a, db);
+  else if constexpr (N == 128)
     wgmma_rs_n128(acc, a, db);
   else
     wgmma_rs_n64(acc, a, db);
+}
+
+// acc (+)= A * B^T for one 16-deep step, both K-major in shared memory,
+// N = 32, 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&acc)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 128)
+    wgmma_ss_n128(acc, da, db, accumulate);
+  else if constexpr (N == 64)
+    wgmma_ss_n64(acc, da, db, accumulate);
+  else
+    wgmma_ss_n32(acc, da, db, accumulate);
+}
+
+// The two bf16 halves of a packed register, widened to float exactly.
+__device__ __forceinline__ float bf16_lo(uint32_t r) {
+  return __uint_as_float(r << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t r) {
+  return __uint_as_float(r & 0xffff0000u);
 }
 
 // ---- register reallocation between warpgroups ----------------------------

@@ -9,8 +9,9 @@ card imports the package, and only a launch on a CUDA tensor needs the
 build.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made.  A wrapper
-adds one right after a launch that returned no error, and nowhere else, so a
-caller can show which kernels a run went through.  Kernels compiled at run
+adds one per kernel launched (K3 in bf16 at head-dim width 256 is two, as
+its C entry reports) right after a call that returned no error, and
+nowhere else, so a caller can show which kernels a run went through.  Kernels compiled at run
 time by ``rtc.MXRtc`` count under ``rtc:<name>``, added at their first
 launch.
 """
@@ -33,8 +34,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 
-#: kernel name -> source file under csrc/ (one library per source file)
+#: kernel name -> source file under csrc/ (one library per source file);
+#: ``flash_fwd_splitp`` is K1's split-P variant, behind the splash op
 SOURCES = {"flash_fwd": "flash_fwd.cu",
+           "flash_fwd_splitp": "flash_fwd.cu",
            "flash_bwd_dq": "flash_bwd.cu",
            "flash_bwd_dkv": "flash_bwd.cu"}
 
@@ -47,8 +50,8 @@ BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def count(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+def count(name: str, n: int = 1) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def reset_launches() -> None:

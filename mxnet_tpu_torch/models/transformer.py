@@ -4,7 +4,9 @@
 The graph is built from the same ops with the same names in the same order,
 so under a fresh ``NameManager`` its JSON is byte-identical to the JAX
 package's and one checkpoint serves both.  Attention is
-``_contrib_FlashAttention`` (the CUDA flash-attention forward on the card).
+``_contrib_FlashAttention`` (``attn_impl="flash"``) or
+``_contrib_SplashAttention`` (``"splash"``), both on the CUDA attention
+kernels on the card.
 """
 
 from .. import symbol as sym
@@ -19,11 +21,6 @@ def _dense(x, n_in, n_out, name):
 
 def _block(x, hidden, num_heads, seq_len, name, block_q=None, block_k=None,
            attn_impl="flash"):
-    if attn_impl == "splash":
-        raise NotImplementedError("_contrib_SplashAttention is not ported yet")
-    if attn_impl != "flash":
-        raise ValueError("attn_impl must be 'flash' or 'splash', got %r"
-                         % (attn_impl,))
     head_dim = hidden // num_heads
     # attention sublayer (pre-norm)
     h = sym.LayerNorm(x, name="%s_ln1" % name)
@@ -31,9 +28,16 @@ def _block(x, hidden, num_heads, seq_len, name, block_q=None, block_k=None,
     qkv = sym.Reshape(qkv, shape=(-1, seq_len, 3, num_heads, head_dim))
     q, k, v = sym.SliceChannel(qkv, num_outputs=3, axis=2, squeeze_axis=True,
                                name="%s_split" % name)
-    att = sym._contrib_FlashAttention(q, k, v, causal=True,
-                                      block_q=block_q, block_k=block_k,
-                                      name="%s_attn" % name)
+    if attn_impl == "splash":
+        att = sym._contrib_SplashAttention(q, k, v, causal=True,
+                                           name="%s_attn" % name)
+    elif attn_impl == "flash":
+        att = sym._contrib_FlashAttention(q, k, v, causal=True,
+                                          block_q=block_q, block_k=block_k,
+                                          name="%s_attn" % name)
+    else:
+        raise ValueError("attn_impl must be 'flash' or 'splash', got %r"
+                         % (attn_impl,))
     att = sym.Reshape(att, shape=(-1, seq_len, hidden))
     proj = _dense(att, hidden, hidden, "%s_proj" % name)
     x = sym.broadcast_add(x, sym.Reshape(proj, shape=(-1, seq_len, hidden)),

@@ -14,10 +14,18 @@ float32 (the serving path) runs ``flash_fwd_kernel``,
 CUDA tensor they launch the kernels or raise; they take the plain versions,
 ``attention_reference`` and ``attention_backward_reference``, only for
 tensors on the CPU (the tests) or on the meta device (shape inference).
+The kernels take head dims 32, 64, 96, 128 and 256 (``kernel_width``); 32
+and 96 run zero-padded at the widths 64 and 128.
 The op ``_contrib_FlashAttention`` keeps the JAX package's params, so graph
 JSON is identical; its ``block_q``/``block_k`` attrs size the TPU's tiles
 and are not read here — the card's kernels pick their own.  Its gradient
 is ``flash_backward``.
+
+``splash_attention`` and the op ``_contrib_SplashAttention`` are the
+counterparts of the JAX package's wrapper around upstream JAX's splash
+kernel: q pre-scaled in its own dtype, then the same kernels at scale 1,
+with the forward's split-P variant (``flash_fwd_splitp``: P kept at float32
+precision for P·V, as splash keeps it) in bf16.
 """
 from __future__ import annotations
 
@@ -31,12 +39,14 @@ from ..base import MXNetError
 
 __all__ = ["attention_reference", "attention_backward_reference",
            "flash_forward", "flash_backward", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_attention"]
+           "flash_attention", "kernel_width", "splash_attention"]
 
 _NEG = -1e30
 _LOG2E = 1.4426950408889634
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = (64, 128)
+#: head dim -> the width the kernels are instantiated at and run it at (the
+#: C entries take it as ``width``): columns past d are zeros in shared memory
+_KERNEL_WIDTHS = {32: 64, 64: 64, 96: 128, 128: 128, 256: 256}
 #: query rows per block of the forward kernel each dtype runs (flash_fwd.cu:
 #: kBQ of the CUDA-core kernel, kRes of the tensor-core one)
 _FWD_BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}
@@ -100,9 +110,20 @@ def attention_backward_reference(q, k, v, o, lse, do, causal: bool,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def kernel_width(d: int, what: str = "attention") -> int:
+    """The instantiated width the kernels run head dim ``d`` at; raises for
+    a head dim they do not take."""
+    width = _KERNEL_WIDTHS.get(int(d))
+    if width is None:
+        raise MXNetError("%s: head dim %d not supported by the kernel "
+                         "(supported: %s)" % (what, d,
+                                              tuple(sorted(_KERNEL_WIDTHS))))
+    return width
+
+
 def _check_kernel_inputs(what, tensors):
     """The kernels' contract: one device, one dtype of float32 or bfloat16,
-    head dim 64 or 128, unit stride in the head dim."""
+    a head dim ``kernel_width`` takes, unit stride in the head dim."""
     first = tensors[0]
     if any(t.device != first.device for t in tensors):
         raise MXNetError("%s: inputs on different devices" % what)
@@ -110,10 +131,7 @@ def _check_kernel_inputs(what, tensors):
             any(t.dtype != first.dtype for t in tensors):
         raise MXNetError("%s: the kernel takes float32 or bfloat16 inputs of "
                          "one dtype, got %s" % (what, [t.dtype for t in tensors]))
-    if first.shape[-1] not in _KERNEL_HEAD_DIMS:
-        raise MXNetError("%s: head dim %d not supported by the kernel "
-                         "(supported: %s)" % (what, first.shape[-1],
-                                              _KERNEL_HEAD_DIMS))
+    kernel_width(first.shape[-1], what)
     if any(t.stride(-1) != 1 for t in tensors):
         raise MXNetError("%s: inputs need unit stride in the head dim" % what)
 
@@ -152,10 +170,10 @@ def _check_tma_view(what, name, t):
 def _kernel_fn():
     fn = kernels.library("flash_fwd").mxtt_flash_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 4
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -174,7 +192,10 @@ def _check_forward_launch(q, k, v):
             _check_tma_view("flash_forward", name, t)
 
 
-def _flash_forward_cuda(q, k, v, causal: bool, scale: float):
+def _flash_forward_cuda(q, k, v, causal: bool, scale: float,
+                        split_p: bool = False):
+    """K1 on the card; ``split_p`` (bf16) launches the variant that keeps P
+    at float32 precision for P·V, counted as ``flash_fwd_splitp``."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_forward_launch(q, k, v)
@@ -186,21 +207,26 @@ def _flash_forward_cuda(q, k, v, causal: bool, scale: float):
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+        err = fn(_KERNEL_DTYPES[q.dtype], d, kernel_width(d), q.data_ptr(),
+                 k.data_ptr(),
                  v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq, sk,
                  strides.data_ptr(), float(scale) * _LOG2E, int(causal),
-                 stream)
+                 int(split_p), stream)
     if err != 0:
         raise MXNetError("flash_forward: kernel launch failed (cudaError %d)"
                          % err)
-    kernels.count("flash_fwd")
+    kernels.count("flash_fwd_splitp" if split_p and q.dtype == torch.bfloat16
+                  else "flash_fwd")
     return o, lse
 
 
-def flash_forward(q, k, v, causal: bool = False, scale=None):
+def flash_forward(q, k, v, causal: bool = False, scale=None,
+                  split_p: bool = False):
     """Flash-attention forward: (o [b, sq, h, d], lse [b*h, sq] float32,
     natural log) for q [b, sq, h, d] and k, v [b, sk, h, d] — the
-    counterpart of ``mxnet_tpu.ops.attention._flash_forward``."""
+    counterpart of ``mxnet_tpu.ops.attention._flash_forward``.  With
+    ``split_p`` a bf16 forward keeps P at float32 precision for P·V (the
+    plain version keeps it in float32 in any case)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise MXNetError("flash_forward: expected q [b, sq, h, d] and k, v "
@@ -211,20 +237,23 @@ def flash_forward(q, k, v, causal: bool = False, scale=None):
     if scale is None:
         scale = 1.0 / np.sqrt(q.shape[-1])
     if q.device.type == "cuda":
-        return _flash_forward_cuda(q, k, v, causal, scale)
+        return _flash_forward_cuda(q, k, v, causal, scale, split_p)
     if q.device.type in ("cpu", "meta"):
         return attention_reference(q, k, v, causal, scale)
     raise MXNetError("flash_forward: no kernel for device %s" % q.device)
 
 
 def _bwd_fn(name):
+    """The C entry of K2 or K3.  K3's takes one more argument, where it
+    writes how many kernels it launched (two in bf16 at width 256)."""
     fn = getattr(kernels.library(name), "mxtt_" + name)
     if fn.argtypes is None:
-        n_out = 1 if name == "flash_bwd_dq" else 2
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_void_p] * n_out + [ctypes.c_int] * 4
+        dkv = name == "flash_bwd_dkv"
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * (7 + dkv)
+                       + [ctypes.c_int] * 4
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_void_p]
+                       + [ctypes.POINTER(ctypes.c_int)] * dkv)
         fn.restype = ctypes.c_int
     return fn
 
@@ -249,17 +278,19 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
     if outs[0].numel() == 0:
         return
     strides = _strides(q, k, v, do)  # held: the kernel reads it on the host
+    launched = ctypes.c_int(1)
+    extra = (ctypes.byref(launched),) if name == "flash_bwd_dkv" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_fn(name)(
-            _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outs), b, h, sq, sk,
-            strides.data_ptr(), float(scale), int(causal), stream)
+            _KERNEL_DTYPES[q.dtype], d, kernel_width(d), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outs), b, h, sq, sk,
+            strides.data_ptr(), float(scale), int(causal), stream, *extra)
     if err != 0:
         raise MXNetError("%s: kernel launch failed (cudaError %d)"
                          % (name, err))
-    kernels.count(name)
+    kernels.count(name, launched.value)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
@@ -273,7 +304,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """(dK, dV) [b, sk, h, d] from the K3 kernel (CUDA tensors only)."""
+    """(dK, dV) [b, sk, h, d] from the K3 kernel (CUDA tensors only).  In
+    bf16 at width 256 one call is two launches, dV then dK, and counts
+    two."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
@@ -319,9 +352,48 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     return flash_forward(q, k, v, causal=causal, scale=scale)[0]
 
 
+class _SplashCore(torch.autograd.Function):
+    """softmax(q·kᵀ)·v at scale 1 for an already scaled q: K1's split-P
+    variant forward, K2 and K3 at scale 1 backward (splash's own vjp rounds
+    P and dS to the operand dtype where K2 and K3 do).  Δ is recomputed
+    from o and dO by ``flash_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_forward(q, k, v, causal, 1.0, split_p=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_backward(q, k, v, o, lse, do, ctx.causal, 1.0) + (None,)
+
+
+def splash_attention(q, k, v, causal: bool = True, scale=None):
+    """Counterpart of ``mxnet_tpu.ops.attention.splash_attention`` (upstream
+    JAX's splash kernel behind the [b, seq, heads, d] layout): q [b, s, h,
+    d] is multiplied by ``scale`` in its own dtype (bf16 q is rounded after
+    scaling, and dq is scaled in that dtype, as JAX's vjp scales it), then
+    attention at scale 1 runs on the kernels, causal or full.  The sequence
+    must be a multiple of 128, as splash requires."""
+    s, d = q.shape[1], q.shape[-1]
+    if scale is None:
+        scale = 1.0 / np.sqrt(d)
+    if s % 128:
+        raise ValueError(
+            "splash_attention requires seq_len to be a multiple of 128 "
+            "(got %d); use the flash implementation instead" % s)
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    return _SplashCore.apply(qs, k, v, bool(causal))
+
+
 # ---------------------------------------------------------------------------
-# registry op — registered through register_kernel_op, as the JAX package
-# registers it through register_pallas_op
+# registry ops — FlashAttention through register_kernel_op, as the JAX
+# package registers it through register_pallas_op; SplashAttention as a
+# plain op whose gradient is its autograd Function, as the JAX package's
+# differentiates through splash's custom vjp
 # ---------------------------------------------------------------------------
 
 
@@ -352,6 +424,7 @@ def _fa_bwd(attrs, res, ct):
 def _register():
     from .kernel_op import register_kernel_op
     from .param import Param
+    from .registry import register
 
     register_kernel_op(
         "_contrib_FlashAttention", _fa_fn, bwd=_fa_bwd, fwd=_fa_fwd,
@@ -362,6 +435,17 @@ def _register():
                 "block_k": Param("int-or-none", None)},
         infer_shape=lambda attrs, s: (s, [s[0]], []),
         hint="flashattention")
+
+    @register("_contrib_SplashAttention",
+              inputs=("query", "key", "value"),
+              params={"causal": Param(bool, True),
+                      "scale": Param("float-or-none", None)},
+              infer_shape=lambda attrs, shapes: (shapes, [shapes[0]], []),
+              hint="splashattention")
+    def _splash_op(opctx, attrs, query, key, value):
+        return splash_attention(query, key, value,
+                                causal=bool(attrs.get("causal", True)),
+                                scale=attrs.get("scale"))
 
 
 _register()
