@@ -5,7 +5,9 @@
     python3 chip_smoke.py --profile DIR    # also trace one extra request,
                                            # one extra train step (its K1
                                            # must be the tensor-core
-                                           # kernel), one extra splash step
+                                           # kernel), one extra float32
+                                           # step (its K2/K3 the split-TF32
+                                           # kernels), one extra splash step
                                            # (its K1 the split-P variant)
                                            # and one extra rtc_gelu step
 
@@ -15,10 +17,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``mxnet_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
              source, all started together; print ptxas's registers, shared
              memory and spills (a spill is fatal), and the count of
-             ``HGMMA`` (wgmma) instructions in each attention kernel from
-             ``cuobjdump -sass`` (a bf16 instantiation without any is
-             fatal: it would not run on the tensor cores; K1 plain and
-             split-P, K2 and K3 at the widths 64, 128 and 256);
+             tensor-core instructions in each attention kernel from
+             ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA``
+             (mma.sync, which the float32 K2/K3 issue at the width 256);
+             an instantiation without any is
+             fatal: it would not run on the tensor cores (K1 plain and
+             split-P in bf16, K2 and K3 in both dtypes, at the widths 64,
+             128 and 256);
              load NVRTC (a missing libnvrtc is fatal) and print its
              version;
 2. kernels — hold each kernel against its plain PyTorch version on the card
@@ -29,8 +34,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              contiguous views, d=64 at the main length), and at the main
              length (b=4, s=4096) the main path's shape and the head dims
              32, 96 and 256 (64/16/8 heads) in float32 and bf16.  At each
-             bf16 one of those, repeated launches of K1, K2 and K3 give the
-             same bits, and K1's split-P variant (splash's forward: P kept
+             of those, repeated launches of K1, K2 and K3 give the same
+             bits; at each float32 one the split-TF32 K2/K3's mean error
+             against a float64 backward (batch 0, two heads) is at most 8x
+             the plain float32 version's; at each bf16 one K1's split-P
+             variant (splash's forward: P kept
              at float32 precision for P V), on a pre-scaled q at scale 1,
              must agree with the plain version and have at most half the
              mean error of plain K1 on the same inputs; a view that breaks
@@ -57,6 +65,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              fall, and each step must launch each kernel once per layer;
              then the fused step and the two-phase path (forward_backward,
              then the updater over the gradients) are timed side by side;
+             then the same LM, init and batch in float32 (``Module``'s
+             default ``compute_dtype``), 2 warm-up and 3 timed steps: each
+             launches K1, K2 and K3 (split TF32) once per layer, the loss
+             falls, and neither of PyTorch's TF32 flags is on;
 5. replay  — the train phase's first 3 steps again in a new Module from
              its initial parameters and batch: every loss and parameter
              the same bits; then once more under
@@ -114,6 +126,7 @@ SMALL_HEAD_DIMS = {32: dict(SMALL, num_heads=4), 96: dict(SMALL, hidden=192),
                    256: dict(SMALL, num_heads=1, hidden=256)}
 SMALL_SPLASH = dict(SMALL, seq_len=128, attn_impl="splash")
 TRAIN_WARMUP, TRAIN_STEPS, TRAIN_LR = 2, 5, 3e-4
+F32_WARMUP, F32_STEPS = 2, 3  # the float32 train phase
 REPLAY_STEPS = 3
 SOURCE_DIR = "mxnet_tpu_torch/csrc/"
 # the TPU kernel each CUDA kernel replaces (the split-P K1 serves splash,
@@ -134,13 +147,17 @@ WIDE = (BATCH * FULL["seq_len"], 4 * FULL["hidden"])
 # sgd_update's hyperparameters in the extend phase
 SGD = dict(lr=0.01, rescale_grad=1.0 / BATCH, wd=1e-4)
 
-# Data-sheet peaks per H100 variant (dense): float32 on the CUDA cores and
-# bf16 on the tensor cores (TFLOP/s), device memory (TB/s).  nvidia-smi
-# names the SXM part "NVIDIA H100 80GB HBM3", so SXM is the fallback.
+# Data-sheet peaks per H100 variant (dense): float32 on the CUDA cores, bf16
+# and TF32 (half of bf16) on the tensor cores (TFLOP/s), device memory
+# (TB/s).  nvidia-smi names the SXM part "NVIDIA H100 80GB HBM3", so SXM is
+# the fallback.
 PEAKS = {
-    "H100 PCIe": {"float32": 51.0, "bfloat16": 756.0, "tbs": 2.0},
-    "H100 NVL": {"float32": 60.0, "bfloat16": 835.0, "tbs": 3.9},
-    "H100 SXM": {"float32": 67.0, "bfloat16": 989.0, "tbs": 3.35},
+    "H100 PCIe": {"float32": 51.0, "bfloat16": 756.0, "tf32": 378.0,
+                  "tbs": 2.0},
+    "H100 NVL": {"float32": 60.0, "bfloat16": 835.0, "tf32": 417.5,
+                 "tbs": 3.9},
+    "H100 SXM": {"float32": 67.0, "bfloat16": 989.0, "tf32": 495.0,
+                 "tbs": 3.35},
 }
 
 
@@ -200,13 +217,22 @@ def attention_work(kind, b, sq, sk, h, d, causal, itemsize):
     return 2.0 * products * d * pairs * b * h, nbytes
 
 
-def bound_ms(torch, work, dtype):
+def bound_ms(torch, work, dtype, products=False, cuda_cores=False):
     """(bound ms, what bounds it): the larger of the work's operations
-    over the card's peak for ``dtype`` and its bytes over memory rate."""
+    over the card's peak for ``dtype`` and its bytes over memory rate.
+    float32 matrix ``products`` are bounded on the tensor cores by the
+    split-TF32 product, three TF32 operations per operation ("operations
+    (3xTF32)" in the printed lines; "operations" in the kernel table);
+    ``cuda_cores`` bounds them at the float32 CUDA-core peak instead, the
+    bound of the tables before that route."""
     _, peak = peaks_for(torch.cuda.get_device_name(0))
     flops, nbytes = work
-    t_ops = flops / (peak["bfloat16" if dtype == torch.bfloat16
-                          else "float32"] * 1e12) * 1e3
+    if dtype == torch.bfloat16:
+        t_ops = flops / (peak["bfloat16"] * 1e12) * 1e3
+    elif products and not cuda_cores:
+        t_ops = 3 * flops / (peak["tf32"] * 1e12) * 1e3
+    else:
+        t_ops = flops / (peak["float32"] * 1e12) * 1e3
     t_bytes = nbytes / (peak["tbs"] * 1e12) * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -239,12 +265,14 @@ def kernel_phase(torch, att, device):
     backward (dQ, dK, dV) at every case.  The cases "timed" are those at
     the main length: the main path's shape and the head dims of
     ``HEAD_DIM_CASES``, each in float32 and bf16, and d=64 in bf16; at each
-    bf16 one, two launches of each kernel give the same
-    bits (``repeat_check``) and K1's split-P variant is held to what it
-    adds (``splitp_check``).  Then every timed case beside its bound, its
+    one, two launches of each kernel give the same bits
+    (``repeat_check``); at each bf16 one K1's split-P variant is held to
+    what it adds (``splitp_check``), at each float32 one the split-TF32
+    K2/K3 to a float64 truth (``precision_check``).  Then every timed case beside its bound, its
     plain version and SDPA (``time_case``).  Returns (the rows of the main
-    path's shape in bf16 keyed by kernel, the head dims' rows keyed
-    (kernel, d, dtype))."""
+    path's shape in bf16 keyed by kernel, the other rows keyed (kernel, d,
+    dtype): the main shape in float32 (the float32 train phase's) and the
+    head dims)."""
     f32, bf16 = torch.float32, torch.bfloat16
     h_main, s = FULL["num_heads"], FULL["seq_len"]
     d_main = FULL["hidden"] // h_main
@@ -319,34 +347,36 @@ def kernel_phase(torch, att, device):
         if b == BATCH and sq == s:
             m = dict(name=name, q=q, k=k, v=v, o=o, lse=lse, do=do,
                      scale=scale, err_o=err_o, errs=errs)
+            repeat_check(torch, att, m)
             if dtype == bf16:
-                repeat_check(torch, att, m)
                 m.update(splitp_check(torch, att, m))
+            else:
+                precision_check(torch, att, m)
             timed[(d, dtype)] = m
     torch.cuda.empty_cache()
     tma_rule_check(torch, att, timed[(d_main, bf16)])
     variant, peak = peaks_for(torch.cuda.get_device_name(0))
     print("kernel bounds against the %s data sheet: %.0f TFLOP/s float32, "
-          "%.0f TFLOP/s bf16 dense, %.2f TB/s" % (
-              variant, peak["float32"], peak["bfloat16"], peak["tbs"]),
-          flush=True)
+          "%.0f TFLOP/s bf16 dense, %.1f TFLOP/s TF32 dense (float32 "
+          "products: 3 TF32 operations each), %.2f TB/s" % (
+              variant, peak["float32"], peak["bfloat16"], peak["tf32"],
+              peak["tbs"]), flush=True)
     main_rows, dim_rows = {}, {}
     for (d, dtype), m in timed.items():
         rows = time_case(torch, att, m)
         del m["q"], m["k"], m["v"], m["o"], m["do"]
         torch.cuda.empty_cache()
-        if d == d_main:
-            if dtype == bf16:  # the training path's dtype: the main path
-                main_rows = rows
+        if d == d_main and dtype == bf16:
+            main_rows = rows  # the bf16 train, replay and splash paths
             continue
-        if d not in {dim for _, dim in HEAD_DIM_CASES}:
+        if d not in {dim for _, dim in HEAD_DIM_CASES} | {d_main}:
             continue  # d=64 at the main length: printed only
         tag = "f32" if dtype == f32 else "bf16"
         for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             row = dict(rows[kernel])
             row["name"] = "%s[d=%d,%s%s]" % (
                 kernel, d, tag, ",dV+dK" if kernel == "flash_bwd_dkv" and
-                dtype == bf16 and att.kernel_width(d) > 128 else "")
+                att.kernel_width(d) > 128 else "")
             dim_rows[(kernel, d, tag)] = row
     return main_rows, dim_rows
 
@@ -369,7 +399,60 @@ def repeat_check(torch, att, m):
     print("kernel [%s], two launches of K1 (and the case's own), K2, K3: o, "
           "lse (, o, lse), dq, dk, dv bitwise equal %s" % (m["name"], same),
           flush=True)
-    check(all(same), "repeated bf16 launches differ in case %s" % m["name"])
+    check(all(same), "repeated launches differ in case %s" % m["name"])
+
+
+def backward_f64(torch, q, k, v, o, lse, do, scale):
+    """The causal attention backward in float64 from float32 inputs and the
+    forward's lse (natural log): the truth ``precision_check`` measures
+    against (``attention_backward_reference`` computes in float32)."""
+    b, s, h, _ = q.shape
+    q, k, v, o, do = (t.double() for t in (q, k, v, o, do))
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+                  - lse.double().reshape(b, h, s, 1))
+    p = torch.where(mask, p, torch.zeros((), dtype=p.dtype, device=p.device))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    delta = (do * o).sum(-1).transpose(1, 2).reshape(b, h, s, 1)
+    ds = p * (dp - delta) * scale
+    del p, dp
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q), dv)
+
+
+# the split-TF32 K2/K3's mean |error| against float64 may be at most this
+# many times the plain float32 version's (one TF32 product reads ~1000x)
+SPLIT_MEAN_LIMIT = 8.0
+
+
+def precision_check(torch, att, m):
+    """The split-TF32 K2/K3 of one float32 case against a float64 backward
+    on batch 0, heads 0 and 1: the mean |error| of dQ, dK and dV at most
+    ``SPLIT_MEAN_LIMIT`` times that of the plain float32 version on the same
+    inputs.  The 1e-4 limit on max |err| / max |ref| does not tell a split
+    product from a float32 one; this does."""
+    cut = (slice(0, 1), slice(None), slice(0, 2))
+    q, k, v, o, do = (m[x][cut] for x in ("q", "k", "v", "o", "do"))
+    b, s, h, _ = m["q"].shape
+    lse = m["lse"].view(b, h, s)[0:1, 0:2].reshape(2, s).contiguous()
+    got = att.flash_backward(q, k, v, o, lse, do, True, m["scale"])
+    plain = att.attention_backward_reference(q, k, v, o, lse, do, True,
+                                             m["scale"])
+    truth = backward_f64(torch, q, k, v, o, lse, do, m["scale"])
+    ratios = {}
+    for name, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth):
+        ka = (a.double() - t).abs().mean().item()
+        pa = (p.double() - t).abs().mean().item()
+        ratios[name] = (ka, pa, ka / max(pa, 1e-300))
+    print("kernel flash_bwd [%s] batch 0, heads 0-1 against a float64 "
+          "backward: mean|err| kernel / plain float32 %s (limit %g)"
+          % (m["name"], ", ".join("%s %.4g / %.4g = %.3g" % (n, *r)
+                                  for n, r in ratios.items()),
+             SPLIT_MEAN_LIMIT), flush=True)
+    check(all(r[2] <= SPLIT_MEAN_LIMIT for r in ratios.values()),
+          "the split-TF32 backward is not of float32 precision in case %s"
+          % m["name"])
 
 
 def splitp_check(torch, att, m):
@@ -454,11 +537,12 @@ def time_case(torch, att, m):
     size = torch.tensor([], dtype=dtype).element_size()
     work = {kind: attention_work(kind, b, s, s, h, d, True, size)
             for kind in ("fwd", "bwd_dq", "bwd_dkv", "bwd")}
-    bound = {kind: bound_ms(torch, w, dtype) for kind, w in work.items()}
+    bound = {kind: bound_ms(torch, w, dtype, products=True)
+             for kind, w in work.items()}
     tflops = {kind: work[kind][0] / (t[kind] * 1e-3) / 1e12 for kind in work}
     pair = t["bwd_dq"] + t["bwd_dkv"]
     ops14 = work["bwd_dq"][0] + work["bwd_dkv"][0]
-    two = dtype == torch.bfloat16 and att.kernel_width(d) > 128
+    two = att.kernel_width(d) > 128
     print("kernel timing [%s] b=%d s=%d h=%d d=%d (runs at width %d) causal: "
           "K1 %.4f ms (plain %.4f, sdpa fwd %.4f, %.2fx it, bound %.4f by %s, "
           "%.2f TFLOP/s on the 4·d count at the real d); K2 %.4f ms (bound "
@@ -473,10 +557,24 @@ def time_case(torch, att, m):
              " (two launches: dV, then dK)" if two else "",
              bound["bwd_dkv"][0], bound["bwd_dkv"][1], pair,
              ops14 / (pair * 1e-3) / 1e12,
-             bound_ms(torch, (ops14, 0.0), dtype)[0],
+             bound_ms(torch, (ops14, 0.0), dtype, products=True)[0],
              work["bwd"][0] / (pair * 1e-3) / 1e12, pair / t["bwd_lib"],
              t["bwd_lib"], t["bwd"], bound["bwd"][0], bound["bwd"][1],
              t["bwd_plain"]), flush=True)
+    if dtype == torch.float32:
+        # the share of the 3xTF32 bound beside that of the CUDA-core bound
+        # the tables used before the float32 backward took the tensor cores
+        old = {kind: bound_ms(torch, w, dtype, products=True,
+                              cuda_cores=True)[0] for kind, w in work.items()}
+        print("kernel timing [%s] share of the bound by operations (3xTF32) "
+              "/ by the float32 CUDA-core peak: K1 %.1f%% / %.1f%%, K2 %.1f%% "
+              "/ %.1f%%, K3 %.1f%% / %.1f%%, K2+K3 %.1f%% / %.1f%%" % (
+                  m["name"], *(100 * x for kind in ("fwd", "bwd_dq",
+                                                    "bwd_dkv")
+                               for x in (bound[kind][0] / t[kind],
+                                         old[kind] / t[kind])),
+                  100 * (bound["bwd_dq"][0] + bound["bwd_dkv"][0]) / pair,
+                  100 * (old["bwd_dq"] + old["bwd_dkv"]) / pair), flush=True)
 
     def row(name, kind, err, plain, lib, ms=None):
         return {"name": name, "route": "cuda",
@@ -580,10 +678,12 @@ def plain_backward(att, q, k, v, o, lse, do, causal, scale):
     return grads
 
 
-def sass_hgmma(kernels):
-    """HGMMA (wgmma) instructions per attention kernel in the built
+def sass_mma(kernels):
+    """Tensor-core instructions per attention kernel in the built
     libraries, from ``cuobjdump -sass``: {(kernel, template args): count},
-    the args as a tuple of ints (width D, then split-P or K3's outputs)."""
+    the args as a tuple of ints (width D, then split-P or K3's outputs).
+    A count is of HGMMA (wgmma) or HMMA (mma.sync), whichever the kernel
+    issues."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -595,15 +695,16 @@ def sass_hgmma(kernels):
                               check=True).stdout
         for line in sass.splitlines():
             if "Function :" in line:
-                found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?"
-                                  r"_kernel)I((?:L[a-z]\d+E)+)E", line)
+                found = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)"
+                                  r"(?:_tc|_tf32)?_kernel)I((?:L[a-z]\d+E)+)E",
+                                  line)
                 key = (found.group(1), tuple(
                     int(a) for a in re.findall(r"L[a-z](\d+)E",
                                                found.group(2)))) \
                     if found else None
                 if key:
                     counts[key] = 0
-            elif key and "HGMMA" in line:
+            elif key and ("HGMMA" in line or "HMMA" in line):
                 counts[key] += 1
     return counts
 
@@ -996,6 +1097,80 @@ def train_phase(torch, mt):
     replay = {"net": net, "init": init, "after": replayed,
               "losses": losses[:REPLAY_STEPS], "Y": Y}
     return mod, batch, launches, losses, steady * 1e3, replay
+
+
+def train_f32_phase(torch, mt, batch, Y, bf16_losses, profile_dir=None):
+    """The train phase's LM, init and batch with ``compute_dtype`` left at
+    its float32 default, as a user who does not ask for bf16 trains: adam
+    at lr 3e-4, F32_WARMUP + F32_STEPS steps; each step launches K1, K2
+    and K3 (the split-TF32 backward) once per layer, and the loss falls.
+    Neither TF32 flag of PyTorch may be on: the GEMMs run in float32.
+    Returns the launch counts."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    b, s = BATCH, FULL["seq_len"]
+    flags = {"torch.backends.cuda.matmul.allow_tf32":
+             torch.backends.cuda.matmul.allow_tf32,
+             "torch.backends.cudnn.allow_tf32":
+             torch.backends.cudnn.allow_tf32}
+    print("train f32: %s" % flags, flush=True)
+    check(not any(flags.values()), "a TF32 flag is on: the float32 step's "
+          "GEMMs would not run in float32")
+    with mt.NameManager():
+        net = get_transformer_lm(**FULL)
+    mt.random.seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    mod = train_module(mt, net, None, (b, s),
+                       init=mt.init.Xavier(factor_type="in", magnitude=2.34))
+    ex = mod._exec_group.execs[0]
+    check(all(ex.arg_dict[n]._data.dtype == torch.float32
+              for n in mod._exec_group.param_names),
+          "the float32 Module holds parameters of another dtype")
+    per_step = FULL["num_layers"]
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    losses, times = [], []
+    mt.kernels.reset_launches()
+    for step in range(F32_WARMUP + F32_STEPS):
+        before = dict(mt.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        delta = {n: mt.kernels.LAUNCHES[n] - before[n] for n in names}
+        losses.append(lm_loss(torch, mod.get_outputs()[0], Y))
+        print("train f32: step %d: %.2f ms, loss %.6f (bf16 step %.6f), "
+              "launches %s" % (step, times[-1] * 1e3, losses[-1],
+                               bf16_losses[step], delta), flush=True)
+        check(np.isfinite(losses[-1]), "float32 step %d loss is not finite"
+              % step)
+        check(all(v == per_step for v in delta.values()),
+              "float32 step %d launched %s, expected %d of each"
+              % (step, delta, per_step))
+    launches = dict(mt.kernels.LAUNCHES)
+    check(losses[-1] < losses[0], "the float32 loss did not fall: %s"
+          % losses)
+    steady = float(np.mean(times[F32_WARMUP:]))
+    print("train f32: step ms %.2f (mean of %d timed steps after %d "
+          "warm-up)" % (steady * 1e3, F32_STEPS, F32_WARMUP), flush=True)
+    print("train f32: tokens/s %.1f" % (b * s / steady), flush=True)
+    print("train f32: peak device memory %.2f GB"
+          % (torch.cuda.max_memory_allocated() / 1e9), flush=True)
+    print("train f32: loss %.6f -> %.6f over %d steps; launches %s"
+          % (losses[0], losses[-1], len(losses), launches), flush=True)
+    if profile_dir:
+        def step():
+            mod.forward_backward(batch)
+            mod.update()
+        got = profile(torch, step, profile_dir, "train_step_f32")
+        bwd = sorted(got.get("K2 flash_bwd_dq", ())) + \
+            sorted(got.get("K3 flash_bwd_dkv", ()))
+        print("profile train_step_f32: K2/K3 kernels %s" % bwd, flush=True)
+        check(bwd and all("_tf32_kernel<128" in n for n in bwd),
+              "the float32 step's K2/K3 are not the split-TF32 kernels")
+    del mod, ex
+    torch.cuda.empty_cache()
+    return launches
 
 
 def param_snapshot(mod):
@@ -1683,8 +1858,9 @@ def profile(torch, fn, outdir, label):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="trace one extra request, one extra train step and "
-                         "one extra rtc_gelu train step with torch.profiler")
+                    help="trace one extra request, one extra train step "
+                         "(bf16 and float32), one extra splash step and one "
+                         "extra rtc_gelu train step with torch.profiler")
     opts = ap.parse_args()
 
     import torch
@@ -1714,23 +1890,28 @@ def main():
                                r"loads", line)
             check(not spills or spills.groups() == ("0", "0"),
                   "a kernel of %s spills registers: %s" % (source, line))
-    hgmma = sass_hgmma(mt.kernels)
-    print("build: HGMMA instructions per attention kernel (cuobjdump -sass): "
+    mma = sass_mma(mt.kernels)
+    print("build: tensor-core instructions (HGMMA + HMMA) per attention "
+          "kernel (cuobjdump -sass): "
           "%s" % ", ".join("%s<%s> %d" % (k, ",".join(map(str, a)), n)
-                           for (k, a), n in sorted(hgmma.items())),
+                           for (k, a), n in sorted(mma.items())),
           flush=True)
     # every bf16 instantiation: K1 at each width, plain and split-P; K2 at
     # each width; K3 fused (outputs 3) up to 128, as its dV (2) and dK (1)
-    # launches at 256
+    # launches at 256; and the same K2/K3 instantiations in float32
     tc_kernels = [("flash_fwd_tc_kernel", (w, split)) for w in (64, 128, 256)
                   for split in (0, 1)]
-    tc_kernels += [("flash_bwd_dq_tc_kernel", (w,)) for w in (64, 128, 256)]
-    tc_kernels += [("flash_bwd_dkv_tc_kernel", (w, 3)) for w in (64, 128)]
-    tc_kernels += [("flash_bwd_dkv_tc_kernel", (256, out)) for out in (1, 2)]
+    for tag in ("_tc", "_tf32"):
+        tc_kernels += [("flash_bwd_dq%s_kernel" % tag, (w,))
+                       for w in (64, 128, 256)]
+        tc_kernels += [("flash_bwd_dkv%s_kernel" % tag, (w, 3))
+                       for w in (64, 128)]
+        tc_kernels += [("flash_bwd_dkv%s_kernel" % tag, (256, out))
+                       for out in (1, 2)]
     for kernel, args in tc_kernels:
-        check(hgmma.get((kernel, args), 0) > 0, "%s<%s> (bf16) has no HGMMA "
-              "instruction: it does not run on the tensor cores"
-              % (kernel, ",".join(map(str, args))))
+        check(mma.get((kernel, args), 0) > 0, "%s<%s> has no tensor-core "
+              "instruction (HGMMA or HMMA): it does not run on the tensor "
+              "cores" % (kernel, ",".join(map(str, args))))
 
     device = torch.device("cuda", 0)
     main_rows, dim_rows = kernel_phase(torch, att, device)
@@ -1760,6 +1941,13 @@ def main():
               "flash_fwd_tc_kernel<128, false>")
     del pred, mod
     torch.cuda.empty_cache()
+    f32_launches = train_f32_phase(torch, mt, batch, replay["Y"], losses,
+                                   opts.profile)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        dim_rows[(name, FULL["hidden"] // FULL["num_heads"], "f32")][
+            "launches"] = f32_launches[name]
+        check(f32_launches[name] > 0, "the float32 training path never "
+              "launched %s" % name)
     replay_phase(torch, mt, batch, replay)
     splash_launches = splash_phase(torch, mt, batch, replay, losses, step_ms,
                                    tokens, flash_out, opts.profile)

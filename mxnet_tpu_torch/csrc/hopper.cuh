@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks written out in PTX: mbarriers, TMA tensor
 // maps and loads, wgmma operand descriptors and the bf16 wgmma products the
-// attention kernels issue, and register reallocation between warpgroups.
+// attention kernels issue, the split-TF32 float32 product on mma.sync,
+// cp.async, and register reallocation between warpgroups.
 //
 // Layout contract shared by the TMA maps and the wgmma descriptors: a tile
 // of R rows by D bf16 columns lives in shared memory as D / 64 column blocks
@@ -155,6 +156,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Pin registers that an asynchronous wgmma reads or writes, so the
@@ -346,6 +352,148 @@ __device__ __forceinline__ float bf16_lo(uint32_t r) {
 }
 __device__ __forceinline__ float bf16_hi(uint32_t r) {
   return __uint_as_float(r & 0xffff0000u);
+}
+
+// ---- split TF32 on the tensor cores (mma.sync) ----------------------------
+//
+// A float32 product at float32-class precision: x = x_hi + x_lo with both
+// parts TF32 values (10 explicit mantissa bits), rounded explicitly by
+// cvt.rna (to nearest, ties away from zero), and
+//   A·B ≈ A_lo·B_hi + A_hi·B_lo + A_hi·B_hi,
+// accumulated in float32; A_lo·B_lo (~2^-22 relative) is dropped.  Each
+// term of the sum is exact in float32 (two 11-bit significands), so the
+// float32 accumulation is the only rounding besides x_lo's (~2^-22).  One
+// TF32 product alone errs by ~2^-11 per operand.
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x_lo is rounded by the same rule in two integer operations (add half of
+// the dropped bits' weight to the magnitude, clear them): x - x_hi is exact
+// and finite for finite x, and a NaN or an infinity in x reaches the sum
+// through x_hi, which cvt.rna keeps.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
+}
+
+// d[16 x 8] += A[16 x 8] B[8 x 8] in TF32 (one tensor-core instruction).
+// Thread t of the warp, g = t / 4, c = t % 4:
+//   A: a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4)
+//   B: b0 (k = c, n = g), b1 (k = c + 4, n = g)
+//   d: d0 (g, 2c), d1 (g, 2c + 1), d2 (g + 8, 2c), d3 (g + 8, 2c + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of four floats (in a0..a3 order), split.
+__device__ __forceinline__ void split_frag(float x0, float x1, float x2,
+                                           float x3, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_tf32(x0, hi[0], lo[0]);
+  split_tf32(x1, hi[1], lo[1]);
+  split_tf32(x2, hi[2], lo[2]);
+  split_tf32(x3, hi[3], lo[3]);
+}
+
+// ---- split TF32 on wgmma ---------------------------------------------------
+//
+// Operands written by plain stores in the core-matrix layout, without
+// swizzle: an R-row (M or N) by K-column float32 plane is (K / 4) x (R / 8)
+// core matrices of 8 rows x 4 columns, 128 contiguous bytes each (element
+// (r, k) at byte 16 (r % 8) + 4 (k % 4)), core (k / 4, r / 8) at byte
+// 128 ((k / 4) (R / 8) + r / 8).  Both operands are K-major (a tf32 wgmma
+// has no transpose), so LBO (the next core along K) = 16 R bytes and SBO
+// (the next 8 rows) = 128 bytes; an 8-deep k-step is two cores along K.
+
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+#define HOPPER_ACC8(d, i)                                                   \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x 16] (+)= A[64 x 8] B[16 x 8]^T in TF32, A from registers (as
+// below), B from shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[64 x 8]^T in TF32, A from registers (the
+// fragment of mma.sync m16n8k8 per warp: a0 (g, c), a1 (g + 8, c), a2 (g,
+// c + 4), a3 (g + 8, c + 4) of the warp's 16 rows), B from shared memory.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16),
+        HOPPER_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+#undef HOPPER_ACC8
+
+// Order this thread's plain shared-memory stores before later reads by
+// wgmma (the async proxy); a barrier then publishes them to the warpgroup.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---- cp.async ---------------------------------------------------------------
+
+// Copy 16 (or 4) bytes to shared memory; the bytes past src_bytes (0 or
+// the whole copy) are filled with zeros, and nothing is read for them.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---- register reallocation between warpgroups ----------------------------

@@ -9,7 +9,7 @@ card imports the package, and only a launch on a CUDA tensor needs the
 build.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made.  A wrapper
-adds one per kernel launched (K3 in bf16 at head-dim width 256 is two, as
+adds one per kernel launched (K3 at head-dim width 256 is two, as
 its C entry reports) right after a call that returned no error, and
 nowhere else, so a caller can show which kernels a run went through.  Kernels compiled at run
 time by ``rtc.MXRtc`` count under ``rtc:<name>``, added at their first

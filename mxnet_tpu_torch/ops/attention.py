@@ -2,13 +2,15 @@
 hand-written CUDA kernels, counterpart of ``mxnet_tpu/ops/attention.py``:
 ``csrc/flash_fwd.cu`` replaces its Pallas ``_fwd_kernel``,
 ``csrc/flash_bwd.cu`` its ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
-Each dtype has its own kernels: bfloat16 (the training path) runs
-``flash_fwd_tc_kernel``, ``flash_bwd_dq_tc_kernel`` and
-``flash_bwd_dkv_tc_kernel`` on the tensor cores (``wgmma`` fed by TMA,
-128 rows per block), so its q, k, v and dO must pass ``_check_tma_view``;
-float32 (the serving path) runs ``flash_fwd_kernel``,
-``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` on the CUDA cores
-(64 rows per block).
+Each dtype has its own kernels: bfloat16 runs ``flash_fwd_tc_kernel``,
+``flash_bwd_dq_tc_kernel`` and ``flash_bwd_dkv_tc_kernel`` on the tensor
+cores (``wgmma`` fed by TMA, 128 rows per block), so its q, k, v and dO
+must pass ``_check_tma_view``; float32 (``Module``'s default and serving)
+runs ``flash_fwd_kernel`` on the CUDA cores (64 rows per block) and
+``flash_bwd_dq_tf32_kernel`` and ``flash_bwd_dkv_tf32_kernel`` on the
+tensor cores (split TF32: ``wgmma``, or ``mma.sync`` at width 256; fed by
+``cp.async``, so any view with unit stride in d; 128 rows per block, 64 at
+width 256).
 
 ``flash_forward`` and ``flash_backward`` are the kernels' wrappers.  On a
 CUDA tensor they launch the kernels or raise; they take the plain versions,
@@ -50,7 +52,9 @@ _KERNEL_WIDTHS = {32: 64, 64: 64, 96: 128, 128: 128, 256: 256}
 #: query rows per block of the forward kernel each dtype runs (flash_fwd.cu:
 #: kBQ of the CUDA-core kernel, kRes of the tensor-core one)
 _FWD_BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}
-_KERNEL_BLOCK_BWD = 64  # rows per float32 thread block (kB in flash_bwd.cu)
+#: the fewest rows per block of the backward kernels of each dtype
+#: (flash_bwd.cu: kRes of the tensor-core kernels; F32Tile<256>::kRes)
+_BWD_BLOCK_ROWS = {torch.float32: 64, torch.bfloat16: 128}
 
 
 def _causal_mask(sq, sk, device):
@@ -245,7 +249,7 @@ def flash_forward(q, k, v, causal: bool = False, scale=None,
 
 def _bwd_fn(name):
     """The C entry of K2 or K3.  K3's takes one more argument, where it
-    writes how many kernels it launched (two in bf16 at width 256)."""
+    writes how many kernels it launched (two at width 256)."""
     fn = getattr(kernels.library(name), "mxtt_" + name)
     if fn.argtypes is None:
         dkv = name == "flash_bwd_dkv"
@@ -272,7 +276,7 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
                              "%s on %s, got %s %s on %s" % (
                                  name, what, (b * h, sq), q.device, t.dtype,
                                  tuple(t.shape), t.device))
-    if -(-max(sq, sk) // _KERNEL_BLOCK_BWD) > 65535:
+    if -(-max(sq, sk) // _BWD_BLOCK_ROWS[q.dtype]) > 65535:
         raise MXNetError("%s: sequence of %d rows exceeds the kernel's grid"
                          % (name, max(sq, sk)))
     if outs[0].numel() == 0:
@@ -294,9 +298,9 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """dQ [b, sq, h, d] from the K2 kernel (CUDA tensors only: the tensor
-    cores for bf16, the CUDA cores for float32); ``delta`` is
-    Δ = rowsum(dO ∘ O), float32 [b*h, sq]."""
+    """dQ [b, sq, h, d] from the K2 kernel (CUDA tensors only; the tensor
+    cores in either dtype); ``delta`` is Δ = rowsum(dO ∘ O), float32
+    [b*h, sq]."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal,
                 scale)
@@ -304,9 +308,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """(dK, dV) [b, sk, h, d] from the K3 kernel (CUDA tensors only).  In
-    bf16 at width 256 one call is two launches, dV then dK, and counts
-    two."""
+    """(dK, dV) [b, sk, h, d] from the K3 kernel (CUDA tensors only).  At
+    width 256 one call is two launches, dV then dK, and counts two."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal,
