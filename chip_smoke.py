@@ -2,12 +2,14 @@
 """Drive the PyTorch/CUDA port (``mxnet_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                  # from the repository root
-    python3 chip_smoke.py --profile DIR    # also trace one extra request,
+    python3 chip_smoke.py --profile DIR    # also trace one extra request
+                                           # (its K1 the split-TF32 kernel),
                                            # one extra train step (its K1
                                            # must be the tensor-core
                                            # kernel), one extra float32
-                                           # step (its K2/K3 the split-TF32
-                                           # kernels), one extra splash step
+                                           # step (its K1/K2/K3 the
+                                           # split-TF32 kernels), one extra
+                                           # splash step
                                            # (its K1 the split-P variant)
                                            # and one extra rtc_gelu step
 
@@ -22,8 +24,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (mma.sync, which the float32 K2/K3 issue at the width 256);
              an instantiation without any is
              fatal: it would not run on the tensor cores (K1 plain and
-             split-P in bf16, K2 and K3 in both dtypes, at the widths 64,
-             128 and 256);
+             split-P in bf16, K1, K2 and K3 in both dtypes, at the widths
+             64, 128 and 256);
              load NVRTC (a missing libnvrtc is fatal) and print its
              version;
 2. kernels — hold each kernel against its plain PyTorch version on the card
@@ -35,9 +37,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              length (b=4, s=4096) the main path's shape and the head dims
              32, 96 and 256 (64/16/8 heads) in float32 and bf16.  At each
              of those, repeated launches of K1, K2 and K3 give the same
-             bits; at each float32 one the split-TF32 K2/K3's mean error
-             against a float64 backward (batch 0, two heads) is at most 8x
-             the plain float32 version's; at each bf16 one K1's split-P
+             bits; at each float32 one the split-TF32 K1's mean error on
+             O, and K2/K3's on dQ, dK, dV, against a float64 forward and
+             backward (batch 0, two heads) is at most 8x the plain float32
+             version's; at each bf16 one K1's split-P
              variant (splash's forward: P kept
              at float32 precision for P V), on a pre-scaled q at scale 1,
              must agree with the plain version and have at most half the
@@ -84,8 +87,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              through ``mt.rtc.MXRtc`` on NDArrays with explicit launch dims;
              ``sgd_update`` pushed over every parameter array of the LM
              (441,646,336 parameters) against the port's ``sgd_update`` on
-             copies; the train phase's LM with its six gelu nodes swapped for
-             the user op ``rtc_gelu`` in the symbol JSON, trained 2 + 3
+             copies, its host time per push and a pass's device time beside
+             ``torch._fused_sgd_``, and one pass under cProfile (host time
+             per push by function); the train phase's LM with its six
+             gelu nodes swapped for the user op ``rtc_gelu`` in the symbol
+             JSON, trained 2 + 3
              steps: each step launches gelu_fwd, gelu_bwd and K1-K3 six
              times, and its loss matches the train phase's loss at that step;
 8. agree   — a small LM served, and trained 3 adam steps in float32 and in
@@ -144,8 +150,10 @@ EXTEND_WARMUP, EXTEND_STEPS = 2, 3
 # the user kernels' full-width shape: the gelu input of the train phase's
 # LM, (batch x seq, 4 x hidden)
 WIDE = (BATCH * FULL["seq_len"], 4 * FULL["hidden"])
-# sgd_update's hyperparameters in the extend phase
+# sgd_update's hyperparameters in the extend phase, and the passes over
+# the LM's arrays whose enqueue is timed for the host time per push
 SGD = dict(lr=0.01, rescale_grad=1.0 / BATCH, wd=1e-4)
+HOST_PASSES = 3
 
 # Data-sheet peaks per H100 variant (dense): float32 on the CUDA cores, bf16
 # and TF32 (half of bf16) on the tensor cores (TFLOP/s), device memory
@@ -351,6 +359,7 @@ def kernel_phase(torch, att, device):
             if dtype == bf16:
                 m.update(splitp_check(torch, att, m))
             else:
+                forward_precision_check(torch, att, m)
                 precision_check(torch, att, m)
             timed[(d, dtype)] = m
     torch.cuda.empty_cache()
@@ -453,6 +462,53 @@ def precision_check(torch, att, m):
     check(all(r[2] <= SPLIT_MEAN_LIMIT for r in ratios.values()),
           "the split-TF32 backward is not of float32 precision in case %s"
           % m["name"])
+
+
+def forward_f64(torch, q, k, v, scale):
+    """The causal attention forward in float64 from float32 inputs: (o,
+    lse in natural log), the truth ``forward_precision_check`` measures
+    against (``attention_reference`` computes in float32)."""
+    b, s, h, _ = q.shape
+    q, k, v = (t.double() for t in (q, k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    sc = sc.masked_fill(~mask, float("-inf"))
+    mx = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - mx)
+    del sc
+    den = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", p / den, v)
+    return o, (mx + torch.log(den)).reshape(b * h, s)
+
+
+def forward_precision_check(torch, att, m):
+    """The split-TF32 K1 of one float32 case against a float64 forward on
+    batch 0, heads 0 and 1: max |error| on O and lse at most 1e-4, and the
+    mean |error| of O at most ``SPLIT_MEAN_LIMIT`` times that of the plain
+    float32 version on the same inputs (which one TF32 product breaks)."""
+    cut = (slice(0, 1), slice(None), slice(0, 2))
+    q, k, v = (m[x][cut] for x in ("q", "k", "v"))
+    got = att.flash_forward(q, k, v, True, m["scale"])
+    plain = att.attention_reference(q, k, v, True, m["scale"])
+    truth = forward_f64(torch, q, k, v, m["scale"])
+    errs = {}
+    for name, a, p, t in zip(("o", "lse"), got, plain, truth):
+        errs[name] = ((a.double() - t).abs().max().item(),
+                      (a.double() - t).abs().mean().item(),
+                      (p.double() - t).abs().mean().item())
+    ratio = errs["o"][1] / max(errs["o"][2], 1e-300)
+    print("kernel flash_fwd [%s] batch 0, heads 0-1 against a float64 "
+          "forward: max|err| o %.3g lse %.3g (tolerance 1e-4); mean|err| "
+          "kernel / plain float32 o %.4g / %.4g = %.3g (limit %g), lse "
+          "%.4g / %.4g" % (m["name"], errs["o"][0], errs["lse"][0],
+                           errs["o"][1], errs["o"][2], ratio,
+                           SPLIT_MEAN_LIMIT, errs["lse"][1], errs["lse"][2]),
+          flush=True)
+    check(errs["o"][0] <= 1e-4 and errs["lse"][0] <= 1e-4,
+          "the split-TF32 forward is off a float64 forward in case %s"
+          % m["name"])
+    check(ratio <= SPLIT_MEAN_LIMIT, "the split-TF32 forward is not of "
+          "float32 precision in case %s" % m["name"])
 
 
 def splitp_check(torch, att, m):
@@ -1163,11 +1219,14 @@ def train_f32_phase(torch, mt, batch, Y, bf16_losses, profile_dir=None):
             mod.forward_backward(batch)
             mod.update()
         got = profile(torch, step, profile_dir, "train_step_f32")
-        bwd = sorted(got.get("K2 flash_bwd_dq", ())) + \
-            sorted(got.get("K3 flash_bwd_dkv", ()))
-        print("profile train_step_f32: K2/K3 kernels %s" % bwd, flush=True)
-        check(bwd and all("_tf32_kernel<128" in n for n in bwd),
-              "the float32 step's K2/K3 are not the split-TF32 kernels")
+        names = [n for group in ("K1 flash_fwd", "K2 flash_bwd_dq",
+                                 "K3 flash_bwd_dkv")
+                 for n in sorted(got.get(group, ()))]
+        print("profile train_step_f32: K1/K2/K3 kernels %s" % names,
+              flush=True)
+        check(len(names) == 3 and all("_tf32_kernel<128" in n
+                                      for n in names),
+              "the float32 step's K1/K2/K3 are not the split-TF32 kernels")
     del mod, ex
     torch.cuda.empty_cache()
     return launches
@@ -1313,6 +1372,101 @@ def splash_phase(torch, mt, batch, replay, flash_losses, flash_step_ms,
     return launches
 
 
+def lm_update_arrays(torch, mt, gen, device):
+    """(weights, gradients) of every parameter array of the full-width LM,
+    as an update loop meets them: gammas 1, betas and biases 0, the rest
+    N(0, 0.02); gradients N(0, 1)."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    with mt.NameManager():
+        net = get_transformer_lm(**FULL)
+    shape = (BATCH, FULL["seq_len"])
+    arg_shapes, _, _ = net.infer_shape(data=shape, softmax_label=shape)
+    weights, grads = [], []
+    for name, ashape in zip(net.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            w = torch.ones(ashape, device=device)
+        elif name.endswith(("_beta", "_bias")):
+            w = torch.zeros(ashape, device=device)
+        else:
+            w = torch.randn(ashape, generator=gen, device=device) * 0.02
+        weights.append(w)
+        grads.append(torch.randn(ashape, generator=gen, device=device))
+    return weights, grads
+
+
+def sgd_pass(rk, weights, grads, hp):
+    """One ``rtc_kernels.sgd_update`` push per array."""
+    for w, g in zip(weights, grads):
+        rk.sgd_update(w, g, hp)
+
+
+def event_ms(torch, fn):
+    """Device time of one call of ``fn`` from CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def sgd_pass_times(torch, rk, weights, grads, hp):
+    """(ms of one pass of pushes from CUDA events, host µs per push: the
+    enqueue of HOST_PASSES passes back to back, timed on the host clock
+    without a synchronize); makes 1 + HOST_PASSES passes."""
+    ms = event_ms(torch, lambda: sgd_pass(rk, weights, grads, hp))
+    t0 = time.perf_counter()
+    for _ in range(HOST_PASSES):
+        sgd_pass(rk, weights, grads, hp)
+    host_us = (time.perf_counter() - t0) / (HOST_PASSES * len(weights)) * 1e6
+    torch.cuda.synchronize()
+    return ms, host_us
+
+
+def fused_sgd_ms(torch, weights, grads):
+    """``torch._fused_sgd_`` (the library's multi-tensor SGD) on copies of
+    the arrays with the extend phase's hyperparameters, mean of 3 calls."""
+    lib_w = [w.clone() for w in weights]
+    lib_g = [g.clone() for g in grads]
+    scale = torch.tensor(1.0 / SGD["rescale_grad"], device=weights[0].device)
+    ms = cuda_ms(lambda: torch._fused_sgd_(
+        lib_w, lib_g, [], weight_decay=SGD["wd"], momentum=0.0,
+        lr=SGD["lr"], dampening=0.0, nesterov=False, maximize=False,
+        is_first_step=False, grad_scale=scale), 3)
+    del lib_w, lib_g
+    return ms
+
+
+def push_profile(torch, fn, n_pushes, what):
+    """One call of ``fn`` (``n_pushes`` pushes) under cProfile: the host
+    time per push by function (cProfile's own cost included, so the shares
+    matter more than the sum), largest first."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    prof.enable()
+    fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])
+    total = sum(v[2] for _, v in rows)
+    print("extend: %s push profile (cProfile, %d pushes): %.1f us per push "
+          "in all; by function, own time per push: %s" % (
+              what, n_pushes, total / n_pushes * 1e6, "; ".join(
+                  "%s:%d %s %.2f us (%.2g calls)" % (
+                      os.path.basename(f), line, name, v[2] / n_pushes * 1e6,
+                      v[1] / n_pushes)
+                  for (f, line, name), v in rows[:14])), flush=True)
+
+
 def extend_phase(torch, mt, train_losses, train_step_ms, profile_dir=None):
     """The user extension path at full width, with every launch count set
     to 0 before it and read after.  Returns the counts and the
@@ -1341,78 +1495,43 @@ def extend_phase(torch, mt, train_losses, train_step_ms, profile_dir=None):
     del x, y, out
 
     # (a) sgd_update pushed over every parameter array of the LM
-    with mt.NameManager():
-        net = get_transformer_lm(**FULL)
-    shape = (BATCH, FULL["seq_len"])
-    arg_shapes, _, _ = net.infer_shape(data=shape, softmax_label=shape)
-    weights, grads = [], []
-    for name, ashape in zip(net.list_arguments(), arg_shapes):
-        if name in ("data", "softmax_label"):
-            continue
-        if name.endswith("_gamma"):
-            w = torch.ones(ashape, device=device)
-        elif name.endswith(("_beta", "_bias")):
-            w = torch.zeros(ashape, device=device)
-        else:
-            w = torch.randn(ashape, generator=gen, device=device) * 0.02
-        weights.append(w)
-        grads.append(torch.randn(ashape, generator=gen, device=device))
+    weights, grads = lm_update_arrays(torch, mt, gen, device)
     n_params = sum(w.numel() for w in weights)
     refs = [w.clone() for w in weights]
     hp = rk.sgd_hyper(SGD["lr"], SGD["rescale_grad"], SGD["wd"], device)
-
-    def pushes():
-        for w, g in zip(weights, grads):
-            rk.sgd_update(w, g, hp)
 
     def plain():
         for w, g in zip(refs, grads):
             mt.nd.sgd_update(w, g, out=w, **SGD)
 
     t0 = time.perf_counter()
-    pushes()  # compiles one kernel per distinct shape
+    sgd_pass(rk, weights, grads, hp)  # compiles one kernel per shape
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     plain()
-
-    def timed(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
-
-    ms, plain_ms = timed(pushes), timed(plain)
-    t0 = time.perf_counter()  # the host's share: enqueue a pass, no sync
-    pushes()
-    host_us = (time.perf_counter() - t0) / len(weights) * 1e6
-    torch.cuda.synchronize()
-    plain()
+    ms, host_us = sgd_pass_times(torch, rk, weights, grads, hp)
+    plain_ms = event_ms(torch, plain)
+    for _ in range(HOST_PASSES):
+        plain()
+    passes = 2 + HOST_PASSES
     d = max(ulps(torch, w, r) for w, r in zip(weights, refs))
     check(d <= 1, "the sgd_update pushes disagree with sgd_update (%d ulps)"
           % d)
-    lib_w = [w.clone() for w in weights]
-    lib_g = [g.clone() for g in grads]
-    scale = torch.tensor(1.0 / SGD["rescale_grad"], device=device)
-    lib_ms = cuda_ms(lambda: torch._fused_sgd_(
-        lib_w, lib_g, [], weight_decay=SGD["wd"], momentum=0.0,
-        lr=SGD["lr"], dampening=0.0, nesterov=False, maximize=False,
-        is_first_step=False, grad_scale=scale), 3)
+    lib_ms = fused_sgd_ms(torch, weights, grads)
     bound, by = elementwise_bound(torch, n_params, 12, 5, torch.float32)
     n_pushes = mt.kernels.LAUNCHES["rtc:sgd_update"]
     print("extend: sgd_update pushed over %d parameter arrays (%d parameters,"
           " %d distinct shapes compiled in %.2f s with the first pass): %.4f "
           "ms per pass of %d pushes (%d counted over all passes), plain "
           "sgd_update %.4f ms, torch._fused_sgd_ %.4f ms, bound %.4f ms by "
-          "%s; %d ulps from sgd_update after 3 passes; %.1f us of host time "
-          "per push (enqueue, not synchronized)" % (
+          "%s; %d ulps from sgd_update after %d passes" % (
               len(weights), n_params, len({tuple(w.shape) for w in weights}),
               first, ms, len(weights), n_pushes, plain_ms, lib_ms, bound, by,
-              d, host_us),
-          flush=True)
+              d, passes), flush=True)
+    print("extend: sgd_update host time %.1f us per push (enqueue of %d "
+          "passes back to back, not synchronized), %.4f ms per pass of %d "
+          "pushes; torch._fused_sgd_ %.4f ms over the same arrays"
+          % (host_us, HOST_PASSES, ms, len(weights), lib_ms), flush=True)
     sgd_row = {"name": "rtc:sgd_update", "route": "cuda",
                "source": RTC_SOURCE, "replaces": "mxnet_tpu/rtc.py:81",
                "launches": None,
@@ -1420,7 +1539,9 @@ def extend_phase(torch, mt, train_losses, train_step_ms, profile_dir=None):
                                   for w, r in zip(weights, refs)),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": by, "library_ms": lib_ms}
-    del weights, grads, refs, lib_w, lib_g
+    push_profile(torch, lambda: sgd_pass(rk, weights, grads, hp),
+                 len(weights), "sgd_update")
+    del weights, grads, refs
     torch.cuda.empty_cache()
 
     # (b) the train phase's LM with rtc_gelu in place of gelu
@@ -1898,9 +2019,11 @@ def main():
           flush=True)
     # every bf16 instantiation: K1 at each width, plain and split-P; K2 at
     # each width; K3 fused (outputs 3) up to 128, as its dV (2) and dK (1)
-    # launches at 256; and the same K2/K3 instantiations in float32
+    # launches at 256; and K1 at each width and the same K2/K3
+    # instantiations in float32
     tc_kernels = [("flash_fwd_tc_kernel", (w, split)) for w in (64, 128, 256)
                   for split in (0, 1)]
+    tc_kernels += [("flash_fwd_tf32_kernel", (w,)) for w in (64, 128, 256)]
     for tag in ("_tc", "_tf32"):
         tc_kernels += [("flash_bwd_dq%s_kernel" % tag, (w,))
                        for w in (64, 128, 256)]
@@ -1927,8 +2050,12 @@ def main():
         r["launches"] = launches[r["name"]]
     step_paths(torch, mod, batch)
     if opts.profile:
-        profile(torch, lambda: pred.forward(data=tokens), opts.profile,
-                "serve_request")
+        k1 = sorted(profile(torch, lambda: pred.forward(data=tokens),
+                            opts.profile, "serve_request")
+                    .get("K1 flash_fwd", ()))
+        print("profile serve_request: K1 kernels %s" % k1, flush=True)
+        check(k1 and all("flash_fwd_tf32_kernel<128>" in n for n in k1),
+              "the float32 request's K1 is not flash_fwd_tf32_kernel<128>")
 
         def step():
             mod.forward_backward(batch)

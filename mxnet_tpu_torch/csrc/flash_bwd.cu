@@ -128,8 +128,13 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
+
+// View, make_views, stage_async, kChunkK, mma3, split_natural,
+// split_transposed, score_wg, issue_part, add_part
+using namespace tf32;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -590,39 +595,6 @@ struct F32Tile {
   static constexpr int kBytes = 4 * (2 * kResF + kSlotF);
 };
 
-// One [b, s, h, d] float32 input: base and (b, s, h) strides in elements.
-struct View {
-  const float* p;
-  int64_t b, s, h;
-};
-
-// dst[r * kSD + c] = src[(row0 + r) * ss + c] for r < rows, c < D by
-// cp.async; rows at or past nrows and columns at or past d are zeros.
-// vec: 16-byte copies (base and row stride in whole 16-byte units), else
-// 4-byte copies.
-template <int D, int kThreads, int kSD = D + 4>
-__device__ __forceinline__ void stage_async(float* dst, const float* src,
-                                            int64_t ss, int row0, int nrows,
-                                            int rows, int d, bool vec) {
-  if (vec) {
-    for (int e = threadIdx.x; e < rows * (D / 4); e += kThreads) {
-      const int r = e / (D / 4), c = e % (D / 4) * 4;
-      const int row = row0 + r;
-      const bool ok = row < nrows && c < d;
-      hopper::cp_async_16(dst + r * kSD + c, ok ? src + row * ss + c : src,
-                          ok ? 16 : 0);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const int row = row0 + r;
-      const bool ok = row < nrows && c < d;
-      hopper::cp_async_4(dst + r * kSD + c, ok ? src + row * ss + c : src,
-                         ok ? 4 : 0);
-    }
-  }
-}
-
 // Split the elements this thread staged with stage_async (the same loop,
 // so its own cp.async copies are all it reads: no barrier needed before):
 // hi[i] = x_hi in place of x, lo[i] = x_lo.
@@ -648,24 +620,6 @@ __device__ __forceinline__ void split_staged(float* hi, float* lo, int rows,
       lo[i] = __uint_as_float(l);
     }
   }
-}
-
-// The tensor cores' float32 accumulation truncates, so a long chain of
-// products into one accumulator drifts toward zero.  Both helpers below
-// sum at most kChunkK / 8 k-steps in zeroed accumulators, one for the
-// A_hi·B_hi terms and one for the two small terms (which also gives the
-// tensor cores independent chains to overlap), and add them to the running
-// sum by float32 adds, which round to nearest.
-constexpr int kChunkK = 32;
-
-// big += A_hi B_hi, small += A_lo B_hi + A_hi B_lo, A and B split already.
-__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
-                                     const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float bh0,
-                                     float bh1, float bl0, float bl1) {
-  hopper::mma_tf32(small, al, __float_as_uint(bh0), __float_as_uint(bh1));
-  hopper::mma_tf32(small, ah, __float_as_uint(bl0), __float_as_uint(bl1));
-  hopper::mma_tf32(big, ah, __float_as_uint(bh0), __float_as_uint(bh1));
 }
 
 template <int kJ>
@@ -978,160 +932,6 @@ struct WgTile {
   static constexpr int kBytes = kRows + 2 * 2 * kStr * 4;
 };
 
-// The split of one raw streamed tile (kStr x D at a row stride of D + 4
-// floats) into its planes, by all 256 threads.
-//
-// Natural: a hi and a lo plane of the core-matrix layout with rows = the
-// 16 streamed rows and K = the D columns, each 8-column step in the k-slot
-// order of score_wg's A fragments (slot s < 4 holds column 2s, slot s + 4
-// column 2s + 1; the sum over d runs in any order).  A thread splits 4
-// columns of a row (one 16-byte load); consecutive threads take
-// consecutive rows, so that its four 8-byte stores hit distinct banks.
-template <int D>
-__device__ __forceinline__ void split_natural(uint8_t* hi, uint8_t* lo,
-                                              const float* raw) {
-  constexpr int kSDr = D + 4, kStr = 16;
-  for (int e = threadIdx.x; e < kStr * D / 4; e += 256) {
-    const int r = e % kStr, q = e / kStr;  // columns 4q .. 4q + 3
-    const float4 x = *reinterpret_cast<const float4*>(raw + r * kSDr + 4 * q);
-    uint32_t h[4], l[4];
-    hopper::split_frag(x.x, x.y, x.z, x.w, h, l);
-    // columns 8kk + 4(q % 2) + {0, 2} are slots 2 (q % 2) + {0, 1} of core
-    // 2kk, columns + {1, 3} the same slots of core 2kk + 1
-    const int o = 128 * (2 * (q & ~1) + r / 8) + 16 * (r % 8) + 8 * (q & 1);
-    *reinterpret_cast<uint2*>(hi + o) = make_uint2(h[0], h[2]);
-    *reinterpret_cast<uint2*>(hi + o + 256) = make_uint2(h[1], h[3]);
-    *reinterpret_cast<uint2*>(lo + o) = make_uint2(l[0], l[2]);
-    *reinterpret_cast<uint2*>(lo + o + 256) = make_uint2(l[1], l[3]);
-  }
-}
-
-// Transposed: a hi and a lo plane of the core-matrix layout with rows = the
-// D columns and K = the 16 k-slots.  A thread splits the 4 slots of one
-// column that share a core row (4 loads, a 16-byte store to each plane);
-// consecutive threads take consecutive columns.
-template <int D>
-__device__ __forceinline__ void split_transposed(uint8_t* hi, uint8_t* lo,
-                                                 const float* raw) {
-  constexpr int kSDr = D + 4;
-  for (int e = threadIdx.x; e < 4 * D; e += 256) {
-    const int n = e % D, kc = e / D;  // slots 4kc .. 4kc + 3
-    const float* col = raw + (8 * (kc / 2) + (kc & 1)) * kSDr + n;
-    uint32_t h[4], l[4];
-    hopper::split_frag(col[0], col[2 * kSDr], col[4 * kSDr], col[6 * kSDr], h,
-                       l);
-    const int o = 128 * (kc * (D / 8) + n / 8) + 16 * (n % 8);
-    *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-}
-
-// s0 = A0 B0ᵀ and s1 = A1 B1ᵀ (64 x 16 per warpgroup, over D columns) by
-// wgmma.m64n16k8, the two products interleaved: A from registers, the
-// warp's 16 raw resident rows split here per 8-column step (the thread's
-// row g, columns 2c, 2c + 1 as k-slots c, c + 4: two 8-byte loads), B a
-// natural hi and lo plane pair (descriptors of their first step).  The A
-// fragments of two steps alternate, so a step's loads and split overlap
-// the previous step's products.  Each product's three terms sum per
-// kChunkK columns in a zeroed part, added in float32.
-template <int D, int kSD>
-__device__ __forceinline__ void score_wg(float (&s0)[8], float (&s1)[8],
-                                         const float* a0, const float* a1,
-                                         uint64_t b0h, uint64_t b0l,
-                                         uint64_t b1h, uint64_t b1l) {
-  constexpr uint32_t kLbo = 16 * 16;  // 16-row planes
-  constexpr int kSteps = kChunkK / 8;
-  auto lda = [](const float* p) { return *reinterpret_cast<const float2*>(p); };
-#pragma unroll
-  for (int k0 = 0; k0 < D / 8; k0 += kSteps) {
-    float p0[8], p1[8];
-    uint32_t ah[2][2][4], al[2][2][4];  // [step % 2][tensor]
-#pragma unroll
-    for (int kk = k0; kk < k0 + kSteps; ++kk) {
-      const int r = kk & 1;
-      float2 x = lda(a0 + 8 * kk), y = lda(a0 + 8 * kSD + 8 * kk);
-      hopper::split_frag(x.x, y.x, x.y, y.y, ah[r][0], al[r][0]);
-      x = lda(a1 + 8 * kk);
-      y = lda(a1 + 8 * kSD + 8 * kk);
-      hopper::split_frag(x.x, y.x, x.y, y.y, ah[r][1], al[r][1]);
-      hopper::fence_regs(p0);
-      hopper::fence_regs(p1);
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        hopper::fence_regs(ah[r][t]);
-        hopper::fence_regs(al[r][t]);
-      }
-      hopper::wgmma_fence();
-      const uint32_t ob = (kk * 2 * kLbo) >> 4;
-      const int acc = kk > k0;
-      hopper::wgmma_tf32_rs_n16(p0, al[r][0], b0h + ob, acc);
-      hopper::wgmma_tf32_rs_n16(p1, al[r][1], b1h + ob, acc);
-      hopper::wgmma_tf32_rs_n16(p0, ah[r][0], b0l + ob, 1);
-      hopper::wgmma_tf32_rs_n16(p1, ah[r][1], b1l + ob, 1);
-      hopper::wgmma_tf32_rs_n16(p0, ah[r][0], b0h + ob, 1);
-      hopper::wgmma_tf32_rs_n16(p1, ah[r][1], b1h + ob, 1);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<1>();  // the previous step's products are done
-      if (kk > k0) {  // its A registers stay untouched until here
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          hopper::fence_regs(ah[r ^ 1][t]);
-          hopper::fence_regs(al[r ^ 1][t]);
-        }
-      }
-    }
-    hopper::wgmma_wait<0>();
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      hopper::fence_regs(ah[(k0 + kSteps - 1) & 1][t]);
-      hopper::fence_regs(al[(k0 + kSteps - 1) & 1][t]);
-    }
-    hopper::fence_regs(p0);
-    hopper::fence_regs(p1);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s0[i] += p0[i];
-      s1[i] += p1[i];
-    }
-  }
-}
-
-// part = X B for output columns 64n .. 64n + 63 over one tile's 16
-// streamed rows (two k-steps) by wgmma, issued and committed, not waited
-// for: X from registers (hi and lo A fragments of the warpgroup's 64
-// rows), B a transposed hi and lo plane pair (descriptors of their first
-// k-step).
-template <int D>
-__device__ __forceinline__ void issue_part(float (&part)[32],
-                                           uint32_t (&xh)[2][4],
-                                           uint32_t (&xl)[2][4], uint64_t bh,
-                                           uint64_t bl, int n) {
-  constexpr uint32_t kLbo = 16 * D;
-  hopper::fence_regs(part);
-  hopper::fence_regs(xh[0]);
-  hopper::fence_regs(xh[1]);
-  hopper::fence_regs(xl[0]);
-  hopper::fence_regs(xl[1]);
-  hopper::wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const uint32_t ob = (j * 2 * kLbo + n * 1024) >> 4;
-    hopper::wgmma_tf32_rs_n64(part, xl[j], bh + ob, j > 0);
-    hopper::wgmma_tf32_rs_n64(part, xh[j], bl + ob, 1);
-    hopper::wgmma_tf32_rs_n64(part, xh[j], bh + ob, 1);
-  }
-  hopper::wgmma_commit();
-}
-
-// acc (columns 64n ..) += part, in float32 (the part sums six products)
-template <int D>
-__device__ __forceinline__ void add_part(float (&acc)[D / 2],
-                                         float (&part)[32], int n) {
-  hopper::fence_regs(part);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[32 * n + i] += part[i];
-}
-
 template <int D, bool kDKV>
 __device__ __forceinline__ void bwd_wg(View r0, View r1, View t0, View t1,
                                        const float* __restrict__ lse,
@@ -1414,14 +1214,7 @@ Views views(const void* q, const void* k, const void* v, const void* dout,
             const int64_t* st) {
   const void* base[4] = {q, k, v, dout};
   View out[4];
-  int vec = 1;
-  for (int i = 0; i < 4; ++i) {
-    out[i] = View{static_cast<const float*>(base[i]), st[3 * i],
-                  st[3 * i + 1], st[3 * i + 2]};
-    if (reinterpret_cast<uintptr_t>(base[i]) % 16 || st[3 * i] % 4 ||
-        st[3 * i + 1] % 4 || st[3 * i + 2] % 4)
-      vec = 0;
-  }
+  const int vec = make_views(4, base, st, out);
   return Views{out[0], out[1], out[2], out[3], vec};
 }
 

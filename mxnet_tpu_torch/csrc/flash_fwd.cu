@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): a bfloat16 tensor-core
-// kernel and a float32 CUDA-core kernel in one library.
+// Flash-attention forward for Hopper (sm_90a): two tensor-core kernels in
+// one library, bfloat16 (wgmma fed by TMA) and float32 (split TF32 on
+// wgmma, fed by cp.async).
 //
 // Replaces: mxnet_tpu/ops/attention.py::_fwd_kernel (launched by
 // _flash_forward).  Same function: O = softmax(scale * Q Kᵀ) V with an
@@ -14,7 +15,8 @@
 // Head dims: each kernel is instantiated at the widths D = 64, 128 and 256
 // and takes the real d as an argument.  d = 32 runs at D = 64 and d = 96 at
 // D = 128: the columns past d are zeros in shared memory (TMA fills them in
-// bf16, the staging loops in float32), so the products are exact, and the
+// bf16, cp.async's zero fill and the Q loader in float32), so the products
+// are exact, and the
 // stores of O are masked to the d columns.  The padding costs the products
 // 2x at d = 32 and 1.33x at d = 96.
 //
@@ -24,7 +26,8 @@
 // variant does that: P = P_hi + P_lo, both bf16 (P_lo the rounded
 // remainder, so the pair carries ~16 bits of mantissa), and
 // O += P_hi V + P_lo V as two groups of register-fed products.  The float32
-// kernel keeps P in float32 already and serves splash unchanged.
+// kernel keeps P at float32 precision already (split TF32) and serves
+// splash unchanged.
 //
 // Both versions: one thread block owns one query tile and walks the key /
 // value tiles in a loop inside the block, which takes the place of the TPU
@@ -76,23 +79,51 @@
 //   them, and the two warpgroups overlap only as the scheduler interleaves
 //   them; the wider 128-key tile halves the waits and barriers per key.
 //
-// float32: the CUDA cores (TF32 would break the float32 contract).  One
-//   block (256 threads, 16 x 16) per (b*h, 64-row query tile), 64-row key
-//   tiles staged through shared memory.  Thread (ty, tx) owns query rows
-//   4ty..4ty+3: a 4x4 block of scores (keys 4tx..4tx+3 of the tile) and a
-//   4 x d/16 block of the O accumulator (columns 64g+4tx..64g+4tx+3).  Q
-//   and K are staged transposed ([d][row]) so each step of the QKᵀ loop
-//   reads the thread's four queries and four keys as two 16-byte loads;
-//   the PV loop reads four probabilities and four values of V the same
-//   way; the 16 threads that share a row reduce with warp shuffles.  What
-//   bounds it: the 67 TFLOP/s float32 peak (4.1 ms at the shape above),
-//   and inside the SM shared memory: a warp's QKᵀ step issues two 16-byte
-//   loads per 16 FMAs, and a 16-byte warp load costs up to four wavefronts
-//   against four warp-FMAs per clock, so the loop runs at no more than half
-//   the FMA peak; the block waits at a barrier while it stages the next
-//   tile.  Q and K are staged in 4-row x 8-column warp patches so the
-//   global reads stay coalesced and, at row stride 68, the transposed
-//   shared-memory writes stay conflict-free.
+// float32: the tensor cores, by the split-TF32 product of the float32 K2/K3
+//   (hopper.cuh, tf32.cuh): x = x_hi + x_lo, both rounded to TF32 by
+//   cvt.rna, and A·B = A_lo·B_hi + A_hi·B_lo + A_hi·B_hi summed in float32
+//   (A_lo·B_lo, ~2^-22 relative, dropped), which errs in the class of a
+//   float32 sum; one TF32 product alone (~2^-11 per operand) would not.
+//   The tensor cores' float32 accumulation truncates, so no chain of
+//   products is longer than 12 before a float32 add that rounds to
+//   nearest: S sums each 32 columns of d (4 k-steps x 3 terms) in a zeroed
+//   part, and P V each tile's 32 keys (16 at D = 256) in a zeroed part per
+//   64 columns of O.  The softmax is the float32 one of the JAX kernel, in
+//   registers: accurate exp2f and log2f, masked keys -inf.
+//   One block of 256 threads per (b*h, 128-query tile): each warpgroup owns
+//   64 queries.  Q, the one resident tensor, is read once and split once
+//   into hi and lo planes in shared memory (wgmma's no-swizzle core-matrix
+//   layout, K = d), so that S = Q Kᵀ runs as SS wgmma m64n32k8 with no
+//   split in the loop.  K and V stream in 32-key tiles: all threads land a
+//   tile by cp.async (16-byte copies when every base and stride allows,
+//   else 4-byte ones, so every float32 view with unit stride in d runs;
+//   zero fill past sk and past d), split it once into natural planes of K
+//   (B of S) and transposed planes of V (B of P V: a tf32 wgmma reads
+//   shared memory K-major only), then issue the next tile's copies, which
+//   land while this tile is computed.  P forms in the score accumulator,
+//   whose registers are the A fragments of P V (keys 2c, 2c + 1 in k-slots
+//   c, c + 4, as the transposed planes store them): P is split in
+//   registers and never goes to shared memory; O += P V runs as RS wgmma
+//   m64n64k8 per 64 columns, two parts in flight.
+//   Budget at D = 128 (F32Fwd): Q planes 128 KB, the tile's planes 64 KB,
+//   the raw tile 33 KB: 230,400 of the 232,448 bytes a block may use.
+//   Registers: O 64, two P V parts 64, P's fragments 32, S 16 and two S
+//   parts 32.  The alternatives that lost: 64-query blocks (160 KB at
+//   32-key tiles, one warpgroup per SM, nothing to overlap its softmax
+//   with); Q kept raw and split per step in registers, as K2/K3 keep their
+//   resident rows (64-key tiles would still not fit, and the split per
+//   step is what sets K2/K3's pace); 16-key tiles (S as m64n16 reads its A
+//   operand from shared memory once per 16 keys, twice as often).  At
+//   D = 256 two warpgroups' Q planes alone take 256 KB: one warpgroup, 64
+//   queries and 16-key tiles (229,888 B), P V one part at a time (O takes
+//   128 registers).
+//   What bounds it: operations, three TF32 products per product: 4·d per
+//   visible pair x 3 over 495 TFLOP/s, at b=4, s=4096, h=16, d=128 causal
+//   1.666 ms; its bytes (q, k, v, o, lse: 0.54 GB) take 0.16 ms.  Inside the SM, S's SS products read
+//   their A operand (Q) from shared memory at N = 32, near the 128 bytes a
+//   clock shared memory gives, and the split of each tile and the softmax
+//   run between the products: the block's two warpgroups overlap them only
+//   as the scheduler interleaves them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,8 +131,13 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
+
+// View, make_views, stage_async, kChunkK, store_natural, split_natural,
+// split_transposed, issue_part, add_part
+using namespace tf32;
 
 constexpr float kNeg = -1e30f;   // initial running max (finite, as in the TPU kernel)
 constexpr float kLn2 = 0.6931471805599453f;
@@ -361,227 +397,290 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 }
 
 // ===========================================================================
-// float32: CUDA cores
+// float32: tensor cores, split TF32
 // ===========================================================================
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // key rows per inner tile
-constexpr int kThreads = 256;    // 16 x 16 threads
-constexpr int kTS = 68;          // row stride of the transposed Q, K, P tiles
-
-// Max / sum across the 16 lanes that share one query row.
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// dst[c * kTS + r] = src[(row0 + r) * ss + c] for r < 64, c < D; rows at
-// or past nrows, and with kPad columns at or past d, are zero.  A warp's 32
-// elements are 4 rows x 8 consecutive columns: one 32-byte sector per row
-// on the read side, and, as kTS = 4 (mod 32), 32 distinct banks on the
-// transposed write side.
-template <int D, bool kPad>
-__device__ __forceinline__ void stage_transposed(float* dst, const float* src,
-                                                 int64_t ss, int row0,
-                                                 int nrows, int d) {
-  for (int e = threadIdx.x; e < 64 * D; e += kThreads) {
-    const int chunk = e >> 5;
-    const int c = (chunk % (D / 8)) * 8 + (e & 7);
-    const int r = (chunk / (D / 8)) * 4 + ((e >> 3) & 3);
-    const int row = row0 + r;
-    const bool in = kPad ? row < nrows && c < d : row < nrows;
-    dst[c * kTS + r] = in ? src[row * ss + c] : 0.f;
-  }
-}
-
+// Tile sizes and shared memory, in bytes.  kWgs consumer warpgroups own
+// 64 query rows each; key tiles of kStr rows stream through one raw slot.
+// Q's hi and lo planes (natural, R = kRows, K = D), the streamed K tile's
+// (natural, R = kStr) and V tile's (transposed, R = D, K = kStr), then the
+// raw K and V tiles as cp.async lands them (row stride D + 4 floats).
+//   D = 64:  2 warpgroups, 32-key tiles: 115,712 B
+//   D = 128: 2 warpgroups, 32-key tiles: Q 131,072 + planes 65,536 + raw
+//            33,792 = 230,400 B of the 232,448 a block may use
+//   D = 256: 1 warpgroup,  16-key tiles: Q 131,072 + planes 65,536 + raw
+//            33,280 = 229,888 B (two warpgroups' Q planes alone are 256 KB)
 template <int D>
-constexpr size_t smem_bytes() {
-  // Q and K transposed ([D][kTS]; P [kBK][kTS] reuses the K tile once the
-  // scores are taken), V row-major [kBK][D]
-  return sizeof(float) * (2 * D * kTS + kBK * D);
+struct F32Fwd {
+  static constexpr int kWgs = D > 128 ? 1 : 2;
+  static constexpr int kThreads = 128 * kWgs;
+  static constexpr int kRows = 64 * kWgs;         // query rows per block
+  static constexpr int kStr = D > 128 ? 16 : 32;  // keys per streamed tile
+  static constexpr int kSDr = D + 4;              // raw tile row stride
+  static constexpr int kQB = kRows * D * 4;       // one Q plane
+  static constexpr int kTB = kStr * D * 4;        // one tile plane
+  static constexpr int kK = 2 * kQB;              // K hi, lo
+  static constexpr int kV = kK + 2 * kTB;         // V hi, lo
+  static constexpr int kRaw = kV + 2 * kTB;       // raw K, raw V
+  static constexpr int kBytes = kRaw + 2 * kStr * kSDr * 4;
+};
+
+// s = Q Kᵀ for one warpgroup's 64 rows and kStr keys by SS wgmma
+// (m64nkStr k8), A = the Q planes, B = the K planes (descriptors of their
+// first 8-column step; a step is 32 R bytes into a plane of R rows).  The
+// three terms of kChunkK columns (12 products) sum in a zeroed part, added
+// to s in float32; two parts alternate, so one is added while the next is
+// computed.
+template <int D, int kRows, int kStr>
+__device__ __forceinline__ void score_ss(float (&s)[kStr / 2], uint64_t qh,
+                                         uint64_t ql, uint64_t kh,
+                                         uint64_t kl) {
+  constexpr int kSteps = kChunkK / 8, kChunks = D / kChunkK;
+  auto issue = [&](int ch, float(&part)[kStr / 2]) {
+    hopper::fence_regs(part);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const int kk = ch * kSteps + i;
+      const uint32_t oq = (kk * 32 * kRows) >> 4, ok = (kk * 32 * kStr) >> 4;
+      hopper::wgmma_tf32_ss<kStr>(part, ql + oq, kh + ok, i > 0);
+      hopper::wgmma_tf32_ss<kStr>(part, qh + oq, kl + ok, 1);
+      hopper::wgmma_tf32_ss<kStr>(part, qh + oq, kh + ok, 1);
+    }
+    hopper::wgmma_commit();
+  };
+  auto add = [&](float(&part)[kStr / 2]) {
+    hopper::fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < kStr / 2; ++i) s[i] += part[i];
+  };
+  float pa[kStr / 2], pb[kStr / 2];
+  issue(0, pa);
+#pragma unroll
+  for (int ch = 1; ch < kChunks; ++ch) {
+    if (ch & 1)
+      issue(ch, pb);
+    else
+      issue(ch, pa);
+    hopper::wgmma_wait<1>();
+    if (ch & 1)
+      add(pa);
+    else
+      add(pb);
+  }
+  hopper::wgmma_wait<0>();
+  if constexpr ((kChunks - 1) & 1)
+    add(pb);
+  else
+    add(pa);
 }
 
-// At D = 256 the tiles take 204,800 bytes: one block per SM.  kPad: d < D
-// (the staging loops zero the columns past d, the stores skip them); the
-// full-width instantiations carry no column test.
-template <int D, bool kPad>
-__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int h, int d, int sq, int sk,
-                 int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                 float scale_log2, int causal) {
-  constexpr int kG = D / 64;  // 4-column groups of O per thread
+// O and lse for one (b*h, kRows-query tile); d <= D is the real head dim.
+template <int D>
+__global__ void __launch_bounds__(F32Fwd<D>::kThreads, 1)
+flash_fwd_tf32_kernel(View q, View k, View v, float* __restrict__ o,
+                      float* __restrict__ lse, int h, int d, int sq, int sk,
+                      float scale_log2, int causal, int vec) {
+  using L = F32Fwd<D>;
+  constexpr int kRows = L::kRows, kStr = L::kStr, kSDr = L::kSDr;
+  constexpr int kJ = kStr / 8;  // 8-key blocks of a score tile
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [D][kTS]
-  float* kt = qt + D * kTS;                      // [D][kTS]
-  float* pt = kt;                                // [kBK][kTS], after the scores
-  float* vs = kt + D * kTS;                      // [kBK][D]
+  uint8_t* const sm = reinterpret_cast<uint8_t*>(smem4);
+  float* const raw = reinterpret_cast<float*>(sm + L::kRaw);
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
   const int bh = blockIdx.x;
   const int bi = bh / h;
   const int hi = bh % h;
-  // the heaviest causal tiles (last rows) are scheduled first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int q0 = kRows * (gridDim.y - 1 - blockIdx.y);
+  const int k_end = causal ? min(sk, q0 + kRows) : sk;
+  const int n_tiles = (k_end + kStr - 1) / kStr;
+  const bool vecb = vec != 0;
+  const float* pq = q.p + bi * q.b + hi * q.h;
+  const float* pk = k.p + bi * k.b + hi * k.h;
+  const float* pv = v.p + bi * v.b + hi * v.h;
 
-  const float* qb = q + bi * q_sb + hi * q_sh;
-  const float* kb = k + bi * k_sb + hi * k_sh;
-  const float* vb = v + bi * v_sb + hi * v_sh;
+  auto load_tile = [&](int t) {
+    stage_async<D, L::kThreads>(raw, pk, k.s, t * kStr, sk, kStr, d, vecb);
+    stage_async<D, L::kThreads>(raw + kStr * kSDr, pv, v.s, t * kStr, sk,
+                                kStr, d, vecb);
+    hopper::cp_async_commit();
+  };
+  load_tile(0);  // in flight while Q is split
 
-  stage_transposed<D, kPad>(qt, qb, q_ss, q0, sq, d);
-
-  float m[4], l[4], acc[4][4 * kG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kG; ++c) acc[i][c] = 0.f;
+  // Q once, straight from device memory into its hi and lo planes: rows
+  // past sq and columns past d are zeros
+  for (int e = threadIdx.x; e < kRows * D / 4; e += L::kThreads) {
+    const int r = e / (D / 4), c4 = e % (D / 4);
+    const int row = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < sq && 4 * c4 < d) {  // d % 32 == 0
+      const float* src = pq + row * q.s + 4 * c4;
+      x = vecb ? *reinterpret_cast<const float4*>(src)
+               : make_float4(src[0], src[1], src[2], src[3]);
+    }
+    store_natural<kRows>(sm, sm + L::kQB, r, c4, x);
   }
 
-  const int k_end = causal ? min(sk, q0 + kBQ) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's P and V reads are done
-    stage_transposed<D, kPad>(kt, kb, k_ss, k0, sk, d);
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const int row = k0 + r;
-      const bool in = kPad ? row < sk && c < d : row < sk;
-      vs[e] = in ? vb[row * v_ss + c] : 0.f;
-    }
-    __syncthreads();  // Q (first tile), K and V staged
+  const int tid = threadIdx.x % 128;
+  const int wg = threadIdx.x / 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  const int rg = q0 + 64 * wg;  // the warpgroup's first query row
+  const bool live = rg < sq;
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = ld4(&qt[d * kTS + 4 * ty]);
-      const float4 b = ld4(&kt[d * kTS + 4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-    }
+  const uint32_t base = hopper::smem_addr(sm);
+  const uint64_t dqh =
+      hopper::desc_plain(base + 1024 * wg, 16 * kRows, 128);  // its 64 rows
+  const uint64_t dql =
+      hopper::desc_plain(base + L::kQB + 1024 * wg, 16 * kRows, 128);
+  const uint64_t dkh = hopper::desc_plain(base + L::kK, 16 * kStr, 128);
+  const uint64_t dkl = hopper::desc_plain(base + L::kK + L::kTB, 16 * kStr, 128);
+  const uint64_t dvh = hopper::desc_plain(base + L::kV, 16 * D, 128);
+  const uint64_t dvl = hopper::desc_plain(base + L::kV + L::kTB, 16 * D, 128);
 
+  // accumulator layout (hopper.cuh): element 4j + 2x + y is row 16 warp +
+  // g + 8x, column 8j + 2c + y; l is this thread's share of the row sum
+  float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // raw tile t landed; every read of tile t - 1 done
+    split_natural<D, kStr, L::kThreads>(sm + L::kK, sm + L::kK + L::kTB, raw);
+    split_transposed<D, kStr, L::kThreads>(sm + L::kV, sm + L::kV + L::kTB,
+                                           raw + kStr * kSDr);
+    hopper::fence_proxy_async();
+    __syncthreads();  // the planes of tile t (and Q's) written; raw free
+    if (t + 1 < n_tiles) load_tile(t + 1);
+
+    const int k0 = t * kStr;
+    if (!live || (causal && k0 >= rg + 64)) continue;  // per warpgroup
+    const bool masked = (causal && k0 + kStr > rg) || k0 + kStr > sk;
+
+    float sc[kStr / 2];
+#pragma unroll
+    for (int i = 0; i < kStr / 2; ++i) sc[i] = 0.f;
+    score_ss<D, kRows, kStr>(sc, dqh, dql, dkh, dkl);
+
+    // online softmax in float32: the max over the raw scores (scale_log2
+    // > 0), then exp2f(s * scale_log2 - m) with one rounding (FMA); keys
+    // past sk and above the diagonal are -inf (a zero-filled key is not a
+    // masked one)
+    float corr[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int row = rg + 16 * warp + g + 8 * x;
       float mx = -CUDART_INF_F;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + 4 * tx + j;
-        const bool visible = col < sk && (!causal || row >= col);
-        s[i][j] = visible ? s[i][j] * scale_log2 : -CUDART_INF_F;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float corr = exp2f(m[i] - m_new);
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int y = 0; y < 2; ++y) {
+          const int i = 4 * j + 2 * x + y;
+          const int col = k0 + 8 * j + 2 * c + y;
+          if (masked && !(col < sk && (!causal || col <= row)))
+            sc[i] = -CUDART_INF_F;
+          mx = fmaxf(mx, sc[i]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[x], mx * scale_log2);
+      corr[x] = exp2f(m[x] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_new);  // masked: exp2(-inf) = 0
-        sum += s[i][j];
-      }
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
+      for (int j = 0; j < kJ; ++j)
 #pragma unroll
-      for (int c = 0; c < 4 * kG; ++c) acc[i][c] *= corr;
+        for (int y = 0; y < 2; ++y) {
+          const int i = 4 * j + 2 * x + y;
+          sc[i] = exp2f(fmaf(sc[i], scale_log2, -m_new));  // masked: 0
+          sum += sc[i];
+        }
+      l[x] = l[x] * corr[x] + sum;
+      m[x] = m_new;
     }
-    __syncthreads();  // every warp is done reading the K tile
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&pt[(4 * tx + j) * kTS + 4 * ty]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();  // P written
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 p = ld4(&pt[kk * kTS + 4 * ty]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
+    // P as A fragments of the kJ 8-key steps (a0 = d0, a1 = d2, a2 = d1,
+    // a3 = d3: k-slots c, c + 4 hold keys 2c, 2c + 1, as in the
+    // transposed V planes), split
+    uint32_t ph[kJ][4], pl[kJ][4];
 #pragma unroll
-      for (int g = 0; g < kG; ++g) {
-        const float4 w = ld4(&vs[kk * D + 64 * g + 4 * tx]);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+    for (int j = 0; j < kJ; ++j)
+      hopper::split_frag(sc[4 * j], sc[4 * j + 2], sc[4 * j + 1],
+                         sc[4 * j + 3], ph[j], pl[j]);
+    // O += P V per 64 columns: the 3 kJ products of a part sum in zeroed
+    // registers, added in float32: at D = 128 two parts in flight, at 256
+    // one at a time (O takes 128 registers there)
+    float pa[32], pb[32];
+    if constexpr (D > 128) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[i][4 * g + c] = fmaf(pv[i], wv[c], acc[i][4 * g + c]);
+      for (int n = 0; n < D / 64; ++n) {
+        issue_part<D, kJ>(pa, ph, pl, dvh, dvl, n);
+        hopper::wgmma_wait<0>();
+        add_part<D>(acc, pa, n);
       }
+    } else if constexpr (D > 64) {
+      issue_part<D, kJ>(pa, ph, pl, dvh, dvl, 0);
+      issue_part<D, kJ>(pb, ph, pl, dvh, dvl, 1);
+      hopper::wgmma_wait<1>();
+      add_part<D>(acc, pa, 0);
+      hopper::wgmma_wait<0>();
+      add_part<D>(acc, pb, 1);
+    } else {
+      issue_part<D, kJ>(pa, ph, pl, dvh, dvl, 0);
+      hopper::wgmma_wait<0>();
+      add_part<D>(acc, pa, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      hopper::fence_regs(ph[j]);
+      hopper::fence_regs(pl[j]);
     }
   }
 
+  if (!live) return;
+  // rows g + 8x of the warp, columns 8j + 2c (+1), as float2
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int x = 0; x < 2; ++x) {
+    float lt = l[x] + __shfl_xor_sync(0xffffffffu, l[x], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = rg + 16 * warp + g + 8 * x;
     if (row >= sq) continue;
-    const float lsafe = l[i] > 0.f ? l[i] : 1.f;
-    const float inv = 1.f / lsafe;
-    float* orow = o + ((int64_t)(bi * sq + row) * h + hi) * d;
+    const float lsafe = lt > 0.f ? lt : 1.f;
+    const int64_t off = (((int64_t)bi * sq + row) * h + hi) * d + 2 * c;
 #pragma unroll
-    for (int g = 0; g < kG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (!kPad || 64 * g + 4 * tx + c < d)
-          orow[64 * g + 4 * tx + c] = acc[i][4 * g + c] * inv;
-    if (tx == 0) lse[(int64_t)bh * sq + row] = (m[i] + log2f(lsafe)) * kLn2;
+    for (int j = 0; j < D / 8; ++j)
+      if (8 * j < d)  // d % 32 == 0
+        *reinterpret_cast<float2*>(o + off + 8 * j) = make_float2(
+            acc[4 * j + 2 * x] / lsafe, acc[4 * j + 2 * x + 1] / lsafe);
+    if (c == 0) lse[(int64_t)bh * sq + row] = (m[x] + log2f(lsafe)) * kLn2;
   }
 }
 
-template <int D, bool kPad>
-cudaError_t launch_f32_at(const void* q, const void* k, const void* v,
-                          void* o, float* lse, int b, int h, int d, int sq,
-                          int sk, const int64_t* st, float scale_log2,
-                          int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kPad>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(b * h, (sq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<D, kPad><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, h, d, sq, sk,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      scale_log2, causal);
-  return cudaGetLastError();
-}
-
-// d = D, or (D = 64, 128) the padded d = 32, 96.
+// strides: q, k, v, each (b, s, h), in elements; any view with unit
+// stride in d (16-byte copies when every base and stride allows)
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        float* lse, int b, int h, int d, int sq, int sk,
                        const int64_t* st, float scale_log2, int causal,
                        cudaStream_t stream) {
-  if (d == D)
-    return launch_f32_at<D, false>(q, k, v, o, lse, b, h, d, sq, sk, st,
-                                   scale_log2, causal, stream);
-  if constexpr (D < 256)
-    return launch_f32_at<D, true>(q, k, v, o, lse, b, h, d, sq, sk, st,
-                                  scale_log2, causal, stream);
-  return cudaErrorInvalidValue;
+  using L = F32Fwd<D>;
+  const void* base[3] = {q, k, v};
+  View w[3];
+  const int vec = make_views(3, base, st, w);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * h, (sq + L::kRows - 1) / L::kRows);
+  flash_fwd_tf32_kernel<D><<<grid, L::kThreads, L::kBytes, stream>>>(
+      w[0], w[1], w[2], static_cast<float*>(o), lse, h, d, sq, sk,
+      scale_log2, causal, vec);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -598,7 +697,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; every view
+// dtype: 0 = float32 (split TF32 on the tensor cores; any view with unit
+// stride in d), 1 = bfloat16 (tensor cores; every view
 // needs a 16-byte aligned base and (b, s, h) strides that are multiples of
 // 8 elements, or the entry returns cudaErrorInvalidValue).  d: the head dim;
 // width: the instantiated width it runs at (64, 128 or 256, d <= width; the

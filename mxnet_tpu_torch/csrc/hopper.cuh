@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks written out in PTX: mbarriers, TMA tensor
 // maps and loads, wgmma operand descriptors and the bf16 wgmma products the
-// attention kernels issue, the split-TF32 float32 product on mma.sync,
+// attention kernels issue, the split-TF32 float32 product on mma.sync and
+// wgmma (A from registers or, with both operands in shared memory, SS),
 // cp.async, and register reallocation between warpgroups.
 //
 // Layout contract shared by the TMA maps and the wgmma descriptors: a tile
@@ -461,7 +462,48 @@ __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 32] (+)= A[64 x 8] B[32 x 8]^T in TF32, both from shared memory
+// (K-major planes as above).
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same with N = 16 (B is 16 x 8).
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n"
+      "}\n"
+      : HOPPER_ACC8(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef HOPPER_ACC8
+
+// acc (+)= A B^T for one 8-deep TF32 step, both from shared memory, N = 16
+// or 32.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&acc)[N / 2], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  if constexpr (N == 32)
+    wgmma_tf32_ss_n32(acc, da, db, accumulate);
+  else
+    wgmma_tf32_ss_n16(acc, da, db, accumulate);
+}
 
 // Order this thread's plain shared-memory stores before later reads by
 // wgmma (the async proxy); a barrier then publishes them to the warpgroup.

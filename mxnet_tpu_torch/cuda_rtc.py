@@ -10,18 +10,28 @@ and launches.
 - ``function(source, name, device)``: the kernel loaded into the device's
   primary context (``cuModuleLoadData``), compiled and loaded once per
   (source, device) and cached.
-- ``launch(...)``: ``cuLaunchKernel`` on a given stream.
+- ``LaunchPlan(func, device, n_args)``: ``cuLaunchKernel`` of one
+  kernel on one device, many times, on a given stream.  It exists for a
+  caller that pushes the same kernel over and over (an update loop pushes
+  it once per parameter array, every step), so that a launch costs the
+  host as little as it can: everything that does not change from one
+  launch to the next is looked up or allocated once.
 
 Two things libcuda asks of the caller, handled here:
 
 - the device's primary context (the one PyTorch's runtime uses) must be
   current on the calling thread.  A kernel may be launched from a thread
   that never called libcuda, such as autograd's device thread
-  running a backward, so every load and launch first makes it current
-  (``cuDevicePrimaryCtxRetain`` once per device, ``cuCtxSetCurrent``);
+  running a backward, so every load makes it current
+  (``cuDevicePrimaryCtxRetain`` once per device, ``cuCtxSetCurrent``), and
+  every launch asks ``cuCtxGetCurrent`` and sets it only when another is
+  current;
 - ``cuLaunchKernel`` reads its arguments through ``kernelParams``, an
-  array of pointers to the argument values: the array and every value it
-  points to are held in local variables until the call has returned.
+  array of pointers to the argument values, and copies the values before
+  it returns.  A plan allocates that array and the values' block once and
+  overwrites the values per launch, holding a lock from the fill to the
+  return, so that two threads launching one plan never fill one block at
+  once.
 
 Nothing here runs at import: the libraries are loaded at the first
 compile or launch, so a machine without CUDA imports the package.
@@ -31,13 +41,14 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import struct
 import threading
 from typing import Dict, List, Sequence, Tuple
 
 from .base import MXNetError, env
 
 __all__ = ["NVRTC_OPTIONS", "nvrtc_version", "nvrtc_search", "compile_cubin",
-           "function", "launch", "error_string"]
+           "function", "LaunchPlan", "error_string"]
 
 #: NVRTC options besides the include path: Hopper with its arch-specific
 #: features (``wgmma``, ``setmaxnreg``), C++17
@@ -111,6 +122,7 @@ def _libcuda() -> ctypes.CDLL:
                 ("cuDeviceGet", [ptr(i), i]),
                 ("cuDevicePrimaryCtxRetain", [ptr(p), i]),
                 ("cuCtxSetCurrent", [p]),
+                ("cuCtxGetCurrent", [ptr(p)]),
                 ("cuModuleLoadData", [ptr(p), ctypes.c_char_p]),
                 ("cuModuleGetFunction", [ptr(p), p, ctypes.c_char_p]),
                 ("cuLaunchKernel", [p, u, u, u, u, u, u, u, p, ptr(p), ptr(p)]),
@@ -188,8 +200,8 @@ def compile_cubin(source: str, name: str) -> bytes:
         lib.nvrtcDestroyProgram(ctypes.byref(prog))
 
 
-def _make_current(lib, device: int) -> None:
-    """Make ``device``'s primary context current on this thread."""
+def _primary(lib, device: int) -> ctypes.c_void_p:
+    """``device``'s primary context, retained at the first request."""
     ctx = _PRIMARY.get(device)
     if ctx is None:
         dev = ctypes.c_int()
@@ -199,7 +211,7 @@ def _make_current(lib, device: int) -> None:
         _check_cu(lib, lib.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev),
                   "cuDevicePrimaryCtxRetain")
         _PRIMARY[device] = ctx
-    _check_cu(lib, lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+    return ctx
 
 
 def function(source: str, name: str, device: int) -> ctypes.c_void_p:
@@ -214,7 +226,8 @@ def function(source: str, name: str, device: int) -> ctypes.c_void_p:
             if cubin is None:
                 cubin = _CUBINS[source] = compile_cubin(source, name)
             lib = _libcuda()
-            _make_current(lib, device)
+            _check_cu(lib, lib.cuCtxSetCurrent(_primary(lib, device)),
+                      "cuCtxSetCurrent")
             module, func = ctypes.c_void_p(), ctypes.c_void_p()
             _check_cu(lib, lib.cuModuleLoadData(ctypes.byref(module), cubin),
                       "cuModuleLoadData")
@@ -225,18 +238,46 @@ def function(source: str, name: str, device: int) -> ctypes.c_void_p:
     return hit[1]
 
 
-def launch(func: ctypes.c_void_p, device: int, grid: Sequence[int],
-           block: Sequence[int], pointers: Sequence[int], stream: int) -> int:
-    """Launch ``func`` with one pointer argument per entry of ``pointers``
-    on ``stream`` (a ``cudaStream_t`` as an int); the CUresult."""
-    lib = _libcuda()
-    _make_current(lib, device)
-    # cuLaunchKernel reads each argument through kernelParams[i]: the values
-    # and the array of their addresses stay referenced until it returns
-    values = [ctypes.c_void_p(p) for p in pointers]
-    params = (ctypes.c_void_p * len(values))(
-        *[ctypes.addressof(v) for v in values])
-    res = lib.cuLaunchKernel(func, *grid, *block, 0, ctypes.c_void_p(stream),
-                             params, None)
-    del values, params
-    return res
+class LaunchPlan:
+    """Launches of ``func`` (loaded on CUDA device ``device``) with
+    ``n_args`` pointer arguments.  Built once per kernel and device; a
+    launch then makes no lookup and allocates nothing on the host.
+
+    Thread safety: one lock per plan around the fill of the values and
+    ``cuLaunchKernel``, which copies them before it returns; a thread that
+    waits for the lock waits for one launch's enqueue."""
+
+    def __init__(self, func: ctypes.c_void_p, device: int, n_args: int):
+        self.func = func
+        self.device = device
+        self._lib = _libcuda()
+        self._ctx = _primary(self._lib, device)
+        self._current = ctypes.c_void_p()
+        self._current_ptr = ctypes.pointer(self._current)
+        # kernelParams[i] -> values[i]; the values are overwritten per
+        # launch, in argument order, as native 64-bit words
+        self._values = (ctypes.c_void_p * n_args)()
+        base = ctypes.addressof(self._values)
+        size = ctypes.sizeof(ctypes.c_void_p)
+        self._params = (ctypes.c_void_p * n_args)(
+            *[base + i * size for i in range(n_args)])
+        self._fill = struct.Struct("@%dP" % n_args).pack_into
+        self._lock = threading.Lock()
+
+    def launch(self, pointers: Sequence[int], grid: Sequence[int],
+               block: Sequence[int], stream: int) -> int:
+        """Launch with one device pointer per argument on ``stream`` (a
+        ``cudaStream_t`` as an int); the CUresult."""
+        lib = self._lib
+        with self._lock:
+            res = lib.cuCtxGetCurrent(self._current_ptr)
+            if res != 0:
+                return res
+            if self._current.value != self._ctx.value:
+                res = lib.cuCtxSetCurrent(self._ctx)
+                if res != 0:
+                    return res
+            self._fill(self._values, 0, *pointers)
+            return lib.cuLaunchKernel(self.func, grid[0], grid[1], grid[2],
+                                      block[0], block[1], block[2], 0,
+                                      stream, self._params, None)

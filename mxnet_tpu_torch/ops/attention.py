@@ -6,9 +6,9 @@ Each dtype has its own kernels: bfloat16 runs ``flash_fwd_tc_kernel``,
 ``flash_bwd_dq_tc_kernel`` and ``flash_bwd_dkv_tc_kernel`` on the tensor
 cores (``wgmma`` fed by TMA, 128 rows per block), so its q, k, v and dO
 must pass ``_check_tma_view``; float32 (``Module``'s default and serving)
-runs ``flash_fwd_kernel`` on the CUDA cores (64 rows per block) and
-``flash_bwd_dq_tf32_kernel`` and ``flash_bwd_dkv_tf32_kernel`` on the
-tensor cores (split TF32: ``wgmma``, or ``mma.sync`` at width 256; fed by
+runs ``flash_fwd_tf32_kernel``, ``flash_bwd_dq_tf32_kernel`` and
+``flash_bwd_dkv_tf32_kernel``, all on the tensor cores by the split-TF32
+product (``wgmma``, or ``mma.sync`` in K2/K3 at width 256; fed by
 ``cp.async``, so any view with unit stride in d; 128 rows per block, 64 at
 width 256).
 
@@ -49,8 +49,9 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dim -> the width the kernels are instantiated at and run it at (the
 #: C entries take it as ``width``): columns past d are zeros in shared memory
 _KERNEL_WIDTHS = {32: 64, 64: 64, 96: 128, 128: 128, 256: 256}
-#: query rows per block of the forward kernel each dtype runs (flash_fwd.cu:
-#: kBQ of the CUDA-core kernel, kRes of the tensor-core one)
+#: the fewest query rows per block of the forward kernel each dtype runs
+#: (flash_fwd.cu: F32Fwd<256>::kRows, 128 at the other widths; kRes of the
+#: bf16 kernel)
 _FWD_BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}
 #: the fewest rows per block of the backward kernels of each dtype
 #: (flash_bwd.cu: kRes of the tensor-core kernels; F32Tile<256>::kRes)

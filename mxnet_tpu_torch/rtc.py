@@ -18,7 +18,10 @@ routes, and neither ever stands in for the other:
   them: ``a_ndim``, ``a_dims[]`` and ``a_size`` (its element count).  NVRTC
   compiles it for sm_90a at the first push (``cuda_rtc``); the module is
   cached per source, which includes the prototypes, and per device.  A push
-  launches it on PyTorch's current stream with ``grid_dims``/``block_dims``
+  launches it on PyTorch's current stream of the arrays' device, through a
+  launch plan built at the first push on that device (``_Plan``: the
+  function and ``cuda_rtc.LaunchPlan``'s argument block), with
+  ``grid_dims``/``block_dims``
   (up to three ints each, missing ones 1) or, with neither given, a 1-D
   launch of 256-thread blocks covering the element count of the first
   output: ``blockIdx.x * blockDim.x + threadIdx.x`` indexes the elements
@@ -53,14 +56,16 @@ the op ``rtc_gelu`` so).
 """
 from __future__ import annotations
 
+import functools
 import math
 import re
 import textwrap
+import threading
 from typing import List, Sequence, Tuple
 
 import torch
 
-from . import kernels
+from . import cuda_rtc, kernels
 from .base import MXNetError
 
 __all__ = ["MXRtc", "cuda_source", "is_python_source", "launch_dims",
@@ -131,6 +136,13 @@ def launch_dims(n: int, grid_dims=None, block_dims=None):
         return (-(-n // DEFAULT_BLOCK), 1, 1), (DEFAULT_BLOCK, 1, 1)
     if grid_dims is None or block_dims is None:
         raise MXNetError("rtc: give both grid_dims and block_dims, or neither")
+    return _checked_dims(tuple(grid_dims), tuple(block_dims))
+
+
+@functools.lru_cache(maxsize=256)
+def _checked_dims(grid_dims, block_dims):
+    """The explicit dims of ``launch_dims``, checked once per distinct pair
+    (an update loop gives the same dims push after push)."""
     grid, block = _dims3(grid_dims, "grid_dims"), _dims3(block_dims,
                                                          "block_dims")
     if math.prod(block) > 1024 or block[2] > 64:
@@ -170,6 +182,11 @@ class MXRtc:
         self.route = "python" if is_python_source(src) else "cuda"
         self.source = None
         self._kernel = None
+        # the default launch covers the first output's elements
+        self._size = math.prod(self._out_protos[0][1]) \
+            if self._out_protos else 0
+        self._plans = {}  # torch.device -> _Plan (the CUDA route)
+        self._plans_lock = threading.Lock()
         if self.route == "cuda":
             self.source = cuda_source(
                 name, [p[:3] for p in self._in_protos],
@@ -204,7 +221,7 @@ class MXRtc:
             raise MXNetError("rtc %r expects %d inputs, got %d"
                              % (self.name, len(self._in_protos), len(ins)))
         for arr, (pname, shape, _, _) in zip(ins, self._in_protos):
-            if tuple(arr.shape) != shape:
+            if arr.shape != shape:
                 raise MXNetError(
                     "rtc %r input %s shape %s does not match prototype %s"
                     % (self.name, pname, tuple(arr.shape), shape))
@@ -212,7 +229,7 @@ class MXRtc:
             raise MXNetError("rtc %r expects %d outputs, got %d"
                              % (self.name, len(self._out_protos), len(outs)))
         for out, (pname, shape, _, _) in zip(outs, self._out_protos):
-            if tuple(out.shape) != shape:
+            if out.shape != shape:
                 raise MXNetError(
                     "rtc %r output %s shape %s does not match prototype %s"
                     % (self.name, pname, tuple(out.shape), shape))
@@ -252,10 +269,12 @@ class MXRtc:
             self._kernel(*t_in, *t_out)
 
     def _push_cuda(self, t_in, t_out, grid_dims, block_dims) -> None:
-        from . import cuda_rtc
-
+        """The CUDA route, after the prototype checks: each array's device,
+        dtype and layout, then a launch through the plan of the arrays'
+        device, built at the first push on it."""
+        args = t_in + t_out
         for (pname, _, dtype, device), t in zip(
-                self._in_protos + self._out_protos, t_in + t_out):
+                self._in_protos + self._out_protos, args):
             if not t.is_cuda:
                 raise MXNetError(
                     "rtc %r: a CUDA C kernel body runs on CUDA arrays only, "
@@ -268,18 +287,54 @@ class MXRtc:
             if not t.is_contiguous():
                 raise MXNetError("rtc %r: %s is not contiguous"
                                  % (self.name, pname))
-        n = t_out[0].numel() if t_out else 0
-        grid, block = launch_dims(n, grid_dims, block_dims)
+        grid, block = launch_dims(self._size, grid_dims, block_dims)
         if grid[0] == 0:
             return  # an empty output: nothing to launch
-        device = t_out[0].device if t_out else t_in[0].device
-        func = cuda_rtc.function(self.source, self.name, device.index)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            res = cuda_rtc.launch(func, device.index, grid, block,
-                                  [t.data_ptr() for t in t_in + t_out],
-                                  stream)
+        device = args[-1].device
+        plan = self._plans.get(device) or self._plan(device)
+        pointers = [t.data_ptr() for t in args]
+        index = plan.index
+        if _current_device() == index:
+            res = plan.launch.launch(pointers, grid, block, _stream(index))
+        else:
+            with torch.cuda.device(index):
+                res = plan.launch.launch(pointers, grid, block,
+                                         _stream(index))
         if res != 0:
             raise MXNetError("rtc %r: kernel launch failed: %s"
                              % (self.name, cuda_rtc.error_string(res)))
-        kernels.count("rtc:" + self.name)
+        kernels.count(plan.counter)
+
+    def _plan(self, device: torch.device) -> "_Plan":
+        """The launch plan of ``device``, built (the kernel compiled and
+        loaded there) at the first push on it."""
+        with self._plans_lock:
+            plan = self._plans.get(device)
+            if plan is None:
+                plan = self._plans[device] = _Plan(self, device)
+        return plan
+
+
+def _current_device() -> int:
+    """The index of PyTorch's current CUDA device."""
+    return torch.cuda.current_device()
+
+
+def _stream(index: int) -> int:
+    """PyTorch's current stream on CUDA device ``index``, as an int (the
+    raw handle, without the ``torch.cuda.Stream`` object that
+    ``current_stream`` builds around it)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+class _Plan:
+    """What one ``MXRtc`` needs to push on one CUDA device, found once:
+    the loaded function and its ``cuda_rtc.LaunchPlan``, and the launch
+    counter's name."""
+
+    def __init__(self, krnl: MXRtc, device: torch.device):
+        self.index = device.index
+        func = cuda_rtc.function(krnl.source, krnl.name, self.index)
+        self.launch = cuda_rtc.LaunchPlan(
+            func, self.index, len(krnl._in_protos) + len(krnl._out_protos))
+        self.counter = "rtc:" + krnl.name

@@ -10,7 +10,8 @@ elementwise pass, bound by the bytes it moves.
   ``grid_dims``/``block_dims`` (``axpy_dims``).  NVRTC contracts 2·x + y to
   one FMA, which rounds as 2·x (exact) then + y does: the same bits.
 - ``sgd_update``: w -= lr·(rescale·g + wd·w) in float32, in place
-  (``push([w, g, hp], [w])``, ``hp`` = [lr, rescale, wd] on the device).
+  (``push([w, g, hp], [w])``, ``hp`` = [lr, rescale, wd] on the device),
+  a grid-stride loop over the blocks that ``sgd_dims`` names.
   The body rounds every product and sum on its own, in the order of the
   port's ``sgd_update`` (``ops/optimizer_ops.py``), so the two agree bit for
   bit; plain ``*`` and ``+`` would let NVRTC contract them into FMAs.
@@ -25,8 +26,10 @@ elementwise pass, bound by the bytes it moves.
   ``with_rtc_gelu`` swaps ``gelu`` nodes of a symbol for it.
 
 The wrappers take tensors on the card or the CPU and pick the route by the
-tensor's device; a kernel object per (kernel, shape, dtype, device) is
-cached, as MXRtc's prototypes fix shapes.
+tensor's device; a kernel object per (kernel, output device, shape and
+dtype, inputs' dtypes) is cached, as MXRtc's prototypes fix shapes and the
+CUDA body's argument types, and pushed the tensors as they are (MXRtc
+takes a tensor wherever it takes an NDArray).
 """
 from __future__ import annotations
 
@@ -41,9 +44,9 @@ from .rtc import MXRtc
 __all__ = ["AXPY_CUDA", "AXPY_PYTHON", "SGD_CUDA", "SGD_PYTHON",
            "GELU_FWD_CUDA", "GELU_FWD_PYTHON", "GELU_BWD_CUDA",
            "GELU_BWD_PYTHON", "axpy", "axpy_dims", "axpy_plain", "gelu_dims",
-           "sgd_hyper", "sgd_update", "gelu_forward", "gelu_backward",
-           "gelu_plain", "gelu_grad_plain", "register_rtc_gelu",
-           "with_rtc_gelu"]
+           "sgd_dims", "sgd_hyper", "sgd_update", "gelu_forward",
+           "gelu_backward", "gelu_plain", "gelu_grad_plain",
+           "register_rtc_gelu", "with_rtc_gelu"]
 
 AXPY_CUDA = r"""
 const int r = blockIdx.y * blockDim.y + threadIdx.y;
@@ -139,7 +142,7 @@ _SOURCES = {"axpy": (AXPY_CUDA, AXPY_PYTHON, ("x", "y"), ("out",)),
             "gelu_fwd": (GELU_FWD_CUDA, GELU_FWD_PYTHON, ("x",), ("y",)),
             "gelu_bwd": (GELU_BWD_CUDA, GELU_BWD_PYTHON, ("x", "dy"),
                          ("dx",))}
-_CACHE: Dict[tuple, MXRtc] = {}
+_CACHE: Dict[tuple, tuple] = {}  # key -> (MXRtc, (grid, block))
 _LOCK = threading.Lock()
 
 
@@ -149,24 +152,33 @@ def _nd(t: torch.Tensor):
     return NDArray(t, _context_of(t.device))
 
 
-def _push(name, ins, outs, grid_dims=None, block_dims=None):
+def _push(name, ins, outs, dims=None):
     """Push user kernel ``name`` on tensors: the CUDA body on the card, the
-    Python source on the CPU."""
-    device = outs[0].device
-    if device.type not in ("cuda", "cpu"):
-        raise MXNetError("rtc kernel %s: no route for device %s"
-                         % (name, device))
-    key = (name, device, tuple((tuple(t.shape), t.dtype) for t in ins + outs))
-    with _LOCK:
-        krnl = _CACHE.get(key)
-        if krnl is None:
-            cuda, python, in_names, out_names = _SOURCES[name]
-            krnl = _CACHE[key] = MXRtc(
-                name, list(zip(in_names, map(_nd, ins))),
-                list(zip(out_names, map(_nd, outs))),
-                cuda if device.type == "cuda" else python)
-    krnl.push([_nd(t) for t in ins], [_nd(t) for t in outs], grid_dims,
-              block_dims)
+    Python source on the CPU.  The kernel object is cached by the output's
+    device, shape and dtype and the inputs' dtypes (each dtype gets a
+    kernel of its C types; the output's shape fixes the inputs' for every
+    kernel here, and an input of another shape or device is refused by the
+    prototype checks), together with its launch dims: ``dims(out)``, or
+    MXRtc's default launch if ``dims`` is None."""
+    out = outs[0]
+    key = (name, out.device, out.shape, out.dtype) + tuple(
+        [t.dtype for t in ins])
+    hit = _CACHE.get(key)
+    if hit is None:
+        if out.device.type not in ("cuda", "cpu"):
+            raise MXNetError("rtc kernel %s: no route for device %s"
+                             % (name, out.device))
+        with _LOCK:
+            hit = _CACHE.get(key)
+            if hit is None:
+                cuda, python, in_names, out_names = _SOURCES[name]
+                hit = _CACHE[key] = (MXRtc(
+                    name, list(zip(in_names, ins)),
+                    list(zip(out_names, outs)),
+                    cuda if out.device.type == "cuda" else python),
+                    dims(out) if dims is not None else (None, None))
+    krnl, (grid, block) = hit
+    krnl.push(ins, outs, grid, block)
     return outs
 
 
@@ -180,8 +192,7 @@ def axpy_dims(shape):
 
 def axpy(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """out = 2·x + y for 2-D float32 tensors, written into ``out``."""
-    grid, block = axpy_dims(out.shape)
-    _push("axpy", [x, y], [out], grid, block)
+    _push("axpy", [x, y], [out], lambda t: axpy_dims(t.shape))
     return out
 
 
@@ -189,21 +200,33 @@ def axpy_plain(x, y):
     return 2.0 * x + y
 
 
-#: blocks of 256 threads per SM in the gelu_fwd launch: several rounds of
-#: the blocks an SM holds at once, so that the last, partial round is a
-#: small share of the pass (a launch of one round ends with SMs that wait
-#: for the slowest block)
+#: blocks of 256 threads per SM in the gelu_fwd and sgd_update launches:
+#: several rounds of the blocks an SM holds at once, so that the last,
+#: partial round is a small share of the pass (a launch of one round ends
+#: with SMs that wait for the slowest block)
 GELU_BLOCKS_PER_SM = 32
+
+
+def _stride_dims(n, per_thread, sms):
+    """256-thread blocks, ``per_thread`` elements a thread per pass, as
+    many blocks as cover ``n`` up to ``GELU_BLOCKS_PER_SM`` per SM (the
+    kernel's grid-stride loop takes the rest)."""
+    per_block = 256 * per_thread
+    blocks = max(1, min(-(-n // per_block), GELU_BLOCKS_PER_SM * sms))
+    return (blocks, 1, 1), (256, 1, 1)
 
 
 def gelu_dims(n, itemsize, sms):
     """(grid, block) of the gelu_fwd launch over ``n`` elements of
-    ``itemsize`` bytes on a card with ``sms`` SMs: 256-thread blocks, one
-    16-byte vector a thread per pass, as many blocks as cover ``n`` up to
-    ``GELU_BLOCKS_PER_SM`` per SM (the grid-stride loop takes the rest)."""
-    per_block = 256 * (16 // itemsize)
-    blocks = max(1, min(-(-n // per_block), GELU_BLOCKS_PER_SM * sms))
-    return (blocks, 1, 1), (256, 1, 1)
+    ``itemsize`` bytes on a card with ``sms`` SMs: one 16-byte vector a
+    thread per pass."""
+    return _stride_dims(n, 16 // itemsize, sms)
+
+
+def sgd_dims(n, sms):
+    """(grid, block) of the sgd_update launch over ``n`` elements on a
+    card with ``sms`` SMs: one element a thread per pass."""
+    return _stride_dims(n, 1, sms)
 
 
 # -- sgd_update ---------------------------------------------------------------
@@ -217,7 +240,8 @@ def sgd_hyper(lr, rescale_grad=1.0, wd=0.0, device="cpu") -> torch.Tensor:
 def sgd_update(weight: torch.Tensor, grad: torch.Tensor,
                hp: torch.Tensor) -> torch.Tensor:
     """weight -= lr·(rescale·grad + wd·weight), in place, float32."""
-    _push("sgd_update", [weight, grad, hp], [weight])
+    _push("sgd_update", [weight, grad, hp], [weight],
+          lambda t: sgd_dims(t.numel(), _sm_count(t.device)))
     return weight
 
 
@@ -252,8 +276,8 @@ def gelu_forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "meta":
         return torch.empty_like(x)
     x = x.contiguous()
-    grid, block = gelu_dims(x.numel(), x.element_size(), _sm_count(x.device))
-    return _push("gelu_fwd", [x], [torch.empty_like(x)], grid, block)[0]
+    return _push("gelu_fwd", [x], [torch.empty_like(x)], lambda t: gelu_dims(
+        t.numel(), t.element_size(), _sm_count(t.device)))[0]
 
 
 def gelu_backward(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

@@ -179,9 +179,10 @@ def _long(dtype, sq, d=64):
 
 
 def test_forward_launch_rows_per_block_and_grid_limit():
-    """The forward kernel takes 64 query rows per block in float32 (CUDA
-    cores) and 128 in bf16 (two warpgroups of the tensor-core kernel); a
-    sequence that needs more than 65535 blocks raises before any launch."""
+    """The forward kernel takes at least 64 query rows per block in float32
+    (one warpgroup at width 256, two elsewhere) and 128 in bf16 (two
+    warpgroups); a sequence that needs more than 65535 blocks of the fewest
+    rows raises before any launch."""
     assert att._FWD_BLOCK_Q == {torch.float32: 64, torch.bfloat16: 128}
     att._check_forward_launch(*_long(torch.float32, 65535 * 64))
     with pytest.raises(mt.MXNetError, match="grid"):
@@ -196,8 +197,8 @@ def test_forward_launch_rows_per_block_and_grid_limit():
 def test_forward_launch_refuses_bf16_view_off_a_16_byte_boundary(which):
     """The bf16 forward reads q, k and v with TMA: a view 2 bytes past a
     16-byte boundary raises in the wrapper, before it touches the kernel
-    library, with no copy and no other kernel.  float32 runs the CUDA-core
-    kernel, which reads any view with unit stride in d."""
+    library, with no copy and no other kernel.  float32 runs the split-TF32
+    kernel, fed by cp.async, which reads any view with unit stride in d."""
     b, s, h, d = 2, 24, 2, 64
     for dtype in (torch.bfloat16, torch.float32):
         qkv = [torch.zeros((b, s, h, d), dtype=dtype) for _ in range(3)]

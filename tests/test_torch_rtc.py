@@ -310,3 +310,272 @@ def test_gelu_forward_cpu_route_on_odd_and_misaligned_views():
         assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
     assert flat[1:].data_ptr() % 16 == 4
     assert flat.to(torch.bfloat16)[1:].data_ptr() % 16 == 2
+
+
+# -- the CUDA route's launch plan, with libcuda and the card stood in for --
+#
+# ``MXRtc``'s CUDA route builds one launch plan per device at its first
+# push (the function and the kernelParams block) and then checks, fills
+# and launches.  These tests run that path on the
+# CPU: ``_FakeCuda`` records what would reach libcuda, ``_FakeTensor`` is
+# an array on the card (its device, dtype, shape and data pointer).
+
+class _FakeTensor:
+    is_cuda = True
+
+    def __init__(self, ptr, shape, dtype=torch.float32, index=0,
+                 contiguous=True):
+        self._ptr, self.shape, self.dtype = ptr, torch.Size(shape), dtype
+        self.device = torch.device("cuda", index)
+        self._contiguous = contiguous
+
+    @property
+    def _data(self):  # as an NDArray hands MXRtc its tensor
+        return self
+
+    def data_ptr(self):
+        return self._ptr
+
+    def numel(self):
+        return self.shape.numel()
+
+    def is_contiguous(self):
+        return self._contiguous
+
+
+class _FakeCuda:
+    """libcuda's entries the CUDA route calls, recording them; the launch
+    reads kernelParams value by value, yielding between the reads."""
+
+    def __init__(self, n_args):
+        self.n_args = n_args
+        self.current = None
+        self.calls, self.launches = [], []
+
+    def cuDeviceGet(self, ref, device):
+        ref._obj.value = device
+        return 0
+
+    def cuDevicePrimaryCtxRetain(self, ref, dev):
+        ref._obj.value = 0x1000 + dev.value
+        return 0
+
+    def cuCtxGetCurrent(self, ptr):
+        self.calls.append("get")
+        ptr.contents.value = self.current
+        return 0
+
+    def cuCtxSetCurrent(self, ctx):
+        self.calls.append("set")
+        self.current = ctx.value
+        return 0
+
+    def cuLaunchKernel(self, func, gx, gy, gz, bx, by, bz, shmem, stream,
+                       params, extra):
+        import ctypes
+        import time
+
+        values = []
+        for i in range(self.n_args):
+            values.append(ctypes.c_void_p.from_address(params[i]).value)
+            time.sleep(0)
+        self.launches.append((func, (gx, gy, gz), (bx, by, bz), stream,
+                              tuple(values)))
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """(the fake libcuda for 3-argument kernels, the function lookups)."""
+    import ctypes
+
+    from mxnet_tpu_torch import rtc
+
+    lib = _FakeCuda(3)
+    lookups = []
+
+    def function(source, name, device):
+        lookups.append((name, device))
+        return ctypes.c_void_p(0xF00 + device)
+
+    monkeypatch.setattr(cuda_rtc, "_libcuda", lambda: lib)
+    monkeypatch.setattr(cuda_rtc, "_PRIMARY", {})
+    monkeypatch.setattr(cuda_rtc, "function", function)
+    monkeypatch.setattr(rtc, "_current_device", lambda: 0)
+    monkeypatch.setattr(rtc, "_stream", lambda index: 0x5000 + index)
+    mt.kernels.reset_launches()
+    return lib, lookups
+
+
+def _axpy_on_card(n=1000):
+    x, y, out = (_FakeTensor(0x100 * (i + 1), (n,)) for i in range(3))
+    return mt.rtc.MXRtc("axpy", [("x", x), ("y", y)], [("out", out)],
+                        rk.AXPY_CUDA), (x, y, out)
+
+
+def test_push_plan_looks_the_function_up_once(fake_card):
+    lib, lookups = fake_card
+    krnl, (x, y, out) = _axpy_on_card()
+    for i in range(5):
+        arrays = [_FakeTensor(0x10000 * (i + 1) + j, (1000,))
+                  for j in range(3)]
+        krnl.push(arrays[:2], arrays[2:])
+    assert lookups == [("axpy", 0)]
+    assert len(lib.launches) == 5
+    assert mt.kernels.LAUNCHES["rtc:axpy"] == 5
+
+
+def test_push_plan_sets_the_context_only_when_another_is_current(fake_card):
+    lib, _ = fake_card
+    krnl, (x, y, out) = _axpy_on_card()
+    krnl.push([x, y], [out])  # no context current yet: set it
+    assert lib.calls == ["get", "set"] and lib.current == 0x1000
+    krnl.push([x, y], [out])
+    krnl.push([x, y], [out])
+    assert lib.calls == ["get", "set", "get", "get"]
+    lib.current = 0x2000  # another context made current meanwhile
+    krnl.push([x, y], [out])
+    assert lib.calls[-2:] == ["get", "set"] and lib.current == 0x1000
+
+
+def test_push_plan_passes_pointers_in_argument_order(fake_card):
+    lib, _ = fake_card
+    krnl, (x, y, out) = _axpy_on_card(1000)
+    krnl.push([x, y], [out])
+    krnl.push([y, out], [x])
+    krnl.push([x, y], [out], grid_dims=(3, 2), block_dims=(32, 8))
+    (f0, g0, b0, s0, v0), (_, _, _, _, v1), (_, g2, b2, _, _) = lib.launches
+    assert f0.value == 0xF00 and s0 == 0x5000
+    assert (g0, b0) == ((4, 1, 1), (256, 1, 1))  # 1000 elements
+    assert v0 == (0x100, 0x200, 0x300) and v1 == (0x200, 0x300, 0x100)
+    assert (g2, b2) == ((3, 2, 1), (32, 8, 1))
+
+
+def test_push_plan_threads_never_mix_their_pointers(fake_card):
+    import sys
+    import threading
+
+    lib, _ = fake_card
+    krnl, _ = _axpy_on_card()
+    sets = [tuple(0x100000 * (t + 1) + 0x100 * j for j in range(3))
+            for t in range(2)]
+    arrays = [[_FakeTensor(p, (1000,)) for p in s] for s in sets]
+    errors = []
+
+    def pusher(a):
+        try:
+            for _ in range(200):
+                krnl.push(a[:2], a[2:])
+        except Exception as e:  # pragma: no cover - reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=pusher, args=(a,))
+                   for a in arrays]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors
+    assert len(lib.launches) == 400
+    assert {launch[4] for launch in lib.launches} == set(sets)
+
+
+@pytest.mark.parametrize("case", ["input_shape", "output_shape"])
+def test_push_plan_keeps_the_prototype_errors(fake_card, case):
+    """After the plan is built, a push that breaks a prototype still raises
+    the JAX package's text; a dtype, a device or a layout the CUDA route
+    does not take raises the port's, and nothing launches."""
+    lib, _ = fake_card
+    krnl, (x, y, out) = _axpy_on_card(8)
+    krnl.push([x, y], [out])
+    bad = _FakeTensor(0x900, (9,))
+    jx = mx.nd.zeros((8,))
+    jbad = mx.nd.zeros((9,))
+    jk = mx.rtc.MXRtc("axpy", [("x", jx), ("y", jx)], [("out", jx)],
+                      AXPY_SRC)
+    port, jax_ = {"input_shape": (([x, bad], [out]), ([jx, jbad], [jx])),
+                  "output_shape": (([x, y], [bad]), ([jx, jx], [jbad]))}[case]
+    with pytest.raises(mt.MXNetError) as err:
+        krnl.push(*port)
+    with pytest.raises(mx.base.MXNetError) as jerr:
+        jk.push(*jax_)
+    assert str(err.value) == str(jerr.value)
+    for other, text in (
+            (_FakeTensor(0x900, (8,), torch.bfloat16), "the prototype"),
+            (_FakeTensor(0x900, (8,), index=1), "the prototype"),
+            (_FakeTensor(0x900, (8,), contiguous=False), "not contiguous")):
+        with pytest.raises(mt.MXNetError, match=text):
+            krnl.push([x, other], [out])
+    assert len(lib.launches) == 1
+
+
+def test_user_kernel_cache_refuses_an_input_off_its_prototype():
+    """``rtc_kernels`` caches a kernel by its output's device, shape and
+    dtype; an input of another shape meets the prototype check."""
+    w, g = torch.zeros(6), torch.ones(6)
+    hp = rk.sgd_hyper(0.5)
+    rk.sgd_update(w, g, hp)
+    assert torch.equal(w, torch.full((6,), -0.5))
+    with pytest.raises(mt.MXNetError, match="input g shape .*prototype"):
+        rk.sgd_update(w, torch.ones(3), hp)
+
+
+def test_user_kernel_cache_keys_the_inputs_dtypes(fake_card, monkeypatch):
+    """A float32 and a bfloat16 gradient of one weight shape each get a
+    kernel of their own C types on the card, whichever came first, and go
+    through on the CPU alike."""
+    lib, lookups = fake_card
+    lib.n_args = 4
+    monkeypatch.setattr(rk, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(rk, "_CACHE", {})
+    w, hp = _FakeTensor(0x1000, (100,)), _FakeTensor(0x30, (3,))
+    for i, dtype in enumerate((torch.float32, torch.bfloat16,
+                               torch.float32, torch.bfloat16)):
+        rk.sgd_update(w, _FakeTensor(0x2000 + 0x100 * i, (100,), dtype), hp)
+    assert lookups == [("sgd_update", 0)] * 2
+    assert [v[1] for *_, v in lib.launches] == [0x2000, 0x2100, 0x2200,
+                                                0x2300]
+    g_args = sorted(line for krnl, _ in rk._CACHE.values()
+                    for line in krnl.source.splitlines() if "void" in line)
+    assert len(g_args) == 2
+    assert "const __nv_bfloat16* g" in g_args[0]
+    assert "const float* g" in g_args[1]
+    w, hp = torch.zeros(6), rk.sgd_hyper(0.5)
+    rk.sgd_update(w, torch.ones(6), hp)
+    rk.sgd_update(w, torch.ones(6, dtype=torch.bfloat16), hp)
+    assert torch.equal(w, torch.full((6,), -1.0))
+
+
+def test_sgd_update_on_the_card_pushes_w_g_hp_w_with_stride_dims(
+        fake_card, monkeypatch):
+    """``rtc_kernels.sgd_update`` through the plan: one lookup per output
+    shape, the pointers (w, g, hp, w) in argument order, and the
+    grid-stride dims of ``sgd_dims``."""
+    lib, lookups = fake_card
+    lib.n_args = 4
+    monkeypatch.setattr(rk, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(rk, "_CACHE", {})
+    hp = _FakeTensor(0x30, (3,))
+    for n, base in ((100, 0x1000), (10 ** 7, 0x2000), (100, 0x3000)):
+        w, g = _FakeTensor(base, (n,)), _FakeTensor(base + 8, (n,))
+        rk.sgd_update(w, g, hp)
+    assert lookups == [("sgd_update", 0)] * 2  # two output shapes
+    (_, g0, b0, _, v0), (_, g1, _, _, _), (_, _, _, _, v2) = lib.launches
+    assert (g0, b0) == ((1, 1, 1), (256, 1, 1))
+    assert g1 == (rk.GELU_BLOCKS_PER_SM * 132, 1, 1)
+    assert v0 == (0x1000, 0x1008, 0x30, 0x1000)
+    assert v2 == (0x3000, 0x3008, 0x30, 0x3000)
+
+
+@pytest.mark.parametrize("n", [0, 1, 256, 257, 32 * 132 * 256,
+                               32 * 132 * 256 + 1])
+def test_sgd_dims_cover_n_one_element_a_thread(n):
+    grid, block = rk.sgd_dims(n, 132)
+    assert block == (256, 1, 1) and grid[1:] == (1, 1)
+    assert grid[0] == max(1, min(-(-n // 256), rk.GELU_BLOCKS_PER_SM * 132))
+    assert launch_dims(n, grid, block) == (grid, block)

@@ -1,8 +1,9 @@
-"""The float32 attention backward's split-TF32 arithmetic, emulated on the
-CPU.
+"""The float32 attention kernels' split-TF32 arithmetic, emulated on the
+CPU: the backward (K2/K3) and the forward (K1).
 
-On the card the float32 K2/K3 (``csrc/flash_bwd.cu``) run every product on
-the tensor cores in TF32 (10 explicit mantissa bits).  Each operand is
+On the card the float32 K1 (``csrc/flash_fwd.cu``) and K2/K3
+(``csrc/flash_bwd.cu``) run every product on the tensor cores in TF32 (10
+explicit mantissa bits).  Each operand is
 split as x = x_hi + x_lo, both rounded by ``cvt.rna.tf32.f32`` (to
 nearest, ties away from zero, at the 13 low bits of the magnitude), and
 A·B is taken as A_lo·B_hi + A_hi·B_lo + A_hi·B_hi accumulated in float32
@@ -15,6 +16,14 @@ sums), against a float64 backward:
   against the plain version) and within 8x the plain float32 version's
   mean error (``chip_smoke.py``'s limit);
 - one TF32 product alone breaks the 1e-4 limit, so the limit bites.
+
+The forward is emulated as K1 takes it: S = Q Kᵀ over each 32 columns of d
+(4 k-steps x 3 terms: a chain of 12 products) in a zeroed part added to S
+in float32; an online softmax in base 2 over key tiles of 32 (16 at d=256),
+exp2 of one rounding (FMA); O += P V per tile (12 products, 6 at d=256) in
+a zeroed part added in float32; lse in natural log.  It is held against a
+float64 forward as the backward is, and against the JAX package's
+``_flash_forward`` in interpret mode on the same numpy inputs.
 """
 import numpy as np
 import pytest
@@ -139,3 +148,113 @@ def test_one_tf32_product_breaks_the_limit(d):
     args = inputs(d)
     rel, _ = errors(backward_split(*args, terms=1), backward_f64(*args))
     assert max(rel) > 1e-4, rel
+
+
+# -- the forward (K1) ---------------------------------------------------------
+
+LN2 = 0.6931471805599453
+CHUNK = 32  # columns of d per chained part of S (flash_fwd.cu: kChunkK)
+
+
+def key_tile(d):
+    """Keys per streamed tile of K1 (flash_fwd.cu: F32Fwd<D>::kStr)."""
+    return 16 if d > 128 else 32
+
+
+def forward_split(q, k, v, scale, terms, causal=True):
+    """(o, lse) of q [1, sq, h, d], k, v [1, sk, h, d] as K1 computes
+    them, every product by ``mm`` from TF32 parts."""
+    _, sq, h, d = q.shape
+    sk = k.shape[1]
+    kt = key_tile(d)
+    sl2 = np.float32(scale * LOG2E)
+    o = torch.empty_like(q)
+    lse = torch.empty((h, sq), dtype=torch.float32)
+    rows = torch.arange(sq)[:, None]
+    for j in range(h):
+        qh, kh, vh = (t[0, :, j] for t in (q, k, v))
+        m = torch.full((sq,), -1e30)
+        l = torch.zeros(sq)
+        acc = torch.zeros(sq, d)
+        for k0 in range(0, sk, kt):
+            kb, vb = kh[k0:k0 + kt], vh[k0:k0 + kt]
+            sc = torch.zeros(sq, kb.shape[0])
+            for c in range(0, d, CHUNK):
+                sc = sc + mm(qh[:, c:c + CHUNK], kb[:, c:c + CHUNK].T, terms)
+            cols = k0 + torch.arange(kb.shape[0])[None, :]
+            if causal:
+                sc = torch.where(cols <= rows, sc, torch.tensor(-np.inf))
+            m_new = torch.maximum(m, sc.max(dim=-1).values * sl2)
+            corr = torch.exp2(m - m_new)
+            # exp2(fma(s, scale·log2e, -m)): one rounding
+            p = torch.exp2((sc.double() * float(sl2) - m_new.double()[:, None])
+                           .float())
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[:, None] + mm(p, vb, terms)
+            m = m_new
+        lsafe = torch.where(l > 0, l, torch.ones(()))
+        o[0, :, j] = acc / lsafe[:, None]
+        lse[j] = (m + torch.log2(lsafe)) * np.float32(LN2)
+    return o, lse
+
+
+def forward_f64(q, k, v, scale):
+    _, s, h, _ = q.shape
+    q, k, v = (t.double() for t in (q, k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    sc = sc.masked_fill(~torch.ones((s, s), dtype=torch.bool).tril(),
+                        float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    den = p.sum(dim=-1, keepdim=True)
+    return (torch.einsum("bhqk,bkhd->bqhd", p / den, v),
+            (m + torch.log(den)).reshape(h, s))
+
+
+def fwd_inputs(d, s=96, h=2, seed=0):
+    rng = np.random.default_rng(seed + d)
+    return [rng.standard_normal((1, s, h, d), dtype=np.float32)
+            for _ in range(3)], 1.0 / np.sqrt(d)
+
+
+HEAD_DIMS = [32, 64, 96, 128, 256]
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_forward_split_holds_float32_precision(d):
+    arrays, scale = fwd_inputs(d)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    truth = forward_f64(q, k, v, scale)
+    got = forward_split(q, k, v, scale, terms=3)
+    plain = att.attention_reference(q, k, v, True, scale)
+    rel, mean = errors(got, truth)
+    _, plain_mean = errors(plain, truth)
+    assert max(rel) <= 1e-4, rel
+    assert mean[0] / plain_mean[0] <= SPLIT_MEAN_LIMIT, (mean, plain_mean)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_forward_one_tf32_product_breaks_the_limit(d):
+    arrays, scale = fwd_inputs(d)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    rel, _ = errors(forward_split(q, k, v, scale, terms=1),
+                    forward_f64(q, k, v, scale))
+    assert max(rel) > 1e-4, rel
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_forward_split_matches_the_jax_forward(d):
+    """The emulated K1 against the JAX package's Pallas forward
+    (``_flash_forward`` in interpret mode, blocks of 32) on the same numpy
+    inputs, within 1e-4."""
+    import jax.numpy as jnp
+    from mxnet_tpu.ops.attention import _flash_forward
+
+    arrays, scale = fwd_inputs(d)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    o, lse = forward_split(q, k, v, scale, terms=3)
+    jo, jlse = _flash_forward(*(jnp.asarray(a) for a in arrays), True, scale,
+                              32, 32, True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-4)
