@@ -2,6 +2,14 @@
 """Drive the PyTorch/CUDA port (``mxnet_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                  # from the repository root
+    python3 chip_smoke.py --parent-csrc DIR [--parent-csrc DIR ...]
+                                           # also hold the bf16 K1 and
+                                           # split-P of other versions'
+                                           # csrc (flash_fwd.cu and its
+                                           # headers) against these, bits
+                                           # and time, at every bf16 case
+                                           # of the main length, after the
+                                           # kernel table is timed
     python3 chip_smoke.py --profile DIR    # also trace one extra request
                                            # (its K1 the split-TF32 kernel),
                                            # one extra train step (its K1
@@ -17,8 +25,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. build   — compile every CUDA kernel of the ported paths from
              ``mxnet_tpu_torch/csrc`` with nvcc for sm_90a, one nvcc per
-             source, all started together; print ptxas's registers, shared
-             memory and spills (a spill is fatal), and the count of
+             source, all started together (and beside them each
+             ``--parent-csrc`` build of flash_fwd.cu); print ptxas's
+             registers,
+             shared memory and spills (a spill is fatal, and so are wgmmas
+             that ptxas serialized), and the count of
              tensor-core instructions in each attention kernel from
              ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA``
              (mma.sync, which the float32 K2/K3 issue at the width 256);
@@ -46,16 +57,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              must agree with the plain version and have at most half the
              mean error of plain K1 on the same inputs; a view that breaks
              the TMA rule must raise ``MXNetError`` in the forward and the
-             backward.  Each of those shapes is timed beside its bound, the
-             plain versions and the library calls
+             backward.  Each of those shapes is timed beside its bound,
+             the plain versions and the library calls
              (``scaled_dot_product_attention`` forward and backward, timed
              only as yardsticks).  Then the user kernels of
              ``mxnet_tpu_torch/rtc_kernels.py``, compiled by ``MXRtc`` with
              NVRTC: axpy (2-D launch), sgd_update, gelu_fwd and gelu_bwd
-             (float32 and bf16) at ragged and full-width shapes, gelu_fwd
-             also on an odd length and a misaligned view, timed beside
-             their bytes bound, the plain versions and the library calls
-             (``F.gelu`` and its backward, ``torch.add``);
+             (float32 and bf16) at ragged and full-width shapes and on an
+             odd length and a misaligned view, timed beside their bytes
+             bound, the plain versions and the library calls (``F.gelu``
+             and its backward, ``torch.add``);
 3. serve   — save a full-width transformer LM checkpoint (vocab 32000,
              6 x 2048, 16 heads, seq 4096, batch 4, float32; random weights
              from a seed), load it with ``Predictor.from_checkpoint`` on the
@@ -268,7 +279,7 @@ def rel_err(torch, got, ref):
 HEAD_DIM_CASES = ((64, 32), (16, 96), (8, 256))
 
 
-def kernel_phase(torch, att, device):
+def kernel_phase(torch, att, device, parents=()):
     """K1 against the plain forward (O, lse) and K2/K3 against the plain
     backward (dQ, dK, dV) at every case.  The cases "timed" are those at
     the main length: the main path's shape and the head dims of
@@ -277,7 +288,11 @@ def kernel_phase(torch, att, device):
     (``repeat_check``); at each bf16 one K1's split-P variant is held to
     what it adds (``splitp_check``), at each float32 one the split-TF32
     K2/K3 to a float64 truth (``precision_check``).  Then every timed case beside its bound, its
-    plain version and SDPA (``time_case``).  Returns (the rows of the main
+    plain version and SDPA (``time_case``), and after all of them, at each
+    bf16 case, the comparison with the ``--parent-csrc`` builds
+    (``parent_lines``), so that their longer load does not set the clock
+    the table is timed at.
+    Returns (the rows of the main
     path's shape in bf16 keyed by kernel, the other rows keyed (kernel, d,
     dtype): the main shape in float32 (the float32 train phase's) and the
     head dims)."""
@@ -373,7 +388,10 @@ def kernel_phase(torch, att, device):
     main_rows, dim_rows = {}, {}
     for (d, dtype), m in timed.items():
         rows = time_case(torch, att, m)
-        del m["q"], m["k"], m["v"], m["o"], m["do"]
+        del m["o"], m["do"]
+        if dtype == f32 or not parents:
+            for key in ("q", "qs", "k", "v"):
+                m.pop(key, None)
         torch.cuda.empty_cache()
         if d == d_main and dtype == bf16:
             main_rows = rows  # the bf16 train, replay and splash paths
@@ -387,6 +405,10 @@ def kernel_phase(torch, att, device):
                 kernel, d, tag, ",dV+dK" if kernel == "flash_bwd_dkv" and
                 att.kernel_width(d) > 128 else "")
             dim_rows[(kernel, d, tag)] = row
+    for (d, dtype), m in timed.items():
+        if dtype == bf16 and parents:
+            parent_lines(torch, att, parents, m)
+            del m["q"], m["qs"], m["k"], m["v"]
     return main_rows, dim_rows
 
 
@@ -660,15 +682,21 @@ def time_case(torch, att, m):
         qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
         lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=1.0), 20)
         plain = cuda_ms(lambda: plain_forward(att, qs, k, v, True, 1.0), 1)
+        # split-P issues 6·d operations per visible pair (P_hi V and P_lo
+        # V), where the function needs 4·d
         print("kernel timing [%s] flash_fwd_splitp on the pre-scaled q: %.4f "
-              "ms (%.2f TFLOP/s on the 4·d count), K1 on the same inputs "
-              "%.4f ms (+%.1f%%), sdpa fwd at scale 1 %.4f ms (%.2fx it), "
-              "plain %.4f ms" % (m["name"], ms, work["fwd"][0] / (ms * 1e-3)
-                                 / 1e12, k1_ms, 100 * (ms / k1_ms - 1), lib,
-                                 ms / lib, plain), flush=True)
+              "ms (%.2f TFLOP/s on the 4·d count, %.2f on the 6·d count it "
+              "issues: bounds %.4f / %.4f ms), K1 on the same inputs %.4f ms "
+              "(%+.1f%%), sdpa fwd at scale 1 %.4f ms (%.2fx it), plain %.4f "
+              "ms" % (m["name"], ms, work["fwd"][0] / (ms * 1e-3) / 1e12,
+                      1.5 * work["fwd"][0] / (ms * 1e-3) / 1e12,
+                      bound["fwd"][0],
+                      bound_ms(torch, (1.5 * work["fwd"][0], work["fwd"][1]),
+                               dtype)[0], k1_ms, 100 * (ms / k1_ms - 1), lib,
+                      ms / lib, plain), flush=True)
         rows["flash_fwd_splitp"] = row("flash_fwd_splitp", "fwd",
                                        m["err_sp"], plain, lib, ms)
-        del m["qs"], qt, kt, vt
+        del qt, kt, vt
     return rows
 
 
@@ -734,19 +762,126 @@ def plain_backward(att, q, k, v, o, lse, do, causal, scale):
     return grads
 
 
-def sass_mma(kernels):
-    """Tensor-core instructions per attention kernel in the built
-    libraries, from ``cuobjdump -sass``: {(kernel, template args): count},
-    the args as a tuple of ints (width D, then split-P or K3's outputs).
-    A count is of HGMMA (wgmma) or HMMA (mma.sync), whichever the kernel
+def ptxas_report(tag, log):
+    """Print ptxas's registers, shared memory, spills and wgmma notes from
+    a build log; returns its faults: a spill, and wgmmas that ptxas
+    serialized (each product then waits for the one before it)."""
+    faults = []
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line or \
+                "Compiling entry" in line or "setmaxnreg" in line or \
+                "wgmma" in line:
+            print("  ptxas %s: %s" % (tag, line.strip()), flush=True)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills and spills.groups() != ("0", "0"):
+            faults.append("a kernel of %s spills registers: %s"
+                          % (tag, line.strip()))
+        if "instructions are serialized" in line:
+            faults.append("ptxas serialized the wgmmas of a kernel of %s: %s"
+                          % (tag, line.strip()))
+    return faults
+
+
+def fwd_entry(lib):
+    """``mxtt_flash_fwd`` of another build of flash_fwd.cu, with its
+    argument types."""
+    import ctypes
+
+    fn = lib.mxtt_flash_fwd
+    fn.argtypes = ([ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def extra_forward(torch, att, fn, q, k, v, scale, split_p):
+    """The causal bf16 forward through another build's ``mxtt_flash_fwd``
+    (``fwd_entry``).  Not counted in ``LAUNCHES``: these launches only
+    compare."""
+    b, sq, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    strides = att._strides(q, k, v)
+    err = fn(1, d, att.kernel_width(d), q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, sq,
+             k.shape[1], strides.data_ptr(),
+             float(scale) * att._LOG2E, 1, int(split_p),
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, "flash_fwd build entry failed (cudaError %d)" % err)
+    return o, lse
+
+
+def in_turns(torch, calls, rounds=8, reps=10):
+    """Device ms of each named call, timed in turns: ``rounds`` passes over
+    the calls, in order and in reverse by turns, ``reps`` launches each per
+    pass (the card's clock moves with its power draw over a pass).  Returns
+    {name: (median ms, [the readings])}."""
+    got = {name: [] for name, _ in calls}
+    for r in range(rounds):
+        for name, fn in (calls if r % 2 == 0 else calls[::-1]):
+            got[name].append(cuda_ms(fn, reps))
+    return {name: (float(np.median(v)), v) for name, v in got.items()}
+
+
+def parent_lines(torch, att, parents, m):
+    """K1 and split-P on one bf16 case against other builds of
+    flash_fwd.cu (``--parent-csrc``, {label: entry}): the same bits (fatal
+    for K1; printed for split-P) and the times in turns (each build and
+    this one, in order and in reverse by turns)."""
+    q, qs, k, v, scale = m["q"], m["qs"], m["k"], m["v"], m["scale"]
+    b, s, h, d = q.shape
+    flops = attention_work("fwd", b, s, s, h, d, True, 2)[0]
+    for split, qq, sc in ((False, q, scale), (True, qs, 1.0)):
+        what = "split-P" if split else "K1"
+        mine = att.flash_forward(qq, k, v, True, sc, split_p=split)
+        calls = [("this", lambda: att.flash_forward(qq, k, v, True, sc,
+                                                    split_p=split))]
+        same = {}
+        for label, fn in parents.items():
+            theirs = extra_forward(torch, att, fn, qq, k, v, sc, split)
+            torch.cuda.synchronize()
+            same[label] = torch.equal(mine[0], theirs[0]) and \
+                torch.equal(mine[1], theirs[1])
+            del theirs
+            calls.append((label, lambda fn=fn: extra_forward(
+                torch, att, fn, qq, k, v, sc, split)))
+        del mine
+        times = in_turns(torch, calls)
+        this = times["this"][0]
+        for label, (ms, runs) in times.items():
+            print("kernel parent [%s] %s %s: %.4f ms (median of %s), %+.1f%% "
+                  "against this, %.2f TFLOP/s on the 4·d count%s%s" % (
+                      m["name"], what, label, ms,
+                      " / ".join("%.4f" % x for x in runs),
+                      100 * (ms / this - 1), flops / (ms * 1e-3) / 1e12,
+                      ", %.2f on the 6·d count" % (
+                          1.5 * flops / (ms * 1e-3) / 1e12) if split else "",
+                      "" if label == "this" else
+                      "; o, lse this build's bits %s" % same[label]),
+                  flush=True)
+        if not split:
+            check(all(same.values()), "K1 does not give the bits of the "
+                  "builds %s in case %s" % (
+                      sorted(k for k, v in same.items() if not v), m["name"]))
+
+
+def sass_mma(paths):
+    """Tensor-core instructions per attention kernel in the libraries at
+    ``paths``, from ``cuobjdump -sass``: {(kernel, template args): count},
+    the args as a tuple of ints (width D, then for K1 in bf16 split-P,
+    for K3 its outputs).  A
+    count is of HGMMA (wgmma) or HMMA (mma.sync), whichever the kernel
     issues."""
     import shutil
 
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     counts, key = {}, None
-    for source in ("flash_fwd.cu", "flash_bwd.cu"):
-        sass = subprocess.run([tool, "-sass", kernels._lib_path(source)],
+    for path in paths:
+        sass = subprocess.run([tool, "-sass", path],
                               capture_output=True, text=True,
                               check=True).stdout
         for line in sass.splitlines():
@@ -843,18 +978,32 @@ def rtc_kernel_phase(torch, mt, device):
             if shape == WIDE and dtype == bf16:
                 err[name] = (d, (a.float() - b.float()).abs().max().item())
         del x, dy, got, ref
-    # gelu_fwd where its 16-byte vector loop does not reach: an odd length
-    # (the scalar tail) and a contiguous view 2 bytes past a 16-byte
-    # boundary (every element by the scalar loop)
-    flat = randn((WIDE[0] * WIDE[1] + 1,), 3.0, bf16)
-    for what, x in (("odd length", flat), ("misaligned view", flat[1:])):
-        d = ulps(torch, rk.gelu_forward(x), rk.gelu_plain(x))
-        print("kernel rtc:gelu_fwd bf16 %s (%d elements, base %% 16 = %d): %d "
-              "ulps (tolerance 1 ulp)" % (what, x.numel(), x.data_ptr() % 16,
-                                          d), flush=True)
-        check(d <= 1, "rtc:gelu_fwd disagrees with its plain version on the "
-              "%s" % what)
-    del flat, x
+    # gelu_fwd and gelu_bwd where their 16-byte vector loops do not reach:
+    # an odd length (the scalar tail) and contiguous views one element (2
+    # bytes in bf16, 4 in float32) past a 16-byte boundary (every element
+    # by the scalar loop)
+    for dtype in (bf16, f32):
+        flat = randn((WIDE[0] * WIDE[1] + 1,), 3.0, dtype)
+        flat_dy = randn((WIDE[0] * WIDE[1] + 1,), 1.0, dtype)
+        for what, x, dy in (("odd length", flat, flat_dy),
+                            ("misaligned view", flat[1:], flat_dy[1:])):
+            for name, got, ref in (
+                    ("gelu_fwd", rk.gelu_forward(x), rk.gelu_plain(x)),
+                    ("gelu_bwd", rk.gelu_backward(x, dy),
+                     rk.gelu_grad_plain(x, dy))):
+                d = ulps(torch, got, ref)
+                rel = ((got.float() - ref.float()).abs().max()
+                       / ref.float().abs().max()).item()
+                print("kernel rtc:%s %s %s (%d elements, base %% 16 = %d): "
+                      "%d ulps, max|err|/max|ref| %.3g (tolerance %s)"
+                      % (name, str(dtype)[6:], what, x.numel(),
+                         x.data_ptr() % 16, d, rel,
+                         "1 ulp" if dtype == bf16 else "1e-6"), flush=True)
+                check(d <= 1 if dtype == bf16 else rel <= 1e-6,
+                      "rtc:%s disagrees with its plain version on the %s %s"
+                      % (name, str(dtype)[6:], what))
+                del got, ref
+        del flat, flat_dy, x, dy
     torch.cuda.empty_cache()
 
     # each route refuses the other device, and NVRTC's log reaches the user
@@ -893,8 +1042,9 @@ def rtc_kernel_phase(torch, mt, device):
                      cuda_ms(lambda: gelu_bwd_lib(dy, x), 10),
                      elementwise_bound(torch, n, 6, 12, f32))
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    print("kernel rtc:gelu_fwd %s bf16 launch dims (grid, block) %s on %d "
-          "SMs" % (WIDE, rk.gelu_dims(n, 2, sms), sms), flush=True)
+    print("kernel rtc:gelu_fwd and gelu_bwd %s bf16 launch dims (grid, "
+          "block) %s on %d SMs" % (WIDE, rk.gelu_dims(n, 2, sms), sms),
+          flush=True)
     del x, dy
     x, dy = randn(WIDE, 3.0), randn(WIDE)
     print("kernel timing rtc:gelu_fwd/bwd %s f32: %.4f / %.4f ms (bounds "
@@ -1920,7 +2070,8 @@ def device_op_group(event):
                        ("flash_bwd_dq", "K2 flash_bwd_dq"),
                        ("flash_fwd", "K1 flash_fwd")):
         if key in name:
-            if key == "flash_fwd" and ", true>" in name:
+            if key == "flash_fwd" and re.search(
+                    r"flash_fwd_tc_kernel<\d+, true", name):
                 return "K1 flash_fwd split-P"
             return group
     if event.get("cat") != "kernel":
@@ -1976,42 +2127,49 @@ def profile(torch, fn, outdir, label):
     return names
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", metavar="DIR",
-                    help="trace one extra request, one extra train step "
-                         "(bf16 and float32), one extra splash step and one "
-                         "extra rtc_gelu train step with torch.profiler")
-    opts = ap.parse_args()
+def build_phase(torch, mt, parent_csrcs=()):
+    """Build every kernel (and flash_fwd.cu of each directory of
+    ``parent_csrcs``, beside them), print ptxas's report and the
+    tensor-core instruction counts; fatal on a spill or a bf16 or float32
+    attention kernel without one.  Returns {label: ``mxtt_flash_fwd`` of
+    each parent build}, the label the directory's name."""
+    import ctypes
 
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; this script runs only "
-                         "on a machine with an NVIDIA card")
-    import mxnet_tpu_torch as mt
-    from mxnet_tpu_torch.ops import attention as att
-
-    print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
-                                     torch.cuda.get_device_name(0)),
-          flush=True)
-    secs = mt.kernels.build_all()
+    kernels = mt.kernels
+    t0 = time.perf_counter()
+    os.makedirs(kernels._BUILD, exist_ok=True)
+    procs = {}
+    for folder in parent_csrcs:
+        label = os.path.basename(os.path.normpath(folder))
+        out = os.path.join(kernels._BUILD, "libflash_fwd-parent-%s.so" % label)
+        procs[label] = (subprocess.Popen(
+            [kernels._nvcc()] + kernels.NVCC_FLAGS +
+            ["-o", out, os.path.join(folder, "flash_fwd.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    secs = kernels.build_all()
     print("build: %s built in %.2f s" % (
-        sorted(set(mt.kernels.SOURCES.values())), secs), flush=True)
+        sorted(set(kernels.SOURCES.values())), secs), flush=True)
+    logs, parents = {}, {}
+    for label, (proc, out) in procs.items():
+        logs["parent " + label], _ = proc.communicate()
+        check(proc.returncode == 0, "the build of %s failed:\n%s"
+              % (label, logs["parent " + label]))
+        parents[label] = fwd_entry(ctypes.CDLL(out))
+    if procs:
+        print("build: flash_fwd.cu of %s built beside them, %.2f s in all"
+              % (sorted(procs), time.perf_counter() - t0), flush=True)
     print("build: NVRTC %d.%d from %s, options %s" % (
         mt.cuda_rtc.nvrtc_version() + (mt.cuda_rtc._LIBS["nvrtc"]._name,
                                        " ".join(mt.cuda_rtc.nvrtc_options()))),
           flush=True)
+    faults = []
     for source, log in sorted(mt.kernels.BUILD_LOGS.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line or \
-                    "Compiling entry" in line or "setmaxnreg" in line:
-                print("  ptxas %s: %s" % (source, line.strip()), flush=True)
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                               r"loads", line)
-            check(not spills or spills.groups() == ("0", "0"),
-                  "a kernel of %s spills registers: %s" % (source, line))
-    mma = sass_mma(mt.kernels)
+        faults += ptxas_report(source, log)
+    for tag, log in sorted(logs.items()):
+        faults += ptxas_report(tag, log)
+    check(not faults, "; ".join(faults))
+    mma = sass_mma([kernels._lib_path(s) for s in ("flash_fwd.cu",
+                                                   "flash_bwd.cu")])
     print("build: tensor-core instructions (HGMMA + HMMA) per attention "
           "kernel (cuobjdump -sass): "
           "%s" % ", ".join("%s<%s> %d" % (k, ",".join(map(str, a)), n)
@@ -2032,12 +2190,43 @@ def main():
         tc_kernels += [("flash_bwd_dkv%s_kernel" % tag, (256, out))
                        for out in (1, 2)]
     for kernel, args in tc_kernels:
-        check(mma.get((kernel, args), 0) > 0, "%s<%s> has no tensor-core "
+        found = [n for (k, a), n in mma.items()
+                 if k == kernel and a[:len(args)] == args]
+        check(found and min(found) > 0, "%s<%s...> has no tensor-core "
               "instruction (HGMMA or HMMA): it does not run on the tensor "
               "cores" % (kernel, ",".join(map(str, args))))
 
+    return parents
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", metavar="DIR",
+                    help="trace one extra request, one extra train step "
+                         "(bf16 and float32), one extra splash step and one "
+                         "extra rtc_gelu train step with torch.profiler")
+    ap.add_argument("--parent-csrc", metavar="DIR", action="append",
+                    default=[],
+                    help="a csrc directory of another version (flash_fwd.cu "
+                         "and its headers), repeatable: its bf16 K1 and "
+                         "split-P are held bit for bit and timed in turns "
+                         "against this one's at every bf16 main-length case")
+    opts = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs only "
+                         "on a machine with an NVIDIA card")
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import attention as att
+
+    print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
+                                     torch.cuda.get_device_name(0)),
+          flush=True)
+    parents = build_phase(torch, mt, opts.parent_csrc)
     device = torch.device("cuda", 0)
-    main_rows, dim_rows = kernel_phase(torch, att, device)
+    main_rows, dim_rows = kernel_phase(torch, att, device, parents)
     splitp_row = main_rows.pop("flash_fwd_splitp")
     rows = list(main_rows.values())
     rtc_rows = rtc_kernel_phase(torch, mt, device)

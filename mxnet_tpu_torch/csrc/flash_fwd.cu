@@ -25,7 +25,8 @@
 // float32 for P V where K1 rounds it to bf16.  The bf16 kernel's kSplitP
 // variant does that: P = P_hi + P_lo, both bf16 (P_lo the rounded
 // remainder, so the pair carries ~16 bits of mantissa), and
-// O += P_hi V + P_lo V as two groups of register-fed products.  The float32
+// O += P_hi V + P_lo V as two groups of register-fed products: 6·d
+// operations per visible pair where the function needs 4·d.  The float32
 // kernel keeps P at float32 precision already (split TF32) and serves
 // splash unchanged.
 //
@@ -45,39 +46,75 @@
 //   One block of 384 threads per (b*h, 128-query tile): warpgroups 0 and 1
 //   each own 64 of the queries, and one warp of warpgroup 2 feeds them.
 //   That producer loads the block's Q once with TMA, then streams 128-key
-//   tiles of K and V through a ring of two shared-memory slots guarded by
-//   mbarriers (a "full" barrier per slot, on which TMA counts its bytes,
-//   and an "empty" one on which every consumer warp arrives when the
-//   products reading the slot are done).  Per tile each consumer warpgroup
-//   computes S = Q Kᵀ (64 x 128) with wgmma (both operands K-major in
-//   shared memory), takes the online softmax in registers (each thread
-//   holds two rows of the score tile; a row's max reduces over the four
-//   lanes of a quad, its sum stays a per-thread share until the end; the
-//   exponentials are one FMA and one SFU ex2 each), rescales the O
-//   accumulator, rounds P to bf16 and feeds it straight from the registers
-//   as the A operand of O += P V, with V read MN-major through the
-//   transpose bit: P never goes to shared memory.  The rounding places are
-//   the JAX kernel's: the products read bf16 and sum in float32, l sums the
-//   float32 P, P is rounded to the value dtype before P V, and O is rounded
-//   once at the end.  All tiles arrive by TMA with the 128-byte swizzle
-//   that the wgmma descriptors read (hopper.cuh); TMA fills rows past the
-//   end of a sequence with zeros, and a tile that crosses sk is masked with
-//   -inf explicitly (a zero score is not a masked score).  The producer
-//   warpgroup gives up registers (setmaxnreg 24) so that each consumer
-//   thread can hold 240: at d=128 the O accumulator takes 64 registers,
-//   the score tile 64 and P 32 (split-P: 64).  Shared memory at d=128: Q
-//   32 KB, two slots of K and V at 32 KB each, 160 KB in all, one block per
-//   SM.  At D=256 the key tiles are 64 rows (S is m64n64): Q 64 KB and two
-//   slots of 64-key K and V tiles (32 KB each) take 192 KB, where 128-key
-//   tiles would need 320 KB; the O accumulator (m64n256) takes 128
-//   registers.  What
-//   bounds it: operations.  At b=4, s=4096, h=16, d=128 causal it does 4·d
-//   operations per visible pair, ~0.275 TFLOP, 0.278 ms at the 989 TFLOP/s
-//   bf16 dense peak, while its bytes (Q, K, V, O, lse, ~0.54 GB) take ~0.16
-//   ms at 3.35 TB/s.  Inside the SM the softmax competes with the products:
-//   each warpgroup waits for its own products and runs its softmax between
-//   them, and the two warpgroups overlap only as the scheduler interleaves
-//   them; the wider 128-key tile halves the waits and barriers per key.
+//   tiles of K and V through a ring of two shared-memory slots each, K and
+//   V apart, guarded by mbarriers (a "full" barrier per slot, on which TMA
+//   counts its bytes, and an "empty" one on which every consumer warp
+//   arrives when the products reading the slot are done: a K tile is
+//   released once its S is done, a V tile once its P V is).  Per tile each
+//   consumer warpgroup computes S = Q Kᵀ (64 x 128) with wgmma (both
+//   operands K-major in shared memory), takes the online softmax in
+//   registers (each thread holds two rows of the score tile; a row's max
+//   reduces over the four lanes of a quad, its sum stays a per-thread share
+//   until the end; the exponentials are one FMA and one SFU ex2 each),
+//   rounds P to bf16 pairs in place, rescales the O accumulator and feeds P
+//   straight from the registers as the A operand of O += P V, with V read
+//   MN-major through the transpose bit: P never goes to shared memory.  The
+//   rounding places are the JAX kernel's: the products read bf16 and sum in
+//   float32, l sums the float32 P, P is rounded to the value dtype before
+//   P V, and O is rounded once at the end.  All tiles arrive by TMA with
+//   the 128-byte swizzle that the wgmma descriptors read (hopper.cuh); TMA
+//   fills rows past the end of a sequence with zeros, and a tile that
+//   crosses sk is masked with -inf explicitly (a zero score is not a masked
+//   score).  At D=256 the key tiles are 64 rows (S is m64n64).
+//
+//   The schedule, the same at every width for K1 and split-P:
+//   - pipelined: each warpgroup issues S_{t+1} before P·V_t, waits for S
+//     alone (wgmma.wait_group 1), and takes the softmax of tile t+1 while
+//     P·V_t runs; then O is rescaled and the next P taken into the A
+//     registers.  The exponentials, the sums and the bf16 packing of P all
+//     run under the products in flight; what follows the wait is the
+//     rescale and one permute per register of P (a plain copy there the
+//     assembler folds into the registers of the products in flight, and
+//     then it serializes every wgmma; so do mbarrier spins between the
+//     wgmma fence and the products, which is why every wait on a tile
+//     comes before the fence).
+//   - ping-pong: the two warpgroups take turns at issuing their products
+//     (named barriers 1 and 2), so that one's softmax runs under the
+//     other's products.  Both then run the same tiles, the busier one's (a
+//     tile wholly masked for a warpgroup leaves its O, l and m as they
+//     were), so that their turns pair up.
+//   - block order: kHeadGroup = 4 heads at a time, each group's query
+//     tiles heaviest first across its heads, so that the ~132 blocks in
+//     flight share the K and V of 4 heads in L2.  One grid row per query
+//     tile across every head had the blocks in flight stream ~132 heads'
+//     K and V (128 MB at b=4, s=4096, h=16, d=128, past the 50 MB L2), and
+//     the loads alone then took about as long as the whole kernel (measured
+//     with parts of the tile loop compiled out).
+//   - ring: two slots of K and two of V.  A third (D <= 128: 224 KB of the
+//     232,448 bytes a block may use) reads within 3% of two either way,
+//     since K and V released apart already give each load a tile of slack.
+//   Each setting was chosen by timing the alternatives against it in one
+//   call (chip_smoke.py --parent-csrc, each on a build of this file with
+//   that one setting changed, all giving these bits; PERF.md §6 has the
+//   times).  At b=4, s=4096, h=16, d=128 causal on an H100 80GB HBM3 at
+//   700 W, split-P / K1 took, relative to this schedule: the products and
+//   the softmax in turn +13% / +10%; pipelined without ping-pong +8% /
+//   +8%; one grid row per query tile +1% / +6%; groups of 1 head +5% /
+//   +4%, of 16 heads -1% / -1%; three slots -1% / +0%.
+//   Registers per consumer thread (setmaxnreg: the producer gives up its
+//   own, 24, so that each consumer thread holds 240): at D = 128 O 64, S /
+//   P 64 and P's A registers 32 (split-P: 64, P_lo too), 192 of 240 with
+//   both live across the softmax; D = 64: 160; D = 256 (O 128, S 32, P 16
+//   + 16): 192.  Shared memory: Q 16 / 32 / 64 KB and two slots of K and V
+//   (16 / 32 / 32 KB a tile) at D = 64 / 128 / 256: 80, 160 and 192 KB,
+//   one block per SM.
+//   What bounds it: operations.  At b=4, s=4096, h=16, d=128 causal K1
+//   does 4·d operations per visible pair, ~0.275 TFLOP, 0.278 ms at the 989
+//   TFLOP/s bf16 dense peak, and split-P issues 6·d (0.417 ms), while the
+//   bytes (Q, K, V, O, lse, ~0.54 GB) take ~0.16 ms at 3.35 TB/s.  Split-P
+//   is bound by its products: with the loads and the softmax compiled out
+//   they alone took most of its time, so the 6·d count, not the 4·d
+//   bound, is its floor on this card.
 //
 // float32: the tensor cores, by the split-TF32 product of the float32 K2/K3
 //   (hopper.cuh, tf32.cuh): x = x_hi + x_lo, both rounded to TF32 by
@@ -142,17 +179,32 @@ using namespace tf32;
 constexpr float kNeg = -1e30f;   // initial running max (finite, as in the TPU kernel)
 constexpr float kLn2 = 0.6931471805599453f;
 
+// x, hidden from the optimizer, so that values formed from it (the
+// descriptors of a tile's steps) are formed where they are used and not
+// hoisted out of the tile loop into registers that stay live
+template <class T>
+__device__ __forceinline__ T opaque(T x) {
+  if constexpr (sizeof(T) == 8)
+    asm volatile("" : "+l"(x));
+  else
+    asm volatile("" : "+r"(x));
+  return x;
+}
+
 // ===========================================================================
 // bfloat16: tensor cores
 // ===========================================================================
 
 constexpr int kRes = 128;  // query rows per block: 2 consumer warpgroups
-constexpr int kStages = 2;
 constexpr int kTcThreads = 384;  // warpgroups 0, 1 consume; 2 loads
 
+constexpr int kStages = 2;  // ring slots for K and for V
+constexpr int kHeadGroup = 4;  // heads whose query tiles run together
+
 // Shared memory, in bytes from a 1024-aligned base: Q, kStages slots of a
-// K tile and a V tile, the barriers.  kStr key rows per streamed tile: 128
-// (S is m64n128), 64 at D = 256 so that the ring fits.
+// K tile and a V tile, the barriers (full and empty per slot, for K and V
+// apart, and Q's).  kStr key rows per streamed tile: 128 (S is m64n128),
+// 64 at D = 256 so that the ring fits.
 template <int D>
 struct TcSmem {
   static constexpr int kStr = D > 128 ? 64 : 128;
@@ -160,11 +212,13 @@ struct TcSmem {
   static constexpr int kTileBytes = D / 64 * kStr * 128;
   static constexpr int kSlots = kQBytes;
   static constexpr int kBars = kSlots + kStages * 2 * kTileBytes;
-  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
+  static constexpr int kBytes = kBars + (4 * kStages + 1) * 8;
   static constexpr int kAlloc = kBytes + 1024;
+  static_assert(kAlloc <= 232448, "the ring does not fit in shared memory");
 };
 
 // O and lse for one (b*h, 128-query tile); d <= D is the real head dim.
+// The schedule is in the notes at the top.
 template <int D, bool kSplitP>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -172,27 +226,38 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     int h, int d, int sq, int sk, float scale_log2,
-                    int causal) {
+                    int causal, int n_bh) {
   using L = TcSmem<D>;
   constexpr int kStr = L::kStr;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm =
       smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
-  uint64_t* empty = full + kStages;
-  uint64_t* q_bar = empty + kStages;
+  uint64_t* fullk = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* fullv = fullk + kStages;
+  uint64_t* emptyk = fullv + kStages;
+  uint64_t* emptyv = emptyk + kStages;
+  uint64_t* q_bar = emptyv + kStages;
 
-  const int bh = blockIdx.x;
+  // this block's (b*h, query tile): kHeadGroup heads at a time, each
+  // group's query tiles heaviest first across its heads
+  const int nq = (sq + kRes - 1) / kRes;
+  const int g0 = blockIdx.x / (kHeadGroup * nq) * kHeadGroup;
+  const int gsz = min(kHeadGroup, n_bh - g0);
+  const int within = blockIdx.x - g0 * nq;
+  const int bh = g0 + within % gsz;
+  const int qt = nq - 1 - within / gsz;
   const int bi = bh / h;
   const int hi = bh % h;
-  const int q0 = kRes * (gridDim.y - 1 - blockIdx.y);
+  const int q0 = kRes * qt;
   const int k_end = causal ? min(sk, q0 + kRes) : sk;
   const int n_tiles = (k_end + kStr - 1) / kStr;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 8);  // each consumer warp
+      hopper::mbar_init(&fullk[s], 1);
+      hopper::mbar_init(&fullv[s], 1);
+      hopper::mbar_init(&emptyk[s], 8);  // each consumer warp
+      hopper::mbar_init(&emptyv[s], 8);
     }
     hopper::mbar_init(q_bar, 1);
     hopper::mbar_init_fence();
@@ -201,7 +266,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
-    // ---- producer: one thread issues the TMA loads ----
+    // ---- producer: one thread issues the TMA loads, K then V per tile ----
     hopper::regs_release<24>();
     if (threadIdx.x % 128 != 0) return;
     hopper::mbar_arrive_expect_tx(q_bar, L::kQBytes);
@@ -210,15 +275,18 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                           bi);
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % kStages;
-      hopper::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      const uint32_t ph = ((t / kStages) & 1) ^ 1;
       uint8_t* slot = sm + L::kSlots + s * 2 * L::kTileBytes;
-      hopper::mbar_arrive_expect_tx(&full[s], 2 * L::kTileBytes);
-      for (int c = 0; c < D / 64; ++c) {
-        hopper::tma_load_4d(slot + c * kStr * 128, &map_k, &full[s], 64 * c,
+      hopper::mbar_wait(&emptyk[s], ph);
+      hopper::mbar_arrive_expect_tx(&fullk[s], L::kTileBytes);
+      for (int c = 0; c < D / 64; ++c)
+        hopper::tma_load_4d(slot + c * kStr * 128, &map_k, &fullk[s], 64 * c,
                             hi, t * kStr, bi);
+      hopper::mbar_wait(&emptyv[s], ph);
+      hopper::mbar_arrive_expect_tx(&fullv[s], L::kTileBytes);
+      for (int c = 0; c < D / 64; ++c)
         hopper::tma_load_4d(slot + L::kTileBytes + c * kStr * 128, &map_v,
-                            &full[s], 64 * c, hi, t * kStr, bi);
-      }
+                            &fullv[s], 64 * c, hi, t * kStr, bi);
     }
     return;
   }
@@ -231,7 +299,16 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int g = lane / 4;
   const int c4 = lane % 4;
   const int rw = q0 + 64 * wg;
-  const bool live = rw < sq;  // else no row of this warpgroup exists
+  // the tiles a warpgroup whose first row is r computes: a prefix of the
+  // block's (causal tiles wholly above its rows come last), none if r >= sq.
+  // Both warpgroups take the busier one's tiles, so that they take the
+  // same ping-pong turns (a tile wholly masked for a warpgroup leaves its
+  // O, l and m as they were; rows past sq are not written)
+  const auto visible = [&](int r) {
+    if (r >= sq) return 0;
+    return causal ? min(n_tiles, (r + 64 + kStr - 1) / kStr) : n_tiles;
+  };
+  const int n_vis = max(visible(q0), visible(q0 + 64));
 
   // accumulator layout (hopper.cuh): element 4j + 2x + y of a 64-row tile
   // is row 16 warp + g + 8x, column 8j + 2 c4 + y; this thread's two rows
@@ -241,118 +318,192 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float sc[kStr / 2];  // S of one tile, then P packed in bf16 (softmax)
+  // P rounded to bf16 (split-P: and the rounded remainder) as the A
+  // operand of P·V: the accumulator layout of columns 16k .. 16k + 15 is
+  // the A-operand layout of reduction step k
+  uint32_t pf[kStr / 4];
+  uint32_t pl[kSplitP ? kStr / 4 : 1];
 
   // this warpgroup's 64 rows of Q (K-major); step offsets in 16-byte units
   const uint64_t da =
       hopper::desc_sw128(hopper::smem_addr(sm) + 64 * wg * 128, 16, 1024);
+  const uint32_t slots = hopper::smem_addr(sm + L::kSlots);
 
-  hopper::mbar_wait(q_bar, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kStages;
-    const int k0 = t * kStr;
-    hopper::mbar_wait(&full[s], (t / kStages) & 1);
-    if (live && !(causal && k0 >= rw + 64)) {
-      const bool masked = (causal && k0 + kStr > rw) || k0 + kStr > sk;
-      const uint32_t slot =
-          hopper::smem_addr(sm + L::kSlots + s * 2 * L::kTileBytes);
-      const uint64_t db = hopper::desc_sw128(slot, 16, 1024);
-
-      // S = Q Kᵀ, 64 x kStr, reduced over d
-      float sc[kStr / 2];
+  // a tile's K and V as they land: waited on before the wgmma fence, so
+  // that no spin loop stands between the fence and the products (ptxas
+  // would serialize every wgmma of the kernel)
+  auto wait_k = [&](int t) {
+    hopper::mbar_wait(&fullk[t % kStages], (t / kStages) & 1);
+  };
+  auto wait_v = [&](int t) {
+    hopper::mbar_wait(&fullv[t % kStages], (t / kStages) & 1);
+  };
+  // S = Q K_tᵀ, 64 x kStr, reduced over d (the first step overwrites sc)
+  auto issue_s = [&](int t) {
+    const uint64_t a = opaque(da);
+    const uint64_t db = hopper::desc_sw128(
+        opaque(slots) + (t % kStages) * 2 * L::kTileBytes, 16, 1024);
 #pragma unroll
-      for (int i = 0; i < kStr / 2; ++i) sc[i] = 0.f;
-      hopper::fence_regs(sc);
-      hopper::wgmma_fence();
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t oa = ((kk / 4) * kRes * 128 + (kk % 4) * 32) >> 4;
+      const uint32_t ob = ((kk / 4) * kStr * 128 + (kk % 4) * 32) >> 4;
+      hopper::wgmma_ss<kStr>(sc, a + oa, db + ob, kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  // O += P V_t: V as MN-major B, 16 keys per step, 64-column blocks
+  // kStr * 128 bytes apart; split-P adds P_lo V as a second group of steps
+  auto issue_pv = [&](int t) {
+    const uint64_t mb = hopper::desc_sw128(
+        opaque(slots) + (t % kStages) * 2 * L::kTileBytes + L::kTileBytes,
+        kStr * 128, 1024);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t oa = ((kk / 4) * kRes * 128 + (kk % 4) * 32) >> 4;
-        const uint32_t ob = ((kk / 4) * kStr * 128 + (kk % 4) * 32) >> 4;
-        hopper::wgmma_ss<kStr>(sc, da + oa, db + ob, kk > 0);
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait_all();
-      hopper::fence_regs(sc);
-
-      // online softmax over the tile, in float32: the max over the raw
-      // scores (scale_log2 > 0), then 2^(s * scale_log2 - m) as one FMA
-      // and one SFU instruction per score
-      float corr[2];
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int row = rw + 16 * warp + g + 8 * x;
-        float mx = -CUDART_INF_F;
-#pragma unroll
-        for (int j = 0; j < kStr / 8; ++j)
-#pragma unroll
-          for (int y = 0; y < 2; ++y) {
-            const int i = 4 * j + 2 * x + y;
-            const int col = k0 + 8 * j + 2 * c4 + y;
-            if (masked && !(col < sk && (!causal || col <= row)))
-              sc[i] = -CUDART_INF_F;
-            mx = fmaxf(mx, sc[i]);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[x], mx * scale_log2);
-        corr[x] = hopper::exp2_approx(m[x] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < kStr / 8; ++j)
-#pragma unroll
-          for (int y = 0; y < 2; ++y) {
-            const int i = 4 * j + 2 * x + y;
-            // masked: 2^-inf = 0
-            sc[i] = hopper::exp2_approx(fmaf(sc[i], scale_log2, -m_new));
-            sum += sc[i];
-          }
-        l[x] = l[x] * corr[x] + sum;
-        m[x] = m_new;
-      }
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
-
-      // P rounded to bf16: the accumulator layout of columns 16k .. 16k + 15
-      // is the A-operand layout of reduction step k
-      uint32_t pf[kStr / 4];
-#pragma unroll
-      for (int i = 0; i < kStr / 4; ++i)
-        pf[i] = hopper::pack_bf16(sc[2 * i], sc[2 * i + 1]);
-      // split-P: the remainder P - P_hi (exact in float32), rounded to bf16
-      uint32_t pl[kSplitP ? kStr / 4 : 1];
-      if constexpr (kSplitP) {
-#pragma unroll
-        for (int i = 0; i < kStr / 4; ++i)
-          pl[i] = hopper::pack_bf16(sc[2 * i] - hopper::bf16_lo(pf[i]),
-                                    sc[2 * i + 1] - hopper::bf16_hi(pf[i]));
-      }
-
-      // O += P V: V as MN-major B, 16 keys per step, 64-column blocks
-      // kStr * 128 bytes apart
-      const uint64_t mb =
-          hopper::desc_sw128(slot + L::kTileBytes, kStr * 128, 1024);
-      hopper::fence_regs(acc);
-      hopper::fence_regs(pf);
-      if constexpr (kSplitP) hopper::fence_regs(pl);
-      hopper::wgmma_fence();
+    for (int kk = 0; kk < kStr / 16; ++kk)
+      hopper::wgmma_rs<D>(acc, &pf[4 * kk], mb + ((kk * 2048) >> 4));
+    if constexpr (kSplitP) {
 #pragma unroll
       for (int kk = 0; kk < kStr / 16; ++kk)
-        hopper::wgmma_rs<D>(acc, &pf[4 * kk], mb + ((kk * 2048) >> 4));
-      if constexpr (kSplitP) {
-#pragma unroll
-        for (int kk = 0; kk < kStr / 16; ++kk)
-          hopper::wgmma_rs<D>(acc, &pl[4 * kk], mb + ((kk * 2048) >> 4));
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait_all();
-      hopper::fence_regs(acc);
-      hopper::fence_regs(pf);
-      if constexpr (kSplitP) hopper::fence_regs(pl);
+        hopper::wgmma_rs<D>(acc, &pl[4 * kk], mb + ((kk * 2048) >> 4));
     }
+    hopper::wgmma_commit();
+  };
+  // pin what an issued P·V reads and writes until its wait
+  auto fence_pv = [&] {
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pf);
+    if constexpr (kSplitP) hopper::fence_regs(pl);
+  };
+  auto release = [&](uint64_t* bar) {
     __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  // online softmax over tile t in sc, in float32: the max over the raw
+  // scores (scale_log2 > 0), then 2^(s * scale_log2 - m) as one FMA and
+  // one SFU instruction per score; corr rescales what O holds.  Each pair
+  // of P (columns 2i, 2i + 1 of a row) is then rounded to bf16 in place:
+  // sc[2i] holds the pair, and for split-P sc[2i + 1] the rounded
+  // remainders P - P_hi (exact in float32), each with its halves swapped.
+  // So the conversions run here, under the products in flight, and
+  // rescale_pack swaps the halves back into pf and pl: one permute each,
+  // an instruction of its own (a plain copy the assembler may fold into
+  // the registers of the products in flight, and then it serializes them)
+  auto softmax = [&](int t, float(&corr)[2]) {
+    const int k0 = t * kStr;
+    const bool masked = (causal && k0 + kStr > rw) || k0 + kStr > sk;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      // keys at or past lim are masked: past sk, or above the diagonal
+      const int row = rw + 16 * warp + g + 8 * x;
+      const int lim = (causal ? min(sk, row + 1) : sk) - k0 - 2 * c4;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < kStr / 8; ++j)
+#pragma unroll
+        for (int y = 0; y < 2; ++y) {
+          const int i = 4 * j + 2 * x + y;
+          if (masked && 8 * j + y >= lim) sc[i] = -CUDART_INF_F;
+          mx = fmaxf(mx, sc[i]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[x], mx * scale_log2);
+      corr[x] = hopper::exp2_approx(m[x] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kStr / 8; ++j) {
+        const int i = 4 * j + 2 * x;
+        // masked: 2^-inf = 0
+        const float p0 = hopper::exp2_approx(fmaf(sc[i], scale_log2, -m_new));
+        const float p1 =
+            hopper::exp2_approx(fmaf(sc[i + 1], scale_log2, -m_new));
+        sum += p0;
+        sum += p1;
+        const uint32_t hi = hopper::pack_bf16(p1, p0);  // swapped
+        sc[i] = __uint_as_float(hi);
+        if constexpr (kSplitP)
+          sc[i + 1] = __uint_as_float(hopper::pack_bf16(
+              p1 - hopper::bf16_lo(hi), p0 - hopper::bf16_hi(hi)));
+      }
+      l[x] = l[x] * corr[x] + sum;
+      m[x] = m_new;
+    }
+  };
+  // O *= corr, then softmax's packed P into pf (and pl), halves swapped
+  // back: pf[i] as pack_bf16(P[2i], P[2i + 1])
+  auto rescale_pack = [&](const float(&corr)[2]) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+    for (int i = 0; i < kStr / 4; ++i) {
+      pf[i] = __byte_perm(__float_as_uint(sc[2 * i]), 0u, 0x1032);
+      if constexpr (kSplitP)
+        pl[i] = __byte_perm(__float_as_uint(sc[2 * i + 1]), 0u, 0x1032);
+    }
+  };
+
+  // ping-pong: a turn is one issue of products, n_vis + 1 of them.
+  // Warpgroup 0 waits on barrier 1 and hands over on 2, warpgroup 1 the
+  // reverse; warpgroup 1 opens with a hand-over and skips its last, so
+  // that the barriers pair up.
+  int turn = 0;
+  if (wg == 1 && n_vis > 0) hopper::bar_arrive(1, 256);
+  auto turn_begin = [&] { hopper::bar_sync(1 + wg, 256); };
+  auto turn_end = [&] {
+    if (wg == 0 || turn < n_vis) hopper::bar_arrive(2 - wg, 256);
+    ++turn;
+  };
+
+  hopper::mbar_wait(q_bar, 0);
+  float corr[2];
+  if (n_vis > 0) {
+    wait_k(0);
+    turn_begin();
+    hopper::wgmma_fence();
+    issue_s(0);
+    turn_end();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    release(&emptyk[0]);
+    softmax(0, corr);
+    rescale_pack(corr);
+    for (int t = 0; t + 1 < n_vis; ++t) {
+      wait_k(t + 1);
+      wait_v(t);
+      fence_pv();
+      turn_begin();
+      hopper::wgmma_fence();
+      issue_s(t + 1);
+      issue_pv(t);
+      turn_end();
+      hopper::wgmma_wait<1>();  // S_{t+1} done, P·V_t in flight
+      hopper::fence_regs(sc);
+      release(&emptyk[(t + 1) % kStages]);
+      softmax(t + 1, corr);
+      hopper::wgmma_wait<0>();
+      fence_pv();
+      release(&emptyv[t % kStages]);
+      rescale_pack(corr);
+    }
+    wait_v(n_vis - 1);
+    fence_pv();
+    turn_begin();
+    hopper::wgmma_fence();
+    issue_pv(n_vis - 1);
+    turn_end();
+    hopper::wgmma_wait<0>();
+    fence_pv();
+    release(&emptyv[(n_vis - 1) % kStages]);
+  }
+  // the tiles this warpgroup skips: their slots are released in turn
+  for (int t = n_vis; t < n_tiles; ++t) {
+    wait_k(t);
+    wait_v(t);
+    release(&emptyk[t % kStages]);
+    release(&emptyv[t % kStages]);
   }
 
-  if (!live) return;
+  if (n_vis == 0) return;
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     float lt = l[x] + __shfl_xor_sync(0xffffffffu, l[x], 1);
@@ -389,10 +540,10 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
       flash_fwd_tc_kernel<D, kSplitP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * h, (sq + kRes - 1) / kRes);
-  flash_fwd_tc_kernel<D, kSplitP><<<grid, kTcThreads, smem, stream>>>(
+  const int nq = (sq + kRes - 1) / kRes;
+  flash_fwd_tc_kernel<D, kSplitP><<<b * h * nq, kTcThreads, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, h, d, sq, sk,
-      scale_log2, causal);
+      scale_log2, causal, b * h);
   return cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 // maps and loads, wgmma operand descriptors and the bf16 wgmma products the
 // attention kernels issue, the split-TF32 float32 product on mma.sync and
 // wgmma (A from registers or, with both operands in shared memory, SS),
-// cp.async, and register reallocation between warpgroups.
+// cp.async, named barriers, and register reallocation between warpgroups.
 //
 // Layout contract shared by the TMA maps and the wgmma descriptors: a tile
 // of R rows by D bf16 columns lives in shared memory as D / 64 column blocks
@@ -536,6 +536,18 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---- named barriers ----------------------------------------------------------
+
+// Barrier `id` (1-15; __syncthreads takes 0) over n threads, a multiple of
+// 32: bar_sync waits until n threads have arrived, itself included;
+// bar_arrive counts this warp's threads and goes on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- register reallocation between warpgroups ----------------------------

@@ -18,9 +18,9 @@ elementwise pass, bound by the bytes it moves.
 - ``gelu_fwd``/``gelu_bwd``: the exact erf GELU, 0.5·x·(1 + erf(x/√2)) as
   ``jax.nn.gelu(approximate=False)``, and its derivative
   Φ(x) + x·φ(x), float32 or bfloat16 in and out, arithmetic in float32.
-  ``gelu_fwd`` reads and writes 16-byte vectors in a grid-stride loop over
-  the blocks that ``gelu_dims`` names; a scalar loop in the same launch
-  takes the tail and any view not 16-byte aligned.
+  Both read and write 16-byte vectors in a grid-stride loop over the
+  blocks that ``gelu_dims`` names; a scalar loop in the same launch takes
+  the tail and any view not 16-byte aligned.
   ``register_rtc_gelu`` makes them the op ``rtc_gelu`` through
   ``register_kernel_op``, with ``gelu_bwd`` as its gradient, and
   ``with_rtc_gelu`` swaps ``gelu`` nodes of a symbol for it.
@@ -118,13 +118,37 @@ def gelu_fwd(x_ref, y_ref):
 """
 
 GELU_BWD_CUDA = r"""
-for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-     i < dx_size; i += (long long)gridDim.x * blockDim.x) {
-  const float v = static_cast<float>(x[i]);
+// grid-stride over 16-byte vectors (8 bf16 or 4 float) while x, dy and dx
+// are all 16-byte aligned; the scalar loop takes the tail, or every element
+// when any of them is not.  One expression serves both loops.
+static_assert(sizeof(x[0]) == sizeof(dy[0]) && sizeof(x[0]) == sizeof(dx[0]),
+              "x, dy and dx share one dtype");
+constexpr int W = 16 / sizeof(x[0]);
+const auto grad = [](float v, float g) {
   const float cdf = 0.5f * (1.0f + erff(v * 0.70710678118654752440f));
   const float pdf = expf(-0.5f * v * v) * 0.39894228040143267794f;
-  dx[i] = static_cast<float>(dy[i]) * (cdf + v * pdf);
+  return g * (cdf + v * pdf);
+};
+const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+const long long stride = (long long)gridDim.x * blockDim.x;
+const bool aligned = ((reinterpret_cast<unsigned long long>(x) |
+                       reinterpret_cast<unsigned long long>(dy) |
+                       reinterpret_cast<unsigned long long>(dx)) & 15) == 0;
+const long long n_vec = aligned ? dx_size / W : 0;
+for (long long i = first; i < n_vec; i += stride) {
+  const uint4 xin = reinterpret_cast<const uint4*>(x)[i];
+  const uint4 gin = reinterpret_cast<const uint4*>(dy)[i];
+  uint4 out;
+  const auto* xs = reinterpret_cast<decltype(&x[0])>(&xin);
+  const auto* gs = reinterpret_cast<decltype(&dy[0])>(&gin);
+  auto* ds = reinterpret_cast<decltype(&dx[0])>(&out);
+#pragma unroll
+  for (int e = 0; e < W; ++e)
+    ds[e] = grad(static_cast<float>(xs[e]), static_cast<float>(gs[e]));
+  reinterpret_cast<uint4*>(dx)[i] = out;
 }
+for (long long i = n_vec * W + first; i < dx_size; i += stride)
+  dx[i] = grad(static_cast<float>(x[i]), static_cast<float>(dy[i]));
 """
 
 GELU_BWD_PYTHON = """
@@ -200,7 +224,7 @@ def axpy_plain(x, y):
     return 2.0 * x + y
 
 
-#: blocks of 256 threads per SM in the gelu_fwd and sgd_update launches:
+#: blocks of 256 threads per SM in the gelu and sgd_update launches:
 #: several rounds of the blocks an SM holds at once, so that the last,
 #: partial round is a small share of the pass (a launch of one round ends
 #: with SMs that wait for the slowest block)
@@ -217,9 +241,9 @@ def _stride_dims(n, per_thread, sms):
 
 
 def gelu_dims(n, itemsize, sms):
-    """(grid, block) of the gelu_fwd launch over ``n`` elements of
-    ``itemsize`` bytes on a card with ``sms`` SMs: one 16-byte vector a
-    thread per pass."""
+    """(grid, block) of the gelu_fwd and gelu_bwd launches over ``n``
+    elements of ``itemsize`` bytes on a card with ``sms`` SMs: one 16-byte
+    vector a thread per pass."""
     return _stride_dims(n, 16 // itemsize, sms)
 
 
@@ -272,19 +296,22 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _gelu_launch(t):
+    return gelu_dims(t.numel(), t.element_size(), _sm_count(t.device))
+
+
 def gelu_forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "meta":
         return torch.empty_like(x)
     x = x.contiguous()
-    return _push("gelu_fwd", [x], [torch.empty_like(x)], lambda t: gelu_dims(
-        t.numel(), t.element_size(), _sm_count(t.device)))[0]
+    return _push("gelu_fwd", [x], [torch.empty_like(x)], _gelu_launch)[0]
 
 
 def gelu_backward(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.device.type == "meta":
         return torch.empty_like(x)
     x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
-    return _push("gelu_bwd", [x, dy], [torch.empty_like(x)])[0]
+    return _push("gelu_bwd", [x, dy], [torch.empty_like(x)], _gelu_launch)[0]
 
 
 def register_rtc_gelu() -> None:

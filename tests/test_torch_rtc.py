@@ -9,6 +9,8 @@ JAX package.  The CUDA route itself compiles and runs only on the card:
 Tolerances: the axpy and sgd kernels are exact (the same float32 operations
 in the same order); gelu and its derivative within 1e-6 of the largest
 value, float32 erf and exp evaluated by different libraries."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -312,6 +314,35 @@ def test_gelu_forward_cpu_route_on_odd_and_misaligned_views():
     assert flat.to(torch.bfloat16)[1:].data_ptr() % 16 == 2
 
 
+def test_gelu_backward_cpu_route_on_odd_and_misaligned_views():
+    """``gelu_backward`` on the views its vector loop leaves to the scalar
+    loop on the card: an odd length, and x and dy 2 (bf16) or 4 (float32)
+    bytes past a 16-byte boundary.  The CPU route gives
+    ``gelu_grad_plain``'s bits, and in float32 the JAX package's gradient
+    of the exact gelu within 1e-6 of the largest value."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(5)
+    f32 = (torch.tensor((rng.randn(1001) * 3).astype(np.float32)),
+           torch.tensor(rng.randn(1001).astype(np.float32)))
+    for dtype in (torch.float32, torch.bfloat16):
+        fx, fdy = (t.to(dtype) for t in f32)
+        for x, dy in ((fx, fdy), (fx[1:], fdy[1:]), (fx[1:], fdy[:-1]),
+                      (fx[1:].view(40, 25), fdy[1:].view(40, 25))):
+            got = rk.gelu_backward(x, dy)
+            assert got.dtype == dtype and got.shape == x.shape
+            assert torch.equal(got, rk.gelu_grad_plain(x, dy))
+            if dtype == torch.bfloat16:
+                continue
+            _, vjp = jax.vjp(lambda v: jax.nn.gelu(v, approximate=False),
+                             jnp.asarray(x.numpy()))
+            (ref,) = vjp(jnp.asarray(dy.numpy()))
+            ref = np.asarray(ref)
+            assert np.abs(got.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+        assert fx[1:].data_ptr() % 16 == fx.element_size()
+
+
 # -- the CUDA route's launch plan, with libcuda and the card stood in for --
 #
 # ``MXRtc``'s CUDA route builds one launch plan per device at its first
@@ -341,6 +372,17 @@ class _FakeTensor:
 
     def is_contiguous(self):
         return self._contiguous
+
+    def contiguous(self):
+        assert self._contiguous
+        return self
+
+    def to(self, dtype):
+        assert dtype == self.dtype
+        return self
+
+    def element_size(self):
+        return torch.tensor([], dtype=self.dtype).element_size()
 
 
 class _FakeCuda:
@@ -570,6 +612,45 @@ def test_sgd_update_on_the_card_pushes_w_g_hp_w_with_stride_dims(
     assert g1 == (rk.GELU_BLOCKS_PER_SM * 132, 1, 1)
     assert v0 == (0x1000, 0x1008, 0x30, 0x1000)
     assert v2 == (0x3000, 0x3008, 0x30, 0x3000)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gelu_backward_on_the_card_pushes_x_dy_dx_with_gelu_dims(
+        fake_card, monkeypatch, dtype):
+    """``rtc_kernels.gelu_backward`` through the plan: one lookup per output
+    shape, the pointers (x, dy, dx) in argument order, the grid-stride dims
+    of ``gelu_dims`` (one 16-byte vector a thread per pass), and the body
+    with the vector loop."""
+    lib, lookups = fake_card
+    monkeypatch.setattr(rk, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(rk, "_CACHE", {})
+    made = []
+
+    def empty_like(t):
+        made.append(_FakeTensor(0x9000 + 0x1000 * len(made), t.shape,
+                                t.dtype))
+        return made[-1]
+
+    monkeypatch.setattr(rk, "torch", SimpleNamespace(empty_like=empty_like))
+    shapes = ((100,), (16384, 8192), (100,))
+    for i, shape in enumerate(shapes):
+        x = _FakeTensor(0x100000 * (i + 1), shape, dtype)
+        dy = _FakeTensor(0x100000 * (i + 1) + 0x10, shape, dtype)
+        assert rk.gelu_backward(x, dy) is made[i]
+    assert lookups == [("gelu_bwd", 0)] * 2  # two output shapes
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    for i, (shape, (_, grid, block, stream, ptrs)) in enumerate(
+            zip(shapes, lib.launches)):
+        n = int(np.prod(shape))
+        assert (grid, block) == rk.gelu_dims(n, itemsize, 132)
+        assert ptrs == (0x100000 * (i + 1), 0x100000 * (i + 1) + 0x10,
+                        made[i].data_ptr())
+        assert stream == 0x5000
+    assert lib.launches[1][1] == (rk.GELU_BLOCKS_PER_SM * 132, 1, 1)
+    assert lib.launches[0][1] == (-(-100 // (256 * 16 // itemsize)), 1, 1)
+    assert mt.kernels.LAUNCHES["rtc:gelu_bwd"] == 3
+    source = next(iter(rk._CACHE.values()))[0].source
+    assert "reinterpret_cast<const uint4*>(dy)[i]" in source
 
 
 @pytest.mark.parametrize("n", [0, 1, 256, 257, 32 * 132 * 256,
