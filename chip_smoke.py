@@ -10,6 +10,12 @@
                                            # and time, at every bf16 case
                                            # of the main length, after the
                                            # kernel table is timed
+    python3 chip_smoke.py --parent-rtc DIR [--parent-rtc DIR ...]
+                                           # also hold the axpy user kernel
+                                           # of other versions' checkouts
+                                           # (their rtc_kernels.py) against
+                                           # this one's, bits and time in
+                                           # turns, at every axpy timing case
     python3 chip_smoke.py --profile DIR    # also trace one extra request
                                            # (its K1 the split-TF32 kernel),
                                            # one extra train step (its K1
@@ -18,8 +24,9 @@
                                            # step (its K1/K2/K3 the
                                            # split-TF32 kernels), one extra
                                            # splash step
-                                           # (its K1 the split-P variant)
-                                           # and one extra rtc_gelu step
+                                           # (its K1 the split-P variant),
+                                           # one extra rtc_gelu step and
+                                           # one extra ResNet-50 bf16 step
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -64,9 +71,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``mxnet_tpu_torch/rtc_kernels.py``, compiled by ``MXRtc`` with
              NVRTC: axpy (2-D launch), sgd_update, gelu_fwd and gelu_bwd
              (float32 and bf16) at ragged and full-width shapes and on an
-             odd length and a misaligned view, timed beside their bytes
-             bound, the plain versions and the library calls (``F.gelu``
-             and its backward, ``torch.add``);
+             odd length and a misaligned view, timed in turns with the
+             plain versions and the library calls (``F.gelu`` and its
+             backward, ``torch.add``; ``--parent-rtc``'s axpy too), beside
+             their bytes bound;
 3. serve   — save a full-width transformer LM checkpoint (vocab 32000,
              6 x 2048, 16 heads, seq 4096, batch 4, float32; random weights
              from a seed), load it with ``Predictor.from_checkpoint`` on the
@@ -111,7 +119,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
              dims 32, 96 and 256, the small LM with ``rtc_gelu``, a net
              with the ``CustomOp`` sigmoid and softmax loss, and a few
              ``mt.nd`` ops; and a recorded reading (``spread_witness``) of
-             how far one float32 ulp of the init moves the d=256 LM.
+             how far one float32 ulp of the init moves the d=256 LM; then
+             the float32 convolution (output and gradients at LeNet's and
+             ResNet's layer shapes) against float64, and a small ResNet-50
+             (cifar stem, 32x32, batch 8) and a ResNet-18 (imagenet stem,
+             72x72, batch 4), both from the zero-γ init, and LeNet, trained
+             3 SGD-momentum steps in float32 and bf16 on the card and on
+             the CPU from one numpy init, aux states compared like
+             parameters;
+9. resnet  — ResNet-50 (224x224, 1000 classes) through ``mt.mod.Module`` on
+             the default (GPU) context as examples/image_classification/
+             common/fit.py's benchmark drives it: Xavier("in", 2.34), SGD
+             lr 0.1, momentum 0.9, wd 1e-4, an Accuracy metric every step,
+             SyntheticIter's batch; bf16 at batch 256 (2 warm-up and 5
+             timed steps), then float32 at batch 32 (2 + 3; both TF32 flags
+             off).  Each prints step ms, img/s, MFU and peak memory; the
+             loss must be finite and fall, every moving statistic move and
+             every parameter stay on the card.  The float32 run's first 3
+             states go to the port's CPU route: its losses there within
+             1e-4 of the card's, and, trained from the card's init, within
+             4x the distance one ulp of the init moves the CPU's own run
+             (lr 0.1 at batch 32 is chaotic).  The bf16 run's
+             first 2 steps run again in a new Module from its init: the
+             same bits (and, timed beside it, the replay under cuDNN's
+             deterministic algorithms).
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -919,12 +950,31 @@ def elementwise_bound(torch, n, nbytes_per, flops_per, dtype):
                     dtype)
 
 
-def rtc_kernel_phase(torch, mt, device):
+def axpy_cases(torch, randn, wide_only=False):
+    """(what, shape, x, y) of the axpy checks: a ragged shape and WIDE,
+    contiguous (the 16-byte vector loop), then at the width WIDE an odd
+    column count and x a view one float past a 16-byte boundary (every
+    row by the scalar loop)."""
+    shapes = (WIDE,) if wide_only else ((1000, 777), WIDE)
+    for shape in shapes:
+        yield "contiguous", shape, randn(shape), randn(shape)
+    odd = (WIDE[0], WIDE[1] - 1)
+    yield "odd columns", odd, randn(odd), randn(odd)
+    flat = randn((WIDE[0] * WIDE[1] + 1,))
+    yield "misaligned view", WIDE, flat[1:].view(WIDE), randn(WIDE)
+
+
+def rtc_kernel_phase(torch, mt, device, parents=None):
     """The user kernels (``rtc_kernels``, compiled by MXRtc with NVRTC)
-    against their plain versions: axpy and sgd_update exactly or within
-    1 float32 ulp (an FMA rounds once), gelu within 1 bf16 ulp and, in
-    float32, within 1e-6 of max |ref|; then timed at WIDE.  Returns the
-    rows of axpy, gelu_fwd and gelu_bwd."""
+    against their plain versions: axpy exactly (its FMA rounds as 2·x + y
+    does; an odd column count and a misaligned view included), sgd_update
+    exactly or within 1 float32 ulp, gelu within 1 bf16 ulp and, in
+    float32, within 1e-6 of max |ref|; then timed at WIDE (axpy also on
+    its odd and misaligned cases), each in turns with its plain version
+    and its library call (medians of 8 interleaved rounds), and axpy with
+    the axpy of each ``parents`` entry ({label: (CUDA body, dims
+    function)}, ``--parent-rtc``), which must give the same bits.
+    Returns the rows of axpy, gelu_fwd and gelu_bwd."""
     from mxnet_tpu_torch import rtc_kernels as rk
 
     f32, bf16 = torch.float32, torch.bfloat16
@@ -936,17 +986,20 @@ def rtc_kernel_phase(torch, mt, device):
                 * scale).to(dtype)
 
     err = {}
-    for shape in ((1000, 777), WIDE):
-        x, y = randn(shape), randn(shape)
-        out = torch.empty_like(x)
+    for what, shape, x, y in axpy_cases(torch, randn):
+        out = torch.empty(shape, device=device)
         rk.axpy(x, y, out)
-        err["axpy"] = (ulps(torch, out, rk.axpy_plain(x, y)),
-                       (out - rk.axpy_plain(x, y)).abs().max().item())
-        print("kernel rtc:axpy %s f32, grid/block %s: %d ulps from plain"
-              % (shape, rk.axpy_dims(shape), err["axpy"][0]), flush=True)
-        check(err["axpy"][0] <= 1, "rtc:axpy disagrees with its plain "
-              "version at %s" % (shape,))
-        del x, y, out
+        ref = rk.axpy_plain(x, y)
+        d = ulps(torch, out, ref)
+        print("kernel rtc:axpy %s f32 %s (x base %% 16 = %d), grid/block %s: "
+              "%d ulps from plain (tolerance 0)"
+              % (shape, what, x.data_ptr() % 16, rk.axpy_dims(shape), d),
+              flush=True)
+        check(d == 0, "rtc:axpy disagrees with its plain version at %s %s"
+              % (shape, what))
+        if what == "contiguous" and shape == WIDE:
+            err["axpy"] = (d, (out - ref).abs().max().item())
+        del x, y, out, ref
     for wd in (0.0, SGD["wd"]):
         w, g = randn((100003,), 0.02), randn((100003,))
         ref = w.clone()
@@ -1022,38 +1075,78 @@ def rtc_kernel_phase(torch, mt, device):
               flush=True)
         check(want in raised, "%s did not raise as it should" % what)
 
+    # every user kernel is timed in turns with its plain version and its
+    # library call (medians of 8 interleaved rounds): read alone, one
+    # after another, axpy's time moved from call to call while
+    # torch.add's did not
     n = WIDE[0] * WIDE[1]
     t = {}
-    x, y = randn(WIDE), randn(WIDE)
-    out = torch.empty_like(x)
-    t["axpy"] = (cuda_ms(lambda: rk.axpy(x, y, out), 10),
-                 cuda_ms(lambda: rk.axpy_plain(x, y), 10),
-                 cuda_ms(lambda: torch.add(y, x, alpha=2.0), 10),
-                 elementwise_bound(torch, n, 12, 2, f32))
-    del x, y, out
+    for what, shape, x, y in axpy_cases(torch, randn, wide_only=True):
+        out = torch.empty(shape, device=device)
+        calls = [("kernel", lambda: rk.axpy(x, y, out)),
+                 ("plain", lambda: rk.axpy_plain(x, y)),
+                 ("library", lambda: torch.add(y, x, alpha=2.0))]
+        for label, (body, dims) in (parents or {}).items():
+            theirs = torch.empty(shape, device=device)
+            krnl = mt.rtc.MXRtc("axpy_parent", [("x", x), ("y", y)],
+                                [("out", theirs)], body)
+            grid, block = dims(shape)
+            krnl.push([x, y], [theirs], grid, block)
+            d = ulps(torch, theirs, rk.axpy_plain(x, y))
+            print("kernel parent [%s] rtc:axpy %s f32 %s: %d ulps from "
+                  "plain" % (label, shape, what, d), flush=True)
+            check(d == 0, "the axpy of %s disagrees with plain" % label)
+            calls.append((label, lambda k=krnl, o=theirs, g=grid, b=block:
+                          k.push([x, y], [o], g, b)))
+        med = in_turns(torch, calls)
+        times = (med["kernel"][0], med["plain"][0], med["library"][0],
+                 elementwise_bound(torch, x.numel(), 12, 2, f32))
+        for label in parents or ():
+            print("kernel parent [%s] rtc:axpy %s f32 %s: %.4f ms (median "
+                  "of %s), this %.4f ms (%s), %+.1f%% against this; "
+                  "torch.add %.4f" % (
+                      label, shape, what, med[label][0],
+                      " / ".join("%.4f" % v for v in med[label][1]),
+                      times[0], " / ".join("%.4f" % v
+                                            for v in med["kernel"][1]),
+                      100 * (med[label][0] / times[0] - 1), times[2]),
+                  flush=True)
+        if what == "contiguous":
+            t["axpy"] = times
+        else:
+            print("kernel timing rtc:axpy %s f32 %s: %.4f ms (plain %.4f, "
+                  "library %.4f, bound %.4f by %s)"
+                  % ((shape, what) + times[:3] + times[3]), flush=True)
+        del x, y, out, calls
     x, dy = randn(WIDE, 3.0, bf16), randn(WIDE, 1.0, bf16)
     gelu_bwd_lib = torch.ops.aten.gelu_backward
-    t["gelu_fwd"] = (cuda_ms(lambda: rk.gelu_forward(x), 10),
-                     cuda_ms(lambda: rk.gelu_plain(x), 10),
-                     cuda_ms(lambda: torch.nn.functional.gelu(x), 10),
-                     elementwise_bound(torch, n, 4, 5, f32))
-    t["gelu_bwd"] = (cuda_ms(lambda: rk.gelu_backward(x, dy), 10),
-                     cuda_ms(lambda: rk.gelu_grad_plain(x, dy), 10),
-                     cuda_ms(lambda: gelu_bwd_lib(dy, x), 10),
-                     elementwise_bound(torch, n, 6, 12, f32))
+    med = in_turns(torch, [
+        ("fwd", lambda: rk.gelu_forward(x)),
+        ("fwd plain", lambda: rk.gelu_plain(x)),
+        ("fwd library", lambda: torch.nn.functional.gelu(x)),
+        ("bwd", lambda: rk.gelu_backward(x, dy)),
+        ("bwd plain", lambda: rk.gelu_grad_plain(x, dy)),
+        ("bwd library", lambda: gelu_bwd_lib(dy, x))])
+    for name, nbytes, ops in (("fwd", 4, 5), ("bwd", 6, 12)):
+        t["gelu_" + name] = tuple(med[name + part][0] for part in
+                                  ("", " plain", " library")) + (
+            elementwise_bound(torch, n, nbytes, ops, f32),)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     print("kernel rtc:gelu_fwd and gelu_bwd %s bf16 launch dims (grid, "
           "block) %s on %d SMs" % (WIDE, rk.gelu_dims(n, 2, sms), sms),
           flush=True)
     del x, dy
     x, dy = randn(WIDE, 3.0), randn(WIDE)
+    med = in_turns(torch, [
+        ("fwd", lambda: rk.gelu_forward(x)),
+        ("bwd", lambda: rk.gelu_backward(x, dy)),
+        ("library", lambda: torch.nn.functional.gelu(x))])
     print("kernel timing rtc:gelu_fwd/bwd %s f32: %.4f / %.4f ms (bounds "
           "%.4f / %.4f by bytes; F.gelu %.4f ms)" % (
-              WIDE, cuda_ms(lambda: rk.gelu_forward(x), 10),
-              cuda_ms(lambda: rk.gelu_backward(x, dy), 10),
+              WIDE, med["fwd"][0], med["bwd"][0],
               elementwise_bound(torch, n, 8, 5, f32)[0],
               elementwise_bound(torch, n, 12, 12, f32)[0],
-              cuda_ms(lambda: torch.nn.functional.gelu(x), 10)), flush=True)
+              med["library"][0]), flush=True)
     del x, dy
     torch.cuda.empty_cache()
     rows = []
@@ -1207,7 +1300,8 @@ def step_paths(torch, mod, batch):
 
 def lm_loss(torch, probs, labels):
     """Mean cross-entropy of the SoftmaxOutput probabilities (an NDArray
-    [n, vocab]) against the next-token labels, in float32."""
+    [n, classes]) against the labels (next tokens, or an image's class), in
+    float32."""
     p = probs._data.float()
     lab = torch.as_tensor(labels.reshape(-1), device=p.device).long()
     picked = p.gather(1, lab[:, None]).squeeze(1)
@@ -1266,7 +1360,7 @@ def train_phase(torch, mt):
     losses, times = [], []
     # the replay check's reference: the parameters before the first step
     # and after step REPLAY_STEPS
-    init = param_snapshot(mod)
+    init = state_snapshot(mod)[0]
     mt.kernels.reset_launches()
     for step in range(TRAIN_WARMUP + TRAIN_STEPS):
         before = dict(mt.kernels.LAUNCHES)
@@ -1284,7 +1378,7 @@ def train_phase(torch, mt):
               "step %d launched %s, expected %d of each" % (step, delta,
                                                             per_step))
         if step + 1 == REPLAY_STEPS:
-            replayed = param_snapshot(mod)
+            replayed = state_snapshot(mod)[0]
     launches = dict(mt.kernels.LAUNCHES)
     check(launches["flash_fwd_splitp"] == 0, "the flash LM launched the "
           "split-P forward")
@@ -1382,14 +1476,6 @@ def train_f32_phase(torch, mt, batch, Y, bf16_losses, profile_dir=None):
     return launches
 
 
-def param_snapshot(mod):
-    """Copies of a bound Module's parameters in host memory, by name (kept
-    off the card, so that they do not count in its peak memory)."""
-    ex = mod._exec_group.execs[0]
-    return {n: ex.arg_dict[n]._data.to("cpu", copy=True)
-            for n in mod._exec_group.param_names}
-
-
 def replay_phase(torch, mt, batch, replay):
     """The train phase's first REPLAY_STEPS steps again, from its initial
     parameters and its batch, in a new Module: every loss and every
@@ -1418,7 +1504,7 @@ def replay_phase(torch, mt, batch, replay):
                                           replay["Y"]))
             finally:
                 torch.use_deterministic_algorithms(False)
-        after = param_snapshot(mod)
+        after = state_snapshot(mod)[0]
         differ = sorted(n for n, t in after.items()
                         if not torch.equal(t, replay["after"][n]))
         alerts = sorted({str(w.message).split("\n")[0][:160]
@@ -1553,43 +1639,28 @@ def sgd_pass(rk, weights, grads, hp):
         rk.sgd_update(w, g, hp)
 
 
-def event_ms(torch, fn):
-    """Device time of one call of ``fn`` from CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+def sgd_host_us(torch, rk, weights, grads, hp):
+    """Host µs per push: the enqueue of HOST_PASSES passes back to back,
+    timed on the host clock without a synchronize."""
     torch.cuda.synchronize()
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
-
-
-def sgd_pass_times(torch, rk, weights, grads, hp):
-    """(ms of one pass of pushes from CUDA events, host µs per push: the
-    enqueue of HOST_PASSES passes back to back, timed on the host clock
-    without a synchronize); makes 1 + HOST_PASSES passes."""
-    ms = event_ms(torch, lambda: sgd_pass(rk, weights, grads, hp))
     t0 = time.perf_counter()
     for _ in range(HOST_PASSES):
         sgd_pass(rk, weights, grads, hp)
     host_us = (time.perf_counter() - t0) / (HOST_PASSES * len(weights)) * 1e6
     torch.cuda.synchronize()
-    return ms, host_us
+    return host_us
 
 
-def fused_sgd_ms(torch, weights, grads):
-    """``torch._fused_sgd_`` (the library's multi-tensor SGD) on copies of
-    the arrays with the extend phase's hyperparameters, mean of 3 calls."""
+def fused_sgd(torch, weights, grads):
+    """A call of ``torch._fused_sgd_`` (the library's multi-tensor SGD) on
+    copies of the arrays with the extend phase's hyperparameters."""
     lib_w = [w.clone() for w in weights]
     lib_g = [g.clone() for g in grads]
     scale = torch.tensor(1.0 / SGD["rescale_grad"], device=weights[0].device)
-    ms = cuda_ms(lambda: torch._fused_sgd_(
+    return lambda: torch._fused_sgd_(
         lib_w, lib_g, [], weight_decay=SGD["wd"], momentum=0.0,
         lr=SGD["lr"], dampening=0.0, nesterov=False, maximize=False,
-        is_first_step=False, grad_scale=scale), 3)
-    del lib_w, lib_g
-    return ms
+        is_first_step=False, grad_scale=scale)
 
 
 def push_profile(torch, fn, n_pushes, what):
@@ -1659,36 +1730,30 @@ def extend_phase(torch, mt, train_losses, train_step_ms, profile_dir=None):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     plain()
-    ms, host_us = sgd_pass_times(torch, rk, weights, grads, hp)
-    plain_ms = event_ms(torch, plain)
+    host_us = sgd_host_us(torch, rk, weights, grads, hp)
     for _ in range(HOST_PASSES):
         plain()
-    passes = 2 + HOST_PASSES
+    passes = 1 + HOST_PASSES
     d = max(ulps(torch, w, r) for w, r in zip(weights, refs))
     check(d <= 1, "the sgd_update pushes disagree with sgd_update (%d ulps)"
           % d)
-    lib_ms = fused_sgd_ms(torch, weights, grads)
-    bound, by = elementwise_bound(torch, n_params, 12, 5, torch.float32)
+    max_abs_err = max((w - r).abs().max().item()
+                      for w, r in zip(weights, refs))
     n_pushes = mt.kernels.LAUNCHES["rtc:sgd_update"]
     print("extend: sgd_update pushed over %d parameter arrays (%d parameters,"
-          " %d distinct shapes compiled in %.2f s with the first pass): %.4f "
-          "ms per pass of %d pushes (%d counted over all passes), plain "
-          "sgd_update %.4f ms, torch._fused_sgd_ %.4f ms, bound %.4f ms by "
-          "%s; %d ulps from sgd_update after %d passes" % (
-              len(weights), n_params, len({tuple(w.shape) for w in weights}),
-              first, ms, len(weights), n_pushes, plain_ms, lib_ms, bound, by,
-              d, passes), flush=True)
+          " %d distinct shapes compiled in %.2f s with the first pass), %d "
+          "pushes counted over the passes; %d ulps from sgd_update after %d "
+          "passes" % (len(weights), n_params,
+                      len({tuple(w.shape) for w in weights}), first, n_pushes,
+                      d, passes), flush=True)
     print("extend: sgd_update host time %.1f us per push (enqueue of %d "
-          "passes back to back, not synchronized), %.4f ms per pass of %d "
-          "pushes; torch._fused_sgd_ %.4f ms over the same arrays"
-          % (host_us, HOST_PASSES, ms, len(weights), lib_ms), flush=True)
+          "passes back to back, not synchronized)" % (host_us, HOST_PASSES),
+          flush=True)
+    bound, by = elementwise_bound(torch, n_params, 12, 5, torch.float32)
     sgd_row = {"name": "rtc:sgd_update", "route": "cuda",
                "source": RTC_SOURCE, "replaces": "mxnet_tpu/rtc.py:81",
-               "launches": None,
-               "max_abs_err": max((w - r).abs().max().item()
-                                  for w, r in zip(weights, refs)),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-               "bound_by": by, "library_ms": lib_ms}
+               "launches": None, "max_abs_err": max_abs_err,
+               "bound_ms": bound, "bound_by": by}
     push_profile(torch, lambda: sgd_pass(rk, weights, grads, hp),
                  len(weights), "sgd_update")
     del weights, grads, refs
@@ -1743,7 +1808,37 @@ def extend_phase(torch, mt, train_losses, train_step_ms, profile_dir=None):
     print("extend: launches %s" % launches, flush=True)
     del mod
     torch.cuda.empty_cache()
+    sgd_row.update(sgd_turns(torch, mt, rk, gen, device))
     return launches, sgd_row
+
+
+def sgd_turns(torch, mt, rk, gen, device):
+    """A pass of sgd_update pushes over the LM's parameter arrays, timed in
+    turns with the port's sgd_update over them and ``torch._fused_sgd_``
+    (as the kernel phase times the other user kernels), after the extend
+    phase's launch counts are read.  Returns the row's times."""
+    weights, grads = lm_update_arrays(torch, mt, gen, device)
+    refs = [w.clone() for w in weights]
+    hp = rk.sgd_hyper(SGD["lr"], SGD["rescale_grad"], SGD["wd"], device)
+
+    def plain():
+        for w, g in zip(refs, grads):
+            mt.nd.sgd_update(w, g, out=w, **SGD)
+
+    med = in_turns(torch, [
+        ("kernel", lambda: sgd_pass(rk, weights, grads, hp)),
+        ("plain", plain), ("library", fused_sgd(torch, weights, grads))])
+    times = {"ms": med["kernel"][0], "plain_ms": med["plain"][0],
+             "library_ms": med["library"][0]}
+    print("extend: sgd_update timing in turns: %.4f ms per pass of %d "
+          "pushes (%s), plain sgd_update %.4f ms, torch._fused_sgd_ %.4f ms "
+          "over the same arrays" % (
+              times["ms"], len(weights),
+              " / ".join("%.4f" % v for v in med["kernel"][1]),
+              times["plain_ms"], times["library_ms"]), flush=True)
+    del weights, grads, refs
+    torch.cuda.empty_cache()
+    return times
 
 
 def small_agreement(mt):
@@ -2061,6 +2156,543 @@ def nd_agreement(mt):
           "mt.nd ops on the card disagree with the CPU")
 
 
+# -- image classification: ResNet-50 through Module (phase 9) and the small
+# image nets of the agree phase ----------------------------------------------
+
+#: bench.py:116-156 resnet_bench: ResNet-50 at 224², 1000 classes
+RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
+#: (compute dtype, batch, warm-up steps, timed steps): the JAX package's
+#: bench batch and dtype (bench.py:61, :124), then Module's float32 default
+#: at the reference's published P100 batch
+RESNET_RUNS = (("bfloat16", 256, 2, 5), (None, 32, 2, 3))
+#: SGD as fit.benchmark sets it up (bench.py:60, fit.py:27-28); Module
+#: makes rescale_grad 1/batch
+RESNET_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+#: forward GFLOP per 224² image; a training step is 3x (bench.py:144-145)
+RESNET_GFLOP = 4.089
+RESNET_REPLAY = 2
+#: the BASELINE.md yardstick: the reference on a P100, float32, batch 32
+P100_IMG_S = 181.53
+
+
+def resnet_batch(mt, batch):
+    """``SyntheticIter``'s batch (examples/image_classification/common/
+    fit.py:46-70): U(-1, 1) images and random labels from
+    RandomState(0), as arrays on the default context."""
+    rng = np.random.RandomState(0)
+    X = rng.uniform(-1, 1, (batch,) + RESNET["image_shape"]).astype(
+        np.float32)
+    Y = rng.randint(0, RESNET["num_classes"], (batch,)).astype(np.float32)
+    return Y, mt.io.DataBatch(data=[mt.nd.array(X)], label=[mt.nd.array(Y)],
+                              pad=0)
+
+
+def image_module(mt, net, ctx, data_shape, dtype, sgd, arg_params=None,
+                 aux_params=None):
+    """A bound Module with SGD-momentum, initialized by Xavier("in", 2.34)
+    as fit.benchmark does, or from the given parameters."""
+    mod = mt.mod.Module(net, context=ctx, compute_dtype=dtype)
+    mod.bind(data_shapes=[mt.io.DataDesc("data", data_shape)],
+             label_shapes=[mt.io.DataDesc("softmax_label", data_shape[:1])],
+             for_training=True)
+    if arg_params is None:
+        mod.init_params(initializer=mt.init.Xavier(factor_type="in",
+                                                   magnitude=2.34))
+    else:
+        mod.init_params(arg_params=arg_params, aux_params=aux_params)
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params=dict(sgd))
+    return mod
+
+
+def state_snapshot(mod):
+    """Host copies of a bound Module's parameters and aux states, by name
+    (kept off the card, so that they do not count in its peak memory)."""
+    ex = mod._exec_group.execs[0]
+    return ({n: ex.arg_dict[n]._data.to("cpu", copy=True)
+             for n in mod._exec_group.param_names},
+            {n: t._data.to("cpu", copy=True) for n, t in ex.aux_dict.items()})
+
+
+def resnet_steps(torch, mt, mod, batch, Y, n, metric=None, label=None,
+                 first=0):
+    """``n`` steps of fit.benchmark's loop (forward_backward, update,
+    update_metric): (losses, step seconds), each step synchronized."""
+    losses, times = [], []
+    for step in range(first, first + n):
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        if metric is not None:
+            mod.update_metric(metric, batch.label)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(lm_loss(torch, mod.get_outputs()[0], Y))
+        if label:
+            print("resnet %s: step %d: %.2f ms, loss %.6f"
+                  % (label, step, times[-1] * 1e3, losses[-1]), flush=True)
+    return losses, times
+
+
+def resnet_cpu_witness(torch, mt, net, states, batch, Y, losses, label):
+    """The float32 run against the port's CPU route (held to the JAX
+    package by the CPU tests) on the same batch.  Re-anchored: at each of
+    the card's first states (``states``: parameters and aux before steps
+    0, 1, ...), the CPU's training forward gives the card's loss within
+    the agree phase's float32 limit.  Free-running: the CPU trains from
+    the card's init, and again from that init moved one float32 ulp up;
+    lr 0.1 at batch 32 is chaotic at this init (one ulp moves the CPU's
+    own losses by ~4e-3 and its first gradient by ~2%), so the card's
+    losses must lie within WITNESS_FACTOR times that spread of the CPU's."""
+    b, cpu = len(Y), mt.cpu()
+
+    def nds(tensors):
+        return {k: mt.nd.NDArray(v.clone(), cpu) for k, v in tensors.items()}
+
+    def module(args):
+        return image_module(mt, net, cpu, (b,) + RESNET["image_shape"], None,
+                            dict(RESNET_SGD, rescale_grad=1.0 / b),
+                            nds(args), nds(states[0][1]))
+
+    cpu_batch = mt.io.DataBatch(
+        data=[mt.nd.NDArray(batch.data[0]._data.cpu(), cpu)],
+        label=[mt.nd.NDArray(batch.label[0]._data.cpu(), cpu)], pad=0)
+    def first_gradient(mod, data, args):
+        mod.set_params(nds(args), nds(states[0][1]))
+        mod.forward_backward(data)
+        mod.get_outputs()  # runs the step Module defers to update()
+        ex = mod._exec_group.execs[0]
+        return {n: ex.grad_dict[n]._data.to("cpu", torch.float64)
+                for n in mod._exec_group.param_names}
+
+    def gap(a, ref):
+        return (sum(float((a[n] - ref[n]).square().sum()) for n in ref) /
+                sum(float(ref[n].square().sum()) for n in ref)) ** 0.5
+
+    nudged = {k: torch.nextafter(v, torch.full_like(v, np.inf))
+              if k.endswith("weight") else v for k, v in states[0][0].items()}
+    t0 = time.perf_counter()
+    mod = module(states[0][0])
+    grads = {"cpu": first_gradient(mod, cpu_batch, states[0][0]),
+             "one ulp": first_gradient(mod, cpu_batch, nudged)}
+    anchored = []
+    for args, aux in states:
+        mod.set_params(nds(args), nds(aux))
+        mod.forward(cpu_batch, is_train=True)
+        anchored.append(lm_loss(torch, mod.get_outputs()[0], Y))
+    del mod
+    mod = image_module(mt, net, None, (b,) + RESNET["image_shape"], None,
+                       dict(RESNET_SGD, rescale_grad=1.0 / b),
+                       nds(states[0][0]), nds(states[0][1]))
+    grads["card"] = first_gradient(mod, batch, states[0][0])
+    del mod
+    torch.cuda.empty_cache()
+    free, _ = resnet_steps(torch, mt, module(states[0][0]), cpu_batch, Y,
+                           len(states))
+    spread, _ = resnet_steps(torch, mt, module(nudged), cpu_batch, Y,
+                             len(states))
+    secs = time.perf_counter() - t0
+
+    def rel(a, ref):
+        return max(abs(x - r) / abs(r) for x, r in zip(a, ref))
+
+    card = losses[:len(states)]
+    limit = AGREE[None][1]
+    print("resnet %s: the card's first %d losses %s; the port's CPU route "
+          "(%.1f s on %d threads) at the card's states %s, relative error "
+          "%.3g (tolerance %g); trained from the card's init %s, relative "
+          "error %.3g, against the init one ulp up %s, %.3g apart (the card "
+          "within %dx: %s)"
+          % (label, len(states), ["%.7f" % x for x in card], secs,
+             torch.get_num_threads(), ["%.7f" % x for x in anchored],
+             rel(card, anchored), limit, ["%.7f" % x for x in free],
+             rel(card, free), ["%.7f" % x for x in spread],
+             rel(spread, free), WITNESS_FACTOR,
+             rel(card, free) <= WITNESS_FACTOR * rel(spread, free)),
+          flush=True)
+    print("resnet %s: the first gradient, norm of the difference over the "
+          "CPU's: the card %.3g, the CPU from the init one ulp up %.3g "
+          "(recorded, not checked)" % (label, gap(grads["card"], grads["cpu"]),
+                                       gap(grads["one ulp"], grads["cpu"])),
+          flush=True)
+    check(rel(card, anchored) <= limit, "the float32 ResNet's losses on the "
+          "card disagree with the port's CPU route at the card's states: "
+          "%s vs %s" % (card, anchored))
+    check(rel(card, free) <= WITNESS_FACTOR * rel(spread, free),
+          "the float32 ResNet trained on the card strays from the CPU's "
+          "run further than %dx one ulp of the init moves it: %s vs %s "
+          "(one ulp: %s)" % (WITNESS_FACTOR, card, free, spread))
+
+
+def resnet_replay(torch, mt, net, init, batch, Y, ref, deterministic):
+    """The bf16 run's first RESNET_REPLAY steps again in a new Module from
+    its init and batch; with ``deterministic`` under cuDNN's deterministic
+    algorithms and ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``.  Returns (the run's bits, the last step's ms)."""
+    import warnings
+
+    dtype, b, _, _ = RESNET_RUNS[0]
+    args = {k: mt.nd.NDArray(v, mt.cpu()) for k, v in init[0].items()}
+    aux = {k: mt.nd.NDArray(v, mt.cpu()) for k, v in init[1].items()}
+    mod = image_module(mt, net, None, (b,) + RESNET["image_shape"], dtype,
+                       dict(RESNET_SGD, rescale_grad=1.0 / b), args, aux)
+    old = torch.backends.cudnn.deterministic
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if deterministic:
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            losses, times = resnet_steps(torch, mt, mod, batch, Y,
+                                         RESNET_REPLAY)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = old
+    got = state_snapshot(mod)
+    del mod
+    torch.cuda.empty_cache()
+    differ = sorted(n for part, want in zip(got, ref[1])
+                    for n, t in part.items() if not torch.equal(t, want[n]))
+    same = losses == ref[0] and not differ
+    alerts = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                     if "deterministic" in str(w.message)})
+    print("resnet replay (%s): %d bf16 steps from the run's init and batch: "
+          "losses %s vs the run's %s; %d of %d parameters and aux states "
+          "differ %s; the run's bits %s; step ms %s; nondeterministic-op "
+          "alerts: %s"
+          % ("cudnn.deterministic" if deterministic else "default",
+             RESNET_REPLAY, ["%.9g" % x for x in losses],
+             ["%.9g" % x for x in ref[0]], len(differ),
+             sum(len(p) for p in got), differ[:4], same,
+             ["%.2f" % (t * 1e3) for t in times], alerts or "none"),
+          flush=True)
+    return same, times[-1] * 1e3
+
+
+def resnet_phase(torch, mt, profile_dir=None):
+    """Phase 9: ResNet-50 trained through ``mt.mod.Module`` on the default
+    context as fit.benchmark drives it, bf16 at batch 256 and float32 at
+    batch 32, each from Xavier("in", 2.34) on SyntheticIter's batch.  Each
+    run prints step ms, img/s, MFU and peak memory and must keep its
+    parameters on the card, give finite losses that fall, and move every
+    moving statistic; the float32 run's first losses must be the port's
+    CPU route's, and the bf16 run's first steps replay bit for bit.
+    Returns the launch counts of the runs (no kernel of the port's own is
+    on this path: cuDNN convolutions and plain torch)."""
+    from mxnet_tpu_torch.models import get_resnet
+
+    name = torch.cuda.get_device_name(0)
+    peaks_key, peaks = peaks_for(name)
+    with mt.NameManager():
+        net = get_resnet(**RESNET)
+    mt.kernels.reset_launches()
+    for dtype, b, warmup, timed in RESNET_RUNS:
+        label = "%s b%d" % (dtype or "float32", b)
+        if dtype is None:
+            check(not torch.backends.cuda.matmul.allow_tf32 and
+                  not torch.backends.cudnn.allow_tf32,
+                  "a TF32 flag is on for the float32 ResNet run")
+        Y, batch = resnet_batch(mt, b)
+        mt.random.seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mod = image_module(mt, net, None, (b,) + RESNET["image_shape"],
+                           dtype, dict(RESNET_SGD, rescale_grad=1.0 / b))
+        torch.cuda.synchronize()
+        ex = mod._exec_group.execs[0]
+        names = mod._exec_group.param_names
+        n_params = sum(ex.arg_dict[n].size for n in names)
+        check(all(ex.arg_dict[n]._data.is_cuda for n in names) and
+              all(t._data.is_cuda for t in ex.aux_dict.values()),
+              "the ResNet parameters do not live on the card")
+        print("resnet %s: %d parameters and %d aux states on %s, bound and "
+              "initialized in %.2f s" % (label, n_params, len(ex.aux_dict),
+                                         ex.arg_dict[names[0]].context,
+                                         time.perf_counter() - t0),
+              flush=True)
+        init = state_snapshot(mod)
+        metric = mt.metric.Accuracy()
+        # the state before each of the first steps, for the CPU witness
+        states, losses, times = [init], [], []
+        for step in range(RESNET_REPLAY):
+            one, one_t = resnet_steps(torch, mt, mod, batch, Y, 1, metric,
+                                      label, step)
+            losses += one
+            times += one_t
+            states.append(state_snapshot(mod))
+        replay_ref = (list(losses), states[-1])
+        more, more_t = resnet_steps(torch, mt, mod, batch, Y,
+                                    warmup + timed - RESNET_REPLAY, metric,
+                                    label, RESNET_REPLAY)
+        losses += more
+        times += more_t
+        step_ms = float(np.mean(times[warmup:])) * 1e3
+        img_s = b / step_ms * 1e3
+        flops = img_s * 3 * RESNET_GFLOP * 1e9
+        peak_key = "bfloat16" if dtype else "float32"
+        mfu = flops / (peaks[peak_key] * 1e12)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print("resnet %s: step ms %.2f (mean of %d timed steps after %d "
+              "warm-up); img/s %.1f; model TFLOP/s %.1f; MFU %.4f of the %s "
+              "%s dense peak %.0f TFLOP/s%s; peak device memory %.2f GB; "
+              "accuracy %s"
+              % (label, step_ms, timed, warmup, img_s, flops / 1e12, mfu,
+                 peaks_key, peak_key, peaks[peak_key],
+                 " (CUDA cores: TF32 off)" if dtype is None else "",
+                 peak_gb, metric.get()), flush=True)
+        if dtype is None:
+            print("resnet %s: %.2fx the reference's P100 %.2f img/s "
+                  "(BASELINE.md; a yardstick only)"
+                  % (label, img_s / P100_IMG_S, P100_IMG_S), flush=True)
+        check(all(np.isfinite(losses)), "ResNet %s losses are not finite: "
+              "%s" % (label, losses))
+        # bf16 at batch 256 falls step after step; float32 at batch 32 with
+        # the same lr 0.1 falls at its second step and then climbs: it must
+        # reach below its first step's loss, and its first states must give
+        # the port's CPU route's losses (resnet_cpu_witness)
+        fell = losses[-1] < losses[0] if dtype else \
+            min(losses[1:]) < losses[0]
+        check(fell, "the ResNet %s loss did not fall: %s" % (label, losses))
+        if dtype is None:
+            resnet_cpu_witness(torch, mt, net, states, batch, Y, losses,
+                               label)
+        del states
+        check(all(ex.arg_dict[n]._data.is_cuda for n in names),
+              "the ResNet parameters left the card")
+        end = state_snapshot(mod)
+        still = sorted(n for n, t in end[1].items()
+                       if torch.equal(t, init[1][n]))
+        print("resnet %s: loss %.6f -> %.6f; %d of %d moving statistics "
+              "moved from their init" % (label, losses[0], losses[-1],
+                                         len(end[1]) - len(still),
+                                         len(end[1])), flush=True)
+        check(not still, "ResNet %s moving statistics did not move: %s"
+              % (label, still[:4]))
+        if dtype and profile_dir:
+            def step():
+                mod.forward_backward(batch)
+                mod.update()
+            groups = profile(torch, step, profile_dir, "resnet_step_bf16")
+            for group in ("conv (cuDNN)", "GEMM (cuBLAS)"):
+                names = sorted(groups.get(group, ()))
+                print("profile resnet_step_bf16: %d %s kernels, e.g. %s"
+                      % (len(names), group, [n[:90] for n in names[:4]]),
+                      flush=True)
+        del mod, ex, end
+        torch.cuda.empty_cache()
+        if dtype:
+            same, replay_ms = resnet_replay(torch, mt, net, init, batch, Y,
+                                            replay_ref, False)
+            _, det_ms = resnet_replay(torch, mt, net, init, batch, Y,
+                                      replay_ref, True)
+            print("resnet replay: second step %.2f ms by default, %.2f ms "
+                  "with cudnn.deterministic" % (replay_ms, det_ms),
+                  flush=True)
+            check(same, "the bf16 ResNet step is not reproducible")
+        del batch, init, replay_ref
+        torch.cuda.empty_cache()
+    return dict(mt.kernels.LAUNCHES)
+
+
+#: the agree phase's image nets: (builder, kwargs, data shape, SGD lr,
+#: the residual branches' last BatchNorm, whose γ starts at 0, or None).
+#: From unit γ small ResNets train chaotically at small batches (BatchNorm's
+#: gradients explode with depth): one float32 ulp of the init moves them
+#: further than the agree limits (tests/test_torch_models.py::
+#: test_small_resnet_training_is_chaotic_where_parity_is_not_held), and
+#: ResNet-18 at unit γ read 3.4e-4 (lr 0.01) and 1.9e-4 (lr 0.001) from
+#: the CPU.  The zero-γ init keeps the same graphs well-conditioned.
+SMALL_IMAGE = {
+    "ResNet-50 (cifar stem, 32x32)": (
+        "get_resnet", dict(num_layers=50, image_shape=(3, 32, 32),
+                           num_classes=10), (8, 3, 32, 32), 0.01, "c"),
+    "ResNet-18 (imagenet stem, 72x72)": (
+        "get_resnet", dict(num_layers=18, image_shape=(3, 72, 72),
+                           num_classes=10), (4, 3, 72, 72), 0.01, "b"),
+    "LeNet": ("get_lenet", dict(num_classes=10), (8, 1, 28, 28), 0.1, None),
+}
+
+
+#: bf16 image nets, and the float32 ResNet-50 run trained free: how far
+#: the card may lie from the CPU, in units of the CPU's own distance under
+#: a one-ulp nudge of the init, where the agree limits do not hold.  The card rounds every convolution differently, a
+#: larger perturbation than the nudge (ResNet-50 read 1.06e-3 in loss
+#: against a witness of 5.2e-4, and 0.033 in the parameter change against
+#: 0.022); a lost or wrong gradient moves the change error to about 1.
+WITNESS_FACTOR = 4
+
+
+def image_train3(torch, mt, net, ctx, shape, lr, args, aux, dtype, X, Y):
+    """3 SGD-momentum steps of ``net`` on ``ctx`` from numpy ``args`` and
+    ``aux``: (losses, parameters, aux states) as numpy."""
+    mod = image_module(mt, net, ctx, shape, dtype,
+                       dict(learning_rate=lr, momentum=0.9, wd=1e-4),
+                       {k: mt.nd.array(v, ctx) for k, v in args.items()},
+                       {k: mt.nd.array(v, ctx) for k, v in aux.items()})
+    batch = mt.io.DataBatch(data=[mt.nd.array(X, ctx)],
+                            label=[mt.nd.array(Y, ctx)])
+    losses = []
+    for _ in range(3):
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(lm_loss(torch, mod.get_outputs()[0], Y))
+    a, x = mod.get_params()
+    return (losses, {k: v.asnumpy() for k, v in a.items()},
+            {k: v.asnumpy() for k, v in x.items()})
+
+
+def train_distance(a, b, args, aux):
+    """(loss error, parameter error of the largest, aux error of the
+    largest, parameter change error of its norm, aux change error) of run
+    ``a`` against run ``b`` from ``args``/``aux``."""
+    def largest(got, ref):
+        if not ref:
+            return 0.0
+        scale = max(float(np.abs(v).max()) for v in ref.values())
+        return max(float(np.abs(got[k] - ref[k]).max()) for k in ref) / scale
+
+    def change(got, ref, init):
+        if not ref:
+            return 0.0
+        num = sum(float(((got[k].astype(np.float64) - ref[k]) ** 2).sum())
+                  for k in ref)
+        den = sum(float(((ref[k].astype(np.float64) - init[k]) ** 2).sum())
+                  for k in ref)
+        return (num / den) ** 0.5
+
+    loss = float((np.abs(np.array(a[0]) - np.array(b[0]))
+                  / np.abs(b[0])).max())
+    return (loss, largest(a[1], b[1]), largest(a[2], b[2]),
+            change(a[1], b[1], args), change(a[2], b[2], aux))
+
+
+#: conv_precision_check's shapes: (data, weight, stride, pad), LeNet's two
+#: layers and ResNet's stem, 3x3 and strided 1x1 layers at a small batch
+CONV_CASES = (((8, 1, 28, 28), (20, 1, 5, 5), (1, 1), (0, 0)),
+              ((8, 20, 12, 12), (50, 20, 5, 5), (1, 1), (0, 0)),
+              ((8, 3, 64, 64), (64, 3, 7, 7), (2, 2), (3, 3)),
+              ((8, 64, 16, 16), (64, 64, 3, 3), (1, 1), (1, 1)),
+              ((8, 256, 16, 16), (512, 256, 1, 1), (2, 2), (0, 0)))
+
+
+def conv_precision_check(torch, mt):
+    """The port's float32 ``Convolution`` on the card, output and both
+    gradients, against float64 on the CPU: within 1e-5 of the largest
+    value.  cuDNN's default float32 algorithm (``F.conv2d``, TF32 off) is
+    measured beside it, recorded, not checked."""
+    from mxnet_tpu_torch.ops import OpContext, get_op
+
+    op = get_op("Convolution")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    for xs, ws, stride, pad in CONV_CASES:
+        x = torch.randn(xs, generator=gen, dtype=torch.float64)
+        w = torch.randn(ws, generator=gen, dtype=torch.float64) / np.sqrt(
+            np.prod(ws[1:]))
+        attrs = op.parse_attrs({"kernel": ws[2:], "num_filter": ws[0],
+                                "stride": stride, "pad": pad,
+                                "no_bias": True})
+        out_shape = op.infer_shape(attrs, [xs, None])[1][0]
+        ct = torch.randn(out_shape, generator=gen, dtype=torch.float64)
+
+        def run(device, dtype, fn):
+            a = x.to(device, dtype).requires_grad_(True)
+            b = w.to(device, dtype).requires_grad_(True)
+            o = fn(a, b)
+            gx, gw = torch.autograd.grad(o, (a, b), ct.to(device, dtype))
+            return [t.detach().double().cpu() for t in (o, gx, gw)]
+
+        def port(a, b):
+            return op.apply(OpContext(), attrs, [a, b])[0][0]
+
+        def cudnn(a, b):
+            return torch.nn.functional.conv2d(a, b, None, stride, pad)
+
+        ref = run("cpu", torch.float64, port)
+        errs = {}
+        for name, fn in (("port", port), ("cuDNN", cudnn)):
+            got = run("cuda", torch.float32, fn)
+            errs[name] = [((g - r).abs().max() / r.abs().max()).item()
+                          for g, r in zip(got, ref)]
+        print("check: float32 convolution %s * %s stride %s pad %s on the "
+              "card vs float64 on the CPU, max|err|/max|ref| of the output, "
+              "data and weight gradients: port %s (tolerance 1e-5); cuDNN's "
+              "default %s (recorded)"
+              % (xs, ws, stride, pad, ["%.3g" % e for e in errs["port"]],
+                 ["%.3g" % e for e in errs["cuDNN"]]), flush=True)
+        check(max(errs["port"]) <= 1e-5, "the float32 convolution %s * %s "
+              "on the card is not float32-accurate" % (xs, ws))
+
+
+def image_agreement(torch, mt, what, dtype):
+    """A small image net trained 3 SGD-momentum steps on the card and on
+    the CPU from one numpy init, aux states compared like parameters, under
+    the agree limits (``AGREE``): float32 loss, parameters and aux states
+    within 1e-4; bf16 loss within 1e-3 and the change of the parameters and
+    of the aux states within 3e-2 of its norm.  Where bf16 misses those,
+    the CPU's own run from the init moved one float32 ulp is the witness
+    of how far bf16 rounding alone carries this net, and the card must lie
+    within WITNESS_FACTOR times its distance."""
+    from mxnet_tpu_torch import models
+
+    fn, kw, shape, lr, zero_gamma = SMALL_IMAGE[what]
+    with mt.NameManager():
+        net = getattr(models, fn)(**kw)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=shape)
+    rng = np.random.RandomState(SEED + 7)
+    args = {}
+    for n, s in zip(net.list_arguments(), arg_shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("weight"):
+            scale = np.sqrt(2.34 / np.prod(s[1:]))
+            args[n] = rng.uniform(-scale, scale, s).astype(np.float32)
+        elif n.endswith("gamma"):
+            zero = zero_gamma and n.startswith("stage") and \
+                n.endswith("_%s_bn_gamma" % zero_gamma)
+            args[n] = np.full(s, 0.0 if zero else 1.0, np.float32)
+        else:
+            args[n] = np.zeros(s, np.float32)
+    aux = {n: (np.zeros if n.endswith("mean") else np.ones)(s, np.float32)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    X = rng.uniform(-1, 1, shape).astype(np.float32)
+    Y = rng.randint(0, 10, shape[:1]).astype(np.float32)
+    card = image_train3(torch, mt, net, mt.gpu(0), shape, lr, args, aux,
+                        dtype, X, Y)
+    cpu = image_train3(torch, mt, net, mt.cpu(), shape, lr, args, aux,
+                       dtype, X, Y)
+    d = train_distance(card, cpu, args, aux)
+    _, loss_tol, param_tol = AGREE[dtype]
+    if dtype is None:
+        ok = d[0] <= loss_tol and d[1] <= param_tol and d[2] <= param_tol
+        what_err = ("parameter error %.3g and aux error %.3g of the largest"
+                    % (d[1], d[2]))
+    else:
+        ok = d[0] <= loss_tol and d[3] <= param_tol and d[4] <= param_tol
+        what_err = ("parameter change error %.3g and aux change error %.3g "
+                    "of its norm" % (d[3], d[4]))
+    print("check: %s trained 3 SGD-momentum steps (%s, lr %g%s) on the card "
+          "vs the CPU: losses %s vs %s, relative loss error %.3g (tolerance "
+          "%g), %s (tolerance %g)"
+          % (what, dtype or "float32", lr, ", zero-γ init" if zero_gamma
+             else "", ["%.6f" % x for x in card[0]],
+             ["%.6f" % x for x in cpu[0]], d[0], loss_tol, what_err,
+             param_tol), flush=True)
+    if not ok and dtype is not None:
+        nudged = {k: np.nextafter(v, np.float32(np.inf)).astype(np.float32)
+                  if k.endswith("weight") else v for k, v in args.items()}
+        w = train_distance(image_train3(torch, mt, net, mt.cpu(), shape, lr,
+                                        nudged, aux, dtype, X, Y),
+                           cpu, args, aux)
+        ok = all(d[i] <= WITNESS_FACTOR * w[i] for i in (0, 3, 4))
+        print("check: %s bf16 witness, the CPU from the init moved one "
+              "float32 ulp vs the CPU: relative loss error %.3g, parameter "
+              "change error %.3g, aux change error %.3g; the card within "
+              "%dx: %s" % (what, w[0], w[3], w[4], WITNESS_FACTOR, ok),
+              flush=True)
+    check(ok, "%s trained on the card (%s) disagrees with the CPU"
+          % (what, dtype or "float32"))
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -2077,6 +2709,9 @@ def device_op_group(event):
     if event.get("cat") != "kernel":
         return event["cat"]
     low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                              "nchwtonhwc", "nhwctonchw")):
+        return "conv (cuDNN)"
     if any(k in low for k in ("nvjet", "gemm", "xmma", "cutlass")):
         return "GEMM (cuBLAS)"
     for key, group in (("reduce", "reductions"), ("softmax", "softmax"),
@@ -2125,6 +2760,26 @@ def profile(torch, fn, outdir, label):
           "share %.4f" % (label, len(events), busy, span, 1 - busy / span),
           flush=True)
     return names
+
+
+def parent_axpy(folder):
+    """(``AXPY_CUDA``, ``axpy_dims``) of another version's
+    ``mxnet_tpu_torch/rtc_kernels.py`` under ``folder``, read from its
+    source without importing that module."""
+    import ast
+
+    path = os.path.join(folder, "mxnet_tpu_torch", "rtc_kernels.py")
+    tree = ast.parse(open(path).read(), path)
+    body, ns = None, {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "AXPY_CUDA" for t in node.targets):
+            body = ast.literal_eval(node.value)
+        elif isinstance(node, ast.FunctionDef) and node.name == "axpy_dims":
+            exec(compile(ast.Module([node], []), path, "exec"), ns)
+    check(body is not None and "axpy_dims" in ns,
+          "%s has no AXPY_CUDA or axpy_dims" % path)
+    return body, ns["axpy_dims"]
 
 
 def build_phase(torch, mt, parent_csrcs=()):
@@ -2203,14 +2858,22 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="trace one extra request, one extra train step "
-                         "(bf16 and float32), one extra splash step and one "
-                         "extra rtc_gelu train step with torch.profiler")
+                         "(bf16 and float32), one extra splash step, one "
+                         "extra rtc_gelu train step and one extra ResNet-50 "
+                         "bf16 step with torch.profiler")
     ap.add_argument("--parent-csrc", metavar="DIR", action="append",
                     default=[],
                     help="a csrc directory of another version (flash_fwd.cu "
                          "and its headers), repeatable: its bf16 K1 and "
                          "split-P are held bit for bit and timed in turns "
                          "against this one's at every bf16 main-length case")
+    ap.add_argument("--parent-rtc", metavar="DIR", action="append",
+                    default=[],
+                    help="a checkout of another version, repeatable: the "
+                         "axpy user kernel of its mxnet_tpu_torch/"
+                         "rtc_kernels.py (AXPY_CUDA launched with its "
+                         "axpy_dims) is held bit for bit and timed in turns "
+                         "beside this one's at every axpy timing case")
     opts = ap.parse_args()
 
     import torch
@@ -2229,7 +2892,9 @@ def main():
     main_rows, dim_rows = kernel_phase(torch, att, device, parents)
     splitp_row = main_rows.pop("flash_fwd_splitp")
     rows = list(main_rows.values())
-    rtc_rows = rtc_kernel_phase(torch, mt, device)
+    rtc_rows = rtc_kernel_phase(torch, mt, device, {
+        os.path.basename(os.path.normpath(d)): parent_axpy(d)
+        for d in opts.parent_rtc})
     pred, tokens, flash_out = serve_phase(torch, mt)
     mod, batch, launches, losses, step_ms, replay = train_phase(torch, mt)
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
@@ -2298,6 +2963,13 @@ def main():
     small_train_agreement(torch, mt, None, rtc_gelu=True)
     custom_op_agreement(mt)
     nd_agreement(mt)
+    conv_precision_check(torch, mt)
+    for dtype in (None, "bfloat16"):
+        for what in SMALL_IMAGE:
+            image_agreement(torch, mt, what, dtype)
+    resnet_launches = resnet_phase(torch, mt, opts.profile)
+    print("resnet: kernel launches of the port's own in the phase: %s"
+          % (resnet_launches or "none (cuDNN and plain torch)"), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,8 +16,10 @@ non-differentiable (``no_grad_inputs``) forced to null; ``args_grad``,
 ``forward_backward``; aux states written back on a training forward;
 mixed precision (``compute_dtype`` casts float32 arguments not in
 ``cast_exclude`` inside the step, gradients come back float32 to the
-float32 arrays); and ``fused_step``: forward, backward and the optimizer's
-update as one call, in place on the float32 parameters.
+float32 arrays); stochastic ops (``Dropout``) drawing from the device's
+generator, with ``backward`` replaying the draws of the forward before it;
+and ``fused_step``: forward, backward and the optimizer's update as one
+call, in place on the float32 parameters.
 
 Left out, with their reason: jit, buffer donation and the compile cache
 (PyTorch runs eagerly; a CUDA graph is the later tool), SPMD shardings and
@@ -31,6 +33,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .context import Context
 from .ndarray import _torch_dtype
@@ -53,6 +56,8 @@ class _GraphPlan:
         self.aux_names: List[str] = []
         for n in self.nodes:
             self.aux_names.extend(n.aux_names())
+        self.stochastic = any(n.op is not None and n.op.stochastic
+                              for n in self.nodes)
         self.output_entries = [(id(node), idx) for node, idx in symbol._outputs]
         self.output_names = symbol.list_outputs()
         self.readers: Dict[tuple, int] = {}
@@ -73,10 +78,12 @@ class _GraphPlan:
                     out.append(p.name)
         return out
 
-    def run(self, args: Dict[str, Any], aux: Dict[str, Any], is_train: bool):
+    def run(self, args: Dict[str, Any], aux: Dict[str, Any], is_train: bool,
+            generator=None):
         """Execute the graph on tensors.  An intermediate is released as
         soon as its last reader has run, so peak memory follows the live
-        activations (and, under autograd, what the backward keeps)."""
+        activations (and, under autograd, what the backward keeps).
+        Stochastic ops draw from ``generator`` in topological order."""
         vals: Dict[tuple, Any] = {}
         left = dict(self.readers)
         keep = set(self.output_entries)
@@ -89,8 +96,9 @@ class _GraphPlan:
                 continue
             ins = [vals[(id(p), idx)] for p, idx in n.inputs]
             aux_in = tuple(aux[a] for a in n.aux_names())
-            outs, aux_out = n.op.apply(OpContext(is_train=is_train), n.attrs,
-                                       ins, aux_in)
+            opctx = OpContext(is_train, generator if n.op.stochastic
+                              else None)
+            outs, aux_out = n.op.apply(opctx, n.attrs, ins, aux_in)
             del ins
             for i, o in enumerate(outs):
                 vals[(id(n), i)] = o
@@ -171,6 +179,10 @@ class Executor:
                 raise MXNetError("bind missing auxiliary state %r" % aname)
         self.aux_arrays = [self.aux_dict[n] for n in plan.aux_names]
         self._output_arrays: List = []
+        # the device generator's state before the last forward: backward
+        # re-runs that forward on a generator set to it, so stochastic ops
+        # draw the same numbers (the JAX package reuses the forward's key)
+        self._last_rng = None
 
     def _as_nd(self, v):
         """Bound arrays live on the executor's context: an NDArray already
@@ -197,6 +209,26 @@ class Executor:
         return {k: v.to(cdt) if k not in self._cast_exclude
                 and v.dtype == torch.float32 else v for k, v in args.items()}
 
+    def _generator(self, remember: bool):
+        """The device generator stochastic ops draw from, or None when the
+        graph has none; with ``remember`` its state is kept for
+        ``backward``."""
+        if not self._plan.stochastic:
+            return None
+        gen = _random.generator(self._ctx.torch_device())
+        if remember:
+            self._last_rng = gen.get_state()
+        return gen
+
+    def _replay_generator(self):
+        """A generator in the state the last forward started from (the
+        device generator itself if there was none)."""
+        if self._last_rng is None:
+            return self._generator(remember=False)
+        gen = torch.Generator(device=self._ctx.torch_device())
+        gen.set_state(self._last_rng)
+        return gen
+
     def _write_inputs(self, kwargs):
         for k, v in kwargs.items():
             if k not in self.arg_dict:
@@ -214,8 +246,10 @@ class Executor:
         args = {k: v._data for k, v in self.arg_dict.items()}
         aux = {k: v._data for k, v in self.aux_dict.items()}
         self._output_arrays = []  # release the previous call's outputs
+        gen = self._generator(remember=True)
         with torch.no_grad():
-            outs, new_aux = self._plan.run(self._cast(args), aux, is_train)
+            outs, new_aux = self._plan.run(self._cast(args), aux, is_train,
+                                           gen)
         if is_train:
             for k, v in new_aux.items():
                 self.aux_dict[k]._set(v)
@@ -227,7 +261,8 @@ class Executor:
         JAX package, this re-runs the forward (without writing aux states)
         and differentiates it; loss ops ignore ``out_grads``."""
         self._forward_backward(out_grads, is_train, update_aux=False,
-                               set_outputs=False)
+                               set_outputs=False,
+                               generator=self._replay_generator())
 
     def forward_backward(self, out_grads=None, is_train: bool = True,
                          **kwargs):
@@ -235,10 +270,11 @@ class Executor:
         step Module runs."""
         self._write_inputs(kwargs)
         self._forward_backward(out_grads, is_train, update_aux=True,
-                               set_outputs=True)
+                               set_outputs=True,
+                               generator=self._generator(remember=True))
         return self._output_arrays
 
-    def _grads(self, diff_names, out_grads, is_train):
+    def _grads(self, diff_names, out_grads, is_train, generator):
         """(outputs, new aux, {name: gradient}) of one differentiated
         forward over the arguments ``diff_names``."""
         leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
@@ -246,7 +282,8 @@ class Executor:
         args = {k: leaves.get(k, v._data) for k, v in self.arg_dict.items()}
         aux = {k: v._data for k, v in self.aux_dict.items()}
         with torch.enable_grad():
-            outs, new_aux = self._plan.run(self._cast(args), aux, is_train)
+            outs, new_aux = self._plan.run(self._cast(args), aux, is_train,
+                                           generator)
         if out_grads is None:
             ogs = [None] * len(outs)
         elif isinstance(out_grads, (list, tuple)):
@@ -271,7 +308,8 @@ class Executor:
                  for n, g in zip(names, got)}
         return [o.detach() for o in outs], new_aux, grads
 
-    def _forward_backward(self, out_grads, is_train, update_aux, set_outputs):
+    def _forward_backward(self, out_grads, is_train, update_aux, set_outputs,
+                          generator):
         from . import ndarray as nd
 
         plan = self._plan
@@ -281,7 +319,8 @@ class Executor:
             if set_outputs:
                 self.forward(is_train=is_train)
             return
-        outs, new_aux, grads = self._grads(diff_names, out_grads, is_train)
+        outs, new_aux, grads = self._grads(diff_names, out_grads, is_train,
+                                           generator)
         for name in diff_names:
             g = grads[name]
             held = self.grad_dict.get(name)
@@ -320,7 +359,8 @@ class Executor:
             infos.append((name, idx))
             optimizer._update_count(idx)
         t = optimizer.num_update
-        outs, new_aux, grads = self._grads([n for n, _ in infos], None, True)
+        outs, new_aux, grads = self._grads([n for n, _ in infos], None, True,
+                                           self._generator(remember=True))
         with torch.no_grad():
             for name, idx in infos:
                 optimizer.update_tensors(

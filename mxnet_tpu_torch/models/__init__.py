@@ -1,3 +1,18 @@
 """Model symbol builders of the port (counterpart of
-``mxnet_tpu/models``)."""
+``mxnet_tpu/models``): the image classifiers and the transformer LM.  The
+JAX package's ``ssd`` and ``dlrm`` builders need ops the port does not
+have yet (the contrib MultiBox ops, ``sparse/``)."""
 from . import transformer  # noqa: F401
+from .lenet import get_lenet
+from .mlp import get_mlp
+from .resnet import get_resnet
+from .alexnet import get_alexnet
+from .inception_bn import get_inception_bn
+from .inception_v3 import get_inception_v3
+from .vgg import get_vgg
+from .googlenet import get_googlenet
+from .transformer import get_transformer_lm
+
+__all__ = ["get_lenet", "get_mlp", "get_resnet", "get_alexnet",
+           "get_inception_bn", "get_inception_v3", "get_vgg",
+           "get_googlenet", "get_transformer_lm"]

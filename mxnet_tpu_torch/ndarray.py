@@ -31,6 +31,7 @@ import torch
 from .base import MXNetError, mx_real_t
 from .context import Context, cpu, gpu, current_context
 from .ops import OpContext, registered_ops
+from . import random as _random
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "moveaxis", "onehot_encode", "waitall", "load",
@@ -379,9 +380,10 @@ def _invoke(op_name: str, args, kwargs):
     n_aux = len(op.aux_names(parsed))
     main_in = tensors[:len(tensors) - n_aux]
     aux_in = tuple(tensors[len(tensors) - n_aux:])
+    gen = _random.generator(device) if op.stochastic else None
     with torch.no_grad():
-        outs, aux_updates = op.apply(OpContext(is_train=False), parsed,
-                                     main_in, aux_in)
+        outs, aux_updates = op.apply(OpContext(False, gen), parsed, main_in,
+                                     aux_in)
     for holder, new in zip(inputs[len(inputs) - n_aux:], aux_updates):
         if isinstance(holder, NDArray) and new is not holder._data:
             holder._set(new)

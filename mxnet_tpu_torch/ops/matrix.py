@@ -1,7 +1,8 @@
-"""Shape ops of the serving slice: ``Reshape`` with MXNet's special codes,
-``slice_axis`` and ``SliceChannel``.
+"""Shape ops: ``Reshape`` with MXNet's special codes, ``Flatten``,
+``slice_axis``, ``Concat`` and ``SliceChannel``.
 
-Counterparts of ``mxnet_tpu/ops/matrix.py`` (``:74``, ``:133``, ``:291``).
+Counterparts of ``mxnet_tpu/ops/matrix.py`` (``:74``, ``:83-92``, ``:133``,
+``:252-271``, ``:291``).
 ``SliceChannel`` returns views of its input, so the attention kernel that
 consumes its q/k/v outputs reads them through strides without a copy.
 """
@@ -118,3 +119,39 @@ def _slice_channel(opctx, attrs, x):
     if attrs.get("squeeze_axis"):
         parts = [p.squeeze(axis) for p in parts]
     return tuple(parts)
+
+
+def _flatten_infer(attrs, in_shapes):
+    (ishape,) = in_shapes
+    if ishape is None:
+        return in_shapes, [None], []
+    return in_shapes, [(ishape[0], int(np.prod(ishape[1:]))
+                        if len(ishape) > 1 else 1)], []
+
+
+@register("Flatten", aliases=("flatten",), infer_shape=_flatten_infer,
+          hint="flatten")
+def _flatten(opctx, attrs, x):
+    return x.reshape(x.shape[0], -1)
+
+
+def _concat_infer(attrs, in_shapes):
+    dim = attrs.get("dim", 1)
+    known = [s for s in in_shapes if s is not None]
+    if not known:
+        return in_shapes, [None], []
+    base = list(known[0])
+    total = 0
+    for s in in_shapes:
+        if s is None:
+            return in_shapes, [None], []
+        total += s[dim]
+    base[dim] = total
+    return in_shapes, [tuple(base)], []
+
+
+@register("Concat", aliases=("concat",), key_var_num_args="num_args",
+          params={"num_args": Param(int, required=True), "dim": Param(int, 1)},
+          infer_shape=_concat_infer, hint="concat")
+def _concat(opctx, attrs, *args):
+    return torch.cat(args, dim=attrs.get("dim", 1))

@@ -17,13 +17,17 @@ __all__ = ["Op", "OpContext", "register", "get_op", "registered_ops"]
 
 class OpContext:
     """Per-invocation context handed to op functions (reference: OpContext
-    in include/mxnet/operator.h:60-75).  No op of the serving slice draws
-    random numbers, so it carries only ``is_train``."""
+    in include/mxnet/operator.h:60-75): ``is_train``, and for a stochastic
+    op the random resource, a ``torch.Generator`` on the op's device that
+    the caller hands it (the executor's: ``random.generator(device)``).
+    The JAX package hands a PRNG key split per stochastic node instead, so
+    the two draw different numbers from one seed."""
 
-    __slots__ = ("is_train",)
+    __slots__ = ("is_train", "generator")
 
-    def __init__(self, is_train: bool = False):
+    def __init__(self, is_train: bool = False, generator=None):
         self.is_train = is_train
+        self.generator = generator
 
 
 class Op:
@@ -42,6 +46,7 @@ class Op:
         key_var_num_args: Optional[str] = None,
         output_names: Optional[Callable] = None,
         allow_extra_attrs: bool = False,
+        stochastic: bool = False,
     ):
         self.name = name
         self.fn = fn
@@ -64,6 +69,8 @@ class Op:
         # inputs that never take a gradient (labels, indices): the executor
         # forces their grad_req to "null"
         self.no_grad_inputs = tuple(no_grad_inputs)
+        # draws random numbers: the executor hands it a generator
+        self.stochastic = stochastic
 
     # -- metadata ----------------------------------------------------------
     def input_names(self, attrs: Dict[str, Any]) -> List[str]:

@@ -7,8 +7,11 @@ are what its ``mx.rtc`` (``mxnet_tpu/rtc.py``) and ``register_pallas_op``
 elementwise pass, bound by the bytes it moves.
 
 - ``axpy``: out = 2·x + y in float32, a 2-D launch with explicit
-  ``grid_dims``/``block_dims`` (``axpy_dims``).  NVRTC contracts 2·x + y to
-  one FMA, which rounds as 2·x (exact) then + y does: the same bits.
+  ``grid_dims``/``block_dims`` (``axpy_dims``): rows over y, 16-byte
+  vectors of a row over x, both grid-stride, and floats (4 a thread,
+  loads first) where the rows do not start on 16-byte boundaries.  NVRTC
+  contracts 2·x + y to one FMA, which rounds as 2·x (exact) then + y
+  does: the same bits.
 - ``sgd_update``: w -= lr·(rescale·g + wd·w) in float32, in place
   (``push([w, g, hp], [w])``, ``hp`` = [lr, rescale, wd] on the device),
   a grid-stride loop over the blocks that ``sgd_dims`` names.
@@ -49,11 +52,51 @@ __all__ = ["AXPY_CUDA", "AXPY_PYTHON", "SGD_CUDA", "SGD_PYTHON",
            "register_rtc_gelu", "with_rtc_gelu"]
 
 AXPY_CUDA = r"""
-const int r = blockIdx.y * blockDim.y + threadIdx.y;
-const int c = blockIdx.x * blockDim.x + threadIdx.x;
-if (r < out_dims[0] && c < out_dims[1]) {
-  const long long i = (long long)r * out_dims[1] + c;
-  out[i] = 2.0f * x[i] + y[i];
+// rows over y (threadIdx.y, blockIdx.y) and within a row over x
+// (threadIdx.x, blockIdx.x), both grid-stride: 16-byte vectors when every
+// row of x, y and out starts on a 16-byte boundary (the three bases
+// aligned and the row length a multiple of 4), else floats, 4 a thread a
+// pass (the x threads cover a quarter of the row) with all 8 loads issued
+// before the 4 stores, as many in flight as the vector loop's 2.
+// The row length is a constant of the prototype, so each loop's bound is.
+const long long rows = out_dims[0], cols = out_dims[1];
+const long long r_first = (long long)blockIdx.y * blockDim.y + threadIdx.y;
+const long long r_step = (long long)gridDim.y * blockDim.y;
+const long long c_first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+const long long c_step = (long long)gridDim.x * blockDim.x;
+const bool aligned = cols % 4 == 0 &&
+    ((reinterpret_cast<unsigned long long>(x) |
+      reinterpret_cast<unsigned long long>(y) |
+      reinterpret_cast<unsigned long long>(out)) & 15) == 0;
+if (aligned) {
+  for (long long r = r_first; r < rows; r += r_step) {
+    const float4* xv = reinterpret_cast<const float4*>(x + r * cols);
+    const float4* yv = reinterpret_cast<const float4*>(y + r * cols);
+    float4* ov = reinterpret_cast<float4*>(out + r * cols);
+    for (long long c = c_first; c < cols / 4; c += c_step) {
+      const float4 a = xv[c], b = yv[c];
+      ov[c] = make_float4(2.0f * a.x + b.x, 2.0f * a.y + b.y,
+                          2.0f * a.z + b.z, 2.0f * a.w + b.w);
+    }
+  }
+} else {
+  for (long long r = r_first; r < rows; r += r_step) {
+    const float* xr = x + r * cols;
+    const float* yr = y + r * cols;
+    float* orow = out + r * cols;
+    for (long long c = c_first; c < cols; c += 4 * c_step) {
+      float a[4], b[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c + k * c_step < cols) {
+          a[k] = xr[c + k * c_step];
+          b[k] = yr[c + k * c_step];
+        }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (c + k * c_step < cols) orow[c + k * c_step] = 2.0f * a[k] + b[k];
+    }
+  }
 }
 """
 
@@ -209,9 +252,16 @@ def _push(name, ins, outs, dims=None):
 # -- axpy --------------------------------------------------------------------
 
 def axpy_dims(shape):
-    """(grid, block) of the 2-D axpy launch: 32 x 8 threads a block."""
+    """(grid, block) of the 2-D axpy launch: blocks of 32 x 8 threads, x
+    across a row's 16-byte vectors, y across rows, and as many blocks as
+    give each thread one vector (the grid's y is capped at 65535; the
+    kernel's row loop takes the rest).  On an H100 this ran faster than a
+    grid capped at several rounds of blocks per SM with each thread
+    walking rows, the launch of ``gelu_dims``."""
     rows, cols = shape
-    return (-(-cols // 32), -(-rows // 8), 1), (32, 8, 1)
+    vectors = -(-cols // 4)
+    return ((max(1, -(-vectors // 32)), max(1, min(-(-rows // 8), 65535)), 1),
+            (32, 8, 1))
 
 
 def axpy(x: torch.Tensor, y: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

@@ -213,6 +213,78 @@ def test_axpy_user_kernel_python_route_matches_plain_and_jax():
     assert rk.axpy_dims((37, 29)) == ((1, 5, 1), (32, 8, 1))
 
 
+def _axpy_body_writes(shape, grid, block, aligned):
+    """How many times each element of ``out`` is written by ``AXPY_CUDA``'s
+    loops under a launch (the body's index arithmetic, run in Python)."""
+    rows, cols = shape
+    vectors = aligned and cols % 4 == 0
+    writes = np.zeros(shape, np.int64)
+    r_step, c_step = grid[1] * block[1], grid[0] * block[0]
+    for r_first in range(r_step):
+        for c_first in range(c_step):
+            for r in range(r_first, rows, r_step):
+                if vectors:
+                    for c in range(c_first, cols // 4, c_step):
+                        writes[r, 4 * c:4 * c + 4] += 1
+                else:  # 4 floats a thread a pass, c_step apart
+                    for c in range(c_first, cols, 4 * c_step):
+                        for k in range(4):
+                            if c + k * c_step < cols:
+                                writes[r, c + k * c_step] += 1
+    return writes
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["vectors", "scalar"])
+@pytest.mark.parametrize("shape,grid", [
+    ((37, 29), None), ((40, 64), None), ((9, 1000), None), ((300, 8), None),
+    ((3, 4), None), ((40, 64), (1, 2, 1)), ((37, 29), (1, 1, 1))],
+    ids=["ragged", "rows", "wide", "narrow", "tiny", "row-stride",
+         "one-block"])
+def test_axpy_launch_writes_every_element_once(shape, grid, aligned):
+    """``axpy_dims`` gives 32 x 8 blocks, x across a row's 16-byte vectors
+    and y across rows, one vector a thread; the body's grid-stride loops
+    then write every element exactly once, by vectors when the rows start
+    16-byte aligned, by the scalar loop (4 floats a thread a pass)
+    otherwise, and under a smaller grid too (as a caller's own dims may
+    give)."""
+    dims, block = rk.axpy_dims(shape)
+    assert block == (32, 8, 1) and dims[2] == 1
+    assert dims[0] * 32 * 4 >= shape[1] and dims[1] * 8 >= shape[0]
+    assert launch_dims(shape[0] * shape[1], dims, block) == (dims, block)
+    writes = _axpy_body_writes(shape, grid or dims, block, aligned)
+    assert (writes == 1).all()
+
+
+def test_axpy_dims_at_full_width():
+    """At (16384, 8192): 64 blocks across a row (2048 vectors, one a
+    thread) and 2048 down, a row of blocks for each 8 rows; the y extent
+    stops at the grid's 65535."""
+    assert rk.axpy_dims((16384, 8192)) == ((64, 2048, 1), (32, 8, 1))
+    assert rk.axpy_dims((16384, 8191)) == ((64, 2048, 1), (32, 8, 1))
+    assert rk.axpy_dims((10 ** 6, 4)) == ((1, 65535, 1), (32, 8, 1))
+
+
+def test_axpy_on_the_card_pushes_x_y_out_with_axpy_dims(fake_card,
+                                                        monkeypatch):
+    """``rtc_kernels.axpy`` through the plan: one lookup per output shape,
+    the pointers (x, y, out), the 2-D dims of ``axpy_dims``, and the body
+    with the 16-byte vector loop."""
+    lib, lookups = fake_card
+    monkeypatch.setattr(rk, "_CACHE", {})
+    for i, shape in enumerate(((16384, 8192), (37, 29), (16384, 8192))):
+        x, y, out = (_FakeTensor(0x100000 * (i + 1) + 0x10 * j, shape)
+                     for j in range(3))
+        assert rk.axpy(x, y, out) is out
+    assert lookups == [("axpy", 0)] * 2
+    grids = [(grid, block) for _, grid, block, _, _ in lib.launches]
+    assert grids == [rk.axpy_dims((16384, 8192)), rk.axpy_dims((37, 29)),
+                     rk.axpy_dims((16384, 8192))]
+    assert lib.launches[1][4] == (0x200000, 0x200010, 0x200020)
+    assert mt.kernels.LAUNCHES["rtc:axpy"] == 3
+    source = next(iter(rk._CACHE.values()))[0].source
+    assert "reinterpret_cast<const float4*>(x + r * cols)" in source
+
+
 @pytest.mark.parametrize("wd", [0.0, 1e-3])
 def test_sgd_user_kernel_matches_port_and_jax(wd):
     """Two in-place pushes against the port's sgd_update (bit-exact) and
