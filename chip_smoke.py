@@ -25,8 +25,12 @@
                                            # split-TF32 kernels), one extra
                                            # splash step
                                            # (its K1 the split-P variant),
-                                           # one extra rtc_gelu step and
-                                           # one extra ResNet-50 bf16 step
+                                           # one extra rtc_gelu step,
+                                           # one extra ResNet-50 bf16 step,
+                                           # one extra SSD train step and
+                                           # one extra SSD request (the
+                                           # detection ops' kernels as a
+                                           # group of their own)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -142,7 +146,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (lr 0.1 at batch 32 is chaotic).  The bf16 run's
              first 2 steps run again in a new Module from its init: the
              same bits (and, timed beside it, the replay under cuDNN's
-             deterministic algorithms).
+             deterministic algorithms);
+10. ssd    — the repo's SSD (BASELINE.md config #4: 20 classes, 300x300,
+             batch 32, get_ssd_train's default widths; 29,272 anchors)
+             through ``mt.mod.Module`` on the default (GPU) context as
+             examples/ssd/train_ssd.py drives it (forward, outputs,
+             backward, update; Xavier, SGD lr 0.2 momentum 0.9, float32,
+             TF32 off) on 128 of its synthetic one-box images, labels
+             padded to 8 rows: 2 warm-up steps, then six passes over the 4
+             batches.  It prints step ms, img/s, peak memory and the
+             example's cls+loc loss per pass (finite, the last pass below
+             the first), keeps every parameter and aux state on the card,
+             and holds its first 2 steps to the port's CPU route (losses
+             within 1e-4; MultiBoxTarget's loc_mask and cls_target equal,
+             a difference accepted only at a hard-negative score gap under
+             1e-5).  Then the checkpoint is served by ``mt.Predictor`` with
+             ``get_ssd_detect``: 3 requests of 32 images, ms per request
+             and its NMS share (CUDA events around the NMS), detections
+             (32, 29272, 6) with ids in [-1, 19], scores and boxes in [0,
+             1], kept rows equal to the CPU route's but for a row whose
+             score or overlap lies within 1e-5 of its threshold (printed);
+             the agree phase adds the small SSD of tests/test_ssd.py
+             trained 3 SGD-momentum steps on the card and on the CPU, and
+             conv_precision_check a DCGAN-sized stride-2 Deconvolution and a
+             bilinear UpSampling;
+11. random — each sampler drawn 2**20 times on the card from the device
+             generator (mean and variance within 6 standard errors), and
+             ``random.get_state``/``set_state`` replaying the card's bits.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -2575,22 +2605,41 @@ CONV_CASES = (((8, 1, 28, 28), (20, 1, 5, 5), (1, 1), (0, 0)),
               ((8, 256, 16, 16), (512, 256, 1, 1), (2, 2), (0, 0)))
 
 
+#: and the transposed convolutions: (op, data, weight, stride,
+#: pad), a DCGAN generator's stride-2 Deconvolution layers and a bilinear
+#: UpSampling by 2 (the small SSD has none)
+DECONV_CASES = (("Deconvolution", (8, 512, 4, 4), (512, 256, 4, 4), (2, 2),
+                 (1, 1)),
+                ("Deconvolution", (8, 128, 16, 16), (128, 64, 4, 4), (2, 2),
+                 (1, 1)),
+                ("UpSampling", (8, 64, 16, 16), (64, 1, 4, 4), (2, 2),
+                 (1, 1)))
+
+
 def conv_precision_check(torch, mt):
-    """The port's float32 ``Convolution`` on the card, output and both
-    gradients, against float64 on the CPU: within 1e-5 of the largest
-    value.  cuDNN's default float32 algorithm (``F.conv2d``, TF32 off) is
-    measured beside it, recorded, not checked."""
+    """The port's float32 ``Convolution``, ``Deconvolution`` and bilinear
+    ``UpSampling`` on the card, output and both gradients, against float64
+    on the CPU: within 1e-5 of the largest value.  cuDNN's default float32
+    algorithm (``F.conv2d``/``F.conv_transpose2d``, TF32 off) is measured
+    beside it, recorded, not checked."""
     from mxnet_tpu_torch.ops import OpContext, get_op
 
-    op = get_op("Convolution")
     gen = torch.Generator().manual_seed(SEED + 8)
-    for xs, ws, stride, pad in CONV_CASES:
+    cases = [("Convolution",) + c for c in CONV_CASES] + list(DECONV_CASES)
+    for name, xs, ws, stride, pad in cases:
+        op = get_op(name)
         x = torch.randn(xs, generator=gen, dtype=torch.float64)
-        w = torch.randn(ws, generator=gen, dtype=torch.float64) / np.sqrt(
-            np.prod(ws[1:]))
-        attrs = op.parse_attrs({"kernel": ws[2:], "num_filter": ws[0],
-                                "stride": stride, "pad": pad,
-                                "no_bias": True})
+        fan = {"Convolution": np.prod(ws[1:]), "UpSampling": np.prod(ws[2:]),
+               "Deconvolution": ws[0] * np.prod(ws[2:])}[name]
+        w = torch.randn(ws, generator=gen, dtype=torch.float64) / np.sqrt(fan)
+        if name == "UpSampling":
+            attrs = op.parse_attrs({"scale": stride[0], "num_filter": xs[1],
+                                    "sample_type": "bilinear"})
+        else:
+            nf = ws[0] if name == "Convolution" else ws[1]
+            attrs = op.parse_attrs({"kernel": ws[2:], "num_filter": nf,
+                                    "stride": stride, "pad": pad,
+                                    "no_bias": True})
         out_shape = op.infer_shape(attrs, [xs, None])[1][0]
         ct = torch.randn(out_shape, generator=gen, dtype=torch.float64)
 
@@ -2605,22 +2654,27 @@ def conv_precision_check(torch, mt):
             return op.apply(OpContext(), attrs, [a, b])[0][0]
 
         def cudnn(a, b):
-            return torch.nn.functional.conv2d(a, b, None, stride, pad)
+            if name == "Convolution":
+                return torch.nn.functional.conv2d(a, b, None, stride, pad)
+            return torch.nn.functional.conv_transpose2d(
+                a, b, None, stride, pad, groups=1 if name ==
+                "Deconvolution" else xs[1])
 
         ref = run("cpu", torch.float64, port)
         errs = {}
-        for name, fn in (("port", port), ("cuDNN", cudnn)):
+        for route, fn in (("port", port), ("cuDNN", cudnn)):
             got = run("cuda", torch.float32, fn)
-            errs[name] = [((g - r).abs().max() / r.abs().max()).item()
+            errs[route] = [((g - r).abs().max() / r.abs().max()).item()
                           for g, r in zip(got, ref)]
-        print("check: float32 convolution %s * %s stride %s pad %s on the "
+        print("check: float32 %s %s * %s stride %s pad %s on the "
               "card vs float64 on the CPU, max|err|/max|ref| of the output, "
               "data and weight gradients: port %s (tolerance 1e-5); cuDNN's "
               "default %s (recorded)"
-              % (xs, ws, stride, pad, ["%.3g" % e for e in errs["port"]],
+              % (name, xs, ws, stride, pad,
+                 ["%.3g" % e for e in errs["port"]],
                  ["%.3g" % e for e in errs["cuDNN"]]), flush=True)
-        check(max(errs["port"]) <= 1e-5, "the float32 convolution %s * %s "
-              "on the card is not float32-accurate" % (xs, ws))
+        check(max(errs["port"]) <= 1e-5, "the float32 %s %s * %s on the "
+              "card is not float32-accurate" % (name, xs, ws))
 
 
 def image_agreement(torch, mt, what, dtype):
@@ -2693,6 +2747,540 @@ def image_agreement(torch, mt, what, dtype):
           % (what, dtype or "float32"))
 
 
+# -- detection: SSD through Module and Predictor (phase 10), the small SSD
+# of the agree phase, and the samplers (phase 11) ----------------------------
+
+#: BASELINE.md config #4 at its VOC 300² setting: 20 classes,
+#: get_ssd_train's default widths, batch 32; 128 synthetic images, labels
+#: padded to 8 rows
+#: (the example's --label-pad-width)
+SSD = dict(num_classes=20)
+SSD_IMAGE = (3, 300, 300)
+SSD_BATCH = 32
+SSD_IMAGES = 128
+SSD_LABEL_ROWS = 8
+#: 4 anchors at each cell of the 75², 37² and 18² maps
+SSD_ANCHORS = 4 * (75 * 75 + 37 * 37 + 18 * 18)
+SSD_SGD = dict(learning_rate=0.2, momentum=0.9)  # the example's defaults
+SSD_WARMUP, SSD_PASSES = 2, 6
+SSD_WITNESS = 2
+SSD_REQUESTS = 3
+#: a MultiBoxTarget difference between the card and the CPU is accepted
+#: only at a near-tie of the hard-negative ranking, and a detection only
+#: where its score or an overlap lies this close to its threshold
+NEAR_TIE = 1e-5
+#: the agree phase's small SSD (tests/test_ssd.py)
+SMALL_SSD = dict(num_classes=2, num_filters=(8, 16, 16, 16))
+SMALL_SSD_SHAPE = (8, 3, 64, 64)
+
+
+def synthetic_detection(n, size=64, num_classes=2, seed=0,
+                        rows=SSD_LABEL_ROWS):
+    """examples/ssd/train_ssd.py's ``synthetic_detection``: one square of
+    ones per image, in the channel of its class mod 3, on zeros; its label
+    row [class, xmin, ymin, xmax, ymax] (in [0, 1]), then rows of -1 up to
+    ``rows`` (the example pads to 4; its --label-pad-width is 8)."""
+    rng = np.random.RandomState(seed)
+    data = np.zeros((n, 3, size, size), np.float32)
+    label = np.full((n, rows, 5), -1.0, np.float32)
+    for i in range(n):
+        s = rng.randint(size // 4, size // 2)
+        x0 = rng.randint(0, size - s)
+        y0 = rng.randint(0, size - s)
+        cls = rng.randint(0, num_classes)
+        data[i, cls % 3, y0:y0 + s, x0:x0 + s] = 1.0
+        label[i, 0] = [cls, x0 / size, y0 / size, (x0 + s) / size,
+                       (y0 + s) / size]
+    return data, label
+
+
+def ssd_loss(torch, outs):
+    """The example's cls + loc loss of one step from the train graph's
+    outputs (cls_prob, loc_loss, cls_target), computed where they lie."""
+    cls_prob, loc_loss, cls_target = (o._data.float() for o in outs)
+    valid = cls_target >= 0
+    idx = cls_target.clamp_min(0).long().unsqueeze(1)
+    picked = cls_prob.gather(1, idx).squeeze(1)
+    ce = -picked.clamp_min(1e-8).log()[valid].mean()
+    return (ce + loc_loss.sum() / valid.sum().clamp_min(1)).item()
+
+
+def ssd_module(mt, net, ctx, data_shape, label_shape, args=None, aux=None):
+    """The example's Module: data and label by name, Xavier() (or the
+    given parameters), SGD lr 0.2 momentum 0.9."""
+    mod = mt.mod.Module(net, data_names=("data",), label_names=("label",),
+                        context=ctx)
+    mod.bind(data_shapes=[mt.io.DataDesc("data", data_shape)],
+             label_shapes=[mt.io.DataDesc("label", label_shape)])
+    if args is None:
+        mod.init_params(mt.init.Xavier())
+    else:
+        mod.init_params(arg_params=args, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SSD_SGD)
+    return mod
+
+
+def ssd_target_probe(mt, ctx, args, aux, batch):
+    """The train graph's matching on ``ctx`` at the given state: the
+    heads' class predictions and MultiBoxTarget's (loc_mask, cls_target),
+    from a graph of the same layers and parameter names (the train graph
+    shows cls_target but not loc_mask).  Returns numpy arrays."""
+    import inspect
+
+    from mxnet_tpu_torch.models import ssd
+
+    widths = inspect.signature(ssd.get_ssd_train).parameters[
+        "num_filters"].default
+    with mt.NameManager():
+        _, (loc, cls, anchors) = ssd._ssd_graph(SSD["num_classes"], widths)
+        tmp = mt.sym._contrib_MultiBoxTarget(
+            anchors, mt.sym.Variable("label"), cls, overlap_threshold=0.5,
+            ignore_label=-1, negative_mining_ratio=3.0,
+            minimum_negative_samples=0, negative_mining_thresh=0.5,
+            variances=(0.1, 0.1, 0.2, 0.2), name="multibox_target")
+        net = mt.sym.Group([cls, tmp[1], tmp[2]])
+    feed = {k: mt.nd.NDArray(v.to(ctx.torch_device()), ctx)
+            for k, v in args.items()}
+    feed["data"] = batch.data[0].as_in_context(ctx)
+    feed["label"] = batch.label[0].as_in_context(ctx)
+    ex = net.bind(ctx, feed, aux_states={
+        k: mt.nd.NDArray(v.to(ctx.torch_device()), ctx)
+        for k, v in aux.items()})
+    return [o.asnumpy() for o in ex.forward(is_train=True)]
+
+
+def mining_gaps(cls_pred, loc_mask, k_ratio=3.0):
+    """Per sample, the relative score gap between the last mined hard
+    negative (rank k - 1 of the negatives by their best non-background
+    prediction) and the next one."""
+    pos = loc_mask.reshape(loc_mask.shape[0], -1, 4)[..., 0] > 0
+    scores = cls_pred[:, 1:, :].max(axis=1).astype(np.float64)
+    gaps = []
+    for s, p in zip(scores, pos):
+        k = int(np.float32(p.sum()) * np.float32(k_ratio))
+        neg = np.sort(s[~p])[::-1]
+        if 0 < k < len(neg):
+            gaps.append(abs(neg[k - 1] - neg[k]) / max(abs(neg[k - 1]),
+                                                       1e-30))
+        else:
+            gaps.append(np.inf)
+    return np.array(gaps)
+
+
+def ssd_cpu_witness(torch, mt, net, states, batches, losses):
+    """The card's first steps against the port's CPU route (held to the
+    JAX package by tests/test_torch_models.py) from the same states and
+    batches: the example's loss within the float32 agree limit, and
+    MultiBoxTarget's loc_mask and cls_target equal.  Where the targets
+    differ, the count of anchors and, per sample, the score gap at the
+    last hard negative are printed, and a difference is accepted only in
+    samples whose gap is under NEAR_TIE."""
+    cpu = mt.cpu()
+    t0 = time.perf_counter()
+    anchored, diffs = [], []
+    for (args, aux), batch in zip(states, batches):
+        host = mt.io.DataBatch(
+            data=[batch.data[0].as_in_context(cpu)],
+            label=[batch.label[0].as_in_context(cpu)], pad=0)
+        mod = ssd_module(mt, net, cpu, host.data[0].shape,
+                         host.label[0].shape,
+                         {k: mt.nd.NDArray(v.clone(), cpu)
+                          for k, v in args.items()},
+                         {k: mt.nd.NDArray(v.clone(), cpu)
+                          for k, v in aux.items()})
+        mod.forward(host, is_train=True)
+        anchored.append(ssd_loss(torch, mod.get_outputs()))
+        del mod
+        card = ssd_target_probe(mt, mt.gpu(0), args, aux, batch)
+        host_t = ssd_target_probe(mt, cpu, args, aux, batch)
+        mask_diff = card[1] != host_t[1]
+        cls_diff = card[2] != host_t[2]
+        samples = sorted(set(np.nonzero(mask_diff)[0]) |
+                         set(np.nonzero(cls_diff)[0]))
+        gaps = mining_gaps(host_t[0], host_t[1])
+        diffs.append((int(mask_diff.sum()) // 4, int(cls_diff.sum()),
+                      samples, gaps))
+    secs = time.perf_counter() - t0
+    card = losses[:len(states)]
+    err = max(abs(c - a) / abs(a) for c, a in zip(card, anchored))
+    limit = AGREE[None][1]
+    print("ssd: the card's first %d losses %s; the port's CPU route at the "
+          "card's states %s (%.1f s), relative error %.3g (tolerance %g)"
+          % (len(states), ["%.7f" % x for x in card],
+             ["%.7f" % x for x in anchored], secs, err, limit), flush=True)
+    check(err <= limit, "the SSD losses on the card disagree with the "
+          "port's CPU route: %s vs %s" % (card, anchored))
+    for step, (masks, classes, samples, gaps) in enumerate(diffs):
+        near = all(gaps[s] < NEAR_TIE for s in samples)
+        print("ssd: step %d MultiBoxTarget card vs CPU: %d anchors' loc_mask "
+              "and %d anchors' cls_target differ, in samples %s; the score "
+              "gap at the last hard negative there %s (accepted below %g: %s)"
+              % (step, masks, classes, samples,
+                 ["%.3g" % gaps[s] for s in samples], NEAR_TIE, near),
+              flush=True)
+        check(near, "MultiBoxTarget's targets differ between the card and "
+              "the CPU away from a near-tie (step %d, samples %s)"
+              % (step, samples))
+
+
+def nms_timer(torch):
+    """Wrap ``contrib_ops._nms_keep`` so that each call records CUDA events
+    around it; returns (the list of (start, end) event pairs, a function
+    that restores the original)."""
+    from mxnet_tpu_torch.ops import contrib_ops
+
+    original, spans = contrib_ops._nms_keep, []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    contrib_ops._nms_keep = timed
+
+    def restore():
+        contrib_ops._nms_keep = original
+
+    return spans, restore
+
+
+def detections_agree(card, host, thresh, nms_thresh):
+    """Rows kept (id >= 0) on the card and on the CPU: (number of rows that
+    differ, the rows not excused).  A differing row is excused where its
+    score lies within NEAR_TIE of ``thresh``, or where it overlaps a box
+    of its class (of the CPU's decoding) by an IoU within NEAR_TIE of
+    ``nms_thresh``, or, in turn, by more than ``nms_thresh`` a box that
+    is itself excused (a suppressor whose own keep flipped)."""
+    n_rows, bad = 0, []
+    for b in range(card.shape[0]):
+        ck, hk = card[b, :, 0] >= 0, host[b, :, 0] >= 0
+        differ = np.nonzero((ck != hk) | (ck & hk & (card[b, :, 0] !=
+                                                     host[b, :, 0])))[0]
+        n_rows += len(differ)
+        if not len(differ):
+            continue
+        boxes, scores = host[b, :, 2:], host[b, :, 1]
+        excused = {int(r) for r in differ
+                   if abs(scores[r] - thresh) <= NEAR_TIE}
+        ids = np.maximum(card[b, :, 0], host[b, :, 0])
+
+        def iou(r, others):
+            x0 = np.maximum(boxes[r, 0], boxes[others, 0])
+            y0 = np.maximum(boxes[r, 1], boxes[others, 1])
+            x1 = np.minimum(boxes[r, 2], boxes[others, 2])
+            y1 = np.minimum(boxes[r, 3], boxes[others, 3])
+            inter = np.maximum(x1 - x0, 0) * np.maximum(y1 - y0, 0)
+            area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+            return inter / np.maximum(area[r] + area[others] - inter, 1e-12)
+
+        same = {int(r): np.nonzero((ids == ids[r]) & (scores >= scores[r]) &
+                                   (np.arange(len(ids)) != r))[0]
+                for r in differ}
+        for r in differ:
+            if abs(iou(r, same[int(r)]) - nms_thresh).min(initial=1.0) \
+                    <= NEAR_TIE:
+                excused.add(int(r))
+        grew = True
+        while grew:
+            grew = False
+            for r in differ:
+                r = int(r)
+                if r in excused:
+                    continue
+                others = np.array(sorted(excused & set(same[r].tolist())),
+                                  int)
+                if len(others) and (iou(r, others) > nms_thresh).any():
+                    excused.add(r)
+                    grew = True
+        for r in differ:
+            print("ssd serve: sample %d row %d: card %s, CPU %s, %s"
+                  % (b, r, card[b, r, :2].tolist(), host[b, r, :2].tolist(),
+                     "near a threshold" if int(r) in excused else
+                     "NOT near a threshold"), flush=True)
+            if int(r) not in excused:
+                bad.append((b, int(r)))
+    return n_rows, bad
+
+
+def ssd_phase(torch, mt, profile_dir=None):
+    """Phase 10: the repo's SSD (BASELINE.md config #4, 20 classes, 300²,
+    batch 32) trained through ``mt.mod.Module`` on the default context as
+    examples/ssd/train_ssd.py drives it (forward, outputs, backward,
+    update) on its synthetic boxes, then served from the checkpoint by
+    ``mt.Predictor`` with ``get_ssd_detect``.  Training must keep every
+    parameter and aux state on the card, give finite losses whose last
+    pass is below the first, and match the port's CPU route at its first
+    steps (losses and MultiBoxTarget's targets); serving must give
+    well-formed detections whose kept rows are the CPU route's.  Returns
+    the launch counts (no kernel of the port's own is on this path)."""
+    from mxnet_tpu_torch.models import get_ssd_detect, get_ssd_train
+
+    with mt.NameManager():
+        net = get_ssd_train(**SSD)
+    with mt.NameManager():
+        det = get_ssd_detect(**SSD)
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          not torch.backends.cudnn.allow_tf32,
+          "a TF32 flag is on for the float32 SSD run")
+    X, L = synthetic_detection(SSD_IMAGES, size=SSD_IMAGE[1],
+                               num_classes=SSD["num_classes"])
+    it = mt.io.NDArrayIter(data=X, label=L, batch_size=SSD_BATCH,
+                           label_name="label")
+    mt.random.seed(SEED)
+    mt.kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod = mt.mod.Module(net, data_names=("data",), label_names=("label",),
+                        context=mt.current_context())
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mt.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SSD_SGD)
+    torch.cuda.synchronize()
+    ex = mod._exec_group.execs[0]
+    names = mod._exec_group.param_names
+    n_params = sum(ex.arg_dict[n].size for n in names)
+    on_card = all(ex.arg_dict[n]._data.is_cuda for n in names) and \
+        all(t._data.is_cuda for t in ex.aux_dict.values())
+    print("ssd: %d parameters and %d aux states on %s, bound and initialized "
+          "in %.2f s; %d images %s, labels %s, batch %d"
+          % (n_params, len(ex.aux_dict), ex.arg_dict[names[0]].context,
+             time.perf_counter() - t0, SSD_IMAGES, X.shape[1:], L.shape[1:],
+             SSD_BATCH), flush=True)
+    check(on_card, "the SSD parameters do not live on the card")
+
+    def step(batch):
+        t = time.perf_counter()
+        mod.forward(batch, is_train=True)
+        outs = mod.get_outputs()
+        loss = ssd_loss(torch, outs)
+        mod.backward()
+        mod.update()
+        torch.cuda.synchronize()
+        return loss, time.perf_counter() - t, outs
+
+    states, batches, losses, times, passes = [], [], [], [], []
+    it.reset()
+    for i, batch in zip(range(SSD_WARMUP), it):  # warm-up, first 2 batches
+        states.append(state_snapshot(mod))
+        batches.append(batch)
+        loss, secs, outs = step(batch)
+        losses.append(loss)
+        if i == 0:
+            shapes = [tuple(o.shape) for o in outs]
+        print("ssd: warm-up step %d: %.2f ms, loss %.6f"
+              % (i, secs * 1e3, loss), flush=True)
+    check(shapes[0] == (SSD_BATCH, SSD["num_classes"] + 1, SSD_ANCHORS),
+          "cls_prob has shape %s" % (shapes[0],))
+    for p in range(SSD_PASSES):
+        it.reset()
+        got = []
+        for batch in it:
+            loss, secs, _ = step(batch)
+            got.append(loss)
+            times.append(secs)
+        passes.append(float(np.mean(got)))
+        losses += got
+        print("ssd: pass %d: cls+loc loss %.6f (steps %s)"
+              % (p, passes[-1], ["%.4f" % x for x in got]), flush=True)
+    step_ms = float(np.mean(times[-5:])) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print("ssd: step ms %.2f (mean of the last 5 of %d steps after %d "
+          "warm-up; forward, backward, update as the example runs them); "
+          "img/s %.1f; peak device memory %.2f GB; outputs %s"
+          % (step_ms, len(times), SSD_WARMUP, SSD_BATCH / step_ms * 1e3,
+             peak_gb, shapes), flush=True)
+    check(all(np.isfinite(losses)), "SSD losses are not finite: %s" % losses)
+    check(passes[-1] < passes[0], "the SSD loss did not fall: passes %s"
+          % passes)
+    check(all(ex.arg_dict[n]._data.is_cuda for n in names) and
+          all(t._data.is_cuda for t in ex.aux_dict.values()),
+          "the SSD parameters left the card")
+    print("ssd: cls+loc loss per pass %s; every parameter and aux state on "
+          "%s" % (["%.6f" % x for x in passes],
+                  ex.arg_dict[names[0]]._data.device), flush=True)
+    ssd_cpu_witness(torch, mt, net, states, batches, losses)
+    if profile_dir:
+        profile(torch, lambda: step(batches[0]), profile_dir,
+                "ssd_train_step")
+    launches = dict(mt.kernels.LAUNCHES)
+
+    # serving: the checkpoint through Predictor with the detect graph
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ssd")
+        mod.save_checkpoint(prefix, SSD_PASSES)
+        del mod, ex
+        torch.cuda.empty_cache()
+        params = "%s-%04d.params" % (prefix, SSD_PASSES)
+        shapes = {"data": (SSD_BATCH,) + SSD_IMAGE}
+        pred = mt.Predictor(det, params, shapes)
+        host = mt.Predictor(det, params, shapes, ctx=mt.cpu())
+    spans, restore = nms_timer(torch)
+    attrs = det._outputs[0][0].attrs
+    req_ms, nms_ms = [], []
+    try:
+        for r in range(SSD_REQUESTS):
+            images = X[r * SSD_BATCH:(r + 1) * SSD_BATCH]
+            spans.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pred.forward(data=images)
+            out = pred.get_output(0)
+            torch.cuda.synchronize()
+            req_ms.append((time.perf_counter() - t) * 1e3)
+            nms_ms.append(sum(s.elapsed_time(e) for s, e in spans))
+            card = out.asnumpy()
+            host.forward(data=images)
+            ref = host.get_output(0).asnumpy()
+            ids = card[..., 0]
+            well = (card.shape == (SSD_BATCH, SSD_ANCHORS, 6) and
+                    np.isfinite(card).all() and ids.min() >= -1 and
+                    ids.max() <= SSD["num_classes"] - 1 and
+                    np.array_equal(ids, np.round(ids)) and
+                    card[..., 1].min() >= 0 and card[..., 1].max() <= 1 and
+                    card[..., 2:].min() >= 0 and card[..., 2:].max() <= 1)
+            n_diff, bad = detections_agree(card, ref, attrs["threshold"],
+                                           attrs["nms_threshold"])
+            kept = int((ids >= 0).sum())
+            print("ssd serve: request %d: %.2f ms (NMS %.2f ms, %.1f%%), "
+                  "output %s, %d rows kept (CPU %d), %d rows differ from "
+                  "the CPU route, %d not near a threshold"
+                  % (r, req_ms[-1], nms_ms[-1], 100 * nms_ms[-1] / req_ms[-1],
+                     card.shape, kept, int((ref[..., 0] >= 0).sum()), n_diff,
+                     len(bad)), flush=True)
+            check(well, "the SSD detections are not well formed (request %d)"
+                  % r)
+            check(kept > 0, "the SSD request kept no detection")
+            check(not bad, "the card's detections differ from the CPU "
+                  "route's away from any threshold: %s" % bad[:8])
+        if profile_dir:
+            images = X[:SSD_BATCH]
+            profile(torch, lambda: pred.forward(data=images), profile_dir,
+                    "ssd_request")
+    finally:
+        restore()
+    print("ssd serve: %d requests of %d images: first %.2f ms, then %.2f ms "
+          "per request; NMS %.2f ms of them (%.1f%%, %d rounds of "
+          "nms_topk %d)" % (SSD_REQUESTS, SSD_BATCH, req_ms[0],
+                            float(np.mean(req_ms[1:])),
+                            float(np.mean(nms_ms[1:])),
+                            100 * float(np.mean(nms_ms[1:])) /
+                            float(np.mean(req_ms[1:])),
+                            min(attrs["nms_topk"], SSD_ANCHORS),
+                            attrs["nms_topk"]), flush=True)
+    del pred, host
+    torch.cuda.empty_cache()
+    return launches
+
+
+def small_ssd_agreement(torch, mt):
+    """The small SSD of tests/test_ssd.py (2 classes, 64², batch 8, the
+    example's images) trained 3 SGD-momentum steps on the card and on the
+    CPU from one numpy init: the example's loss, parameters and aux states
+    within the float32 agree limit, and every step's class targets
+    equal."""
+    from mxnet_tpu_torch.models import get_ssd_train
+
+    with mt.NameManager():
+        net = get_ssd_train(**SMALL_SSD)
+    X, L = synthetic_detection(SMALL_SSD_SHAPE[0], size=SMALL_SSD_SHAPE[2],
+                               num_classes=2, seed=SEED, rows=4)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=X.shape, label=L.shape)
+    rng = np.random.RandomState(SEED + 9)
+    args = {}
+    for n, s in zip(net.list_arguments(), arg_shapes):
+        if n in ("data", "label"):
+            continue
+        if n.endswith("weight"):
+            rf = int(np.prod(s[2:]))
+            scale = np.sqrt(6.0 / (s[1] * rf + s[0] * rf))
+            args[n] = rng.uniform(-scale, scale, s).astype(np.float32)
+        else:
+            args[n] = (np.ones if n.endswith("gamma") else np.zeros)(
+                s, np.float32)
+    aux = {n: (np.zeros if n.endswith("mean") else np.ones)(s, np.float32)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+
+    def run(ctx):
+        mod = ssd_module(mt, net, ctx, X.shape, L.shape,
+                         {k: mt.nd.array(v, ctx) for k, v in args.items()},
+                         {k: mt.nd.array(v, ctx) for k, v in aux.items()})
+        batch = mt.io.DataBatch(data=[mt.nd.array(X, ctx)],
+                                label=[mt.nd.array(L, ctx)])
+        losses, targets = [], []
+        for _ in range(3):
+            mod.forward(batch, is_train=True)
+            outs = mod.get_outputs()
+            losses.append(ssd_loss(torch, outs))
+            targets.append(outs[2].asnumpy())
+            mod.backward()
+            mod.update()
+        a, x = mod.get_params()
+        return (losses, {k: v.asnumpy() for k, v in a.items()},
+                {k: v.asnumpy() for k, v in x.items()}, targets)
+
+    card, cpu = run(mt.gpu(0)), run(mt.cpu())
+    d = train_distance(card[:3], cpu[:3], args, aux)
+    same = all(np.array_equal(a, b) for a, b in zip(card[3], cpu[3]))
+    _, loss_tol, param_tol = AGREE[None]
+    print("check: small SSD trained 3 SGD-momentum steps (float32, lr 0.2) "
+          "on the card vs the CPU: losses %s vs %s, relative loss error %.3g "
+          "(tolerance %g), parameter error %.3g and aux error %.3g of the "
+          "largest (tolerance %g); class targets equal at every step: %s"
+          % (["%.6f" % x for x in card[0]], ["%.6f" % x for x in cpu[0]],
+             d[0], loss_tol, d[1], d[2], param_tol, same), flush=True)
+    check(d[0] <= loss_tol and d[1] <= param_tol and d[2] <= param_tol and
+          same, "the small SSD trained on the card disagrees with the CPU")
+
+
+#: the samplers' phase: (op, attrs, mean, variance, fourth central moment)
+SAMPLERS = (
+    ("_sample_uniform", dict(low=-2.0, high=5.0), 1.5, 49 / 12, 7 ** 4 / 80),
+    ("_sample_normal", dict(loc=3.0, scale=0.5), 3.0, 0.25, 3 * 0.5 ** 4),
+    ("_sample_gamma", dict(alpha=2.5, beta=1.5), 3.75, 5.625,
+     5.625 ** 2 * (3 + 6 / 2.5)),
+    ("_sample_exponential", dict(lam=4.0), 0.25, 1 / 16, 9 / 4 ** 4),
+    ("_sample_poisson", dict(lam=3.0), 3.0, 3.0, 3.0 * 10.0),
+)
+
+
+def random_phase(torch, mt):
+    """Phase 11: each sampler drawn on the card from the device generator
+    (``mt.nd`` on the default context): 2**20 draws whose mean and
+    variance lie within 6 standard errors of the distribution's; then
+    ``random.get_state``/``set_state`` replays the card's bits."""
+    n = 1 << 20
+    mt.random.seed(SEED)
+    for name, attrs, mean, var, mu4 in SAMPLERS:
+        x = getattr(mt.nd, name)(shape=(n,), **attrs)
+        check(x._data.is_cuda, "%s did not draw on the card" % name)
+        v = x._data.double()
+        m, s2 = v.mean().item(), v.var(unbiased=False).item()
+        ok = abs(m - mean) <= 6 * np.sqrt(var / n) and \
+            abs(s2 - var) <= 6 * np.sqrt((mu4 - var * var) / n)
+        print("random: %s %s on %s: mean %.6f (%.6f), variance %.6f (%.6f) "
+              "of %d draws; within 6 standard errors: %s"
+              % (name, attrs, x._data.device, m, mean, s2, var, n, ok),
+              flush=True)
+        check(ok, "%s's draws on the card are off their distribution" % name)
+    state = mt.random.get_state()
+    first = [mt.random.uniform(shape=(1000,)).asnumpy(),
+             mt.random.normal(shape=(1000,)).asnumpy(),
+             mt.random.randint(0, 1000, shape=(1000,)).asnumpy()]
+    mt.random.set_state(state)
+    again = [mt.random.uniform(shape=(1000,)).asnumpy(),
+             mt.random.normal(shape=(1000,)).asnumpy(),
+             mt.random.randint(0, 1000, shape=(1000,)).asnumpy()]
+    same = all(np.array_equal(a, b) for a, b in zip(first, again))
+    print("random: get_state/set_state on %s replays the bits of uniform, "
+          "normal and randint: %s" % (sorted(state["generators"]), same),
+          flush=True)
+    check(same, "set_state did not replay the card's draws")
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -2742,14 +3330,22 @@ def profile(torch, fn, outdir, label):
     trace = os.path.join(outdir, label + ".json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        trace_events = json.load(f)["traceEvents"]
+    events = [e for e in trace_events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    # the detection ops' profiler ranges on the device timeline
+    # (contrib_ops._detecting): their kernels form one group
+    detect = [(e["ts"], e["ts"] + e["dur"]) for e in trace_events
+              if e.get("cat") == "gpu_user_annotation"
+              and e.get("name", "").startswith("_contrib_")]
     span = max(e["ts"] + e["dur"] for e in events) - \
         min(e["ts"] for e in events)
     busy = sum(e["dur"] for e in events)
     groups, names = {}, {}
     for e in events:
         group = device_op_group(e)
+        if any(lo <= e["ts"] < hi for lo, hi in detect):
+            group = "detection (MultiBox)"
         ms, n = groups.get(group, (0.0, 0))
         groups[group] = (ms + e["dur"] / 1e3, n + 1)
         names.setdefault(group, set()).add(e["name"])
@@ -2859,8 +3455,9 @@ def main():
     ap.add_argument("--profile", metavar="DIR",
                     help="trace one extra request, one extra train step "
                          "(bf16 and float32), one extra splash step, one "
-                         "extra rtc_gelu train step and one extra ResNet-50 "
-                         "bf16 step with torch.profiler")
+                         "extra rtc_gelu train step, one extra ResNet-50 "
+                         "bf16 step, one extra SSD train step and one extra "
+                         "SSD request with torch.profiler")
     ap.add_argument("--parent-csrc", metavar="DIR", action="append",
                     default=[],
                     help="a csrc directory of another version (flash_fwd.cu "
@@ -2967,9 +3564,15 @@ def main():
     for dtype in (None, "bfloat16"):
         for what in SMALL_IMAGE:
             image_agreement(torch, mt, what, dtype)
+    small_ssd_agreement(torch, mt)
     resnet_launches = resnet_phase(torch, mt, opts.profile)
     print("resnet: kernel launches of the port's own in the phase: %s"
           % (resnet_launches or "none (cuDNN and plain torch)"), flush=True)
+    ssd_launches = ssd_phase(torch, mt, opts.profile)
+    print("ssd: kernel launches of the port's own in the phase: %s"
+          % (ssd_launches or "none (cuDNN, torch's CUDA convolution and "
+             "plain torch)"), flush=True)
+    random_phase(torch, mt)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -22,7 +22,7 @@ imperative ``nd.<op>`` surface, ``Symbol`` arithmetic and ``simple_bind``,
 """
 from . import base
 from .base import MXNetError
-from .context import Context, cpu, gpu, current_context
+from .context import Context, cpu, gpu, current_context, num_gpus
 from .attribute import AttrScope
 from .name import NameManager, Prefix
 from . import ndarray

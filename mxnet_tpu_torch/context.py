@@ -14,7 +14,7 @@ from typing import Optional
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
 
 
 class Context:
@@ -93,3 +93,10 @@ def gpu(device_id: int = 0) -> Context:
 
 def current_context() -> Context:
     return Context.default_ctx()
+
+
+def num_gpus() -> int:
+    """The number of CUDA devices (0 without CUDA)."""
+    import torch
+
+    return torch.cuda.device_count()

@@ -36,7 +36,7 @@ import torch
 from . import random as _random
 from .base import MXNetError
 from .context import Context
-from .ndarray import _torch_dtype
+from .ops.param import torch_dtype
 from .ops import OpContext
 from .optimizer import _tensors
 
@@ -79,10 +79,10 @@ class _GraphPlan:
         return out
 
     def run(self, args: Dict[str, Any], aux: Dict[str, Any], is_train: bool,
-            generator=None):
-        """Execute the graph on tensors.  An intermediate is released as
-        soon as its last reader has run, so peak memory follows the live
-        activations (and, under autograd, what the backward keeps).
+            device, generator=None):
+        """Execute the graph on tensors of ``device``.  An intermediate is
+        released as soon as its last reader has run, so peak memory follows
+        the live activations (and, under autograd, what the backward keeps).
         Stochastic ops draw from ``generator`` in topological order."""
         vals: Dict[tuple, Any] = {}
         left = dict(self.readers)
@@ -97,7 +97,7 @@ class _GraphPlan:
             ins = [vals[(id(p), idx)] for p, idx in n.inputs]
             aux_in = tuple(aux[a] for a in n.aux_names())
             opctx = OpContext(is_train, generator if n.op.stochastic
-                              else None)
+                              else None, device)
             outs, aux_out = n.op.apply(opctx, n.attrs, ins, aux_in)
             del ins
             for i, o in enumerate(outs):
@@ -125,7 +125,7 @@ class Executor:
         # everything else is cast, token ids included: bf16 ids above 256
         # are rounded before Embedding truncates them (ROADMAP.md §C).
         self._compute_dtype = None if compute_dtype is None else \
-            _torch_dtype(compute_dtype)
+            torch_dtype(compute_dtype)
         self._cast_exclude = frozenset(cast_exclude)
 
         if isinstance(args, dict):
@@ -249,7 +249,7 @@ class Executor:
         gen = self._generator(remember=True)
         with torch.no_grad():
             outs, new_aux = self._plan.run(self._cast(args), aux, is_train,
-                                           gen)
+                                           self._ctx.torch_device(), gen)
         if is_train:
             for k, v in new_aux.items():
                 self.aux_dict[k]._set(v)
@@ -283,7 +283,7 @@ class Executor:
         aux = {k: v._data for k, v in self.aux_dict.items()}
         with torch.enable_grad():
             outs, new_aux = self._plan.run(self._cast(args), aux, is_train,
-                                           generator)
+                                           self._ctx.torch_device(), generator)
         if out_grads is None:
             ogs = [None] * len(outs)
         elif isinstance(out_grads, (list, tuple)):

@@ -1,7 +1,6 @@
 """Model symbol builders of the port (counterpart of
-``mxnet_tpu/models``): the image classifiers and the transformer LM.  The
-JAX package's ``ssd`` and ``dlrm`` builders need ops the port does not
-have yet (the contrib MultiBox ops, ``sparse/``)."""
+``mxnet_tpu/models``): the image classifiers, SSD and the transformer LM.
+The JAX package's ``get_dlrm`` waits for ``sparse/``."""
 from . import transformer  # noqa: F401
 from .lenet import get_lenet
 from .mlp import get_mlp
@@ -11,8 +10,10 @@ from .inception_bn import get_inception_bn
 from .inception_v3 import get_inception_v3
 from .vgg import get_vgg
 from .googlenet import get_googlenet
+from .ssd import get_ssd_train, get_ssd_detect, get_ssd_symbols
 from .transformer import get_transformer_lm
 
-__all__ = ["get_lenet", "get_mlp", "get_resnet", "get_alexnet",
+__all__ = ["get_ssd_train", "get_ssd_detect", "get_ssd_symbols",
+           "get_lenet", "get_mlp", "get_resnet", "get_alexnet",
            "get_inception_bn", "get_inception_v3", "get_vgg",
            "get_googlenet", "get_transformer_lm"]

@@ -31,29 +31,14 @@ import torch
 from .base import MXNetError, mx_real_t
 from .context import Context, cpu, gpu, current_context
 from .ops import OpContext, registered_ops
+from .ops.param import TORCH_DTYPES, torch_dtype
 from . import random as _random
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "moveaxis", "onehot_encode", "waitall", "load",
            "save"]
 
-_TORCH_DTYPES = {
-    "float32": torch.float32, "float64": torch.float64,
-    "float16": torch.float16, "bfloat16": torch.bfloat16,
-    "uint8": torch.uint8, "int8": torch.int8, "int32": torch.int32,
-    "int64": torch.int64, "bool": torch.bool,
-}
-_DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
-
-
-def _torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a numpy dtype, a dtype name or a torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
-    if name not in _TORCH_DTYPES:
-        raise MXNetError("unsupported dtype %s" % name)
-    return _TORCH_DTYPES[name]
+_DTYPE_NAMES = {v: k for k, v in TORCH_DTYPES.items()}
 
 
 def _default_ctx(ctx) -> Context:
@@ -114,7 +99,7 @@ class NDArray:
 
     def astype(self, dtype) -> "NDArray":
         """A copy converted to ``dtype``."""
-        return NDArray(self._data.to(_torch_dtype(dtype), copy=True),
+        return NDArray(self._data.to(torch_dtype(dtype), copy=True),
                        self._ctx)
 
     def copyto(self, other) -> "NDArray":
@@ -352,8 +337,9 @@ def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
 def _invoke(op_name: str, args, kwargs):
     """Run registered op ``op_name`` on NDArrays: positional inputs, array
     kwargs by input name, every other kwarg an attr; ``out=`` receives the
-    result in place; updated aux states are written back to their
-    arrays."""
+    result in place; updated aux states are written back to their arrays.
+    The op runs on the context of its first NDArray input, else its
+    ``ctx`` attr, else ``out``'s, else the current context."""
     op = registered_ops()[op_name]
     kwargs = dict(kwargs)
     out = kwargs.pop("out", None)
@@ -371,9 +357,12 @@ def _invoke(op_name: str, args, kwargs):
         slot.update(nd_kwargs)
         inputs = [slot[n] for n in names if n in slot]
     ctx = next((a.context for a in inputs if isinstance(a, NDArray)), None)
+    if ctx is None and parsed.get("ctx"):
+        ctx = _parse_ctx(parsed["ctx"])
+    if ctx is None and out is not None:  # a source op writes where out is
+        ctx = (out[0] if isinstance(out, (list, tuple)) else out).context
     if ctx is None:
-        ctx = _parse_ctx(parsed["ctx"]) if parsed.get("ctx") \
-            else current_context()
+        ctx = current_context()
     device = ctx.torch_device()
     tensors = [a._data if isinstance(a, NDArray) else _as_tensor(a, device)
                for a in inputs]
@@ -382,8 +371,8 @@ def _invoke(op_name: str, args, kwargs):
     aux_in = tuple(tensors[len(tensors) - n_aux:])
     gen = _random.generator(device) if op.stochastic else None
     with torch.no_grad():
-        outs, aux_updates = op.apply(OpContext(False, gen), parsed, main_in,
-                                     aux_in)
+        outs, aux_updates = op.apply(OpContext(False, gen, device), parsed,
+                                     main_in, aux_in)
     for holder, new in zip(inputs[len(inputs) - n_aux:], aux_updates):
         if isinstance(holder, NDArray) and new is not holder._data:
             holder._set(new)
@@ -455,7 +444,7 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
         else:
             dtype = src.dtype
     ctx = _default_ctx(ctx)
-    data = src.to(device=ctx.torch_device(), dtype=_torch_dtype(dtype),
+    data = src.to(device=ctx.torch_device(), dtype=torch_dtype(dtype),
                   copy=is_nd)
     return NDArray(data, ctx)
 
@@ -464,7 +453,7 @@ def zeros(shape, ctx=None, dtype=mx_real_t) -> NDArray:
     if isinstance(shape, int):
         shape = (shape,)
     ctx = _default_ctx(ctx)
-    return NDArray(torch.zeros(tuple(shape), dtype=_torch_dtype(dtype),
+    return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
                                device=ctx.torch_device()), ctx)
 
 
@@ -482,7 +471,7 @@ def full(shape, val, ctx=None, dtype=mx_real_t) -> NDArray:
     if isinstance(shape, int):
         shape = (shape,)
     ctx = _default_ctx(ctx)
-    return NDArray(torch.full(tuple(shape), val, dtype=_torch_dtype(dtype),
+    return NDArray(torch.full(tuple(shape), val, dtype=torch_dtype(dtype),
                               device=ctx.torch_device()), ctx)
 
 

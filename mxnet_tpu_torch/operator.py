@@ -212,14 +212,14 @@ def _operator(prop, main):
 
 def _out_spec(prop, main):
     """(out_shapes, out torch dtypes) of the op for these inputs."""
-    from .ndarray import _torch_dtype
+    from .ops.param import torch_dtype
 
     _, oshapes, _ = _normalize_shapes(prop, [t.shape for t in main])
     try:
         odts = prop.infer_type([_np_dtype(t) for t in main])[1]
     except NotImplementedError:
         odts = [_np_dtype(main[0])] * len(oshapes)
-    return oshapes, [_torch_dtype(d) for d in odts]
+    return oshapes, [torch_dtype(d) for d in odts]
 
 
 def _wrap(tensors):

@@ -12,6 +12,10 @@ from . import indexing  # noqa: F401
 from . import nn  # noqa: F401
 from . import attention  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import init_ops  # noqa: F401
+from . import sample  # noqa: F401
+from . import ordering  # noqa: F401
+from . import contrib_ops  # noqa: F401
 
 __all__ = ["Op", "OpContext", "register", "get_op", "registered_ops",
            "Param", "register_kernel_op"]

@@ -1,6 +1,8 @@
-"""Gather ops: ``Embedding``, ``take`` and ``_onehot_encode``.
+"""Gather ops: ``Embedding``, ``take``, ``_onehot_encode``, ``batch_take``,
+``one_hot``, ``pick`` (``choose_element_0index``) and
+``fill_element_0index``.
 
-Counterparts of ``mxnet_tpu/ops/indexing.py`` (``:27``, ``:60``, ``:129``).  Indices
+Counterparts of ``mxnet_tpu/ops/indexing.py``.  Indices
 arrive as floats or ints and are truncated toward zero, as ``astype(int32)``
 does in the JAX package.  Out-of-range Embedding ids are clipped to the
 table (the reference's Take semantics); JAX fills such rows with NaN, so the
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .param import Param
+from .param import Param, torch_dtype
 from .registry import register
 
 
@@ -97,3 +99,73 @@ def _onehot_encode(opctx, attrs, lhs, rhs):
     [0, depth) gives a row of zeros, as ``jax.nn.one_hot`` does."""
     classes = torch.arange(rhs.shape[1], device=lhs.device)
     return (lhs.to(torch.int64).unsqueeze(-1) == classes).to(rhs.dtype)
+
+
+@register("batch_take", inputs=("a", "indices"), no_grad_inputs=("indices",))
+def _batch_take(opctx, attrs, a, indices):
+    """Row i's element at column indices[i]."""
+    idx = indices.to(torch.int64).reshape(-1)
+    return a[torch.arange(a.shape[0], device=a.device), idx]
+
+
+def _one_hot_infer(attrs, in_shapes):
+    (ishape,) = in_shapes
+    if ishape is None:
+        return in_shapes, [None], []
+    return in_shapes, [tuple(ishape) + (attrs["depth"],)], []
+
+
+@register("one_hot", inputs=("indices",),
+          params={"depth": Param(int, required=True),
+                  "on_value": Param(float, 1.0),
+                  "off_value": Param(float, 0.0),
+                  "dtype": Param("dtype", "float32")},
+          infer_shape=_one_hot_infer, no_grad_inputs=("indices",))
+def _one_hot(opctx, attrs, indices):
+    """One-hot rows of ``depth`` (``off_value`` everywhere but
+    ``on_value`` at the index; an index outside [0, depth) gives a row of
+    ``off_value``, as ``jax.nn.one_hot`` does)."""
+    depth = attrs["depth"]
+    on, off = attrs.get("on_value", 1.0), attrs.get("off_value", 0.0)
+    classes = torch.arange(depth, device=indices.device)
+    oh = (indices.to(torch.int64).unsqueeze(-1) == classes).to(
+        torch_dtype(attrs.get("dtype", "float32")))
+    return oh * (on - off) + off
+
+
+def _pick_infer(attrs, in_shapes):
+    data, index = in_shapes
+    if data is None:
+        return in_shapes, [None], []
+    axis = attrs.get("axis", -1) % len(data)
+    out = list(data)
+    if attrs.get("keepdims", False):
+        out[axis] = 1
+    else:
+        del out[axis]
+    return in_shapes, [tuple(out)], []
+
+
+@register("pick", inputs=("data", "index"),
+          params={"axis": Param(int, -1), "keepdims": Param(bool, False)},
+          infer_shape=_pick_infer, no_grad_inputs=("index",),
+          aliases=("choose_element_0index",))
+def _pick(opctx, attrs, data, index):
+    """The element at ``index`` along ``axis`` (indices clipped to the
+    axis, the reference's mode)."""
+    axis = attrs.get("axis", -1) % data.ndim
+    idx = index.to(torch.int64).clamp(0, data.shape[axis] - 1)
+    out = torch.gather(data, axis, idx.unsqueeze(axis))
+    if not attrs.get("keepdims", False):
+        out = out.squeeze(axis)
+    return out
+
+
+@register("fill_element_0index", inputs=("lhs", "mhs", "rhs"),
+          no_grad_inputs=("rhs",))
+def _fill_element_0index(opctx, attrs, lhs, mhs, rhs):
+    """A copy of ``lhs`` with lhs[i, rhs[i]] = mhs[i]."""
+    out = lhs.clone()
+    out[torch.arange(lhs.shape[0], device=lhs.device),
+        rhs.to(torch.int64)] = mhs
+    return out

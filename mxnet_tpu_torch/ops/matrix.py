@@ -1,8 +1,13 @@
-"""Shape ops: ``Reshape`` with MXNet's special codes, ``Flatten``,
-``slice_axis``, ``Concat`` and ``SliceChannel``.
+"""Shape and product ops: ``Reshape`` with MXNet's special codes,
+``Flatten``, ``slice_axis``, ``Concat``, ``SliceChannel``, ``transpose``,
+``expand_dims``, ``SwapAxis``, ``Cast``, ``slice`` and the slice
+assignments, ``clip``, ``repeat``, ``tile``, ``reverse``, ``where``,
+``dot``, ``batch_dot``, ``Pad`` and ``Crop``.
 
-Counterparts of ``mxnet_tpu/ops/matrix.py`` (``:74``, ``:83-92``, ``:133``,
-``:252-271``, ``:291``).
+Counterparts of ``mxnet_tpu/ops/matrix.py``, with the same names, aliases,
+parameters and shape inference.  ``dot`` and ``batch_dot`` are plain
+products (``torch.tensordot``/``torch.matmul``, TF32 off), as the JAX
+package leaves them to XLA.
 ``SliceChannel`` returns views of its input, so the attention kernel that
 consumes its q/k/v outputs reads them through strides without a copy.
 """
@@ -10,8 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .param import Param
+from .param import Param, torch_dtype
 from .registry import register
 
 
@@ -155,3 +161,244 @@ def _concat_infer(attrs, in_shapes):
           infer_shape=_concat_infer, hint="concat")
 def _concat(opctx, attrs, *args):
     return torch.cat(args, dim=attrs.get("dim", 1))
+
+
+# ---------------------------------------------------------------------------
+# Layout ops, slicing and assignment
+# ---------------------------------------------------------------------------
+
+
+@register("transpose", params={"axes": Param("shape", ())})
+def _transpose(opctx, attrs, x):
+    """``x`` with its axes permuted by ``axes``, reversed when none."""
+    axes = attrs.get("axes") or tuple(reversed(range(x.ndim)))
+    return x.permute(*axes)
+
+
+@register("expand_dims", params={"axis": Param(int, required=True)})
+def _expand_dims(opctx, attrs, x):
+    return x.unsqueeze(attrs["axis"])
+
+
+@register("SwapAxis", aliases=("swapaxes", "SwapAxes"),
+          params={"dim1": Param(int, 0), "dim2": Param(int, 0)},
+          hint="swapaxis")
+def _swapaxis(opctx, attrs, x):
+    return x.transpose(attrs.get("dim1", 0), attrs.get("dim2", 0))
+
+
+@register("Cast", aliases=("cast",),
+          params={"dtype": Param("dtype", required=True)}, hint="cast")
+def _cast(opctx, attrs, x):
+    return x.to(torch_dtype(attrs["dtype"]))
+
+
+def _box(begin, end):
+    """The index of the box [begin, end) (an end of 0 runs to the end)."""
+    return tuple(slice(b, e if e != 0 else None) for b, e in zip(begin, end))
+
+
+@register("slice", aliases=("crop",),
+          params={"begin": Param("shape", required=True),
+                  "end": Param("shape", required=True)})
+def _slice(opctx, attrs, x):
+    return x[_box(attrs["begin"], attrs["end"])]
+
+
+@register("_slice_assign", aliases=("_crop_assign",), inputs=("lhs", "rhs"),
+          params={"begin": Param("shape", required=True),
+                  "end": Param("shape", required=True)})
+def _slice_assign(opctx, attrs, lhs, rhs):
+    """A copy of ``lhs`` with the box [begin, end) set to ``rhs``."""
+    out = lhs.clone()
+    out[_box(attrs["begin"], attrs["end"])] = rhs
+    return out
+
+
+@register("_crop_assign_scalar",
+          params={"begin": Param("shape", required=True),
+                  "end": Param("shape", required=True),
+                  "scalar": Param(float, 0.0)})
+def _crop_assign_scalar(opctx, attrs, x):
+    out = x.clone()
+    out[_box(attrs["begin"], attrs["end"])] = attrs.get("scalar", 0.0)
+    return out
+
+
+@register("clip", params={"a_min": Param(float, required=True),
+                          "a_max": Param(float, required=True)})
+def _clip(opctx, attrs, x):
+    return torch.clamp(x, attrs["a_min"], attrs["a_max"])
+
+
+@register("repeat", params={"repeats": Param(int, required=True),
+                            "axis": Param("int-or-none", None)})
+def _repeat(opctx, attrs, x):
+    """Each element ``repeats`` times along ``axis`` (of the flattened
+    array when None), as ``np.repeat``."""
+    return torch.repeat_interleave(x, attrs["repeats"], dim=attrs.get("axis"))
+
+
+@register("tile", params={"reps": Param("shape", required=True)})
+def _tile(opctx, attrs, x):
+    return torch.tile(x, tuple(attrs["reps"]))
+
+
+@register("reverse", aliases=("flip",),
+          params={"axis": Param("shape", required=True)})
+def _reverse(opctx, attrs, x):
+    axis = attrs["axis"]
+    return torch.flip(x, (axis,) if isinstance(axis, int) else tuple(axis))
+
+
+@register("where", inputs=("condition", "x", "y"))
+def _where(opctx, attrs, cond, x, y):
+    return torch.where(cond.to(torch.bool), x, y)
+
+
+@register("_identity_with_attr_like_rhs", inputs=("lhs", "rhs"),
+          no_grad_inputs=("rhs",))
+def _identity_like_rhs(opctx, attrs, lhs, rhs):
+    return lhs
+
+
+# ---------------------------------------------------------------------------
+# dot / batch_dot: plain products (torch.matmul, TF32 off)
+# ---------------------------------------------------------------------------
+
+_DOT_SPEC = {"transpose_a": Param(bool, False),
+             "transpose_b": Param(bool, False)}
+
+
+def _dot_infer(attrs, in_shapes):
+    """The JAX package's rule, kept as it is: it takes ``rhs``'s first axis
+    as the contracted one, where the op (``np.dot``) contracts its
+    second-to-last, so the two disagree once ``rhs`` has 3 or more axes
+    (ROADMAP C)."""
+    a, b = in_shapes
+    if a is None or b is None:
+        return in_shapes, [None], []
+    ta, tb = attrs.get("transpose_a", False), attrs.get("transpose_b", False)
+    if len(a) == 1 and len(b) == 1:
+        return in_shapes, [(1,)], []
+    am = a[::-1] if ta else a
+    bm = b[::-1] if tb else b
+    return in_shapes, [tuple(am[:-1] + bm[1:])], []
+
+
+def _reversed_axes(x):
+    return x.permute(*reversed(range(x.ndim)))
+
+
+@register("dot", inputs=("lhs", "rhs"), params=dict(_DOT_SPEC),
+          infer_shape=_dot_infer)
+def _dot(opctx, attrs, a, b):
+    """``np.dot``: the last axis of ``lhs`` against the second-to-last of
+    ``rhs`` (its only one when 1-d), each transposed first (every axis
+    reversed) on request; two vectors give shape (1,)."""
+    if attrs.get("transpose_a", False):
+        a = _reversed_axes(a)
+    if attrs.get("transpose_b", False):
+        b = _reversed_axes(b)
+    if a.ndim == 0 or b.ndim == 0:
+        return a * b
+    if a.ndim == 1 and b.ndim == 1:
+        return torch.dot(a, b).reshape((1,))
+    return torch.tensordot(a, b, dims=([a.ndim - 1], [max(b.ndim - 2, 0)]))
+
+
+def _batch_dot_infer(attrs, in_shapes):
+    a, b = in_shapes
+    if a is None or b is None:
+        return in_shapes, [None], []
+    ta, tb = attrs.get("transpose_a", False), attrs.get("transpose_b", False)
+    m = a[2] if ta else a[1]
+    n = b[1] if tb else b[2]
+    return in_shapes, [(a[0], m, n)], []
+
+
+@register("batch_dot", inputs=("lhs", "rhs"), params=dict(_DOT_SPEC),
+          infer_shape=_batch_dot_infer)
+def _batch_dot(opctx, attrs, a, b):
+    if attrs.get("transpose_a", False):
+        a = a.transpose(-1, -2)
+    if attrs.get("transpose_b", False):
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Pad / Crop
+# ---------------------------------------------------------------------------
+
+
+def _pad_infer(attrs, in_shapes):
+    (ishape,) = in_shapes
+    if ishape is None:
+        return in_shapes, [None], []
+    pw = attrs["pad_width"]
+    out = tuple(ishape[i] + pw[2 * i] + pw[2 * i + 1]
+                for i in range(len(ishape)))
+    return in_shapes, [out], []
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """Source positions of an axis of extent ``n`` padded by (lo, hi):
+    ``edge`` repeats the end values, ``reflect`` mirrors about them (the
+    end values once), as ``np.pad`` does."""
+    pos = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return pos.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    pos = torch.remainder(pos, period)
+    return torch.where(pos >= n, period - pos, pos)
+
+
+@register("Pad", aliases=("pad",),
+          params={"mode": Param(str, "constant",
+                                enum=("constant", "edge", "reflect")),
+                  "pad_width": Param("shape", required=True),
+                  "constant_value": Param(float, 0.0)},
+          infer_shape=_pad_infer, hint="pad")
+def _pad(opctx, attrs, x):
+    """``np.pad`` of every axis by ``pad_width``'s (before, after) pairs:
+    a constant, or gathers of the edge or mirrored positions (whose
+    gradient sums into the sources, as the JAX op's does)."""
+    pw = attrs["pad_width"]
+    mode = attrs.get("mode", "constant")
+    if mode == "constant":
+        flat = []
+        for i in reversed(range(x.ndim)):
+            flat += [pw[2 * i], pw[2 * i + 1]]
+        return F.pad(x, flat, value=attrs.get("constant_value", 0.0))
+    for i in range(x.ndim):
+        lo, hi = pw[2 * i], pw[2 * i + 1]
+        if lo or hi:
+            x = torch.index_select(
+                x, i, _pad_index(x.shape[i], lo, hi, mode, x.device))
+    return x
+
+
+def _crop_inputs(attrs):
+    return ["data", "crop_like"] if int(attrs.get("num_args", 1)) == 2 \
+        else ["data"]
+
+
+@register("Crop", inputs=_crop_inputs,
+          params={"num_args": Param(int, 1), "offset": Param("shape", (0, 0)),
+                  "h_w": Param("shape", (0, 0)),
+                  "center_crop": Param(bool, False)},
+          no_grad_inputs=("crop_like",), hint="crop")
+def _crop_op(opctx, attrs, x, *rest):
+    """Spatial crop of NCHW data to ``h_w`` or ``crop_like``'s height and
+    width, at ``offset`` or centred."""
+    if rest:
+        th, tw = rest[0].shape[2], rest[0].shape[3]
+    else:
+        th, tw = attrs["h_w"]
+    h, w = x.shape[2], x.shape[3]
+    if attrs.get("center_crop"):
+        oy, ox = (h - th) // 2, (w - tw) // 2
+    else:
+        oy, ox = attrs.get("offset", (0, 0))
+    return x[:, :, oy:oy + th, ox:ox + tw]

@@ -269,31 +269,32 @@ def _no_cudnn():
 class _WideConv(torch.autograd.Function):
     """A float32 (or float64) convolution on the card by torch's own CUDA
     convolution (im2col and cuBLAS products, TF32 off), forward and
-    backward, with cuDNN off around each call.  cuDNN's default algorithm
-    for some float32 shapes is not float32-accurate with TF32 off (the
-    weight gradient of LeNet's first layer, one input channel, 5x5;
-    chip_smoke.py's ``conv_precision_check`` measures it), where the JAX
-    package's float32 convolutions are."""
+    backward, with cuDNN off around each call; ``transposed`` with
+    ``out_pad`` the transposed convolution (Deconvolution, bilinear
+    UpSampling).  cuDNN's default algorithm for some float32 shapes is not
+    float32-accurate with TF32 off (the weight gradient of LeNet's first
+    layer, one input channel, 5x5; chip_smoke.py's
+    ``conv_precision_check`` measures it), where the JAX package's float32
+    convolutions are."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, pad, dil, groups):
+    def forward(ctx, x, w, stride, pad, dil, groups, transposed=False,
+                out_pad=None):
+        out_pad = list(out_pad or [0] * len(stride))
         ctx.save_for_backward(x, w)
-        ctx.conf = (stride, pad, dil, groups)
+        ctx.conf = (stride, pad, dil, transposed, out_pad, groups)
         with _no_cudnn():
             return torch.ops.aten.convolution(x, w, None, stride, pad, dil,
-                                              False, [0] * len(stride),
-                                              groups)
+                                              transposed, out_pad, groups)
 
     @staticmethod
     def backward(ctx, ct):
         x, w = ctx.saved_tensors
-        stride, pad, dil, groups = ctx.conf
         with _no_cudnn():
             gx, gw, _ = torch.ops.aten.convolution_backward(
-                ct, x, w, None, stride, pad, dil, False, [0] * len(stride),
-                groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
-                         False])
-        return gx, gw, None, None, None, None
+                ct, x, w, None, *ctx.conf,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None, None, None, None
 
 
 @register("Convolution", inputs=_conv_inputs, params=dict(_CONV_SPEC),
@@ -551,3 +552,419 @@ def _dropout(opctx, attrs, x):
     mask = torch.rand(x.shape, generator=opctx.generator,
                       device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# LeakyReLU
+# ---------------------------------------------------------------------------
+
+
+def _leaky_inputs(attrs):
+    if attrs.get("act_type", "leaky") == "prelu":
+        return ["data", "gamma"]
+    return ["data"]
+
+
+def _leaky_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if attrs.get("act_type", "leaky") == "prelu":
+        g = (d[1],) if d is not None else in_shapes[1]
+        return [d, g], [d], []
+    return in_shapes, [d], []
+
+
+@register("LeakyReLU", inputs=_leaky_inputs,
+          params={"act_type": Param(str, "leaky",
+                                    enum=("rrelu", "leaky", "prelu", "elu")),
+                  "slope": Param(float, 0.25),
+                  "lower_bound": Param(float, 0.125),
+                  "upper_bound": Param(float, 0.334)},
+          infer_shape=_leaky_infer, stochastic=True, hint="leakyrelu")
+def _leaky_relu(opctx, attrs, x, *rest):
+    """x where x > 0, else: slope·x (leaky), slope·(eˣ − 1) (elu), γ·x
+    with a learned γ per channel (prelu), or (rrelu) a slope drawn from
+    U(lower_bound, upper_bound) per element from the ``OpContext``
+    generator in training, their mean in inference."""
+    t = attrs.get("act_type", "leaky")
+    if t == "leaky":
+        return torch.where(x > 0, x, attrs.get("slope", 0.25) * x)
+    if t == "elu":
+        return torch.where(x > 0, x, attrs.get("slope", 0.25) *
+                           torch.expm1(x))
+    if t == "prelu":
+        gamma = rest[0].reshape((1, -1) + (1,) * (x.ndim - 2))
+        return torch.where(x > 0, x, gamma * x)
+    lo, up = attrs.get("lower_bound", 0.125), attrs.get("upper_bound", 0.334)
+    if opctx.is_train and opctx.generator is not None:
+        slope = (torch.rand(x.shape, generator=opctx.generator,
+                            device=x.device) * (up - lo) + lo).to(x.dtype)
+    else:
+        slope = (lo + up) / 2.0
+    return torch.where(x > 0, x, slope * x)
+
+
+# ---------------------------------------------------------------------------
+# Deconvolution
+# ---------------------------------------------------------------------------
+
+_DECONV_SPEC = dict(_CONV_SPEC)
+_DECONV_SPEC.update({
+    "adj": Param("shape", ()),
+    "target_shape": Param("shape", ()),
+})
+
+
+def _deconv_infer(attrs, in_shapes):
+    """The JAX package's rule, kept as it is: with ``target_shape`` it
+    gives that spatial size, which the op (like the JAX op) never crops or
+    pads to (ROADMAP C)."""
+    data = in_shapes[0]
+    if data is None:
+        return in_shapes, [None], []
+    kernel = attrs["kernel"]
+    nd = len(kernel)
+    stride = _tup(attrs.get("stride"), nd, 1)
+    pad = _tup(attrs.get("pad"), nd, 0)
+    adj = _tup(attrs.get("adj"), nd, 0)
+    nf, ng = attrs["num_filter"], attrs.get("num_group", 1)
+    wshape = (data[1], nf // ng) + tuple(kernel)
+    shapes = [data, wshape] + ([] if attrs.get("no_bias") else [(nf,)])
+    tgt = attrs.get("target_shape")
+    if tgt:
+        spatial = tuple(tgt)
+    else:
+        spatial = tuple(
+            stride[i] * (data[2 + i] - 1) + kernel[i] - 2 * pad[i] + adj[i]
+            for i in range(nd))
+    return shapes, [(data[0], nf) + spatial], []
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _conv_transpose(data, weight, stride, pad, adj, groups):
+    """The transposed convolution of NC(D)HW data by a (C, F/g, *k)
+    weight: size s·(x − 1) + k − 2p + adj per spatial axis.  On the card
+    in float32 by ``_WideConv``, else ``F.conv_transpose1d/2d/3d``."""
+    nd = data.ndim - 2
+    dil = (1,) * nd
+    if data.is_cuda and data.dtype in (torch.float32, torch.float64):
+        return _WideConv.apply(data, weight, list(stride), list(pad),
+                               list(dil), groups, True, list(adj))
+    return _CONV_T[nd](data, weight, None, stride, pad, adj, groups, dil)
+
+
+@register("Deconvolution", inputs=_conv_inputs, params=dict(_DECONV_SPEC),
+          infer_shape=_deconv_infer, hint="deconvolution")
+def _deconvolution(opctx, attrs, data, weight, *rest):
+    """Transposed convolution (the backward of Convolution), with ``adj``
+    added after the last position of each axis.  As in the JAX op,
+    ``dilate`` and ``target_shape`` do not change the result."""
+    kernel = attrs["kernel"]
+    nd = len(kernel)
+    out = _conv_transpose(data, weight, _tup(attrs.get("stride"), nd, 1),
+                          _tup(attrs.get("pad"), nd, 0),
+                          _tup(attrs.get("adj"), nd, 0),
+                          attrs.get("num_group", 1))
+    if rest:
+        out = out + rest[0].reshape((1, -1) + (1,) * nd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# InstanceNorm, L2Normalization, SoftmaxActivation
+# ---------------------------------------------------------------------------
+
+
+@register("InstanceNorm", inputs=("data", "gamma", "beta"),
+          params={"eps": Param(float, 1e-3)},
+          infer_shape=lambda attrs, s: (
+              [s[0], (s[0][1],), (s[0][1],)] if s[0] is not None else s,
+              [s[0]], []),
+          hint="instancenorm")
+def _instance_norm(opctx, attrs, data, gamma, beta):
+    """Each sample and channel normalized over its spatial axes (variance
+    without the Bessel factor), then γ and β per channel."""
+    eps = attrs.get("eps", 1e-3)
+    axes = tuple(range(2, data.ndim))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = data.var(dim=axes, keepdim=True, unbiased=False)
+    bshape = (1, -1) + (1,) * (data.ndim - 2)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("L2Normalization",
+          params={"eps": Param(float, 1e-10),
+                  "mode": Param(str, "instance",
+                                enum=("instance", "spatial", "channel"))},
+          hint="l2normalization")
+def _l2_normalization(opctx, attrs, x):
+    """x / sqrt(Σx² + eps), the sum over all but the batch axis
+    (instance), over the channel axis (channel) or the spatial axes
+    (spatial)."""
+    mode = attrs.get("mode", "instance")
+    if mode == "instance":
+        axes = tuple(range(1, x.ndim))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, x.ndim))
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axes, keepdim=True)
+                      + attrs.get("eps", 1e-10))
+    return x / norm
+
+
+@register("SoftmaxActivation",
+          params={"mode": Param(str, "instance",
+                                enum=("instance", "channel"))},
+          hint="softmaxactivation")
+def _softmax_activation(opctx, attrs, x):
+    """Softmax over axis 1 (channel) or over all but the batch axis
+    (instance)."""
+    if attrs.get("mode", "instance") == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Loss outputs: each ignores its head gradient, as the JAX package's custom
+# vjps do (regression_output-inl.h, svm_output-inl.h, make_loss-inl.h)
+# ---------------------------------------------------------------------------
+
+
+class _Regression(torch.autograd.Function):
+    """out = fwd(data); the data gradient is bwd(out, label) ·
+    grad_scale / num_output (the label's size per sample), the label's
+    zero."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (grad_scale, kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        out, label = ctx.saved_tensors
+        grad_scale, kind = ctx.cfg
+        num_output = int(np.prod(label.shape[1:])) if label.ndim > 1 else 1
+        diff = out - label.reshape(out.shape)
+        if kind == "mae":
+            diff = torch.sign(diff)
+        g = diff * (grad_scale / num_output)
+        return g.to(out.dtype), torch.zeros_like(label), None, None
+
+
+def _regression_label_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    lshape = (d[0],) if len(d) == 2 and d[1] == 1 else tuple(d)
+    return [d, lshape], [tuple(d)], []
+
+
+def _register_regression(name, kind):
+    @register(name, inputs=("data", "label"),
+              params={"grad_scale": Param(float, 1.0)},
+              infer_shape=_regression_label_infer, no_grad_inputs=("label",),
+              hint=name.lower())
+    def _op(opctx, attrs, data, label):
+        return _Regression.apply(data, label, attrs.get("grad_scale", 1.0),
+                                 kind)
+
+
+_register_regression("LinearRegressionOutput", "linear")
+_register_regression("LogisticRegressionOutput", "logistic")
+_register_regression("MAERegressionOutput", "mae")
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Identity forward; the hinge-loss gradient (squared, or linear with
+    ``use_linear``) of margin − data·(±1) against the label's class."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, coef, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.cfg = (margin, coef, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        data, label = ctx.saved_tensors
+        margin, coef, use_linear = ctx.cfg
+        classes = torch.arange(data.shape[-1], device=data.device)
+        onehot = (label.to(torch.int64).unsqueeze(-1) == classes).to(
+            data.dtype)
+        sign = 1 - 2 * onehot  # -1 at the true class, +1 elsewhere
+        dist = margin - data * (2 * onehot - 1)
+        viol = (dist > 0).to(data.dtype)
+        if use_linear:
+            grad = coef * sign * viol
+        else:
+            grad = 2 * coef * sign * viol * dist
+        return grad.to(data.dtype), torch.zeros_like(label), None, None, None
+
+
+@register("SVMOutput", inputs=("data", "label"),
+          params={"margin": Param(float, 1.0),
+                  "regularization_coefficient": Param(float, 1.0),
+                  "use_linear": Param(bool, False)},
+          infer_shape=_softmax_label_infer, no_grad_inputs=("label",),
+          hint="svmoutput")
+def _svm_output(opctx, attrs, data, label):
+    return _SVMOutput.apply(data, label, attrs.get("margin", 1.0),
+                            attrs.get("regularization_coefficient", 1.0),
+                            bool(attrs.get("use_linear", False)))
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; the gradient is ``grad_scale`` everywhere,
+    divided by the batch size (``batch``) or by the count of forward
+    values above ``valid_thresh``, at least 1 (``valid``), in the data's
+    dtype.  The head gradient is ignored."""
+
+    @staticmethod
+    def forward(ctx, x, grad_scale, normalization, valid_thresh):
+        ctx.cfg = (x.shape, x.dtype, grad_scale, normalization)
+        if normalization == "valid":
+            ctx.save_for_backward(torch.clamp(
+                torch.sum((x > valid_thresh).to(x.dtype)), min=1.0))
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        shape, dtype, gs, norm = ctx.cfg
+        if norm == "batch":
+            grad = torch.full(shape, gs / shape[0], dtype=dtype,
+                              device=ct.device)
+        else:
+            grad = torch.full(shape, gs, dtype=dtype, device=ct.device)
+            if norm == "valid":
+                grad = grad / ctx.saved_tensors[0]
+        return grad, None, None, None
+
+
+@register("MakeLoss",
+          params={"grad_scale": Param(float, 1.0),
+                  "valid_thresh": Param(float, 0.0),
+                  "normalization": Param(str, "null",
+                                         enum=("null", "batch", "valid"))},
+          hint="makeloss")
+def _make_loss_layer(opctx, attrs, x):
+    """The legacy MakeLoss layer: identity forward, a constant gradient
+    (``_MakeLoss``)."""
+    return _MakeLoss.apply(x, attrs.get("grad_scale", 1.0),
+                           attrs.get("normalization", "null"),
+                           attrs.get("valid_thresh", 0.0))
+
+
+@register("softmax_cross_entropy", inputs=("data", "label"),
+          no_grad_inputs=("label",),
+          infer_shape=lambda attrs, s: (s, [(1,)], []))
+def _softmax_cross_entropy(opctx, attrs, data, label):
+    """−Σ log softmax(data)[label], over the batch, as shape (1,)."""
+    logp = torch.log_softmax(data, dim=-1)
+    classes = torch.arange(data.shape[-1], device=data.device)
+    onehot = (label.to(torch.int64).unsqueeze(-1) == classes).to(data.dtype)
+    return -torch.sum(onehot * logp).reshape((1,))
+
+
+class _KLSparse(torch.autograd.Function):
+    """Identity forward; the gradient adds the KL-sparsity penalty's
+    gradient at the batch's mean activation ``rho`` per channel."""
+
+    @staticmethod
+    def forward(ctx, x, rho, target, penalty):
+        ctx.save_for_backward(rho)
+        ctx.cfg = (x.ndim, x.dtype, target, penalty)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        (rho,) = ctx.saved_tensors
+        ndim, dtype, st, pen = ctx.cfg
+        kl_grad = pen * (-st / (rho + 1e-12) + (1 - st) / (1 - rho + 1e-12))
+        bshape = (1, -1) + (1,) * (ndim - 2)
+        return ct + kl_grad.reshape(bshape).to(dtype), None, None, None
+
+
+@register("IdentityAttachKLSparseReg",
+          aux=("moving_avg",),
+          params={"sparseness_target": Param(float, 0.1),
+                  "penalty": Param(float, 0.001),
+                  "momentum": Param(float, 0.9)},
+          infer_shape=lambda attrs, s: (
+              s, [s[0]], [(s[0][1],) if s[0] is not None else None]),
+          hint="identityattachklsparsereg")
+def _identity_kl_sparse(opctx, attrs, data, moving_avg):
+    """Identity with a KL-sparsity penalty on the (sigmoid) activations'
+    gradient; ``moving_avg`` follows the batch mean per channel."""
+    mom = attrs.get("momentum", 0.9)
+    rho = torch.mean(data, dim=tuple(i for i in range(data.ndim) if i != 1))
+    new_avg = mom * moving_avg + (1 - mom) * rho.detach()
+    out = _KLSparse.apply(data, rho.detach(),
+                          attrs.get("sparseness_target", 0.1),
+                          attrs.get("penalty", 0.001))
+    return out, new_avg
+
+
+# ---------------------------------------------------------------------------
+# UpSampling
+# ---------------------------------------------------------------------------
+
+
+def _upsampling_inputs(attrs):
+    n = int(attrs.get("num_args", 1))
+    if attrs.get("sample_type") == "bilinear":
+        return ["data", "weight"]
+    return ["arg%d" % i for i in range(n)] if n > 1 else ["data"]
+
+
+def _upsampling_infer(attrs, in_shapes):
+    d = in_shapes[0]
+    if d is None:
+        return in_shapes, [None], []
+    s = attrs["scale"]
+    out = (d[0], sum(x[1] for x in in_shapes if x is not None)
+           if len(in_shapes) > 1 and attrs.get("sample_type") != "bilinear"
+           else d[1], d[2] * s, d[3] * s)
+    if attrs.get("sample_type") == "bilinear":
+        k = 2 * s - s % 2
+        return [d, (d[1], 1, k, k)], [out], []
+    return in_shapes, [out], []
+
+
+@register("UpSampling", inputs=_upsampling_inputs, key_var_num_args="num_args",
+          params={"scale": Param(int, required=True),
+                  "num_filter": Param(int, 0),
+                  "sample_type": Param(str, required=True,
+                                       enum=("nearest", "bilinear")),
+                  "multi_input_mode": Param(str, "concat",
+                                            enum=("concat", "sum")),
+                  "num_args": Param(int, 1), "workspace": Param(int, 512)},
+          infer_shape=_upsampling_infer, hint="upsampling")
+def _upsampling(opctx, attrs, *args):
+    """nearest: each input's pixels repeated ``scale`` times along H and
+    W, several inputs concatenated on the channels or summed; bilinear:
+    the transposed convolution of each channel by its own (k, k) filter,
+    k = 2·scale − scale % 2, stride ``scale``, padding ceil((scale − 1)/2)
+    (on the card in float32 by ``_WideConv``)."""
+    s = attrs["scale"]
+    if attrs["sample_type"] == "nearest":
+        outs = [x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+                for x in args]
+        if len(outs) == 1:
+            return outs[0]
+        if attrs.get("multi_input_mode", "concat") == "sum":
+            out = outs[0]
+            for o in outs[1:]:
+                out = out + o
+            return out
+        return torch.cat(outs, dim=1)
+    data, weight = args
+    pad = (s - 1) // 2 if s % 2 else s // 2
+    return _conv_transpose(data, weight, (s, s), (pad, pad), (0, 0),
+                           data.shape[1])

@@ -12,8 +12,30 @@ import ast
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["Param", "parse_attrs", "attrs_to_strs"]
+__all__ = ["Param", "parse_attrs", "attrs_to_strs", "TORCH_DTYPES",
+           "torch_dtype"]
+
+#: the dtype names ops and arrays take, as torch dtypes
+TORCH_DTYPES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "uint8": torch.uint8, "int8": torch.int8, "int32": torch.int32,
+    "int64": torch.int64, "bool": torch.bool,
+}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a numpy dtype, a dtype name or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if name not in TORCH_DTYPES:
+        from ..base import MXNetError
+
+        raise MXNetError("unsupported dtype %s" % name)
+    return TORCH_DTYPES[name]
 
 
 class Param:

@@ -17,17 +17,30 @@ __all__ = ["Op", "OpContext", "register", "get_op", "registered_ops"]
 
 class OpContext:
     """Per-invocation context handed to op functions (reference: OpContext
-    in include/mxnet/operator.h:60-75): ``is_train``, and for a stochastic
-    op the random resource, a ``torch.Generator`` on the op's device that
-    the caller hands it (the executor's: ``random.generator(device)``).
-    The JAX package hands a PRNG key split per stochastic node instead, so
-    the two draw different numbers from one seed."""
+    in include/mxnet/operator.h:60-75): ``is_train``; for a stochastic op
+    the random resource, a ``torch.Generator`` on the op's device that the
+    caller hands it (the executor's: ``random.generator(device)``); and the
+    op's ``torch.device``, where a source op (``_zeros``, ``_sample_*``),
+    which has no input to take a device from, puts its output.  The JAX
+    package hands a PRNG key split per stochastic node instead, so the two
+    draw different numbers from one seed."""
 
-    __slots__ = ("is_train", "generator")
+    __slots__ = ("is_train", "generator", "device")
 
-    def __init__(self, is_train: bool = False, generator=None):
+    def __init__(self, is_train: bool = False, generator=None, device=None):
         self.is_train = is_train
         self.generator = generator
+        self.device = device
+
+    def source_device(self, op_name: str):
+        """The device a source op writes to.  There is no default: an op
+        run without one raises rather than picking the CPU."""
+        if self.device is None:
+            from ..base import MXNetError
+
+            raise MXNetError("%s has no input to take a device from and was "
+                             "given none" % op_name)
+        return self.device
 
 
 class Op:

@@ -14,7 +14,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["seed", "current_seed", "generator", "uniform", "normal"]
+__all__ = ["seed", "current_seed", "generator", "uniform", "normal",
+           "randint", "get_state", "set_state"]
 
 _state = threading.local()
 
@@ -52,19 +53,65 @@ def generator(device) -> torch.Generator:
     return gens[key]
 
 
-def uniform(low, high, shape, ctx):
-    """U(low, high) float32 NDArray of ``shape`` on ``ctx``."""
-    from .ndarray import NDArray
+def get_state() -> dict:
+    """Snapshot the random state as plain host data: the seed, and each
+    device generator's ``get_state()`` bytes by device.  After
+    :func:`set_state`, every generator draws what it drew after the
+    snapshot."""
+    gens = _gens()
+    return {"seed": _state.seed,
+            "generators": {k: g.get_state().numpy().copy()
+                           for k, g in gens.items()}}
 
+
+def set_state(state: dict) -> None:
+    """Restore a :func:`get_state` snapshot.  A device without a
+    generator in it starts afresh from the snapshot's seed."""
+    gens = _gens()
+    gens.clear()
+    _state.seed = int(state["seed"])
+    for key, data in state["generators"].items():
+        gen = torch.Generator(device=torch.device(key))
+        gen.set_state(torch.from_numpy(np.asarray(data, np.uint8).copy()))
+        gens[key] = gen
+
+
+def uniform(low=0.0, high=1.0, shape=(1,), ctx=None, out=None,
+            dtype="float32"):
+    """U(low, high) draws of ``shape`` on ``ctx`` (the current context when
+    None, or ``out``'s), or into ``out``."""
+    from . import ndarray as nd
+
+    return nd.uniform(low=low, high=high, shape=shape, ctx=ctx, out=out,
+                      dtype=dtype)
+
+
+def normal(loc=0.0, scale=1.0, shape=(1,), ctx=None, out=None,
+           dtype="float32"):
+    """N(loc, scale) draws of ``shape`` on ``ctx`` (the current context
+    when None, or ``out``'s), or into ``out``."""
+    from . import ndarray as nd
+
+    return nd.normal(loc=loc, scale=scale, shape=shape, ctx=ctx, out=out,
+                     dtype=dtype)
+
+
+def randint(low, high, shape=(1,), ctx=None, out=None, dtype="int32"):
+    """Integers in [low, high) of ``shape`` on ``ctx``, drawn from that
+    device's generator; with ``out`` written into it."""
+    from . import ndarray as nd
+    from .context import current_context
+    from .ops.param import torch_dtype
+
+    if ctx is None:
+        ctx = out.context if out is not None else current_context()
     dev = ctx.torch_device()
-    data = torch.rand(tuple(shape), generator=generator(dev), device=dev)
-    return NDArray(data * (high - low) + low, ctx)
-
-
-def normal(loc, scale, shape, ctx):
-    """N(loc, scale) float32 NDArray of ``shape`` on ``ctx``."""
-    from .ndarray import NDArray
-
-    dev = ctx.torch_device()
-    data = torch.randn(tuple(shape), generator=generator(dev), device=dev)
-    return NDArray(data * scale + loc, ctx)
+    if isinstance(shape, int):
+        shape = (shape,)
+    data = torch.randint(int(low), int(high), tuple(shape),
+                         generator=generator(dev), device=dev)
+    arr = nd.NDArray(data.to(torch_dtype(dtype)), ctx)
+    if out is not None:
+        out[:] = arr
+        return out
+    return arr

@@ -29,7 +29,8 @@ from .name import NameManager
 from .ops import OpContext, get_op, registered_ops
 from .ops.param import attrs_to_strs
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
+           "pow", "maximum", "minimum", "ones", "zeros", "arange"]
 
 
 class _Node:
@@ -393,7 +394,8 @@ def _meta_apply(op, attrs, shapes, aux_shapes):
     def meta(shape):
         return torch.empty(shape, dtype=torch.float32, device="meta")
 
-    outs, _ = op.apply(OpContext(is_train=False), attrs,
+    outs, _ = op.apply(OpContext(is_train=False, device=torch.device("meta")),
+                       attrs,
                        [meta(s) for s in shapes], [meta(s) for s in aux_shapes])
     return outs
 
@@ -521,6 +523,46 @@ def load_json(json_str: str) -> Symbol:
                            graph_attrs))
     heads = [(nodes[h[0]], h[1] if len(h) > 1 else 0) for h in data["heads"]]
     return Symbol(heads)
+
+
+# the creators of mx.sym.zeros/ones/arange and the binary functions over
+# the elementwise ops (``mxnet_tpu/symbol.py:806-840``)
+def zeros(shape, dtype="float32", **kwargs):
+    return _create("_zeros", [], {"shape": shape, "dtype": dtype, **kwargs})
+
+
+def ones(shape, dtype="float32", **kwargs):
+    return _create("_ones", [], {"shape": shape, "dtype": dtype, **kwargs})
+
+
+def arange(start, stop=None, step=1.0, repeat=1, name=None, dtype="float32"):
+    return _create("_arange", [], {"start": start, "stop": stop, "step": step,
+                                   "repeat": repeat, "dtype": dtype},
+                   name=name)
+
+
+def pow(base, exp):
+    if isinstance(base, Symbol) and isinstance(exp, Symbol):
+        return _create("_Power", [base, exp], {})
+    if isinstance(base, Symbol):
+        return base.__pow__(exp)
+    raise TypeError("pow expects Symbol base")
+
+
+def _binary_fn(op_name, scalar_op, lhs, rhs):
+    if isinstance(lhs, Symbol) and isinstance(rhs, Symbol):
+        return _create(op_name, [lhs, rhs], {})
+    s = lhs if isinstance(lhs, Symbol) else rhs
+    other = rhs if s is lhs else lhs
+    return _create(scalar_op, [s], {"scalar": float(other)})
+
+
+def maximum(lhs, rhs):
+    return _binary_fn("_Maximum", "_MaximumScalar", lhs, rhs)
+
+
+def minimum(lhs, rhs):
+    return _binary_fn("_Minimum", "_MinimumScalar", lhs, rhs)
 
 
 def _init_symbol_module():
