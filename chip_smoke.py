@@ -30,7 +30,9 @@
                                            # one extra SSD train step and
                                            # one extra SSD request (the
                                            # detection ops' kernels as a
-                                           # group of their own)
+                                           # group of their own; in every
+                                           # step the optimizer's list
+                                           # update's kernels too)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -172,16 +174,47 @@ Phases, each fatal on failure (non-zero exit, no result line):
              bilinear UpSampling;
 11. random — each sampler drawn 2**20 times on the card from the device
              generator (mean and variance within 6 standard errors), and
-             ``random.get_state``/``set_state`` replaying the card's bits.
+             ``random.get_state``/``set_state`` replaying the card's bits;
+12. train_api — the training API on the default (GPU) context.  (a)
+             LeNet/MNIST (BASELINE.md config #1, train_mnist.py's
+             defaults) through ``model.FeedForward``: the example's
+             synthetic digits written as idx-ubyte files (uint8: the round
+             trip clips and quantises the images) and read by ``MNISTIter``
+             in a ``PrefetchingIter``, the validation split as CSV read by
+             ``CSVIter`` in a ``ResizeIter``; 5 epochs of SGD (lr 0.05,
+             momentum 0.9, wd 1e-4, Xavier in 2.34, float32, TF32 off) with
+             acc, top-3 accuracy and cross-entropy, ``Speedometer``,
+             ``ProgressBar`` and ``do_checkpoint``; step ms, img/s, each
+             epoch's metrics and peak memory printed; the first 2 steps'
+             losses within 1e-4 of the port's CPU route, the final
+             validation accuracy at least the JAX package's own reading
+             (JAX_MNIST_VAL_ACC) less 0.02, the checkpoint reloaded by
+             ``FeedForward.load`` scoring alike within 1e-6, ``predict``
+             (1000, 10) probabilities.  (b) every optimizer of the JAX
+             package over the train phase's LM (its init and batch, bf16
+             compute): 1 + 3 fused steps each, finite losses, parameters and
+             states on the card (adam's loss falls), step ms and the states'
+             memory; then the update alone over the LM's arrays: the list
+             update (median of 10 calls by CUDA events) beside the
+             per-array loop over the registered update op (in turns; the
+             new weights within 2 float32 ulps), the bytes bound and
+             ``torch._fused_sgd_``/``torch._fused_adam_`` as yardsticks;
+             a ``train_api`` JSON line with the table.  The agree phase
+             adds ``test_utils.check_consistency`` of LeNet (cpu vs
+             gpu(0)) and three NAG and three centered RMSProp steps of the
+             small LM.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
+``examples/``.
 """
 import argparse
 import json
+import math
 import os
 import re
+import struct
 import subprocess
 import tempfile
 import time
@@ -226,6 +259,11 @@ WIDE = (BATCH * FULL["seq_len"], 4 * FULL["hidden"])
 # the LM's arrays whose enqueue is timed for the host time per push
 SGD = dict(lr=0.01, rescale_grad=1.0 / BATCH, wd=1e-4)
 HOST_PASSES = 3
+# the step times and the train step's peak memory of the version before
+# the optimizers' list update (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside this run's
+BEFORE_MS = {"train": 139.06, "resnet bf16": 149.04, "ssd": 59.06}
+BEFORE_TRAIN_PEAK_GB = 29.87
 
 # Data-sheet peaks per H100 variant (dense): float32 on the CUDA cores, bf16
 # and TF32 (half of bf16) on the tensor cores (TFLOP/s), device memory
@@ -1339,8 +1377,8 @@ def lm_loss(torch, probs, labels):
 
 
 def train_module(mt, net, ctx, data_shape, init=None, arg_params=None,
-                 compute_dtype=None, optimizer_params=None):
-    """A bound, initialized ``Module`` with adam, as
+                 compute_dtype=None, optimizer_params=None, optimizer="adam"):
+    """A bound, initialized ``Module`` with adam (or ``optimizer``), as
     ``train_lm.benchmark`` sets it up."""
     mod = mt.mod.Module(net, label_names=("softmax_label",), context=ctx,
                         compute_dtype=compute_dtype)
@@ -1348,7 +1386,7 @@ def train_module(mt, net, ctx, data_shape, init=None, arg_params=None,
              label_shapes=[mt.io.DataDesc("softmax_label", data_shape)],
              for_training=True)
     mod.init_params(initializer=init, arg_params=arg_params)
-    mod.init_optimizer(kvstore="local", optimizer="adam",
+    mod.init_optimizer(kvstore="local", optimizer=optimizer,
                        optimizer_params=optimizer_params or
                        {"learning_rate": TRAIN_LR})
     return mod
@@ -1417,11 +1455,14 @@ def train_phase(torch, mt):
               for n in mod._exec_group.param_names),
           "the parameters left the card")
     steady = float(np.mean(times[TRAIN_WARMUP:]))
-    print("train: step ms %.2f (mean of %d timed steps after %d warm-up)"
-          % (steady * 1e3, TRAIN_STEPS, TRAIN_WARMUP), flush=True)
+    print("train: step ms %.2f (mean of %d timed steps after %d warm-up; "
+          "before the list update: %.2f)"
+          % (steady * 1e3, TRAIN_STEPS, TRAIN_WARMUP, BEFORE_MS["train"]),
+          flush=True)
     print("train: tokens/s %.1f" % (b * s / steady), flush=True)
-    print("train: peak device memory %.2f GB"
-          % (torch.cuda.max_memory_allocated() / 1e9), flush=True)
+    print("train: peak device memory %.2f GB (before the list update: %.2f)"
+          % (torch.cuda.max_memory_allocated() / 1e9, BEFORE_TRAIN_PEAK_GB),
+          flush=True)
     print("train: loss %.6f -> %.6f over %d steps on one batch; launches %s"
           % (losses[0], losses[-1], len(losses), launches), flush=True)
     replay = {"net": net, "init": init, "after": replayed,
@@ -1903,13 +1944,26 @@ def small_agreement(mt):
 AGREE = {None: (0.3, 1e-4, 1e-4), "bfloat16": (0.02, 1e-3, 3e-2)}
 
 
-def train3(torch, mt, net, ctx, shape, arg_params, dtype, batch, Y):
-    """3 adam steps (lr 1e-3, epsilon 1e-4) of ``net`` on ``ctx`` from
-    ``arg_params`` on one batch: (losses, parameters as numpy)."""
+#: the agree phase's optimizer: adam at lr 1e-3, epsilon 1e-4
+AGREE_ADAM = ("adam", {"learning_rate": 1e-3, "epsilon": 1e-4})
+#: and two more rules of the optimizers' list update.  Centered RMSProp
+#: at epsilon 1e-4 and lr 3e-4: at 1e-8 and 1e-3 its steps saturate near
+#: ±lr for gradients that are roundoff (as adam's do), and one float32 ulp
+#: of the init alone moved the CPU's own run by 8.2e-4 of the largest
+#: parameter; here it moves it by 1.5e-5 (NAG's: 8.8e-6)
+AGREE_MORE = (("nag", {"learning_rate": 1e-3, "momentum": 0.9, "wd": 1e-3}),
+              ("rmsprop", {"learning_rate": 3e-4, "centered": True,
+                           "epsilon": 1e-4, "wd": 1e-3}))
+
+
+def train3(torch, mt, net, ctx, shape, arg_params, dtype, batch, Y,
+           optimizer=AGREE_ADAM):
+    """3 steps of ``optimizer`` ((name, kwargs); adam by default) of
+    ``net`` on ``ctx`` from ``arg_params`` on one batch: (losses,
+    parameters as numpy)."""
     mod = train_module(mt, net, ctx, shape, arg_params=arg_params,
-                       compute_dtype=dtype,
-                       optimizer_params={"learning_rate": 1e-3,
-                                         "epsilon": 1e-4})
+                       compute_dtype=dtype, optimizer=optimizer[0],
+                       optimizer_params=dict(optimizer[1]))
     losses = []
     for _ in range(3):
         mod.forward_backward(batch)
@@ -1920,8 +1974,9 @@ def train3(torch, mt, net, ctx, shape, arg_params, dtype, batch, Y):
 
 
 def small_train_agreement(torch, mt, dtype, rtc_gelu=False, cfg=None,
-                          std_width=None):
-    """A small LM (``SMALL``, or ``cfg``) trained 3 adam steps on the card
+                          std_width=None, optimizer=AGREE_ADAM):
+    """A small LM (``SMALL``, or ``cfg``) trained 3 adam steps (or 3 of
+    ``optimizer``) on the card
     (kernels) and on the CPU (plain versions) from one numpy init, in
     float32 or with bf16 compute, must agree (limits in ``AGREE``; with
     ``std_width`` the init std is scaled by sqrt(std_width / hidden), so
@@ -1957,10 +2012,10 @@ def small_train_agreement(torch, mt, dtype, rtc_gelu=False, cfg=None,
                             label=[mt.nd.array(Y, mt.cpu())])
     mt.kernels.reset_launches()
     lg, pg = train3(torch, mt, net, mt.gpu(0), shape, arg_params, dtype,
-                    batch, Y)
+                    batch, Y, optimizer)
     launches = dict(mt.kernels.LAUNCHES)
     lc, pc = train3(torch, mt, net, mt.cpu(), shape, arg_params, dtype,
-                    batch, Y)
+                    batch, Y, optimizer)
     loss_err = float((np.abs(np.array(lg) - np.array(lc)) / np.abs(lc)).max())
     change = {k: pc[k].astype(np.float64) - init[k] for k in pc}
     scale = max(float(np.abs(pc[k]).max()) for k in pc)
@@ -1978,12 +2033,14 @@ def small_train_agreement(torch, mt, dtype, rtc_gelu=False, cfg=None,
     what_lm = "%s%s" % ("" if cfg is SMALL else " %s" % {
         k: v for k, v in cfg.items() if SMALL.get(k) != v},
         " with rtc_gelu" if rtc_gelu else "")
-    print("check: small LM%s trained 3 adam steps (%s, init std %.3g) on the "
+    opt_name = optimizer[0] + (" centered" if optimizer[1].get("centered")
+                               else "")
+    print("check: small LM%s trained 3 %s steps (%s, init std %.3g) on the "
           "card "
           "vs the CPU: losses %s vs %s, relative loss error %.3g (tolerance "
           "%g), %s (tolerance %g; the steps moved parameters by up to %.3g "
           "of the largest)"
-          % (what_lm, dtype or "float32", std,
+          % (what_lm, opt_name, dtype or "float32", std,
              ["%.6f" % x for x in lg],
              ["%.6f" % x for x in lc], loss_err, loss_tol, what, param_tol,
              moved), flush=True)
@@ -2190,6 +2247,30 @@ def nd_agreement(mt):
 # image nets of the agree phase ----------------------------------------------
 
 #: bench.py:116-156 resnet_bench: ResNet-50 at 224², 1000 classes
+def lenet_consistency(mt):
+    """``test_utils.check_consistency`` of LeNet's forward (batch 8, random
+    weights from a seed) between ``mt.cpu()`` and ``mt.gpu(0)`` in float32,
+    within the agree limit 1e-4."""
+    from mxnet_tpu_torch.models.lenet import get_lenet
+
+    with mt.NameManager():
+        net = get_lenet(10)
+    shape = (8, 1, 28, 28)
+    arg_shapes, _, _ = net.infer_shape(data=shape)
+    rng = np.random.RandomState(SEED + 5)
+    location = {n: (rng.randint(0, 10, s) if n == "softmax_label" else
+                    rng.standard_normal(s) * (1.0 if n == "data" else 0.1))
+                .astype(np.float32) for n, s in zip(net.list_arguments(),
+                                                    arg_shapes)}
+    outs = mt.test_utils.check_consistency(
+        net, location, dtypes=(np.float32,), ctx_list=[mt.cpu(), mt.gpu(0)],
+        rtol=1e-4, atol=1e-6)
+    err = float(np.abs(outs[0][0] - outs[1][0]).max())
+    print("check: test_utils.check_consistency of LeNet %s, cpu vs gpu(0), "
+          "float32: max|d| = %.3g (rtol 1e-4, atol 1e-6)" % (shape, err),
+          flush=True)
+
+
 RESNET = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224))
 #: (compute dtype, batch, warm-up steps, timed steps): the JAX package's
 #: bench batch and dtype (bench.py:61, :124), then Module's float32 default
@@ -2463,10 +2544,13 @@ def resnet_phase(torch, mt, profile_dir=None):
         mfu = flops / (peaks[peak_key] * 1e12)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print("resnet %s: step ms %.2f (mean of %d timed steps after %d "
-              "warm-up); img/s %.1f; model TFLOP/s %.1f; MFU %.4f of the %s "
-              "%s dense peak %.0f TFLOP/s%s; peak device memory %.2f GB; "
+              "warm-up%s); img/s %.1f; model TFLOP/s %.1f; MFU %.4f of the "
+              "%s %s dense peak %.0f TFLOP/s%s; peak device memory %.2f GB; "
               "accuracy %s"
-              % (label, step_ms, timed, warmup, img_s, flops / 1e12, mfu,
+              % (label, step_ms, timed, warmup,
+                 "; before the list update: %.2f" % BEFORE_MS["resnet bf16"]
+                 if dtype else "",
+                 img_s, flops / 1e12, mfu,
                  peaks_key, peak_key, peaks[peak_key],
                  " (CUDA cores: TF32 off)" if dtype is None else "",
                  peak_gb, metric.get()), flush=True)
@@ -3089,9 +3173,11 @@ def ssd_phase(torch, mt, profile_dir=None):
     step_ms = float(np.mean(times[-5:])) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print("ssd: step ms %.2f (mean of the last 5 of %d steps after %d "
-          "warm-up; forward, backward, update as the example runs them); "
-          "img/s %.1f; peak device memory %.2f GB; outputs %s"
-          % (step_ms, len(times), SSD_WARMUP, SSD_BATCH / step_ms * 1e3,
+          "warm-up; forward, backward, update as the example runs them; "
+          "before the list update: %.2f); img/s %.1f; peak device memory "
+          "%.2f GB; outputs %s"
+          % (step_ms, len(times), SSD_WARMUP, BEFORE_MS["ssd"],
+             SSD_BATCH / step_ms * 1e3,
              peak_gb, shapes), flush=True)
     check(all(np.isfinite(losses)), "SSD losses are not finite: %s" % losses)
     check(passes[-1] < passes[0], "the SSD loss did not fall: passes %s"
@@ -3281,6 +3367,430 @@ def random_phase(torch, mt):
     check(same, "set_state did not replay the card's draws")
 
 
+# phase 11 ``train_api``: LeNet/MNIST through FeedForward (BASELINE.md config
+# #1, examples/image_classification/train_mnist.py's defaults) and every
+# optimizer over the full-width LM
+MNIST_N, MNIST_VAL, MNIST_BATCH, MNIST_EPOCHS = 6000, 1000, 64, 5
+MNIST_SGD = dict(learning_rate=0.05, momentum=0.9, wd=1e-4)
+# the JAX package's own final validation accuracy on the CPU
+# (``python examples/image_classification/train_mnist.py --num-epochs 5``,
+# synthetic digits, batch 64); the card's run may fall short of it by at
+# most MNIST_GATE
+JAX_MNIST_VAL_ACC = 0.997070
+MNIST_GATE = 0.02
+MNIST_WITNESS = 2
+# every optimizer of the JAX package in its registry order, over the
+# train phase's LM: (label, name, kwargs, f32 accesses of one update per
+# parameter: each input read once, each output written once)
+# (Test's update is weight += rescale_grad · grad, an ascent: at
+# Module's 1/batch the LM's loss reached nan in 2 steps)
+LM_OPTIMIZERS = (
+    ("sgd", "sgd", dict(learning_rate=1e-3, momentum=0.9, wd=1e-4), 5),
+    ("dcasgd", "dcasgd", dict(learning_rate=1e-3, momentum=0.9, wd=1e-4), 7),
+    ("nag", "nag", dict(learning_rate=1e-3, momentum=0.9, wd=1e-4), 5),
+    ("sgld", "sgld", dict(learning_rate=1e-6), 3),
+    ("ccsgd", "ccsgd", dict(learning_rate=1e-3, momentum=0.9, wd=1e-4), 5),
+    ("adam", "adam", dict(learning_rate=TRAIN_LR), 7),
+    ("adagrad", "adagrad", dict(learning_rate=1e-3), 5),
+    ("rmsprop", "rmsprop", dict(learning_rate=TRAIN_LR), 5),
+    ("rmsprop centered", "rmsprop", dict(learning_rate=TRAIN_LR,
+                                         centered=True), 9),
+    ("adadelta", "adadelta", {}, 7),
+    ("test", "test", dict(rescale_grad=1e-4), 4),
+)
+LM_OPT_WARMUP, LM_OPT_STEPS = 1, 3
+UPDATE_ROUNDS = 10
+# the per-array loop over the registered update op of an optimizer
+PER_ARRAY_OPS = {"sgd": "sgd_mom_update", "adam": "adam_update",
+                 "rmsprop": "rmsprop_update",
+                 "rmsprop centered": "rmspropalex_update"}
+
+
+def synthetic_mnist(n=6000, seed=0):
+    """10 random 28x28 class templates + per-sample noise and shifts (a
+    copy of examples/image_classification/train_mnist.py's)."""
+    rng = np.random.RandomState(seed)
+    templates = rng.uniform(0, 1, (10, 28, 28)).astype(np.float32)
+    labels = rng.randint(0, 10, n)
+    imgs = templates[labels]
+    shifts = rng.randint(-2, 3, (n, 2))
+    out = np.empty_like(imgs)
+    for i in range(n):
+        out[i] = np.roll(imgs[i], tuple(shifts[i]), axis=(0, 1))
+    out += rng.normal(0, 0.3, out.shape).astype(np.float32)
+    return out[:, None], labels.astype(np.float32)
+
+
+def mnist_files(folder, n=MNIST_N):
+    """The synthetic digits as MNIST files: the images after the first
+    MNIST_VAL as idx-ubyte (magic 2051/2049, uint8 at x255: the round trip
+    clips the noise to [0, 1] and quantises it to 1/255), the first
+    MNIST_VAL, the example's validation split, quantised alike, as CSV.
+    Returns the paths."""
+    x, y = synthetic_mnist(n)
+    u8 = np.clip(np.round(x[:, 0] * 255), 0, 255).astype(np.uint8)
+    paths = {k: os.path.join(folder, k) for k in
+             ("train-images-idx3-ubyte", "train-labels-idx1-ubyte",
+              "val-data.csv", "val-label.csv")}
+    train, val = u8[MNIST_VAL:], u8[:MNIST_VAL]
+    with open(paths["train-images-idx3-ubyte"], "wb") as f:
+        f.write(struct.pack(">IIII", 2051, len(train), 28, 28))
+        f.write(train.tobytes())
+    with open(paths["train-labels-idx1-ubyte"], "wb") as f:
+        f.write(struct.pack(">II", 2049, len(train)))
+        f.write(y[MNIST_VAL:].astype(np.uint8).tobytes())
+    np.savetxt(paths["val-data.csv"], val.reshape(len(val), -1) / 255.0,
+               delimiter=",", fmt="%.8g")
+    np.savetxt(paths["val-label.csv"], y[:MNIST_VAL], delimiter=",",
+               fmt="%d")
+    return paths
+
+
+def mnist_iters(mt, paths):
+    """(train, validation): MNISTIter in a PrefetchingIter, and CSVIter
+    resized to its batch count (its last batch padded from the start)."""
+    train = mt.io.PrefetchingIter(mt.io.MNISTIter(
+        image=paths["train-images-idx3-ubyte"],
+        label=paths["train-labels-idx1-ubyte"], batch_size=MNIST_BATCH,
+        shuffle=True))
+    csv = mt.io.CSVIter(data_csv=paths["val-data.csv"],
+                        data_shape=(1, 28, 28),
+                        label_csv=paths["val-label.csv"], label_shape=(),
+                        batch_size=MNIST_BATCH)
+    val = mt.io.ResizeIter(csv, -(-MNIST_VAL // MNIST_BATCH))
+    return train, val
+
+
+def lenet_witness(torch, mt, net, init, batches, losses):
+    """The card's first MNIST_WITNESS steps again on the port's CPU route
+    from the same init and batches: each loss within 1e-4 relative."""
+    mod = mt.mod.Module(net, context=mt.cpu())
+    mod.bind(data_shapes=[("data", (MNIST_BATCH, 1, 28, 28))],
+             label_shapes=[("softmax_label", (MNIST_BATCH,))])
+    mod.init_params(arg_params={k: mt.nd.array(v, mt.cpu())
+                                for k, v in init.items()}, aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(MNIST_SGD))
+    cpu = []
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+        cpu.append(lm_loss(torch, mod.get_outputs()[0],
+                           b.label[0].asnumpy()))
+    err = max(abs(a - c) / abs(c) for a, c in zip(losses, cpu))
+    print("train_api lenet: first %d steps' losses on the card %s vs the "
+          "CPU route %s: relative error %.3g (tolerance 1e-4)"
+          % (len(cpu), ["%.7f" % x for x in losses],
+             ["%.7f" % x for x in cpu], err), flush=True)
+    check(err <= 1e-4, "LeNet's first steps on the card disagree with the "
+          "CPU route")
+
+
+def lenet_feedforward(torch, mt, folder):
+    """(a) LeNet trained MNIST_EPOCHS epochs through ``FeedForward`` on the
+    default context from MNISTIter + PrefetchingIter, evaluated on CSVIter
+    + ResizeIter every epoch; checks and prints as the module docstring
+    says."""
+    from mxnet_tpu_torch.models.lenet import get_lenet
+
+    paths = mnist_files(folder)
+    train, val = mnist_iters(mt, paths)
+    with mt.NameManager():
+        net = get_lenet(10)
+    # the Xavier init on the card, from the seed, kept as numpy for the CPU
+    # witness; FeedForward starts from it
+    mt.random.seed(SEED)
+    probe = mt.mod.Module(net)
+    probe.bind(data_shapes=train.provide_data,
+               label_shapes=train.provide_label)
+    probe.init_params(mt.init.Xavier(factor_type="in", magnitude=2.34))
+    init = {k: v.asnumpy() for k, v in probe.get_params()[0].items()}
+    del probe
+    n_batches = (MNIST_N - MNIST_VAL) // MNIST_BATCH
+    prefix = os.path.join(folder, "lenet")
+    ff = mt.model.FeedForward(
+        net, ctx=None, num_epoch=MNIST_EPOCHS, optimizer="sgd",
+        initializer=mt.init.Xavier(factor_type="in", magnitude=2.34),
+        arg_params={k: mt.nd.array(v, mt.gpu(0)) for k, v in init.items()},
+        aux_params={}, **MNIST_SGD)
+    ends, witness, val_metrics, train_metrics = [], [], [], []
+
+    def on_batch(param):
+        ends.append((param.epoch, param.nbatch, time.perf_counter()))
+        if param.epoch == 0 and param.nbatch < MNIST_WITNESS:
+            mod = param.locals["self"]
+            b = param.locals["data_batch"]
+            witness.append((b, lm_loss(torch, mod.get_outputs()[0],
+                                       b.label[0].asnumpy())))
+        if param.nbatch == n_batches - 1:
+            train_metrics.append(param.eval_metric.get_name_value())
+
+    def on_eval(param):
+        val_metrics.append(param.eval_metric.get_name_value())
+
+    metric = mt.metric.create(["acc", mt.metric.TopKAccuracy(top_k=3),
+                               "ce"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    with train:
+        ff.fit(train, eval_data=val, eval_metric=metric,
+               batch_end_callback=[on_batch,
+                                   mt.callback.Speedometer(MNIST_BATCH, 20,
+                                                           auto_reset=False),
+                                   mt.callback.ProgressBar(n_batches)],
+               epoch_end_callback=mt.callback.do_checkpoint(prefix),
+               eval_end_callback=on_eval)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          not torch.backends.cudnn.allow_tf32, "a TF32 flag is on")
+    # step ms: between consecutive batch ends (each waits for its step in
+    # the metric's host read) within an epoch, after the first epoch
+    gaps = [t1 - t0 for (e0, _, t0), (e1, _, t1) in zip(ends, ends[1:])
+            if e0 == e1 and e0 > 0]
+    step_ms = float(np.mean(gaps)) * 1e3
+    for epoch, (tr, va) in enumerate(zip(train_metrics, val_metrics)):
+        print("train_api lenet: epoch %d train %s validation %s"
+              % (epoch, ["%s=%.6f" % kv for kv in tr],
+                 ["%s=%.6f" % kv for kv in va]), flush=True)
+    print("train_api lenet: %d epochs of %d batches of %d through "
+          "FeedForward: step ms %.3f (mean over epochs 1-%d), img/s %.1f, "
+          "peak device memory %.3f GB"
+          % (MNIST_EPOCHS, n_batches, MNIST_BATCH, step_ms,
+             MNIST_EPOCHS - 1, MNIST_BATCH / step_ms * 1e3, peak_gb),
+          flush=True)
+    ex = ff._module._exec_group.execs[0]
+    on_card = all(a._data.is_cuda for a in ex.arg_dict.values())
+    print("train_api lenet: every parameter on cuda: %s" % on_card,
+          flush=True)
+    check(on_card, "LeNet's parameters left the card")
+    lenet_witness(torch, mt, net, init, [b for b, _ in witness],
+                  [x for _, x in witness])
+    final = dict(val_metrics[-1])["accuracy"]
+    print("train_api lenet: final validation accuracy %.6f; the JAX "
+          "package's own %.6f (CPU, train_mnist.py --num-epochs 5); gate "
+          ">= %.6f" % (final, JAX_MNIST_VAL_ACC,
+                       JAX_MNIST_VAL_ACC - MNIST_GATE), flush=True)
+    check(final >= JAX_MNIST_VAL_ACC - MNIST_GATE,
+          "LeNet's validation accuracy %.6f is under the gate" % final)
+    # the checkpoint of the last epoch, loaded and scored alike
+    loaded = mt.model.FeedForward.load(prefix, MNIST_EPOCHS)
+    renamed = mt.io.PrefetchingIter(val, rename_label=[{"label":
+                                                        "softmax_label"}])
+    with renamed:
+        again = loaded.score(renamed)
+    print("train_api lenet: FeedForward.load(prefix, %d).score: %.6f vs "
+          "%.6f" % (MNIST_EPOCHS, again, final), flush=True)
+    check(abs(again - final) <= 1e-6, "the reloaded LeNet scores otherwise")
+    probs = ff.predict(val)
+    rows = np.abs(probs.astype(np.float64).sum(1) - 1).max()
+    print("train_api lenet: predict: %s probabilities, rows sum to 1 within "
+          "%.3g" % (probs.shape, rows), flush=True)
+    check(probs.shape == (MNIST_VAL, 10) and rows <= 1e-5,
+          "LeNet's predictions are not (%d, 10) probabilities" % MNIST_VAL)
+    return {"step_ms": step_ms, "val_acc": final, "peak_gb": peak_gb}
+
+
+def optimizer_states_gb(states):
+    """Bytes of an updater's states, in GB."""
+    total = 0
+    for st in states.values():
+        for s in (st if isinstance(st, tuple) else (st,)):
+            if s is not None:
+                total += s._data.numel() * s._data.element_size()
+    return total / 1e9
+
+
+def lm_optimizer_sweep(torch, mt, batch, replay):
+    """(b) Every optimizer over the train phase's LM (bf16 compute, float32
+    masters, its init and batch): LM_OPT_WARMUP + LM_OPT_STEPS fused steps
+    each, after ``init_optimizer(force_init=True)`` from the init.  Returns
+    {label: (step ms, states GB, losses)}."""
+    b, s = BATCH, FULL["seq_len"]
+    init = {n: mt.nd.NDArray(t, mt.cpu()) for n, t in replay["init"].items()}
+    mod = train_module(mt, replay["net"], None, (b, s), arg_params=init,
+                       compute_dtype="bfloat16")
+    ex = mod._exec_group.execs[0]
+    out = {}
+    for label, name, kwargs, _ in LM_OPTIMIZERS:
+        mod.set_params(init, {})
+        mod.init_optimizer(kvstore="local", optimizer=name,
+                           optimizer_params=dict(kwargs), force_init=True)
+        losses, times = [], []
+        for _ in range(LM_OPT_WARMUP + LM_OPT_STEPS):
+            t0 = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(lm_loss(torch, mod.get_outputs()[0], replay["Y"]))
+        states = mod._updater.states
+        on_card = all(a._data.is_cuda for a in ex.arg_dict.values()) and \
+            all(x._data.is_cuda for st in states.values()
+                for x in (st if isinstance(st, tuple) else (st,))
+                if x is not None)
+        step_ms = float(np.mean(times[LM_OPT_WARMUP:])) * 1e3
+        gb = optimizer_states_gb(states)
+        print("train_api lm %s: step ms %.2f (mean of %d after %d warm-up), "
+              "optimizer states %.3f GB, losses %s, parameters and states "
+              "on cuda: %s" % (label, step_ms, LM_OPT_STEPS, LM_OPT_WARMUP,
+                               gb, ["%.6f" % x for x in losses], on_card),
+              flush=True)
+        check(np.all(np.isfinite(losses)), "%s: the LM's loss is not finite"
+              % label)
+        check(on_card, "%s: parameters or states left the card" % label)
+        if label == "adam":
+            check(losses[-1] < losses[0], "adam: the LM's loss did not fall")
+        out[label] = (step_ms, gb, losses)
+    del mod, ex, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def per_array_loop(mt, label, opt, weights, grads, states, t):
+    """The update as a user's loop over the registered update op: one
+    ``nd.<op>`` call per array (torch tensors in place)."""
+    op = getattr(mt.nd, PER_ARRAY_OPS[label])
+    for i, (w, g) in enumerate(zip(weights, grads)):
+        common = dict(lr=opt._get_lr(i), wd=opt._get_wd(i),
+                      rescale_grad=opt.rescale_grad)
+        st = states[i]
+        if label == "sgd":
+            op(w, g, st, out=w, momentum=opt.momentum, **common)
+        elif label == "adam":
+            common["lr"] *= (math.sqrt(1.0 - opt.beta2 ** t) /
+                             (1.0 - opt.beta1 ** t))
+            op(w, g, *st, out=w, beta1=opt.beta1, beta2=opt.beta2,
+               epsilon=opt.epsilon, **common)
+        elif label == "rmsprop":
+            op(w, g, *st, out=w, gamma1=opt.gamma1, epsilon=opt.epsilon,
+               **common)
+        else:
+            op(w, g, *st, out=w, gamma1=opt.gamma1, gamma2=opt.gamma2,
+               epsilon=opt.epsilon, **common)
+
+
+def fused_adam(torch, weights, grads):
+    """A call of ``torch._fused_adam_`` (the library's multi-tensor adam:
+    a yardstick only, eps inside its bias correction) on copies."""
+    w = [x.clone() for x in weights]
+    g = [x.clone() for x in grads]
+    m = [torch.zeros_like(x) for x in weights]
+    v = [torch.zeros_like(x) for x in weights]
+    steps = [torch.ones((), device=x.device) for x in weights]
+    return lambda: torch._fused_adam_(
+        w, g, m, v, [], steps, amsgrad=False, lr=TRAIN_LR, beta1=0.9,
+        beta2=0.999, weight_decay=0.0, eps=1e-8, maximize=False,
+        grad_scale=None, found_inf=None)
+
+
+def update_table(torch, mt, gen, device):
+    """The update alone over every parameter array of the full-width LM
+    (``lm_update_arrays``): per optimizer, the list update (median of
+    UPDATE_ROUNDS calls by CUDA events; the gradients are read, as on the
+    two-phase path: the fused step's own update skips the rescaled copy),
+    beside it the per-array loop over the registered update op where there
+    is one (timed in turns with it, after both started from the same
+    arrays: the new weights within 2 float32 ulps), the bytes bound, and
+    ``torch._fused_sgd_``/``torch._fused_adam_`` as yardsticks.  Returns
+    the table's rows."""
+    weights, grads = lm_update_arrays(torch, mt, gen, device)
+    n = sum(w.numel() for w in weights)
+    with mt.NameManager():
+        from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+        names = [k for k in get_transformer_lm(**FULL).list_arguments()
+                 if k not in ("data", "softmax_label")]
+    _, peak = peaks_for(torch.cuda.get_device_name(0))
+    yard = in_turns(torch, [("sgd", fused_sgd(torch, weights, grads)),
+                            ("adam", fused_adam(torch, weights, grads))],
+                    rounds=UPDATE_ROUNDS, reps=1)
+    torch.cuda.empty_cache()
+    rows = []
+    for label, name, kwargs, accesses in LM_OPTIMIZERS:
+        kw = dict(kwargs)
+        kw.setdefault("rescale_grad", 1.0 / BATCH)
+        opt = mt.optimizer.create(name, param_idx2name=dict(enumerate(names)),
+                                  **kw)
+        nds = [mt.nd.NDArray(w.clone(), mt.gpu(0)) for w in weights]
+        states = [mt.optimizer._tensors(opt.create_state(i, w))
+                  for i, w in enumerate(nds)]
+        ws = [w._data for w in nds]
+        idx = list(range(len(ws)))
+        t = [1]
+
+        def listed():
+            opt.update_tensors_list(idx, ws, grads, states, [t[0]] * len(ws))
+
+        row = {"optimizer": label, "arrays": len(ws), "parameters": n,
+               "accesses": accesses,
+               "bound_ms": accesses * n * 4 / (peak["tbs"] * 1e12) * 1e3}
+        if label in PER_ARRAY_OPS:
+            ws2 = [w.clone() for w in ws]
+            st2 = [tuple(x.clone() for x in s) if isinstance(s, tuple)
+                   else s.clone() for s in states]
+            listed()
+            per_array_loop(mt, label, opt, ws2, grads, st2, 1)
+            torch.cuda.synchronize()
+            d = max(ulps(torch, a, b) for a, b in zip(ws, ws2))
+            row["ulps"] = d
+            print("train_api update %s: the list update's new weights vs "
+                  "the per-array %s loop's: %d float32 ulps at most%s"
+                  % (label, PER_ARRAY_OPS[label], d,
+                     " (bitwise equal)" if d == 0 else ""), flush=True)
+            check(d <= 2, "%s: the list update disagrees with the per-array "
+                  "update ops (%d ulps)" % (label, d))
+            med = in_turns(torch, [
+                ("list", listed),
+                ("per-array", lambda: per_array_loop(mt, label, opt, ws2,
+                                                     grads, st2, 1))],
+                rounds=UPDATE_ROUNDS, reps=1)
+            row["ms"] = med["list"][0]
+            row["per_array_ms"] = med["per-array"][0]
+            del ws2, st2
+        else:
+            med = in_turns(torch, [("list", listed)], rounds=UPDATE_ROUNDS,
+                           reps=1)
+            row["ms"] = med["list"][0]
+            row["per_array_ms"] = None
+            row["ulps"] = None
+        check(all(torch.isfinite(w).all().item() for w in ws),
+              "%s: the list update wrote non-finite weights" % label)
+        row["fused_sgd_ms"] = yard["sgd"][0]
+        row["fused_adam_ms"] = yard["adam"][0]
+        print("train_api update %s: list update %.4f ms over %d arrays (%d "
+              "parameters), per-array ops %s, bound %.4f ms (%d f32 "
+              "accesses a parameter at %.2f TB/s): %.2fx; yardsticks "
+              "torch._fused_sgd_ %.4f ms, torch._fused_adam_ %.4f ms"
+              % (label, row["ms"], len(ws), n,
+                 "%.4f ms" % row["per_array_ms"]
+                 if row["per_array_ms"] is not None else "none",
+                 row["bound_ms"], accesses, peak["tbs"],
+                 row["ms"] / row["bound_ms"], row["fused_sgd_ms"],
+                 row["fused_adam_ms"]), flush=True)
+        rows.append(row)
+        del nds, states, ws
+        torch.cuda.empty_cache()
+    del weights, grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_api_phase(torch, mt, batch, replay):
+    """Phase 11: the training API on the card (module docstring)."""
+    with tempfile.TemporaryDirectory() as folder:
+        lenet = lenet_feedforward(torch, mt, folder)
+    sweep = lm_optimizer_sweep(torch, mt, batch, replay)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = update_table(torch, mt, gen, torch.device("cuda", 0))
+    for row in rows:
+        step_ms, gb, losses = sweep[row["optimizer"]]
+        row.update(lm_step_ms=step_ms, states_gb=gb,
+                   lm_losses=[float(x) for x in losses])
+    print(json.dumps({"train_api": {"lenet": lenet, "update": rows}}),
+          flush=True)
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -3338,6 +3848,10 @@ def profile(torch, fn, outdir, label):
     detect = [(e["ts"], e["ts"] + e["dur"]) for e in trace_events
               if e.get("cat") == "gpu_user_annotation"
               and e.get("name", "").startswith("_contrib_")]
+    # and the optimizer's list update's (optimizer.update_tensors_list)
+    update = [(e["ts"], e["ts"] + e["dur"]) for e in trace_events
+              if e.get("cat") == "gpu_user_annotation"
+              and e.get("name", "").startswith("list_update:")]
     span = max(e["ts"] + e["dur"] for e in events) - \
         min(e["ts"] for e in events)
     busy = sum(e["dur"] for e in events)
@@ -3346,6 +3860,8 @@ def profile(torch, fn, outdir, label):
         group = device_op_group(e)
         if any(lo <= e["ts"] < hi for lo, hi in detect):
             group = "detection (MultiBox)"
+        elif any(lo <= e["ts"] < hi for lo, hi in update):
+            group = "optimizer (list update)"
         ms, n = groups.get(group, (0.0, 0))
         groups[group] = (ms + e["dur"] / 1e3, n + 1)
         names.setdefault(group, set()).add(e["name"])
@@ -3457,7 +3973,8 @@ def main():
                          "(bf16 and float32), one extra splash step, one "
                          "extra rtc_gelu train step, one extra ResNet-50 "
                          "bf16 step, one extra SSD train step and one extra "
-                         "SSD request with torch.profiler")
+                         "SSD request with torch.profiler (the optimizer's "
+                         "list update a group of its own)")
     ap.add_argument("--parent-csrc", metavar="DIR", action="append",
                     default=[],
                     help="a csrc directory of another version (flash_fwd.cu "
@@ -3533,7 +4050,7 @@ def main():
     check(splitp_row["launches"] > 0, "the splash path never launched "
           "flash_fwd_splitp")
     rows.append(splitp_row)
-    del batch, replay, flash_out
+    del flash_out  # the train phase's batch and init serve train_api too
     torch.cuda.empty_cache()
     ext_launches, sgd_row = extend_phase(torch, mt, losses, step_ms,
                                          opts.profile)
@@ -3558,6 +4075,9 @@ def main():
     rows += [dim_rows[k] for k in sorted(dim_rows)]
     spread_witness(torch, mt)
     small_train_agreement(torch, mt, None, rtc_gelu=True)
+    for optimizer in AGREE_MORE:
+        small_train_agreement(torch, mt, None, optimizer=optimizer)
+    lenet_consistency(mt)
     custom_op_agreement(mt)
     nd_agreement(mt)
     conv_precision_check(torch, mt)
@@ -3573,6 +4093,8 @@ def main():
           % (ssd_launches or "none (cuDNN, torch's CUDA convolution and "
              "plain torch)"), flush=True)
     random_phase(torch, mt)
+    train_api_phase(torch, mt, batch, replay)
+    del batch, replay
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -10,9 +10,12 @@ on the card (``gpu(0)``) unless the caller passes ``mx.cpu()``.
 Ported so far: the serving path — ``Predictor`` over a transformer LM
 (``models.transformer.get_transformer_lm``) with the flash-attention
 forward kernel — and the training path — ``mod.Module`` with
-``forward_backward``/``update`` (the fused step), SGD and Adam, the
-initializers, ``io.NDArrayIter``, metrics and checkpoints, with the
-flash-attention backward kernels — and the user extension path: the
+``forward_backward``/``update`` (the fused step), every optimizer of the
+JAX package on one list update, the initializers, the iterators
+(``NDArrayIter``, ``MNISTIter``, ``CSVIter``, ``ResizeIter``,
+``PrefetchingIter``), metrics, callbacks, checkpoints, ``model.FeedForward``
+and ``test_utils``, with the flash-attention backward kernels — and the
+user extension path: the
 imperative ``nd.<op>`` surface, ``Symbol`` arithmetic and ``simple_bind``,
 ``rtc.MXRtc`` compiling a user's CUDA C at run time with NVRTC
 (``cuda_rtc``), user kernels as trainable ops through
@@ -51,4 +54,6 @@ from . import callback
 from . import model
 from . import module
 from . import module as mod
+from . import executor_manager
 from . import convert
+from . import test_utils

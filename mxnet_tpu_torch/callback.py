@@ -1,13 +1,14 @@
-"""Training callbacks — counterpart of ``mxnet_tpu/callback.py`` for the
-training slice: ``Speedometer`` (samples/s between batch callbacks),
+"""Training callbacks — counterpart of ``mxnet_tpu/callback.py``:
+``Speedometer`` (samples/s between batch callbacks), ``ProgressBar``,
 ``do_checkpoint``, ``module_checkpoint`` and ``log_train_metric``."""
 from __future__ import annotations
 
 import logging
+import math
 import time
 
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
-           "Speedometer"]
+           "Speedometer", "ProgressBar"]
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
@@ -87,3 +88,19 @@ class Speedometer:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, count, speed)
         self.tic = time.monotonic()
+
+
+class ProgressBar:
+    """Log an ASCII bar of ``length`` characters for the batches done out
+    of ``total``, at every batch-end callback."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")

@@ -9,9 +9,14 @@ bytes.
 
 ``optimizer_states_from_numpy`` takes an updater's states as numpy — the
 JAX package's ``Updater.states`` ``{index: state}`` with every NDArray
-replaced by its ``.asnumpy()`` (adam: a (mean, var) pair, SGD with
-momentum: one array, stateless: None) — and returns the same structure of
-the port's NDArrays on ``ctx``, ready for the port's ``Updater.states``.
+replaced by its ``.asnumpy()`` — and returns the same structure of the
+port's NDArrays on ``ctx``, ready for the port's ``Updater.states``.  Every
+optimizer's layout carries over: one array (SGD, NAG and ccSGD with
+momentum, AdaGrad, Test), a tuple (Adam's (mean, var), AdaDelta's two
+accumulators, RMSProp's (n,) or centered (n, g, delta)), a tuple with a
+``None`` member (DCASGD without momentum: (None, previous weight); with it:
+(momentum, previous weight)), or None (stateless SGD, SGLD).  Each array
+keeps its dtype.
 """
 from __future__ import annotations
 
@@ -27,12 +32,13 @@ __all__ = ["params_from_numpy", "optimizer_states_from_numpy"]
 def params_from_numpy(params: Dict[str, np.ndarray], ctx) -> Dict[str, NDArray]:
     """Each array keeps its dtype; bfloat16 arrives as ml_dtypes' bfloat16
     and stays bfloat16."""
-    out = {}
-    for name, value in params.items():
-        host = np.asarray(value)
-        bf16 = host.dtype.kind == "V"
-        out[name] = array(host, ctx, dtype="bfloat16" if bf16 else host.dtype)
-    return out
+    return {name: _array(value, ctx) for name, value in params.items()}
+
+
+def _array(value, ctx) -> NDArray:
+    host = np.asarray(value)
+    bf16 = host.dtype.kind == "V"
+    return array(host, ctx, dtype="bfloat16" if bf16 else host.dtype)
 
 
 def _state_from_numpy(state, ctx):
@@ -40,7 +46,7 @@ def _state_from_numpy(state, ctx):
         return None
     if isinstance(state, (list, tuple)):
         return tuple(_state_from_numpy(s, ctx) for s in state)
-    return array(np.asarray(state), ctx, dtype=np.float32)
+    return _array(state, ctx)
 
 
 def optimizer_states_from_numpy(states, ctx):

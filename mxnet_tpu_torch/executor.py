@@ -18,8 +18,9 @@ mixed precision (``compute_dtype`` casts float32 arguments not in
 ``cast_exclude`` inside the step, gradients come back float32 to the
 float32 arrays); stochastic ops (``Dropout``) drawing from the device's
 generator, with ``backward`` replaying the draws of the forward before it;
-and ``fused_step``: forward, backward and the optimizer's update as one
-call, in place on the float32 parameters.
+and ``fused_step``: forward, backward and the optimizer's update (one
+list update over every parameter, the step's own gradients its scratch)
+as one call, in place on the float32 parameters.
 
 Left out, with their reason: jit, buffer donation and the compile cache
 (PyTorch runs eagerly; a CUDA graph is the later tool), SPMD shardings and
@@ -342,10 +343,11 @@ class Executor:
         """One train step: forward, autograd backward and the optimizer's
         update of every parameter with a gradient, in one call
         (counterpart of the JAX package's jitted ``fused_step``).  Inputs
-        must already be in ``arg_dict``.  The gradients are never exposed,
-        and the update writes the float32 parameters and optimizer states
-        in place under ``torch.no_grad()``.  ``param_names`` gives the
-        updater's index space (position == index), as Module wires it."""
+        must already be in ``arg_dict``.  The gradients are never exposed:
+        the optimizer's list update takes them as scratch, and writes the
+        float32 parameters and optimizer states in place.
+        ``param_names`` gives the updater's index space (position ==
+        index), as Module wires it."""
         infos = []
         for idx, name in enumerate(param_names):
             if self._grad_req.get(name, "null") == "null":
@@ -361,11 +363,14 @@ class Executor:
         t = optimizer.num_update
         outs, new_aux, grads = self._grads([n for n, _ in infos], None, True,
                                            self._generator(remember=True))
-        with torch.no_grad():
-            for name, idx in infos:
-                optimizer.update_tensors(
-                    idx, self.arg_dict[name]._data, grads.pop(name),
-                    _tensors(updater.states[idx]), t)
+        # one list update over every array; the gradients are this step's
+        # own, so the update may use them as scratch
+        optimizer.update_tensors_list(
+            [idx for _, idx in infos],
+            [self.arg_dict[name]._data for name, _ in infos],
+            [grads.pop(name) for name, _ in infos],
+            [_tensors(updater.states[idx]) for _, idx in infos],
+            [t] * len(infos), owned_grads=True)
         for k, v in new_aux.items():
             self.aux_dict[k]._set(v.detach())
         self._set_outputs(outs)

@@ -1,11 +1,13 @@
 """Weight initializers — counterpart of ``mxnet_tpu/initializer.py``.
 
-The same surface for the ported slices: ``InitDesc``, name-pattern
-dispatch in ``Initializer.__call__`` (and ``__init__`` attrs naming an
-initializer), ``Uniform``, ``Normal``, ``Xavier``, ``Zero``/``One``/
-``Constant``, ``Load`` and ``Mixed``.  Random draws come from the port's
-per-device generator (``random.py``) on the array's own device, so a
-full-width model initializes on the card.
+The same surface: ``InitDesc``, name-pattern dispatch in
+``Initializer.__call__`` (and ``__init__`` attrs naming an initializer;
+``upsampling*`` names get the bilinear kernel, ``stn_loc*`` the identity
+affine transform), ``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``,
+``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``Zero``/``One``/``Constant``,
+``Load`` and ``Mixed``.  Random draws come from the port's per-device
+generator (``random.py``) on the array's own device, so a full-width model
+initializes on the card.  ``FusedRNN`` waits for the port of ``rnn/``.
 """
 from __future__ import annotations
 
@@ -16,12 +18,14 @@ from math import sqrt
 from typing import Dict
 
 import numpy as np
+import torch
 
 from .base import string_types
 from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Load", "Mixed", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier", "register"]
+           "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "LSTMBias", "register"]
 
 _INIT_REGISTRY: Dict[str, type] = {}
 
@@ -60,7 +64,13 @@ class Initializer:
             klass, kwargs = json.loads(init)
             _INIT_REGISTRY[klass.lower()](**kwargs)._init_weight(name, arr)
             return
-        if name.endswith("bias"):
+        if name.startswith("upsampling"):
+            self._init_bilinear(name, arr)
+        elif name.startswith("stn_loc") and name.endswith("weight"):
+            self._init_zero(name, arr)
+        elif name.startswith("stn_loc") and name.endswith("bias"):
+            self._init_loc_bias(name, arr)
+        elif name.endswith("bias"):
             self._init_bias(name, arr)
         elif name.endswith("gamma"):
             self._init_gamma(name, arr)
@@ -74,6 +84,27 @@ class Initializer:
             self._init_one(name, arr)
         else:
             self._init_default(name, arr)
+
+    def _init_bilinear(self, _, arr):
+        """The fixed bilinear upsampling kernel over the last two axes:
+        (1 - |x / f - c|) (1 - |y / f - c|), computed in float64 on the
+        array's device and rounded once to float32, the values the JAX
+        package's per-element loop stores."""
+        shape = arr.shape
+        dev = arr._data.device
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = torch.arange(shape[3], dtype=torch.float64, device=dev)
+        y = torch.arange(shape[2], dtype=torch.float64, device=dev)
+        kernel = (1 - (y / f - c).abs())[:, None] * \
+            (1 - (x / f - c).abs())[None, :]
+        arr[:] = kernel.to(torch.float32).expand(shape)
+
+    def _init_loc_bias(self, _, arr):
+        """The identity affine transform [1, 0, 0, 0, 1, 0] (a spatial
+        transformer's localisation bias)."""
+        assert arr.shape[0] == 6
+        arr[:] = torch.tensor([1.0, 0, 0, 0, 1.0, 0], dtype=torch.float32)
 
     def _init_zero(self, _, arr):
         arr[:] = 0.0
@@ -241,3 +272,64 @@ class Xavier(Initializer):
             arr[:] = _random.normal(0, scale, shape, arr.context)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class Orthogonal(Initializer):
+    """(Semi-)orthogonal weights (Saxe et al.): a draw from the array's
+    device generator, U(-1, 1) or N(0, 1) of (out, in), decomposed by SVD
+    on the host, as the JAX package does; its orthonormal factor times
+    ``scale``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _random.uniform(-1.0, 1.0, (nout, nin), arr.context)
+        else:
+            tmp = _random.normal(0.0, 1.0, (nout, nin), arr.context)
+        u, _v, q = np.linalg.svd(tmp.asnumpy(), full_matrices=False)
+        res = u if u.shape == (nout, nin) else q
+        arr[:] = (self.scale * res).reshape(arr.shape)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He/MSRA init for PReLU nets: Gaussian Xavier at magnitude
+    2 / (1 + slope²)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel for every weight."""
+
+    def _init_weight(self, name, arr):
+        Initializer._init_bilinear(self, name, arr)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zero bias with the forget gate's (the second quarter, gates i, f,
+    c, o) set to ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(arr.shape, dtype=torch.float32)
+        num_hidden = int(arr.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = b
+
+    _init_bias = _init_weight

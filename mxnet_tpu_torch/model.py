@@ -1,9 +1,12 @@
-"""Model-level helpers: checkpoints and the kvstore decision — counterpart
-of ``mxnet_tpu/model.py`` for the training slice.
+"""Model-level helpers: checkpoints, the kvstore decision and the legacy
+``FeedForward`` training API — counterpart of ``mxnet_tpu/model.py``.
 
 ``save_checkpoint`` writes ``prefix-symbol.json`` and ``prefix-%04d.params``
 (the ``.params`` bytes ``nd.save`` writes in both packages);
-``load_checkpoint`` reads them back.  The port has no kvstore yet:
+``load_checkpoint`` reads them back.  ``FeedForward`` is the JAX package's
+thin adapter over ``Module``: ``fit``, ``predict``, ``score``, ``save`` and
+``load``; ``ctx=None`` is the current context, the card unless the caller
+sets another.  The port has no kvstore yet:
 ``_create_kvstore`` accepts what needs none — ``None``, or ``"local"`` /
 ``"device"`` on one device — and raises for anything else (several
 devices, ``dist_*``, a KVStore object).  The JAX package's sidecars (CRC,
@@ -18,7 +21,8 @@ from . import ndarray as nd
 from . import symbol as sym
 from .base import MXNetError
 
-__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
+           "FeedForward"]
 
 BatchEndParam = collections.namedtuple(
     "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
@@ -40,13 +44,18 @@ def _create_kvstore(kvstore, num_device, arg_params):
 def _update_params(param_arrays, grad_arrays, updater, num_device=1,
                    kvstore=None):
     """The replicated-updater path: the updater on every parameter with a
-    gradient."""
+    gradient, all at once through ``Updater.update_list`` (one list
+    update), or one call each for an updater that is a plain function."""
     if kvstore is not None:
         raise MXNetError("_update_params: no kvstore in the port")
-    for index, (arg, grad) in enumerate(zip(param_arrays, grad_arrays)):
-        if grad is None:
-            continue
-        updater(index * num_device, grad, arg)
+    items = [(index * num_device, grad, arg) for index, (arg, grad)
+             in enumerate(zip(param_arrays, grad_arrays)) if grad is not None]
+    if hasattr(updater, "update_list"):
+        if items:
+            updater.update_list(*(list(c) for c in zip(*items)))
+        return
+    for index, grad, arg in items:
+        updater(index, grad, arg)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
@@ -73,3 +82,108 @@ def load_checkpoint(prefix, epoch, ctx=None):
         if tp == "aux":
             aux_params[name] = v
     return symbol, arg_params, aux_params
+
+
+class FeedForward:
+    """The legacy training API over ``Module``, so the reference's scripts
+    run unchanged: ``fit`` builds a ``Module`` from the training iterator's
+    names and trains it; ``predict``/``score`` run the trained module, or
+    one bound to ``arg_params``/``aux_params`` (after ``load``).  ``ctx``
+    None is the current context."""
+
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
+                 optimizer="sgd", initializer=None, numpy_batch_size=128,
+                 arg_params=None, aux_params=None, allow_extra_params=False,
+                 begin_epoch=0, **kwargs):
+        from .initializer import Uniform
+
+        self.symbol = symbol
+        self.ctx = ctx
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.optimizer = optimizer
+        self.initializer = initializer if initializer is not None \
+            else Uniform(0.01)
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.begin_epoch = begin_epoch
+        self.kwargs = kwargs.copy()
+        self._module = None
+
+    def _get_module(self, data, label_name="softmax_label"):
+        from .module import Module
+
+        data_names = [d[0] for d in data.provide_data]
+        label_names = [lab[0] for lab in data.provide_label] or [label_name]
+        return Module(self.symbol, data_names=data_names,
+                      label_names=label_names, context=self.ctx)
+
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            logger=None, work_load_list=None, monitor=None,
+            eval_end_callback=None, eval_batch_end_callback=None):
+        """Train ``num_epoch`` epochs on ``X`` (an iterator, or arrays with
+        labels ``y``), with the optimizer and its kwargs given at
+        construction."""
+        if monitor is not None:
+            raise MXNetError("FeedForward.fit: the monitor is not ported yet")
+        train_data = self._as_iter(X, y)
+        mod = self._get_module(train_data)
+        optimizer_params = dict(self.kwargs)
+        optimizer_params.setdefault("learning_rate", 0.01)
+        mod.fit(train_data, eval_data=eval_data, eval_metric=eval_metric,
+                epoch_end_callback=epoch_end_callback,
+                batch_end_callback=batch_end_callback, kvstore=kvstore,
+                optimizer=self.optimizer, optimizer_params=optimizer_params,
+                eval_end_callback=eval_end_callback,
+                eval_batch_end_callback=eval_batch_end_callback,
+                initializer=self.initializer, arg_params=self.arg_params,
+                aux_params=self.aux_params, begin_epoch=self.begin_epoch,
+                num_epoch=self.num_epoch)
+        self._module = mod
+        self.arg_params, self.aux_params = mod.get_params()
+        return self
+
+    def _bound_module(self, data, with_labels):
+        if self._module is None:  # e.g. right after FeedForward.load
+            mod = self._get_module(data)
+            mod.bind(data_shapes=data.provide_data,
+                     label_shapes=data.provide_label if with_labels else None,
+                     for_training=False)
+            mod.set_params(self.arg_params or {}, self.aux_params or {},
+                           allow_missing=False)
+            self._module = mod
+        return self._module
+
+    def predict(self, X, num_batch=None):
+        """The outputs on ``X`` as numpy, padding rows dropped."""
+        data = self._as_iter(X, None)
+        outs = self._bound_module(data, False).predict(data,
+                                                       num_batch=num_batch)
+        return outs.asnumpy() if hasattr(outs, "asnumpy") else outs
+
+    def score(self, X, y=None, eval_metric="acc"):
+        """The value of ``eval_metric`` on ``X``."""
+        data = self._as_iter(X, y)
+        return self._bound_module(data, True).score(data, eval_metric)[0][1]
+
+    def _as_iter(self, X, y):
+        from .io import DataIter, NDArrayIter
+
+        if isinstance(X, DataIter):
+            return X
+        return NDArrayIter(X, y, self.numpy_batch_size, shuffle=False)
+
+    def save(self, prefix, epoch=None):
+        if epoch is None:
+            epoch = self.num_epoch
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params or {},
+                        self.aux_params or {})
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params, begin_epoch=epoch, **kwargs)

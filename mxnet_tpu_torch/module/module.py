@@ -5,7 +5,7 @@
 ``set_params``, ``get_params``; ``init_optimizer`` (kvstore None or
 "local" on one device); ``forward``/``backward``/``forward_backward``/
 ``update``; ``save_checkpoint``/``load``.  As in the JAX package, when the
-optimizer has a tensor update rule and every gradient is written (not
+optimizer has a list update rule and every gradient is written (not
 added), ``forward_backward`` defers the batch and ``update`` runs forward,
 backward and the update as one ``Executor.fused_step``; a caller that asks
 for outputs or gradients in between gets the two-phase path for that batch.

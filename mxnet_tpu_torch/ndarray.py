@@ -334,12 +334,19 @@ def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
         a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
+def _nd_context(x) -> Context:
+    """The context of an NDArray or of a torch tensor's device."""
+    return x.context if isinstance(x, NDArray) else _context_of(x.device)
+
+
 def _invoke(op_name: str, args, kwargs):
     """Run registered op ``op_name`` on NDArrays: positional inputs, array
     kwargs by input name, every other kwarg an attr; ``out=`` receives the
     result in place; updated aux states are written back to their arrays.
-    The op runs on the context of its first NDArray input, else its
-    ``ctx`` attr, else ``out``'s, else the current context."""
+    The op runs on the context of its first NDArray input (or torch
+    tensor's device), else its ``ctx`` attr, else ``out``'s, else the
+    current context.  Torch tensors are accepted as inputs, aux states and
+    ``out``, and written in place like NDArrays."""
     op = registered_ops()[op_name]
     kwargs = dict(kwargs)
     out = kwargs.pop("out", None)
@@ -356,11 +363,12 @@ def _invoke(op_name: str, args, kwargs):
         slot = dict(zip(names, inputs))
         slot.update(nd_kwargs)
         inputs = [slot[n] for n in names if n in slot]
-    ctx = next((a.context for a in inputs if isinstance(a, NDArray)), None)
+    ctx = next((_nd_context(a) for a in inputs
+                if isinstance(a, (NDArray, torch.Tensor))), None)
     if ctx is None and parsed.get("ctx"):
         ctx = _parse_ctx(parsed["ctx"])
     if ctx is None and out is not None:  # a source op writes where out is
-        ctx = (out[0] if isinstance(out, (list, tuple)) else out).context
+        ctx = _nd_context(out[0] if isinstance(out, (list, tuple)) else out)
     if ctx is None:
         ctx = current_context()
     device = ctx.torch_device()
@@ -376,6 +384,8 @@ def _invoke(op_name: str, args, kwargs):
     for holder, new in zip(inputs[len(inputs) - n_aux:], aux_updates):
         if isinstance(holder, NDArray) and new is not holder._data:
             holder._set(new)
+        elif isinstance(holder, torch.Tensor) and new is not holder:
+            holder.copy_(new)
     # a result that is a view of an input (identity, Reshape, BlockGrad)
     # becomes a copy: an op's output never aliases its inputs
     outs = [o.clone() if any(_shares_storage(o, t) for t in tensors) else o
@@ -384,7 +394,10 @@ def _invoke(op_name: str, args, kwargs):
     if out is not None:
         for dst, src in zip(out if isinstance(out, (list, tuple)) else [out],
                             results):
-            if dst.shape == src.shape:
+            if isinstance(dst, torch.Tensor):
+                with torch.no_grad():
+                    dst.copy_(src._data)
+            elif dst.shape == src.shape:
                 with torch.no_grad():
                     dst._data.copy_(src._data)
             else:
@@ -403,9 +416,7 @@ def _make_imperative(op_name: str, op):
 
 
 # the module's own functions, which no generated op function replaces
-_OWN_NAMES = frozenset(__all__) | {"sgd_update", "sgd_mom_update",
-                                   "adam_update", "rmsprop_update",
-                                   "rmspropalex_update"}
+_OWN_NAMES = frozenset(__all__)
 
 
 def _init_ops():
@@ -610,10 +621,5 @@ def load(fname: str, ctx: Optional[Context] = None):
         return dict(zip(names, arrays))
     return arrays
 
-
-# the fused optimizer updates, called as nd.<name>(weight, grad, ..., out=)
-from .ops.optimizer_ops import (adam_update, rmsprop_update,  # noqa: E402
-                                rmspropalex_update, sgd_mom_update,
-                                sgd_update)
 
 _init_ops()

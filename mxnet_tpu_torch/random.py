@@ -14,8 +14,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["seed", "current_seed", "generator", "uniform", "normal",
-           "randint", "get_state", "set_state"]
+__all__ = ["seed", "current_seed", "generator", "optimizer_generator",
+           "uniform", "normal", "randint", "get_state", "set_state"]
 
 _state = threading.local()
 
@@ -53,6 +53,25 @@ def generator(device) -> torch.Generator:
     return gens[key]
 
 
+#: the stream of :func:`optimizer_generator`, kept apart from the ops'
+_OPTIMIZER_STREAM = "#optimizer"
+
+
+def optimizer_generator(device) -> torch.Generator:
+    """The generator an optimizer draws its noise from on ``device`` (SGLD):
+    a second stream per device, seeded from the current seed, so that an
+    optimizer's draws never move the generator the ops draw from (whose
+    state the fused step keeps to replay dropout in its backward)."""
+    device = torch.device(device)
+    key = str(device) + _OPTIMIZER_STREAM
+    gens = _gens()
+    if key not in gens:
+        gen = torch.Generator(device=device)
+        gen.manual_seed((_state.seed + 0x9E3779B9) % (2 ** 63))
+        gens[key] = gen
+    return gens[key]
+
+
 def get_state() -> dict:
     """Snapshot the random state as plain host data: the seed, and each
     device generator's ``get_state()`` bytes by device.  After
@@ -71,7 +90,8 @@ def set_state(state: dict) -> None:
     gens.clear()
     _state.seed = int(state["seed"])
     for key, data in state["generators"].items():
-        gen = torch.Generator(device=torch.device(key))
+        gen = torch.Generator(
+            device=torch.device(key.partition(_OPTIMIZER_STREAM)[0]))
         gen.set_state(torch.from_numpy(np.asarray(data, np.uint8).copy()))
         gens[key] = gen
 

@@ -42,7 +42,14 @@ TOL = {None: 1e-4, "bfloat16": 2e-2}
 #: relative to its norm (read 0.116 with sgd and 0.100 with adam)
 BF16_CHANGE_LIMIT = 0.15
 OPTIMIZERS = {"adam": {"learning_rate": 1e-3, "epsilon": 1e-4},
-              "sgd": {"learning_rate": 1e-3, "momentum": 0.9}}
+              "sgd": {"learning_rate": 1e-3, "momentum": 0.9},
+              "nag": {"learning_rate": 1e-3, "momentum": 0.9, "wd": 1e-2},
+              "dcasgd": {"learning_rate": 1e-3, "momentum": 0.9},
+              "ccsgd": {"learning_rate": 1e-3, "momentum": 0.9},
+              "adagrad": {"learning_rate": 1e-3, "wd": 1e-2},
+              "rmsprop": {"learning_rate": 1e-3, "centered": True},
+              "adadelta": {"wd": 1e-2},
+              "test": {}}
 
 
 def _rel(got, ref):
@@ -161,7 +168,9 @@ def _rel_norm(got, ref):
     return (num / den) ** 0.5
 
 
-@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+@pytest.mark.parametrize("optimizer", ["sgd", "adam", "nag", "dcasgd",
+                                       "ccsgd", "adagrad", "rmsprop",
+                                       "adadelta", "test"])
 def test_module_bf16_update_writes_float32_masters(lm_setup, optimizer):
     """With bf16 compute the update lands on the float32 parameters: two
     steps through forward / backward / update give, from the port's own
