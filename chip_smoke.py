@@ -27,8 +27,10 @@
                                            # (its K1 the split-P variant),
                                            # one extra rtc_gelu step,
                                            # one extra ResNet-50 bf16 step,
-                                           # one extra SSD train step and
-                                           # one extra SSD request (the
+                                           # one extra SSD train step,
+                                           # one extra SSD request and one
+                                           # extra .rec-fed ResNet-50 bf16
+                                           # step, next() included (the
                                            # detection ops' kernels as a
                                            # group of their own; in every
                                            # step the optimizer's list
@@ -202,7 +204,53 @@ Phases, each fatal on failure (non-zero exit, no result line):
              a ``train_api`` JSON line with the table.  The agree phase
              adds ``test_utils.check_consistency`` of LeNet (cpu vs
              gpu(0)) and three NAG and three centered RMSProp steps of the
-             small LM.
+             small LM;
+13. spatial — the spatial ops at the widths of the models that use them.
+             (a) STN-LeNet (MXNet's lenet.py with add_stn) through
+             ``FeedForward`` on the train_api phase's MNIST files,
+             iterators and settings: stn_loc starts at weight 0 and the
+             identity bias; the first 2 losses within 1e-4 of the CPU
+             route, the final validation accuracy at least the JAX
+             package's own (JAX_STN_VAL_ACC) less 0.02, 3 steps replayed
+             bit for bit; step ms, img/s, peak memory.  (b) ROIPooling at
+             Fast R-CNN's VGG16 head (roi_pool5, 7x7, 1/16 of conv5_3
+             (1, 512, 38, 63), then fc6 4096) at 128 and 300 seeded ROIs
+             (a quarter on corners that land on .5), forward and backward
+             through an executor: the pooled output the CPU route's bits,
+             the data gradient within 1e-6.  (c) Correlation at FlowNetC's
+             corr layer (441 displacements of (8, 256, 48, 64)): batch 1's
+             forward and both gradients within 1e-5 of the CPU route.  (d)
+             GridGenerator(warp) + BilinearSampler over (8, 3, 384, 512):
+             the CPU route within 1e-5, the gradients bit for bit on a
+             second run, and GridGenerator(affine) + BilinearSampler equal
+             to SpatialTransformer.  Each prints ms by CUDA events and
+             peak memory, and a ``spatial`` JSON line;
+14. image_io — ResNet-50 and SSD trained from .rec packs.  (a) The codec
+             route (``image_backend.codec_routes``), ``native_status()``
+             and ``os.cpu_count()``; fatal without the native reader or a
+             batch JPEG decoder (libjpeg's ``src/imgdecode.cc`` where its
+             headers are installed, else nvJPEG's
+             ``mxnet_tpu_torch/csrc/nvjpeg_codec.cu``).  (b) A 2,560-image
+             pack as ``im2rec --resize 256`` holds ImageNet (class-coloured
+             images, short side 256, JPEG q95, labels i % 1000) written by
+             ``MXIndexedRecordIO``; 16 of its images decoded by every codec
+             of the card within stated bounds of the source and of each
+             other; the batch decoder alone timed over 256 of them.  (c)
+             fit.py's --test-io: ``ImageRecordIter`` as
+             train_imagenet.get_rec_iter builds it (224², batch 256,
+             shuffle, rand_crop, rand_mirror, means) at 4 threads and at
+             ``os.cpu_count()``, img/s over 2 epochs.  (d) ResNet-50 bf16
+             at batch 256 (the resnet phase's Module) fed by it: 2 + 8
+             steps, step ms and img/s beside SyntheticIter's 145.13 ms
+             before the image data path, the wait on the iterator, the
+             batch's copy to the card.  (e) float32, batch 32, centre crop, no mirror: the
+             first batch on the card the CPU route's read bit for bit, the
+             first 3 losses the CPU route's at the card's states within
+             1e-4.  (f) SSD trained 6 steps from a 128-image detection
+             pack read by ``ImageDetRecordIter`` as train_ssd.py builds
+             it, its first 2 steps held as the ssd phase holds them.  (g)
+             ``nd.imdecode`` and the three ``_cv*`` ops on the card, the
+             CPU route's bits.  An ``image_io`` JSON line ends it.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -3100,7 +3148,8 @@ def ssd_phase(torch, mt, profile_dir=None):
     pass is below the first, and match the port's CPU route at its first
     steps (losses and MultiBoxTarget's targets); serving must give
     well-formed detections whose kept rows are the CPU route's.  Returns
-    the launch counts (no kernel of the port's own is on this path)."""
+    the launch counts (no kernel of the port's own is on this path) and
+    the training step's ms."""
     from mxnet_tpu_torch.models import get_ssd_detect, get_ssd_train
 
     with mt.NameManager():
@@ -3259,7 +3308,7 @@ def ssd_phase(torch, mt, profile_dir=None):
                             attrs["nms_topk"]), flush=True)
     del pred, host
     torch.cuda.empty_cache()
-    return launches
+    return launches, step_ms
 
 
 def small_ssd_agreement(torch, mt):
@@ -3461,7 +3510,8 @@ def mnist_iters(mt, paths):
     return train, val
 
 
-def lenet_witness(torch, mt, net, init, batches, losses):
+def lenet_witness(torch, mt, net, init, batches, losses,
+                  label="train_api lenet"):
     """The card's first MNIST_WITNESS steps again on the port's CPU route
     from the same init and batches: each loss within 1e-4 relative."""
     mod = mt.mod.Module(net, context=mt.cpu())
@@ -3477,12 +3527,12 @@ def lenet_witness(torch, mt, net, init, batches, losses):
         cpu.append(lm_loss(torch, mod.get_outputs()[0],
                            b.label[0].asnumpy()))
     err = max(abs(a - c) / abs(c) for a, c in zip(losses, cpu))
-    print("train_api lenet: first %d steps' losses on the card %s vs the "
+    print("%s: first %d steps' losses on the card %s vs the "
           "CPU route %s: relative error %.3g (tolerance 1e-4)"
-          % (len(cpu), ["%.7f" % x for x in losses],
+          % (label, len(cpu), ["%.7f" % x for x in losses],
              ["%.7f" % x for x in cpu], err), flush=True)
-    check(err <= 1e-4, "LeNet's first steps on the card disagree with the "
-          "CPU route")
+    check(err <= 1e-4, "%s: the first steps on the card disagree with "
+          "the CPU route" % label)
 
 
 def lenet_feedforward(torch, mt, folder):
@@ -3791,6 +3841,835 @@ def train_api_phase(torch, mt, batch, replay):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# spatial: STN-LeNet, Fast R-CNN's ROI pooling, FlowNet's correlation and
+# warp, at the widths of the models that use them
+# ---------------------------------------------------------------------------
+
+#: the JAX package's own final validation accuracy of the STN-LeNet on the
+#: CPU with this phase's net, files, iterators and settings
+#: (``JAX_PLATFORMS=cpu python tests/test_torch_spatial.py``); the card's
+#: may fall short of it by at most MNIST_GATE
+JAX_STN_VAL_ACC = 0.091797
+STN_REPLAY = 3
+#: Fast R-CNN's VGG16 head (MXNet example/rcnn, roi_pool5 then fc6): the
+#: conv5_3 features of a 600x1000 image, 128 ROIs in training, 300 in test
+FRCNN_POOL = dict(pooled_size=(7, 7), spatial_scale=0.0625)
+FRCNN_FEATURES = (1, 512, 38, 63)
+FRCNN_IMAGE = (600, 1000)
+FRCNN_ROIS = (128, 300)
+FRCNN_FC = 4096
+#: FlowNetC's corr layer over its conv3 features (441 displacements)
+FLOWNET_CORR = dict(pad_size=20, kernel_size=1, max_displacement=20,
+                    stride1=1, stride2=2)
+FLOWNET_FEATURES = (8, 256, 48, 64)
+#: FlowNet's warping of a batch of 384x512 images by a flow field
+WARP_IMAGES = (8, 3, 384, 512)
+SPATIAL_REPS = 5
+
+
+def stn_lenet(mt, num_classes=10):
+    """MXNet's example/image-classification/symbols/lenet.py with
+    ``add_stn=True``: the localisation net (its FullyConnected named
+    ``stn_loc`` with attr lr_mult 0.01), SpatialTransformer to 28x28
+    (affine, bilinear), then get_lenet's layers (a copy of
+    tests/test_torch_spatial.py's builder)."""
+    s = mt.sym
+    data = s.Variable("data")
+    loc = s.Convolution(data=data, num_filter=30, kernel=(5, 5),
+                        stride=(2, 2))
+    loc = s.Activation(data=loc, act_type="relu")
+    loc = s.Pooling(data=loc, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    loc = s.Convolution(data=loc, num_filter=60, kernel=(3, 3), pad=(1, 1))
+    loc = s.Activation(data=loc, act_type="relu")
+    loc = s.Pooling(data=loc, global_pool=True, kernel=(2, 2),
+                    pool_type="avg")
+    loc = s.Flatten(data=loc)
+    loc = s.FullyConnected(data=loc, num_hidden=6, name="stn_loc",
+                           attr={"lr_mult": "0.01"})
+    data = s.SpatialTransformer(data=data, loc=loc, target_shape=(28, 28),
+                                transform_type="affine",
+                                sampler_type="bilinear")
+    net = s.Convolution(data=data, kernel=(5, 5), num_filter=20)
+    net = s.Activation(data=net, act_type="tanh")
+    net = s.Pooling(data=net, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    net = s.Convolution(data=net, kernel=(5, 5), num_filter=50)
+    net = s.Activation(data=net, act_type="tanh")
+    net = s.Pooling(data=net, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    net = s.Flatten(data=net)
+    net = s.FullyConnected(data=net, num_hidden=500)
+    net = s.Activation(data=net, act_type="tanh")
+    net = s.FullyConnected(data=net, num_hidden=num_classes)
+    return s.SoftmaxOutput(data=net, name="softmax")
+
+
+def stn_replay(torch, mt, net, init, batches, shapes):
+    """STN_REPLAY steps of a new Module on the card from ``init`` over
+    ``batches``: (losses, parameters)."""
+    mod = mt.mod.Module(net)
+    mod.bind(data_shapes=shapes[0], label_shapes=shapes[1])
+    mod.init_params(arg_params={k: mt.nd.array(v, mt.gpu(0))
+                                for k, v in init.items()}, aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(MNIST_SGD))
+    losses = []
+    for b in batches:
+        mod.forward_backward(b)
+        mod.update()
+        losses.append(lm_loss(torch, mod.get_outputs()[0],
+                              b.label[0].asnumpy()))
+    return losses, state_snapshot(mod)[0]
+
+
+def stn_lenet_run(torch, mt, folder):
+    """(a) The STN-LeNet trained MNIST_EPOCHS epochs through
+    ``FeedForward`` on the train_api phase's MNIST files and iterators and
+    settings: stn_loc starts at weight 0 and the identity bias (the
+    initializer's name rules); the first MNIST_WITNESS losses are the CPU
+    route's within 1e-4, the final validation accuracy at least
+    JAX_STN_VAL_ACC less MNIST_GATE, and STN_REPLAY steps replay bit for
+    bit from the init and the run's first batches."""
+    paths = mnist_files(folder)
+    train, val = mnist_iters(mt, paths)
+    with mt.NameManager():
+        net = stn_lenet(mt)
+    mt.random.seed(SEED)
+    probe = mt.mod.Module(net)
+    probe.bind(data_shapes=train.provide_data,
+               label_shapes=train.provide_label)
+    probe.init_params(mt.init.Xavier(factor_type="in", magnitude=2.34))
+    init = {k: v.asnumpy() for k, v in probe.get_params()[0].items()}
+    del probe
+    rules = (not init["stn_loc_weight"].any() and
+             np.array_equal(init["stn_loc_bias"], [1, 0, 0, 0, 1, 0]))
+    print("spatial stn: stn_loc weight all 0 and bias the identity "
+          "[1, 0, 0, 0, 1, 0] after Xavier: %s" % rules, flush=True)
+    check(rules, "the initializer's stn_loc rules did not apply")
+    n_batches = (MNIST_N - MNIST_VAL) // MNIST_BATCH
+    ff = mt.model.FeedForward(
+        net, ctx=None, num_epoch=MNIST_EPOCHS, optimizer="sgd",
+        initializer=mt.init.Xavier(factor_type="in", magnitude=2.34),
+        arg_params={k: mt.nd.array(v, mt.gpu(0)) for k, v in init.items()},
+        aux_params={}, **MNIST_SGD)
+    ends, first, val_metrics = [], [], []
+
+    def on_batch(param):
+        ends.append((param.epoch, param.nbatch, time.perf_counter()))
+        if param.epoch == 0 and param.nbatch < STN_REPLAY:
+            mod = param.locals["self"]
+            b = param.locals["data_batch"]
+            first.append((b, lm_loss(torch, mod.get_outputs()[0],
+                                     b.label[0].asnumpy())))
+
+    def on_eval(param):
+        val_metrics.append(param.eval_metric.get_name_value())
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with train:
+        ff.fit(train, eval_data=val, eval_metric="acc",
+               batch_end_callback=on_batch, eval_end_callback=on_eval)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gaps = [t1 - t0_ for (e0, _, t0_), (e1, _, t1) in zip(ends, ends[1:])
+            if e0 == e1 and e0 > 0]
+    step_ms = float(np.mean(gaps)) * 1e3
+    final = dict(val_metrics[-1])["accuracy"]
+    print("spatial stn: %d epochs of %d batches of %d through FeedForward "
+          "in %.1f s: step ms %.3f (mean over epochs 1-%d), img/s %.1f, "
+          "peak device memory %.3f GB; validation accuracy per epoch %s"
+          % (MNIST_EPOCHS, n_batches, MNIST_BATCH, secs, step_ms,
+             MNIST_EPOCHS - 1, MNIST_BATCH / step_ms * 1e3, peak_gb,
+             ["%.6f" % dict(m)["accuracy"] for m in val_metrics]),
+          flush=True)
+    ex = ff._module._exec_group.execs[0]
+    check(all(a._data.is_cuda for a in ex.arg_dict.values()),
+          "the STN-LeNet's parameters left the card")
+    batches = [b for b, _ in first]
+    lenet_witness(torch, mt, net, init, batches[:MNIST_WITNESS],
+                  [x for _, x in first[:MNIST_WITNESS]], "spatial stn")
+    print("spatial stn: final validation accuracy %.6f; the JAX package's "
+          "own %.6f (CPU, tests/test_torch_spatial.py); gate >= %.6f"
+          % (final, JAX_STN_VAL_ACC, JAX_STN_VAL_ACC - MNIST_GATE),
+          flush=True)
+    check(final >= JAX_STN_VAL_ACC - MNIST_GATE,
+          "the STN-LeNet's validation accuracy %.6f is under the gate"
+          % final)
+    shapes = (train.provide_data, train.provide_label)
+    a = stn_replay(torch, mt, net, init, batches, shapes)
+    b = stn_replay(torch, mt, net, init, batches, shapes)
+    differ = sorted(k for k in a[1] if not torch.equal(a[1][k], b[1][k]))
+    same = a[0] == b[0] and not differ
+    print("spatial stn replay: %d steps twice from the init and the run's "
+          "first batches: losses %s and %s; %d of %d parameters differ %s"
+          % (STN_REPLAY, ["%.9g" % x for x in a[0]],
+             ["%.9g" % x for x in b[0]], len(differ), len(a[1]),
+             differ[:4]), flush=True)
+    check(same, "the STN-LeNet steps do not replay bit for bit")
+    return {"step_ms": step_ms, "val_acc": final, "peak_gb": peak_gb}
+
+
+def rel_max(torch, got, ref):
+    """max |got - ref| over max |ref|, in float64 on the CPU."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def spatial_exec(torch, mt, net, ctx, inputs, grad_names):
+    """``net`` bound on ``ctx`` with ``inputs`` (name -> CPU tensor), a
+    gradient written for each of ``grad_names``."""
+    ex = net.simple_bind(ctx, grad_req={n: "write" for n in grad_names},
+                         **{k: tuple(v.shape) for k, v in inputs.items()})
+    for k, v in inputs.items():
+        ex.arg_dict[k]._data.copy_(v)
+    return ex
+
+
+def timed_step(torch, ex, out_grads):
+    """(ms of forward alone, ms of forward + backward, peak device GB of
+    one forward + backward); the times are CUDA events' means over
+    SPATIAL_REPS calls after one warm-up."""
+    fwd = cuda_ms(lambda: ex.forward(is_train=True), SPATIAL_REPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ex.forward_backward(out_grads=out_grads)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    both = cuda_ms(lambda: ex.forward_backward(out_grads=out_grads),
+                   SPATIAL_REPS)
+    return fwd, both, peak
+
+
+def frcnn_rois(rng, n):
+    """``n`` boxes (batch 0, x0, y0, x1, y1) inside the 600x1000 image; a
+    quarter with corners at 16k + 8, which land on .5 at scale 1/16."""
+    h, w = FRCNN_IMAGE
+    x0 = rng.uniform(0, w - 32, n)
+    y0 = rng.uniform(0, h - 32, n)
+    x1 = np.minimum(x0 + rng.uniform(16, 600, n), w - 1)
+    y1 = np.minimum(y0 + rng.uniform(16, 400, n), h - 1)
+    boxes = np.stack([np.zeros(n), x0, y0, x1, y1], 1)
+    half = n // 4
+    boxes[:half, 1:] = np.floor(boxes[:half, 1:] / 16) * 16 + 8
+    return boxes.astype(np.float32)
+
+
+def roi_pool_run(torch, mt):
+    """(b) ROIPooling at Fast R-CNN's VGG16 head, through an executor of
+    ROIPooling -> Flatten -> FullyConnected(4096), at 128 and 300 ROIs:
+    the pooled output bit for bit the CPU route's, the data gradient within
+    1e-6; ms by CUDA events and peak memory."""
+    rng = np.random.RandomState(SEED)
+    feats = torch.from_numpy(np.maximum(
+        rng.randn(*FRCNN_FEATURES), 0).astype(np.float32))
+    with mt.NameManager():
+        pool = mt.sym.ROIPooling(mt.sym.Variable("data"),
+                                 mt.sym.Variable("rois"), name="roi_pool5",
+                                 **FRCNN_POOL)
+        fc = mt.sym.FullyConnected(mt.sym.Flatten(pool),
+                                   num_hidden=FRCNN_FC, name="fc6")
+        net = mt.sym.Group([pool, fc])
+    w = torch.from_numpy((rng.randn(FRCNN_FC, 512 * 49) * 0.01)
+                         .astype(np.float32))
+    out = {}
+    for n in FRCNN_ROIS:
+        rois = torch.from_numpy(frcnn_rois(rng, n))
+        g = torch.from_numpy(rng.randn(n, FRCNN_FC).astype(np.float32))
+        inputs = {"data": feats, "rois": rois, "fc6_weight": w,
+                  "fc6_bias": torch.zeros(FRCNN_FC)}
+        grads = ("data", "fc6_weight", "fc6_bias")
+        heads = [torch.zeros((n, 512, 7, 7)), g]
+        results = {}
+        for ctx in (mt.gpu(0), mt.cpu()):
+            ex = spatial_exec(torch, mt, net, ctx, inputs, grads)
+            if ctx.device_type == "gpu":
+                fwd, both, peak = timed_step(
+                    torch, ex, [h.cuda() for h in heads])
+            else:
+                ex.forward_backward(out_grads=heads)
+            results[ctx.device_type] = (ex.outputs[0]._data.cpu(),
+                                        ex.grad_dict["data"]._data.cpu())
+            del ex
+        card, cpu = results["gpu"], results["cpu"]
+        same = torch.equal(card[0], cpu[0])
+        gerr = rel_max(torch, card[1], cpu[1])
+        print("spatial roi_pool5 %d ROIs: pooled %s; forward %.3f ms, "
+              "forward + backward %.3f ms (ROIPooling -> Flatten -> fc6 "
+              "%d), peak device memory %.3f GB; pooled output equal to the "
+              "CPU route's: %s; data gradient %.3g from it (tolerance 1e-6)"
+              % (n, tuple(card[0].shape), fwd, both, FRCNN_FC, peak, same,
+                 gerr), flush=True)
+        check(same, "ROIPooling's output on the card differs from the CPU "
+              "route's (%d ROIs)" % n)
+        check(gerr <= 1e-6, "ROIPooling's data gradient on the card is "
+              "%.3g from the CPU route's (%d ROIs)" % (gerr, n))
+        out[n] = {"fwd_ms": fwd, "fwd_bwd_ms": both, "peak_gb": peak}
+    return out
+
+
+def correlation_run(torch, mt):
+    """(c) Correlation at FlowNetC's corr layer (441 displacements over
+    conv3 features (8, 256, 48, 64)): ms and peak memory on the card; on
+    batch 1 the forward and both gradients within 1e-5 of the CPU route."""
+    rng = np.random.RandomState(SEED)
+    x1 = torch.from_numpy(rng.randn(*FLOWNET_FEATURES).astype(np.float32))
+    x2 = torch.from_numpy(rng.randn(*FLOWNET_FEATURES).astype(np.float32))
+    with mt.NameManager():
+        net = mt.sym.Correlation(mt.sym.Variable("data1"),
+                                 mt.sym.Variable("data2"), name="corr",
+                                 **FLOWNET_CORR)
+    oshape = net.infer_shape(data1=FLOWNET_FEATURES,
+                             data2=FLOWNET_FEATURES)[1][0]
+    g = torch.from_numpy(rng.randn(*oshape).astype(np.float32))
+    ex = spatial_exec(torch, mt, net, mt.gpu(0), {"data1": x1, "data2": x2},
+                      ("data1", "data2"))
+    fwd, both, peak = timed_step(torch, ex, [g.cuda()])
+    card = [ex.outputs[0]._data[:1].cpu()] + \
+        [ex.grad_dict[k]._data[:1].cpu() for k in ("data1", "data2")]
+    del ex
+    host = spatial_exec(torch, mt, net, mt.cpu(),
+                        {"data1": x1[:1], "data2": x2[:1]},
+                        ("data1", "data2"))
+    t0 = time.perf_counter()
+    host.forward_backward(out_grads=[g[:1]])
+    secs = time.perf_counter() - t0
+    ref = [host.outputs[0]._data] + \
+        [host.grad_dict[k]._data for k in ("data1", "data2")]
+    errs = [rel_max(torch, c, r) for c, r in zip(card, ref)]
+    print("spatial corr: output %s; forward %.3f ms, forward + backward "
+          "%.3f ms, peak device memory %.3f GB; batch 1 against the CPU "
+          "route (%.1f s): forward %.3g, gradients %.3g and %.3g (tolerance "
+          "1e-5)" % (tuple(oshape), fwd, both, peak, secs, *errs),
+          flush=True)
+    check(max(errs) <= 1e-5, "Correlation on the card disagrees with the "
+          "CPU route: %s" % errs)
+    return {"fwd_ms": fwd, "fwd_bwd_ms": both, "peak_gb": peak}
+
+
+def warp_run(torch, mt):
+    """(d) GridGenerator(warp) then BilinearSampler over images (8, 3,
+    384, 512) and a seeded flow: ms and peak memory; the CPU route within
+    1e-5; both gradients bit for bit on a second run; and on a small case
+    GridGenerator(affine) + BilinearSampler equal to SpatialTransformer."""
+    rng = np.random.RandomState(SEED)
+    n, c, h, w = WARP_IMAGES
+    img = torch.from_numpy(rng.rand(*WARP_IMAGES).astype(np.float32))
+    flow = torch.from_numpy((rng.randn(n, 2, h, w) * 4).astype(np.float32))
+    g = torch.from_numpy(rng.randn(*WARP_IMAGES).astype(np.float32))
+    with mt.NameManager():
+        grid = mt.sym.GridGenerator(mt.sym.Variable("flow"),
+                                    transform_type="warp")
+        net = mt.sym.BilinearSampler(mt.sym.Variable("data"), grid)
+    inputs = {"data": img, "flow": flow}
+    ex = spatial_exec(torch, mt, net, mt.gpu(0), inputs, ("data", "flow"))
+    fwd, both, peak = timed_step(torch, ex, [g.cuda()])
+
+    def run(e, head):
+        e.forward_backward(out_grads=[head])
+        return [e.outputs[0]._data.cpu()] + \
+            [e.grad_dict[k]._data.cpu() for k in ("data", "flow")]
+
+    first, second = run(ex, g.cuda()), run(ex, g.cuda())
+    replay = all(torch.equal(a, b) for a, b in zip(first, second))
+    del ex
+    host = spatial_exec(torch, mt, net, mt.cpu(), inputs, ("data", "flow"))
+    t0 = time.perf_counter()
+    ref = run(host, g)
+    secs = time.perf_counter() - t0
+    errs = [rel_max(torch, a, b) for a, b in zip(first, ref)]
+    small = rng.rand(2, 3, 9, 11).astype(np.float32)
+    loc = (np.tile([1, 0, 0, 0, 1, 0], (2, 1)) +
+           rng.randn(2, 6) * 0.1).astype(np.float32)
+    with mt.gpu(0):
+        two = mt.nd.BilinearSampler(
+            mt.nd.array(small), mt.nd.GridGenerator(
+                mt.nd.array(loc), transform_type="affine",
+                target_shape=(7, 8)))
+        one = mt.nd.SpatialTransformer(mt.nd.array(small), mt.nd.array(loc),
+                                       target_shape=(7, 8))
+    st_same = two.context == one.context == mt.gpu(0) and \
+        np.array_equal(two.asnumpy(), one.asnumpy())
+    print("spatial warp: images %s, flow %s; forward %.3f ms, forward + "
+          "backward %.3f ms, peak device memory %.3f GB; against the CPU "
+          "route (%.1f s): output %.3g, gradients %.3g (data) and %.3g "
+          "(flow) (tolerance 1e-5); a second run's output and gradients "
+          "the same bits: %s; GridGenerator(affine) + BilinearSampler equal "
+          "to SpatialTransformer on the card: %s"
+          % (WARP_IMAGES, (n, 2, h, w), fwd, both, peak, secs, *errs, replay,
+             st_same), flush=True)
+    check(max(errs) <= 1e-5, "the warp disagrees with the CPU route: %s"
+          % errs)
+    check(replay, "the warp's gradients do not replay bit for bit")
+    check(st_same, "GridGenerator + BilinearSampler differs from "
+          "SpatialTransformer")
+    return {"fwd_ms": fwd, "fwd_bwd_ms": both, "peak_gb": peak}
+
+
+def spatial_phase(torch, mt):
+    """The spatial ops at the widths of the models that use them (module
+    docstring).  Returns the launch counts of the port's kernels in the
+    phase (none is on this path: plain torch and cuDNN)."""
+    mt.kernels.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        stn = stn_lenet_run(torch, mt, folder)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    summary = {"stn_lenet": stn, "roi_pool5": roi_pool_run(torch, mt),
+               "corr": correlation_run(torch, mt), "warp": warp_run(torch, mt)}
+    torch.cuda.empty_cache()
+    print("spatial: phase wall time %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    print(json.dumps({"spatial": summary}), flush=True)
+    return dict(mt.kernels.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# image_io: ResNet-50 and SSD trained from .rec packs
+# ---------------------------------------------------------------------------
+
+#: an ImageNet pack as ``tools/im2rec.py --resize 256`` holds it: 2,560
+#: class-coloured images (short side 256, long side 256-341), labels
+#: i % 1000, JPEG at im2rec's default quality
+PACK_N, PACK_SHORT, PACK_LONG, PACK_QUALITY = 2560, 256, 342, 95
+#: decoding PACK_CHECK of the pack's images: each codec's mean |decoded -
+#: source| per image at most DECODE_MEAN (libjpeg through PIL on the CPU
+#: reads at most 7.64 on these images, rounded up) and its largest error
+#: at most DECODE_MAX; two codecs on one JPEG within CODEC_MEAN (mean) and
+#: CODEC_MAX (largest) of each other (their IDCT and upsampling differ)
+PACK_CHECK, DECODE_MEAN, DECODE_MAX, CODEC_MEAN, CODEC_MAX = 16, 8.0, 64, \
+    3.0, 24
+#: train_imagenet.get_rec_iter's iterator and its default thread count
+REC_MEANS = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939)
+REC_THREADS = 4
+REC_WARMUP, REC_TIMED, REC_AGREE_BATCH, REC_AGREE_STEPS = 2, 8, 32, 3
+#: the batch decoder alone is timed over this many of the pack's JPEGs
+DECODE_BATCH = 256
+#: the ResNet-50 bf16 step on SyntheticIter of the version before the image
+#: data path (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+#: the .rec-fed step
+SYNTHETIC_RESNET_MS = 145.13
+DET_STEPS = 6
+
+
+def cls_image(rng, i):
+    """Image ``i`` of the pack: noise of amplitude 40 with the channel of
+    class (i % 1000) % 3 lifted by 180 (tests/test_real_data_e2e.py's
+    class-coloured images), short side PACK_SHORT."""
+    long = rng.randint(PACK_SHORT, PACK_LONG)
+    h, w = (PACK_SHORT, long) if i % 2 else (long, PACK_SHORT)
+    img = (rng.rand(h, w, 3) * 40).astype(np.uint8)
+    c = (i % 1000) % 3
+    img[:, :, c] = np.minimum(img[:, :, c] + 180, 255)
+    return img
+
+
+def write_pack(mt, folder):
+    """The .rec and .idx as im2rec writes them; returns (path, bytes,
+    seconds, the first PACK_CHECK sources and their JPEGs, the first
+    batch's JPEGs)."""
+    rng = np.random.RandomState(SEED)
+    prefix = os.path.join(folder, "imagenet")
+    t0 = time.perf_counter()
+    rec = mt.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec",
+                                        "w")
+    sources, jpegs = [], []
+    for i in range(PACK_N):
+        img = cls_image(rng, i)
+        s = mt.recordio.pack_img(mt.recordio.IRHeader(0, float(i % 1000), i,
+                                                      0), img,
+                                 quality=PACK_QUALITY)
+        rec.write_idx(i, s)
+        if i < DECODE_BATCH:
+            jpegs.append(mt.recordio.unpack(s)[1])
+        if i < PACK_CHECK:
+            sources.append((img, jpegs[-1]))
+    rec.close()
+    return (prefix + ".rec", os.path.getsize(prefix + ".rec"),
+            time.perf_counter() - t0, sources, jpegs)
+
+
+def decode_rate(jpegs, threads, rounds=3):
+    """img/s of ``native.decode_jpeg_batch`` alone over one batch of the
+    pack's JPEGs, after a warm-up call."""
+    from mxnet_tpu_torch import native
+
+    native.decode_jpeg_batch(jpegs, threads)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        native.decode_jpeg_batch(jpegs, threads)
+    return rounds * len(jpegs) / (time.perf_counter() - t0)
+
+
+def decode_check(mt, sources):
+    """Each codec of the card against the encoded sources, and the codecs
+    against each other; nvJPEG's encoder too where it is the card's."""
+    from mxnet_tpu_torch import image_backend, native
+
+    def err(a, b):
+        d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        return float(d.mean()), int(d.max())
+
+    rows = {}
+    batch = native.decode_jpeg_batch([b for _, b in sources], REC_THREADS)
+    check(all(x is not None for x in batch), "the batch decoder (%s) "
+          "failed on the pack's JPEGs" % native.decoder_route())
+    rows["batch %s vs source" % native.decoder_route()] = \
+        [err(d, src) for d, (src, _) in zip(batch, sources)]
+    if image_backend.HAVE_PIL:
+        pil = [image_backend.decode_image(b) for _, b in sources]
+        rows["PIL vs source"] = [err(d, src)
+                                 for d, (src, _) in zip(pil, sources)]
+        if native.decoder_route() != "libjpeg":
+            rows["codecs: %s vs PIL" % native.decoder_route()] = \
+                [err(a, b) for a, b in zip(batch, pil)]
+    if native.nvjpeg_lib() is not None:
+        enc = [native.encode_jpeg(src, PACK_QUALITY) for src, _ in sources]
+        dec = native.decode_jpeg_batch(enc, REC_THREADS)
+        rows["nvjpeg-encoded, nvjpeg vs source"] = \
+            [err(d, src) for d, (src, _) in zip(dec, sources)]
+        if image_backend.HAVE_PIL:
+            rows["nvjpeg-encoded, PIL vs source"] = \
+                [err(image_backend.decode_image(e), src)
+                 for e, (src, _) in zip(enc, sources)]
+    ok = True
+    for what, errs in rows.items():
+        mean = max(e[0] for e in errs)
+        worst = max(e[1] for e in errs)
+        if what.startswith("codecs"):
+            fine = mean <= CODEC_MEAN and worst <= CODEC_MAX
+            bound = (CODEC_MEAN, CODEC_MAX)
+        else:
+            fine = mean <= DECODE_MEAN and worst <= DECODE_MAX
+            bound = (DECODE_MEAN, DECODE_MAX)
+        ok = ok and fine
+        print("image_io decode: %s over %d images: mean |error| per image "
+              "at most %.3f, largest %d (bounds %.1f, %d): %s"
+              % (what, len(errs), mean, worst, bound[0], bound[1], fine),
+              flush=True)
+    check(ok, "a codec's decode is outside its bound")
+    return {k: [max(e[0] for e in v), max(e[1] for e in v)]
+            for k, v in rows.items()}
+
+
+def rec_iter(mt, rec, batch, threads, train=True):
+    """``mt.io.ImageRecordIter`` exactly as train_imagenet.get_rec_iter
+    builds it (training: shuffle, rand_crop, rand_mirror; else neither),
+    224x224, the three means."""
+    return mt.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, 224, 224), batch_size=batch,
+        shuffle=train, rand_crop=train, rand_mirror=train,
+        preprocess_threads=threads, **REC_MEANS)
+
+
+def close_iter(it):
+    it.close()
+    for src in getattr(it, "iters", ()):
+        src.close()
+
+
+def io_rate(mt, rec, threads):
+    """fit.py's --test-io: img/s of the iterator alone over 2 epochs."""
+    it = rec_iter(mt, rec, 256, threads)
+    try:
+        n = 0
+        t0 = time.perf_counter()
+        for epoch in range(2):
+            if epoch:
+                it.reset()
+            for b in it:
+                n += b.data[0].shape[0] - b.pad
+        return n / (time.perf_counter() - t0)
+    finally:
+        close_iter(it)
+
+
+def card_and_limit():
+    """The card's name and power limit as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def rec_resnet_bf16(torch, mt, rec, profile_dir):
+    """(d) ResNet-50 bf16 at batch 256 (the resnet phase's Module) fed by
+    the iterator at REC_THREADS threads: REC_WARMUP then REC_TIMED steps,
+    each from ``next`` to the update's end, synchronized."""
+    from mxnet_tpu_torch.models import get_resnet
+
+    b = 256
+    with mt.NameManager():
+        net = get_resnet(**RESNET)
+    mt.random.seed(SEED)
+    mod = image_module(mt, net, None, (b,) + RESNET["image_shape"],
+                       "bfloat16", dict(RESNET_SGD, rescale_grad=1.0 / b))
+    it = rec_iter(mt, rec, b, REC_THREADS)
+    times, waits, losses = [], [], []
+    try:
+        for step in range(REC_WARMUP + REC_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = it.next()
+            t1 = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            waits.append(t1 - t0)
+            losses.append(lm_loss(torch, mod.get_outputs()[0],
+                                  batch.label[0].asnumpy()))
+        copy_ms = cuda_ms(lambda: batch.data[0]._data.to("cuda"), 3)
+        if profile_dir:
+            it.reset()
+
+            def step():
+                one = it.next()
+                mod.forward_backward(one)
+                mod.update()
+            profile(torch, step, profile_dir, "resnet_step_bf16_rec")
+    finally:
+        close_iter(it)
+    step_ms = float(np.mean(times[REC_WARMUP:])) * 1e3
+    wait_ms = float(np.mean(waits[REC_WARMUP:])) * 1e3
+    print("image_io resnet bf16 b%d from the .rec: step ms %.2f (mean of %d "
+          "after %d warm-up, next() included), img/s %.1f; waiting on the "
+          "iterator %.2f ms a step; the batch's host-to-card copy %.2f ms "
+          "(%.1f MB); SyntheticIter's step before the image data path "
+          "%.2f ms (%.1f img/s, NVIDIA H100 80GB HBM3, 700.00 W); this "
+          "card: %s; losses %s"
+          % (b, step_ms, REC_TIMED, REC_WARMUP, b / step_ms * 1e3, wait_ms,
+             copy_ms, batch.data[0]._data.numel() * 4 / 1e6,
+             SYNTHETIC_RESNET_MS, b / SYNTHETIC_RESNET_MS * 1e3,
+             card_and_limit(), ["%.4f" % x for x in losses]), flush=True)
+    check(all(np.isfinite(losses)), "ResNet-50's losses from the .rec are "
+          "not finite: %s" % losses)
+    del mod
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "img_s": b / step_ms * 1e3,
+            "wait_ms": wait_ms, "copy_ms": copy_ms}
+
+
+def rec_resnet_agreement(torch, mt, rec):
+    """(e) float32, batch REC_AGREE_BATCH, centre crop, no mirror: the
+    first batch on the card equals the CPU route's read of the pack bit
+    for bit, and the card's first REC_AGREE_STEPS losses are the CPU
+    route's at the card's states within the float32 agree limit."""
+    from mxnet_tpu_torch.models import get_resnet
+
+    b = REC_AGREE_BATCH
+    with mt.NameManager():
+        net = get_resnet(**RESNET)
+    mt.random.seed(SEED)
+    sgd = dict(RESNET_SGD, rescale_grad=1.0 / b)
+    mod = image_module(mt, net, None, (b,) + RESNET["image_shape"], None,
+                       sgd)
+    it = rec_iter(mt, rec, b, REC_THREADS, train=False)
+    states, batches, losses = [], [], []
+    try:
+        for step in range(REC_AGREE_STEPS):
+            batch = it.next()
+            states.append(state_snapshot(mod))
+            batches.append(batch)
+            mod.forward_backward(batch)
+            mod.update()
+            if step == 0:
+                on_card = mod._exec_group.execs[0].arg_dict["data"]._data
+                first = on_card.cpu()
+                where = on_card.device
+            losses.append(lm_loss(torch, mod.get_outputs()[0],
+                                  batch.label[0].asnumpy()))
+    finally:
+        close_iter(it)
+    del mod
+    torch.cuda.empty_cache()
+    again = rec_iter(mt, rec, b, REC_THREADS, train=False)
+    try:
+        host_first = again.next().data[0]._data
+    finally:
+        close_iter(again)
+    same = torch.equal(first, host_first)
+    cpu = mt.cpu()
+    anchored = []
+    t0 = time.perf_counter()
+    host = image_module(mt, net, cpu, (b,) + RESNET["image_shape"], None,
+                        sgd, {k: mt.nd.NDArray(v, cpu)
+                              for k, v in states[0][0].items()},
+                        {k: mt.nd.NDArray(v, cpu)
+                         for k, v in states[0][1].items()})
+    for (args, aux), batch in zip(states, batches):
+        host.set_params({k: mt.nd.NDArray(v, cpu) for k, v in args.items()},
+                        {k: mt.nd.NDArray(v, cpu) for k, v in aux.items()})
+        host.forward(batch, is_train=True)
+        anchored.append(lm_loss(torch, host.get_outputs()[0],
+                                batch.label[0].asnumpy()))
+    del host
+    err = max(abs(a - c) / abs(c) for a, c in zip(losses, anchored))
+    limit = AGREE[None][1]
+    print("image_io resnet float32 b%d (centre crop, no mirror): the first "
+          "batch on %s equal to the CPU route's read of the pack: %s; the "
+          "card's first %d losses %s, the CPU route's at the card's states "
+          "%s (%.1f s), relative error %.3g (tolerance %g)"
+          % (b, where, same, REC_AGREE_STEPS, ["%.7f" % x for x in losses],
+             ["%.7f" % x for x in anchored], time.perf_counter() - t0, err,
+             limit), flush=True)
+    check(same, "the batch on the card differs from the CPU route's read")
+    check(err <= limit, "ResNet-50 from the .rec disagrees with the CPU "
+          "route: %s vs %s" % (losses, anchored))
+    return {"first_batch_equal": same, "loss_rel_err": err}
+
+
+def write_det_pack(mt, folder):
+    """SSD_IMAGES of synthetic_detection's one-box images at 300x300 as
+    JPEG, each label [2, 5, cls, xmin, ymin, xmax, ymax]."""
+    X, L = synthetic_detection(SSD_IMAGES, size=SSD_IMAGE[1],
+                               num_classes=SSD["num_classes"])
+    prefix = os.path.join(folder, "det")
+    rec = mt.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec",
+                                        "w")
+    for i in range(SSD_IMAGES):
+        img = np.transpose(X[i] * 255, (1, 2, 0)).astype(np.uint8)
+        label = [2.0, 5.0] + [float(v) for v in L[i, 0]]
+        rec.write_idx(i, mt.recordio.pack_img(
+            mt.recordio.IRHeader(0, label, i, 0), img, quality=PACK_QUALITY))
+    rec.close()
+    return prefix + ".rec"
+
+
+def rec_ssd(torch, mt, folder, ssd_step_ms):
+    """(f) SSD (the ssd phase's net and Module) trained DET_STEPS steps from
+    a detection pack read by ``mt.image.ImageDetRecordIter`` as
+    examples/ssd/train_ssd.py builds it; its first 2 steps against the CPU
+    route (ssd_cpu_witness)."""
+    from mxnet_tpu_torch.models import get_ssd_train
+
+    rec = write_det_pack(mt, folder)
+    with mt.NameManager():
+        net = get_ssd_train(**SSD)
+    it = mt.image.ImageDetRecordIter(
+        path_imgrec=rec, data_shape=SSD_IMAGE, batch_size=SSD_BATCH,
+        label_pad_width=SSD_LABEL_ROWS, std_r=255.0, std_g=255.0,
+        std_b=255.0, label_name="label")
+    mt.random.seed(SEED)
+    mod = ssd_module(mt, net, None, (SSD_BATCH,) + SSD_IMAGE,
+                     (SSD_BATCH, SSD_LABEL_ROWS, 5))
+    states, batches, losses, times = [], [], [], []
+    try:
+        for step in range(DET_STEPS):
+            t0 = time.perf_counter()
+            try:
+                batch = it.next()
+            except StopIteration:
+                it.reset()
+                batch = it.next()
+            if step < SSD_WITNESS:
+                states.append(state_snapshot(mod))
+                batches.append(batch)
+            mod.forward(batch, is_train=True)
+            losses.append(ssd_loss(torch, mod.get_outputs()))
+            mod.backward()
+            mod.update()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        close_iter(it)
+    step_ms = float(np.mean(times[SSD_WARMUP:])) * 1e3
+    print("image_io ssd from the detection pack (%d images, batch %d, "
+          "labels padded to %d): step ms %.2f (mean of steps %d-%d, next() "
+          "included) beside the ssd phase's %.2f on NDArrayIter; losses %s"
+          % (SSD_IMAGES, SSD_BATCH, SSD_LABEL_ROWS, step_ms, SSD_WARMUP,
+             DET_STEPS - 1, ssd_step_ms, ["%.5f" % x for x in losses]),
+          flush=True)
+    check(all(np.isfinite(losses)), "SSD's losses from the pack are not "
+          "finite: %s" % losses)
+    del mod
+    torch.cuda.empty_cache()
+    ssd_cpu_witness(torch, mt, net, states, batches, losses)
+    return {"step_ms": step_ms, "losses": losses}
+
+
+def image_ops_on_card(torch, mt, jpg):
+    """(g) nd.imdecode and the image-decode ops on the default context:
+    results on the card, the CPU route's bits."""
+    def run():
+        buf = mt.nd.array(np.frombuffer(jpg, np.uint8), dtype=np.uint8)
+        dec = mt.nd._cvimdecode(buf)
+        return {"nd.imdecode": mt.nd.imdecode(jpg), "_cvimdecode": dec,
+                "_cvimresize": mt.nd._cvimresize(dec, w=224, h=200),
+                "_cvcopyMakeBorder": mt.nd._cvcopyMakeBorder(
+                    dec, top=2, bot=3, left=4, right=5, values=(7.0,))}
+
+    card = run()
+    with mt.cpu():
+        host = run()
+    same = {k: card[k]._data.is_cuda and
+            np.array_equal(card[k].asnumpy(), host[k].asnumpy())
+            for k in card}
+    print("image_io ops: on the card and equal to the CPU route's: %s"
+          % same, flush=True)
+    check(all(same.values()), "an image-decode op left the card or differs "
+          "from the CPU route: %s" % same)
+    return same
+
+
+def image_io_phase(torch, mt, ssd_step_ms, profile_dir=None):
+    """ResNet-50 and SSD trained from .rec packs (module docstring).
+    Returns the launch counts of the port's kernels in the phase (none is
+    on this path)."""
+    from mxnet_tpu_torch import image_backend, native
+
+    mt.kernels.reset_launches()
+    t0 = time.perf_counter()
+    status = native.native_status()
+    routes = image_backend.codec_routes()
+    print("image_io codec: %s; native_status %s; the iterators decode "
+          "batches with %s; os.cpu_count() %d"
+          % (routes, status, native.decoder_route(), os.cpu_count()),
+          flush=True)
+    check(status["reader"] == "loaded", "the native reader did not load: "
+          "%s" % status)
+    check(native.decoder_route() is not None, "no JPEG codec loaded for "
+          "the iterators: %s" % status)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as folder:
+        rec, size, secs, sources, jpegs = write_pack(mt, folder)
+        print("image_io pack: %d images (JPEG q%d by %s) in %s: %.1f MB in "
+              "%.1f s" % (PACK_N, PACK_QUALITY, routes["encode"], rec,
+                          size / 1e6, secs), flush=True)
+        decode = decode_check(mt, sources)
+        rates, decode_rates = {}, {}
+        for threads in sorted({REC_THREADS, os.cpu_count()}):
+            decode_rates[threads] = decode_rate(jpegs, threads)
+            print("image_io decode alone: %s over a batch of %d of the "
+                  "pack's JPEGs at %d threads: %.1f img/s"
+                  % (native.decoder_route(), len(jpegs), threads,
+                     decode_rates[threads]), flush=True)
+            rates[threads] = io_rate(mt, rec, threads)
+            print("image_io test-io: ImageRecordIter (224x224, batch 256, "
+                  "shuffle, rand_crop, rand_mirror, means) at %d threads: "
+                  "%.1f img/s over 2 epochs" % (threads, rates[threads]),
+                  flush=True)
+        bf16 = rec_resnet_bf16(torch, mt, rec, profile_dir)
+        agree = rec_resnet_agreement(torch, mt, rec)
+        ssd = rec_ssd(torch, mt, folder, ssd_step_ms)
+        ops = image_ops_on_card(torch, mt, sources[0][1])
+    wall = time.perf_counter() - t0
+    print("image_io: phase wall time %.1f s" % wall, flush=True)
+    print(json.dumps({"image_io": {
+        "codec": {"encode": routes["encode"],
+                  "batch_decode": native.decoder_route(),
+                  "decode": routes["decode"]},
+        "native": status, "cpu_count": os.cpu_count(),
+        "pack_mb": size / 1e6, "decode": decode,
+        "decode_img_s": {str(k): v for k, v in decode_rates.items()},
+        "io_img_s": {str(k): v for k, v in rates.items()},
+        "resnet_bf16_rec": bf16, "resnet_f32_agree": agree,
+        "ssd_rec": ssd, "ops_on_card": all(ops.values()),
+        "wall_s": wall}}), flush=True)
+    return dict(mt.kernels.LAUNCHES)
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -4088,13 +4967,22 @@ def main():
     resnet_launches = resnet_phase(torch, mt, opts.profile)
     print("resnet: kernel launches of the port's own in the phase: %s"
           % (resnet_launches or "none (cuDNN and plain torch)"), flush=True)
-    ssd_launches = ssd_phase(torch, mt, opts.profile)
+    ssd_launches, ssd_step_ms = ssd_phase(torch, mt, opts.profile)
     print("ssd: kernel launches of the port's own in the phase: %s"
           % (ssd_launches or "none (cuDNN, torch's CUDA convolution and "
              "plain torch)"), flush=True)
     random_phase(torch, mt)
     train_api_phase(torch, mt, batch, replay)
     del batch, replay
+    torch.cuda.empty_cache()
+    spatial_launches = spatial_phase(torch, mt)
+    print("spatial: kernel launches of the port's own in the phase: %s"
+          % ({k: v for k, v in spatial_launches.items() if v} or
+             "none (plain torch and cuDNN)"), flush=True)
+    image_launches = image_io_phase(torch, mt, ssd_step_ms, opts.profile)
+    print("image_io: kernel launches of the port's own in the phase: %s"
+          % ({k: v for k, v in image_launches.items() if v} or
+             "none (host decoding, cuDNN and plain torch)"), flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -20,7 +20,11 @@ imperative ``nd.<op>`` surface, ``Symbol`` arithmetic and ``simple_bind``,
 ``rtc.MXRtc`` compiling a user's CUDA C at run time with NVRTC
 (``cuda_rtc``), user kernels as trainable ops through
 ``register_kernel_op`` (``rtc_kernels`` registers ``rtc_gelu`` so), and
-``operator.CustomOp``.  This package imports neither ``jax`` nor
+``operator.CustomOp`` — and the image data path: ``filesystem`` (URI
+schemes), ``recordio``, ``native`` (the C++ reader and the JPEG codecs),
+``image`` (augmenters, ``ImageIter``, ``ImageRecordIter``,
+``ImageDetRecordIter``, the image-decode ops), with the spatial ops
+(``ops/spatial.py``).  This package imports neither ``jax`` nor
 ``mxnet_tpu``.
 """
 from . import base
@@ -48,7 +52,9 @@ from . import initializer
 from . import initializer as init
 from . import lr_scheduler
 from . import optimizer
+from . import filesystem
 from . import io
+from . import recordio
 from . import metric
 from . import callback
 from . import model
@@ -57,3 +63,4 @@ from . import module as mod
 from . import executor_manager
 from . import convert
 from . import test_utils
+from . import image

@@ -1,7 +1,7 @@
 """Data iterators — counterpart of ``mxnet_tpu/io.py``: ``DataDesc``,
 ``DataBatch``, ``DataIter``, ``NDArrayIter``, ``ResizeIter``,
 ``PrefetchingIter``, ``MNISTIter`` (idx-ubyte files, gzipped or not) and
-``CSVIter``.
+``CSVIter``, and ``ImageRecordIter`` (which delegates to ``image``).
 
 Batches are host data: every iterator yields CPU NDArrays, and the
 module copies each batch onto its device when it loads it.  Shuffling draws
@@ -27,7 +27,7 @@ from .context import cpu
 from .ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "PrefetchingIter", "MNISTIter", "CSVIter"]
+           "PrefetchingIter", "MNISTIter", "CSVIter", "ImageRecordIter"]
 
 
 class DataDesc(collections.namedtuple("DataDesc", ["name", "shape"])):
@@ -591,3 +591,12 @@ class CSVIter(DataIter):
 
     def set_state(self, state):
         self.cursor = int(state["cursor"])
+
+
+def ImageRecordIter(**kwargs):
+    """RecordIO image iterator (reference: C++ ImageRecordIter registered in
+    src/io/io.cc:9-23, exposed as mx.io.ImageRecordIter).  Delegates to the
+    host pipeline in ``mxnet_tpu_torch.image``."""
+    from . import image
+
+    return image.ImageRecordIter(**kwargs)

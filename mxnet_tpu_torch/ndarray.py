@@ -36,7 +36,7 @@ from . import random as _random
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concatenate", "moveaxis", "onehot_encode", "waitall", "load",
-           "save"]
+           "save", "imdecode"]
 
 _DTYPE_NAMES = {v: k for k, v in TORCH_DTYPES.items()}
 
@@ -444,7 +444,9 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
         if host.dtype.kind == "V":  # ml_dtypes bfloat16 from the JAX package
             host = host.astype(np.float32)
             dtype = dtype or "bfloat16"
-        src = torch.tensor(host)  # a copy: never aliases the caller's memory
+        # a copy: never aliases the caller's memory (a view with negative
+        # strides, e.g. a flipped image, is made contiguous first)
+        src = torch.tensor(np.ascontiguousarray(host))
     if dtype is None:
         carries_dtype = is_nd or isinstance(source_array,
                                             (np.ndarray, np.generic))
@@ -513,6 +515,39 @@ def onehot_encode(indices: NDArray, out: NDArray) -> NDArray:
     """One-hot rows of ``indices`` written into ``out`` (its shape and
     dtype)."""
     return _invoke("_onehot_encode", (indices, out), {"out": out})
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None):
+    """Decode a JPEG/PNG buffer through the registered ``_imdecode`` op
+    (reference python/mxnet/ndarray.py imdecode): CHW float32, an optional
+    crop box and CHW mean subtracted.  Bytes land on the current context
+    (the card unless the caller asks for the CPU), an NDArray's decode on
+    its own context, and with ``out`` on ``out``'s; ``out`` (4-D: slice
+    ``index``) receives the result."""
+    if isinstance(str_img, NDArray):
+        buf = str_img
+    else:
+        data = str_img if isinstance(str_img, (bytes, bytearray)) \
+            else bytes(str_img)
+        buf = array(np.frombuffer(data, dtype=np.uint8),
+                    None if out is None else out.context, dtype=np.uint8)
+    mean_arr = mean if mean is not None else array(
+        np.zeros((0,), np.float32), buf.context)
+    x0, y0, x1, y1 = clip_rect if clip_rect else (0, 0, 0, 0)
+    res = _invoke("_imdecode", (mean_arr, buf),
+                  {"index": index, "x0": x0, "y0": y0, "x1": x1, "y1": y1,
+                   "c": channels, "size": 0})
+    if out is not None:
+        # reference Imdecode writes into slice ``index`` of a 4-D batch
+        # buffer (ndarray.cc: ret->Slice(index, index+1)); a 3-D out is
+        # filled whole
+        if out.ndim == 4:
+            out[index:index + 1] = res.reshape((1,) + res.shape)
+        else:
+            out[:] = res
+        return out
+    return res
 
 
 def waitall() -> None:

@@ -65,6 +65,13 @@ class _EmbeddingRows(torch.autograd.Function):
         return table, None
 
 
+def gather_rows(table, ids):
+    """Rows ``ids`` (1-d int64, in range) of the 2-d ``table``, whose
+    gradient is ``_EmbeddingRows``'s sorted segment sum: the same bits on
+    every run (the spatial ops' gathers use it)."""
+    return _EmbeddingRows.apply(table, ids)
+
+
 @register("Embedding", inputs=("data", "weight"),
           params={"input_dim": Param(int, required=True),
                   "output_dim": Param(int, required=True),
