@@ -34,7 +34,11 @@
                                            # detection ops' kernels as a
                                            # group of their own; in every
                                            # step the optimizer's list
-                                           # update's kernels too)
+                                           # update's kernels too) and one
+                                           # 8-lane generation engine
+                                           # iteration (the paged ops'
+                                           # kernels as a group; memcpy
+                                           # ops and bytes printed)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -250,7 +254,50 @@ Phases, each fatal on failure (non-zero exit, no result line):
              pack read by ``ImageDetRecordIter`` as train_ssd.py builds
              it, its first 2 steps held as the ssd phase holds them.  (g)
              ``nd.imdecode`` and the three ``_cv*`` ops on the card, the
-             CPU route's bits.  An ``image_io`` JSON line ends it.
+             CPU route's bits.  An ``image_io`` JSON line ends it;
+15. generate — the serve phase's LM (float32, max_seq_len 4096, weights
+             N(0, 0.02) from SEED) saved as a checkpoint, loaded once onto
+             the card and served by ``generation.DecodeEngine`` (lanes 1/2/
+             4/8, pages of 16, 577 pages: 8 lanes of 1024 + 128 tokens and
+             the scratch page; prefill lengths 64-1024, batches 1/2/4).
+             (a) 32 seeded requests (prompts from {32, 128, 256, 512,
+             1024}, budgets from {16, 32, 64, 128}, bench_generate's mix)
+             submitted at once: generated tokens/s, TTFT and ITL p50/p99,
+             decode steps, preemptions, peak pages; every stream ends
+             without an exception, no cold run, the pool drains (free
+             pages = capacity, refcounts 0), the first 8 transcripts equal
+             those of one request at a time through another engine, every
+             executor of both binds one ``tok_embed_weight``, each lane
+             forward copies each pool plane exactly once (the paged op's
+             copy, which the pool then holds) and every plane stays on the
+             card.  (b) Two requests (prompts 128 and 512, 16 new): each
+             decode step's logits within 1e-4 of the largest |value| of the
+             full prefix recomputed through a dense prefill executor.  (c)
+             ``get_transformer_lm_prefill`` with ``attn_impl="flash"`` and
+             "dense" through ``Predictor`` at (4, 1024) on the same weights:
+             logits and every K/V within 1e-4, ``flash_fwd`` (K1) launched 6
+             times in one flash forward; both forwards timed (CUDA events,
+             mean of 5).  (d) The prefix storm (16 requests of 1024 tokens
+             sharing 928, 8 new) without the cache and with 577 cache pages
+             after one warming request (the storm's first prompt): equal
+             transcripts, fewer prefill tokens, the hits counted, at least
+             one copy-on-write, refcounts 0; TTFT p50/p99 of both.  (e) The
+             target as its own draft at k 4 on (a)'s first 8 requests:
+             transcripts equal to (a)'s, k resolved to 4, 0 < accepted <=
+             proposed; acceptance and tokens/s; then the same requests in
+             turns under the JAX engine's draft-cursor rule and this
+             engine's (ROADMAP C.9): the same transcripts, each rule's
+             acceptance and tokens/s.  (f) One request (prompt
+             128, 8 new) through a ``DecodeEngine(ctx=mt.cpu())`` of the
+             checkpoint: the same transcript, the first decode step's
+             logits within 1e-4.  (g) The 8- and 1-lane decode executors
+             alone on a full table (median of 20 after 3, CUDA events)
+             beside their bytes bounds.  Transcripts compare under the
+             near-tie rule: a request that differs passes only if, at its
+             first differing position, the reference's top-2 logits
+             (recomputed by a dense prefill executor) lie within 1e-4 of
+             the largest |logit|; the splits are printed.  A ``generate``
+             JSON line ends it.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -4670,6 +4717,564 @@ def image_io_phase(torch, mt, ssd_step_ms, profile_dir=None):
     return dict(mt.kernels.LAUNCHES)
 
 
+# -- phase 14: generation ----------------------------------------------------
+
+GEN_MODEL = dict(vocab_size=FULL["vocab_size"], num_layers=FULL["num_layers"],
+                 num_heads=FULL["num_heads"], hidden=FULL["hidden"],
+                 max_seq_len=FULL["seq_len"])
+# 8 lanes x 72 pages (1024 prompt + 128 new tokens) + the scratch page
+GEN_ENGINE = dict(lane_buckets=(1, 2, 4, 8), page_size=16, num_pages=577,
+                  prefill_len_buckets=(64, 128, 256, 512, 1024),
+                  prefill_batch_buckets=(1, 2, 4))
+# tools/bench_generate.py::make_workload's mix at this model's scale
+GEN_PROMPTS = (32, 128, 256, 512, 1024)
+GEN_BUDGETS = (16, 32, 64, 128)
+GEN_REQUESTS = 32
+GEN_REFERENCE = 8          # (a)'s requests replayed one at a time
+GEN_DENSE = ((128, 16), (512, 16))  # (b): prompt length, new tokens
+GEN_FLASH = (4, 1024)      # (c): prefill batch and length
+GEN_STORM = (16, 1024, 928, 8)  # (d): requests, prompt, shared, new
+GEN_DRAFT_K = 4            # (e)
+GEN_CPU = (128, 8)         # (f): prompt length, new tokens
+GEN_STEP_REPS = (3, 20)    # (g): warm-up, timed
+GEN_NEAR_TIE = 1e-4
+GEN_LIMIT_TBS = 3.35
+
+
+def gen_workload(rng, n):
+    return [([int(t) for t in rng.integers(0, GEN_MODEL["vocab_size"],
+                                           int(rng.choice(GEN_PROMPTS)))],
+             int(rng.choice(GEN_BUDGETS))) for _ in range(n)]
+
+
+def pct(values, q):
+    return float(np.percentile(np.asarray(values, np.float64), q)) \
+        if len(values) else float("nan")
+
+
+class GenLogits:
+    """The LM's logits at the last position of a token list, recomputed
+    through dense prefill executors on the card (a length bucket of the
+    given engine, or one at half the position table for longer lists):
+    the yardstick of (b) and of the near-tie rule."""
+
+    def __init__(self, mt, engine, params):
+        self.mt, self.engine, self.params = mt, engine, params
+        self.long = None
+
+    def __call__(self, tokens):
+        from mxnet_tpu_torch.models.transformer import \
+            get_transformer_lm_prefill
+
+        n = len(tokens)
+        fits = [L for L in self.engine.prefill_len_buckets if L >= n]
+        if fits:
+            L = fits[0]
+            buf = np.zeros((L,), np.float32)
+            buf[:n] = tokens
+            _, outs = self.engine._prefill[L].forward_padded([{"data": buf}])
+            return outs[0]._data[0, n - 1].double().cpu().numpy()
+        L = GEN_MODEL["max_seq_len"] // 2
+        if self.long is None:
+            with self.mt.NameManager():
+                sym = get_transformer_lm_prefill(
+                    GEN_MODEL["vocab_size"], GEN_MODEL["num_layers"],
+                    GEN_MODEL["num_heads"], GEN_MODEL["hidden"], seq_len=L,
+                    max_seq_len=GEN_MODEL["max_seq_len"])
+            self.long = self.mt.Predictor(sym, self.params, {"data": (1, L)})
+        buf = np.zeros((1, L), np.float32)
+        buf[0, :n] = tokens
+        out = self.long.forward(data=buf)[0]._data
+        return out[0, n - 1].double().cpu().numpy()
+
+
+def near_tie_compare(got, ref, workload, logits_at, what):
+    """Transcripts ``got`` against ``ref`` under the near-tie rule: a
+    request that differs passes only if, at its first differing position,
+    the reference's top-2 logits lie within GEN_NEAR_TIE of the largest
+    |logit| (the comparison of that request stops there).  Fatal on any
+    other difference; returns how many requests split at a near tie."""
+    ties = []
+    for i, (g, r, (prompt, _)) in enumerate(zip(got, ref, workload)):
+        if g == r:
+            continue
+        split = [j for j, (a, b) in enumerate(zip(g, r)) if a != b]
+        check(split, "%s: request %d has %d tokens, the reference %d"
+              % (what, i, len(g), len(r)))
+        j = split[0]
+        logits = logits_at(list(prompt) + list(r[:j]))
+        top = np.sort(logits)[-2:]
+        gap = float(top[1] - top[0]) / float(np.abs(logits).max())
+        check(gap <= GEN_NEAR_TIE, "%s: request %d splits from the reference "
+              "at token %d (%d vs %d), where its top-2 logits differ by %.3g "
+              "of the largest |logit| (> %g)" % (what, i, j, g[j], r[j], gap,
+                                                 GEN_NEAR_TIE))
+        ties.append((i, j, gap))
+    print("generate %s: %d of %d transcripts equal, %d split at a near tie "
+          "%s" % (what, len(got) - len(ties), len(got), len(ties), ties),
+          flush=True)
+    return len(ties)
+
+
+def gen_streams(engine, workload):
+    """Submit every request at once; (streams, wall seconds to the last
+    token).  Fatal if a stream ends in an exception."""
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, n) for p, n in workload]
+    for s in streams:
+        s._done.wait(600)
+    wall = time.perf_counter() - t0
+    for i, s in enumerate(streams):
+        check(s.done and s.exception() is None, "stream %d ended with %r"
+              % (i, s.exception()))
+    return streams, wall
+
+
+def gen_stats(streams, wall):
+    tokens = sum(len(s.tokens) for s in streams)
+    ttft = [s.ttft_ms for s in streams]
+    itl = [g for s in streams for g in s.itl_ms]
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p99": pct(ttft, 99),
+            "itl_ms_p50": pct(itl, 50), "itl_ms_p99": pct(itl, 99)}
+
+
+def capture_steps(engine):
+    """Record row 0 of every lane executor's logits (host copies) while
+    ``engine`` runs; returns the list it fills."""
+    rows = []
+    real = engine._run_lanes
+
+    def run_lanes(*args):
+        logits = real(*args)
+        rows.append(logits[0].double().cpu().numpy())
+        return logits
+    engine._run_lanes = run_lanes
+    return rows
+
+
+def plane_watch(engine, paged):
+    """Hold the device-resident pool to its contract while ``engine``
+    runs: each lane forward copies each plane exactly once (the paged op's
+    own copy, ``paged._write``) and the pool then holds exactly those
+    copies, on the card.  Returns (counts, violations, restore)."""
+    written, bad, counts = [], [], {"forwards": 0, "copies": 0}
+    real_write, real_run = paged._write, engine._run_lanes
+
+    def write(*args):
+        out = real_write(*args)
+        written.append((out[0].data_ptr(), out[1].data_ptr()))
+        return out
+
+    def run_lanes(pred, pool, *rest):
+        del written[:]
+        logits = real_run(pred, pool, *rest)
+        counts["forwards"] += 1
+        counts["copies"] += len(written)
+        planes = [(k.data_ptr(), v.data_ptr())
+                  for k, v in zip(pool.k_pools, pool.v_pools)]
+        if planes != written:
+            bad.append("%d copies in a forward over %d layers, the pool "
+                       "not on them" % (len(written), pool.num_layers))
+        if not all(t.is_cuda for t in pool.k_pools + pool.v_pools):
+            bad.append("a plane off the card")
+        return logits
+    paged._write = write
+    engine._run_lanes = run_lanes
+
+    def restore():
+        paged._write = real_write
+        engine._run_lanes = real_run
+    return counts, bad, restore
+
+
+def gen_executors(engine):
+    preds = [p for bp in list(engine._prefill.values()) +
+             list(engine._draft_prefill.values()) for p in bp._preds.values()]
+    return preds + (list(engine._decode.values()) +
+                    list(engine._catchup.values()) +
+                    list(engine._verify.values()) +
+                    list(engine._draft_decode.values()))
+
+
+def draft_cursor_turns(engine, workload, transcripts):
+    """(e)'s requests again through ``engine`` in turns with the JAX
+    engine's draft-cursor rule (``draft_pos = next_pos`` after a verify
+    pass, which leaves the last accepted token's draft slot stale; ROADMAP
+    C.9) and this engine's own: the same transcripts, and each run's
+    acceptance and tokens/s."""
+    real = engine._spec_step
+
+    def reference_rule(active):
+        real(active)
+        for seq in active:
+            seq.draft_pos = seq.next_pos
+    out = []
+    for rule in ("jax", "port", "jax"):
+        if rule == "jax":
+            engine._spec_step = reference_rule
+        streams, wall = gen_streams(engine, workload)
+        if rule == "jax":
+            del engine._spec_step
+        check([list(s.tokens) for s in streams] == transcripts, "(e) the "
+              "%s cursor rule changed a transcript" % rule)
+        acc = sum(s.draft_accepted for s in streams)
+        prop = sum(s.draft_proposed for s in streams)
+        tokens = sum(len(s.tokens) for s in streams)
+        out.append({"rule": rule, "accepted": acc, "proposed": prop,
+                    "tokens_per_s": tokens / wall})
+        print("generate (e) draft cursor, %s rule: acceptance %d of %d = "
+              "%.4f, %.1f tokens/s, the same transcripts" % (
+                  rule, acc, prop, acc / prop, tokens / wall), flush=True)
+    return out
+
+
+def decode_alone(torch, engine, lanes):
+    """The ``lanes``-lane decode executor alone on a synthetic full table
+    (every lane at position 4095 over 256 seeded pages): median device ms
+    of GEN_STEP_REPS by CUDA events, and the bytes its work moves."""
+    rng = np.random.default_rng(SEED + lanes)
+    feed = (rng.integers(0, GEN_MODEL["vocab_size"], lanes)
+            .astype(np.float32),
+            np.full((lanes,), engine.max_seq_len - 1, np.float32),
+            rng.integers(1, engine.num_pages, (lanes, engine.max_pages))
+            .astype(np.float32))
+    warm, reps = GEN_STEP_REPS
+    times = []
+    for i in range(warm + reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        # not adopted: the pool is unchanged
+        engine._forward_lanes(engine._decode[lanes], *feed)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    # bytes: the weights read once; each lane's history (4096 tokens of K
+    # and V in each layer) gathered, i.e. written once and read once by
+    # the scores and by P V; each plane read and written by the op's copy
+    weights = sum(a._data.numel() * 4 for a in engine._params.values())
+    hist = lanes * engine.max_seq_len * engine.hidden * 4 * 2 \
+        * engine.num_layers
+    planes = sum(t.numel() * 4 for t in engine.pool.k_pools +
+                 engine.pool.v_pools)
+    least = weights + hist          # the history read once, no copy
+    gathered = weights + 2 * hist   # gathered K/V read and written
+    code = gathered + 2 * planes    # and the functional copy of each plane
+    rate = GEN_LIMIT_TBS * 1e12
+    return {"lanes": lanes, "ms": ms, "least_gb": least / 1e9,
+            "least_ms": least / rate * 1e3, "gathered_gb": gathered / 1e9,
+            "gathered_ms": gathered / rate * 1e3, "code_gb": code / 1e9,
+            "code_ms": code / rate * 1e3}
+
+
+def generate_phase(torch, mt, profile_dir=None):
+    """Phase 14: the full-width LM served through ``DecodeEngine`` on the
+    card (module docstring).  Returns the kernel launches of its K1
+    check."""
+    from mxnet_tpu_torch.generation import DecodeEngine
+    from mxnet_tpu_torch.models.transformer import (
+        get_transformer_lm, get_transformer_lm_prefill)
+    from mxnet_tpu_torch.ops import paged
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    walls = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    with mt.NameManager():
+        net = get_transformer_lm(**FULL)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        prefix = os.path.join(tmp, "lm")
+        ckpt, _ = serve_inputs(mt, net)
+        net.save(prefix + "-symbol.json")
+        mt.nd.save(prefix + "-0000.params", ckpt)
+        del ckpt
+        # one copy of the weights on the card for every engine of the
+        # phase (and each engine's executors share it)
+        params = {k: v.as_in_context(mt.gpu(0)) for k, v in
+                  mt.nd.load(prefix + "-0000.params").items()}
+        # one lane and one prefill shape: the CPU runs only this request
+        ps = GEN_ENGINE["page_size"]
+        cpu_engine = DecodeEngine.from_checkpoint(
+            prefix, 0, ctx=mt.cpu(), **GEN_MODEL, page_size=ps,
+            num_pages=-(-sum(GEN_CPU) // ps) + 1, lane_buckets=(1,),
+            prefill_len_buckets=(GEN_CPU[0],), prefill_batch_buckets=(1,))
+    walls["checkpoint"] = time.perf_counter() - t0
+    spec = dict(GEN_MODEL, **GEN_ENGINE)
+    rng = np.random.default_rng(SEED)
+    workload = gen_workload(rng, GEN_REQUESTS)
+
+    # -- the reference: (a)'s first requests one at a time ------------------
+    t0 = time.perf_counter()
+    ref_engine = DecodeEngine(params, **spec)
+    logits_at = GenLogits(mt, ref_engine, params)
+    walls["reference build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reference = [ref_engine.generate(p, n, timeout=600)
+                 for p, n in workload[:GEN_REFERENCE]]
+    walls["reference"] = time.perf_counter() - t0
+
+    # -- (b) paged against dense ------------------------------------------
+    t0 = time.perf_counter()
+    dense_err = 0.0
+    for plen, new in GEN_DENSE:
+        prompt = [int(t) for t in rng.integers(0, GEN_MODEL["vocab_size"],
+                                               plen)]
+        rows = capture_steps(ref_engine)
+        out = ref_engine.generate(prompt, new, timeout=600)
+        del ref_engine._run_lanes
+        check(len(rows) == new - 1, "(b) %d decode steps for %d tokens"
+              % (len(rows), new))
+        toks = prompt + out
+        for j, row in enumerate(rows):
+            want = logits_at(toks[:plen + j + 1])
+            err = float(np.abs(row - want).max() / np.abs(want).max())
+            dense_err = max(dense_err, err)
+            check(err <= 1e-4, "(b) prompt %d, decode step %d: logits %.3g "
+                  "of the largest |value| off the dense recompute"
+                  % (plen, j, err))
+    print("generate (b) paged vs dense: %d decode steps of prompts %s, "
+          "largest difference %.3g of the largest |logit| (limit 1e-4)"
+          % (sum(n - 1 for _, n in GEN_DENSE),
+             [p for p, _ in GEN_DENSE], dense_err), flush=True)
+    walls["(b)"] = time.perf_counter() - t0
+
+    # -- (f) the card against the CPU route -------------------------------
+    t0 = time.perf_counter()
+    prompt = [int(t) for t in rng.integers(0, GEN_MODEL["vocab_size"],
+                                           GEN_CPU[0])]
+    card_rows = capture_steps(ref_engine)
+    card = ref_engine.generate(prompt, GEN_CPU[1], timeout=600)
+    del ref_engine._run_lanes
+    host_rows = capture_steps(cpu_engine)
+    host = cpu_engine.generate(prompt, GEN_CPU[1], timeout=900)
+    cpu_engine.stop()
+    cpu_err = float(np.abs(card_rows[0] - host_rows[0]).max()
+                    / np.abs(host_rows[0]).max())
+    check(cpu_err <= 1e-4, "(f) first decode step's logits %.3g of the "
+          "largest |value| off the CPU route's" % cpu_err)
+    cpu_ties = near_tie_compare([card], [host], [(prompt, GEN_CPU[1])],
+                                logits_at, "(f) card vs CPU")
+    print("generate (f) card vs CPU route: prompt %d, %d new tokens, first "
+          "decode step's logits within %.3g" % (GEN_CPU[0], GEN_CPU[1],
+                                                cpu_err), flush=True)
+    del cpu_engine
+    walls["(f)"] = time.perf_counter() - t0
+
+    # -- (a) continuous batching ------------------------------------------
+    t0 = time.perf_counter()
+    engine = DecodeEngine(params, **spec)
+    walls["(a) build"] = time.perf_counter() - t0
+    counts, bad, restore = plane_watch(engine, paged)
+    streams, wall = gen_streams(engine, workload)
+    restore()
+    del restore  # it holds the engine
+    stats = gen_stats(streams, wall)
+    got = [list(s.tokens) for s in streams]
+    snap = engine.snapshot()
+    check(engine.cold_decode_runs() == 0, "(a) %d cold decode runs"
+          % engine.cold_decode_runs())
+    check(engine.pool.free_pages() == engine.pool.capacity and
+          engine.pool.total_refcount() == 0, "(a) the pool did not drain: "
+          "%s" % engine.pool.snapshot())
+    check(not bad and counts["copies"] == counts["forwards"] *
+          engine.num_layers, "(a) a lane forward copied a plane more than "
+          "once or left the pool off the op's copies: %s, %d copies in %d "
+          "forwards" % (bad[:4], counts["copies"], counts["forwards"]))
+    ptrs = {p._exec.arg_dict["tok_embed_weight"]._data.data_ptr()
+            for p in gen_executors(engine) + gen_executors(ref_engine)}
+    check(len(ptrs) == 1, "(a) the executors bind %d copies of "
+          "tok_embed_weight" % len(ptrs))
+    check(all(t.is_cuda for t in engine.pool.k_pools + engine.pool.v_pools),
+          "(a) a pool plane left the card")
+    a_ties = near_tie_compare(got[:GEN_REFERENCE], reference,
+                              workload[:GEN_REFERENCE], logits_at,
+                              "(a) continuous vs one at a time")
+    print("generate (a) continuous batching: %d requests (prompts %s, "
+          "budgets %s), %d tokens in %.3f s = %.1f tokens/s; TTFT p50 %.2f "
+          "p99 %.2f ms; ITL p50 %.2f p99 %.2f ms; %d decode steps, %d "
+          "preemptions, peak %d of %d pages; %d lane forwards, each plane "
+          "copied once per forward on the card" % (
+              GEN_REQUESTS, list(GEN_PROMPTS), list(GEN_BUDGETS),
+              stats["tokens"], wall, stats["tokens_per_s"],
+              stats["ttft_ms_p50"], stats["ttft_ms_p99"],
+              stats["itl_ms_p50"], stats["itl_ms_p99"],
+              engine.metrics.steps.value, engine.metrics.preempted.value,
+              engine.pool.peak_pages, engine.pool.capacity,
+              counts["forwards"]), flush=True)
+    a_out = dict(stats, steps=engine.metrics.steps.value,
+                 preemptions=engine.metrics.preempted.value,
+                 peak_pages=engine.pool.peak_pages, near_ties=a_ties,
+                 lane_forwards=counts["forwards"], kv=snap["kv"])
+    walls["(a)"] = time.perf_counter() - t0
+
+    # -- (g) the decode step against its bound ----------------------------
+    t0 = time.perf_counter()
+    steps = [decode_alone(torch, engine, lanes) for lanes in (8, 1)]
+    for st in steps:
+        print("generate (g) decode step, %d lane(s), full table: %.3f ms "
+              "(median of %d); bytes bound %.3f ms (%.3f GB: the weights "
+              "and each lane's 4096-token history read once); the "
+              "reference's algorithm moves %.3f GB = %.3f ms with the "
+              "gathered K/V read and written, %.3f GB = %.3f ms with the "
+              "functional copy of each plane" % (
+                  st["lanes"], st["ms"], GEN_STEP_REPS[1], st["least_ms"],
+                  st["least_gb"], st["gathered_gb"], st["gathered_ms"],
+                  st["code_gb"], st["code_ms"]), flush=True)
+    if profile_dir:
+        prof_engine = DecodeEngine(params, start=False, **spec)
+        for p, _ in workload[:8]:
+            prof_engine.submit(p[:32], 16)
+        prof_engine._admit()
+        check(prof_engine.active_lanes() == 8, "profile: %d lanes active"
+              % prof_engine.active_lanes())
+        profile(torch, prof_engine._decode_step, profile_dir,
+                "generate_step")
+        prof_engine.stop()
+        del prof_engine
+    walls["(g)"] = time.perf_counter() - t0
+
+    # -- (c) K1 on the generation path ------------------------------------
+    t0 = time.perf_counter()
+    b, L = GEN_FLASH
+    tokens = rng.integers(0, GEN_MODEL["vocab_size"], (b, L)).astype(
+        np.float32)
+    preds = {}
+    for impl in ("dense", "flash"):
+        with mt.NameManager():
+            sym = get_transformer_lm_prefill(
+                GEN_MODEL["vocab_size"], GEN_MODEL["num_layers"],
+                GEN_MODEL["num_heads"], GEN_MODEL["hidden"], seq_len=L,
+                max_seq_len=GEN_MODEL["max_seq_len"], attn_impl=impl)
+        preds[impl] = mt.Predictor(sym, params, {"data": (b, L)})
+    mt.kernels.reset_launches()
+    flash = [o._data for o in preds["flash"].forward(data=tokens)]
+    torch.cuda.synchronize()
+    k1_launches = dict(mt.kernels.LAUNCHES)
+    check(k1_launches["flash_fwd"] == GEN_MODEL["num_layers"], "(c) the "
+          "flash prefill launched flash_fwd %d times, expected %d"
+          % (k1_launches["flash_fwd"], GEN_MODEL["num_layers"]))
+    dense = [o._data for o in preds["dense"].forward(data=tokens)]
+    errs = [float((f - d).abs().max() / d.abs().max())
+            for f, d in zip(flash, dense)]
+    check(max(errs) <= 1e-4, "(c) flash prefill vs dense: %s of the "
+          "largest |value|" % ["%.3g" % e for e in errs])
+    del flash, dense
+    fwd_ms = {impl: cuda_ms(lambda p=p: p.forward(data=tokens), 5)
+              for impl, p in preds.items()}
+    print("generate (c) K1 on the generation path: prefill (%d, %d) "
+          "flash vs dense, logits within %.3g and K/V within %.3g of the "
+          "largest |value|; flash_fwd launched %d times in one flash "
+          "forward; forward %.3f ms flash, %.3f ms dense (mean of 5)"
+          % (b, L, errs[0], max(errs[1:]), k1_launches["flash_fwd"],
+             fwd_ms["flash"], fwd_ms["dense"]), flush=True)
+    del preds
+    walls["(c)"] = time.perf_counter() - t0
+
+    # -- (d) prefix cache -------------------------------------------------
+    t0 = time.perf_counter()
+    n_req, plen, shared_len, new = GEN_STORM
+    shared = [int(t) for t in rng.integers(0, GEN_MODEL["vocab_size"],
+                                           shared_len)]
+    storm = [(shared + [int(t) for t in rng.integers(
+        0, GEN_MODEL["vocab_size"], plen - shared_len)], new)
+        for _ in range(n_req)]
+    off_streams, off_wall = gen_streams(engine, storm)
+    off = gen_stats(off_streams, off_wall)
+    engine.stop()
+    del engine
+    cache_engine = DecodeEngine(
+        params, prefix_cache_pages=GEN_ENGINE["num_pages"], **spec)
+    # the warming request is the storm's first prompt: its repeat in the
+    # storm is a full hit whose last page copy-on-writes
+    cache_engine.generate(storm[0][0], 2, timeout=600)
+    on_streams, on_wall = gen_streams(cache_engine, storm)
+    on = gen_stats(on_streams, on_wall)
+    kv = cache_engine.pool.snapshot()
+    off_pf = sum(s.prefill_tokens for s in off_streams)
+    on_pf = sum(s.prefill_tokens for s in on_streams)
+    d_ties = near_tie_compare([list(s.tokens) for s in on_streams],
+                              [list(s.tokens) for s in off_streams], storm,
+                              logits_at, "(d) cache on vs off")
+    check(on_pf < off_pf, "(d) prefill tokens %d with the cache, %d "
+          "without" % (on_pf, off_pf))
+    check(kv["prefix_hits"] >= n_req, "(d) %d prefix hits" % kv["prefix_hits"])
+    check(kv["total_refcount"] == 0, "(d) refcounts left: %s" % kv)
+    check(kv["cow_copies"] >= 1, "(d) no copy-on-write: %s" % kv)
+    check(cache_engine.cold_decode_runs() == 0, "(d) cold runs")
+    print("generate (d) prefix cache: %d requests of %d tokens sharing %d; "
+          "TTFT p50 %.2f p99 %.2f ms without the cache, %.2f / %.2f ms "
+          "with it; prefill tokens %d -> %d; %d hits, %d copy-on-write, "
+          "refcounts drained" % (n_req, plen, shared_len, off["ttft_ms_p50"],
+                                 off["ttft_ms_p99"], on["ttft_ms_p50"],
+                                 on["ttft_ms_p99"], off_pf, on_pf,
+                                 kv["prefix_hits"], kv["cow_copies"]),
+          flush=True)
+    cache_engine.stop()
+    del cache_engine
+    walls["(d)"] = time.perf_counter() - t0
+
+    # -- (e) speculative decoding -----------------------------------------
+    t0 = time.perf_counter()
+    draft = {"params": params, "num_layers": GEN_MODEL["num_layers"],
+             "num_heads": GEN_MODEL["num_heads"],
+             "hidden": GEN_MODEL["hidden"], "k": GEN_DRAFT_K}
+    spec_engine = DecodeEngine(params, draft=draft, **spec)
+    check(spec_engine.spec()["draft"]["k"] == GEN_DRAFT_K, "(e) resolved "
+          "k %s" % spec_engine.spec()["draft"]["k"])
+    s_streams, s_wall = gen_streams(spec_engine, workload[:GEN_REFERENCE])
+    s_stats = gen_stats(s_streams, s_wall)
+    proposed = sum(s.draft_proposed for s in s_streams)
+    accepted = sum(s.draft_accepted for s in s_streams)
+    check(0 < accepted <= proposed, "(e) accepted %d of %d proposed"
+          % (accepted, proposed))
+    e_ties = near_tie_compare([list(s.tokens) for s in s_streams],
+                              got[:GEN_REFERENCE], workload[:GEN_REFERENCE],
+                              logits_at, "(e) speculative vs plain")
+    print("generate (e) speculative decoding, the target as its own draft, "
+          "k %d: %d tokens in %.3f s = %.1f tokens/s (plain engine, all %d "
+          "requests: %.1f); acceptance %d of %d = %.4f" % (
+              GEN_DRAFT_K, s_stats["tokens"], s_wall, s_stats["tokens_per_s"],
+              GEN_REQUESTS, stats["tokens_per_s"], accepted, proposed,
+              accepted / proposed), flush=True)
+    cursors = draft_cursor_turns(spec_engine, workload[:GEN_REFERENCE],
+                                 [list(s.tokens) for s in s_streams])
+    spec_engine.stop()
+    del spec_engine
+    ref_engine.stop()
+    del ref_engine, logits_at
+    walls["(e)"] = time.perf_counter() - t0
+
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    wall = time.perf_counter() - t_phase
+    smi = card_and_limit()
+    print("generate: peak device memory %.2f GB above the phase's start; "
+          "walls %s; phase %.1f s" % (
+              peak, {k: round(v, 2) for k, v in walls.items()}, wall),
+          flush=True)
+    print(json.dumps({"generate": {
+        "card": smi, "continuous": a_out,
+        "paged_vs_dense_err": dense_err,
+        "flash_prefill": {"launches": k1_launches["flash_fwd"],
+                          "errs": errs, "flash_ms": fwd_ms["flash"],
+                          "dense_ms": fwd_ms["dense"]},
+        "prefix": {"off": off, "on": on, "prefill_tokens": [off_pf, on_pf],
+                   "kv": kv, "near_ties": d_ties},
+        "speculative": dict(s_stats, k=GEN_DRAFT_K, proposed=proposed,
+                            accepted=accepted, near_ties=e_ties,
+                            cursor_turns=cursors),
+        "cpu_route": {"first_step_err": cpu_err, "near_ties": cpu_ties},
+        "decode_step": steps, "peak_gb": peak, "walls_s": walls,
+        "wall_s": wall}}), flush=True)
+    return k1_launches
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -4731,6 +5336,10 @@ def profile(torch, fn, outdir, label):
     update = [(e["ts"], e["ts"] + e["dur"]) for e in trace_events
               if e.get("cat") == "gpu_user_annotation"
               and e.get("name", "").startswith("list_update:")]
+    # and the paged-attention ops' (ops/paged.py)
+    paged = [(e["ts"], e["ts"] + e["dur"]) for e in trace_events
+             if e.get("cat") == "gpu_user_annotation"
+             and e.get("name") == "paged attention"]
     span = max(e["ts"] + e["dur"] for e in events) - \
         min(e["ts"] for e in events)
     busy = sum(e["dur"] for e in events)
@@ -4741,6 +5350,8 @@ def profile(torch, fn, outdir, label):
             group = "detection (MultiBox)"
         elif any(lo <= e["ts"] < hi for lo, hi in update):
             group = "optimizer (list update)"
+        elif any(lo <= e["ts"] < hi for lo, hi in paged):
+            group = "paged attention"
         ms, n = groups.get(group, (0.0, 0))
         groups[group] = (ms + e["dur"] / 1e3, n + 1)
         names.setdefault(group, set()).add(e["name"])
@@ -4750,6 +5361,15 @@ def profile(torch, fn, outdir, label):
     print("profile %s: %d device ops, busy %.1f us of a %.1f us span: idle "
           "share %.4f" % (label, len(events), busy, span, 1 - busy / span),
           flush=True)
+    copies = {}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy":
+            n, nbytes, top = copies.get(e["name"], (0, 0, 0))
+            b = e.get("args", {}).get("bytes", 0)
+            copies[e["name"]] = (n + 1, nbytes + b, max(top, b))
+    for name, (n, nbytes, top) in sorted(copies.items()):
+        print("profile %s: %s: %d ops, %d bytes, the largest %d"
+              % (label, name, n, nbytes, top), flush=True)
     return names
 
 
@@ -4851,9 +5471,10 @@ def main():
                     help="trace one extra request, one extra train step "
                          "(bf16 and float32), one extra splash step, one "
                          "extra rtc_gelu train step, one extra ResNet-50 "
-                         "bf16 step, one extra SSD train step and one extra "
-                         "SSD request with torch.profiler (the optimizer's "
-                         "list update a group of its own)")
+                         "bf16 step, one extra SSD train step, one extra "
+                         "SSD request and one 8-lane generation iteration "
+                         "with torch.profiler (the optimizer's list update "
+                         "and the paged ops groups of their own)")
     ap.add_argument("--parent-csrc", metavar="DIR", action="append",
                     default=[],
                     help="a csrc directory of another version (flash_fwd.cu "
@@ -4983,6 +5604,10 @@ def main():
     print("image_io: kernel launches of the port's own in the phase: %s"
           % ({k: v for k, v in image_launches.items() if v} or
              "none (host decoding, cuDNN and plain torch)"), flush=True)
+    gen_launches = generate_phase(torch, mt, opts.profile)
+    print("generate: kernel launches of the port's own in the flash "
+          "prefill check: %s" % {k: v for k, v in gen_launches.items() if v},
+          flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

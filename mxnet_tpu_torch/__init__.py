@@ -24,8 +24,12 @@ imperative ``nd.<op>`` surface, ``Symbol`` arithmetic and ``simple_bind``,
 schemes), ``recordio``, ``native`` (the C++ reader and the JPEG codecs),
 ``image`` (augmenters, ``ImageIter``, ``ImageRecordIter``,
 ``ImageDetRecordIter``, the image-decode ops), with the spatial ops
-(``ops/spatial.py``).  This package imports neither ``jax`` nor
-``mxnet_tpu``.
+(``ops/spatial.py``) — and generation: ``generation.DecodeEngine``
+(continuous batching over a paged KV pool on the device, prefix caching,
+speculative decoding) over the paged-attention ops (``ops/paged.py``) and
+the prefill/decode/catch-up/verify builders, with ``faults``, the metrics
+half of ``telemetry`` and ``serving.BucketedPredictor``.  This package
+imports neither ``jax`` nor ``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -64,3 +68,7 @@ from . import executor_manager
 from . import convert
 from . import test_utils
 from . import image
+from . import faults
+from . import telemetry
+from . import serving
+from . import generation

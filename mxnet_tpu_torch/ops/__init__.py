@@ -17,6 +17,7 @@ from . import sample  # noqa: F401
 from . import ordering  # noqa: F401
 from . import contrib_ops  # noqa: F401
 from . import spatial  # noqa: F401
+from . import paged  # noqa: F401
 
 __all__ = ["Op", "OpContext", "register", "get_op", "registered_ops",
            "Param", "register_kernel_op"]

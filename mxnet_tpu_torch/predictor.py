@@ -64,6 +64,14 @@ class Predictor:
 
         arg_shapes, _, aux_shapes = symbol.infer_shape(**self._input_shapes)
         if arg_shapes is None:
+            # arguments the inputs do not determine (the generation
+            # engine's KV pool planes, bound as shared params) take the
+            # shapes of the arrays given for them
+            known = {k: tuple(v.shape) for k, v in arg_params.items()
+                     if k in symbol.list_arguments() and hasattr(v, "shape")}
+            known.update(self._input_shapes)
+            arg_shapes, _, aux_shapes = symbol.infer_shape(**known)
+        if arg_shapes is None:
             raise MXNetError("cannot infer shapes from the given inputs")
 
         args = {}
