@@ -297,7 +297,45 @@ Phases, each fatal on failure (non-zero exit, no result line):
              first differing position, the reference's top-2 logits
              (recomputed by a dense prefill executor) lie within 1e-4 of
              the largest |logit|; the splits are printed.  A ``generate``
-             JSON line ends it.
+             JSON line ends it;
+16. parallel — data and sequence parallelism on the card.  (a) The train
+             phase's LM, init and batch (bf16, adam lr 3e-4) through
+             ``Module(context=[gpu(0)] * 2)``: kvstore 'device' (the update
+             through the async comm engine's store) 2 + 5 steps, then no
+             kvstore (the fused step) 2 + 3; each step launches K1, K2 and
+             K3 12 times (6 layers x 2 shards), the loss is finite and
+             falls, the first 3 losses within 1e-3 (relative) of the train
+             phase's one-context losses, after 3 steps the two routes'
+             parameters within 1e-6 of the largest |parameter|, every
+             parameter, stored value and optimizer state on the card; step
+             ms, tokens/s and peak memory beside the one-context step.  (b)
+             ``parallel.ring_flash_attention`` over ``make_mesh({"seq": 4},
+             devices=[gpu(0)] * 4)`` at [1, 16384, 16, 128] bf16 causal and
+             full and float32 causal at 4096, held to K1-K3 over the whole
+             sequence (O, dQ, dK, dV within 2e-2 bf16 / 1e-4 float32 of
+             max|ref|, lse within 1e-3); one forward launches 10 K1 causal
+             (16 full), one backward 10 (16) K2 and K3; both timed (CUDA
+             events, mean of 5).  (c) The long-context LM of
+             examples/transformer/train_lm_longctx.py (this script's torch
+             copy, ``longctx_params``/``longctx_step``) at vocab 32000, 6 x
+             2048, 16 heads, seq 16384, batch 1, float32 (TF32 off), SGD lr
+             0.05 on a ("data" 1, "seq" 4) mesh of the card: 1 + 3 steps,
+             60 split-TF32 K1, K2 and K3 a step, the loss falls, step 0's
+             loss within 1e-4 of the same model with ``flash_attention``
+             over the whole sequence; step ms and peak memory.  (d) Two
+             ``dist_sync`` workers (this script with ``--dist-worker``)
+             under the DMLC environment on the card, so over gloo: the
+             store's init is rank 0's, a push sums, and 3 SGD-momentum steps
+             of a 2 x 1024 LM (seq 1024, batch 4 each, float32) match one
+             process's Module at batch 8 within 1e-5; backend and ms per
+             step.  (e) ``ulysses_attention`` (4 shards), ``pipeline_spmd``
+             (4 stages, 8 microbatches) and ``moe_ffn`` (8 experts over 4
+             shards, top-k 1 and 2) on meshes of the card against their
+             single-device versions within 1e-5.  A ``parallel`` JSON line
+             ends it.  The kernel table's d=128 K1-K3 rows add the
+             phase's launches by path (``launches_by_path``): (a) and (b)'s
+             bf16 cases on the bf16 rows, (b)'s float32 case and (c) on the
+             float32 rows.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -1472,7 +1510,8 @@ def lm_loss(torch, probs, labels):
 
 
 def train_module(mt, net, ctx, data_shape, init=None, arg_params=None,
-                 compute_dtype=None, optimizer_params=None, optimizer="adam"):
+                 compute_dtype=None, optimizer_params=None, optimizer="adam",
+                 kvstore="local"):
     """A bound, initialized ``Module`` with adam (or ``optimizer``), as
     ``train_lm.benchmark`` sets it up."""
     mod = mt.mod.Module(net, label_names=("softmax_label",), context=ctx,
@@ -1481,7 +1520,7 @@ def train_module(mt, net, ctx, data_shape, init=None, arg_params=None,
              label_shapes=[mt.io.DataDesc("softmax_label", data_shape)],
              for_training=True)
     mod.init_params(initializer=init, arg_params=arg_params)
-    mod.init_optimizer(kvstore="local", optimizer=optimizer,
+    mod.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                        optimizer_params=optimizer_params or
                        {"learning_rate": TRAIN_LR})
     return mod
@@ -1555,13 +1594,14 @@ def train_phase(torch, mt):
           % (steady * 1e3, TRAIN_STEPS, TRAIN_WARMUP, BEFORE_MS["train"]),
           flush=True)
     print("train: tokens/s %.1f" % (b * s / steady), flush=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print("train: peak device memory %.2f GB (before the list update: %.2f)"
-          % (torch.cuda.max_memory_allocated() / 1e9, BEFORE_TRAIN_PEAK_GB),
-          flush=True)
+          % (peak_gb, BEFORE_TRAIN_PEAK_GB), flush=True)
     print("train: loss %.6f -> %.6f over %d steps on one batch; launches %s"
           % (losses[0], losses[-1], len(losses), launches), flush=True)
     replay = {"net": net, "init": init, "after": replayed,
-              "losses": losses[:REPLAY_STEPS], "Y": Y}
+              "losses": losses[:REPLAY_STEPS], "Y": Y,
+              "step_ms": steady * 1e3, "peak_gb": peak_gb}
     return mod, batch, launches, losses, steady * 1e3, replay
 
 
@@ -5275,6 +5315,633 @@ def generate_phase(torch, mt, profile_dir=None):
     return k1_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data and sequence parallelism
+# ---------------------------------------------------------------------------
+PAR_DP_CONTEXTS = 2
+PAR_DP_RUNS = (("device", 2, 5), (None, 2, 3))  # kvstore, warm-up, timed
+PAR_DP_AGREE = 3           # the first steps held to the train phase's
+RING = (1, 16384, 16, 128)  # b, s, h, d: the LM's attention at 16384
+RING_F32_S = 4096
+RING_SHARDS = 4
+RING_REPS = 5
+RING_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LONGCTX = dict(vocab=32000, layers=6, hidden=2048, heads=16, seq_len=16384,
+               batch=1, lr=0.05)
+LONGCTX_STEPS = 1 + 3
+DIST = dict(vocab_size=32000, num_layers=2, num_heads=16, hidden=1024,
+            seq_len=1024)
+DIST_WORKERS, DIST_BATCH, DIST_STEPS = 2, 4, 3
+DIST_SGD = {"learning_rate": 0.01, "momentum": 0.9}
+DIST_TIMEOUT = 300
+
+
+def longctx_params(torch, rng, vocab, hidden, heads, layers, seq_len,
+                   device):
+    """``examples/transformer/train_lm_longctx.py::build_params`` in torch:
+    the same numpy draws in the same order, float32 on ``device``."""
+    def glorot(*shape):
+        # numpy scales in float64; jnp.asarray keeps float32 of it
+        scale = np.sqrt(2.0 / (shape[0] + shape[-1]))
+        return torch.tensor((rng.randn(*shape).astype(np.float32) * scale)
+                            .astype(np.float32), device=device)
+
+    def norm():
+        return {"g": torch.ones(hidden, device=device),
+                "b": torch.zeros(hidden, device=device)}
+
+    params = {"embed": glorot(vocab, hidden),
+              "pos": glorot(seq_len, hidden) * 0.1,
+              "ln_f": norm(), "head": glorot(hidden, vocab), "layers": []}
+    for _ in range(layers):
+        params["layers"].append({
+            "ln1": norm(), "qkv": glorot(hidden, 3 * hidden),
+            "proj": glorot(hidden, hidden), "ln2": norm(),
+            "fc1": glorot(hidden, 4 * hidden),
+            "fc2": glorot(4 * hidden, hidden)})
+    return params
+
+
+def longctx_leaves(params):
+    """The parameter tensors in a fixed order."""
+    out = [params["embed"], params["pos"], params["ln_f"]["g"],
+           params["ln_f"]["b"], params["head"]]
+    for lp in params["layers"]:
+        out += [lp["ln1"]["g"], lp["ln1"]["b"], lp["qkv"], lp["proj"],
+                lp["ln2"]["g"], lp["ln2"]["b"], lp["fc1"], lp["fc2"]]
+    return out
+
+
+def longctx_loss(torch, mt, params, tokens, labels, heads, mesh=None):
+    """``train_lm_longctx.py::make_step``'s loss in torch: attention is
+    ``parallel.ring_flash_attention`` over the ("data", "seq") mesh (causal),
+    or, with ``mesh`` None, ``flash_attention`` over the whole sequence."""
+    F = torch.nn.functional
+
+    def ln(x, p):
+        m = x.mean(-1, keepdim=True)
+        v = ((x - m) ** 2).mean(-1, keepdim=True)
+        return (x - m) * torch.rsqrt(v + 1e-5) * p["g"] + p["b"]
+
+    b, s = tokens.shape
+    h = params["embed"][tokens] + params["pos"][None, :s]
+    for lp in params["layers"]:
+        a = ln(h, lp["ln1"])
+        q, k, v = (a @ lp["qkv"]).chunk(3, dim=-1)
+        d = q.shape[-1] // heads
+        q, k, v = (t.reshape(b, s, heads, d) for t in (q, k, v))
+        if mesh is None:
+            from mxnet_tpu_torch.ops.attention import flash_attention
+
+            att = flash_attention(q, k, v, causal=True)
+        else:
+            att = mt.parallel.ring_flash_attention(
+                q, k, v, mesh, axis="seq", batch_axis="data", causal=True)
+        h = h + att.reshape(b, s, -1) @ lp["proj"]
+        a = ln(h, lp["ln2"])
+        h = h + F.gelu(a @ lp["fc1"], approximate="tanh") @ lp["fc2"]
+    logits = ln(h, params["ln_f"]) @ params["head"]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -logp.gather(-1, labels[..., None]).mean()
+
+
+def longctx_step(torch, mt, params, tokens, labels, heads, lr, mesh):
+    """One SGD step of ``make_step`` (p - lr * g over every parameter), in
+    place; returns the loss before the step."""
+    leaves = longctx_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = longctx_loss(torch, mt, params, tokens, labels, heads, mesh)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        for p, g in zip(leaves, grads):
+            p.requires_grad_(False)
+            p.sub_(lr * g.to(p.dtype))
+    return loss.detach()
+
+
+def kernel_delta(mt, before):
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    return {n: mt.kernels.LAUNCHES[n] - before.get(n, 0) for n in names}
+
+
+def dp_phase(torch, mt, batch, replay):
+    """(a): the train phase's LM through Module over PAR_DP_CONTEXTS
+    contexts of the card, first with kvstore 'device' (the update through
+    the async store), then with no kvstore (the fused step)."""
+    b, s = BATCH, FULL["seq_len"]
+    ctxs = [mt.gpu(0)] * PAR_DP_CONTEXTS
+    init = {n: mt.nd.NDArray(t, mt.cpu()) for n, t in replay["init"].items()}
+    Y = replay["Y"]
+    per_step = FULL["num_layers"] * PAR_DP_CONTEXTS
+    out, after = {}, {}
+    for kvstore, warm, timed in PAR_DP_RUNS:
+        tag = kvstore or "none"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mod = train_module(mt, replay["net"], ctxs, (b, s), arg_params=init,
+                           compute_dtype="bfloat16", kvstore=kvstore)
+        kv = mod._kvstore
+        check(mod._update_on_kvstore == (kvstore is not None) and
+              (kvstore is None or isinstance(kv, mt.comm_engine.AsyncKVStore)),
+              "dp %s: the update did not take the expected route" % tag)
+        losses, times = [], []
+        mt.kernels.reset_launches()
+        for step in range(warm + timed):
+            before = dict(mt.kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            if kv is not None:
+                kv.wait_all()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            delta = kernel_delta(mt, before)
+            losses.append(lm_loss(torch, mod.get_outputs()[0], Y))
+            print("parallel dp (%s): step %d: %.2f ms, loss %.6f, launches %s"
+                  % (tag, step, times[-1] * 1e3, losses[-1], delta),
+                  flush=True)
+            check(np.isfinite(losses[-1]), "dp %s: step %d loss is not "
+                  "finite" % (tag, step))
+            check(all(v == per_step for v in delta.values()),
+                  "dp %s: step %d launched %s, expected %d of each"
+                  % (tag, step, delta, per_step))
+            if step + 1 == PAR_DP_AGREE:
+                after[tag] = state_snapshot(mod)[0]
+        launches = kernel_delta(mt, {})
+        check(losses[-1] < losses[0], "dp %s: the loss did not fall: %s"
+              % (tag, losses))
+        rel = [abs(a - r) / abs(r) for a, r in
+               zip(losses[:PAR_DP_AGREE], replay["losses"][:PAR_DP_AGREE])]
+        print("parallel dp (%s): first %d losses %s vs one context %s, "
+              "relative difference %s (tolerance 1e-3)"
+              % (tag, PAR_DP_AGREE, ["%.6f" % x for x in losses[:3]],
+                 ["%.6f" % x for x in replay["losses"][:3]],
+                 ["%.3g" % x for x in rel]), flush=True)
+        check(max(rel) <= 1e-3, "dp %s: the losses left the one-context "
+              "run's" % tag)
+        ex = mod._exec_group.execs[0]
+        states = (kv.inner._updater.states if kv is not None
+                  else mod._updater.states)
+        tensors = [ex.arg_dict[n]._data for n in mod._exec_group.param_names]
+        for st in states.values():
+            tensors += [x._data for x in (st if isinstance(st, (tuple, list))
+                                          else [st]) if x is not None]
+        if kv is not None:
+            tensors += [a._data for a in kv.inner._store.values()]
+        check(all(t.is_cuda for t in tensors), "dp %s: a parameter or "
+              "optimizer state left the card" % tag)
+        steady = float(np.mean(times[warm:]))
+        out[tag] = {"step_ms": steady * 1e3, "tokens_s": b * s / steady,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "losses": losses, "launches": launches,
+                    "gathered_ops": ex._dp.gathered_ops()}
+        print("parallel dp (%s): step ms %.2f, tokens/s %.1f, peak device "
+              "memory %.2f GB; one context (train phase): step ms %.2f, "
+              "tokens/s %.1f, peak %.2f GB; ops run on the whole batch: %s"
+              % (tag, steady * 1e3, b * s / steady, out[tag]["peak_gb"],
+                 replay["step_ms"], b * s / replay["step_ms"] * 1e3,
+                 replay["peak_gb"], out[tag]["gathered_ops"] or "none"),
+              flush=True)
+        if kv is not None:
+            print("parallel dp (%s): comm %s" % (tag, {
+                k: v for k, v in kv.comm_stats().items()
+                if k in ("pushes", "pulls", "wait_calls", "wait_ms_total",
+                         "queue_peak")}), flush=True)
+            kv.close()
+        del mod, ex, states, tensors, kv
+    scale = max(t.abs().max().item() for t in after["none"].values())
+    diff = max((after["device"][n] - after["none"][n]).abs().max().item()
+               for n in after["none"])
+    print("parallel dp: after %d steps the two routes' parameters differ by "
+          "%.3g, %.3g of the largest |parameter| (tolerance 1e-6)"
+          % (PAR_DP_AGREE, diff, diff / scale), flush=True)
+    check(diff <= 1e-6 * scale, "dp: the store's update and the fused "
+          "step disagree")
+    out["route_diff"] = diff / scale
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_lse(torch, mt, q, k, v, mesh, causal, scale):
+    """The ring's global lse, [b*h, s]."""
+    from mxnet_tpu_torch.parallel import ring
+
+    layout = ring._RingLayout(mesh, "seq", None)
+    with torch.no_grad():
+        _, lses = ring._ring_flash_fwd(layout, q, k, v, causal, scale)
+    return torch.cat(lses[0], dim=1)
+
+
+def ring_case(torch, mt, att, mesh, s, dtype, causal):
+    """(b): the ring on [1, s, 16, 128] against K1-K3 over the whole
+    sequence: errors, launches and times."""
+    b, _, h, d = RING
+    n = RING_SHARDS
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = qkv_views(torch, gen, b, s, s, h, d, dtype, device)
+    do = torch.randn((b, s, h, d), generator=gen, device=device).to(dtype)
+    scale = 1.0 / math.sqrt(d)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    mt.kernels.reset_launches()
+    o = mt.parallel.ring_flash_attention(*leaves, mesh, causal=causal)
+    fwd = kernel_delta(mt, {})
+    o.backward(do)
+    launches = kernel_delta(mt, {})
+    launches["flash_fwd"] = fwd["flash_fwd"]
+    bwd_counted = {n: launches[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    want = n * (n + 1) // 2 if causal else n * n
+    o_ref, lse_ref = att.flash_forward(q, k, v, causal, scale)
+    dq, dk, dv = att.flash_backward(q, k, v, o_ref, lse_ref, do, causal,
+                                    scale)
+    lse = ring_lse(torch, mt, q, k, v, mesh, causal, scale)
+    errs = {"o": rel_err(torch, o, o_ref)[1],
+            "lse": (lse - lse_ref).abs().max().item(),
+            "dq": rel_err(torch, leaves[0].grad, dq)[1],
+            "dk": rel_err(torch, leaves[1].grad, dk)[1],
+            "dv": rel_err(torch, leaves[2].grad, dv)[1]}
+    tol = RING_TOL[str(dtype)[6:]]
+    tag = "%s %s s=%d" % (str(dtype)[6:], "causal" if causal else "full", s)
+    print("parallel ring (%s): launches %s (want %d of each); errors %s "
+          "(tolerance %g on O, dQ, dK, dV as max|err|/max|ref|, 1e-3 on lse)"
+          % (tag, launches, want, {k_: "%.3g" % e for k_, e in errs.items()},
+             tol), flush=True)
+    check(fwd["flash_fwd"] == want and fwd["flash_bwd_dq"] == 0 and
+          all(c == want for c in bwd_counted.values()),
+          "ring %s launched %s, expected %d of each" % (tag, launches, want))
+    check(all(errs[x] <= tol for x in ("o", "dq", "dk", "dv")) and
+          errs["lse"] <= 1e-3, "ring %s disagrees with the whole-sequence "
+          "kernels: %s" % (tag, errs))
+
+    def ring_fwd():
+        with torch.no_grad():
+            mt.parallel.ring_flash_attention(q, k, v, mesh, causal=causal)
+
+    def ring_step():
+        x = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        mt.parallel.ring_flash_attention(*x, mesh, causal=causal) \
+            .backward(do)
+
+    def whole_step():
+        o_, lse_ = att.flash_forward(q, k, v, causal, scale)
+        att.flash_backward(q, k, v, o_, lse_, do, causal, scale)
+
+    times = {"ring_fwd": cuda_ms(ring_fwd, RING_REPS),
+             "whole_fwd": cuda_ms(lambda: att.flash_forward(
+                 q, k, v, causal, scale), RING_REPS),
+             "ring_fwd_bwd": cuda_ms(ring_step, RING_REPS),
+             "whole_fwd_bwd": cuda_ms(whole_step, RING_REPS)}
+    print("parallel ring (%s): ms (CUDA events, mean of %d): %s"
+          % (tag, RING_REPS, {k_: "%.3f" % t for k_, t in times.items()}),
+          flush=True)
+    del q, k, v, do, leaves, o, o_ref, dq, dk, dv
+    torch.cuda.empty_cache()
+    return {"case": tag, "launches": launches, "errors": errs,
+            "ms": times}
+
+
+def ring_phase(torch, mt, att):
+    mesh = mt.parallel.make_mesh({"seq": RING_SHARDS},
+                                 devices=[mt.gpu(0)] * RING_SHARDS)
+    _, s, _, _ = RING
+    rows = [ring_case(torch, mt, att, mesh, s, torch.bfloat16, True),
+            ring_case(torch, mt, att, mesh, s, torch.bfloat16, False),
+            ring_case(torch, mt, att, mesh, RING_F32_S, torch.float32, True)]
+    return rows
+
+
+def longctx_phase(torch, mt):
+    """(c): the long-context LM (train_lm_longctx.py's model at the LM's
+    full width) trained LONGCTX_STEPS SGD steps in float32 over a
+    ("data" 1, "seq" 4) mesh of the card."""
+    c = LONGCTX
+    device = torch.device("cuda", 0)
+    mesh = mt.parallel.make_mesh({"data": 1, "seq": RING_SHARDS},
+                                 devices=[mt.gpu(0)] * RING_SHARDS)
+    rng = np.random.RandomState(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = longctx_params(torch, rng, c["vocab"], c["hidden"], c["heads"],
+                            c["layers"], c["seq_len"], device)
+    X = rng.randint(0, c["vocab"], size=(c["batch"], c["seq_len"]))
+    tokens = torch.tensor(X, device=device)
+    labels = torch.tensor((X + 1) % c["vocab"], device=device)
+    with torch.no_grad():
+        whole = longctx_loss(torch, mt, params, tokens, labels, c["heads"],
+                             None).item()
+    per_step = c["layers"] * RING_SHARDS * (RING_SHARDS + 1) // 2
+    losses, times, counts = [], [], []
+    mt.kernels.reset_launches()
+    for step in range(LONGCTX_STEPS):
+        before = dict(mt.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        loss = longctx_step(torch, mt, params, tokens, labels, c["heads"],
+                            c["lr"], mesh)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        counts.append(kernel_delta(mt, before))
+        print("parallel longctx: step %d: %.2f ms, loss %.6f, launches %s"
+              % (step, times[-1] * 1e3, losses[-1], counts[-1]), flush=True)
+        check(all(v == per_step for v in counts[-1].values()),
+              "longctx: step %d launched %s, expected %d of each"
+              % (step, counts[-1], per_step))
+    launches = kernel_delta(mt, {})
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "longctx: the loss did not fall: %s" % losses)
+    print("parallel longctx: step 0 loss %.7f vs %.7f with flash_attention "
+          "over the whole sequence, difference %.3g (tolerance 1e-4)"
+          % (losses[0], whole, abs(losses[0] - whole)), flush=True)
+    check(abs(losses[0] - whole) <= 1e-4, "longctx: the ring's loss is not "
+          "the whole sequence's")
+    steady = float(np.mean(times[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print("parallel longctx: step ms %.2f (mean of %d after 1), tokens/s "
+          "%.1f, peak device memory %.2f GB"
+          % (steady * 1e3, LONGCTX_STEPS - 1,
+             c["batch"] * c["seq_len"] / steady, peak), flush=True)
+    del params, tokens, labels
+    torch.cuda.empty_cache()
+    return {"step_ms": steady * 1e3,
+            "tokens_s": c["batch"] * c["seq_len"] / steady,
+            "peak_gb": peak, "losses": losses, "whole_loss": whole,
+            "launches": launches}
+
+
+def dist_init(rng):
+    """The dist LM's parameters as numpy, from the shapes its symbol
+    infers: N(0, 0.02) weights, zero biases, unit LayerNorm gammas."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    with mt.NameManager():
+        net = get_transformer_lm(**DIST)
+    shapes = {"data": (DIST_BATCH, DIST["seq_len"]),
+              "softmax_label": (DIST_BATCH, DIST["seq_len"])}
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    out = {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        if name.endswith("gamma"):
+            out[name] = np.ones(shape, np.float32)
+        elif name.endswith(("bias", "beta")):
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            out[name] = (rng.randn(*shape) * 0.02).astype(np.float32)
+    return net, out
+
+
+def dist_batch():
+    rng = np.random.RandomState(SEED + 1)
+    X = rng.randint(0, DIST["vocab_size"],
+                    size=(DIST_WORKERS * DIST_BATCH, DIST["seq_len"]))
+    return X.astype(np.float32), ((X + 1) % DIST["vocab_size"]).astype(
+        np.float32)
+
+
+def dist_module(mt, net, init, batch, kvstore):
+    mod = mt.mod.Module(net, label_names=("softmax_label",),
+                        context=mt.gpu(0))
+    shape = (batch, DIST["seq_len"])
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", shape)])
+    mod.init_params(arg_params={k: mt.nd.array(v, mt.cpu())
+                                for k, v in init.items()}, aux_params={})
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params=DIST_SGD)
+    return mod
+
+
+def dist_worker(outdir):
+    """One dist_sync worker (run by ``--dist-worker``): the DMLC variables
+    name its rank; it checks the store's init and push, trains DIST_STEPS
+    steps on its rows of the batch and writes its losses, parameters and
+    checks to ``outdir``."""
+    import torch
+
+    import mxnet_tpu_torch as mt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kv = mt.kv.create("dist_sync")
+    rank, n = kv.rank, kv.num_workers
+    # init: each rank offers its own value, rank 0's must win
+    kv.init("probe", mt.nd.array(np.full(4, rank + 1.0, np.float32),
+                                 mt.gpu(0)))
+    probe = mt.nd.zeros((4,), mt.gpu(0))
+    kv.pull("probe", out=probe)
+    kv.push("probe", mt.nd.array(np.full(4, rank + 1.0, np.float32),
+                                 mt.gpu(0)))
+    summed = mt.nd.zeros((4,), mt.gpu(0))
+    kv.pull("probe", out=summed)
+    net, init = dist_init(np.random.RandomState(SEED))
+    # every rank but 0 starts elsewhere: the store's init must replace it
+    init = {k: v + rank for k, v in init.items()}
+    X, Y = dist_batch()
+    rows = slice(rank * DIST_BATCH, (rank + 1) * DIST_BATCH)
+    it = mt.io.NDArrayIter(X[rows], Y[rows], batch_size=DIST_BATCH,
+                           label_name="softmax_label")
+    batch = it.next()
+    mod = dist_module(mt, net, init, DIST_BATCH, kv)
+    losses, times = [], []
+    for _ in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(lm_loss(torch, mod.get_outputs()[0], Y[rows]))
+    arg, _ = mod.get_params()
+    np.savez(os.path.join(outdir, "rank%d.npz" % rank),
+             losses=np.array(losses), times=np.array(times),
+             probe=probe.asnumpy(), summed=summed.asnumpy(),
+             multiprocess=np.array(mod._exec_group._multiprocess),
+             backend=np.array(mt.kvstore_dist.BACKEND or ""),
+             **{"p:" + k: v.asnumpy() for k, v in arg.items()})
+    kv._barrier()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dist_phase(torch, mt):
+    """(d): DIST_WORKERS dist_sync workers on the card, against one
+    process's Module at the combined batch."""
+    import sys
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    port = free_port()
+    outdir = tempfile.mkdtemp(prefix="dist_sync_")
+    env = dict(os.environ, DMLC_NUM_WORKER=str(DIST_WORKERS),
+               DMLC_PS_ROOT_URI="127.0.0.1", DMLC_PS_ROOT_PORT=str(port))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", outdir],
+        env=dict(env, DMLC_WORKER_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DIST_WORKERS)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=DIST_TIMEOUT)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        tail = "\n".join(log.strip().splitlines()[-12:])
+        print("parallel dist: worker %d exit %s; log tail:\n%s"
+              % (r, p.returncode, tail), flush=True)
+        check(p.returncode == 0, "dist worker %d failed" % r)
+    got = [dict(np.load(os.path.join(outdir, "rank%d.npz" % r)))
+           for r in range(DIST_WORKERS)]
+    backends = {str(g["backend"]) for g in got}
+    print("parallel dist: backend %s on %d worker(s) of %s"
+          % (backends, DIST_WORKERS, torch.cuda.get_device_name(0)),
+          flush=True)
+    check(backends == {"gloo"}, "dist: two workers on one card must take "
+          "gloo, took %s" % backends)
+    for r, g in enumerate(got):
+        check(bool(g["multiprocess"]), "dist: worker %d did not sum its "
+              "gradients over the group" % r)
+        check(np.array_equal(g["probe"], np.full(4, 1.0)),
+              "dist: worker %d's init is not rank 0's: %s" % (r, g["probe"]))
+        check(np.array_equal(g["summed"], np.full(4, 3.0)),
+              "dist: worker %d's push did not sum: %s" % (r, g["summed"]))
+    # the one-process reference at the combined batch, same init
+    net, init = dist_init(np.random.RandomState(SEED))
+    X, Y = dist_batch()
+    it = mt.io.NDArrayIter(X, Y, batch_size=DIST_WORKERS * DIST_BATCH,
+                           label_name="softmax_label")
+    batch = it.next()
+    mod = dist_module(mt, net, init, DIST_WORKERS * DIST_BATCH, None)
+    ref_losses, ref_times = [], []
+    for _ in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        ref_times.append(time.perf_counter() - t0)
+        probs = mod.get_outputs()[0]
+        rows = probs.shape[0] // DIST_WORKERS
+        ref_losses.append([lm_loss(torch, mt.nd.NDArray(
+            probs._data[r * rows:(r + 1) * rows], probs.context),
+            Y[r * DIST_BATCH:(r + 1) * DIST_BATCH])
+            for r in range(DIST_WORKERS)])
+    arg, _ = mod.get_params()
+    ref = {k: v.asnumpy() for k, v in arg.items()}
+    scale = max(np.abs(v).max() for v in ref.values())
+    loss_err = max(abs(g["losses"][s] - ref_losses[s][r])
+                   for r, g in enumerate(got) for s in range(DIST_STEPS))
+    param_err = max(np.abs(g["p:" + k] - v).max()
+                    for g in got for k, v in ref.items()) / scale
+    worker_ms = float(np.mean([g["times"][1:].mean() for g in got])) * 1e3
+    single_ms = float(np.mean(ref_times[1:])) * 1e3
+    print("parallel dist: losses %s vs one process %s; max loss difference "
+          "%.3g, parameters %.3g of the largest |parameter| (tolerance 1e-5)"
+          % ([["%.6f" % x for x in g["losses"]] for g in got],
+             [["%.6f" % x for x in row] for row in ref_losses], loss_err,
+             param_err), flush=True)
+    print("parallel dist: ms per step %.2f per worker (mean of %d after 1), "
+          "one process at batch %d %.2f" % (
+              worker_ms, DIST_STEPS - 1, DIST_WORKERS * DIST_BATCH,
+              single_ms), flush=True)
+    check(loss_err <= 1e-5 and param_err <= 1e-5, "dist: the workers "
+          "disagree with one process at the combined batch")
+    del mod
+    torch.cuda.empty_cache()
+    return {"backend": sorted(backends)[0], "worker_ms": worker_ms,
+            "single_ms": single_ms, "loss_err": float(loss_err),
+            "param_err": float(param_err)}
+
+
+def rest_phase(torch, mt):
+    """(e): ulysses, the pipeline and MoE on meshes of the card against
+    their single-device versions, float32, TF32 off."""
+    P = mt.parallel
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {}
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    mesh = P.make_mesh({"seq": 4}, devices=[mt.gpu(0)] * 4)
+    q, k, v = rand(2, 1024, 16, 64), rand(2, 1024, 16, 64), \
+        rand(2, 1024, 16, 64)
+    for causal in (False, True):
+        err = rel_err(torch, P.ulysses_attention(q, k, v, mesh,
+                                                 causal=causal),
+                      P.local_attention(q, k, v, causal=causal))[0]
+        out["ulysses %s" % ("causal" if causal else "full")] = err
+    pmesh = P.make_mesh({"pipe": 4}, devices=[mt.gpu(0)] * 4)
+    ws = rand(4, 256, 256, scale=0.06)
+    x = rand(64, 256)
+    got = P.pipeline_spmd(lambda w, a: torch.tanh(a @ w), ws, x, pmesh,
+                          axis="pipe", n_microbatches=8)
+    ref = x
+    for i in range(4):
+        ref = torch.tanh(ref @ ws[i])
+    out["pipeline"] = rel_err(torch, got, ref)[0]
+    emesh = P.make_mesh({"expert": 4}, devices=[mt.gpu(0)] * 4)
+    x, gw = rand(2, 128, 256), rand(256, 8, scale=0.5)
+    w1, w2 = rand(8, 256, 512, scale=0.05), rand(8, 512, 256, scale=0.05)
+    for top_k in (1, 2):
+        out["moe top-%d" % top_k] = rel_err(
+            torch, P.moe_ffn(x, gw, w1, w2, emesh, top_k=top_k),
+            P.moe_ffn_reference(x, gw, w1, w2, top_k=top_k))[0]
+    print("parallel rest: max|err| against the single-device versions %s "
+          "(tolerance 1e-5)" % {k_: "%.3g" % e for k_, e in out.items()},
+          flush=True)
+    check(all(e <= 1e-5 for e in out.values()), "parallel: ulysses, the "
+          "pipeline or MoE disagrees with its single-device version")
+    return out
+
+
+def parallel_phase(torch, mt, att, batch, replay):
+    """Phase 16: (a) data parallel, (b) the ring, (c) long-context
+    training, (d) dist_sync, (e) the rest of ``parallel``.  Returns the
+    launches of K1-K3 by path, under "bf16" (the d=128 bf16 kernels: (a)
+    and (b)'s bf16 cases) and "f32" (the d=128 float32 kernels: (b)'s
+    float32 case and (c))."""
+    card = card_and_limit()
+    dp = dp_phase(torch, mt, batch, replay)
+    # (b)-(e) run in float32 as the example does: no TF32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ring = ring_phase(torch, mt, att)
+    longctx = longctx_phase(torch, mt)
+    dist = dist_phase(torch, mt)
+    rest = rest_phase(torch, mt)
+    print(json.dumps({"parallel": {
+        "card": card,
+        "dp": {k: {x: y for x, y in v.items() if x != "losses"}
+               if isinstance(v, dict) else v for k, v in dp.items()},
+        "ring": ring,
+        "longctx": {k: v for k, v in longctx.items() if k != "losses"},
+        "dist": dist, "rest": rest}}), flush=True)
+
+    def total(counts):
+        return {k: sum(c.get(k, 0) for c in counts)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    return {"bf16": {
+                "data parallel": total([dp[t]["launches"] for t in dp
+                                        if isinstance(dp[t], dict)]),
+                "ring": total([r["launches"] for r in ring
+                               if r["case"].startswith("bfloat16")])},
+            "f32": {
+                "ring": total([r["launches"] for r in ring
+                               if r["case"].startswith("float32")]),
+                "long-context": total([longctx["launches"]])}}
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -5488,7 +6155,11 @@ def main():
                          "rtc_kernels.py (AXPY_CUDA launched with its "
                          "axpy_dims) is held bit for bit and timed in turns "
                          "beside this one's at every axpy timing case")
+    ap.add_argument("--dist-worker", metavar="DIR", help=argparse.SUPPRESS)
     opts = ap.parse_args()
+    if opts.dist_worker:
+        dist_worker(opts.dist_worker)
+        return
 
     import torch
 
@@ -5594,7 +6265,6 @@ def main():
              "plain torch)"), flush=True)
     random_phase(torch, mt)
     train_api_phase(torch, mt, batch, replay)
-    del batch, replay
     torch.cuda.empty_cache()
     spatial_launches = spatial_phase(torch, mt)
     print("spatial: kernel launches of the port's own in the phase: %s"
@@ -5608,6 +6278,20 @@ def main():
     print("generate: kernel launches of the port's own in the flash "
           "prefill check: %s" % {k: v for k, v in gen_launches.items() if v},
           flush=True)
+    torch.cuda.empty_cache()
+    par_launches = parallel_phase(torch, mt, att, batch, replay)
+    del batch, replay
+    d_main = FULL["hidden"] // FULL["num_heads"]
+    for tag, kernel_rows in (
+            ("bf16", main_rows),
+            ("f32", {n: dim_rows[(n, d_main, "f32")]
+                     for n in ("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv")})):
+        for name, r in kernel_rows.items():
+            r["launches_by_path"] = dict(
+                {"train": r["launches"]},
+                **{path: c[name] for path, c in par_launches[tag].items()})
+            r["launches"] = sum(r["launches_by_path"].values())
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

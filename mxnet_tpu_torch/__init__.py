@@ -62,6 +62,10 @@ from . import recordio
 from . import metric
 from . import callback
 from . import model
+from . import kvstore
+from . import kvstore as kv
+from . import comm_engine
+from . import kvstore_dist
 from . import module
 from . import module as mod
 from . import executor_manager
@@ -72,3 +76,4 @@ from . import faults
 from . import telemetry
 from . import serving
 from . import generation
+from . import parallel

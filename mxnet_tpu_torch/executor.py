@@ -22,11 +22,31 @@ and ``fused_step``: forward, backward and the optimizer's update (one
 list update over every parameter, the step's own gradients its scratch)
 as one call, in place on the float32 parameters.
 
+Model parallelism: ``group2ctx`` maps each ``ctx_group`` attr to a
+context; a node of a placed group runs there, its inputs moved by
+``Tensor.to`` (a differentiable copy, so gradients travel back), as the
+JAX package puts a ``jax.device_put`` in front of it.  ``shared_exec``
+lends its graph plan to an executor of the same symbol.
+
+Data parallelism (``_set_data_parallel``, what ``DataParallelExecutorGroup``
+binds over several contexts): one executor holds the arrays of the whole
+batch on the first context and walks its plan in lockstep over the
+shards.  The batch inputs split into equal pieces, one per context; each
+shard's parameters are differentiable copies of the one master, so one
+backward leaves the whole batch's gradient on the master, as the JAX
+package's single mesh executor holds it.  An op the registry marks
+batch-local (``Op.is_batch_local``) runs once per shard when shape
+inference at the shard's batch shows each of its outputs split along axis
+0; every other op gathers its inputs' shards, runs once on the whole batch
+on the first context and is split again where a batch-local op reads it,
+so an op sees the whole batch wherever it reduces over it (BatchNorm's
+statistics, a loss normalized by the batch), as in the JAX package.
+
 Left out, with their reason: jit, buffer donation and the compile cache
-(PyTorch runs eagerly; a CUDA graph is the later tool), SPMD shardings and
-``group2ctx`` placement (one device per executor in this port), the
-training guardian's on-device step guard, the autotuner, remat
-(``MXNET_BACKWARD_DO_MIRROR``) and the monitor callback.
+(PyTorch runs eagerly; a CUDA graph is the later tool), SPMD shardings
+(``set_shardings``, slice A.4b of the port), the training guardian's
+on-device step guard, the autotuner, remat (``MXNET_BACKWARD_DO_MIRROR``)
+and the monitor callback.
 """
 from __future__ import annotations
 
@@ -79,12 +99,34 @@ class _GraphPlan:
                     out.append(p.name)
         return out
 
+    def placement_map(self, group2ctx) -> Dict[int, Context]:
+        """Node id → Context from the ``ctx_group`` attrs (reference: the
+        nnvm PlaceDevice pass, src/executor/graph_executor.cc:230-320)."""
+        if not group2ctx:
+            return {}
+        placement = {}
+        for n in self.nodes:
+            if n.is_variable:
+                continue
+            group = None
+            for store in (n.attr_dict, n.attrs):
+                group = store.get("ctx_group") or store.get("__ctx_group__")
+                if group:
+                    break
+            if group and group in group2ctx:
+                placement[id(n)] = Context(group2ctx[group])
+        return placement
+
     def run(self, args: Dict[str, Any], aux: Dict[str, Any], is_train: bool,
-            device, generator=None):
+            device, generator=None, placement=None, dp=None):
         """Execute the graph on tensors of ``device``.  An intermediate is
         released as soon as its last reader has run, so peak memory follows
         the live activations (and, under autograd, what the backward keeps).
-        Stochastic ops draw from ``generator`` in topological order."""
+        Stochastic ops draw from ``generator`` in topological order.  A
+        node ``placement`` names runs on that context's device, its inputs
+        and aux states moved there.  With ``dp`` (a ``_DataParallel``)
+        every value is a ``_Value`` and ``dp`` runs each node over the
+        shards; the outputs come back whole on the first context."""
         vals: Dict[tuple, Any] = {}
         left = dict(self.readers)
         keep = set(self.output_entries)
@@ -93,13 +135,22 @@ class _GraphPlan:
             if n.is_variable:
                 if n.name not in args:
                     raise MXNetError("missing argument %r" % n.name)
-                vals[(id(n), 0)] = args[n.name]
+                v = args[n.name]
+                vals[(id(n), 0)] = v if dp is None else dp.value(n, 0, v)
                 continue
             ins = [vals[(id(p), idx)] for p, idx in n.inputs]
             aux_in = tuple(aux[a] for a in n.aux_names())
-            opctx = OpContext(is_train, generator if n.op.stochastic
-                              else None, device)
-            outs, aux_out = n.op.apply(opctx, n.attrs, ins, aux_in)
+            if dp is not None:
+                outs, aux_out = dp.apply(n, ins, aux_in, is_train, generator)
+            else:
+                dev = device
+                if placement and id(n) in placement:
+                    dev = placement[id(n)].torch_device()
+                    ins = [x.to(dev) for x in ins]
+                    aux_in = tuple(a.to(dev) for a in aux_in)
+                opctx = OpContext(is_train, generator if n.op.stochastic
+                                  else None, dev)
+                outs, aux_out = n.op.apply(opctx, n.attrs, ins, aux_in)
             del ins
             for i, o in enumerate(outs):
                 vals[(id(n), i)] = o
@@ -110,16 +161,30 @@ class _GraphPlan:
                 left[e] -= 1
                 if left[e] == 0 and e not in keep:
                     del vals[e]
-        return [vals[e] for e in self.output_entries], new_aux
+        outs = [vals[e] for e in self.output_entries]
+        if dp is not None:
+            outs = [dp.gathered(v) for v in outs]
+        return outs, new_aux
 
 
 class Executor:
     def __init__(self, symbol, ctx: Context, args, args_grad=None,
-                 grad_req="write", aux_states=None, compute_dtype=None,
-                 cast_exclude=()):
+                 grad_req="write", aux_states=None, group2ctx=None,
+                 shared_exec=None, compute_dtype=None, cast_exclude=()):
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else Context(ctx)
-        self._plan = plan = _GraphPlan(symbol)
+        if shared_exec is not None and shared_exec._symbol is symbol:
+            self._plan = plan = shared_exec._plan
+        else:
+            self._plan = plan = _GraphPlan(symbol)
+        self._group2ctx = dict(group2ctx or {})
+        self._placement = plan.placement_map(self._group2ctx)
+        # data parallelism over several contexts (_set_data_parallel)
+        self._dp = None
+        # called with {name: gradient} right after each backward, before
+        # anything reads or applies them (the multi-process group's
+        # all-reduce)
+        self._grad_hook = None
         # mixed precision: float32 args are cast to compute_dtype inside the
         # step; parameters, gradients and aux stay float32.  cast_exclude
         # names what keeps full precision (labels).  As in the JAX package,
@@ -210,6 +275,27 @@ class Executor:
         return {k: v.to(cdt) if k not in self._cast_exclude
                 and v.dtype == torch.float32 else v for k, v in args.items()}
 
+    def _run(self, args, aux, is_train, generator):
+        """The graph over the bound (uncast) argument tensors: on the
+        executor's device, placed by ``group2ctx``, or over the data-
+        parallel shards."""
+        return self._plan.run(self._cast(args), aux, is_train,
+                              self._ctx.torch_device(), generator,
+                              self._placement, self._dp)
+
+    def _set_data_parallel(self, contexts, batch_names):
+        """Run over ``contexts`` from now on, the arguments ``batch_names``
+        split along axis 0, one equal piece per context."""
+        if self._placement:
+            raise MXNetError("group2ctx placement and data parallelism "
+                             "over several contexts do not combine")
+        self._dp = _DataParallel(self, contexts, batch_names)
+
+    def _home(self, t):
+        """A tensor the graph left on another device (a placed node's
+        output, a gathered aux state), back on the executor's."""
+        return t.to(self._ctx.torch_device())
+
     def _generator(self, remember: bool):
         """The device generator stochastic ops draw from, or None when the
         graph has none; with ``remember`` its state is kept for
@@ -239,8 +325,9 @@ class Executor:
     def _set_outputs(self, outs):
         from . import ndarray as nd
 
-        self._output_arrays = [nd.NDArray(o.detach(), self._ctx)
-                               for o in outs]
+        self._output_arrays = [
+            nd.NDArray(o.detach(), self._placement.get(e[0], self._ctx))
+            for o, e in zip(outs, self._plan.output_entries)]
 
     def forward(self, is_train: bool = False, **kwargs):
         self._write_inputs(kwargs)
@@ -249,11 +336,10 @@ class Executor:
         self._output_arrays = []  # release the previous call's outputs
         gen = self._generator(remember=True)
         with torch.no_grad():
-            outs, new_aux = self._plan.run(self._cast(args), aux, is_train,
-                                           self._ctx.torch_device(), gen)
+            outs, new_aux = self._run(args, aux, is_train, gen)
         if is_train:
             for k, v in new_aux.items():
-                self.aux_dict[k]._set(v)
+                self.aux_dict[k]._set(self._home(v))
         self._set_outputs(outs)
         return self._output_arrays
 
@@ -283,8 +369,7 @@ class Executor:
         args = {k: leaves.get(k, v._data) for k, v in self.arg_dict.items()}
         aux = {k: v._data for k, v in self.aux_dict.items()}
         with torch.enable_grad():
-            outs, new_aux = self._plan.run(self._cast(args), aux, is_train,
-                                           self._ctx.torch_device(), generator)
+            outs, new_aux = self._run(args, aux, is_train, generator)
         if out_grads is None:
             ogs = [None] * len(outs)
         elif isinstance(out_grads, (list, tuple)):
@@ -307,6 +392,8 @@ class Executor:
             [None] * len(names)
         grads = {n: g if g is not None else torch.zeros_like(leaves[n])
                  for n, g in zip(names, got)}
+        if self._grad_hook is not None:
+            self._grad_hook(grads)
         return [o.detach() for o in outs], new_aux, grads
 
     def _forward_backward(self, out_grads, is_train, update_aux, set_outputs,
@@ -334,7 +421,7 @@ class Executor:
         self.grad_arrays = [self.grad_dict.get(n) for n in plan.arg_names]
         if update_aux:
             for k, v in new_aux.items():
-                self.aux_dict[k]._set(v.detach())
+                self.aux_dict[k]._set(self._home(v.detach()))
         if set_outputs:
             self._set_outputs(outs)
 
@@ -372,7 +459,7 @@ class Executor:
             [_tensors(updater.states[idx]) for _, idx in infos],
             [t] * len(infos), owned_grads=True)
         for k, v in new_aux.items():
-            self.aux_dict[k]._set(v.detach())
+            self.aux_dict[k]._set(self._home(v.detach()))
         self._set_outputs(outs)
         return self._output_arrays
 
@@ -389,3 +476,113 @@ class Executor:
                 self.aux_dict[name][:] = arr
             elif not allow_extra_params:
                 raise MXNetError("Found name \"%s\" not in aux states" % name)
+
+
+class _DataParallel:
+    """An executor's plan run in lockstep over the shards of the batch (see
+    the module docstring).  Each graph entry is classified once, at bind,
+    by shape inference at the whole batch and at one shard's batch:
+    "shard" (axis 0 scales with the batch: split along it), "rep" (the
+    same shape at both: one value for every shard) or "whole" (neither:
+    only the whole batch's value exists)."""
+
+    def __init__(self, executor, contexts, batch_names):
+        from .symbol import _forward_infer
+
+        plan = executor._plan
+        self.plan = plan
+        self.devices = [c.torch_device() for c in contexts]
+        self.n = n = len(self.devices)
+        batch_names = frozenset(batch_names)
+        shapes = {k: tuple(v.shape) for k, v in executor.arg_dict.items()}
+        for name in batch_names:
+            if shapes[name][0] % n:
+                raise MXNetError("batch size %d is not divisible by the %d "
+                                 "contexts" % (shapes[name][0], n))
+        whole, _ = _forward_infer(plan.symbol, shapes)
+        part, _ = _forward_infer(plan.symbol, {
+            k: ((s[0] // n,) + s[1:] if k in batch_names else s)
+            for k, s in shapes.items()}, tolerant=True)
+        self.kind = {}
+        for e, g in whole.items():
+            s = part.get(e)
+            if s is None:
+                self.kind[e] = "whole"
+            elif tuple(s) == tuple(g):
+                self.kind[e] = "rep"
+            elif len(s) == len(g) and len(g) and g[0] == s[0] * n and \
+                    tuple(g[1:]) == tuple(s[1:]):
+                self.kind[e] = "shard"
+            else:
+                self.kind[e] = "whole"
+        self.local = {}
+        for node in plan.nodes:
+            if node.is_variable:
+                continue
+            outs = [(id(node), i) for i in range(node.num_outputs())]
+            ins = [(id(p), idx) for p, idx in node.inputs]
+            self.local[id(node)] = (
+                node.op.is_batch_local(node.attrs) and not node.aux_names()
+                and all(self.kind.get(e) == "shard" for e in outs)
+                and all(self.kind.get(e) in ("shard", "rep") for e in ins))
+
+    def gathered_ops(self):
+        """Names of the ops that run once on the whole batch."""
+        return sorted({n.op.name for n in self.plan.nodes
+                       if not n.is_variable and not self.local[id(n)]})
+
+    def value(self, node, i, tensor=None, pieces=None):
+        """Output ``i`` of ``node`` as a ``_Value``: the whole batch's
+        ``tensor`` or the shards' ``pieces``."""
+        return _Value(self.kind.get((id(node), i)) == "shard", tensor,
+                      pieces)
+
+    def gathered(self, v):
+        """The whole batch's tensor on the first context."""
+        if v.whole is None:
+            v.whole = torch.cat([p.to(self.devices[0]) for p in v.pieces])
+        return v.whole
+
+    def piece(self, v, i):
+        """Shard ``i``'s tensor on its context: its piece of a split value,
+        or the device's one copy of any other (a parameter's cast master is
+        cast once, and shards sharing a card share the copy)."""
+        if v.split:
+            if v.pieces is None:
+                v.pieces = [x.to(d) for x, d in
+                            zip(self.gathered(v).chunk(self.n), self.devices)]
+            return v.pieces[i]
+        dev = self.devices[i]
+        if dev not in v.copies:
+            v.copies[dev] = self.gathered(v).to(dev)
+        return v.copies[dev]
+
+    def apply(self, node, ins, aux_in, is_train, generator):
+        """One node over the shards: per shard where it is batch-local,
+        else once on the whole batch on the first context."""
+        if self.local[id(node)]:
+            per = [node.op.apply(OpContext(is_train, None, dev), node.attrs,
+                                 [self.piece(v, i) for v in ins], ())[0]
+                   for i, dev in enumerate(self.devices)]
+            return [self.value(node, j, pieces=list(p))
+                    for j, p in enumerate(zip(*per))], ()
+        opctx = OpContext(is_train, generator if node.op.stochastic
+                          else None, self.devices[0])
+        outs, aux_out = node.op.apply(opctx, node.attrs,
+                                      [self.gathered(v) for v in ins], aux_in)
+        return [self.value(node, j, o) for j, o in enumerate(outs)], aux_out
+
+
+class _Value:
+    """An entry's value in a data-parallel run: the whole batch's tensor on
+    the first context or one piece per shard, whichever its node made, and
+    the other forms, made from it when a reader first asks and kept while
+    the entry lives."""
+
+    __slots__ = ("split", "whole", "pieces", "copies")
+
+    def __init__(self, split, whole=None, pieces=None):
+        self.split = split      # axis 0 divides over the shards
+        self.whole = whole
+        self.pieces = pieces
+        self.copies = {}        # device -> the unsplit value there

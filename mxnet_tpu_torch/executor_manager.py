@@ -5,8 +5,8 @@ duplicate argument or aux names) and ``DataParallelExecutorManager``, the
 pre-``Module`` training plumbing ``FeedForward`` used, as a thin adapter
 over ``module.executor_group.DataParallelExecutorGroup``.
 
-The port binds on one device: more than one context raises ``MXNetError``
-(in the executor group) until the multi-device slice.
+Over several contexts the group splits the batch evenly between them
+(``DataParallelExecutorGroup``); an uneven ``work_load_list`` raises there.
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Optional
 
@@ -48,10 +49,13 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 #: the compiler's report (registers, shared memory, spills) per built source
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: wrappers launch from several threads (``parallel``'s shards)
+_COUNT_LOCK = threading.Lock()
 
 
 def count(name: str, n: int = 1) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+    with _COUNT_LOCK:
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def reset_launches() -> None:

@@ -6,16 +6,20 @@
 ``load_checkpoint`` reads them back.  ``FeedForward`` is the JAX package's
 thin adapter over ``Module``: ``fit``, ``predict``, ``score``, ``save`` and
 ``load``; ``ctx=None`` is the current context, the card unless the caller
-sets another.  The port has no kvstore yet:
-``_create_kvstore`` accepts what needs none — ``None``, or ``"local"`` /
-``"device"`` on one device — and raises for anything else (several
-devices, ``dist_*``, a KVStore object).  The JAX package's sidecars (CRC,
-PRNG state, last-good marker, retention ring) are not ported.
+sets another.  ``_create_kvstore`` resolves a kvstore spec as the reference
+does (model.py:40-77): none for one device unless the store is ``dist_*``,
+``update_on_kvstore`` off for ``local`` when no parameter reaches 16M
+elements; ``_update_params_on_kvstore`` pushes in backward order and pulls,
+leaving an async store's traffic in flight when asked.  The JAX package's
+sidecars (CRC, PRNG state, last-good marker, retention ring) are not
+ported.
 """
 from __future__ import annotations
 
 import collections
 import logging
+
+import numpy as np
 
 from . import ndarray as nd
 from . import symbol as sym
@@ -29,27 +33,79 @@ BatchEndParam = collections.namedtuple(
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """(kvstore, update_on_kvstore) for a kvstore spec: always (None, False)
-    here, where one device needs no kvstore round trip."""
+    """Resolve a kvstore spec to (kv, update_on_kvstore) (reference
+    model.py:40-77)."""
+    from . import kvstore as kvs
+
+    update_on_kvstore = True
     if kvstore is None:
-        return None, False
-    if isinstance(kvstore, str) and kvstore in ("local", "device") and \
-            num_device == 1:
-        return None, False
-    raise MXNetError(
-        "kvstore %r over %d device(s) is not ported yet: the port trains on "
-        "one device with kvstore None or 'local'" % (kvstore, num_device))
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            # a single device group needs no kvstore round trip
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(int(np.prod(p.shape))
+                               for p in arg_params.values()) \
+                    if arg_params else 0
+                if max_size < 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Every parameter into the store; with the update on the store, its
+    value (rank 0's, for ``dist_sync``) pulled back into the executor."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_order=None, defer_wait=False):
+    """Centralized update: push grads, pull weights (reference model.py:88).
+
+    All pushes are issued first, in ``param_order`` (backward order, the
+    order gradients become available), each with ``priority=-index``;
+    pulls follow in forward order.  On an async store nothing here blocks:
+    with ``defer_wait`` the caller waits later (``Module._wait_async_comm``),
+    otherwise a final ``wait_all`` restores the synchronous contract."""
+    n = len(param_arrays)
+    if param_order is None:
+        param_order = range(n - 1, -1, -1)
+    for index in param_order:
+        if grad_arrays[index] is not None:
+            kvstore.push(index, grad_arrays[index], priority=-index)
+    for index in range(n):
+        if grad_arrays[index] is not None:
+            kvstore.pull(index, param_arrays[index], priority=-index)
+    if not defer_wait:
+        kvstore.wait_all()
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device=1,
                    kvstore=None):
-    """The replicated-updater path: the updater on every parameter with a
-    gradient, all at once through ``Updater.update_list`` (one list
-    update), or one call each for an updater that is a plain function."""
-    if kvstore is not None:
-        raise MXNetError("_update_params: no kvstore in the port")
+    """The replicated-updater path: with a kvstore, each gradient is pushed
+    and the sum pulled back into it first; then the updater on every
+    parameter with a gradient, all at once through ``Updater.update_list``
+    (one list update), or one call each for a plain function."""
     items = [(index * num_device, grad, arg) for index, (arg, grad)
              in enumerate(zip(param_arrays, grad_arrays)) if grad is not None]
+    if kvstore:
+        for index, grad, _ in items:
+            kvstore.push(index, grad, priority=-index)
+            kvstore.pull(index, grad, priority=-index)
+        kvstore.wait_all()
     if hasattr(updater, "update_list"):
         if items:
             updater.update_list(*(list(c) for c in zip(*items)))

@@ -1,10 +1,25 @@
-"""DataParallelExecutorGroup over one context — counterpart of
-``mxnet_tpu/module/executor_group.py``.
+"""DataParallelExecutorGroup — the data-parallel engine of the frontend;
+counterpart of ``mxnet_tpu/module/executor_group.py``.
 
-The JAX package binds one executor jitted over a mesh of every context and
-shards the batch on it.  The port binds one executor on one device; more
-than one context raises until the multi-device slice.  Batches arrive as
-host NDArrays and are copied into the bound input arrays at load."""
+The JAX package binds ONE executor jitted over a mesh of every context,
+shards the batch on the mesh's 'data' axis and replicates the parameters.
+The port binds one executor too: its arrays (parameters, gradients, aux
+states and the whole batch) live on the first context, and over several
+contexts it runs in lockstep over the shards (``Executor._set_data_
+parallel``): each shard a piece of the batch on its own context, every
+parameter a differentiable copy of the one master, so one backward leaves
+the whole batch's gradient on the master and an op that reduces over the
+batch sees all of it.  Several contexts may name one card.  ``workload``
+(work_load_list) is accepted for API parity, but only even splits are
+supported, and a batch the contexts do not divide raises.
+
+Under a multi-process group (``kvstore_dist``'s, ``dist_mesh`` not False)
+each process binds its own batch and the gradients are summed over the
+group right after each backward, before anything reads or applies them:
+every worker then applies the same update to its replica.  An op that
+reduces over the batch sees the process's own batch there (the JAX
+package's global mesh spanning processes is slice A.4b).
+"""
 from __future__ import annotations
 
 import logging
@@ -28,16 +43,17 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
-                 grad_req="write", state_names=None, compute_dtype=None):
-        if len(contexts) != 1:
-            raise MXNetError(
-                "the port trains on one device: got contexts %s (multi-"
-                "device data parallelism is not ported yet)" % (contexts,))
-        if shared_group is not None:
-            raise MXNetError("shared_module is not ported yet")
+                 grad_req="write", state_names=None, compute_dtype=None,
+                 dist_mesh=None):
+        from .. import kvstore_dist
+
         self.symbol = symbol
-        self.contexts = contexts
+        self.contexts = list(contexts)
         self.compute_dtype = compute_dtype
+        if workload and len(set(workload)) > 1:
+            raise MXNetError(
+                "work_load_list with uneven splits is unsupported: the "
+                "shards of a data-parallel step are equal")
         self.param_names = list(param_names)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -59,20 +75,49 @@ class DataParallelExecutorGroup:
                     self.grad_req[k] = "null"
         else:
             self.grad_req = {k: "null" for k in self.arg_names}
-        self.bind_exec(data_shapes, label_shapes)
+        self._multiprocess = dist_mesh is not False and \
+            kvstore_dist._world() > 1
+        self.batch_size = None
+        self.slices = None
+        self.execs = []
+        self.bind_exec(data_shapes, label_shapes, shared_group)
 
-    def bind_exec(self, data_shapes, label_shapes):
-        """Bind the single executor on the group's one context."""
+    # ------------------------------------------------------------------
+    def decide_slices(self, data_shapes):
+        """Batch → per-context slices (reference executor_group.py:207);
+        raises when the contexts do not divide the batch."""
+        major_axis = [DataDesc.get_batch_axis(getattr(s, "layout", None))
+                      for s in data_shapes]
+        for desc, axis in zip(data_shapes, major_axis):
+            if axis == -1:
+                continue
+            batch_size = desc.shape[axis]
+            if self.batch_size is not None:
+                if batch_size != self.batch_size:
+                    raise MXNetError("all data must have the same batch "
+                                     "size: %s" % (data_shapes,))
+                continue
+            self.batch_size = batch_size
+            n = len(self.contexts)
+            if batch_size % n != 0:
+                raise MXNetError(
+                    "batch size %d is not divisible by the %d-way 'data' "
+                    "split over the contexts" % (batch_size, n))
+            step = batch_size // n
+            self.slices = [slice(i * step, (i + 1) * step)
+                           for i in range(n)]
+        return major_axis
+
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None):
+        """Bind the group's executor on the first context, over every
+        context when there are several."""
         self.data_shapes = _as_desc(data_shapes)
         self.label_shapes = _as_desc(label_shapes)
         self.data_names = [d.name for d in self.data_shapes]
         self.label_names = [d.name for d in self.label_shapes]
-        batch = {d.shape[DataDesc.get_batch_axis(getattr(d, "layout", None))]
-                 for d in self.data_shapes + self.label_shapes}
-        if len(batch) != 1:
-            raise MXNetError("all data must have the same batch size: %s"
-                             % (self.data_shapes + self.label_shapes,))
-        self.batch_size = batch.pop()
+        self.data_layouts = self.decide_slices(self.data_shapes)
+        if self.label_shapes:
+            self.label_layouts = self.decide_slices(self.label_shapes)
 
         input_shapes = {d.name: d.shape
                         for d in self.data_shapes + self.label_shapes}
@@ -83,17 +128,32 @@ class DataParallelExecutorGroup:
             d.name: getattr(d, "dtype", np.float32)
             for d in self.data_shapes + self.label_shapes})
         ctx = self.contexts[0]
-        args = {n: nd.zeros(s, ctx, dtype=t)
-                for n, s, t in zip(self.arg_names, arg_shapes, arg_types)}
+        shared_exec = shared_group.execs[0] if shared_group else None
+        pool = shared_exec.arg_dict if shared_exec is not None else {}
+        args = {}
+        for n, s, t in zip(self.arg_names, arg_shapes, arg_types):
+            if n in self.param_names and n in pool:
+                args[n] = pool[n]  # bucketing shares parameter memory
+            else:
+                args[n] = nd.zeros(s, ctx, dtype=t)
         grads = {n: nd.zeros(s, ctx, dtype=t)
                  for n, s, t in zip(self.arg_names, arg_shapes, arg_types)
                  if self.grad_req.get(n, "null") != "null"}
-        aux = {n: nd.zeros(s, ctx, dtype=t)
-               for n, s, t in zip(self.aux_names, aux_shapes, aux_types)}
+        shared_aux = shared_exec.aux_dict if shared_exec is not None else {}
+        aux = {}
+        for n, s, t in zip(self.aux_names, aux_shapes, aux_types):
+            held = shared_aux.get(n)
+            aux[n] = held if held is not None and \
+                tuple(held.shape) == tuple(s) else nd.zeros(s, ctx, dtype=t)
         executor = Executor(self.symbol, ctx, args, grads or None,
-                            self.grad_req, aux,
+                            self.grad_req, aux, shared_exec=shared_exec,
                             compute_dtype=self.compute_dtype,
                             cast_exclude=self.label_names)
+        if len(self.contexts) > 1:
+            executor._set_data_parallel(self.contexts,
+                                        self.data_names + self.label_names)
+        if self._multiprocess:
+            executor._grad_hook = self._allreduce
         self.execs = [executor]
         # the executor rebinds these arrays' buffers in place, so the lists
         # stay valid across steps
@@ -103,13 +163,48 @@ class DataParallelExecutorGroup:
         self.aux_arrays = [executor.aux_dict[n] for n in self.aux_names]
         self.data_arrays = [executor.arg_dict[n] for n in self.data_names]
         self.label_arrays = [executor.arg_dict[n] for n in self.label_names]
+        self.input_grad_arrays = [executor.grad_dict.get(n)
+                                  for n in self.data_names] \
+            if self.inputs_need_grad else []
+
+    @staticmethod
+    def _allreduce(grads):
+        """Sum this step's gradients over the process group."""
+        from ..kvstore_dist import allreduce_sum_
+
+        allreduce_sum_(list(grads.values()))
+
+    def backward_param_order(self):
+        """Parameter indices in the order their gradients become available
+        — last layer first (``param_names`` follows the forward order); the
+        centralized update path issues kvstore pushes in this order."""
+        return list(range(len(self.param_names) - 1, -1, -1))
+
+    def reshape(self, data_shapes, label_shapes):
+        """Rebind for new input shapes, keeping the trained parameters and
+        aux states (the reference reshapes in place,
+        executor_group.py:378)."""
+        if data_shapes == self.data_shapes and \
+                label_shapes == self.label_shapes:
+            return
+        old = self.execs[0] if self.execs else None
+        self.batch_size = None
+        self.bind_exec(data_shapes, label_shapes)
+        if old is not None:
+            new = self.execs[0]
+            for name in self.param_names:
+                new.arg_dict[name]._set(old.arg_dict[name]._data)
+            for name in self.aux_names:
+                new.aux_dict[name]._set(old.aux_dict[name]._data)
 
     # ------------------------------------------------------------------
     def set_params(self, arg_params, aux_params):
         self.execs[0].copy_params_from(arg_params, aux_params)
 
     def get_params(self, arg_params, aux_params):
-        """Copy the current parameters into the given dicts."""
+        """Copy the current parameters into the given dicts (the weighted
+        merge across devices of the reference is a no-op: the group keeps
+        one master)."""
         ex = self.execs[0]
         for name in self.param_names:
             arg_params[name][:] = ex.arg_dict[name]
@@ -118,7 +213,8 @@ class DataParallelExecutorGroup:
 
     # ------------------------------------------------------------------
     def _load_batch(self, data_batch):
-        """Copy the batch into the bound input arrays on the device."""
+        """Copy the batch into the bound input arrays on the first
+        context; the executor splits it over the contexts."""
         ex = self.execs[0]
         arrays = list(zip(self.data_names, data_batch.data))
         if self.label_names and getattr(data_batch, "label", None):

@@ -1,17 +1,23 @@
 """Module — the training API over (symbol, data, label); counterpart of
-``mxnet_tpu/module/module.py`` on one device.
+``mxnet_tpu/module/module.py``.
 
-``bind`` builds a one-context executor group; ``init_params``,
-``set_params``, ``get_params``; ``init_optimizer`` (kvstore None or
-"local" on one device); ``forward``/``backward``/``forward_backward``/
-``update``; ``save_checkpoint``/``load``.  As in the JAX package, when the
-optimizer has a list update rule and every gradient is written (not
-added), ``forward_backward`` defers the batch and ``update`` runs forward,
-backward and the update as one ``Executor.fused_step``; a caller that asks
-for outputs or gradients in between gets the two-phase path for that batch.
-Left out: shardings and
-meshes, ``shared_module``/bucketing, the guardian, telemetry and the
-monitor hook.
+``bind`` builds a ``DataParallelExecutorGroup`` over the module's contexts
+(one or several, which may share a card; ``shared_module`` lends its
+parameter arrays); ``init_params``, ``set_params``, ``get_params``;
+``init_optimizer`` with the reference's kvstore paths — none, ``local``,
+``device`` or ``dist_sync``: the centralized update through the store
+(wrapped by the async comm engine unless ``MXNET_KVSTORE_ASYNC=0``), or
+the replicated updater; ``forward``/``backward``/``forward_backward``/
+``update``; ``save_checkpoint``/``load``.  As in the JAX package, when
+the optimizer has a list update rule, every gradient is written (not
+added) and no store applies the update, ``forward_backward`` defers the
+batch and ``update`` runs forward, backward and the update as one
+``Executor.fused_step``; a caller that asks for outputs or gradients in
+between gets the two-phase path for that batch.  Under a multi-process
+group (``dist_sync`` over several workers, ``dist_mesh`` not False) the
+gradients are summed over the workers inside the step and every worker
+applies the update itself.  Left out: ``bind(mesh=, partition_rules=)``
+(slice A.4b), bucketing, the guardian, telemetry and the monitor hook.
 """
 from __future__ import annotations
 
@@ -22,9 +28,10 @@ from .. import ndarray as nd
 from .. import optimizer as opt
 from ..base import MXNetError
 from ..initializer import InitDesc, Uniform
-from ..model import _create_kvstore, _update_params, load_checkpoint
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint)
 from .base_module import BaseModule, _check_input_names
-from .executor_group import DataParallelExecutorGroup
+from .executor_group import DataParallelExecutorGroup, _as_desc
 
 __all__ = ["Module"]
 
@@ -33,8 +40,12 @@ class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, work_load_list=None, fixed_param_names=None,
-                 state_names=None, compute_dtype=None):
+                 state_names=None, compute_dtype=None, dist_mesh=None):
         super().__init__(logger=logger)
+        # dist_mesh: None sums the gradients over the process group when
+        # there is one (dist_sync's data plane); False keeps the module
+        # process-local
+        self._dist_mesh = dist_mesh
         # mixed precision: compute in compute_dtype (bf16), keep float32
         # parameters, gradients and optimizer state
         self._compute_dtype = compute_dtype
@@ -44,6 +55,7 @@ class Module(BaseModule):
             context = [context]
         self._context = list(context)
         self._work_load_list = work_load_list or [1] * len(self._context)
+        assert len(self._work_load_list) == len(self._context)
 
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
@@ -134,6 +146,7 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         if self._params_dirty:
             self._flush_fused_pending()
+            self._wait_async_comm()
             self._exec_group.get_params(self._arg_params, self._aux_params)
             self._params_dirty = False
         return (self._arg_params, self._aux_params)
@@ -205,33 +218,45 @@ class Module(BaseModule):
     # ------------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
-             grad_req="write"):
-        """Bind the executor for these input shapes."""
+             grad_req="write", mesh=None, partition_rules=None):
+        """Bind the executor group for these input shapes; with
+        ``shared_module`` (bound, initialized) its parameter arrays and its
+        optimizer are shared."""
+        if mesh is not None or partition_rules is not None:
+            raise MXNetError(
+                "Module.bind(mesh=, partition_rules=) is not ported yet: "
+                "the GSPMD layer (sharding/, Executor.set_shardings) is "
+                "slice A.4b of the port")
         if force_rebind:
             self.binded = False
             self._exec_group = None
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
+        shared_group = None
         if shared_module is not None:
-            raise MXNetError("shared_module is not ported yet")
+            assert isinstance(shared_module, Module) and \
+                shared_module.binded and shared_module.params_initialized
+            shared_group = shared_module._exec_group
         assert not (for_training is False and inputs_need_grad)
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
-        from ..io import DataDesc
-
-        as_desc = lambda shapes: [s if isinstance(s, DataDesc)  # noqa: E731
-                                  else DataDesc(s[0], s[1]) for s in shapes]
-        self._data_shapes = as_desc(data_shapes)
-        self._label_shapes = as_desc(label_shapes) if label_shapes else None
+        self._data_shapes = _as_desc(data_shapes)
+        self._label_shapes = _as_desc(label_shapes) if label_shapes else None
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
-            for_training, inputs_need_grad, None, self.logger,
+            for_training, inputs_need_grad, shared_group, self.logger,
             self._fixed_param_names, grad_req, state_names=self._state_names,
-            compute_dtype=self._compute_dtype)
-        if self.params_initialized:
+            compute_dtype=self._compute_dtype, dist_mesh=self._dist_mesh)
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            if shared_module.optimizer_initialized:
+                self.borrow_optimizer(shared_module)
+        elif self.params_initialized:
             # parameters loaded before bind (Module.load): onto the device
             ctx = self._context[0]
             self._arg_params = {k: v.as_in_context(ctx)
@@ -241,18 +266,52 @@ class Module(BaseModule):
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     # ------------------------------------------------------------------
+    def reshape(self, data_shapes, label_shapes=None):
+        assert self.binded
+        self._data_shapes = _as_desc(data_shapes)
+        self._label_shapes = _as_desc(label_shapes) if label_shapes else None
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)
+
+    # ------------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Install the optimizer; rescale_grad defaults to 1/batch."""
+        """Install the optimizer and the kvstore (reference module.py:432);
+        rescale_grad defaults to 1/(batch x workers): every process of the
+        group when the step sums the gradients, else the workers of a sync
+        store."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
         kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        multiprocess = self._exec_group._multiprocess
+        if multiprocess and kvstore and "dist" in kvstore.type:
+            # the gradients are summed over the workers inside the step
+            # and every worker applies the identical update to its
+            # replica: the store is the control plane (init broadcast,
+            # barrier, rank)
+            update_on_kvstore = False
+        if kvstore and update_on_kvstore:
+            # the centralized update rides the async comm engine
+            # (MXNET_KVSTORE_ASYNC=0 keeps the synchronous loop)
+            from ..comm_engine import maybe_async
+
+            kvstore = maybe_async(kvstore)
+        batch_size = self._exec_group.batch_size
+        if multiprocess:
+            # the step sums the gradients over every worker whatever the
+            # store, so the default scale counts every worker's batch
+            from ..kvstore_dist import _world
+
+            batch_size *= _world()
+        elif kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
+            # one executor whatever the number of contexts: updater
+            # indices are plain parameter positions
             idx2name = dict(enumerate(self._exec_group.param_names))
             optimizer_params = dict(optimizer_params)
             optimizer_params.setdefault("rescale_grad", rescale_grad)
@@ -264,13 +323,31 @@ class Module(BaseModule):
             if optimizer.rescale_grad != rescale_grad:
                 self.logger.warning(
                     "Optimizer created manually outside Module but "
-                    "rescale_grad is not normalized to 1.0/batch_size "
-                    "(%s vs. %s). Is this intended?",
+                    "rescale_grad is not normalized to 1.0/batch_size/"
+                    "num_workers (%s vs. %s). Is this intended?",
                     optimizer.rescale_grad, rescale_grad)
         self._optimizer = optimizer
         self._kvstore = kvstore
         self._update_on_kvstore = update_on_kvstore
-        self._updater = opt.get_updater(optimizer)
+        self._updater = None
+        if kvstore:
+            _initialize_kvstore(kvstore=kvstore,
+                                param_arrays=self._exec_group.param_arrays,
+                                arg_params=self._arg_params,
+                                param_names=self._param_names,
+                                update_on_kvstore=update_on_kvstore)
+            if not update_on_kvstore and "dist" in kvstore.type and \
+                    multiprocess:
+                # rank 0's init, broadcast by the store, back into every
+                # replica so all start identical
+                for idx, name in enumerate(self._param_names):
+                    kvstore.pull(idx, self._arg_params[name], priority=-idx)
+                self._exec_group.set_params(self._arg_params,
+                                            self._aux_params)
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         self._fused_ok = self._decide_fused()
         if self._preload_opt_states is not None:
@@ -279,7 +356,14 @@ class Module(BaseModule):
 
     def _decide_fused(self):
         """Whether update() runs forward, backward and the optimizer as one
-        ``Executor.fused_step``."""
+        ``Executor.fused_step``: the replicated updater without a store
+        round trip, a list update rule, plain grad_req 'write'."""
+        if self._update_on_kvstore or self._updater is None:
+            return False
+        if self._kvstore is not None and "dist" in self._kvstore.type \
+                and not self._exec_group._multiprocess:
+            # one-worker dist: keep the eager kvstore loop
+            return False
         if not type(self._optimizer).has_tensor_update():
             return False
         if any(self._exec_group.grad_req.get(n) == "add"
@@ -287,10 +371,29 @@ class Module(BaseModule):
             return False
         return not self.inputs_need_grad
 
+    def borrow_optimizer(self, shared_module):
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
+        self._fused_ok = self._decide_fused()
+
+    def _wait_async_comm(self):
+        """Drain deferred kvstore traffic before the parameters are read:
+        update() leaves pushes and pulls in flight on an async store, and
+        the executor reads the parameter tensors directly (no NDArray read
+        guard fires), so the overlap window closes here."""
+        kv = self._kvstore
+        if kv is not None and self._update_on_kvstore:
+            kv.wait_all()
+
     # ------------------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
         self._flush_fused_pending()
+        self._wait_async_comm()
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
@@ -306,6 +409,7 @@ class Module(BaseModule):
             self._flush_fused_pending()
             self._fused_pending = data_batch
             return
+        self._wait_async_comm()
         self._exec_group.forward_backward(data_batch)
 
     def _flush_fused_pending(self):
@@ -324,9 +428,22 @@ class Module(BaseModule):
             batch, self._fused_pending = self._fused_pending, None
             self._exec_group.fused_step(batch, self._optimizer, self._updater)
             return
+        if self._update_on_kvstore:
+            # pushes go out in backward order with priority=-index; the
+            # wait is deferred so an async store overlaps its traffic with
+            # the metric and the next batch — forward() closes the window
+            _update_params_on_kvstore(
+                self._exec_group.param_arrays, self._exec_group.grad_arrays,
+                self._kvstore,
+                param_order=self._exec_group.backward_param_order(),
+                defer_wait=True)
+            return
+        # on a multi-process group the gradients are already summed over
+        # the workers: the store must not reduce them again
+        kv = None if self._exec_group._multiprocess else self._kvstore
         _update_params(self._exec_group.param_arrays,
                        self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=1)
+                       num_device=1, kvstore=kv)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -346,10 +463,16 @@ class Module(BaseModule):
     # ------------------------------------------------------------------
     def save_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open(fname, "wb") as fout:
             fout.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as fin:
             self._updater.set_states(fin.read())

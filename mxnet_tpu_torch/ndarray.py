@@ -41,6 +41,12 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
 _DTYPE_NAMES = {v: k for k, v in TORCH_DTYPES.items()}
 
 
+# Hook installed by comm_engine: called with the NDArray before a host read
+# so an in-flight async kvstore pull into it lands first (the reference
+# engine's WaitToRead contract, threaded_engine.h).
+_async_read_guard = None
+
+
 def _default_ctx(ctx) -> Context:
     return ctx if ctx is not None else current_context()
 
@@ -84,9 +90,19 @@ class NDArray:
     def ndim(self):
         return self._data.dim()
 
+    def wait_to_read(self):
+        """Block until a pending async kvstore pull into this array landed
+        (the engine's WaitToRead contract, comm_engine.py)."""
+        g = _async_read_guard
+        if g is not None:
+            g(self)
+
+    wait_to_write = wait_to_read
+
     def asnumpy(self) -> np.ndarray:
         """A host copy (never a view of a CPU array's storage, as in the
         reference).  bfloat16 arrays come back widened to float32."""
+        self.wait_to_read()
         x = self._data.detach()
         if x.dtype == torch.bfloat16:
             x = x.to(torch.float32)

@@ -40,6 +40,7 @@ from .. import kernels
 from ..base import MXNetError
 
 __all__ = ["attention_reference", "attention_backward_reference",
+           "attention_bwd_reference",
            "flash_forward", "flash_backward", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_attention", "kernel_width", "splash_attention"]
 
@@ -98,6 +99,15 @@ def attention_backward_reference(q, k, v, o, lse, do, causal: bool,
     log ``lse`` [b*h, sq], then the five products written out densely
     (S = QKᵀ, dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K, dK = dSᵀ·Q).  Returns
     (dq, dk, dv) in the dtypes of q, k, v."""
+    return attention_bwd_reference(q, k, v, do, lse, _row_delta(o, do),
+                                   causal, scale)
+
+
+def attention_bwd_reference(q, k, v, do, lse, delta, causal: bool,
+                            scale: float):
+    """``attention_backward_reference`` from a given Δ [b*h, sq] instead of
+    o: the plain version of K2 and K3 together, which take lse and Δ as
+    inputs (the ring's backward hands them the global ones)."""
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     qf, kf, vf, dof = (t.to(torch.float32) for t in (q, k, v, do))
@@ -108,7 +118,7 @@ def attention_backward_reference(q, k, v, o, lse, do, causal: bool,
                         torch.zeros((), device=q.device))
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    delta = _row_delta(o, do).reshape(b, h, sq, 1)
+    delta = delta.reshape(b, h, sq, 1)
     ds = p * (dp - delta) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)

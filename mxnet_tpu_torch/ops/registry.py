@@ -12,7 +12,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
-__all__ = ["Op", "OpContext", "register", "get_op", "registered_ops"]
+__all__ = ["Op", "OpContext", "register", "get_op", "registered_ops",
+           "mark_batch_local"]
 
 
 class OpContext:
@@ -84,6 +85,9 @@ class Op:
         self.no_grad_inputs = tuple(no_grad_inputs)
         # draws random numbers: the executor hands it a generator
         self.stochastic = stochastic
+        # runs on a slice of the batch as on the whole (see
+        # ``is_batch_local``); set by ``mark_batch_local``
+        self.batch_local = False
 
     # -- metadata ----------------------------------------------------------
     def input_names(self, attrs: Dict[str, Any]) -> List[str]:
@@ -110,6 +114,17 @@ class Op:
         if callable(self.aux):
             return list(self.aux(attrs))
         return list(self.aux)
+
+    def is_batch_local(self, attrs: Dict[str, Any]) -> bool:
+        """Whether the op, run on equal pieces of the batch (axis 0 of its
+        batch-major inputs, the others whole), gives the pieces of its
+        whole-batch outputs and gradients: a data-parallel executor then
+        runs it once per shard.  Stochastic ops never are (their draws
+        follow the whole batch's)."""
+        rule = self.batch_local
+        if self.stochastic or not rule:
+            return False
+        return bool(rule(attrs)) if callable(rule) else True
 
     def parse_attrs(self, attrs: Dict[str, Any]) -> Dict[str, Any]:
         from .param import parse_attrs
@@ -148,6 +163,14 @@ def register(name: str, **kwargs) -> Callable:
         return fn
 
     return deco
+
+
+def mark_batch_local(names, rule=True) -> None:
+    """Mark the ops ``names`` batch-local: ``True``, or ``rule(attrs)`` for
+    ops whose answer depends on their attrs (an axis that may be the
+    batch's)."""
+    for name in names:
+        _REGISTRY[name].batch_local = rule
 
 
 def get_op(name: str) -> Op:

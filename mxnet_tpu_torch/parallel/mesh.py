@@ -1,0 +1,238 @@
+"""Device meshes and placement helpers — counterpart of
+``mxnet_tpu/parallel/mesh.py``.
+
+The port's mesh is single-controller, as JAX's is: one process drives a
+named grid of contexts, and each logical shard of the grid has a context
+of its own.  Several shards may share one torch device (``devices=[gpu(0)]
+* 4`` runs a four-shard ring on one card; ``cpu(0..7)`` are all the one
+torch CPU device), so a mesh's size is the number of shards, not of cards.
+Axes are roles ('data', 'pipe', 'expert', 'model', 'seq') ordered
+canonically, as in the JAX package.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..base import MXNetError
+from ..context import Context, gpu
+
+__all__ = ["CANONICAL_AXES", "MeshConfig", "Mesh", "PartitionSpec",
+           "ShardedTensor", "make_mesh", "data_parallel_mesh", "shard",
+           "replicate", "current_mesh", "set_current_mesh"]
+
+#: canonical axis order — data-parallel outermost
+CANONICAL_AXES = ("data", "pipe", "expert", "model", "seq")
+
+
+class MeshConfig:
+    """Declarative mesh spec: axis name → size. Size -1 means 'absorb the
+    remaining devices' (at most one axis may be -1)."""
+
+    def __init__(self, **axes: int):
+        self.axes = dict(axes)
+
+    def resolve(self, n_devices: int) -> Dict[str, int]:
+        axes = dict(self.axes)
+        unknown = [k for k, v in axes.items() if v == -1]
+        if len(unknown) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        known = int(np.prod([v for v in axes.values() if v != -1])) or 1
+        if unknown:
+            if n_devices % known:
+                raise ValueError(
+                    "cannot infer axis %r: %d devices not divisible by %d"
+                    % (unknown[0], n_devices, known))
+            axes[unknown[0]] = n_devices // known
+        total = int(np.prod(list(axes.values()))) if axes else 1
+        if total != n_devices:
+            raise ValueError(
+                "mesh %r uses %d devices but %d are available"
+                % (axes, total, n_devices))
+        return axes
+
+
+class PartitionSpec(tuple):
+    """Per-dimension mesh axis names (None: not split), as
+    ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *names):
+        return super().__new__(cls, names)
+
+    def __repr__(self):
+        return "PartitionSpec%s" % (tuple(self),)
+
+
+class Mesh:
+    """A named grid of contexts: ``devices`` is a numpy object array of
+    ``Context`` with one dimension per axis, ``shape`` maps axis name to
+    size (``jax.sharding.Mesh``'s surface)."""
+
+    def __init__(self, devices, axis_names):
+        self.devices = np.asarray(devices, dtype=object)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError("mesh of %d dims needs as many axis names, got "
+                             "%s" % (self.devices.ndim, self.axis_names))
+        self.shape = dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def coords(self):
+        """Every shard's coordinate, in row-major (flat) order."""
+        return list(np.ndindex(*self.devices.shape))
+
+    def torch_device(self, coord):
+        return self.devices[tuple(coord)].torch_device()
+
+    def __repr__(self):
+        return "Mesh(%s, %s)" % (self.shape, list(self.devices.flat))
+
+
+def _as_context(d) -> Context:
+    if isinstance(d, Context):
+        return d
+    raise MXNetError("mesh devices are contexts (mt.gpu(i), mt.cpu(i)), "
+                     "got %r" % (d,))
+
+
+def _cuda_contexts():
+    """One context per CUDA device; there is no CPU default."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise MXNetError("no CUDA device for a default mesh; pass devices="
+                         "[mt.cpu(i) ...] to build one on the CPU")
+    return [gpu(i) for i in range(n)]
+
+
+def make_mesh(axes: Optional[Dict[str, int]] = None, devices=None) -> Mesh:
+    """Build a named Mesh. ``axes`` maps axis name → size (-1 = remaining);
+    default is a pure data-parallel mesh over all devices.  ``devices``
+    (contexts; default one per CUDA device) may repeat a context."""
+    if devices is None:
+        devices = _cuda_contexts()
+    devices = [_as_context(d) for d in devices]
+    if not axes:
+        axes = {"data": len(devices)}
+    resolved = MeshConfig(**axes).resolve(len(devices))
+    # order axes canonically so collectives on inner axes stay intra-group
+    names = sorted(resolved, key=lambda a: (
+        CANONICAL_AXES.index(a) if a in CANONICAL_AXES
+        else len(CANONICAL_AXES)))
+    shape = [resolved[a] for a in names]
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return Mesh(arr.reshape(shape), tuple(names))
+
+
+def data_parallel_mesh(n: Optional[int] = None, devices=None) -> Mesh:
+    devs = list(devices) if devices is not None else _cuda_contexts()
+    if n is not None:
+        devs = devs[:n]
+    return make_mesh({"data": len(devs)}, devs)
+
+
+def _spec(spec) -> PartitionSpec:
+    return spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
+
+
+def _local_piece(x, spec, mesh: Mesh, coord):
+    """Shard ``coord``'s piece of the global tensor ``x`` under ``spec``,
+    on that shard's device (a view when it already lies there)."""
+    for d, name in enumerate(_spec(spec)):
+        if name is None:
+            continue
+        n = mesh.shape[name]
+        if x.shape[d] % n:
+            raise ValueError("dim %d of size %d does not split over mesh "
+                             "axis %r of size %d" % (d, x.shape[d], name, n))
+        size = x.shape[d] // n
+        k = coord[mesh.axis_names.index(name)]
+        x = x.narrow(d, k * size, size)
+    return x.to(mesh.torch_device(coord))
+
+
+def _assemble(pieces, spec, mesh: Mesh):
+    """The global tensor from per-shard pieces ({coord: tensor}) under
+    ``spec``: concatenated along the named dims, replicas read from the
+    coordinate 0 of every other axis; on shard 0's device."""
+    import torch
+
+    spec = _spec(spec)
+    named = [(d, name) for d, name in enumerate(spec) if name is not None]
+    device = mesh.torch_device(mesh.coords()[0])
+
+    def build(level, fixed):
+        if level == len(named):
+            coord = tuple(fixed.get(a, 0) for a in mesh.axis_names)
+            return pieces[coord].to(device)
+        d, name = named[level]
+        return torch.cat([build(level + 1, dict(fixed, **{name: k}))
+                          for k in range(mesh.shape[name])], dim=d)
+
+    return build(0, {})
+
+
+class ShardedTensor:
+    """A global tensor laid out on a mesh: one piece per shard
+    (``shards[coord]``) on the shard's device; ``full()`` gathers it."""
+
+    def __init__(self, pieces, mesh: Mesh, spec):
+        self.shards = pieces
+        self.mesh = mesh
+        self.spec = _spec(spec)
+
+    def full(self):
+        return _assemble(self.shards, self.spec, self.mesh)
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return all(name is None for name in self.spec)
+
+    def __repr__(self):
+        return "ShardedTensor(%s, %s)" % (self.spec, self.mesh)
+
+
+def shard(x, mesh: Mesh, spec) -> ShardedTensor:
+    """Place ``x`` on ``mesh`` with PartitionSpec ``spec`` (tuple of axis
+    names / None, or a PartitionSpec)."""
+    if isinstance(x, ShardedTensor):
+        x = x.full()
+    return ShardedTensor({c: _local_piece(x, spec, mesh, c)
+                          for c in mesh.coords()}, mesh, spec)
+
+
+def replicate(x, mesh: Mesh) -> ShardedTensor:
+    return shard(x, mesh, PartitionSpec())
+
+
+_local = threading.local()
+
+
+def current_mesh():
+    """The ambient mesh installed by ``set_current_mesh`` (None if unset)."""
+    return getattr(_local, "mesh", None)
+
+
+class set_current_mesh:
+    """Context manager installing an ambient mesh, so higher layers can
+    pick it up without plumbing."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = getattr(_local, "mesh", None)
+        _local.mesh = self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        _local.mesh = self._prev
+        return False

@@ -288,17 +288,25 @@ class Symbol:
     # binding
     # ------------------------------------------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An executor of this symbol on ``ctx`` over the given arrays;
+        ``group2ctx`` places each ``ctx_group`` on its context,
+        ``shared_exec`` lends its graph plan."""
         from .executor import Executor
 
-        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx, shared_exec=shared_exec)
 
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    group2ctx=None, shared_exec=None, **kwargs):
         """Bind with every array allocated (zero-filled) on ``ctx``: the
         arguments from the shapes given as keyword arguments (the rest
         inferred), their types from ``type_dict``, a gradient array for
         each argument whose ``grad_req`` (a string, or a dict by name) is
-        not "null", and the aux states."""
+        not "null", and the aux states.  With ``shared_exec`` its plan is
+        shared, and so is each of its argument, gradient and aux arrays
+        of the same name and shape (the reference's shared memory pool
+        for bucketing)."""
         from . import ndarray as nd
         from .executor import Executor
 
@@ -307,16 +315,27 @@ class Symbol:
             raise ValueError("Cannot infer shapes: provide input shapes")
         arg_types, _, aux_types = self.infer_type(**(type_dict or {}))
         names = self.list_arguments()
-        args = [nd.zeros(s, ctx, dtype=t) for s, t in zip(arg_shapes,
-                                                          arg_types)]
-        aux = [nd.zeros(s, ctx, dtype=t) for s, t in zip(aux_shapes,
-                                                         aux_types)]
+        pool = shared_exec.arg_dict if shared_exec is not None else {}
+        gpool = shared_exec.grad_dict if shared_exec is not None else {}
+        apool = shared_exec.aux_dict if shared_exec is not None else {}
+
+        def alloc(name, shape, dtype, shared):
+            held = shared.get(name)
+            if held is not None and tuple(held.shape) == tuple(shape):
+                return held
+            return nd.zeros(shape, ctx, dtype=dtype)
+
+        args = [alloc(n, s, t, pool)
+                for n, s, t in zip(names, arg_shapes, arg_types)]
+        aux = [alloc(n, s, t, apool) for n, s, t in
+               zip(self.list_auxiliary_states(), aux_shapes, aux_types)]
         reqs = grad_req if isinstance(grad_req, dict) else \
             dict.fromkeys(names, grad_req)
-        args_grad = {n: nd.zeros(s, ctx, dtype=t)
+        args_grad = {n: alloc(n, s, t, gpool)
                      for n, s, t in zip(names, arg_shapes, arg_types)
                      if reqs.get(n, "null") != "null"}
-        return Executor(self, ctx, args, args_grad or None, grad_req, aux)
+        return Executor(self, ctx, args, args_grad or None, grad_req, aux,
+                        group2ctx=group2ctx, shared_exec=shared_exec)
 
 
 # ---------------------------------------------------------------------------
@@ -324,13 +343,16 @@ class Symbol:
 # ---------------------------------------------------------------------------
 
 
-def _forward_infer(sym: Symbol, known: Dict[str, Tuple]):
+def _forward_infer(sym: Symbol, known: Dict[str, Tuple],
+                   tolerant: bool = False):
     """Propagate shapes through the graph.  ``known`` maps variable name ->
     shape.  Per-op infer_shape rules may fill unknown *input* shapes
     (parameter shape deduction, the reference's bidirectional InferShape
     pass); an op whose rule leaves an output unknown runs on meta
-    tensors."""
+    tensors.  With ``tolerant`` an op that fails on its meta tensors
+    leaves its outputs unknown instead of raising."""
     nodes = _topo_sort(sym._outputs)
+    failed = set()
     info: Dict[Tuple[int, int], Tuple] = {}
     aux_shapes: Dict[str, Tuple] = {}
 
@@ -377,9 +399,15 @@ def _forward_infer(sym: Symbol, known: Dict[str, Tuple]):
                 continue
             in_shapes = [info.get(e) for e in in_entries]
             aux_in = [aux_shapes.get(a) for a in n.aux_names()]
-            if any(s is None for s in in_shapes + aux_in):
+            if id(n) in failed or any(s is None for s in in_shapes + aux_in):
                 continue
-            outs = _meta_apply(n.op, n.attrs, in_shapes, aux_in)
+            try:
+                outs = _meta_apply(n.op, n.attrs, in_shapes, aux_in)
+            except Exception:
+                if not tolerant:
+                    raise
+                failed.add(id(n))
+                continue
             for i in range(nout):
                 info[(id(n), i)] = tuple(outs[i].shape)
             changed = True

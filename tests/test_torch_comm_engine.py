@@ -1,0 +1,222 @@
+"""The port's async kvstore comm engine (``mxnet_tpu_torch.comm_engine``)
+against the JAX package's on the cases of tests/test_comm_engine.py that
+need no parameter server: priority among ready ops, per-key FIFO, scoped
+waits, failures raised at the barrier, the read guard, the env gate,
+training through the async store bit-identical to the synchronous loop,
+and ``backward_param_order``."""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+
+import mxnet_tpu as mx
+import mxnet_tpu_torch as mt
+from mxnet_tpu import comm_engine as jce
+from mxnet_tpu_torch import comm_engine as tce
+
+ENGINES = [jce, tce]
+IDS = ["jax", "port"]
+
+
+@pytest.mark.parametrize("ce", ENGINES, ids=IDS)
+def test_engine_priority_ordering(ce):
+    eng = ce.CommEngine(num_threads=1)
+    try:
+        order = []
+        gate = threading.Event()
+        eng.submit(lambda: gate.wait(5), ["gate"])  # parks the one worker
+        eng.submit(lambda: order.append("low"), ["a"], priority=-5)
+        eng.submit(lambda: order.append("mid"), ["b"], priority=0)
+        eng.submit(lambda: order.append("high"), ["c"], priority=9)
+        gate.set()
+        eng.wait_all()
+        assert order == ["high", "mid", "low"]
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("ce", ENGINES, ids=IDS)
+def test_engine_per_key_fifo_beats_priority(ce):
+    eng = ce.CommEngine(num_threads=4)
+    try:
+        order = []
+        for i in range(30):
+            eng.submit(lambda i=i: order.append(i), ["k"], priority=i % 7)
+        eng.wait_all()
+        assert order == list(range(30))
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("ce", ENGINES, ids=IDS)
+def test_engine_wait_scoped_to_keys(ce):
+    eng = ce.CommEngine(num_threads=2)
+    try:
+        gate = threading.Event()
+        done = []
+        eng.submit(lambda: (gate.wait(5), done.append("slow")), ["s"])
+        eng.submit(lambda: done.append("fast"), ["f"])
+        eng.wait(["f"])  # must NOT require the parked op to finish
+        assert "fast" in done
+        gate.set()
+        eng.wait_all()
+        assert done == ["fast", "slow"]
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("ce,pkg", list(zip(ENGINES, [mx, mt])), ids=IDS)
+def test_engine_failure_raises_at_barrier_then_recovers(ce, pkg):
+    eng = ce.CommEngine(num_threads=2)
+    try:
+        def boom():
+            raise ValueError("kaput")
+        eng.submit(boom, ["x"], label="comm.test")
+        with pytest.raises(pkg.MXNetError, match="kaput"):
+            eng.wait_all()
+        eng.submit(lambda: None, ["x"])
+        eng.wait_all()  # the engine stays usable after a surfaced failure
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.parametrize("ce,pkg", list(zip(ENGINES, [mx, mt])), ids=IDS)
+def test_read_guard_resolves_pending_pull(monkeypatch, ce, pkg):
+    """Reading a pulled-into NDArray blocks until the pull lands."""
+    kv = ce.make_async(pkg.kv.create("local"), num_threads=2, bucket_bytes=0)
+    try:
+        kv.init(3, pkg.nd.ones((4,), pkg.cpu()) * 5)
+        inner, orig = kv.inner, kv.inner.pull
+
+        def slow_pull(*a, **kw):
+            time.sleep(0.2)  # the read happens mid-flight
+            return orig(*a, **kw)
+
+        monkeypatch.setattr(inner, "pull", slow_pull)
+        out = pkg.nd.zeros((4,), pkg.cpu())
+        kv.pull(3, out)
+        np.testing.assert_array_equal(out.asnumpy(), np.full(4, 5.0))
+        stats = kv.comm_stats()
+        assert stats["pulls"] == 1
+        assert stats["wait_calls"] >= 1
+    finally:
+        kv.close()
+
+
+@pytest.mark.parametrize("ce,pkg", list(zip(ENGINES, [mx, mt])), ids=IDS)
+def test_maybe_async_env_gate(monkeypatch, ce, pkg):
+    kv = pkg.kv.create("local")
+    monkeypatch.setenv("MXNET_KVSTORE_ASYNC", "0")
+    assert ce.maybe_async(kv) is kv
+    monkeypatch.setenv("MXNET_KVSTORE_ASYNC", "1")
+    wrapped = ce.maybe_async(kv)
+    try:
+        assert isinstance(wrapped, ce.AsyncKVStore)
+        assert ce.maybe_async(wrapped) is wrapped  # idempotent
+        assert ce.maybe_async(None) is None
+    finally:
+        wrapped.close()
+
+
+def test_sparse_plane_names_its_slice():
+    kv = tce.make_async(mt.kv.create("local"))
+    try:
+        with pytest.raises(mt.MXNetError, match="A.6"):
+            kv.sparse_plane()
+    finally:
+        kv.close()
+
+
+# ---------------------------------------------------------------------------
+# async vs sync training
+# ---------------------------------------------------------------------------
+def _mlp(pkg, k=3):
+    sym = pkg.sym
+    with pkg.NameManager():
+        data = sym.Variable("data")
+        net = sym.FullyConnected(data=data, num_hidden=16, name="fc1")
+        net = sym.Activation(data=net, act_type="relu")
+        net = sym.FullyConnected(data=net, num_hidden=k, name="fc2")
+        return sym.SoftmaxOutput(data=net, name="softmax")
+
+
+def _init(seed=5):
+    rng = np.random.RandomState(seed)
+    return {"fc1_weight": rng.randn(16, 10).astype(np.float32) * 0.3,
+            "fc1_bias": np.zeros(16, np.float32),
+            "fc2_weight": rng.randn(2, 16).astype(np.float32) * 0.3,
+            "fc2_bias": np.zeros(2, np.float32)}
+
+
+def _train_weights(monkeypatch, pkg, async_on):
+    monkeypatch.setenv("MXNET_KVSTORE_ASYNC", "1" if async_on else "0")
+    rng = np.random.RandomState(11)
+    X = rng.randn(120, 10).astype(np.float32)
+    y = (rng.randn(120) > 0).astype(np.float32)
+    train = pkg.io.NDArrayIter(X, y, batch_size=30, shuffle=False)
+    mod = pkg.mod.Module(_mlp(pkg, 2), label_names=("softmax_label",),
+                         context=pkg.cpu())
+    # a KVStore instance keeps update_on_kvstore=True, so the update path
+    # really goes push -> store updater -> pull
+    kv = pkg.kv.create("local")
+    mod.fit(train, num_epoch=3, kvstore=kv, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1},
+            arg_params={k: pkg.nd.array(v, pkg.cpu())
+                        for k, v in _init().items()}, aux_params={})
+    assert mod._update_on_kvstore
+    assert isinstance(mod._kvstore, tce.AsyncKVStore if pkg is mt
+                      else jce.AsyncKVStore) == async_on
+    args, _ = mod.get_params()
+    return {k: v.asnumpy() for k, v in sorted(args.items())}
+
+
+def test_async_training_bit_identical_to_sync(monkeypatch):
+    """Per-key FIFO plus the forward's wait make the async schedule
+    numerically invisible; and the port trains as the JAX package does."""
+    sync_w = _train_weights(monkeypatch, mt, async_on=False)
+    async_w = _train_weights(monkeypatch, mt, async_on=True)
+    assert sync_w.keys() == async_w.keys()
+    for name in sync_w:
+        assert np.array_equal(sync_w[name], async_w[name]), \
+            "weights diverged for %s" % name
+    jax_w = _train_weights(monkeypatch, mx, async_on=True)
+    scale = max(np.abs(w).max() for w in jax_w.values())
+    for name in jax_w:
+        np.testing.assert_allclose(async_w[name], jax_w[name], rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("pkg", [mx, mt], ids=IDS)
+def test_module_backward_param_order(pkg):
+    mod = pkg.mod.Module(_mlp(pkg), label_names=("softmax_label",),
+                         context=pkg.cpu())
+    mod.bind(data_shapes=[("data", (8, 10))],
+             label_shapes=[("softmax_label", (8,))])
+    mod.init_params()
+    n = len(mod._exec_group.param_names)
+    assert mod._exec_group.backward_param_order() == \
+        list(range(n - 1, -1, -1))
+
+
+def test_updates_launch_on_the_submitters_stream(monkeypatch):
+    """A worker runs each op inside the stream scope captured at submit
+    (here no CUDA array: an empty scope), so a CPU store never touches
+    torch.cuda."""
+    import torch
+
+    called = []
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: called.append(a))
+    kv = tce.make_async(mt.kv.create("local"))
+    try:
+        kv.init(0, mt.nd.ones((3,), mt.cpu()))
+        kv.push(0, mt.nd.ones((3,), mt.cpu()) * 2)
+        out = mt.nd.zeros((3,), mt.cpu())
+        kv.pull(0, out)
+        kv.wait_all()
+        np.testing.assert_array_equal(out.asnumpy(), np.full(3, 2.0))
+    finally:
+        kv.close()
+    assert called == []

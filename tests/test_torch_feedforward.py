@@ -128,8 +128,8 @@ def test_feedforward_on_the_default_context_needs_the_card():
 
 def test_executor_manager_matches_jax():
     """``_split_input_slice`` and ``_check_arguments`` as the JAX
-    package's; ``DataParallelExecutorManager`` steps a net on one device
-    and gives the JAX package's gradients; several contexts raise."""
+    package's; ``DataParallelExecutorManager`` steps a net on one device,
+    and over two contexts, and gives the JAX package's gradients."""
     for work in ([1], [1, 1], [1, 2, 1], [3, 1]):
         assert mt.executor_manager._split_input_slice(12, work) == \
             mx.executor_manager._split_input_slice(12, work)
@@ -164,9 +164,21 @@ def test_executor_manager_matches_jax():
         man.update_metric(metric, it.getlabel())
     for a, b in zip(*grads):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
-    with pytest.raises(mt.MXNetError):
-        mt.executor_manager.DataParallelExecutorManager(
-            net, [mt.cpu(), mt.cpu(1)], mt.io.NDArrayIter(X, Y, BATCH))
+    # over two contexts: the batch split in halves, the JAX package's
+    # one-device gradients
+    with mt.NameManager():
+        net = port_mlp(num_classes=3, hidden=(12,))
+    it = mt.io.NDArrayIter(X, Y, BATCH)
+    man = mt.executor_manager.DataParallelExecutorManager(
+        net, [mt.cpu(0), mt.cpu(1)], it)
+    man.set_params({k: mt.nd.array(v, mt.cpu())
+                    for k, v in params.items()}, {})
+    assert man.slices == [slice(0, BATCH // 2), slice(BATCH // 2, BATCH)]
+    man.load_data_batch(it.next())
+    man.forward(is_train=True)
+    man.backward()
+    for a, b in zip(grads[0], man.grad_arrays):
+        np.testing.assert_allclose(b.asnumpy(), a, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -573,11 +573,11 @@ def test_kvstore_the_port_cannot_honour_raises(lm_setup):
     mod.init_params(arg_params={k: mt.nd.array(v, mt.cpu())
                                 for k, v in params.items()}, aux_params={})
     with pytest.raises(mt.MXNetError, match="not ported"):
-        mod.init_optimizer(kvstore="dist_sync")
-    with pytest.raises(mt.MXNetError, match="one device"):
+        mod.init_optimizer(kvstore="dist_async")
+    with pytest.raises(mt.MXNetError, match="not ported"):
         mt.mod.Module(tn, context=[mt.cpu(0), mt.cpu(1)]).bind(
             data_shapes=[("data", SHAPE)],
-            label_shapes=[("softmax_label", SHAPE)])
+            label_shapes=[("softmax_label", SHAPE)], mesh="data=-1")
 
 
 def test_module_default_context_is_the_card(lm_setup):
