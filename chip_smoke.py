@@ -38,7 +38,9 @@
                                            # 8-lane generation engine
                                            # iteration (the paged ops'
                                            # kernels as a group; memcpy
-                                           # ops and bytes printed)
+                                           # ops and bytes printed) and
+                                           # one bucket-60 step of the
+                                           # PTB LSTM
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -336,6 +338,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
              phase's launches by path (``launches_by_path``): (a) and (b)'s
              bf16 cases on the bf16 rows, (b)'s float32 case and (c) on the
              float32 rows.
+17. recurrent — the recurrent family, whose ops run no kernel of the
+             port's own (plain torch and cuBLAS).  (a) BASELINE #3 at the
+             widths of upstream example/rnn/lstm_bucketing.py: 2 LSTMCell
+             layers of 200, embedding 200, vocab 10,000, batch 32, buckets
+             10-60, SGD lr 0.01 wd 1e-5, Xavier(in, 2.34), 2 epochs of
+             ``BucketingModule.fit`` with Perplexity(ignore_label=0) on
+             lstm_bucketing.py's Markov corpus (1,200 sentences of 2-60
+             words, table kept sparse); the perplexity falls from epoch 1
+             to 2, the first 2 losses within 1e-4 (relative) of the port's
+             CPU route from the same init and batches, the first 3 steps
+             replay bit for bit; step ms at buckets 10 and 60 (CUDA events,
+             mean of 5 after one), tokens/s, peak memory, and under
+             ``--profile`` a traced bucket-60 step's idle share.  (b) The
+             same model through ``FusedRNNCell`` (cudnn_lstm_bucketing.py)
+             from (a)'s init packed by ``pack_weights``: step 0's loss
+             within 1e-4 of (a)'s, step ms as (a)'s; the ``RNN`` op alone at
+             (T 60, N 32, 2 x 200) and (T 35, N 20, 2 x 1500) forward and
+             forward + backward by CUDA events beside ``torch.nn.LSTM``
+             (cuDNN) on the same weights, outputs within 1e-4; GRU and a
+             bidirectional LSTM against the CPU route within 1e-4.  (c)
+             BASELINE #5, examples/model_parallel_lstm/lstm.py's net and
+             loop at (a)'s widths, seq 35, each layer on its own context of
+             gpu(0) by ``group2ctx``: 3 losses within 1e-6 of one context's
+             ``Module``.  (d) examples/warpctc/lstm_ocr.py's net at upstream
+             widths (LSTM 100, 80 frames of 30, 4 labels of 10 classes,
+             batch 32), adam, 3 epochs of 10 batches: the CTC loss falls;
+             ``WarpCTC``'s gradient at (2560, 11) within 1e-5 of the CPU
+             route and 1e-4 of a float64 CTC written here.  (e)
+             SequenceLast/Mask/Reverse with lengths: forward and gradient
+             equal to the CPU route.  A ``recurrent`` JSON line ends it.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -5942,6 +5974,694 @@ def parallel_phase(torch, mt, att, batch, replay):
                 "long-context": total([longctx["launches"]])}}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the recurrent family
+# ---------------------------------------------------------------------------
+# BASELINE #3 at the widths of upstream MXNet's example/rnn/lstm_bucketing.py
+PTB = dict(vocab=10000, hidden=200, embed=200, layers=2, batch=32,
+           buckets=(10, 20, 30, 40, 50, 60))
+PTB_SGD = {"learning_rate": 0.01, "momentum": 0.0, "wd": 1e-5}
+PTB_SENTENCES = 1200   # lengths 2-60: every bucket fills 5 batches or more
+PTB_EPOCHS = 2
+PTB_SEED = 0
+PTB_CPU_STEPS = 2      # the first losses held to the CPU route
+PTB_REPLAY = 3         # the first steps replayed bit for bit
+PTB_TIMED = (10, 60)   # the buckets whose step is timed
+PTB_REPS = 5
+# the RNN op alone: (T, N, hidden = input, layers) of (a) and of Zaremba et
+# al.'s large PTB LSTM
+RNN_OP_SIZES = ((60, 32, 200, 2), (35, 20, 1500, 2))
+RNN_OP_REPS = 10
+MP_SEQ, MP_STEPS, MP_LR = 35, 3, 0.05   # BASELINE #5
+# the CTC OCR net at upstream example/warpctc/lstm_ocr.py's widths; a
+# frame is a column of the 30-pixel-high captcha
+OCR = dict(seq_len=80, hidden=100, label_len=4, classes=10, feat=30,
+           batch=32, batches=10, epochs=3, lr=1e-2)
+RECURRENT_TOL = 1e-4
+
+
+def markov_corpus(vocab, n, lo, hi, seed):
+    """examples/rnn/lstm_bucketing.py's synthetic corpus: a Markov chain
+    where each word has 4 successors with Dirichlet weights, its table kept
+    sparse (vocab x 4) at PTB's vocabulary.  Ids run from 1: 0 is the
+    padding label."""
+    rng = np.random.RandomState(seed)
+    succ = 1 + np.stack([rng.choice(vocab - 1, size=4, replace=False)
+                         for _ in range(vocab)])
+    weights = rng.dirichlet(np.ones(4), size=vocab)
+    sents = []
+    for _ in range(n):
+        s = [1 + rng.randint(vocab - 1)]
+        for _ in range(rng.randint(lo, hi + 1) - 1):
+            s.append(int(succ[s[-1], rng.choice(4, p=weights[s[-1]])]))
+        sents.append(s)
+    return sents
+
+
+def ptb_iter(mt, sents, seed=PTB_SEED):
+    """The bucketed iterator, its shuffles seeded (Python's random and
+    numpy's global generator, as BucketSentenceIter draws them)."""
+    import random as pyrandom
+
+    pyrandom.seed(seed)
+    np.random.seed(seed)
+    return mt.rnn.BucketSentenceIter(sents, PTB["batch"],
+                                     buckets=list(PTB["buckets"]),
+                                     invalid_label=0)
+
+
+def ptb_sym_gen(mt, fused):
+    """lstm_bucketing.py's sym_gen: Embedding, 2 LSTM layers (LSTMCells in a
+    SequentialRNNCell, or one FusedRNNCell as cudnn_lstm_bucketing.py),
+    FullyConnected to the vocabulary, SoftmaxOutput."""
+    h = PTB["hidden"]
+    if fused:
+        cell = mt.rnn.FusedRNNCell(h, num_layers=PTB["layers"], mode="lstm",
+                                   prefix="lstm_")
+    else:
+        cell = mt.rnn.SequentialRNNCell()
+        for i in range(PTB["layers"]):
+            cell.add(mt.rnn.LSTMCell(num_hidden=h, prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        embed = mt.sym.Embedding(data=mt.sym.Variable("data"),
+                                 input_dim=PTB["vocab"],
+                                 output_dim=PTB["embed"], name="embed")
+        cell.reset()
+        outputs, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mt.sym.FullyConnected(mt.sym.Reshape(outputs, shape=(-1, h)),
+                                     num_hidden=PTB["vocab"], name="pred")
+        label = mt.sym.Reshape(mt.sym.Variable("softmax_label"), shape=(-1,))
+        return (mt.sym.SoftmaxOutput(data=pred, label=label, name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+def ptb_module(mt, ctx, fused, it, args):
+    """A BucketingModule bound on ``ctx`` from the parameters ``args``
+    (host arrays), with the example's SGD."""
+    mod = mt.mod.BucketingModule(ptb_sym_gen(mt, fused),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params={k: mt.nd.array(v, ctx)
+                                for k, v in args.items()}, aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=PTB_SGD)
+    return mod
+
+
+def padded_nll(torch, probs, labels):
+    """Mean negative log-likelihood of the non-padding labels (0 pads)."""
+    p = probs._data.float()
+    lab = labels._data.to(p.device).reshape(-1).long()
+    keep = lab != 0
+    picked = p.gather(1, lab[:, None]).squeeze(1)[keep]
+    return -picked.clamp_min(1e-30).log().mean().item()
+
+
+def ptb_steps(torch, mod, it, n):
+    """``n`` steps through forward_backward/update: the losses and the
+    parameters after them (host copies)."""
+    losses = []
+    for k, batch in enumerate(it):
+        if k == n:
+            break
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(padded_nll(torch, mod.get_outputs()[0],
+                                 batch.label[0]))
+    return losses, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def bucket_batches(it, keys):
+    """One batch of each bucket in ``keys``."""
+    found = {}
+    for batch in it:
+        if batch.bucket_key in keys and batch.bucket_key not in found:
+            found[batch.bucket_key] = batch
+        if len(found) == len(keys):
+            break
+    it.reset()
+    return found
+
+
+def bucket_step_ms(torch, mod, batches):
+    """Mean ms of one forward_backward + update at each bucket, CUDA events
+    over back-to-back steps (after one warm-up step)."""
+    out = {}
+    for key, batch in sorted(batches.items()):
+        def step():
+            mod.forward_backward(batch)
+            mod.update()
+        out[key] = cuda_ms(step, PTB_REPS)
+    return out
+
+
+def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def ptb_unfused(torch, mt, sents, profile_dir):
+    """(a) BASELINE #3 through BucketingModule.fit, then its gates."""
+    from mxnet_tpu_torch.metric import Perplexity
+
+    gpu = mt.gpu(0)
+    mt.random.seed(PTB_SEED)
+    it = ptb_iter(mt, sents)
+    mod = mt.mod.BucketingModule(ptb_sym_gen(mt, False),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=gpu)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(initializer=mt.init.Xavier(factor_type="in",
+                                               magnitude=2.34))
+    init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    record = {"losses": [], "keys": [], "epoch_ppl": {}, "epoch_s": {},
+              "tokens": {}}
+    marks = {}
+
+    def on_batch(param):
+        batch = param.locals["data_batch"]
+        e = param.epoch
+        if param.nbatch == 0:
+            torch.cuda.synchronize()
+            marks[e] = time.perf_counter()
+        if len(record["losses"]) < PTB_REPLAY and e == 0:
+            record["losses"].append(padded_nll(
+                torch, mod.get_outputs()[0], batch.label[0]))
+            record["keys"].append(batch.bucket_key)
+            if len(record["losses"]) == PTB_REPLAY:
+                record["after"] = {k: v.asnumpy() for k, v in
+                                   mod.get_params()[0].items()}
+        record["epoch_ppl"][e] = param.eval_metric.get()[1]
+        record["tokens"][e] = record["tokens"].get(e, 0) + \
+            int(np.prod(batch.data[0].shape))
+        torch.cuda.synchronize()
+        record["epoch_s"][e] = time.perf_counter() - marks[e]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric=Perplexity(ignore_label=0), optimizer="sgd",
+            optimizer_params=PTB_SGD, num_epoch=PTB_EPOCHS,
+            batch_end_callback=on_batch)
+    fit_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ppl = [record["epoch_ppl"][e] for e in range(PTB_EPOCHS)]
+    check(all(math.isfinite(p) for p in ppl) and ppl[1] < ppl[0],
+          "recurrent (a): train perplexity did not fall from epoch 1 to "
+          "epoch 2: %s" % ppl)
+    check(sorted(mod._buckets) == list(PTB["buckets"]),
+          "recurrent (a): buckets bound %s" % sorted(mod._buckets))
+    for name, arr in mod.get_params()[0].items():
+        check(arr._data.is_cuda, "recurrent (a): %s is not on the card"
+              % name)
+    # the CPU route from the same init and batches
+    cpu_losses, _ = ptb_steps(torch, ptb_module(
+        mt, mt.cpu(), False, ptb_iter(mt, sents), init),
+        ptb_iter(mt, sents), PTB_CPU_STEPS)
+    cpu_err = [rel(a, b) for a, b in zip(record["losses"], cpu_losses)]
+    check(max(cpu_err) <= RECURRENT_TOL,
+          "recurrent (a): the card's first losses %s are not within %g of "
+          "the CPU route's %s" % (record["losses"][:PTB_CPU_STEPS],
+                                  RECURRENT_TOL, cpu_losses))
+    # the first steps again, bit for bit
+    rep_losses, rep_after = ptb_steps(torch, ptb_module(
+        mt, gpu, False, ptb_iter(mt, sents), init), ptb_iter(mt, sents),
+        PTB_REPLAY)
+    check(rep_losses == record["losses"] and all(
+        np.array_equal(rep_after[k], v) for k, v in record["after"].items()),
+        "recurrent (a): the first %d steps did not replay bit for bit "
+        "(%s vs %s)" % (PTB_REPLAY, rep_losses, record["losses"]))
+    batches = bucket_batches(it, PTB_TIMED)
+    step_ms = bucket_step_ms(torch, mod, batches)
+    if profile_dir:
+        b60 = batches[max(PTB_TIMED)]
+
+        def step():
+            mod.forward_backward(b60)
+            mod.update()
+        profile(torch, step, profile_dir, "ptb_step_b%d" % max(PTB_TIMED))
+    last = PTB_EPOCHS - 1
+    out = {"perplexity_by_epoch": ppl, "first_losses": record["losses"],
+           "first_buckets": record["keys"], "cpu_losses": cpu_losses,
+           "cpu_rel_err": cpu_err, "replay": "bitwise",
+           "step_ms": {str(k): v for k, v in step_ms.items()},
+           "tokens_per_s_by_step": {
+               str(k): PTB["batch"] * k / (v / 1e3)
+               for k, v in step_ms.items()},
+           "fit_tokens_per_s": record["tokens"][last] /
+           record["epoch_s"][last],
+           "fit_s": fit_s, "peak_gb": peak_gb}
+    print("recurrent (a): PTB LSTM 2 x %d, vocab %d, batch %d, buckets %s "
+          "through BucketingModule.fit: perplexity by epoch %s; first losses "
+          "%s (buckets %s) vs the CPU route %s (rel %s); %d steps replay "
+          "bitwise; step %s ms by bucket; fit epoch %d %.1f tokens/s "
+          "(padding included); peak %.2f GB; fit %.1f s"
+          % (PTB["hidden"], PTB["vocab"], PTB["batch"], list(PTB["buckets"]),
+             ppl, record["losses"], record["keys"], cpu_losses, cpu_err,
+             PTB_REPLAY, {k: round(v, 3) for k, v in step_ms.items()},
+             last + 1, out["fit_tokens_per_s"], peak_gb, fit_s), flush=True)
+    return out, init, record["losses"][0]
+
+
+def ptb_fused(torch, mt, sents, init, loss0):
+    """(b) the same model through FusedRNNCell, from (a)'s init packed."""
+    gpu = mt.gpu(0)
+    cell = mt.rnn.FusedRNNCell(PTB["hidden"], num_layers=PTB["layers"],
+                               mode="lstm", prefix="lstm_")
+    args = cell.pack_weights(dict(init))
+    check(sorted(args) == ["embed_weight", "lstm_parameters", "pred_bias",
+                           "pred_weight"],
+          "recurrent (b): packed parameters %s" % sorted(args))
+    it = ptb_iter(mt, sents)
+    mod = ptb_module(mt, gpu, True, it, args)
+    losses, _ = ptb_steps(torch, mod, it, 1)
+    err = rel(losses[0], loss0)
+    check(err <= RECURRENT_TOL, "recurrent (b): FusedRNNCell's step-0 loss "
+          "%r is not within %g of the cells' %r" % (losses[0], RECURRENT_TOL,
+                                                    loss0))
+    step_ms = bucket_step_ms(torch, mod, bucket_batches(it, PTB_TIMED))
+    print("recurrent (b): FusedRNNCell (the RNN op): step-0 loss %r vs the "
+          "cells' %r (rel %.3g); step %s ms by bucket"
+          % (losses[0], loss0, err,
+             {k: round(v, 3) for k, v in step_ms.items()}), flush=True)
+    return {"loss0": losses[0], "rel_err": err,
+            "step_ms": {str(k): v for k, v in step_ms.items()}}
+
+
+def rnn_op_call(mode, layers, bidirectional=False):
+    """The RNN op's function over tensors, in training (gradients by
+    autograd)."""
+    from mxnet_tpu_torch.ops import OpContext, get_op
+
+    op = get_op("RNN")
+    return lambda h, *ins: op.apply(OpContext(is_train=True), op.parse_attrs(
+        {"state_size": h, "num_layers": layers, "mode": mode,
+         "bidirectional": bidirectional}), list(ins))[0][0]
+
+
+def cudnn_lstm(torch, packed, size, layers):
+    """torch.nn.LSTM (cuDNN) holding the packed vector's weights."""
+    from mxnet_tpu_torch.ops.rnn_op import rnn_unpack_layout
+
+    lstm = torch.nn.LSTM(size, size, num_layers=layers).cuda()
+    with torch.no_grad():
+        for layer, _, kind, off, shape in rnn_unpack_layout(
+                size, size, layers, "lstm"):
+            name = {"i2h_weight": "weight_ih", "h2h_weight": "weight_hh",
+                    "i2h_bias": "bias_ih", "h2h_bias": "bias_hh"}[kind]
+            n = int(np.prod(shape))
+            getattr(lstm, "%s_l%d" % (name, layer)).copy_(
+                packed[off:off + n].reshape(shape))
+    return lstm
+
+
+def rnn_op_timing(torch):
+    """The RNN op alone against cuDNN's LSTM on the same weights: outputs
+    within 1e-4, forward and forward + backward timed by CUDA events."""
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(PTB_SEED)
+    for T, N, H, L in RNN_OP_SIZES:
+        x = torch.randn(T, N, H, device="cuda", generator=gen)
+        bound = 1.0 / math.sqrt(H)
+        packed = (torch.rand(rnn_param_size(H, H, L, "lstm"), device="cuda",
+                             generator=gen) * 2 - 1) * bound
+        h0 = torch.zeros(L, N, H, device="cuda")
+        head = torch.randn(T, N, H, device="cuda", generator=gen)
+        ours = rnn_op_call("lstm", L)
+        lstm = cudnn_lstm(torch, packed, H, L)
+        with torch.no_grad():
+            got = ours(H, x, packed, h0, h0)
+            ref = lstm(x, (h0, h0))[0]
+        err = float((got - ref).abs().max() / ref.abs().max())
+        check(err <= RECURRENT_TOL, "recurrent (b): the RNN op at T %d N %d "
+              "2 x %d is %.3g off cuDNN" % (T, N, H, err))
+        xg = x.clone().requires_grad_(True)
+        pg = packed.clone().requires_grad_(True)
+
+        def fwd():
+            with torch.no_grad():
+                ours(H, x, packed, h0, h0)
+
+        def fwd_bwd():
+            ours(H, xg, pg, h0, h0).backward(head)
+
+        def lib_fwd():
+            with torch.no_grad():
+                lstm(x, (h0, h0))
+
+        def lib_fwd_bwd():
+            lstm(xg, (h0, h0))[0].backward(head)
+        row = {"T": T, "N": N, "hidden": H, "layers": L, "rel_err": err,
+               "fwd_ms": cuda_ms(fwd, RNN_OP_REPS),
+               "fwd_bwd_ms": cuda_ms(fwd_bwd, RNN_OP_REPS),
+               "cudnn_fwd_ms": cuda_ms(lib_fwd, RNN_OP_REPS),
+               "cudnn_fwd_bwd_ms": cuda_ms(lib_fwd_bwd, RNN_OP_REPS)}
+        rows.append(row)
+        print("recurrent (b): RNN op lstm T %d N %d %d x %d: forward %.3f ms "
+              "(cuDNN %.3f), forward + backward %.3f ms (cuDNN %.3f); "
+              "output %.3g off cuDNN"
+              % (T, N, L, H, row["fwd_ms"], row["cudnn_fwd_ms"],
+                 row["fwd_bwd_ms"], row["cudnn_fwd_bwd_ms"], err),
+              flush=True)
+        del lstm, xg, pg
+    return rows
+
+
+def rnn_modes_vs_cpu(torch):
+    """GRU and a bidirectional LSTM once each: forward and every gradient
+    on the card within 1e-4 of the CPU route."""
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+
+    T, N, H, L = 20, 8, 64, 2
+    out = {}
+    for mode, bidir in (("gru", False), ("lstm", True)):
+        d = 2 if bidir else 1
+        rng = np.random.RandomState(PTB_SEED)
+        host = [rng.randn(T, N, H).astype(np.float32),
+                (0.2 * rng.randn(rnn_param_size(H, H, L, mode, bidir)))
+                .astype(np.float32),
+                (0.1 * rng.randn(L * d, N, H)).astype(np.float32)]
+        if mode == "lstm":
+            host.append((0.1 * rng.randn(L * d, N, H)).astype(np.float32))
+        head = rng.randn(T, N, H * d).astype(np.float32)
+        call = rnn_op_call(mode, L, bidir)
+        res = []
+        for dev in ("cuda", "cpu"):
+            ins = [torch.tensor(a, device=dev, requires_grad=True)
+                   for a in host]
+            y = call(H, *ins)
+            y.backward(torch.tensor(head, device=dev))
+            res.append([y.detach().cpu().numpy()] +
+                       [a.grad.cpu().numpy() for a in ins])
+        err = max(float(np.abs(g - r).max() / max(1.0, np.abs(r).max()))
+                  for g, r in zip(*res))
+        check(err <= RECURRENT_TOL, "recurrent (b): %s%s on the card is "
+              "%.3g off the CPU route" % ("bidirectional " if bidir else "",
+                                          mode, err))
+        out["%s%s" % ("bi-" if bidir else "", mode)] = err
+    print("recurrent (b): GRU and bidirectional LSTM (T %d N %d 2 x %d) "
+          "forward and gradients vs the CPU route: %s" % (T, N, H, out),
+          flush=True)
+    return out
+
+
+def mp_symbol(mt, seq_len, num_layers, num_hidden, num_embed, vocab_size):
+    """examples/model_parallel_lstm/lstm.py's build_symbol: one ctx group
+    per layer."""
+    data = mt.sym.Variable("data")
+    label = mt.sym.Variable("softmax_label")
+    with mt.AttrScope(ctx_group="embed"):
+        hidden = mt.sym.Embedding(data=data, input_dim=vocab_size,
+                                  output_dim=num_embed, name="embed")
+    for i in range(num_layers):
+        with mt.AttrScope(ctx_group="layer%d" % i):
+            cell = mt.rnn.LSTMCell(num_hidden=num_hidden,
+                                   prefix="lstm_l%d_" % i)
+            hidden, _ = cell.unroll(seq_len, inputs=hidden,
+                                    merge_outputs=True)
+    with mt.AttrScope(ctx_group="decode"):
+        pred = mt.sym.Reshape(hidden, shape=(-1, num_hidden))
+        pred = mt.sym.FullyConnected(data=pred, num_hidden=vocab_size,
+                                     name="pred")
+        label_r = mt.sym.Reshape(label, shape=(-1,))
+        return mt.sym.SoftmaxOutput(data=pred, label=label_r, name="softmax")
+
+
+def model_parallel_lstm(torch, mt, sents):
+    """(c) BASELINE #5: the example's loop (forward, backward, sgd_update per
+    parameter) over group2ctx, each layer on its own context of gpu(0),
+    against one context's Module with the same SGD."""
+    B, T = PTB["batch"], MP_SEQ
+    data = np.array([s[:T + 1] for s in sents if len(s) > T][:B * MP_STEPS],
+                    np.float32)
+    check(len(data) == B * MP_STEPS, "recurrent (c): %d sentences of %d+ "
+          "words" % (len(data), T + 1))
+    x, y = data[:, :-1], data[:, 1:]
+    net = mp_symbol(mt, T, PTB["layers"], PTB["hidden"], PTB["embed"],
+                    PTB["vocab"])
+    groups = ["embed", "decode"] + ["layer%d" % i
+                                    for i in range(PTB["layers"])]
+    group2ctx = {g: mt.Context("gpu", 0) for g in groups}
+    exe = net.simple_bind(mt.gpu(0), data=(B, T), softmax_label=(B * T,),
+                          grad_req="write", group2ctx=group2ctx)
+    check(len(exe._placement) > 0, "recurrent (c): no node was placed")
+    rng = np.random.RandomState(PTB_SEED)
+    init = {name: rng.uniform(-0.08, 0.08, arr.shape).astype(np.float32)
+            for name, arr in sorted(exe.arg_dict.items())
+            if name not in ("data", "softmax_label")}
+    for name, v in init.items():
+        exe.arg_dict[name][:] = v
+    placed = []
+    t0 = time.perf_counter()
+    for b in range(MP_STEPS):
+        sl = slice(b * B, (b + 1) * B)
+        exe.arg_dict["data"][:] = x[sl]
+        exe.arg_dict["softmax_label"][:] = y[sl].reshape(-1)
+        probs = exe.forward(is_train=True)[0]
+        exe.backward()
+        for name, grad in exe.grad_dict.items():
+            if name in ("data", "softmax_label") or grad is None:
+                continue
+            mt.nd.sgd_update(exe.arg_dict[name], grad,
+                             out=exe.arg_dict[name], lr=MP_LR)
+        placed.append(lm_loss(torch, probs, y[sl]))
+    torch.cuda.synchronize()
+    placed_ms = (time.perf_counter() - t0) * 1e3 / MP_STEPS
+    mod = mt.mod.Module(net, context=mt.gpu(0))
+    # Module splits labels by the batch: (B, T), which the net reshapes
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    mod.init_params(arg_params={k: mt.nd.array(v, mt.gpu(0))
+                                for k, v in init.items()}, aux_params={})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": MP_LR, "rescale_grad": 1.0})
+    single = []
+    for b in range(MP_STEPS):
+        sl = slice(b * B, (b + 1) * B)
+        mod.forward_backward(mt.io.DataBatch(
+            data=[mt.nd.array(x[sl], mt.cpu())],
+            label=[mt.nd.array(y[sl], mt.cpu())]))
+        mod.update()
+        single.append(lm_loss(torch, mod.get_outputs()[0], y[sl]))
+    err = max(rel(a, b) for a, b in zip(placed, single))
+    check(err <= 1e-6, "recurrent (c): the placed losses %s are not within "
+          "1e-6 of one context's %s" % (placed, single))
+    check(placed[-1] < placed[0], "recurrent (c): the loss did not fall: %s"
+          % placed)
+    print("recurrent (c): model-parallel LSTM over group2ctx (%d groups on "
+          "gpu(0), seq %d): losses %s vs one context's Module %s (rel %.3g); "
+          "%.2f ms a step (forward, backward that re-runs it, %d updates)"
+          % (len(groups), T, placed, single, err, placed_ms, len(init)),
+          flush=True)
+    return {"losses": placed, "module_losses": single, "rel_err": err,
+            "step_ms": placed_ms}
+
+
+def ocr_data(n, seq_len, label_len, n_classes, feat_dim, seed=PTB_SEED):
+    """examples/warpctc/lstm_ocr.py's frames: a template per symbol plus
+    noise, each symbol held 2-3 frames, blanks between; labels 0-padded."""
+    rng = np.random.RandomState(seed)
+    templates = rng.randn(n_classes + 1, feat_dim).astype(np.float32)
+    X = np.zeros((n, seq_len, feat_dim), np.float32)
+    Y = np.zeros((n, label_len), np.float32)
+    for i in range(n):
+        syms = rng.randint(1, n_classes + 1, size=rng.randint(1, label_len + 1))
+        Y[i, :len(syms)] = syms
+        t = 0
+        for s in syms:
+            for _ in range(rng.randint(2, 4)):
+                if t >= seq_len:
+                    break
+                X[i, t] = templates[s] + rng.randn(feat_dim) * 0.3
+                t += 1
+            if t < seq_len and rng.rand() < 0.5:
+                X[i, t] = templates[0] + rng.randn(feat_dim) * 0.3
+                t += 1
+    return X, Y
+
+
+def ocr_net(mt, seq_len, label_len, num_hidden, n_classes):
+    """lstm_ocr.py's build_net: an LSTM over the frames, time-major rows,
+    FullyConnected to the alphabet, WarpCTC."""
+    cell = mt.rnn.LSTMCell(num_hidden=num_hidden, prefix="lstm_")
+    outputs, _ = cell.unroll(seq_len, inputs=mt.sym.Variable("data"),
+                             layout="NTC", merge_outputs=True)
+    tm = mt.sym.transpose(outputs, axes=(1, 0, 2))
+    pred = mt.sym.FullyConnected(mt.sym.Reshape(tm, shape=(-1, num_hidden)),
+                                 num_hidden=n_classes + 1, name="pred")
+    return mt.sym.WarpCTC(data=pred, label=mt.sym.Variable("label"),
+                          label_length=label_len, input_length=seq_len)
+
+
+def ctc_f64(torch, data, labels, T):
+    """Summed CTC loss in float64: the textbook alpha recursion over the
+    blank-extended labels (Graves et al. 2006), independent of the op's.
+    -1e30 stands for log 0, so no gradient meets -inf - -inf."""
+    n = data.shape[0] // T
+    logp = torch.log_softmax(data.reshape(T, n, -1), dim=-1)
+    total = data.new_zeros(())
+    for b in range(n):
+        lab = [int(v) for v in labels[b] if v != 0]
+        ext = [0]
+        for v in lab:
+            ext += [v, 0]
+        idx = torch.tensor(ext, device=data.device)
+        skip = torch.tensor([s >= 2 and ext[s] != 0 and ext[s] != ext[s - 2]
+                             for s in range(len(ext))], device=data.device)
+        lp = logp[:, b, idx]                                   # (T, S)
+        alpha = torch.full((len(ext),), -1e30, dtype=data.dtype,
+                           device=data.device)
+        alpha[0] = lp[0, 0]
+        if len(ext) > 1:
+            alpha[1] = lp[0, 1]
+        ninf = alpha.new_full((1,), -1e30)
+        for t in range(1, T):
+            a1 = torch.cat([ninf, alpha[:-1]])
+            a2 = torch.where(skip, torch.cat([ninf, ninf, alpha[:-2]]),
+                             ninf.expand(len(ext)))
+            alpha = torch.logsumexp(torch.stack([alpha, a1, a2]), 0) + lp[t]
+        total = total - torch.logsumexp(alpha[-2:], 0)
+    return total
+
+
+def ocr_phase(torch, mt):
+    """(d) the CTC OCR net through Module: the loss falls; WarpCTC's
+    gradient at the net's shapes against the CPU route and float64."""
+    from mxnet_tpu_torch.ops.ctc import _ctc_losses
+
+    c = OCR
+    X, Y = ocr_data(c["batch"] * c["batches"], c["seq_len"], c["label_len"],
+                    c["classes"], c["feat"])
+    net = ocr_net(mt, c["seq_len"], c["label_len"], c["hidden"],
+                  c["classes"])
+    mt.random.seed(PTB_SEED)
+    mod = mt.mod.Module(net, data_names=("data",), label_names=("label",),
+                        context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (c["batch"], c["seq_len"], c["feat"]))],
+             label_shapes=[("label", (c["batch"], c["label_len"]))])
+    mod.init_params(initializer=mt.init.Xavier(factor_type="in",
+                                               magnitude=2.34))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": c["lr"]})
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["epochs"]):
+        for b in range(c["batches"]):
+            sl = slice(b * c["batch"], (b + 1) * c["batch"])
+            label = mt.nd.array(Y[sl], mt.cpu())
+            mod.forward_backward(mt.io.DataBatch(
+                data=[mt.nd.array(X[sl], mt.cpu())], label=[label]))
+            mod.update()
+            probs = mod.get_outputs()[0]._data
+            losses.append(float(_ctc_losses(
+                probs.clamp_min(1e-30).log(), label._data.to(probs.device),
+                c["seq_len"], c["label_len"]).mean()))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(losses)
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    check(all(math.isfinite(v) for v in losses) and tail < head,
+          "recurrent (d): the CTC loss did not fall: %s" % losses)
+    # WarpCTC alone at the net's shapes: (T * N, classes + 1) rows
+    rows = c["seq_len"] * c["batch"]
+    rng = np.random.RandomState(PTB_SEED + 1)
+    data = rng.randn(rows, c["classes"] + 1).astype(np.float32)
+    label = Y[:c["batch"]]
+    grads = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        ctc = mt.sym.WarpCTC(data=mt.sym.Variable("data"),
+                             label=mt.sym.Variable("label"),
+                             label_length=c["label_len"],
+                             input_length=c["seq_len"])
+        ex = ctc.bind(ctx, {"data": mt.nd.array(data, ctx),
+                            "label": mt.nd.array(label, ctx)},
+                      args_grad={"data": mt.nd.zeros(data.shape, ctx)})
+        ex.forward(is_train=True)
+        ex.backward()
+        grads[ctx.device_type] = ex.grad_dict["data"].asnumpy()
+    d64 = torch.tensor(data, dtype=torch.float64, device="cuda",
+                       requires_grad=True)
+    ctc_f64(torch, d64, label, c["seq_len"]).backward()
+    g64 = d64.grad.cpu().numpy()
+    card = grads["gpu"]
+    scale = max(1.0, float(np.abs(g64).max()))
+    cpu_err = float(np.abs(card - grads["cpu"]).max()) / scale
+    f64_err = float(np.abs(card - g64).max()) / scale
+    check(cpu_err <= 1e-5, "recurrent (d): WarpCTC's gradient on the card "
+          "is %.3g off the CPU route" % cpu_err)
+    check(f64_err <= RECURRENT_TOL, "recurrent (d): WarpCTC's gradient on "
+          "the card is %.3g off float64" % f64_err)
+    print("recurrent (d): CTC OCR net (LSTM %d, %d frames, %d labels of %d "
+          "classes, batch %d) through Module, adam: loss %.4f -> %.4f over "
+          "%d steps (%.2f ms a step, loss included); WarpCTC gradient at "
+          "(%d, %d) %.3g off the CPU route, %.3g off float64"
+          % (c["hidden"], c["seq_len"], c["label_len"], c["classes"],
+             c["batch"], head, tail, len(losses), step_ms, rows,
+             c["classes"] + 1, cpu_err, f64_err), flush=True)
+    return {"loss_first5": head, "loss_last5": tail, "steps": len(losses),
+            "step_ms": step_ms, "grad_cpu_err": cpu_err,
+            "grad_f64_err": f64_err}
+
+
+def sequence_ops_vs_cpu(torch, mt):
+    """(e) SequenceLast/Mask/Reverse with lengths on the card: forward and
+    data gradient equal to the CPU route's."""
+    T, N, C = 60, 32, 200
+    rng = np.random.RandomState(PTB_SEED)
+    x = rng.randn(T, N, C).astype(np.float32)
+    lengths = rng.randint(1, T + 1, size=N).astype(np.float32)
+    for op in ("SequenceLast", "SequenceMask", "SequenceReverse"):
+        net = getattr(mt.sym, op)(mt.sym.Variable("data"),
+                                  mt.sym.Variable("sequence_length"),
+                                  use_sequence_length=True)
+        shape = (N, C) if op == "SequenceLast" else (T, N, C)
+        head = rng.randn(*shape).astype(np.float32)
+        res = []
+        for ctx in (mt.gpu(0), mt.cpu()):
+            ex = net.bind(ctx, {"data": mt.nd.array(x, ctx),
+                                "sequence_length": mt.nd.array(lengths, ctx)},
+                          args_grad={"data": mt.nd.zeros(x.shape, ctx)})
+            out = ex.forward(is_train=True)[0].asnumpy()
+            ex.backward(mt.nd.array(head, ctx))
+            res.append((out, ex.grad_dict["data"].asnumpy()))
+        check(all(np.array_equal(a, b) for a, b in zip(*res)),
+              "recurrent (e): %s on the card differs from the CPU route"
+              % op)
+    print("recurrent (e): SequenceLast, SequenceMask, SequenceReverse (T %d "
+          "N %d C %d, lengths given): forward and gradient on the card equal "
+          "to the CPU route" % (T, N, C), flush=True)
+    return "equal"
+
+
+def recurrent_phase(torch, mt, profile_dir=None):
+    """Phase 17 (module docstring).  Returns the port's kernel launches in
+    the phase (none is on these paths)."""
+    before = dict(mt.kernels.LAUNCHES)
+    card = card_and_limit()
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sents = markov_corpus(PTB["vocab"], PTB_SENTENCES, 2,
+                          max(PTB["buckets"]), PTB_SEED)
+    a, init, loss0 = ptb_unfused(torch, mt, sents, profile_dir)
+    b = ptb_fused(torch, mt, sents, init, loss0)
+    b["rnn_op"] = rnn_op_timing(torch)
+    b["modes_vs_cpu"] = rnn_modes_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    summary = {"card": card, "ptb": a, "ptb_fused": b,
+               "model_parallel": model_parallel_lstm(torch, mt, sents),
+               "ocr": ocr_phase(torch, mt),
+               "sequence_ops": sequence_ops_vs_cpu(torch, mt)}
+    torch.cuda.empty_cache()
+    summary["wall_s"] = time.perf_counter() - t0
+    print("recurrent: phase wall time %.1f s" % summary["wall_s"], flush=True)
+    print(json.dumps({"recurrent": summary}), flush=True)
+    return {k: v - before.get(k, 0) for k, v in mt.kernels.LAUNCHES.items()
+            if v != before.get(k, 0)}
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -6139,9 +6859,10 @@ def main():
                          "(bf16 and float32), one extra splash step, one "
                          "extra rtc_gelu train step, one extra ResNet-50 "
                          "bf16 step, one extra SSD train step, one extra "
-                         "SSD request and one 8-lane generation iteration "
-                         "with torch.profiler (the optimizer's list update "
-                         "and the paged ops groups of their own)")
+                         "SSD request, one 8-lane generation iteration "
+                         "and one bucket-60 PTB LSTM step with "
+                         "torch.profiler (the optimizer's list update and "
+                         "the paged ops groups of their own)")
     ap.add_argument("--parent-csrc", metavar="DIR", action="append",
                     default=[],
                     help="a csrc directory of another version (flash_fwd.cu "
@@ -6281,6 +7002,10 @@ def main():
     torch.cuda.empty_cache()
     par_launches = parallel_phase(torch, mt, att, batch, replay)
     del batch, replay
+    torch.cuda.empty_cache()
+    rec_launches = recurrent_phase(torch, mt, opts.profile)
+    print("recurrent: kernel launches of the port's own: %s"
+          % (rec_launches or "none (plain torch and cuBLAS)"), flush=True)
     d_main = FULL["hidden"] // FULL["num_heads"]
     for tag, kernel_rows in (
             ("bf16", main_rows),

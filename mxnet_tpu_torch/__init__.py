@@ -28,8 +28,11 @@ schemes), ``recordio``, ``native`` (the C++ reader and the JPEG codecs),
 (continuous batching over a paged KV pool on the device, prefix caching,
 speculative decoding) over the paged-attention ops (``ops/paged.py``) and
 the prefill/decode/catch-up/verify builders, with ``faults``, the metrics
-half of ``telemetry`` and ``serving.BucketedPredictor``.  This package
-imports neither ``jax`` nor ``mxnet_tpu``.
+half of ``telemetry`` and ``serving.BucketedPredictor`` — and the recurrent
+family: the ``RNN``, ``Sequence*`` and ``WarpCTC`` ops, ``rnn`` (the cells
+and ``BucketSentenceIter``), ``BucketingModule``, ``SequentialModule``,
+``PythonModule`` and ``Monitor``.  This package imports neither ``jax``
+nor ``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -77,3 +80,6 @@ from . import telemetry
 from . import serving
 from . import generation
 from . import parallel
+from . import rnn
+from . import monitor
+from . import monitor as mon

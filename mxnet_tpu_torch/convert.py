@@ -5,7 +5,11 @@
 ``arg:``/``aux:`` prefixes — and returns the port's ``{name: NDArray}`` on
 ``ctx``, ready for ``Predictor`` or ``Module.init_params``.  The other
 route is the ``.params`` file itself: both packages read and write the same
-bytes.
+bytes.  Recurrent parameters carry over in each of their forms: a
+``FusedRNNCell``'s packed vector, the per-layer arrays its
+``unpack_weights`` gives, and the per-gate arrays of each cell's
+``unpack_weights``; the cells' ``pack_weights`` turn them back, in either
+package, into the same vector.
 
 ``optimizer_states_from_numpy`` takes an updater's states as numpy — the
 JAX package's ``Updater.states`` ``{index: state}`` with every NDArray

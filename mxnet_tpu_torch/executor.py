@@ -42,11 +42,15 @@ on the first context and is split again where a batch-local op reads it,
 so an op sees the whole batch wherever it reduces over it (BatchNorm's
 statistics, a loss normalized by the batch), as in the JAX package.
 
+The monitor callback (``set_monitor_callback``, what ``Monitor.install``
+sets): ``forward`` hands it every node output by output name, as the JAX
+package's forward does.
+
 Left out, with their reason: jit, buffer donation and the compile cache
 (PyTorch runs eagerly; a CUDA graph is the later tool), SPMD shardings
 (``set_shardings``, slice A.4b of the port), the training guardian's
-on-device step guard, the autotuner, remat (``MXNET_BACKWARD_DO_MIRROR``)
-and the monitor callback.
+on-device step guard, the autotuner and remat
+(``MXNET_BACKWARD_DO_MIRROR``).
 """
 from __future__ import annotations
 
@@ -118,7 +122,7 @@ class _GraphPlan:
         return placement
 
     def run(self, args: Dict[str, Any], aux: Dict[str, Any], is_train: bool,
-            device, generator=None, placement=None, dp=None):
+            device, generator=None, placement=None, dp=None, internals=None):
         """Execute the graph on tensors of ``device``.  An intermediate is
         released as soon as its last reader has run, so peak memory follows
         the live activations (and, under autograd, what the backward keeps).
@@ -126,7 +130,9 @@ class _GraphPlan:
         node ``placement`` names runs on that context's device, its inputs
         and aux states moved there.  With ``dp`` (a ``_DataParallel``)
         every value is a ``_Value`` and ``dp`` runs each node over the
-        shards; the outputs come back whole on the first context."""
+        shards; the outputs come back whole on the first context.  A list
+        ``internals`` gets (node, output index, tensor) for every node
+        output, whole."""
         vals: Dict[tuple, Any] = {}
         left = dict(self.readers)
         keep = set(self.output_entries)
@@ -154,6 +160,9 @@ class _GraphPlan:
             del ins
             for i, o in enumerate(outs):
                 vals[(id(n), i)] = o
+                if internals is not None:
+                    internals.append((n, i, o if dp is None
+                                      else dp.gathered(o)))
             for aname, a in zip(n.aux_names(), aux_out):
                 new_aux[aname] = a
             for p, idx in n.inputs:
@@ -249,6 +258,7 @@ class Executor:
         # re-runs that forward on a generator set to it, so stochastic ops
         # draw the same numbers (the JAX package reuses the forward's key)
         self._last_rng = None
+        self._monitor_callback = None
 
     def _as_nd(self, v):
         """Bound arrays live on the executor's context: an NDArray already
@@ -275,13 +285,13 @@ class Executor:
         return {k: v.to(cdt) if k not in self._cast_exclude
                 and v.dtype == torch.float32 else v for k, v in args.items()}
 
-    def _run(self, args, aux, is_train, generator):
+    def _run(self, args, aux, is_train, generator, internals=None):
         """The graph over the bound (uncast) argument tensors: on the
         executor's device, placed by ``group2ctx``, or over the data-
         parallel shards."""
         return self._plan.run(self._cast(args), aux, is_train,
                               self._ctx.torch_device(), generator,
-                              self._placement, self._dp)
+                              self._placement, self._dp, internals)
 
     def _set_data_parallel(self, contexts, batch_names):
         """Run over ``contexts`` from now on, the arguments ``batch_names``
@@ -329,14 +339,26 @@ class Executor:
             nd.NDArray(o.detach(), self._placement.get(e[0], self._ctx))
             for o, e in zip(outs, self._plan.output_entries)]
 
+    def set_monitor_callback(self, callback):
+        """``callback(name, NDArray)`` for every node output of each
+        ``forward``; None removes it."""
+        self._monitor_callback = callback
+
     def forward(self, is_train: bool = False, **kwargs):
+        from . import ndarray as nd
+
         self._write_inputs(kwargs)
         args = {k: v._data for k, v in self.arg_dict.items()}
         aux = {k: v._data for k, v in self.aux_dict.items()}
         self._output_arrays = []  # release the previous call's outputs
         gen = self._generator(remember=True)
+        internals = [] if self._monitor_callback is not None else None
         with torch.no_grad():
-            outs, new_aux = self._run(args, aux, is_train, gen)
+            outs, new_aux = self._run(args, aux, is_train, gen, internals)
+        for n, i, o in internals or ():
+            self._monitor_callback(
+                n.op.output_names(n.attrs, n.name)[i],
+                nd.NDArray(o, self._placement.get(id(n), self._ctx)))
         if is_train:
             for k, v in new_aux.items():
                 self.aux_dict[k]._set(self._home(v))

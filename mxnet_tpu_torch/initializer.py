@@ -5,9 +5,10 @@ The same surface: ``InitDesc``, name-pattern dispatch in
 ``upsampling*`` names get the bilinear kernel, ``stn_loc*`` the identity
 affine transform), ``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``,
 ``MSRAPrelu``, ``Bilinear``, ``LSTMBias``, ``Zero``/``One``/``Constant``,
-``Load`` and ``Mixed``.  Random draws come from the port's per-device
-generator (``random.py``) on the array's own device, so a full-width model
-initializes on the card.  ``FusedRNN`` waits for the port of ``rnn/``.
+``Load``, ``Mixed`` and ``FusedRNN`` (a ``FusedRNNCell``'s packed vector,
+initialized per unpacked array).  Random draws come from the port's
+per-device generator (``random.py``) on the array's own device, so a
+full-width model initializes on the card.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from . import random as _random
 
 __all__ = ["InitDesc", "Initializer", "Load", "Mixed", "Zero", "One",
            "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
-           "MSRAPrelu", "Bilinear", "LSTMBias", "register"]
+           "MSRAPrelu", "Bilinear", "LSTMBias", "FusedRNN", "register"]
 
 _INIT_REGISTRY: Dict[str, type] = {}
 
@@ -333,3 +334,45 @@ class LSTMBias(Initializer):
         arr[:] = b
 
     _init_bias = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """Initialize a ``FusedRNNCell``'s packed parameter vector: unpacked
+    into its per-layer arrays (``FusedRNNCell.unpack_weights``), each
+    initialized by ``init`` (or the global initializer) by its name, then
+    packed back.  ``dumps`` writes the JAX package's JSON."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = _INIT_REGISTRY[klass.lower()](**kwargs)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        from .ndarray import array
+        from .rnn.rnn_cell import FusedRNNCell
+
+        cell = FusedRNNCell(self._num_hidden, self._num_layers,
+                            self._mode, self._bidirectional,
+                            forget_bias=self._forget_bias)
+        args = {pname: array(parr, arr.context)
+                for pname, parr in cell.unpack_weights(
+                    {str(name): arr.copy()}).items()}
+        for pname, parr in args.items():
+            desc = InitDesc(pname, getattr(name, "attrs", {}))
+            if self._init is None:
+                getattr(name, "global_init", None)(desc, parr)
+            else:
+                self._init(desc, parr)
+        arr[:] = cell.pack_weights(args)[str(name)]

@@ -23,7 +23,6 @@ import numpy as np
 
 from . import ndarray as nd
 from . import symbol as sym
-from .base import MXNetError
 
 __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
            "FeedForward"]
@@ -183,8 +182,6 @@ class FeedForward:
         """Train ``num_epoch`` epochs on ``X`` (an iterator, or arrays with
         labels ``y``), with the optimizer and its kwargs given at
         construction."""
-        if monitor is not None:
-            raise MXNetError("FeedForward.fit: the monitor is not ported yet")
         train_data = self._as_iter(X, y)
         mod = self._get_module(train_data)
         optimizer_params = dict(self.kwargs)
@@ -197,7 +194,7 @@ class FeedForward:
                 eval_batch_end_callback=eval_batch_end_callback,
                 initializer=self.initializer, arg_params=self.arg_params,
                 aux_params=self.aux_params, begin_epoch=self.begin_epoch,
-                num_epoch=self.num_epoch)
+                num_epoch=self.num_epoch, monitor=monitor)
         self._module = mod
         self.arg_params, self.aux_params = mod.get_params()
         return self

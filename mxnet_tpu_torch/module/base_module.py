@@ -120,9 +120,11 @@ class BaseModule:
             eval_end_callback=None, eval_batch_end_callback=None,
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
         """Train the module: bind, initialize, then per batch
-        ``forward_backward`` + ``update`` + metric, per epoch the callbacks
+        ``forward_backward`` + ``update`` + metric (inside ``monitor``'s
+        ``tic``/``toc_print`` when one is given), per epoch the callbacks
         and an optional evaluation."""
         from ..initializer import Uniform
 
@@ -132,6 +134,8 @@ class BaseModule:
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label, for_training=True,
                   force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -146,9 +150,13 @@ class BaseModule:
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 for callback in _as_list(batch_end_callback):
                     callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -235,4 +243,7 @@ class BaseModule:
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
+        raise NotImplementedError()
+
+    def install_monitor(self, mon):
         raise NotImplementedError()

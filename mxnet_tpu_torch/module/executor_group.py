@@ -80,6 +80,7 @@ class DataParallelExecutorGroup:
         self.batch_size = None
         self.slices = None
         self.execs = []
+        self._monitor_callback = None
         self.bind_exec(data_shapes, label_shapes, shared_group)
 
     # ------------------------------------------------------------------
@@ -154,6 +155,8 @@ class DataParallelExecutorGroup:
                                         self.data_names + self.label_names)
         if self._multiprocess:
             executor._grad_hook = self._allreduce
+        if self._monitor_callback is not None:
+            executor.set_monitor_callback(self._monitor_callback)
         self.execs = [executor]
         # the executor rebinds these arrays' buffers in place, so the lists
         # stay valid across steps
@@ -257,3 +260,9 @@ class DataParallelExecutorGroup:
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update(labels, self.get_outputs())
+
+    def install_monitor(self, mon):
+        self._monitor_callback = mon.stat_helper \
+            if hasattr(mon, "stat_helper") else mon
+        for executor in self.execs:
+            executor.set_monitor_callback(self._monitor_callback)

@@ -13,11 +13,14 @@ the optimizer has a list update rule, every gradient is written (not
 added) and no store applies the update, ``forward_backward`` defers the
 batch and ``update`` runs forward, backward and the update as one
 ``Executor.fused_step``; a caller that asks for outputs or gradients in
-between gets the two-phase path for that batch.  Under a multi-process
+between gets the two-phase path for that batch, and ``install_monitor``
+turns the fused step off so the monitor sees every tensor.  Under a multi-process
 group (``dist_sync`` over several workers, ``dist_mesh`` not False) the
 gradients are summed over the workers inside the step and every worker
-applies the update itself.  Left out: ``bind(mesh=, partition_rules=)``
-(slice A.4b), bucketing, the guardian, telemetry and the monitor hook.
+applies the update itself.  ``BucketingModule`` binds one Module per
+bucket over the default bucket's (``shared_module``).  Left out:
+``bind(mesh=, partition_rules=)`` (slice A.4b), the guardian and
+telemetry.
 """
 from __future__ import annotations
 
@@ -357,7 +360,8 @@ class Module(BaseModule):
     def _decide_fused(self):
         """Whether update() runs forward, backward and the optimizer as one
         ``Executor.fused_step``: the replicated updater without a store
-        round trip, a list update rule, plain grad_req 'write'."""
+        round trip, a list update rule, plain grad_req 'write', and no
+        monitor (which reads every tensor of the forward)."""
         if self._update_on_kvstore or self._updater is None:
             return False
         if self._kvstore is not None and "dist" in self._kvstore.type \
@@ -368,6 +372,8 @@ class Module(BaseModule):
             return False
         if any(self._exec_group.grad_req.get(n) == "add"
                for n in self._param_names):
+            return False
+        if self._exec_group._monitor_callback is not None:
             return False
         return not self.inputs_need_grad
 
@@ -476,3 +482,11 @@ class Module(BaseModule):
             return
         with open(fname, "rb") as fin:
             self._updater.set_states(fin.read())
+
+    def install_monitor(self, mon):
+        """Hand every tensor of each forward to ``mon``
+        (``Monitor.stat_helper``); the fused step is off from now on."""
+        assert self.binded
+        self._fused_ok = False
+        self._flush_fused_pending()
+        self._exec_group.install_monitor(mon)

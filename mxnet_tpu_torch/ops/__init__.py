@@ -18,6 +18,9 @@ from . import ordering  # noqa: F401
 from . import contrib_ops  # noqa: F401
 from . import spatial  # noqa: F401
 from . import paged  # noqa: F401
+from . import sequence  # noqa: F401
+from . import rnn_op  # noqa: F401
+from . import ctc  # noqa: F401
 from .registry import mark_batch_local as _mark
 
 
