@@ -368,6 +368,47 @@ Phases, each fatal on failure (non-zero exit, no result line):
              route and 1e-4 of a float64 CTC written here.  (e)
              SequenceLast/Mask/Reverse with lengths: forward and gradient
              equal to the CPU route.  A ``recurrent`` JSON line ends it.
+18. sharding — the GSPMD layer, through ``mt.sharding`` and
+             ``Module.bind(mesh=, partition_rules="transformer_megatron")``
+             on the train phase's LM, init and batch (bf16, adam lr 3e-4).
+             (a) Tensor parallel: ``build_mesh("data=1,model=2",
+             devices=[gpu(0)] * 2)``, 2 + 5 steps; (b) the 2-D mesh
+             "data=2,model=2" on ``[gpu(0)] * 4``, 2 + 3 steps.  Each: the
+             first 3 losses within 1e-3 (relative) of the train phase's
+             one-context losses, ``layer0_qkv_weight`` stored as two
+             pieces of (3072, 2048), the ``mxtpu_params_sharded_bytes``
+             gauge below ``mxtpu_params_replicated_bytes`` (both printed),
+             K1, K2 and K3 each launched as often a step as the
+             partitioned walk's plan says (attention once per layer and
+             batch shard, on the whole heads: 6 in (a), 12 in (b), held to
+             both the plan and those numbers), the
+             loss falls, every piece and optimizer state on the card; step
+             ms, tokens/s and peak memory beside the train phase's.  (c)
+             The LM at 2 layers in float32 (TF32 off, SGD lr 1e-3 momentum
+             0.9) on (a)'s mesh against one unsharded Module on gpu(0):
+             after 3 steps every parameter within 1e-4 of its largest
+             |value|, and its move over the 3 steps within 1e-3 of the
+             unsharded move's largest |value|; then the witness at lr 0.05,
+             where the loss diverges: the same pair's gaps printed beside
+             the unsharded Module's own gap from an init one float32 ulp
+             away.  (d) (a)'s parameters after step 3 saved by
+             ``save_sharded_checkpoint`` (with the optimizer states),
+             restored by ``load_sharded_checkpoint(mesh=)`` onto a fresh
+             mesh and a fresh Module: 2 steps give (a)'s steps 4-5, losses
+             and parameters bit for bit; without its completion marker the
+             directory raises.  (e) Two ``dist_sync`` workers (this script
+             with ``--shard-worker``) over gloo on the card train a LeNet
+             layout with two BatchNorms, batch 32 each, the second
+             worker's rows shifted, under SoftmaxOutput per row and
+             normalized by the (global) batch: parameters and moving
+             statistics within 1e-5 (of the largest |value|) of one
+             process on the concatenated batch; then each worker evaluates
+             alone (1 and 3 inference forwards), its outputs within 1e-5
+             of that process's rows.  Shards that share one card measure the
+             partitioner's own cost, not a multi-card speed-up, and the
+             output says so.  A ``sharding`` JSON line ends it; the kernel
+             table's d=128 rows add (a), (b) and (d)'s launches on the
+             bf16 rows and (c)'s on the float32 rows ("tensor parallel").
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -6662,6 +6703,600 @@ def recurrent_phase(torch, mt, profile_dir=None):
             if v != before.get(k, 0)}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the GSPMD layer
+# ---------------------------------------------------------------------------
+SHARD_RUNS = (("tp", "data=1,model=2", 2, 2, 5),   # tag, mesh, shards, warm, timed
+              ("2d", "data=2,model=2", 4, 2, 3))
+SHARD_AGREE = 3            # the first losses held to the train phase's
+SHARD_SAVE_AT = 3          # (d): the checkpoint after (a)'s step 3
+SHARD_RESUME = 2           # (d): steps taken from it
+SHARD_F32 = dict(FULL, num_layers=2)   # (c)
+SHARD_F32_STEPS = 3
+SHARD_F32_TOL = 1e-4       # max |difference| / max |value|
+SHARD_F32_MOVE_TOL = 1e-3  # max |Δtp - Δone| / max |Δone|, Δ the 3 steps'
+# SGD: adam's first steps move a parameter by lr whatever the size of its
+# gradient, so a near-zero gradient's rounding could flip a step's sign,
+# and a gradient off by a factor would move it as far
+SHARD_F32_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+# the witness: at lr 0.05 the loss diverges by step 3 (10.80 -> 69.02);
+# the sharded Module's gap there is printed beside the unsharded Module's
+# own gap from an init one float32 ulp away, which shows how far 3 such
+# steps carry a rounding
+SHARD_F32_WITNESS_LR = 0.05
+SHARD_BN = dict(batch=32, image=(3, 28, 28), classes=10, steps=3)   # (e)
+SHARD_BN_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+# the heads of (e): SoftmaxOutput per row (scaled by the default
+# rescale_grad, 1 / global batch) and normalized by the global batch
+# (rescale_grad 1), which runs on the batch gathered over the group
+SHARD_BN_HEADS = {"null": {}, "batch": {"rescale_grad": 1.0}}
+SHARD_BN_TOL = 1e-5
+SHARD_WORKERS = 2
+
+
+def shard_module(mt, net, mesh, shards, arg_params, compute_dtype,
+                 optimizer_params, begin_num_update=0, optimizer="adam"):
+    """The LM through ``Module`` over ``shards`` contexts of the card, laid
+    out by ``transformer_megatron`` on ``mesh``."""
+    b, s = BATCH, FULL["seq_len"]
+    mod = mt.mod.Module(net, label_names=("softmax_label",),
+                        context=[mt.gpu(0)] * shards,
+                        compute_dtype=compute_dtype)
+    mod.bind(data_shapes=[mt.io.DataDesc("data", (b, s))],
+             label_shapes=[mt.io.DataDesc("softmax_label", (b, s))],
+             mesh=mesh, partition_rules="transformer_megatron")
+    mod.set_params(arg_params, {})
+    mod.init_optimizer(optimizer=optimizer, optimizer_params=dict(
+        optimizer_params, begin_num_update=begin_num_update))
+    return mod
+
+
+def planned_attention(mod):
+    """K1 (and K2, K3) launches a step by the partitioned walk's plan: each
+    attention node once, or once per batch shard where it runs per
+    shard."""
+    ex = mod._exec_group.execs[0]
+    dp = ex._dp
+    return sum(dp.nb if dp.local[id(n)] else 1 for n in ex._plan.nodes
+               if not n.is_variable and
+               n.op.name == "_contrib_FlashAttention")
+
+
+def host_params(mod):
+    """Whole host copies of the parameters (gathered from their pieces)."""
+    ex = mod._exec_group.execs[0]
+    return {n: ex.arg_dict[n].asnumpy() for n in mod._exec_group.param_names}
+
+
+def shard_pieces_on_card(torch, mod):
+    """Every piece of every parameter and optimizer state lies on the
+    card."""
+    from mxnet_tpu_torch.executor import _items
+
+    ex = mod._exec_group.execs[0]
+    arrays = [ex.arg_dict[n]._data for n in mod._exec_group.param_names]
+    for st in mod._updater.states.values():
+        arrays += [x._data for x in (st if isinstance(st, (tuple, list))
+                                     else [st]) if x is not None]
+    return all(t.is_cuda for a in arrays for _, t in _items(a))
+
+
+def shard_steps(torch, mt, mod, batch, Y, n, what, per_step, on_step=None):
+    """``n`` steps of ``mod`` with the launch counts read per step:
+    (losses, step seconds)."""
+    losses, times = [], []
+    for step in range(n):
+        before = dict(mt.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        delta = kernel_delta(mt, before)
+        losses.append(lm_loss(torch, mod.get_outputs()[0], Y))
+        print("sharding %s: step %d: %.2f ms, loss %.6f, launches %s"
+              % (what, step, times[-1] * 1e3, losses[-1], delta), flush=True)
+        check(np.isfinite(losses[-1]), "sharding %s: step %d loss is not "
+              "finite" % (what, step))
+        check(all(v == per_step for v in delta.values()),
+              "sharding %s: step %d launched %s, the plan says %d of each"
+              % (what, step, delta, per_step))
+        if on_step is not None:
+            on_step(step + 1)
+    return losses, times
+
+
+def shard_tp_run(torch, mt, batch, replay, tag, mesh_text, shards, warm,
+                 timed, ckpt=None):
+    """(a) or (b): the train phase's LM, init and batch over ``mesh_text``
+    on ``shards`` contexts of the card; with ``ckpt`` (a directory) the
+    sharded checkpoint and optimizer states after step SHARD_SAVE_AT and
+    the parameters after step SHARD_SAVE_AT + SHARD_RESUME."""
+    from mxnet_tpu_torch import sharding
+
+    b, s = BATCH, FULL["seq_len"]
+    init = {n: mt.nd.NDArray(t, mt.cpu()) for n, t in replay["init"].items()}
+    Y = replay["Y"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = sharding.build_mesh(mesh_text, devices=[mt.gpu(0)] * shards)
+    mod = shard_module(mt, replay["net"], mesh, shards, init, "bfloat16",
+                       {"learning_rate": TRAIN_LR})
+    group = mod._exec_group
+    ex = group.execs[0]
+    check(mod._fused_ok and mod._update_on_kvstore is False,
+          "sharding %s: the update does not run inside the fused step"
+          % tag)
+    pieces = ex.arg_dict["layer0_qkv_weight"]._data
+    shapes = [tuple(p.shape) for p in pieces.shards.values()]
+    print("sharding %s: mesh %s over %d contexts of %s; layer0_qkv_weight "
+          "stored as pieces %s" % (tag, sharding.mesh_axes(mesh), shards,
+                                   mt.gpu(0), shapes), flush=True)
+    check(shapes == [(3 * FULL["hidden"] // 2, FULL["hidden"])] * 2,
+          "sharding %s: layer0_qkv_weight's pieces are %s" % (tag, shapes))
+    snap = mt.telemetry.registry().snapshot()
+    gauges = (snap["mxtpu_params_sharded_bytes"],
+              snap["mxtpu_params_replicated_bytes"])
+    print("sharding %s: parameter bytes per mesh coordinate %d (gauge "
+          "mxtpu_params_sharded_bytes) vs %d replicated "
+          "(mxtpu_params_replicated_bytes)" % ((tag,) + gauges), flush=True)
+    check(gauges[0] < gauges[1], "sharding %s: the sharded bytes are not "
+          "below the replicated bytes" % tag)
+    per_step = planned_attention(mod)
+    batch_shards = mesh.shape[mesh.axis_names[0]]
+    print("sharding %s: the plan runs attention %d times a step (%d layers "
+          "x %d batch shard(s), on the whole heads); strategies %s"
+          % (tag, per_step, FULL["num_layers"], per_step //
+             FULL["num_layers"], sorted({st for st, _ in
+                                         ex._dp.strategy.values()})),
+          flush=True)
+    check(per_step == FULL["num_layers"] * batch_shards,
+          "sharding %s: the plan runs attention %d times a step, not once "
+          "per layer and batch shard (%d)"
+          % (tag, per_step, FULL["num_layers"] * batch_shards))
+    saved = {}
+
+    def on_step(k):
+        if ckpt is None:
+            return
+        if k == SHARD_SAVE_AT:
+            t0 = time.perf_counter()
+            args = {n: ex.arg_dict[n] for n in group.param_names}
+            mt.checkpoint.save_sharded_checkpoint(
+                os.path.join(ckpt, "lm"), k, None, args, {})
+            mod.save_optimizer_states(os.path.join(ckpt, "lm.states"))
+            saved["save_s"] = time.perf_counter() - t0
+        if k == SHARD_SAVE_AT + SHARD_RESUME:
+            saved["params"] = host_params(mod)
+
+    mt.kernels.reset_launches()
+    losses, times = shard_steps(torch, mt, mod, batch, Y, warm + timed, tag,
+                                per_step, on_step)
+    launches = kernel_delta(mt, {})
+    check(losses[-1] < losses[0], "sharding %s: the loss did not fall: %s"
+          % (tag, losses))
+    rel = [abs(a - r) / abs(r) for a, r in
+           zip(losses[:SHARD_AGREE], replay["losses"][:SHARD_AGREE])]
+    print("sharding %s: first %d losses %s vs one context %s, relative "
+          "difference %s (tolerance 1e-3)"
+          % (tag, SHARD_AGREE, ["%.6f" % x for x in losses[:SHARD_AGREE]],
+             ["%.6f" % x for x in replay["losses"][:SHARD_AGREE]],
+             ["%.3g" % x for x in rel]), flush=True)
+    check(max(rel) <= 1e-3, "sharding %s: the losses left the one-context "
+          "run's" % tag)
+    check(shard_pieces_on_card(torch, mod), "sharding %s: a parameter or "
+          "optimizer state piece left the card" % tag)
+    steady = float(np.mean(times[warm:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {"mesh": sharding.mesh_axes(mesh), "step_ms": steady * 1e3,
+           "tokens_s": b * s / steady, "peak_gb": peak,
+           "sharded_bytes": gauges[0], "replicated_bytes": gauges[1],
+           "attention_per_step": per_step, "launches": launches,
+           "losses": losses, "loss_rel": max(rel)}
+    print("sharding %s: step ms %.2f, tokens/s %.1f, peak device memory "
+          "%.2f GB; one context (train phase): step ms %.2f, tokens/s %.1f, "
+          "peak %.2f GB (%d shards on one card: the partitioner's own "
+          "cost, not a multi-card speed-up)"
+          % (tag, steady * 1e3, b * s / steady, peak, replay["step_ms"],
+             b * s / replay["step_ms"] * 1e3, replay["peak_gb"], shards),
+          flush=True)
+    del mod, ex, group
+    torch.cuda.empty_cache()
+    return out, saved
+
+
+def shard_resume(torch, mt, batch, replay, ckpt, saved, tp):
+    """(d): the checkpoint of (a)'s step SHARD_SAVE_AT restored onto a
+    fresh mesh and a fresh Module takes SHARD_RESUME steps: (a)'s losses
+    and parameters bit for bit; an incomplete directory raises."""
+    from mxnet_tpu_torch import sharding
+
+    prefix = os.path.join(ckpt, "lm")
+    t0 = time.perf_counter()
+    fresh = sharding.build_mesh("data=1,model=2", devices=[mt.gpu(0)] * 2)
+    _, args, auxs = mt.checkpoint.load_sharded_checkpoint(
+        prefix, SHARD_SAVE_AT, mesh=fresh)
+    w = args["layer0_qkv_weight"]._data
+    check(isinstance(w, sharding.ShardedTensor) and w.mesh is fresh and
+          all(p.is_cuda for p in w.shards.values()),
+          "sharding resume: the restored pieces are not on the fresh mesh")
+    mod = shard_module(mt, replay["net"], fresh, 2, args, "bfloat16",
+                       {"learning_rate": TRAIN_LR},
+                       begin_num_update=SHARD_SAVE_AT)
+    mod.load_optimizer_states(prefix + ".states")
+    load_s = time.perf_counter() - t0
+    del args, auxs, w
+    mt.kernels.reset_launches()
+    losses, _ = shard_steps(torch, mt, mod, batch, replay["Y"], SHARD_RESUME,
+                            "resume", tp["attention_per_step"])
+    launches = kernel_delta(mt, {})
+    got = host_params(mod)
+    want_losses = tp["losses"][SHARD_SAVE_AT:SHARD_SAVE_AT + SHARD_RESUME]
+    same_losses = losses == want_losses
+    differ = sorted(n for n, v in got.items()
+                    if not np.array_equal(v, saved["params"][n]))
+    print("sharding resume: saved after step %d in %.2f s, restored onto a "
+          "fresh mesh and a fresh Module in %.2f s; losses %s vs (a)'s %s: "
+          "%s; parameters after %d steps %s"
+          % (SHARD_SAVE_AT, saved["save_s"], load_s,
+             ["%.6f" % x for x in losses], ["%.6f" % x for x in want_losses],
+             "bitwise" if same_losses else "DIFFERENT", SHARD_RESUME,
+             "bitwise" if not differ else "differ: %s" % differ[:5]),
+          flush=True)
+    check(same_losses and not differ, "sharding resume: the resumed steps "
+          "are not (a)'s bit for bit")
+    os.remove(os.path.join(prefix + "-%04d.orbax" % SHARD_SAVE_AT,
+                           "mxnet_complete"))
+    try:
+        mt.checkpoint.load_sharded_checkpoint(prefix, SHARD_SAVE_AT,
+                                              mesh=fresh)
+        raised = None
+    except mt.MXNetError as e:
+        raised = str(e)
+    print("sharding resume: a directory without its completion marker: %s"
+          % (raised or "loaded"), flush=True)
+    check(raised is not None and "incomplete" in raised,
+          "sharding resume: an incomplete checkpoint loaded")
+    del mod
+    torch.cuda.empty_cache()
+    return {"save_s": saved["save_s"], "load_s": load_s, "losses": losses,
+            "launches": launches}
+
+
+def f32_gaps(got, ref, init):
+    """Per parameter, max |got - ref| / max |ref| and, with Δ the move from
+    ``init``, max |Δgot - Δref| / max |Δref|: (worst value gap, its name,
+    worst move gap, its name, max |Δref| of that parameter, the smallest
+    max |Δref| of any parameter)."""
+    value, move = (0.0, None), (0.0, None, 0.0)
+    least = float("inf")
+    for n, r in ref.items():
+        gap = float(np.abs(got[n] - r).max())
+        moved = float(np.abs(r - init[n]).max())
+        least = min(least, moved)
+        v = gap / max(float(np.abs(r).max()), 1e-30)
+        m = float(np.abs((got[n] - init[n]) - (r - init[n])).max()) / \
+            max(moved, 1e-30)
+        if v > value[0]:
+            value = (v, n)
+        if m > move[0]:
+            move = (m, n, moved)
+    return value + move + (least,)
+
+
+def shard_f32(torch, mt, batch, replay):
+    """(c): the LM at 2 layers in float32 (TF32 off) on (a)'s mesh against
+    one unsharded Module on the card, from one init: the gated pair at
+    SHARD_F32_SGD, then the witness at SHARD_F32_WITNESS_LR."""
+    from mxnet_tpu_torch import sharding
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    b, s = BATCH, FULL["seq_len"]
+    with mt.NameManager():
+        net = get_transformer_lm(**SHARD_F32)
+    shapes = {"data": (b, s), "softmax_label": (b, s)}
+    init = {k[4:]: v for k, v in lm_params(
+        mt, net, shapes, np.random.default_rng(SEED), 0.02).items()}
+    start = {k: v.asnumpy() for k, v in init.items()}
+    nudged = {k: mt.nd.array(np.nextafter(v, np.float32(np.inf)), mt.cpu())
+              for k, v in start.items()}
+    Y = replay["Y"]
+    per_step = SHARD_F32["num_layers"]
+    params, losses = {}, {}
+    launches = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    witness = dict(SHARD_F32_SGD, learning_rate=SHARD_F32_WITNESS_LR)
+    for tag, sgd, arrays in (("one", SHARD_F32_SGD, init),
+                             ("tp", SHARD_F32_SGD, init),
+                             ("one@w", witness, init),
+                             ("tp@w", witness, init),
+                             ("nudged@w", witness, nudged)):
+        torch.cuda.empty_cache()
+        if not tag.startswith("tp"):
+            mod = train_module(mt, net, mt.gpu(0), (b, s),
+                               arg_params=arrays, optimizer="sgd",
+                               optimizer_params=sgd)
+        else:
+            mesh = sharding.build_mesh("data=1,model=2",
+                                       devices=[mt.gpu(0)] * 2)
+            mod = shard_module(mt, net, mesh, 2, arrays, None, sgd,
+                               optimizer="sgd")
+            check(planned_attention(mod) == per_step, "sharding f32: the "
+                  "plan does not run attention once a layer")
+        mt.kernels.reset_launches()
+        losses[tag], _ = shard_steps(torch, mt, mod, batch, Y,
+                                     SHARD_F32_STEPS, "f32 " + tag, per_step)
+        if tag.startswith("tp"):
+            for k, v in kernel_delta(mt, {}).items():
+                launches[k] = launches.get(k, 0) + v
+        params[tag] = host_params(mod)
+        del mod
+    gated = f32_gaps(params["tp"], params["one"], start)
+    print("sharding f32: 2 layers, float32, TF32 off, SGD lr %g; after %d "
+          "steps the sharded Module's parameters within %.3g of their "
+          "largest |value| of the unsharded Module's (worst %s; tolerance "
+          "%g); its moves within %.3g of the unsharded moves' largest "
+          "|value| (worst %s, which moved at most %.3g; tolerance %g; the "
+          "least-moved parameter moved at most %.3g); losses %s vs %s"
+          % (SHARD_F32_SGD["learning_rate"], SHARD_F32_STEPS, gated[0],
+             gated[1], SHARD_F32_TOL, gated[2], gated[3], gated[4],
+             SHARD_F32_MOVE_TOL, gated[5],
+             ["%.6f" % x for x in losses["tp"]],
+             ["%.6f" % x for x in losses["one"]]), flush=True)
+    wit = {k: f32_gaps(params[k], params["one@w"], start)
+           for k in ("tp@w", "nudged@w")}
+    print("sharding f32 witness at lr %g (losses %s): the sharded Module "
+          "within %.3g of the largest |value| (%s) and %.3g of the largest "
+          "move (%s) of the unsharded one's; the unsharded Module from an "
+          "init one float32 ulp up within %.3g (%s) and %.3g (%s) of it"
+          % (SHARD_F32_WITNESS_LR, ["%.4f" % x for x in losses["one@w"]],
+             wit["tp@w"][0], wit["tp@w"][1], wit["tp@w"][2], wit["tp@w"][3],
+             wit["nudged@w"][0], wit["nudged@w"][1], wit["nudged@w"][2],
+             wit["nudged@w"][3]), flush=True)
+    check(gated[0] <= SHARD_F32_TOL, "sharding f32: the sharded Module left "
+          "the unsharded one's parameters")
+    check(gated[2] <= SHARD_F32_MOVE_TOL, "sharding f32: the sharded "
+          "Module's parameters did not move as the unsharded one's")
+    torch.cuda.empty_cache()
+    return {"param_rel": gated[0], "worst": gated[1], "move_rel": gated[2],
+            "worst_move": gated[3], "least_move": gated[5],
+            "witness_lr": SHARD_F32_WITNESS_LR,
+            "witness_tp": wit["tp@w"][0], "witness_tp_move": wit["tp@w"][2],
+            "witness_ulp": wit["nudged@w"][0],
+            "witness_ulp_move": wit["nudged@w"][2], "launches": launches}
+
+
+def shard_bn_net(mt, normalization="null"):
+    """A small convolutional net with BatchNorm (LeNet's layout)."""
+    sym = mt.sym
+    with mt.NameManager():
+        x = sym.Convolution(sym.Variable("data"), kernel=(5, 5),
+                            num_filter=20, name="conv1")
+        x = sym.BatchNorm(x, fix_gamma=False, name="bn1")
+        x = sym.Activation(x, act_type="relu")
+        x = sym.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2))
+        x = sym.Flatten(x)
+        x = sym.FullyConnected(x, num_hidden=64, name="fc1")
+        x = sym.BatchNorm(x, fix_gamma=False, name="bn2")
+        x = sym.Activation(x, act_type="relu")
+        x = sym.FullyConnected(x, num_hidden=SHARD_BN["classes"],
+                               name="fc2")
+        return sym.SoftmaxOutput(x, name="softmax",
+                                 normalization=normalization)
+
+
+def shard_bn_data():
+    rng = np.random.RandomState(SEED + 2)
+    n = SHARD_WORKERS * SHARD_BN["batch"]
+    X = rng.randn(n, *SHARD_BN["image"]).astype(np.float32)
+    # the workers' rows differ in their mean, so per-worker statistics
+    # would not be the global batch's
+    X[n // 2:] += 0.5
+    Y = (np.arange(n) % SHARD_BN["classes"]).astype(np.float32)
+    return X, Y
+
+
+def shard_bn_module(mt, batch, dist_mesh=None, kvstore=None, head="null"):
+    net = shard_bn_net(mt, head)
+    shape = (batch,) + SHARD_BN["image"]
+    mod = mt.mod.Module(net, label_names=("softmax_label",),
+                        context=mt.gpu(0), dist_mesh=dist_mesh)
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (batch,))])
+    rng = np.random.RandomState(SEED)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=shape)
+    args = {}
+    for name, shp in zip(net.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        args[name] = (np.ones(shp, np.float32) if name.endswith("gamma")
+                      else (rng.randn(*shp) * 0.1).astype(np.float32))
+    aux = {name: (np.ones if name.endswith("var") else np.zeros)(
+        shp, np.float32) for name, shp in zip(net.list_auxiliary_states(),
+                                              aux_shapes)}
+    mod.init_params(arg_params={k: mt.nd.array(v, mt.cpu())
+                                for k, v in args.items()},
+                    aux_params={k: mt.nd.array(v, mt.cpu())
+                                for k, v in aux.items()})
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params=dict(SHARD_BN_SGD,
+                                             **SHARD_BN_HEADS[head]))
+    return mod
+
+
+def shard_bn_batch(mt, X, Y):
+    return mt.io.NDArrayIter(X, Y, batch_size=len(X),
+                             label_name="softmax_label").next()
+
+
+def shard_bn_train(torch, mt, mod, X, Y):
+    b = shard_bn_batch(mt, X, Y)
+    for _ in range(SHARD_BN["steps"]):
+        mod.forward_backward(b)
+        mod.update()
+    torch.cuda.synchronize()
+    args, auxs = mod.get_params()
+    return {k: v.asnumpy() for k, v in list(args.items()) +
+            list(auxs.items())}
+
+
+def shard_bn_eval(mt, mod, X, Y, times=1):
+    """The trained module's inference outputs on (X, Y), forward ``times``
+    times."""
+    b = shard_bn_batch(mt, X, Y)
+    for _ in range(times):
+        mod.forward(b, is_train=False)
+    return mod.get_outputs()[0].asnumpy()
+
+
+def shard_worker(outdir):
+    """One worker of (e) (run by ``--shard-worker``): the DMLC variables
+    name its rank; it trains the BatchNorm net under each head on its rows
+    of the global batch, then evaluates it alone (rank r forwards 2r + 1
+    times: no collective), and writes its parameters, moving statistics
+    and outputs to ``outdir``."""
+    import torch
+
+    import mxnet_tpu_torch as mt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kv = mt.kv.create("dist_sync")
+    rank = kv.rank
+    X, Y = shard_bn_data()
+    rows = slice(rank * SHARD_BN["batch"], (rank + 1) * SHARD_BN["batch"])
+    got = {}
+    for head in SHARD_BN_HEADS:
+        mod = shard_bn_module(mt, SHARD_BN["batch"], head=head,
+                              kvstore=kv if head == "null" else None)
+        trained = shard_bn_train(torch, mt, mod, X[rows], Y[rows])
+        got.update({"%s:%s" % (head, k): v for k, v in trained.items()})
+        got[head + ":multiprocess"] = np.array(
+            mod._exec_group._multiprocess)
+        got[head + ":gathered"] = np.array(
+            mod._exec_group.execs[0]._dp.gathered_ops())
+        got[head + ":eval"] = shard_bn_eval(mt, mod, X[rows], Y[rows],
+                                            2 * rank + 1)
+    np.savez(os.path.join(outdir, "rank%d.npz" % rank), **got)
+    kv._barrier()
+
+
+def shard_global_batch(torch, mt):
+    """(e): two dist_sync workers over gloo on the card train the BatchNorm
+    net, each on its rows of the global batch, against one process on the
+    concatenated batch."""
+    import sys
+
+    port = free_port()
+    outdir = tempfile.mkdtemp(prefix="shard_bn_")
+    env = dict(os.environ, DMLC_NUM_WORKER=str(SHARD_WORKERS),
+               DMLC_PS_ROOT_URI="127.0.0.1", DMLC_PS_ROOT_PORT=str(port))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-worker",
+         outdir], env=dict(env, DMLC_WORKER_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(SHARD_WORKERS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        tail = "\n".join(log.strip().splitlines()[-8:])
+        print("sharding global batch: worker %d exit %s; log tail:\n%s"
+              % (r, p.returncode, tail), flush=True)
+        check(p.returncode == 0, "sharding global batch: worker %d failed"
+              % r)
+    got = [dict(np.load(os.path.join(outdir, "rank%d.npz" % r)))
+           for r in range(SHARD_WORKERS)]
+    X, Y = shard_bn_data()
+    n = SHARD_BN["batch"]
+    out, refs = {}, {}
+    for head in SHARD_BN_HEADS:
+        mod = shard_bn_module(mt, SHARD_WORKERS * n, head=head)
+        refs[head] = ref = shard_bn_train(torch, mt, mod, X, Y)
+        ref_eval = shard_bn_eval(mt, mod, X, Y)
+        worst = max(float(np.abs(g["%s:%s" % (head, k)] - v).max()) /
+                    max(float(np.abs(v).max()), 1e-30)
+                    for g in got for k, v in ref.items())
+        evals = max(float(np.abs(g[head + ":eval"] -
+                                 ref_eval[r * n:(r + 1) * n]).max())
+                    for r, g in enumerate(got))
+        for r, g in enumerate(got):
+            check(bool(g[head + ":multiprocess"]) and
+                  "BatchNorm" in list(g[head + ":gathered"]),
+                  "sharding global batch: worker %d did not run BatchNorm "
+                  "on the global batch" % r)
+        print("sharding global batch, SoftmaxOutput normalization %r: %d "
+              "workers x batch %d, ops run on the batch gathered over the "
+              "group %s; parameters and moving statistics within %.3g of "
+              "their largest |value| of one process at batch %d (tolerance "
+              "%g); each worker's inference outputs alone (forwards 1 and "
+              "3) within %.3g of that process's rows"
+              % (head, SHARD_WORKERS, n,
+                 [str(x) for x in got[0][head + ":gathered"]], worst,
+                 SHARD_WORKERS * n, SHARD_BN_TOL, evals), flush=True)
+        check(worst <= SHARD_BN_TOL and evals <= SHARD_BN_TOL,
+              "sharding global batch: the workers disagree with one "
+              "process on the concatenated batch (normalization %r)" % head)
+        out[head] = {"param_rel": worst, "eval_abs": evals}
+    local = shard_bn_train(torch, mt, shard_bn_module(mt, n), X[:n], Y[:n])
+    own = float(np.abs(local["bn1_moving_mean"] -
+                       refs["null"]["bn1_moving_mean"]).max())
+    print("sharding global batch: one worker's own statistics would differ "
+          "by %.3g" % own, flush=True)
+    check(own > 1e-3, "sharding global batch: the check cannot tell the "
+          "global statistics from a worker's own")
+    out["own_stat_gap"] = own
+    return out
+
+
+def sharding_phase(torch, mt, batch, replay):
+    """Phase 18 (module docstring).  Returns the launches of K1-K3 by path,
+    as ``parallel_phase`` does."""
+    import shutil
+
+    card = card_and_limit()
+    t0 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="shard_ckpt_")
+    try:
+        runs, saved = {}, None
+        for tag, mesh, shards, warm, timed in SHARD_RUNS:
+            runs[tag], got = shard_tp_run(
+                torch, mt, batch, replay, tag, mesh, shards, warm, timed,
+                ckpt if tag == "tp" else None)
+            saved = saved or got
+        resume = shard_resume(torch, mt, batch, replay, ckpt, saved,
+                              runs["tp"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = shard_f32(torch, mt, batch, replay)
+    global_batch = shard_global_batch(torch, mt)
+    wall = time.perf_counter() - t0
+    print("sharding: phase wall time %.1f s on %s" % (wall, card),
+          flush=True)
+    print(json.dumps({"sharding": {
+        "card": card, "wall_s": wall,
+        "runs": {k: {x: y for x, y in v.items() if x != "losses"}
+                 for k, v in runs.items()},
+        "resume": {k: v for k, v in resume.items() if k != "losses"},
+        "f32": f32, "global_batch": global_batch,
+        "note": "shards share one card: the times are the partitioner's "
+                "own cost, not a multi-card speed-up"}}), flush=True)
+
+    def total(counts):
+        return {k: sum(c.get(k, 0) for c in counts)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    return {"bf16": {"tensor parallel": total(
+                [runs[t]["launches"] for t in runs] + [resume["launches"]])},
+            "f32": {"tensor parallel": f32["launches"]}}
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -6877,9 +7512,13 @@ def main():
                          "axpy_dims) is held bit for bit and timed in turns "
                          "beside this one's at every axpy timing case")
     ap.add_argument("--dist-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--shard-worker", metavar="DIR", help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if opts.dist_worker:
         dist_worker(opts.dist_worker)
+        return
+    if opts.shard_worker:
+        shard_worker(opts.shard_worker)
         return
 
     import torch
@@ -7001,11 +7640,15 @@ def main():
           flush=True)
     torch.cuda.empty_cache()
     par_launches = parallel_phase(torch, mt, att, batch, replay)
-    del batch, replay
     torch.cuda.empty_cache()
     rec_launches = recurrent_phase(torch, mt, opts.profile)
     print("recurrent: kernel launches of the port's own: %s"
           % (rec_launches or "none (plain torch and cuBLAS)"), flush=True)
+    shard_launches = sharding_phase(torch, mt, batch, replay)
+    for tag in ("bf16", "f32"):
+        par_launches[tag].update(shard_launches[tag])
+    del batch, replay
+    torch.cuda.empty_cache()
     d_main = FULL["hidden"] // FULL["num_heads"]
     for tag, kernel_rows in (
             ("bf16", main_rows),

@@ -31,8 +31,12 @@ the prefill/decode/catch-up/verify builders, with ``faults``, the metrics
 half of ``telemetry`` and ``serving.BucketedPredictor`` — and the recurrent
 family: the ``RNN``, ``Sequence*`` and ``WarpCTC`` ops, ``rnn`` (the cells
 and ``BucketSentenceIter``), ``BucketingModule``, ``SequentialModule``,
-``PythonModule`` and ``Monitor``.  This package imports neither ``jax``
-nor ``mxnet_tpu``.
+``PythonModule`` and ``Monitor`` — and the GSPMD layer: ``sharding``
+(named meshes, partition rules, placement), ``Module.bind(mesh=,
+partition_rules=)`` over ``Executor.set_shardings`` (tensor parallelism
+beside data parallelism, and every ``dist_sync`` worker's batch one shard
+of the global batch) and ``checkpoint``'s sharded checkpoints.  This
+package imports neither ``jax`` nor ``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -80,6 +84,8 @@ from . import telemetry
 from . import serving
 from . import generation
 from . import parallel
+from . import sharding
+from . import checkpoint
 from . import rnn
 from . import monitor
 from . import monitor as mon

@@ -42,14 +42,30 @@ on the first context and is split again where a batch-local op reads it,
 so an op sees the whole batch wherever it reduces over it (BatchNorm's
 statistics, a loss normalized by the batch), as in the JAX package.
 
+Tensor parallelism (``set_shardings``, what the executor group calls under
+``Module.bind(mesh=, partition_rules=)``): the same walk over a named mesh
+(``_Partitioned``), whose leading axis splits the batch.  Every argument
+with a spec other than the batch's is stored as its pieces (a
+``ShardedTensor``); a node runs by its strategy: column- and row-parallel
+``FullyConnected`` on the weight's pieces (the row-parallel partial
+products summed differentiably, the bias added once after the sum),
+elementwise ops on their inputs' split, every other op once on the
+gathered value, as GSPMD runs a custom call with no partitioning rule.
+Gathers and splits are ``torch.cat`` and ``narrow``, so autograd leaves
+each gradient on its parameter's pieces and the list update runs over
+them.  Where the JAX package's SPMD partitioner places the collectives in
+one program, the port moves tensors with ``Tensor.to`` between the
+coordinates' devices.  Under a process group every process's batch is one
+shard of the global batch: the ops that are not batch-local in the step's
+mode gather it over the group, and the loss counts once over the group.
+
 The monitor callback (``set_monitor_callback``, what ``Monitor.install``
 sets): ``forward`` hands it every node output by output name, as the JAX
 package's forward does.
 
 Left out, with their reason: jit, buffer donation and the compile cache
-(PyTorch runs eagerly; a CUDA graph is the later tool), SPMD shardings
-(``set_shardings``, slice A.4b of the port), the training guardian's
-on-device step guard, the autotuner and remat
+(PyTorch runs eagerly; a CUDA graph is the later tool), the training
+guardian's on-device step guard, the autotuner and remat
 (``MXNET_BACKWARD_DO_MIRROR``).
 """
 from __future__ import annotations
@@ -63,9 +79,42 @@ from .base import MXNetError
 from .context import Context
 from .ops.param import torch_dtype
 from .ops import OpContext
-from .optimizer import _tensors
+from .optimizer import _new_state, _tensors
 
 __all__ = ["Executor"]
+
+
+def _items(x):
+    """(key, tensor) of each piece of ``x`` (a tensor is its one piece)."""
+    from .parallel.mesh import ShardedTensor
+
+    return list(x.shards.items()) if isinstance(x, ShardedTensor) \
+        else [(None, x)]
+
+
+def _like(x, pieces):
+    """An array of ``x``'s layout from ``pieces`` keyed as ``_items``'s."""
+    from .parallel.mesh import ShardedTensor
+
+    return ShardedTensor(pieces, x.mesh, x.spec) \
+        if isinstance(x, ShardedTensor) else pieces[None]
+
+
+def _map(x, fn):
+    """``fn`` over a tensor, or over each piece of a ShardedTensor."""
+    from .parallel.mesh import ShardedTensor
+
+    return x.map(fn) if isinstance(x, ShardedTensor) else fn(x)
+
+
+def _zip(x, y, fn):
+    """``fn`` over the matching pieces of two arrays of one layout."""
+    from .parallel.mesh import ShardedTensor
+
+    if isinstance(x, ShardedTensor):
+        return ShardedTensor({c: fn(p, y.shards[c])
+                              for c, p in x.shards.items()}, x.mesh, x.spec)
+    return fn(x, y)
 
 
 class _GraphPlan:
@@ -128,7 +177,7 @@ class _GraphPlan:
         the live activations (and, under autograd, what the backward keeps).
         Stochastic ops draw from ``generator`` in topological order.  A
         node ``placement`` names runs on that context's device, its inputs
-        and aux states moved there.  With ``dp`` (a ``_DataParallel``)
+        and aux states moved there.  With ``dp`` (a ``_Partitioned``)
         every value is a ``_Value`` and ``dp`` runs each node over the
         shards; the outputs come back whole on the first context.  A list
         ``internals`` gets (node, output index, tensor) for every node
@@ -188,8 +237,12 @@ class Executor:
             self._plan = plan = _GraphPlan(symbol)
         self._group2ctx = dict(group2ctx or {})
         self._placement = plan.placement_map(self._group2ctx)
-        # data parallelism over several contexts (_set_data_parallel)
+        # the partitioned walk over a mesh (_set_data_parallel,
+        # set_shardings) and, under set_shardings, the mesh and the specs
+        # of the arrays stored as pieces
         self._dp = None
+        self._shard_mesh = None
+        self._shard_specs = {}
         # called with {name: gradient} right after each backward, before
         # anything reads or applies them (the multi-process group's
         # all-reduce)
@@ -282,8 +335,9 @@ class Executor:
         cdt = self._compute_dtype
         if cdt is None:
             return args
-        return {k: v.to(cdt) if k not in self._cast_exclude
-                and v.dtype == torch.float32 else v for k, v in args.items()}
+        return {k: _map(v, lambda t: t.to(cdt))
+                if k not in self._cast_exclude and v.dtype == torch.float32
+                else v for k, v in args.items()}
 
     def _run(self, args, aux, is_train, generator, internals=None):
         """The graph over the bound (uncast) argument tensors: on the
@@ -293,18 +347,89 @@ class Executor:
                               self._ctx.torch_device(), generator,
                               self._placement, self._dp, internals)
 
-    def _set_data_parallel(self, contexts, batch_names):
+    def _set_data_parallel(self, contexts, batch_names, group=False):
         """Run over ``contexts`` from now on, the arguments ``batch_names``
-        split along axis 0, one equal piece per context."""
+        split along axis 0, one equal piece per context; with ``group``,
+        every process's batch is one shard of the process group's."""
+        from .sharding import build_mesh
+
         if self._placement:
             raise MXNetError("group2ctx placement and data parallelism "
                              "over several contexts do not combine")
-        self._dp = _DataParallel(self, contexts, batch_names)
+        mesh = build_mesh((("data", len(contexts)),), list(contexts))
+        self._dp = _Partitioned(self, mesh, batch_names, group=group)
+
+    def set_shardings(self, mesh, arg_specs=None, aux_specs=None,
+                      group=False):
+        """Tensor/data-parallel placement over a named mesh
+        (``sharding.build_mesh``; its leading axis is the batch axis).
+
+        ``arg_specs``/``aux_specs`` map argument/aux names to
+        ``PartitionSpec``s (unnamed arrays are replicated).  An argument
+        whose spec splits axis 0 over the leading axis and nothing else is
+        a batch input: it stays whole on the first context and the walk
+        splits it.  Every other bound argument, gradient buffer and aux
+        state is stored as its pieces (a ``ShardedTensor``), and from now
+        on each step runs over the mesh by the partitioned walk
+        (``_Partitioned``).  With ``group`` every process's batch is one
+        shard of the process group's.  Unknown names raise."""
+        from .parallel.mesh import PartitionSpec
+        from .sharding import place
+
+        if self._placement:
+            raise MXNetError("group2ctx placement and set_shardings do not "
+                             "combine")
+        specs = dict(arg_specs or {})
+        if aux_specs:
+            specs.update(aux_specs)
+        known = set(self.arg_dict) | set(self.aux_dict) | set(self.grad_dict)
+        unknown = sorted(set(specs) - known)
+        if unknown:
+            raise MXNetError(
+                "set_shardings: specs name no bound argument/aux: %s"
+                % unknown)
+        lead = mesh.axis_names[0]
+        specs = {k: v if isinstance(v, PartitionSpec) else PartitionSpec(*v)
+                 for k, v in specs.items()}
+        batch = [k for k in self.arg_dict if k in specs and
+                 tuple(specs[k])[:1] == (lead,) and
+                 all(a is None for a in tuple(specs[k])[1:])]
+        self._shard_mesh = mesh
+        self._shard_specs = {k: v for k, v in specs.items()
+                             if k not in batch}
+        for arrs in (self.arg_dict, self.aux_dict, self.grad_dict):
+            for name, arr in arrs.items():
+                if name not in batch:
+                    arr._set(place(arr._data, mesh, self._shard_specs.get(
+                        name, PartitionSpec())))
+        self._dp = _Partitioned(self, mesh, batch, self._shard_specs, group)
+
+    def _write_arg(self, name, value, aux=False):
+        """The write path for bound arrays (the JAX package's name for
+        it): ``NDArray.__setitem__`` writes in place, into the pieces of a
+        sharded array."""
+        target = (self.aux_dict if aux else self.arg_dict)[name]
+        target[:] = value
 
     def _home(self, t):
         """A tensor the graph left on another device (a placed node's
         output, a gathered aux state), back on the executor's."""
         return t.to(self._ctx.torch_device())
+
+    def _store_aux(self, new_aux):
+        """The step's new aux states into ``aux_dict``: on the executor's
+        context, or split under their specs on the mesh."""
+        for k, v in new_aux.items():
+            v = v.detach()
+            if self._shard_mesh is None:
+                self.aux_dict[k]._set(self._home(v))
+                continue
+            from .parallel.mesh import PartitionSpec
+            from .sharding import place
+
+            self.aux_dict[k]._set(place(v, self._shard_mesh,
+                                        self._shard_specs.get(
+                                            k, PartitionSpec())))
 
     def _generator(self, remember: bool):
         """The device generator stochastic ops draw from, or None when the
@@ -330,7 +455,7 @@ class Executor:
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown forward argument %r" % k)
-            self.arg_dict[k][:] = v
+            self._write_arg(k, v)
 
     def _set_outputs(self, outs):
         from . import ndarray as nd
@@ -360,8 +485,7 @@ class Executor:
                 n.op.output_names(n.attrs, n.name)[i],
                 nd.NDArray(o, self._placement.get(id(n), self._ctx)))
         if is_train:
-            for k, v in new_aux.items():
-                self.aux_dict[k]._set(self._home(v))
+            self._store_aux(new_aux)
         self._set_outputs(outs)
         return self._output_arrays
 
@@ -386,7 +510,8 @@ class Executor:
     def _grads(self, diff_names, out_grads, is_train, generator):
         """(outputs, new aux, {name: gradient}) of one differentiated
         forward over the arguments ``diff_names``."""
-        leaves = {n: self.arg_dict[n]._data.detach().requires_grad_(True)
+        leaves = {n: _map(self.arg_dict[n]._data,
+                          lambda t: t.detach().requires_grad_(True))
                   for n in diff_names}
         args = {k: leaves.get(k, v._data) for k, v in self.arg_dict.items()}
         aux = {k: v._data for k, v in self.aux_dict.items()}
@@ -399,21 +524,25 @@ class Executor:
         else:
             ogs = [out_grads]
         heads, cts = [], []
-        for o, og in zip(outs, ogs):
+        for e, o, og in zip(self._plan.output_entries, outs, ogs):
             if not o.requires_grad:
                 continue
             if og is None:
                 og = torch.ones_like(o)
             elif not isinstance(og, torch.Tensor):
                 og = og._data if hasattr(og, "_data") else torch.as_tensor(og)
+            og = og.to(o.device, o.dtype)
+            share = 1.0 if self._dp is None else self._dp.head_share(e)
             heads.append(o)
-            cts.append(og.to(o.device, o.dtype))
-        names = list(leaves)
-        got = torch.autograd.grad(heads, [leaves[n] for n in names], cts,
+            cts.append(og if share == 1.0 else og * share)
+        flat = [(n, c, t) for n in leaves for c, t in _items(leaves[n])]
+        got = torch.autograd.grad(heads, [t for _, _, t in flat], cts,
                                   allow_unused=True) if heads else \
-            [None] * len(names)
-        grads = {n: g if g is not None else torch.zeros_like(leaves[n])
-                 for n, g in zip(names, got)}
+            [None] * len(flat)
+        pieces: Dict[str, dict] = {n: {} for n in leaves}
+        for (n, c, t), g in zip(flat, got):
+            pieces[n][c] = g if g is not None else torch.zeros_like(t)
+        grads = {n: _like(leaves[n], pieces[n]) for n in leaves}
         if self._grad_hook is not None:
             self._grad_hook(grads)
         return [o.detach() for o in outs], new_aux, grads
@@ -435,15 +564,14 @@ class Executor:
             g = grads[name]
             held = self.grad_dict.get(name)
             if self._grad_req[name] == "add" and held is not None:
-                held._set(held._data + g)
+                held._set(_zip(held._data, g, torch.add))
             elif held is not None:
                 held._set(g)
             else:
                 self.grad_dict[name] = nd.NDArray(g, self._ctx)
         self.grad_arrays = [self.grad_dict.get(n) for n in plan.arg_names]
         if update_aux:
-            for k, v in new_aux.items():
-                self.aux_dict[k]._set(self._home(v.detach()))
+            self._store_aux(new_aux)
         if set_outputs:
             self._set_outputs(outs)
 
@@ -465,8 +593,8 @@ class Executor:
                 raise MXNetError("fused_step: grad_req 'add' for %s; use "
                                  "forward_backward and the updater" % name)
             if idx not in updater.states:
-                updater.states[idx] = optimizer.create_state(
-                    idx, self.arg_dict[name])
+                updater.states[idx] = _new_state(optimizer, idx,
+                                                 self.arg_dict[name])
             infos.append((name, idx))
             optimizer._update_count(idx)
         t = optimizer.num_update
@@ -480,8 +608,7 @@ class Executor:
             [grads.pop(name) for name, _ in infos],
             [_tensors(updater.states[idx]) for _, idx in infos],
             [t] * len(infos), owned_grads=True)
-        for k, v in new_aux.items():
-            self.aux_dict[k]._set(self._home(v.detach()))
+        self._store_aux(new_aux)
         self._set_outputs(outs)
         return self._output_arrays
 
@@ -490,41 +617,106 @@ class Executor:
                          allow_extra_params=False):
         for name, arr in arg_params.items():
             if name in self.arg_dict:
-                self.arg_dict[name][:] = arr
+                self._write_arg(name, arr)
             elif not allow_extra_params:
                 raise MXNetError("Found name \"%s\" not in arguments" % name)
         for name, arr in (aux_params or {}).items():
             if name in self.aux_dict:
-                self.aux_dict[name][:] = arr
+                self._write_arg(name, arr, aux=True)
             elif not allow_extra_params:
                 raise MXNetError("Found name \"%s\" not in aux states" % name)
 
 
-class _DataParallel:
-    """An executor's plan run in lockstep over the shards of the batch (see
-    the module docstring).  Each graph entry is classified once, at bind,
-    by shape inference at the whole batch and at one shard's batch:
-    "shard" (axis 0 scales with the batch: split along it), "rep" (the
-    same shape at both: one value for every shard) or "whole" (neither:
-    only the whole batch's value exists)."""
 
-    def __init__(self, executor, contexts, batch_names):
+
+def _spec_layout(spec, lead, mesh):
+    """(split, m) of an array stored under ``spec``: whether axis 0 splits
+    over the leading (batch) axis, and the one other (dim, axis) split, if
+    any; None when the walk cannot read the pieces as they lie (more
+    splits, the batch axis elsewhere), and then it gathers them."""
+    named = [(d, ax) for d, ax in enumerate(spec)
+             if ax is not None and mesh.shape[ax] > 1]
+    split = bool(named) and named[0] == (0, lead)
+    rest = named[1:] if split else named
+    if len(rest) > 1 or any(ax == lead for _, ax in rest):
+        return None
+    return split, (rest[0] if rest else None)
+
+
+class _Partitioned:
+    """An executor's plan run over the coordinates of a named mesh (see
+    the module docstring): one executor, its arrays on the first context
+    or, under ``set_shardings``, as pieces on the mesh.
+
+    Each graph entry is classified once, at bind, by shape inference at the
+    whole batch and at one coordinate's batch: "shard" (axis 0 scales with
+    the batch: split along it over the leading axis), "rep" (the same shape
+    at both: one value for every shard) or "whole" (neither).  Beside that,
+    an entry may be split along one other dim over another mesh axis (its
+    ``m``, a (dim, axis) pair), propagated from the parameters' specs by
+    each node's strategy, from the op's ``partition`` mark in the registry:
+
+    * ``col`` — ``FullyConnected`` whose weight's rows are split: each
+      piece computes its own slice of the output columns (``m`` = (1, ax));
+    * ``row`` — ``FullyConnected`` whose weight's columns are split: the
+      input's last dim is split the same way, each piece makes a partial
+      product, the partials are summed (differentiably) and a replicated
+      bias is added once, after the sum;
+    * ``elem`` — an elementwise op whose inputs and outputs have one shape
+      keeps its inputs' split;
+    * ``same`` — a reshape to its input's own shape (as between Megatron's
+      fc1 and fc2) passes its input's pieces through;
+    * ``one`` — every other op gathers its inputs' ``m`` splits and runs on
+      the whole value (the flash kernels too: GSPMD has no partitioning
+      rule for them either, so they run once per layer on the whole heads).
+
+    Along the batch, a node runs per shard of the leading axis when the
+    registry marks it batch-local and its outputs split (the data
+    parallelism of several contexts), else once on the whole batch.  Under a
+    process group (``group``) every process's batch is one shard of a
+    global batch: a node that is not batch-local in this mode (training or
+    not) gathers its batch-split inputs over the group (``_GatherRows``),
+    runs on the global batch and keeps its own rows of each batch-split
+    output; a batch-local one runs on the process's own rows with no
+    collective.  The loss is counted once over the group: each process's
+    backward starts from its own rows' head gradients and 1/world of a
+    head every process holds whole, and a loss layer run on the global
+    batch (which ignores its head gradient and so gives every process the
+    whole batch's gradient) passes on only its own rows of the gathered
+    inputs' gradient and 1/world of the others'."""
+
+    def __init__(self, executor, mesh, batch_names, specs=None, group=False):
+        from . import kvstore_dist
         from .symbol import _forward_infer
 
         plan = executor._plan
         self.plan = plan
-        self.devices = [c.torch_device() for c in contexts]
-        self.n = n = len(self.devices)
+        self.mesh = mesh
+        self.axes = mesh.axis_names
+        self.lead = self.axes[0]
+        self.nb = n = int(mesh.shape[self.lead])
+        self.coords = mesh.coords()
+        self.home = mesh.torch_device(self.coords[0])
+        self.world = kvstore_dist._world() if group else 1
+        self.rank = kvstore_dist._rank() if group else 0
+        specs = specs or {}
         batch_names = frozenset(batch_names)
         shapes = {k: tuple(v.shape) for k, v in executor.arg_dict.items()}
         for name in batch_names:
             if shapes[name][0] % n:
-                raise MXNetError("batch size %d is not divisible by the %d "
-                                 "contexts" % (shapes[name][0], n))
-        whole, _ = _forward_infer(plan.symbol, shapes)
+                raise MXNetError("batch size %d is not divisible by the "
+                                 "%d-way %r split" % (shapes[name][0], n,
+                                                      self.lead))
+        local, _ = _forward_infer(plan.symbol, shapes)
+        whole = local if self.world == 1 else _forward_infer(
+            plan.symbol, {k: ((s[0] * self.world,) + s[1:]
+                              if k in batch_names else s)
+                          for k, s in shapes.items()})[0]
         part, _ = _forward_infer(plan.symbol, {
             k: ((s[0] // n,) + s[1:] if k in batch_names else s)
             for k, s in shapes.items()}, tolerant=True)
+        scale = n * self.world
+        self.shape = local
         self.kind = {}
         for e, g in whole.items():
             s = part.get(e)
@@ -532,79 +724,293 @@ class _DataParallel:
                 self.kind[e] = "whole"
             elif tuple(s) == tuple(g):
                 self.kind[e] = "rep"
-            elif len(s) == len(g) and len(g) and g[0] == s[0] * n and \
+            elif len(s) == len(g) and len(g) and g[0] == s[0] * scale and \
                     tuple(g[1:]) == tuple(s[1:]):
                 self.kind[e] = "shard"
             else:
                 self.kind[e] = "whole"
         self.local = {}
+        # under a group, per mode: whether a node runs on the process's rows
+        self.own = {True: {}, False: {}}
+        self.m = {}
+        self.strategy = {}
         for node in plan.nodes:
             if node.is_variable:
+                spec = specs.get(node.name)
+                lay = None if spec is None else \
+                    _spec_layout(spec, self.lead, mesh)
+                self.m[(id(node), 0)] = lay[1] if lay else None
                 continue
             outs = [(id(node), i) for i in range(node.num_outputs())]
             ins = [(id(p), idx) for p, idx in node.inputs]
-            self.local[id(node)] = (
-                node.op.is_batch_local(node.attrs) and not node.aux_names()
-                and all(self.kind.get(e) == "shard" for e in outs)
-                and all(self.kind.get(e) in ("shard", "rep") for e in ins))
+            rows = all(self.kind.get(e) == "shard" for e in outs) and \
+                all(self.kind.get(e) in ("shard", "rep") for e in ins)
+            for mode in (True, False):
+                self.own[mode][id(node)] = rows and \
+                    node.op.is_batch_local(node.attrs, mode)
+            self.local[id(node)] = self.own[True][id(node)] and \
+                not node.aux_names()
+            strat, want, out_m = self._strategy(node, ins, outs)
+            self.strategy[id(node)] = (strat, want)
+            for e in outs:
+                self.m[e] = out_m
+
+    def _strategy(self, node, ins, outs):
+        """(strategy, the ``m`` each input is read with, the outputs'
+        ``m``) of one node."""
+        ms = [self.m.get(e) for e in ins]
+        op = node.op
+        if not node.aux_names() and not op.stochastic:
+            if op.partition == "dense" and \
+                    len(self.shape.get(ins[0], ())) == 2:
+                wm = ms[1]
+                if wm is not None and wm[0] == 0:
+                    return "col", [None, wm, wm][:len(ins)], (1, wm[1])
+                if wm is not None and wm[0] == 1:
+                    return "row", [wm, wm, None][:len(ins)], None
+            split = {m for m in ms if m is not None}
+            shape = self.shape.get(outs[0])
+            if len(split) == 1 and \
+                    all(self.shape.get(e) == shape for e in ins + outs):
+                m = split.pop()
+                if op.partition == "elementwise":
+                    return "elem", [m] * len(ins), m
+                if op.partition == "reshape":
+                    return "same", [m], m
+        return "one", [None] * len(ins), None
 
     def gathered_ops(self):
         """Names of the ops that run once on the whole batch."""
         return sorted({n.op.name for n in self.plan.nodes
                        if not n.is_variable and not self.local[id(n)]})
 
-    def value(self, node, i, tensor=None, pieces=None):
-        """Output ``i`` of ``node`` as a ``_Value``: the whole batch's
-        ``tensor`` or the shards' ``pieces``."""
-        return _Value(self.kind.get((id(node), i)) == "shard", tensor,
-                      pieces)
+    # -- values -----------------------------------------------------------
+    def value(self, node, i, tensor):
+        """A variable's value: ``tensor`` (whole, on the first context) or
+        a ShardedTensor's pieces, read as they lie where the walk can."""
+        from .parallel.mesh import ShardedTensor
+
+        if not isinstance(tensor, ShardedTensor):
+            return _Value(whole=tensor)
+        lay = _spec_layout(tensor.spec, self.lead, self.mesh)
+        m = self.m.get((id(node), i))
+        if lay is None or lay[1] != m or \
+                (lay[0] and self.kind.get((id(node), i)) != "shard"):
+            return _Value(whole=tensor.full())
+        return _Value(pieces=dict(tensor.shards), split=lay[0], m=m)
+
+    def _canon(self, coord, split, m):
+        """The coordinate holding ``coord``'s piece of a value laid out so."""
+        used = {self.lead} if split else set()
+        if m is not None:
+            used.add(m[1])
+        return tuple(c if a in used else 0 for a, c in zip(self.axes, coord))
+
+    def _at(self, coord, axis, k):
+        coord = list(coord)
+        coord[self.axes.index(axis)] = k
+        return tuple(coord)
 
     def gathered(self, v):
-        """The whole batch's tensor on the first context."""
+        """The whole (process-local) tensor on the first context."""
         if v.whole is None:
-            v.whole = torch.cat([p.to(self.devices[0]) for p in v.pieces])
+            import torch
+
+            rows = []
+            for b in range(self.nb if v.split else 1):
+                c = self._at(self.coords[0], self.lead, b)
+                if v.m is None:
+                    rows.append(v.pieces[c].to(self.home))
+                    continue
+                d, ax = v.m
+                rows.append(torch.cat(
+                    [v.pieces[self._at(c, ax, k)].to(self.home)
+                     for k in range(self.mesh.shape[ax])], dim=d))
+            v.whole = rows[0] if len(rows) == 1 else torch.cat(rows)
         return v.whole
 
-    def piece(self, v, i):
-        """Shard ``i``'s tensor on its context: its piece of a split value,
-        or the device's one copy of any other (a parameter's cast master is
-        cast once, and shards sharing a card share the copy)."""
-        if v.split:
-            if v.pieces is None:
-                v.pieces = [x.to(d) for x, d in
-                            zip(self.gathered(v).chunk(self.n), self.devices)]
-            return v.pieces[i]
-        dev = self.devices[i]
-        if dev not in v.copies:
-            v.copies[dev] = self.gathered(v).to(dev)
-        return v.copies[dev]
+    def view(self, v, coord, split, m):
+        """``coord``'s tensor of value ``v`` laid out with batch ``split``
+        and model split ``m``, on that coordinate's device; kept while the
+        value lives, so coordinates sharing a card share it."""
+        dev = self.mesh.torch_device(coord)
+        key = (split, m, self._canon(coord, split, m), dev)
+        got = v.views.get(key)
+        if got is not None:
+            return got
+        if v.pieces is not None and v.split == split and v.m == m:
+            t = v.pieces[self._canon(coord, split, m)]
+        elif v.pieces is not None and v.split == split and \
+                v.m is not None and m is None:
+            import torch
+
+            d, ax = v.m
+            t = torch.cat([self.view(v, self._at(coord, ax, k), split, v.m)
+                           .to(dev) for k in range(self.mesh.shape[ax])],
+                          dim=d)
+        elif m is not None and v.m is None:
+            base = self.view(v, coord, split, None)
+            d, ax = m
+            size = base.shape[d] // self.mesh.shape[ax]
+            t = base.narrow(d, coord[self.axes.index(ax)] * size, size)
+        else:
+            t = self.gathered(v)
+            if split:
+                t = t.chunk(self.nb)[coord[0]]
+            if m is not None:
+                d, ax = m
+                size = t.shape[d] // self.mesh.shape[ax]
+                t = t.narrow(d, coord[self.axes.index(ax)] * size, size)
+        t = t.to(dev)
+        v.views[key] = t
+        return t
+
+    # -- nodes ------------------------------------------------------------
+    def _run_coords(self, split, axis):
+        """The coordinates a node runs at: one per piece along the batch
+        (``split``) and along ``axis``."""
+        used = ({self.lead} if split else set()) | \
+            ({axis} if axis is not None else set())
+        return [c for c in self.coords
+                if all(k == 0 or a in used for a, k in zip(self.axes, c))]
 
     def apply(self, node, ins, aux_in, is_train, generator):
-        """One node over the shards: per shard where it is batch-local,
-        else once on the whole batch on the first context."""
-        if self.local[id(node)]:
-            per = [node.op.apply(OpContext(is_train, None, dev), node.attrs,
-                                 [self.piece(v, i) for v in ins], ())[0]
-                   for i, dev in enumerate(self.devices)]
-            return [self.value(node, j, pieces=list(p))
-                    for j, p in enumerate(zip(*per))], ()
+        """One node over the mesh by its strategy."""
+        strat, want = self.strategy[id(node)]
+        split = self.local[id(node)]
+        ein = [(id(p), idx) for p, idx in node.inputs]
+        nout = node.num_outputs()
+        if strat == "one" and not split:
+            return self._apply_once(node, ins, ein, aux_in, is_train,
+                                    generator)
+        splits = [split and self.kind.get(e) == "shard" for e in ein]
+        if strat == "same":
+            v = ins[0]
+            return [_Value(v.whole, v.pieces, v.split, v.m)], ()
+        if strat == "row":
+            return self._apply_row(node, ins, want, splits, split, is_train)
+        out_m = None if strat == "one" else \
+            ((1, want[1][1]) if strat == "col" else want[0])
+        pieces = [{} for _ in range(nout)]
+        for c in self._run_coords(split, out_m[1] if out_m else None):
+            outs, _ = node.op.apply(
+                OpContext(is_train, None, self.mesh.torch_device(c)),
+                node.attrs, [self.view(v, c, s, m)
+                             for v, s, m in zip(ins, splits, want)], ())
+            for j, o in enumerate(outs):
+                pieces[j][c] = o
+        return [_Value(pieces=p, split=split, m=out_m) for p in pieces], ()
+
+    def _apply_row(self, node, ins, want, splits, split, is_train):
+        """Row-parallel FullyConnected: partial products over the pieces
+        of the contraction, summed, then the bias."""
+        ax = want[1][1]
+        attrs = dict(node.attrs, no_bias=True)
+        pieces = {}
+        for c in self._run_coords(split, None):
+            dev = self.mesh.torch_device(c)
+            total = None
+            for k in range(self.mesh.shape[ax]):
+                ck = self._at(c, ax, k)
+                (p,), _ = node.op.apply(
+                    OpContext(is_train, None, self.mesh.torch_device(ck)),
+                    attrs,
+                    [self.view(ins[0], ck, splits[0], want[0]),
+                     self.view(ins[1], ck, False, want[1])], ())
+                total = p.to(dev) if total is None else total + p.to(dev)
+            if len(ins) > 2:
+                total = total + self.view(ins[2], c, False, None)
+            pieces[c] = total
+        return [_Value(pieces=pieces, split=split)], ()
+
+    def head_share(self, e):
+        """The share of output ``e``'s head gradient this process counts:
+        all of it for its own rows, 1/world where every process of the
+        group holds the output whole."""
+        if self.world == 1 or self.kind.get(e) == "shard":
+            return 1.0
+        return 1.0 / self.world
+
+    def _apply_once(self, node, ins, ein, aux_in, is_train, generator):
+        """The node once on the whole batch on the first context (the
+        global batch under a process group, unless the node is batch-local
+        in this mode)."""
+        from .parallel.mesh import ShardedTensor
+
+        xs = [self.gathered(v) for v in ins]
+        group = self.world > 1 and not self.own[bool(is_train)][id(node)]
+        if group:
+            loss = node.op.loss
+            xs = [_GatherRows.apply(x, self.world, self.rank, loss)
+                  if self.kind.get(e) == "shard" else
+                  _Share.apply(x, self.world)
+                  if loss and x.requires_grad else x
+                  for x, e in zip(xs, ein)]
+        aux_in = tuple(a.full() if isinstance(a, ShardedTensor)
+                       else a.to(self.home) for a in aux_in)
         opctx = OpContext(is_train, generator if node.op.stochastic
-                          else None, self.devices[0])
-        outs, aux_out = node.op.apply(opctx, node.attrs,
-                                      [self.gathered(v) for v in ins], aux_in)
-        return [self.value(node, j, o) for j, o in enumerate(outs)], aux_out
+                          else None, self.home)
+        outs, aux_out = node.op.apply(opctx, node.attrs, xs, aux_in)
+        vals = []
+        for j, o in enumerate(outs):
+            shard = self.kind.get((id(node), j)) == "shard"
+            if shard and group:
+                rows = o.shape[0] // self.world
+                o = o.narrow(0, self.rank * rows, rows)
+            vals.append(_Value(whole=o))
+        return vals, aux_out
 
 
 class _Value:
-    """An entry's value in a data-parallel run: the whole batch's tensor on
-    the first context or one piece per shard, whichever its node made, and
-    the other forms, made from it when a reader first asks and kept while
-    the entry lives."""
+    """An entry's value in a partitioned run: the whole (process-local)
+    tensor on the first context, or its pieces keyed by the coordinate
+    holding each (``split``: they split along the batch; ``m``: the dim
+    and axis of their other split), and the other layouts, made from it
+    when a reader first asks and kept while the entry lives."""
 
-    __slots__ = ("split", "whole", "pieces", "copies")
+    __slots__ = ("whole", "pieces", "split", "m", "views")
 
-    def __init__(self, split, whole=None, pieces=None):
-        self.split = split      # axis 0 divides over the shards
+    def __init__(self, whole=None, pieces=None, split=False, m=None):
         self.whole = whole
         self.pieces = pieces
-        self.copies = {}        # device -> the unsplit value there
+        self.split = split
+        self.m = m
+        self.views = {}
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every process's rows along axis 0, in rank order.  The backward
+    keeps this process's rows of the gradient summed over the group; for a
+    loss layer's input (``own``), whose gradient every process holds whole,
+    of its own gradient."""
+
+    @staticmethod
+    def forward(ctx, x, world, rank, own):
+        from .kvstore_dist import all_gather_rows
+
+        ctx.rank, ctx.rows, ctx.own = rank, x.shape[0], own
+        return all_gather_rows(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .kvstore_dist import allreduce_sum_
+
+        if not ctx.own:
+            g = g.contiguous().clone()
+            allreduce_sum_([g])
+        return g.narrow(0, ctx.rank * ctx.rows, ctx.rows), None, None, None
+
+
+class _Share(torch.autograd.Function):
+    """The identity; the backward takes 1/world of the gradient, for a
+    value every process holds whole whose gradient is summed over the
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, world):
+        ctx.world = world
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.world, None

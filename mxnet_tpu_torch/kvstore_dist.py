@@ -32,7 +32,7 @@ from .ndarray import NDArray
 from . import ndarray as nd
 
 __all__ = ["DistSyncKVStore", "ensure_distributed_initialized",
-           "choose_backend", "allreduce_sum_"]
+           "choose_backend", "allreduce_sum_", "all_gather_rows"]
 
 register_env("MXNET_KVSTORE_HEARTBEAT_INTERVAL", 5, float,
              "Seconds between a dist_sync worker's liveness beats.")
@@ -124,6 +124,25 @@ def allreduce_sum_(tensors):
             n = t.numel()
             t.copy_(flat[off:off + n].view_as(t))
             off += n
+
+
+def all_gather_rows(x):
+    """Every worker's ``x`` (one shape on each) concatenated along axis 0
+    in rank order (``x`` itself without a group).  Through gloo the rows
+    travel through the host, bfloat16 widened to float32 on the way."""
+    import torch
+
+    if not _initialized() or _world() == 1:
+        return x
+    wire = x.detach()
+    if BACKEND != "nccl":
+        wire = wire.cpu()
+        if wire.dtype == torch.bfloat16:
+            wire = wire.to(torch.float32)
+    wire = wire.contiguous()
+    parts = [torch.empty_like(wire) for _ in range(_world())]
+    _dist().all_gather(parts, wire)
+    return torch.cat(parts).to(x.device, x.dtype)
 
 
 class DistSyncKVStore(KVStore):

@@ -19,7 +19,7 @@ import numpy
 import torch
 
 from .base import string_types
-from .ndarray import NDArray
+from .ndarray import NDArray, _dense
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy", "Loss",
@@ -38,7 +38,11 @@ def check_label_shapes(labels, preds, shape=0):
 
 
 def _tensor(x, device=None):
-    t = x._data if isinstance(x, NDArray) else torch.as_tensor(numpy.asarray(x))
+    """``x`` as a tensor, on ``device`` where given: the metrics colocate
+    the labels with the predictions before comparing them, and an array
+    stored as pieces on a mesh is gathered whole."""
+    t = _dense(x._data) if isinstance(x, NDArray) else \
+        torch.as_tensor(numpy.asarray(x))
     return t if device is None else t.to(device)
 
 

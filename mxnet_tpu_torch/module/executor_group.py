@@ -13,12 +13,26 @@ batch sees all of it.  Several contexts may name one card.  ``workload``
 (work_load_list) is accepted for API parity, but only even splits are
 supported, and a batch the contexts do not divide raises.
 
+With a named mesh and partition rules (``mesh=``/``partition_rules=``,
+the GSPMD rule path) the batch splits over the mesh's leading axis, each
+parameter's ``PartitionSpec`` is resolved from the rules at bind and
+checked by ``validate_specs``, and ``Executor.set_shardings`` stores every
+split parameter as its pieces; the partitioned walk then runs tensor
+parallelism (column- and row-parallel ``FullyConnected``) beside the data
+parallelism.  A string or ``MeshConfig`` mesh is resolved over the
+Module's own contexts (the JAX package resolves it over ``jax.devices()``).
+
 Under a multi-process group (``kvstore_dist``'s, ``dist_mesh`` not False)
-each process binds its own batch and the gradients are summed over the
+every process's batch is one shard of the global batch, as on the JAX
+package's mesh spanning processes: an op that is not batch-local in its
+mode (BatchNorm's statistics and moving averages in training) runs on the
+batch gathered over the group and each process keeps its own rows, the
+loss counted once over the group, and the gradients are summed over the
 group right after each backward, before anything reads or applies them:
-every worker then applies the same update to its replica.  An op that
-reduces over the batch sees the process's own batch there (the JAX
-package's global mesh spanning processes is slice A.4b).
+every worker then applies the same update to its replica.  Such a gather
+is a collective every process must reach; out of training BatchNorm,
+Dropout and the loss layers need none.  ``dist_mesh=False`` keeps every
+process on its own batch.
 """
 from __future__ import annotations
 
@@ -44,7 +58,7 @@ class DataParallelExecutorGroup:
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
                  grad_req="write", state_names=None, compute_dtype=None,
-                 dist_mesh=None):
+                 dist_mesh=None, mesh=None, partition_rules=None):
         from .. import kvstore_dist
 
         self.symbol = symbol
@@ -77,6 +91,19 @@ class DataParallelExecutorGroup:
             self.grad_req = {k: "null" for k in self.arg_names}
         self._multiprocess = dist_mesh is not False and \
             kvstore_dist._world() > 1
+        self._mesh = None
+        self._rules = None        # PartitionRules (the rule path)
+        self._param_specs = None  # resolved {name: PartitionSpec} at bind
+        self._data_axis = "data"
+        if mesh is not None or partition_rules is not None:
+            from .. import sharding
+
+            self._rules = sharding.as_rules(
+                partition_rules if partition_rules is not None
+                else "replicated")
+            self._mesh = sharding.build_mesh(
+                mesh if mesh is not None else "data=-1", self.contexts)
+            self._data_axis = self._mesh.axis_names[0]
         self.batch_size = None
         self.slices = None
         self.execs = []
@@ -99,7 +126,8 @@ class DataParallelExecutorGroup:
                                      "size: %s" % (data_shapes,))
                 continue
             self.batch_size = batch_size
-            n = len(self.contexts)
+            n = len(self.contexts) if self._mesh is None else \
+                int(self._mesh.shape[self._data_axis])
             if batch_size % n != 0:
                 raise MXNetError(
                     "batch size %d is not divisible by the %d-way 'data' "
@@ -150,9 +178,14 @@ class DataParallelExecutorGroup:
                             self.grad_req, aux, shared_exec=shared_exec,
                             compute_dtype=self.compute_dtype,
                             cast_exclude=self.label_names)
-        if len(self.contexts) > 1:
+        if self._rules is not None:
+            self._apply_rule_shardings(
+                executor, dict(zip(self.arg_names, arg_shapes)),
+                dict(zip(self.aux_names, aux_shapes)))
+        elif len(self.contexts) > 1 or self._multiprocess:
             executor._set_data_parallel(self.contexts,
-                                        self.data_names + self.label_names)
+                                        self.data_names + self.label_names,
+                                        group=self._multiprocess)
         if self._multiprocess:
             executor._grad_hook = self._allreduce
         if self._monitor_callback is not None:
@@ -170,12 +203,68 @@ class DataParallelExecutorGroup:
                                   for n in self.data_names] \
             if self.inputs_need_grad else []
 
+    def _apply_rule_shardings(self, executor, arg_shapes, aux_shapes):
+        """Resolve the rules against the inferred shapes and hand the whole
+        layout to ``Executor.set_shardings``: batch inputs split on the
+        leading mesh axis, every other argument and aux state gets its
+        rule's PartitionSpec."""
+        from .. import sharding
+        from ..base import env
+        from ..parallel.mesh import PartitionSpec
+
+        batch_names = set(self.data_names) | set(self.label_names)
+        ruled = {name: tuple(shape) for name, shape in
+                 list(arg_shapes.items()) + list(aux_shapes.items())
+                 if name not in batch_names}
+        specs = self._rules.match(ruled)
+        if env("MXNET_SHARDING_VALIDATE", 1, int):
+            sharding.validate_specs(self._mesh, specs, ruled)
+        if env("MXNET_SHARDING_EXPLAIN", 0, int):
+            self.logger.info(
+                "partition rules (%s) on mesh %s:\n%s", self._rules.name,
+                sharding.mesh_axes(self._mesh),
+                self._rules.explain_str(ruled))
+        self._param_specs = specs
+        all_specs = dict(specs)
+        for name in batch_names:
+            all_specs[name] = PartitionSpec(self._data_axis)
+        executor.set_shardings(self._mesh, all_specs,
+                               group=self._multiprocess)
+        self._note_shard_bytes(executor)
+
+    def _note_shard_bytes(self, executor):
+        """The gauge pair that makes a layout's memory win a number: the
+        average parameter+aux bytes per mesh coordinate against the fully
+        replicated layout's."""
+        from .. import sharding, telemetry
+
+        arrays = [executor.arg_dict[n] for n in self.param_names]
+        arrays += [executor.aux_dict[n] for n in self.aux_names]
+        per_dev, repl = sharding.param_bytes(arrays)
+        telemetry.gauge(
+            "mxtpu_params_sharded_bytes",
+            "Average per-device parameter+aux bytes under the active "
+            "sharding").set(per_dev)
+        telemetry.gauge(
+            "mxtpu_params_replicated_bytes",
+            "Per-device parameter+aux bytes if fully replicated").set(repl)
+
+    def _replicate(self, x):
+        """``x`` replicated on the group's mesh; an array already so placed
+        passes through untouched."""
+        from ..parallel.mesh import PartitionSpec
+        from ..sharding import place
+
+        return place(x, self._mesh, PartitionSpec())
+
     @staticmethod
     def _allreduce(grads):
-        """Sum this step's gradients over the process group."""
+        """Sum this step's gradients over the process group (every piece
+        of an array stored on a mesh)."""
+        from ..executor import _items
         from ..kvstore_dist import allreduce_sum_
 
-        allreduce_sum_(list(grads.values()))
+        allreduce_sum_([t for g in grads.values() for _, t in _items(g)])
 
     def backward_param_order(self):
         """Parameter indices in the order their gradients become available
@@ -202,12 +291,15 @@ class DataParallelExecutorGroup:
 
     # ------------------------------------------------------------------
     def set_params(self, arg_params, aux_params):
+        """Write the given arrays into the bound ones (split into the
+        pieces of those stored on the mesh)."""
         self.execs[0].copy_params_from(arg_params, aux_params)
 
     def get_params(self, arg_params, aux_params):
-        """Copy the current parameters into the given dicts (the weighted
-        merge across devices of the reference is a no-op: the group keeps
-        one master)."""
+        """Copy the current parameters into the given dicts, whole (an
+        array stored as pieces on the mesh is gathered; the weighted merge
+        across devices of the reference is a no-op: the group keeps one
+        master)."""
         ex = self.execs[0]
         for name in self.param_names:
             arg_params[name][:] = ex.arg_dict[name]

@@ -15,12 +15,16 @@ batch and ``update`` runs forward, backward and the update as one
 ``Executor.fused_step``; a caller that asks for outputs or gradients in
 between gets the two-phase path for that batch, and ``install_monitor``
 turns the fused step off so the monitor sees every tensor.  Under a multi-process
-group (``dist_sync`` over several workers, ``dist_mesh`` not False) the
-gradients are summed over the workers inside the step and every worker
-applies the update itself.  ``BucketingModule`` binds one Module per
-bucket over the default bucket's (``shared_module``).  Left out:
-``bind(mesh=, partition_rules=)`` (slice A.4b), the guardian and
-telemetry.
+group (``dist_sync`` over several workers, ``dist_mesh`` not False)
+every worker's batch is one shard of the global batch, the gradients are
+summed over the workers inside the step and every worker applies the
+update itself.  ``bind(mesh=, partition_rules=)`` (or
+``MXNET_SHARDING_MESH``/``MXNET_SHARDING_RULES``) lays the parameters out
+on a named mesh by regex rules (``sharding``): the update then runs inside
+the fused step over the parameters' pieces and a store passed in is a
+facade.  ``BucketingModule`` binds one Module per bucket over the default
+bucket's (``shared_module``).  Left out: the guardian and the step
+monitor's telemetry.
 """
 from __future__ import annotations
 
@@ -224,12 +228,22 @@ class Module(BaseModule):
              grad_req="write", mesh=None, partition_rules=None):
         """Bind the executor group for these input shapes; with
         ``shared_module`` (bound, initialized) its parameter arrays and its
-        optimizer are shared."""
-        if mesh is not None or partition_rules is not None:
-            raise MXNetError(
-                "Module.bind(mesh=, partition_rules=) is not ported yet: "
-                "the GSPMD layer (sharding/, Executor.set_shardings) is "
-                "slice A.4b of the port")
+        optimizer are shared.
+
+        ``mesh`` / ``partition_rules`` opt into the GSPMD layer: a named
+        mesh (a ``sharding.Mesh``, a ``sharding.MeshConfig`` or the string
+        form ``"data=-1,model=2"``, the last two resolved over this
+        Module's contexts) plus regex partition rules (a
+        ``sharding.PartitionRules``, a preset name, or a raw ``[(regex,
+        PartitionSpec), ...]`` list).  The batch splits on the leading
+        mesh axis; parameters follow their matching rule.  With neither
+        given, ``MXNET_SHARDING_MESH`` / ``MXNET_SHARDING_RULES`` activate
+        a layout from the environment; with nothing set nothing changes."""
+        if mesh is None and partition_rules is None:
+            from ..base import env
+
+            mesh = env("MXNET_SHARDING_MESH", "", str) or None
+            partition_rules = env("MXNET_SHARDING_RULES", "", str) or None
         if force_rebind:
             self.binded = False
             self._exec_group = None
@@ -252,7 +266,8 @@ class Module(BaseModule):
             self._data_shapes, self._label_shapes, self._param_names,
             for_training, inputs_need_grad, shared_group, self.logger,
             self._fixed_param_names, grad_req, state_names=self._state_names,
-            compute_dtype=self._compute_dtype, dist_mesh=self._dist_mesh)
+            compute_dtype=self._compute_dtype, dist_mesh=self._dist_mesh,
+            mesh=mesh, partition_rules=partition_rules)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params
@@ -295,6 +310,10 @@ class Module(BaseModule):
             # and every worker applies the identical update to its
             # replica: the store is the control plane (init broadcast,
             # barrier, rank)
+            update_on_kvstore = False
+        if self._exec_group._rules is not None:
+            # on a mesh the update runs inside the fused step over the
+            # parameters' pieces: a store is only a facade
             update_on_kvstore = False
         if kvstore and update_on_kvstore:
             # the centralized update rides the async comm engine
@@ -445,8 +464,10 @@ class Module(BaseModule):
                 defer_wait=True)
             return
         # on a multi-process group the gradients are already summed over
-        # the workers: the store must not reduce them again
-        kv = None if self._exec_group._multiprocess else self._kvstore
+        # the workers, and on a mesh they are the whole batch's: the store
+        # must not reduce them again
+        kv = None if self._exec_group._multiprocess or \
+            self._exec_group._rules is not None else self._kvstore
         _update_params(self._exec_group.param_arrays,
                        self._exec_group.grad_arrays, updater=self._updater,
                        num_device=1, kvstore=kv)

@@ -22,6 +22,7 @@ An op's result never aliases its inputs.
 """
 from __future__ import annotations
 
+import builtins as _builtins
 import struct
 from typing import List, Optional
 
@@ -32,6 +33,7 @@ from .base import MXNetError, mx_real_t
 from .context import Context, cpu, gpu, current_context
 from .ops import OpContext, registered_ops
 from .ops.param import TORCH_DTYPES, torch_dtype
+from .parallel.mesh import ShardedTensor
 from . import random as _random
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
@@ -45,6 +47,12 @@ _DTYPE_NAMES = {v: k for k, v in TORCH_DTYPES.items()}
 # so an in-flight async kvstore pull into it lands first (the reference
 # engine's WaitToRead contract, threaded_engine.h).
 _async_read_guard = None
+
+
+def _dense(x):
+    """A tensor: an array stored as pieces on a mesh (a ShardedTensor,
+    ``sharding.place``) gathered whole onto its first context."""
+    return x.full() if isinstance(x, ShardedTensor) else x
 
 
 def _default_ctx(ctx) -> Context:
@@ -103,7 +111,7 @@ class NDArray:
         """A host copy (never a view of a CPU array's storage, as in the
         reference).  bfloat16 arrays come back widened to float32."""
         self.wait_to_read()
-        x = self._data.detach()
+        x = _dense(self._data).detach()
         if x.dtype == torch.bfloat16:
             x = x.to(torch.float32)
         return np.array(x.cpu().numpy())
@@ -124,19 +132,21 @@ class NDArray:
         if isinstance(other, NDArray):
             if other.shape != self.shape:
                 raise ValueError("shape mismatch in copyto")
-            with torch.no_grad():
-                other._data.copy_(self._data)
+            other[:] = self
             return other
         ctx = Context(other)
-        return NDArray(self._data.to(ctx.torch_device(), copy=True), ctx)
+        return NDArray(_dense(self._data).to(ctx.torch_device(), copy=True),
+                       ctx)
 
     def as_in_context(self, context: Context) -> "NDArray":
-        if context == self._ctx:
+        if context == self._ctx and not isinstance(self._data,
+                                                   ShardedTensor):
             return self
-        return NDArray(self._data.to(context.torch_device()), context)
+        return NDArray(_dense(self._data).to(context.torch_device()),
+                       context)
 
     def copy(self) -> "NDArray":
-        return NDArray(self._data.clone(), self._ctx)
+        return NDArray(_dense(self._data).clone(), self._ctx)
 
     def _set(self, data: torch.Tensor) -> None:
         """Rebind the array to ``data`` (no copy): how executors and
@@ -200,12 +210,42 @@ class NDArray:
     def __setitem__(self, key, value):
         if isinstance(value, NDArray):
             value = value._data
+        if isinstance(self._data, ShardedTensor):
+            self._set_pieces(key, value)
+            return
+        if isinstance(value, ShardedTensor):
+            value = value.full()
         elif not isinstance(value, torch.Tensor):
             value = torch.tensor(np.asarray(value))
         if isinstance(key, NDArray):
             key = key._data.to(torch.int64)
         with torch.no_grad():
             self._data[key] = value.to(self._data.device, self._data.dtype)
+
+    def _set_pieces(self, key, value):
+        """``a[:] = value`` into an array stored as pieces on a mesh: each
+        piece takes its block of ``value``, in place; pieces of the same
+        layout are copied one to one, never gathered."""
+        from .sharding.placement import _block
+
+        x = self._data
+        if not (isinstance(key, _builtins.slice) and
+                key == _builtins.slice(None)):
+            raise MXNetError("an array stored as pieces on a mesh is "
+                             "written whole (a[:] = value)")
+        with torch.no_grad():
+            if isinstance(value, ShardedTensor) and \
+                    value.same_layout(x.mesh, x.spec):
+                for c, p in x.shards.items():
+                    p.copy_(value.shards[c])
+                return
+            if isinstance(value, ShardedTensor):
+                value = value.full()
+            elif not isinstance(value, torch.Tensor):
+                value = torch.tensor(np.asarray(value))
+            value = value.broadcast_to(tuple(x.shape))
+            for c, p in x.shards.items():
+                p.copy_(_block(value, x.spec, x.mesh, c))
 
     # -- arithmetic (reference python/mxnet/ndarray.py operators) ----------
     def _binary(self, other, op, scalar_op, reverse=False):

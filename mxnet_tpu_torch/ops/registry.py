@@ -13,7 +13,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 __all__ = ["Op", "OpContext", "register", "get_op", "registered_ops",
-           "mark_batch_local"]
+           "mark_batch_local", "mark_partition", "mark_loss"]
 
 
 class OpContext:
@@ -86,8 +86,19 @@ class Op:
         # draws random numbers: the executor hands it a generator
         self.stochastic = stochastic
         # runs on a slice of the batch as on the whole (see
-        # ``is_batch_local``); set by ``mark_batch_local``
+        # ``is_batch_local``), in training and out of it; set by
+        # ``mark_batch_local``
         self.batch_local = False
+        self.batch_local_eval = False
+        # how a partitioned executor splits it beyond the batch; set by
+        # ``mark_partition``: "elementwise" (each output element from the
+        # same element of its same-shape inputs), "dense" (FullyConnected:
+        # column- or row-parallel on its weight's pieces), "reshape" (the
+        # identity where its output's shape is its input's); None gathers
+        self.partition = None
+        # a loss layer: its backward ignores the head gradient and gives
+        # its inputs the loss's own gradient; set by ``mark_loss``
+        self.loss = False
 
     # -- metadata ----------------------------------------------------------
     def input_names(self, attrs: Dict[str, Any]) -> List[str]:
@@ -115,14 +126,19 @@ class Op:
             return list(self.aux(attrs))
         return list(self.aux)
 
-    def is_batch_local(self, attrs: Dict[str, Any]) -> bool:
+    def is_batch_local(self, attrs: Dict[str, Any],
+                       is_train: bool = True) -> bool:
         """Whether the op, run on equal pieces of the batch (axis 0 of its
         batch-major inputs, the others whole), gives the pieces of its
         whole-batch outputs and gradients: a data-parallel executor then
-        runs it once per shard.  Stochastic ops never are (their draws
-        follow the whole batch's)."""
+        runs it once per shard.  In training stochastic ops never are
+        (their draws follow the whole batch's); out of it the ops marked
+        for inference are too (BatchNorm reading its moving statistics,
+        Dropout's identity, a loss layer's forward)."""
         rule = self.batch_local
-        if self.stochastic or not rule:
+        if not is_train and self.batch_local_eval:
+            rule = self.batch_local_eval
+        elif self.stochastic or not rule:
             return False
         return bool(rule(attrs)) if callable(rule) else True
 
@@ -165,12 +181,26 @@ def register(name: str, **kwargs) -> Callable:
     return deco
 
 
-def mark_batch_local(names, rule=True) -> None:
+def mark_batch_local(names, rule=True, is_train=True) -> None:
     """Mark the ops ``names`` batch-local: ``True``, or ``rule(attrs)`` for
     ops whose answer depends on their attrs (an axis that may be the
-    batch's)."""
+    batch's); with ``is_train`` False, only out of training."""
     for name in names:
-        _REGISTRY[name].batch_local = rule
+        setattr(_REGISTRY[name],
+                "batch_local" if is_train else "batch_local_eval", rule)
+
+
+def mark_partition(names, kind) -> None:
+    """How a partitioned executor splits the ops ``names`` beyond the
+    batch (``Op.partition``)."""
+    for name in names:
+        _REGISTRY[name].partition = kind
+
+
+def mark_loss(names) -> None:
+    """Mark the ops ``names`` loss layers (``Op.loss``)."""
+    for name in names:
+        _REGISTRY[name].loss = True
 
 
 def get_op(name: str) -> Op:

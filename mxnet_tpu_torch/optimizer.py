@@ -152,6 +152,8 @@ class Optimizer:
         groups whichever path hands it over.  With ``owned_grads`` the
         gradients are scratch and end overwritten; without, they are read
         only."""
+        indices, weights, grads, states, ts = _over_pieces(
+            indices, weights, grads, states, ts)
         lrs = [self._get_lr(i) for i in indices]
         wds = [self._get_wd(i) for i in indices]
         groups: Dict[tuple, list] = {}
@@ -509,7 +511,7 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
+            self.states[index] = _new_state(self.optimizer, index, weight)
         self.optimizer.update(index, weight, grad, self.states[index])
 
     def update_list(self, indices, grads, weights):
@@ -517,8 +519,8 @@ class Updater:
         optimizer has one, else ``update`` per index."""
         for index, weight in zip(indices, weights):
             if index not in self.states:
-                self.states[index] = self.optimizer.create_state(index,
-                                                                 weight)
+                self.states[index] = _new_state(self.optimizer, index,
+                                                weight)
         states = [self.states[i] for i in indices]
         if type(self.optimizer).has_tensor_update():
             self.optimizer.update_list(indices, weights, grads, states)
@@ -545,3 +547,53 @@ def _tensors(state):
     if isinstance(state, (list, tuple)):
         return tuple(_tensors(s) for s in state)
     return state._data
+
+
+def _new_state(optimizer, index, weight):
+    """``optimizer.create_state`` for the NDArray ``weight``; for one
+    stored as pieces on a mesh, each piece's state, held as pieces under
+    the parameter's spec."""
+    from .parallel.mesh import ShardedTensor
+
+    x = weight._data
+    if not isinstance(x, ShardedTensor):
+        return optimizer.create_state(index, weight)
+    per = {c: optimizer.create_state(index, NDArray(p, weight.context))
+           for c, p in x.shards.items()}
+
+    def merge(states):
+        first = next(iter(states.values()))
+        if first is None:
+            return None
+        if isinstance(first, (list, tuple)):
+            return type(first)(merge({c: s[i] for c, s in states.items()})
+                               for i in range(len(first)))
+        return NDArray(ShardedTensor({c: s._data for c, s in states.items()},
+                                     x.mesh, x.spec), first.context)
+
+    return merge(per)
+
+
+def _over_pieces(indices, weights, grads, states, ts):
+    """The list update's arguments with every weight stored as pieces
+    (a ShardedTensor) expanded into them, its gradient's and states'
+    pieces beside each: the update then groups pieces of one card by
+    device and dtype like any other arrays."""
+    from .parallel.mesh import ShardedTensor
+
+    if not any(isinstance(w, ShardedTensor) for w in weights):
+        return indices, weights, grads, states, ts
+
+    def piece(x, c):
+        if isinstance(x, (list, tuple)):
+            return tuple(piece(s, c) for s in x)
+        return x.shards[c] if isinstance(x, ShardedTensor) else x
+
+    out = ([], [], [], [], [])
+    for i, w, g, st, t in zip(indices, weights, grads, states, ts):
+        keys = list(w.shards) if isinstance(w, ShardedTensor) else [None]
+        for c in keys:
+            for col, v in zip(out, (i, piece(w, c), piece(g, c),
+                                    piece(st, c), t)):
+                col.append(v)
+    return out

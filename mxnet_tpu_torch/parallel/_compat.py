@@ -171,7 +171,7 @@ def _broadcast_spec(spec, tree):
 def _piece(x, spec, mesh, coord):
     if isinstance(x, ShardedTensor):
         if x.mesh is mesh and x.spec == PartitionSpec(*(spec or ())):
-            return x.shards[coord]
+            return x.piece(coord)
         x = x.full()
     if spec is None:
         return x

@@ -180,8 +180,15 @@ def _assemble(pieces, spec, mesh: Mesh):
 
 
 class ShardedTensor:
-    """A global tensor laid out on a mesh: one piece per shard
-    (``shards[coord]``) on the shard's device; ``full()`` gathers it."""
+    """A global tensor laid out on a mesh: pieces (``shards[coord]``) on
+    the shards' devices; ``full()`` gathers it.  ``shard`` makes one piece
+    per coordinate.  The GSPMD layer (``sharding.place``) keeps one piece
+    per distinct block instead, at the coordinate that is 0 on every axis
+    the spec does not name (``canonical``), on that coordinate's context:
+    the coordinates that repeat a block read it from there (``piece``), so
+    a replicated block has one copy, which autograd and the optimizer see
+    once.  ``shape``, ``dtype`` and ``numel`` describe the global tensor,
+    so an ``NDArray`` can hold one."""
 
     def __init__(self, pieces, mesh: Mesh, spec):
         self.shards = pieces
@@ -190,6 +197,57 @@ class ShardedTensor:
 
     def full(self):
         return _assemble(self.shards, self.spec, self.mesh)
+
+    def canonical(self, coord):
+        """The coordinate holding ``coord``'s block: 0 on every axis the
+        spec does not name."""
+        named = {name for name in self.spec if name is not None}
+        return tuple(c if a in named else 0
+                     for a, c in zip(self.mesh.axis_names, coord))
+
+    def piece(self, coord):
+        """``coord``'s block on its device (a differentiable copy when it
+        is held at another coordinate on another device)."""
+        got = self.shards.get(tuple(coord))
+        if got is not None:
+            return got
+        return self.shards[self.canonical(coord)].to(
+            self.mesh.torch_device(coord))
+
+    @property
+    def shape(self):
+        import torch
+
+        first = self.shards[self.canonical((0,) * len(self.mesh.axis_names))]
+        dims = list(first.shape)
+        for d, name in enumerate(self.spec):
+            if name is not None:
+                dims[d] *= self.mesh.shape[name]
+        return torch.Size(dims)
+
+    @property
+    def dtype(self):
+        return next(iter(self.shards.values())).dtype
+
+    def numel(self) -> int:
+        return int(np.prod(tuple(self.shape)))
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def map(self, fn) -> "ShardedTensor":
+        """The same layout with ``fn`` applied to every piece."""
+        return ShardedTensor({c: fn(p) for c, p in self.shards.items()},
+                             self.mesh, self.spec)
+
+    def same_layout(self, mesh: Mesh, spec) -> bool:
+        """Whether the pieces lie as ``spec`` on ``mesh`` would put them:
+        the same spec over an equal grid of the same contexts."""
+        return tuple(self.spec) == tuple(_spec(spec)) and (
+            self.mesh is mesh or (
+                self.mesh.axis_names == mesh.axis_names and
+                self.mesh.devices.shape == mesh.devices.shape and
+                list(self.mesh.devices.flat) == list(mesh.devices.flat)))
 
     @property
     def is_fully_replicated(self) -> bool:

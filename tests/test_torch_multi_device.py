@@ -345,9 +345,30 @@ def test_reshape_keeps_the_trained_parameters():
                     label_shapes=[("softmax_label", (6,))])
 
 
-def test_bind_with_a_mesh_names_its_slice():
-    mod = mt.mod.Module(_mlp(mt), label_names=("softmax_label",),
-                        context=mt.cpu())
-    with pytest.raises(mt.MXNetError, match="A.4b"):
+def test_bind_with_a_one_context_mesh_trains_like_no_mesh():
+    """``bind(mesh="data=-1")`` on one context resolves the mesh over the
+    Module's own context (one shard) and three SGD-momentum steps give
+    the parameters and outputs of the Module bound without one, bit for
+    bit."""
+    X, y = _data(8, seed=4)
+    got = {}
+    for tag, mesh in (("plain", None), ("mesh", "data=-1")):
+        mod = mt.mod.Module(_mlp(mt), label_names=("softmax_label",),
+                            context=mt.cpu())
         mod.bind(data_shapes=[("data", (8, 10))],
-                 label_shapes=[("softmax_label", (8,))], mesh="data=-1")
+                 label_shapes=[("softmax_label", (8,))], mesh=mesh)
+        arg, _ = _params(2)
+        mod.init_params(arg_params={k: mt.nd.array(v, mt.cpu())
+                                    for k, v in arg.items()}, aux_params={})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        for _ in range(3):
+            mod.forward_backward(_batch(mt, X, y))
+            mod.update()
+        got[tag] = ({k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+                    mod.get_outputs()[0].asnumpy(), mod._exec_group)
+    assert got["mesh"][2]._mesh.shape == {"data": 1}
+    assert got["plain"][2]._mesh is None
+    for k, v in got["plain"][0].items():
+        np.testing.assert_array_equal(got["mesh"][0][k], v, err_msg=k)
+    np.testing.assert_array_equal(got["mesh"][1], got["plain"][1])

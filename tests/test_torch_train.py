@@ -574,10 +574,12 @@ def test_kvstore_the_port_cannot_honour_raises(lm_setup):
                                 for k, v in params.items()}, aux_params={})
     with pytest.raises(mt.MXNetError, match="not ported"):
         mod.init_optimizer(kvstore="dist_async")
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        mt.mod.Module(tn, context=[mt.cpu(0), mt.cpu(1)]).bind(
-            data_shapes=[("data", SHAPE)],
-            label_shapes=[("softmax_label", SHAPE)], mesh="data=-1")
+    # a mesh, which raised before the GSPMD layer was ported, now binds:
+    # resolved over the Module's own two contexts
+    meshed = mt.mod.Module(tn, context=[mt.cpu(0), mt.cpu(1)])
+    meshed.bind(data_shapes=[("data", SHAPE)],
+                label_shapes=[("softmax_label", SHAPE)], mesh="data=-1")
+    assert meshed._exec_group._mesh.shape == {"data": 2}
 
 
 def test_module_default_context_is_the_card(lm_setup):
