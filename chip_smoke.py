@@ -409,6 +409,52 @@ Phases, each fatal on failure (non-zero exit, no result line):
              output says so.  A ``sharding`` JSON line ends it; the kernel
              table's d=128 rows add (a), (b) and (d)'s launches on the
              bf16 rows and (c)'s on the float32 rows ("tensor parallel").
+19. param_server — the parameter server, ``kv.create("dist_async")``,
+             with its servers (``DMLC_ROLE=server python -c "import
+             mxnet_tpu_torch"``, the updater on gpu(0)) and workers (this
+             script with ``--ps-worker``) separate processes sharing the
+             card: the times measure the server's own cost, not a
+             multi-host speed-up, and the output says so.  The workers
+             train the train phase's LM (bf16, Xavier from SEED, adam lr
+             3e-4, rescale 1/(global batch)) through ``Module`` over
+             ``dist_async``, 2 workers of batch 2 (the train phase's batch
+             4 in halves) and 2 servers: every 2048x2048 weight and the
+             embedding range-split, the LayerNorm vectors in buckets.  (a)
+             Sync rounds (``MXNET_KVSTORE_SYNC=1``: Module waits at a
+             barrier between pushes and pulls), 2 + 3 steps: step ms split
+             into compute, push (to the round's barrier), pull wait and the
+             server's update, bytes pushed and pulled per step, wire GB/s,
+             each process's peak device memory, the updater's context;
+             rank 0's init the train phase's bits, the mean of the two
+             workers' first 3 losses within 1e-3 (relative) of the train
+             phase's, K1-K3 each launched 6 times a step in each worker.
+             (b) The LM at 2 layers in float32 (TF32 off, SGD lr 1e-3
+             momentum 0.9), 2 sync workers against one process on the
+             concatenated batch: after 3 steps every parameter within 1e-5
+             of its largest |value|, and the 3-step move printed.  (c)
+             Async (``MXNET_KVSTORE_SYNC=0``), 5 steps: the servers' applied
+             pushes equal the push items the workers sent (a range-split
+             key once per server, a bucket's keys once each), the loss
+             falls, every parameter finite (adam at a quarter of the lr:
+             each worker's push is an update of its own).  (d) (a) with
+             ``MXNET_KVSTORE_COMPRESS=fp16``: at most 0.51x (a)'s pushed
+             bytes, the first 3 losses within 1e-3 of (a)'s.  (e1) Three
+             elastic workers on one sync server (tests/
+             elastic_churn_worker.py's loop): rank 2 waits after step 3 for
+             SIGTERM and exits 0 through its preemption handler, a joiner
+             (``MXNET_KVSTORE_ELASTIC_JOIN=1``) enters at step 6; the final
+             weight is the churn invariant exactly and the rounds had 3 and
+             2 members.  (e2) A float32 MLP through Module over a sync
+             server with a snapshot path: after step 4 rank 0 snapshots, the
+             server is SIGKILLed and restarted from it while the workers'
+             pushes retry; parameters and losses bitwise equal to an
+             uninterrupted run's (run beside it, and beside (e1)).  (e3) A
+             NaN push into an in-process server on the card raises
+             ``NonFiniteGradientError`` and leaves the store and the
+             momentum unchanged bit for bit.  A ``param_server`` JSON line
+             ends it; the kernel table's d=128 rows add (a), (c) and (d)'s
+             workers' launches on the bf16 rows and (b)'s on the float32
+             rows ("parameter server").
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
@@ -7297,6 +7343,774 @@ def sharding_phase(torch, mt, batch, replay):
             "f32": {"tensor parallel": f32["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the parameter server
+# ---------------------------------------------------------------------------
+PS_WORKERS, PS_SERVERS = 2, 2
+PS_BATCH = BATCH // PS_WORKERS      # the train phase's batch split in halves
+PS_RUNS = (("a", "sync", 2, 3),     # tag, case, warm-up, timed steps
+           ("c", "async", 0, 5),
+           ("d", "fp16", 2, 3))
+# (c): each worker's push is an adam update of its own, two a step from
+# stale gradients; at the train phase's lr 3e-4 the loss spiked at step 4
+# (9.45 -> 12.71), at 1.5e-4 too (9.61 -> 10.63, back to 9.22 at step 5);
+# at a quarter of it the loss falls every step
+PS_ASYNC_LR = TRAIN_LR / 4
+PS_F32 = dict(FULL, num_layers=2)   # (b)
+# phase 18 (c)'s setting for this LM in float32: at lr 0.01 the parameters
+# moved by up to their own size in 3 steps and the two routes' rounding
+# grew to 2.78e-5 of the largest value
+PS_F32_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+PS_F32_STEPS = 3
+PS_F32_TOL = 1e-5
+PS_LOSS_TOL = 1e-3
+PS_FP16_BYTES = 0.51
+PS_CHURN = dict(steps=10, preempt=3, gate=6, workers=3)       # (e1)
+PS_DURABLE = dict(steps=8, snapshot_at=4, batch=16, features=32,
+                  hidden=64, classes=4)                        # (e2)
+PS_DURABLE_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+PS_TIMEOUT = 600
+PS_FILE_WAIT = 300
+PS_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def ps_batch():
+    """The train phase's batch (train_lm.py::_synth_iter from SEED)."""
+    rng = np.random.RandomState(SEED)
+    X = rng.randint(0, FULL["vocab_size"],
+                    size=(BATCH, FULL["seq_len"])).astype(np.float32)
+    return X, (X + 1) % FULL["vocab_size"]
+
+
+def ps_f32_init(mt, net):
+    """(b)'s parameters from SEED: N(0, 0.02) weights, zero biases and
+    shifts, unit LayerNorm gains, as CPU NDArrays."""
+    shape = (PS_BATCH, PS_F32["seq_len"])
+    arg_shapes, _, _ = net.infer_shape(data=shape, softmax_label=shape)
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for name, shp in zip(net.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("gamma"):
+            arr = np.ones(shp, np.float32)
+        elif name.endswith(("bias", "beta")):
+            arr = np.zeros(shp, np.float32)
+        else:
+            arr = (rng.randn(*shp) * 0.02).astype(np.float32)
+        out[name] = mt.nd.array(arr, mt.cpu())
+    return out
+
+
+def ps_init_crc(tensors):
+    """crc32 of the first 4096 elements of every parameter, in name order:
+    whether two inits are the same bits."""
+    import zlib
+
+    crc = 0
+    for name in sorted(tensors):
+        head = tensors[name].reshape(-1)[:4096].detach().float().cpu()
+        crc = zlib.crc32(head.numpy().tobytes(), crc)
+    return crc
+
+
+def touch(path):
+    with open(path, "w"):
+        pass
+
+
+def wait_for(path, timeout=PS_FILE_WAIT):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise SystemExit("param_server: timed out waiting for %s" % path)
+        time.sleep(0.05)
+
+
+def ps_lm_worker(outdir, case):
+    """A worker of (a)-(d): the LM on its half of the train phase's batch
+    through Module over dist_async; writes its losses, times, wire bytes
+    and launches per step to ``outdir``."""
+    import torch
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    f32 = case == "f32"
+    marks = [("start", time.perf_counter())]
+    if f32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = PS_F32 if f32 else FULL
+    X, Y = ps_batch()
+    rows = slice(rank * PS_BATCH, (rank + 1) * PS_BATCH)
+    with mt.NameManager():
+        net = get_transformer_lm(**cfg)
+    shape = (PS_BATCH, cfg["seq_len"])
+    mod = mt.mod.Module(net, label_names=("softmax_label",),
+                        context=mt.gpu(0),
+                        compute_dtype=None if f32 else "bfloat16")
+    mod.bind(data_shapes=[mt.io.DataDesc("data", shape)],
+             label_shapes=[mt.io.DataDesc("softmax_label", shape)],
+             for_training=True)
+    if f32:
+        mod.init_params(arg_params=ps_f32_init(mt, net), aux_params={})
+        name, params = "sgd", dict(PS_F32_SGD)
+        steps = PS_F32_STEPS
+    else:
+        mt.random.seed(SEED)
+        mod.init_params(initializer=mt.init.Xavier(factor_type="in",
+                                                   magnitude=2.34))
+        name, params = "adam", {"learning_rate": PS_ASYNC_LR
+                                if case == "async" else TRAIN_LR}
+        steps = sum(r[2] + r[3] for r in PS_RUNS if r[1] == case)
+    ex = mod._exec_group.execs[0]
+    init_crc = ps_init_crc({n: ex.arg_dict[n]._data
+                            for n in mod._exec_group.param_names})
+    marks.append(("bind and init", time.perf_counter()))
+    # the server sums the workers' gradients: scale by the global batch
+    params["rescale_grad"] = 1.0 / (PS_WORKERS * PS_BATCH)
+    mod.init_optimizer(kvstore="dist_async", optimizer=name,
+                       optimizer_params=params)
+    kv = mod._kvstore
+    store = kv.inner
+    kv.wait_all()
+    marks.append(("store init, pulls, optimizer", time.perf_counter()))
+    batch = mt.io.NDArrayIter(X[rows], Y[rows], batch_size=PS_BATCH,
+                              label_name="softmax_label").next()
+    rec = {k: [] for k in ("loss", "compute_ms", "push_ms", "pull_ms",
+                           "push_bytes", "pull_bytes", "launches")}
+    mt.kernels.reset_launches()
+    for step in range(steps):
+        before, wire = dict(mt.kernels.LAUNCHES), dict(store.wire)
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec["loss"].append(lm_loss(torch, mod.get_outputs()[0], Y[rows]))
+        t2 = time.perf_counter()
+        mod.update()  # pushes, the sync-round barrier, pulls issued
+        t3 = time.perf_counter()
+        kv.wait_all()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        rec["compute_ms"].append((t1 - t0) * 1e3)
+        rec["push_ms"].append((t3 - t2) * 1e3)
+        rec["pull_ms"].append((t4 - t3) * 1e3)
+        rec["push_bytes"].append(store.wire["push_bytes"] -
+                                 wire["push_bytes"])
+        rec["pull_bytes"].append(store.wire["pull_bytes"] -
+                                 wire["pull_bytes"])
+        rec["launches"].append({n: mt.kernels.LAUNCHES[n] - before[n]
+                                for n in PS_NAMES})
+        print("param_server %s worker %d: step %d loss %.6f compute %.1f ms "
+              "push %.1f ms pull %.1f ms" % (
+                  case, rank, step, rec["loss"][-1], rec["compute_ms"][-1],
+                  rec["push_ms"][-1], rec["pull_ms"][-1]), flush=True)
+    marks.append(("steps", time.perf_counter()))
+    params = {n: ex.arg_dict[n]._data for n in mod._exec_group.param_names}
+    rec.update(
+        rank=rank, init_crc=init_crc,
+        rescale_grad=mod._optimizer.rescale_grad,
+        peak_bytes=torch.cuda.max_memory_allocated(), wire=store.wire,
+        comm={k: v for k, v in kv.comm_stats().items()
+              if k.startswith("bucket")},
+        finite=all(bool(torch.isfinite(t).all()) for t in params.values()),
+        final_crc=ps_init_crc(params))
+    if f32 and rank == 0:
+        np.savez(os.path.join(outdir, "params.npz"),
+                 **{k: t.cpu().numpy() for k, t in params.items()})
+    kv._barrier()  # both done before the driver reads the servers
+    kv.close()
+    marks.append(("teardown", time.perf_counter()))
+    rec["stages_s"] = {name: t - marks[i][1]
+                       for i, (name, t) in enumerate(marks[1:])}
+    print("param_server %s worker %d: seconds by stage %s" % (
+        case, rank, {k: round(v, 2) for k, v in rec["stages_s"].items()}),
+        flush=True)
+    with open(os.path.join(outdir, "rank%d.json" % rank), "w") as f:
+        json.dump(rec, f)
+
+
+def ps_churn_worker(outdir):
+    """(e1): tests/elastic_churn_worker.py's loop on the card.  Rank 2
+    waits after step 3 for SIGTERM (its preemption handler leaves and
+    exits 0); the survivors wait at step 6 for the joiner."""
+    import mxnet_tpu_torch as mt
+
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    joiner = os.environ.get("MXNET_KVSTORE_ELASTIC_JOIN") == "1"
+    n, gate = PS_CHURN["steps"], PS_CHURN["gate"]
+    kv = mt.kv.create("dist_async")
+    mt.kvstore.install_preemption_handler(kv)
+    deadline = time.monotonic() + PS_FILE_WAIT
+    while not joiner and len(kv.membership()["ranks"]) < PS_CHURN["workers"]:
+        # the job forms first: a barrier counts the ranks that joined, so
+        # a lone early rank would run ahead
+        check(time.monotonic() < deadline, "churn: the workers never all "
+              "joined")
+        time.sleep(0.05)
+    kv.init("w", mt.nd.zeros((4,), mt.gpu(0)))
+    if joiner:
+        touch(os.path.join(outdir, "joined"))
+    grad = mt.nd.ones((4,), mt.gpu(0))
+    for it in range(gate if joiner else 0, n):
+        if not joiner and it == gate:
+            touch(os.path.join(outdir, "gate%d" % rank))
+            wait_for(os.path.join(outdir, "joined"))
+        kv.push("w", grad)
+        kv._barrier()
+        print("churn worker %d: step %d" % (rank, it), flush=True)
+        if rank == 2 and not joiner and it == PS_CHURN["preempt"]:
+            touch(os.path.join(outdir, "preempt_ready"))
+            time.sleep(PS_FILE_WAIT)
+            raise SystemExit("the preemption handler never ran")
+    target = float(n * PS_CHURN["workers"])
+    out = mt.nd.zeros((4,), mt.gpu(0))
+    deadline = time.monotonic() + PS_FILE_WAIT
+    while True:
+        kv.pull("w", out)
+        final = out.asnumpy()
+        if final[0] >= target or joiner or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    with open(os.path.join(outdir, "churn%s.json" % ("j" if joiner
+                                                     else rank)), "w") as f:
+        json.dump({"rank": rank, "joiner": joiner,
+                   "final": final.tolist()}, f)
+    kv.close()
+
+
+def ps_durable_data(rank):
+    rng = np.random.RandomState(SEED + 10 + rank)
+    d = PS_DURABLE
+    return (rng.randn(d["batch"], d["features"]).astype(np.float32),
+            rng.randint(0, d["classes"], d["batch"]).astype(np.float32))
+
+
+def ps_durable_worker(outdir):
+    """(e2): a float32 MLP through Module over a sync server; after step
+    ``snapshot_at`` rank 0 snapshots the server, both wait at a barrier,
+    then for the driver's ``go`` (the driver may kill and restart the
+    server in between)."""
+    import mxnet_tpu_torch as mt
+
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    d = PS_DURABLE
+    with mt.NameManager():
+        net = mt.sym.Variable("data")
+        net = mt.sym.FullyConnected(net, num_hidden=d["hidden"], name="fc1")
+        net = mt.sym.Activation(net, act_type="tanh")
+        net = mt.sym.FullyConnected(net, num_hidden=d["classes"], name="fc2")
+        net = mt.sym.SoftmaxOutput(net, name="softmax")
+    rng = np.random.RandomState(SEED)
+    init = {"fc1_weight": rng.randn(d["hidden"], d["features"]) * 0.3,
+            "fc1_bias": np.zeros(d["hidden"]),
+            "fc2_weight": rng.randn(d["classes"], d["hidden"]) * 0.3,
+            "fc2_bias": np.zeros(d["classes"])}
+    X, Y = ps_durable_data(rank)
+    mod = mt.mod.Module(net, label_names=("softmax_label",),
+                        context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", X.shape)],
+             label_shapes=[("softmax_label", Y.shape)])
+    mod.init_params(arg_params={k: mt.nd.array(v.astype(np.float32),
+                                               mt.cpu())
+                                for k, v in init.items()}, aux_params={})
+    mod.init_optimizer(kvstore="dist_async", optimizer="sgd",
+                       optimizer_params=dict(PS_DURABLE_SGD,
+                                             rescale_grad=1.0 / 32))
+    kv = mod._kvstore
+    batch = mt.io.DataBatch([mt.nd.array(X, mt.gpu(0))],
+                            [mt.nd.array(Y, mt.gpu(0))])
+    losses = []
+    for step in range(d["steps"]):
+        mod.forward_backward(batch)
+        probs = mod.get_outputs()[0].asnumpy()
+        losses.append(float(-np.log(probs[np.arange(len(Y)),
+                                          Y.astype(int)]).mean()))
+        mod.update()
+        kv.wait_all()
+        if step + 1 == d["snapshot_at"]:
+            if rank == 0:
+                kv.inner._clients[0].snapshot()
+            kv._barrier()
+            touch(os.path.join(outdir, "quiesced%d" % rank))
+            wait_for(os.path.join(outdir, "go"))
+    args, _ = mod.get_params()
+    np.savez(os.path.join(outdir, "durable%d.npz" % rank),
+             losses=np.array(losses),
+             **{k: v.asnumpy() for k, v in args.items()})
+    kv._barrier()
+    kv.close()
+
+
+def ps_worker(outdir):
+    """A worker process of phase 19 (run by ``--ps-worker``): PS_CASE
+    names the sub-phase, the DMLC variables its rank and servers."""
+    case = os.environ["PS_CASE"]
+    if case == "churn":
+        ps_churn_worker(outdir)
+    elif case == "durable":
+        ps_durable_worker(outdir)
+    else:
+        ps_lm_worker(outdir, case)
+
+
+def free_ports(n):
+    """A port p with p..p+n-1 free on 127.0.0.1."""
+    import socket
+
+    for _ in range(100):
+        base = free_port()
+        socks = []
+        try:
+            for i in range(n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise SystemExit("param_server: no %d free consecutive ports" % n)
+
+
+class PSJob:
+    """Server and worker processes of one sub-phase, their logs in
+    ``outdir``; every process is reaped on exit."""
+
+    def __init__(self, tag, servers, workers, sync, **env):
+        self.tag = tag
+        self.outdir = tempfile.mkdtemp(prefix="ps_%s_" % tag)
+        self.port = free_ports(servers)
+        self.env = dict(os.environ, DMLC_PS_ROOT_URI="127.0.0.1",
+                        DMLC_PS_ROOT_PORT=str(self.port),
+                        DMLC_NUM_SERVER=str(servers),
+                        DMLC_NUM_WORKER=str(workers),
+                        MXNET_KVSTORE_SYNC="1" if sync else "0",
+                        MXNET_KVSTORE_RETRY_MAX="200",
+                        MXNET_KVSTORE_RETRY_MAX_MS="100", **env)
+        self.procs, self.servers = [], {}
+        for i in range(servers):
+            self.server(i)
+
+    def spawn(self, name, argv, **env):
+        import sys
+
+        log = open(os.path.join(self.outdir, name + ".log"), "w")
+        p = subprocess.Popen([sys.executable] + argv,
+                             env=dict(self.env, **env), stdout=log,
+                             stderr=subprocess.STDOUT,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        log.close()
+        p.name = name
+        self.procs.append(p)
+        return p
+
+    def server(self, i):
+        self.servers[i] = self.spawn("server%d" % i,
+                                     ["-c", "import mxnet_tpu_torch"],
+                                     DMLC_ROLE="server",
+                                     DMLC_SERVER_ID=str(i))
+        return self.servers[i]
+
+    def worker(self, rank, name=None, **env):
+        return self.spawn(name or "worker%d" % rank,
+                          [os.path.abspath(__file__), "--ps-worker",
+                           self.outdir], DMLC_ROLE="worker",
+                          DMLC_WORKER_ID=str(rank), **env)
+
+    def tail(self, p, n=8):
+        with open(os.path.join(self.outdir, p.name + ".log")) as f:
+            return "\n".join(f.read().strip().splitlines()[-n:])
+
+    def wait(self, procs, expect=0):
+        deadline = time.monotonic() + PS_TIMEOUT
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+            if p.returncode != expect:
+                print("param_server %s: %s exit %s; log tail:\n%s" % (
+                    self.tag, p.name, p.returncode, self.tail(p)),
+                    flush=True)
+            check(p.returncode == expect, "param_server %s: %s exited %s, "
+                  "expected %s" % (self.tag, p.name, p.returncode, expect))
+
+    def stats_and_stop(self):
+        """Each server's counters; then stop them (exit 0, snapshot
+        written where configured)."""
+        from mxnet_tpu_torch import kvstore_server as kvs
+
+        out = []
+        for i in sorted(self.servers):
+            with kvs.ServerClient("127.0.0.1", self.port + i) as c:
+                out.append(c.stats())
+                c.stop_server()
+        self.wait(list(self.servers.values()))
+        return out
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def ps_lm_run(tag, case, sync, **env):
+    """One LM sub-phase: PS_SERVERS servers and PS_WORKERS workers."""
+    t0 = time.perf_counter()
+    job = PSJob(tag, PS_SERVERS, PS_WORKERS, sync, PS_CASE=case, **env)
+    try:
+        job.wait([job.worker(r) for r in range(PS_WORKERS)])
+        stats = job.stats_and_stop()
+    finally:
+        job.close()
+    print("param_server (%s): %.1f s from the first process started to the "
+          "last stopped" % (tag, time.perf_counter() - t0), flush=True)
+    got = []
+    for r in range(PS_WORKERS):
+        with open(os.path.join(job.outdir, "rank%d.json" % r)) as f:
+            got.append(json.load(f))
+    return got, stats, job.outdir
+
+
+def ps_summary(got, stats, warm):
+    """Per-step means over the timed steps and the workers."""
+    def mean(key):
+        return float(np.mean([g[key][warm:] for g in got]))
+
+    push_b, pull_b = mean("push_bytes"), mean("pull_bytes")
+    push_ms, pull_ms = mean("push_ms"), mean("pull_ms")
+    steps = len(got[0]["loss"])
+    return {
+        "compute_ms": mean("compute_ms"), "push_ms": push_ms,
+        "pull_ms": pull_ms,
+        "step_ms": mean("compute_ms") + push_ms + pull_ms,
+        "server_update_ms": [s["update_seconds"] * 1e3 / steps
+                             for s in stats],
+        "push_bytes": push_b, "pull_bytes": pull_b,
+        "wire_gbs": (push_b + pull_b) / ((push_ms + pull_ms) / 1e3) / 1e9,
+        "worker_peak_gb": [g["peak_bytes"] / 1e9 for g in got],
+        "server_peak_gb": [s["device_peak_bytes"] / 1e9 for s in stats],
+        "server_ctx": [s["ctx"] for s in stats],
+        "buckets": got[0]["comm"],
+        "stages_s": got[0]["stages_s"],
+        "mean_losses": [float(np.mean([g["loss"][s] for g in got]))
+                        for s in range(steps)]}
+
+
+def ps_print(tag, what, s, card):
+    print("param_server (%s) %s: step ms %.1f = compute %.1f + push (to the "
+          "round's barrier) %.1f + pull wait %.1f; server update ms per "
+          "step %s; bytes per step per worker pushed %.0f, pulled %.0f; "
+          "wire %.3f GB/s; peak GB workers %s, servers %s; updater on %s; "
+          "buckets %s; rank 0's seconds by stage %s; mean losses %s (%s)"
+          % (tag, what, s["step_ms"], s["compute_ms"], s["push_ms"],
+             s["pull_ms"], ["%.1f" % x for x in s["server_update_ms"]],
+             s["push_bytes"], s["pull_bytes"], s["wire_gbs"],
+             ["%.2f" % x for x in s["worker_peak_gb"]],
+             ["%.2f" % x for x in s["server_peak_gb"]], s["server_ctx"],
+             s["buckets"], {k: round(v, 2) for k, v in s["stages_s"].items()},
+             ["%.6f" % x for x in s["mean_losses"]], card),
+          flush=True)
+
+
+def ps_lm_phases(torch, mt, replay, train_losses, card):
+    """(a), (c), (d): the full-width LM over two servers."""
+    want_crc = ps_init_crc(replay["init"])
+    runs, per_layer = {}, FULL["num_layers"]
+    for tag, case, warm, timed in PS_RUNS:
+        env = {"MXNET_KVSTORE_COMPRESS": "fp16"} if case == "fp16" else {}
+        got, stats, _ = ps_lm_run(tag, case, case != "async", **env)
+        s = ps_summary(got, stats, warm)
+        ps_print(tag, case, s, card)
+        for g in got:
+            check(g["rescale_grad"] == 1.0 / BATCH, "param_server (%s): "
+                  "worker %d's rescale_grad %r is not 1/(global batch)"
+                  % (tag, g["rank"], g["rescale_grad"]))
+            check(all(d == {n: per_layer for n in PS_NAMES}
+                      for d in g["launches"]), "param_server (%s): worker "
+                  "%d launched %s, expected %d of each K1-K3 a step"
+                  % (tag, g["rank"], g["launches"], per_layer))
+            check(g["finite"], "param_server (%s): worker %d has a "
+                  "parameter that is not finite" % (tag, g["rank"]))
+        check(got[0]["init_crc"] == want_crc, "param_server (%s): rank "
+              "0's init is not the train phase's" % tag)
+        check(len({g["final_crc"] for g in got}) == 1 or case == "async",
+              "param_server (%s): the workers end on different parameters"
+              % tag)
+        s["launches"] = {n: sum(d[n] for g in got for d in g["launches"])
+                         for n in PS_NAMES}
+        s["applied_pushes"] = sum(st["applied_pushes"] for st in stats)
+        s["push_items"] = sum(g["wire"]["push_items"] for g in got)
+        s["losses"] = [g["loss"] for g in got]
+        runs[tag] = s
+    a, c, d = runs["a"], runs["c"], runs["d"]
+    gaps = [rel(a["mean_losses"][i], train_losses[i]) for i in range(3)]
+    print("param_server (a): mean of the workers' first 3 losses %s vs the "
+          "train phase's one-context %s: relative gaps %s (tolerance %g)"
+          % (["%.6f" % x for x in a["mean_losses"][:3]],
+             ["%.6f" % x for x in train_losses[:3]],
+             ["%.2e" % x for x in gaps], PS_LOSS_TOL), flush=True)
+    check(max(gaps) <= PS_LOSS_TOL, "param_server (a): the losses leave "
+          "the train phase's")
+    print("param_server (c): servers applied %d pushes, the workers sent "
+          "%d push items (a range-split key once per server, a bucket's "
+          "keys once each); losses %s" % (
+              c["applied_pushes"], c["push_items"],
+              [["%.4f" % x for x in l] for l in c["losses"]]), flush=True)
+    check(c["applied_pushes"] == c["push_items"], "param_server (c): "
+          "pushes were lost or applied twice")
+    check(all(l[-1] < l[0] for l in c["losses"]), "param_server (c): the "
+          "async loss did not fall")
+    ratio = d["push_bytes"] / a["push_bytes"]
+    gaps = [rel(d["mean_losses"][i], a["mean_losses"][i]) for i in range(3)]
+    print("param_server (d): fp16 wire pushes %.4fx (a)'s bytes (limit "
+          "%g); first 3 losses' relative gaps to (a) %s (tolerance %g)"
+          % (ratio, PS_FP16_BYTES, ["%.2e" % x for x in gaps], PS_LOSS_TOL),
+          flush=True)
+    check(ratio <= PS_FP16_BYTES, "param_server (d): fp16 did not halve "
+          "the pushed bytes")
+    check(max(gaps) <= PS_LOSS_TOL, "param_server (d): the fp16 losses "
+          "leave (a)'s")
+    return runs
+
+
+def ps_f32(torch, mt, card):
+    """(b): 2 sync workers against one process on the concatenated batch,
+    float32, TF32 off, SGD with momentum."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with mt.NameManager():
+        net = get_transformer_lm(**PS_F32)
+    init = ps_f32_init(mt, net)
+    X, Y = ps_batch()
+    shape = (BATCH, PS_F32["seq_len"])
+    mod = mt.mod.Module(net, label_names=("softmax_label",),
+                        context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", shape)])
+    mod.init_params(arg_params=init, aux_params={})
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params=dict(PS_F32_SGD))
+    batch = mt.io.NDArrayIter(X, Y, batch_size=BATCH,
+                              label_name="softmax_label").next()
+    for _ in range(PS_F32_STEPS):
+        mod.forward_backward(batch)
+        mod.update()
+    args, _ = mod.get_params()
+    ref = {k: v.asnumpy() for k, v in args.items()}
+    del mod, args
+    torch.cuda.empty_cache()
+    got, stats, outdir = ps_lm_run("b", "f32", True)
+    with np.load(os.path.join(outdir, "params.npz")) as f:
+        worker = {k: f[k] for k in f.files}
+    gap = max(float(np.abs(worker[k] - v).max()) /
+              max(float(np.abs(v).max()), 1e-30) for k, v in ref.items())
+    moves = sorted(float(np.abs(v - init[k].asnumpy()).max()) /
+                   max(float(np.abs(v).max()), 1e-30)
+                   for k, v in ref.items())
+    move = moves[0]
+    print("param_server (b): 2 layers float32, 2 sync workers vs one "
+          "process at batch %d: after %d SGD steps every parameter within "
+          "%.3g of its largest |value| (tolerance %g); each parameter's "
+          "%d-step move relative to its largest |value|: smallest %.3g, "
+          "median %.3g; workers agree %s (%s)"
+          % (BATCH, PS_F32_STEPS, gap, PS_F32_TOL, PS_F32_STEPS, move,
+             moves[len(moves) // 2],
+             got[0]["final_crc"] == got[1]["final_crc"], card), flush=True)
+    check(gap <= PS_F32_TOL, "param_server (b): the workers disagree with "
+          "one process at the combined batch")
+    check(got[0]["final_crc"] == got[1]["final_crc"], "param_server (b): "
+          "the workers end on different parameters")
+    for g in got:
+        check(all(d == {n: PS_F32["num_layers"] for n in PS_NAMES}
+                  for d in g["launches"]), "param_server (b): worker %d "
+              "launched %s" % (g["rank"], g["launches"]))
+    return {"param_gap": gap, "move": move,
+            "launches": {n: sum(d[n] for g in got for d in g["launches"])
+                         for n in PS_NAMES}}
+
+
+def ps_churn_start():
+    """(e1) up to the joiner: one sync server, three elastic workers."""
+    job = PSJob("e1", 1, PS_CHURN["workers"], True, PS_CASE="churn",
+                MXNET_KVSTORE_ELASTIC="1")
+    job.first = [job.worker(r) for r in range(PS_CHURN["workers"])]
+    return job
+
+
+def ps_churn_finish(job):
+    import signal
+
+    wait_for(os.path.join(job.outdir, "preempt_ready"))
+    victim = job.first[2]
+    victim.send_signal(signal.SIGTERM)
+    job.wait([victim])  # exit 0 through the preemption handler
+    for r in (0, 1):
+        wait_for(os.path.join(job.outdir, "gate%d" % r))
+    joiner = job.worker(2, name="joiner", MXNET_KVSTORE_ELASTIC_JOIN="1")
+    job.wait(job.first[:2] + [joiner])
+    stats = job.stats_and_stop()[0]
+    finals = {}
+    for name in ("0", "1", "j"):
+        with open(os.path.join(job.outdir, "churn%s.json" % name)) as f:
+            finals[name] = json.load(f)["final"]
+    target = float(PS_CHURN["steps"] * PS_CHURN["workers"])
+    rounds = {int(k): v for k, v in stats["round_sizes"].items()}
+    print("param_server (e1): SIGTERM after step %d: rank 2 exited 0 "
+          "through its preemption handler; a joiner entered at step %d; "
+          "final weights %s (the churn invariant %g); round sizes %s"
+          % (PS_CHURN["preempt"], PS_CHURN["gate"], finals, target,
+             rounds), flush=True)
+    check(all(v == [target] * 4 for v in finals.values()),
+          "param_server (e1): the final weight breaks the churn invariant")
+    check(3 in rounds and 2 in rounds, "param_server (e1): the rounds did "
+          "not shrink and grow")
+    return {"finals": finals, "round_sizes": rounds}
+
+
+def ps_durable_start(kill):
+    job = PSJob("e2" + ("kill" if kill else "ref"), 1, 2, True,
+                PS_CASE="durable",
+                MXNET_KVSTORE_SNAPSHOT_PATH=os.path.join(
+                    tempfile.mkdtemp(prefix="ps_snap_"), "kv.snap"),
+                MXNET_KVSTORE_SNAPSHOT_INTERVAL="0")
+    job.first = [job.worker(r) for r in range(2)]
+    job.kill = kill
+    return job
+
+
+def ps_durable_release(job):
+    """Once both workers quiesced: SIGKILL the server, let the workers go
+    on (their pushes retry), restart the server from its snapshot."""
+    import signal
+
+    for r in (0, 1):
+        wait_for(os.path.join(job.outdir, "quiesced%d" % r))
+    if job.kill:
+        srv = job.servers[0]
+        srv.send_signal(signal.SIGKILL)
+        srv.wait(timeout=60)
+        job.procs.remove(srv)
+        touch(os.path.join(job.outdir, "go"))
+        time.sleep(0.5)  # the workers' next pushes meet no server
+        job.server(0)
+    else:
+        touch(os.path.join(job.outdir, "go"))
+
+
+def ps_durable_finish(job):
+    job.wait(job.first)
+    stats = job.stats_and_stop()[0]
+    got = []
+    for r in (0, 1):
+        with np.load(os.path.join(job.outdir, "durable%d.npz" % r)) as f:
+            got.append({k: f[k] for k in f.files})
+    return got, stats
+
+
+def ps_nonfinite(mt, card):
+    """(e3): a NaN push raises NonFiniteGradientError and leaves the store
+    (and the updater's momentum) as it was, bit for bit; the in-process
+    server's updater on the card."""
+    from mxnet_tpu_torch.kvstore_server import NonFiniteGradientError
+
+    with mt.gpu(0):
+        kv = mt.kv.create("dist_async")
+    try:
+        rng = np.random.RandomState(SEED)
+        kv.init("w", mt.nd.array(rng.randn(1024).astype(np.float32),
+                                 mt.gpu(0)))
+        kv.set_optimizer(mt.optimizer.SGD(learning_rate=0.1, momentum=0.9))
+        kv.push("w", mt.nd.array(rng.randn(1024).astype(np.float32),
+                                 mt.gpu(0)))
+        srv = kv._server
+        before = srv.store["w"].tobytes()
+        mom = srv.updater.states["w"]
+        mom_before = mom.asnumpy().tobytes()
+        bad = rng.randn(1024).astype(np.float32)
+        bad[7] = np.nan
+        raised = False
+        try:
+            kv.push("w", mt.nd.array(bad, mt.gpu(0)))
+        except NonFiniteGradientError:
+            raised = True
+        same = srv.store["w"].tobytes() == before and \
+            srv.updater.states["w"].asnumpy().tobytes() == mom_before
+        print("param_server (e3): a NaN push raised NonFiniteGradientError "
+              "%s; store and momentum unchanged bit for bit %s; rejected %d; "
+              "updater on %s (%s)" % (raised, same, srv.rejected_pushes,
+                                      srv.ctx, card), flush=True)
+        check(raised and same and mom.context == mt.gpu(0),
+              "param_server (e3): the NaN push was not contained")
+        return {"raised": raised, "unchanged": same}
+    finally:
+        kv.close()
+
+
+def param_server_phase(torch, mt, replay, train_losses):
+    """Phase 19 (module docstring).  Returns the launches of K1-K3 by path,
+    as ``parallel_phase`` does."""
+    card = card_and_limit()
+    t0 = time.perf_counter()
+    print("param_server: servers and workers are processes sharing one "
+          "card (%s): the times measure the parameter server's own cost, "
+          "not a multi-host speed-up" % card, flush=True)
+    torch.cuda.empty_cache()
+    runs = ps_lm_phases(torch, mt, replay, train_losses, card)
+    f32 = ps_f32(torch, mt, card)
+    torch.cuda.empty_cache()
+    # (e1) and (e2) are small: their processes run side by side
+    churn = ps_churn_start()
+    durable = [ps_durable_start(kill) for kill in (False, True)]
+    try:
+        for job in durable:
+            ps_durable_release(job)
+        elastic = ps_churn_finish(churn)
+        (ref, _), (got, stats) = [ps_durable_finish(j) for j in durable]
+    finally:
+        for job in [churn] + durable:
+            job.close()
+    equal = all(ref[r][k].tobytes() == got[r][k].tobytes()
+                for r in (0, 1) for k in ref[r])
+    print("param_server (e2): the server SIGKILLed after step %d and "
+          "restarted from its snapshot (restored %s): both workers' "
+          "parameters and losses bitwise equal to the uninterrupted run's "
+          "%s; losses %s" % (PS_DURABLE["snapshot_at"], stats["restored"],
+                             equal, ["%.6f" % x for x in got[0]["losses"]]),
+          flush=True)
+    check(stats["restored"] and equal, "param_server (e2): the restarted "
+          "run left the uninterrupted one")
+    nonfinite = ps_nonfinite(mt, card)
+    wall = time.perf_counter() - t0
+    print("param_server: phase wall time %.1f s on %s" % (wall, card),
+          flush=True)
+    print(json.dumps({"param_server": {
+        "card": card, "wall_s": wall,
+        "runs": {k: {x: y for x, y in v.items() if x != "losses"}
+                 for k, v in runs.items()},
+        "f32": f32, "elastic": elastic,
+        "durable": {"restored": stats["restored"], "bitwise": equal},
+        "nonfinite": nonfinite,
+        "note": "servers and workers share one card: the times are the "
+                "parameter server's own cost, not a multi-host speed-up"}}),
+        flush=True)
+
+    def total(tags):
+        return {n: sum(runs[t]["launches"][n] for t in tags)
+                for n in PS_NAMES}
+    return {"bf16": {"parameter server": total(("a", "c", "d"))},
+            "f32": {"parameter server": f32["launches"]}}
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -7513,12 +8327,16 @@ def main():
                          "beside this one's at every axpy timing case")
     ap.add_argument("--dist-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--shard-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--ps-worker", metavar="DIR", help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if opts.dist_worker:
         dist_worker(opts.dist_worker)
         return
     if opts.shard_worker:
         shard_worker(opts.shard_worker)
+        return
+    if opts.ps_worker:
+        ps_worker(opts.ps_worker)
         return
 
     import torch
@@ -7647,7 +8465,12 @@ def main():
     shard_launches = sharding_phase(torch, mt, batch, replay)
     for tag in ("bf16", "f32"):
         par_launches[tag].update(shard_launches[tag])
-    del batch, replay
+    del batch
+    torch.cuda.empty_cache()
+    ps_launches = param_server_phase(torch, mt, replay, losses)
+    for tag in ("bf16", "f32"):
+        par_launches[tag].update(ps_launches[tag])
+    del replay
     torch.cuda.empty_cache()
     d_main = FULL["hidden"] // FULL["num_heads"]
     for tag, kernel_rows in (

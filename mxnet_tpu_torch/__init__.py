@@ -35,8 +35,13 @@ and ``BucketSentenceIter``), ``BucketingModule``, ``SequentialModule``,
 (named meshes, partition rules, placement), ``Module.bind(mesh=,
 partition_rules=)`` over ``Executor.set_shardings`` (tensor parallelism
 beside data parallelism, and every ``dist_sync`` worker's batch one shard
-of the global batch) and ``checkpoint``'s sharded checkpoints.  This
-package imports neither ``jax`` nor ``mxnet_tpu``.
+of the global batch) and ``checkpoint``'s sharded checkpoints — and the parameter server:
+``kvstore_server`` (``KVStoreServer``, ``ServerClient``) behind
+``kv.create("dist_async")`` with range split, fp16 wire compression, the
+comm engine's bucketed wire, elastic membership, durable snapshots and the
+preemption handler.  A process started with ``DMLC_ROLE=server`` serves
+when it imports this package, then exits.  This package imports neither
+``jax`` nor ``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -89,3 +94,9 @@ from . import checkpoint
 from . import rnn
 from . import monitor
 from . import monitor as mon
+from . import kvstore_server
+
+# server-role bootstrap, last so every module is loaded before requests
+# are served: under DMLC_ROLE=server this serves and exits (reference
+# python/mxnet/kvstore_server.py:58 _init_kvstore_server_module)
+kvstore_server._init_kvstore_server_module()

@@ -6,12 +6,17 @@ counterpart of ``mxnet_tpu/comm_engine.py``.
   a worker pool (``MXNET_KVSTORE_ASYNC_THREADS``), and among *ready* ops the
   highest ``priority`` wins (Module passes ``priority=-index``).  Failures
   are recorded and raised at the next barrier.
-* :class:`AsyncKVStore` — wraps a ``local``, ``device`` or ``dist_sync``
-  store and turns push/pull into engine submissions.  Completion is
-  observed through ``wait(keys)``/``wait_all()``, or when a pulled-into
-  NDArray is read (``asnumpy``/``wait_to_read``: the read guard installed
-  in ``ndarray.py``).  The executor reads parameter tensors directly, so
-  ``Module`` waits (``_wait_async_comm``) before a forward reads them.
+* :class:`AsyncKVStore` — wraps any store and turns push/pull into engine
+  submissions.  Completion is observed through ``wait(keys)``/
+  ``wait_all()``, or when a pulled-into NDArray is read (``asnumpy``/
+  ``wait_to_read``: the read guard installed in ``ndarray.py``).  The
+  executor reads parameter tensors directly, so ``Module`` waits
+  (``_wait_async_comm``) before a forward reads them.
+* Gradient coalescing — keys whose payload is at most
+  ``MXNET_KVSTORE_BUCKET_BYTES`` are packed into fused bucket messages when
+  the wrapped store speaks the batched wire protocol (``push_multi``/
+  ``pull_multi``: ``dist_async``); a bucket travels under one idempotency
+  token, so exactly-once replay covers it whole.
 
 An op submitted from a thread that runs CUDA work is launched by the worker
 on the stream the submitter was using on each device its arrays live on,
@@ -20,9 +25,8 @@ gradients, and the next forward's behind them.
 
 Per-key FIFO makes the per-key update sequence identical to the
 synchronous path, so async training reaches bit-identical weights.  Left
-for later slices: the bucketed ``push_multi``/``pull_multi`` wire path and
-fp16 compression (they need ``kvstore_server``, A.4c), ``sparse_plane``
-(A.6) and the tracer/profiler spans (A.6's ``telemetry`` tracer).
+for later slices: ``sparse_plane`` (A.6b) and the tracer/profiler spans
+(A.6b's ``telemetry`` tracer).
 """
 from __future__ import annotations
 
@@ -51,6 +55,9 @@ register_env("MXNET_KVSTORE_ASYNC", 1, int,
              "engine (0 restores the fully synchronous push/pull loop).")
 register_env("MXNET_KVSTORE_ASYNC_THREADS", 2, int,
              "Worker threads in the kvstore comm engine.")
+register_env("MXNET_KVSTORE_BUCKET_BYTES", 65536, int,
+             "Coalesce pushes/pulls of keys under this many bytes into "
+             "fused bucket RPCs (0 disables bucketing).")
 
 
 # ---------------------------------------------------------------------------
@@ -60,11 +67,10 @@ class CommMetrics:
     """Comm-plane counters on a per-store telemetry ``Registry``
     (``mxtpu_comm_*`` series, registered as a collector so they appear in
     the global Prometheus render); ``snapshot()`` is the dict view
-    ``comm_stats()`` returns.  The bucketed wire's counters come with
-    that wire (A.4c)."""
+    ``comm_stats()`` returns."""
 
     _COUNTERS = ("pushes", "pulls", "bytes_pushed", "bytes_pulled",
-                 "wait_calls")
+                 "bucket_flushes", "bucket_keys", "wait_calls")
 
     def __init__(self):
         from . import telemetry as _tm
@@ -75,6 +81,9 @@ class CommMetrics:
         self._c["wait_ms_total"] = self._reg.counter(
             "mxtpu_comm_wait_ms_total",
             "Total time blocked in engine waits (ms).")
+        self._fill_sum = self._reg.counter(
+            "mxtpu_comm_bucket_fill_ratio_sum",
+            "Sum of per-flush bucket fill ratios (/ flushes = avg fill).")
         self._wait_hist = self._reg.histogram(
             "mxtpu_comm_wait_ms_hist",
             "Per-call engine wait time (ms).",
@@ -84,6 +93,12 @@ class CommMetrics:
     def add(self, name, n=1):
         self._c[name].inc(n)
 
+    def note_bucket(self, nkeys, nbytes, capacity):
+        self._c["bucket_flushes"].inc()
+        self._c["bucket_keys"].inc(nkeys)
+        if capacity > 0:
+            self._fill_sum.inc(min(1.0, nbytes / float(capacity)))
+
     def note_wait(self, seconds):
         ms = seconds * 1e3
         self._c["wait_calls"].inc()
@@ -91,8 +106,8 @@ class CommMetrics:
         self._wait_hist.observe(ms)
 
     def add_live_gauge(self, name, fn, doc=""):
-        """Register a callback gauge (queue depth) read at render/snapshot
-        time."""
+        """Register a callback gauge (queue depth, inflight RPCs) read at
+        render/snapshot time."""
         self._reg.gauge("mxtpu_comm_%s" % name, doc, fn=fn)
 
     def render_prometheus(self):
@@ -100,6 +115,9 @@ class CommMetrics:
 
     def snapshot(self):
         d = {k: c.value for k, c in self._c.items()}
+        flushes = d["bucket_flushes"]
+        d["bucket_fill_ratio"] = (self._fill_sum.value / flushes
+                                  if flushes else 0.0)
         d["avg_wait_ms"] = (d["wait_ms_total"] / d["wait_calls"]
                             if d["wait_calls"] else 0.0)
         return d
@@ -334,22 +352,41 @@ def _est_bytes(arr):
     return size * (2 if dt == "bfloat16" else np.dtype(dt).itemsize)
 
 
-def _stream_scope(arrays):
-    """A context manager that puts the calling thread on the streams the
-    submitting thread is using now, on each CUDA device of ``arrays``."""
+def _streams_of(arrays):
+    """The streams the calling thread is using now, on each CUDA device of
+    ``arrays``, as {device: stream}."""
     import torch
 
     devices = {a._data.device for a in arrays
                if isinstance(a, NDArray) and a._data.is_cuda}
-    streams = [torch.cuda.current_stream(d) for d in devices]
+    return {d: torch.cuda.current_stream(d) for d in devices}
 
-    def scope():
-        stack = contextlib.ExitStack()
-        for s in streams:
-            stack.enter_context(torch.cuda.stream(s))
-        return stack
 
-    return scope
+def _scope(streams):
+    """A context manager that puts the calling thread on ``streams``."""
+    import torch
+
+    stack = contextlib.ExitStack()
+    for s in streams.values():
+        stack.enter_context(torch.cuda.stream(s))
+    return stack
+
+
+class _PendingEntry:
+    """A push or pull waiting in a coalescing bucket."""
+
+    __slots__ = ("key", "vals", "outs", "priority", "nbytes", "ticket",
+                 "streams")
+
+    def __init__(self, key, vals=None, outs=None, priority=0, nbytes=0,
+                 ticket=None, streams=None):
+        self.key = key
+        self.vals = vals
+        self.outs = outs
+        self.priority = priority
+        self.nbytes = nbytes
+        self.ticket = ticket
+        self.streams = streams
 
 
 # ---------------------------------------------------------------------------
@@ -360,9 +397,14 @@ class AsyncKVStore(KVStore):
     (engine submissions with per-key FIFO + priority), ``wait``/
     ``wait_all`` are the explicit barriers, and reading a pulled-into
     NDArray blocks implicitly.  Control-plane calls (init, set_optimizer,
-    barrier, optimizer-state IO) drain the engine first.  ``bucket_bytes``
-    is accepted for the JAX signature: no ported store speaks the bucketed
-    wire protocol, so keys travel one by one."""
+    barrier, optimizer-state IO) drain the engine first.
+
+    Keys whose payload is at most ``bucket_bytes`` coalesce into fused
+    multi-key RPCs when the wrapped store implements ``push_multi``/
+    ``pull_multi`` (``dist_async`` does); ``bucket_bytes=0`` disables
+    coalescing.  A bucket is submitted when it fills, when a later op on
+    one of its keys needs it out first (per-key order holds across
+    buckets), and at every wait."""
 
     def __init__(self, kv, num_threads=None, bucket_bytes=None):
         if isinstance(kv, AsyncKVStore):
@@ -374,6 +416,18 @@ class AsyncKVStore(KVStore):
             # identical on every worker — one thread keeps it serial
             num_threads = 1
         self._engine = CommEngine(num_threads)
+        if bucket_bytes is None:
+            bucket_bytes = int(os.environ.get(
+                "MXNET_KVSTORE_BUCKET_BYTES", "65536"))
+        can_bucket = hasattr(kv, "push_multi") and hasattr(kv, "pull_multi")
+        self._bucket_bytes = int(bucket_bytes) if can_bucket else 0
+        self._buf_lock = threading.RLock()
+        self._push_buf: List[_PendingEntry] = []
+        self._push_keys = set()
+        self._push_bytes = 0
+        self._pull_buf: List[_PendingEntry] = []
+        self._pull_keys = set()
+        self._pull_bytes = 0
         self.metrics = CommMetrics()
         eng = self._engine
         self.metrics.add_live_gauge(
@@ -382,6 +436,17 @@ class AsyncKVStore(KVStore):
         self.metrics.add_live_gauge(
             "queue_peak", lambda e=eng: e.peak_outstanding,
             "High-watermark of engine queue depth.")
+        wself = weakref.ref(self)
+
+        def inflight():
+            s = wself()
+            clients = getattr(s._kv, "_clients", None) if s else None
+            return sum(len(getattr(c, "_inflight", ()))
+                       for c in clients) if clients else 0
+
+        self.metrics.add_live_gauge(
+            "inflight_rpcs", inflight,
+            "Pipelined RPCs awaiting replies across transport clients.")
         _install_read_guard()
 
     # -- identity ----------------------------------------------------------
@@ -401,9 +466,83 @@ class AsyncKVStore(KVStore):
         # anything not overridden falls through to the wrapped store
         return getattr(self.__dict__["_kv"], name)
 
+    # -- bucketing ---------------------------------------------------------
+    def _flush_pushes_locked(self):
+        if not self._push_buf:
+            return
+        entries, self._push_buf = self._push_buf, []
+        self._push_keys = set()
+        nbytes, self._push_bytes = self._push_bytes, 0
+        keys = [e.key for e in entries]
+        pri = max(e.priority for e in entries)
+        streams = {d: s for e in entries for d, s in e.streams.items()}
+        if len(entries) == 1:
+            e = entries[0]
+
+            def fn(kv=self._kv, e=e):
+                with _scope(streams):
+                    kv.push(e.key, e.vals, priority=e.priority)
+            label = "comm.push"
+        else:
+            pairs = [(e.key, e.vals) for e in entries]
+
+            def fn(kv=self._kv, pairs=pairs):
+                with _scope(streams):
+                    kv.push_multi(pairs)
+            label = "comm.push_bucket"
+            self.metrics.note_bucket(len(entries), nbytes,
+                                     self._bucket_bytes)
+        self._engine.submit(fn, keys, pri, label=label)
+
+    def _flush_pulls_locked(self):
+        if not self._pull_buf:
+            return
+        entries, self._pull_buf = self._pull_buf, []
+        self._pull_keys = set()
+        nbytes, self._pull_bytes = self._pull_bytes, 0
+        keys = [e.key for e in entries]
+        pri = max(e.priority for e in entries)
+        tickets = [e.ticket for e in entries]
+        streams = {d: s for e in entries for d, s in e.streams.items()}
+
+        def cleanup(op, tickets=tickets):
+            for t in tickets:
+                _drop_ticket(t)
+
+        if len(entries) == 1:
+            e = entries[0]
+
+            def fn(kv=self._kv, e=e):
+                with _scope(streams):
+                    kv.pull(e.key, e.outs, priority=e.priority)
+            label = "comm.pull"
+        else:
+            pairs = [(e.key, e.outs) for e in entries]
+
+            def fn(kv=self._kv, pairs=pairs):
+                with _scope(streams):
+                    kv.pull_multi(pairs)
+            label = "comm.pull_bucket"
+            self.metrics.note_bucket(len(entries), nbytes,
+                                     self._bucket_bytes)
+        op = self._engine.submit(fn, keys, pri, label=label,
+                                 cleanup=cleanup)
+        for t in tickets:
+            t.op = op
+
+    def flush(self):
+        """Submit any coalescing buffers to the engine (non-blocking)."""
+        with self._buf_lock:
+            self._flush_pushes_locked()
+            self._flush_pulls_locked()
+
     def _resolve_ticket(self, ticket):
         """Read-guard path: an NDArray a pending pull targets is being
-        read — wait the pull out."""
+        read — flush the pull if it is still buffered, then wait it out."""
+        if ticket.op is None:
+            with self._buf_lock:
+                if ticket.op is None:
+                    self._flush_pulls_locked()
         op = ticket.op
         if op is None:
             return
@@ -424,33 +563,63 @@ class AsyncKVStore(KVStore):
             # this batch's values
             snap = [NDArray(v._data, v.context) if isinstance(v, NDArray)
                     else _nd_mod.array(v) for v in vlist]
+            nbytes = _est_bytes(snap[0])
             self.metrics.add("pushes")
-            self.metrics.add("bytes_pushed", _est_bytes(snap[0]))
-            scope = _stream_scope(snap)
+            self.metrics.add("bytes_pushed", nbytes)
+            streams = _streams_of(snap)
+            with self._buf_lock:
+                if k in self._pull_keys:
+                    self._flush_pulls_locked()  # keep per-key FIFO
+                if 0 < nbytes <= self._bucket_bytes:
+                    self._push_buf.append(_PendingEntry(
+                        k, vals=snap, priority=priority, nbytes=nbytes,
+                        streams=streams))
+                    self._push_keys.add(k)
+                    self._push_bytes += nbytes
+                    if self._push_bytes >= self._bucket_bytes:
+                        self._flush_pushes_locked()
+                    continue
+                if k in self._push_keys:
+                    self._flush_pushes_locked()
 
-            def fn(kv=self._kv, k=k, snap=snap, p=priority, scope=scope):
-                with scope():
-                    kv.push(k, snap, priority=p)
+                def fn(kv=self._kv, k=k, snap=snap, p=priority):
+                    with _scope(streams):
+                        kv.push(k, snap, priority=p)
 
-            self._engine.submit(fn, [k], priority, label="comm.push")
+                self._engine.submit(fn, [k], priority, label="comm.push")
 
     def pull(self, key, out=None, priority=0):
         keys, _ = _key_list(key)
         outs = _val_list(out, len(keys))
         for k, olist in zip(keys, outs):
+            nbytes = _est_bytes(olist[0])
             self.metrics.add("pulls")
-            self.metrics.add("bytes_pulled", _est_bytes(olist[0]))
+            self.metrics.add("bytes_pulled", nbytes)
             ticket = _ReadTicket(self, [id(o) for o in olist])
             _register_ticket(ticket)
-            scope = _stream_scope(olist)
+            streams = _streams_of(olist)
+            with self._buf_lock:
+                if k in self._push_keys:
+                    self._flush_pushes_locked()  # the pull sees the push
+                if k in self._pull_keys:
+                    self._flush_pulls_locked()
+                if 0 < nbytes <= self._bucket_bytes:
+                    self._pull_buf.append(_PendingEntry(
+                        k, outs=olist, priority=priority, nbytes=nbytes,
+                        ticket=ticket, streams=streams))
+                    self._pull_keys.add(k)
+                    self._pull_bytes += nbytes
+                    if self._pull_bytes >= self._bucket_bytes:
+                        self._flush_pulls_locked()
+                    continue
 
-            def fn(kv=self._kv, k=k, olist=olist, p=priority, scope=scope):
-                with scope():
-                    kv.pull(k, olist, priority=p)
+                def fn(kv=self._kv, k=k, olist=olist, p=priority):
+                    with _scope(streams):
+                        kv.pull(k, olist, priority=p)
 
-            ticket.op = self._engine.submit(
-                fn, [k], priority, label="comm.pull",
-                cleanup=lambda op, t=ticket: _drop_ticket(t))
+                ticket.op = self._engine.submit(
+                    fn, [k], priority, label="comm.pull",
+                    cleanup=lambda op, t=ticket: _drop_ticket(t))
 
     # -- barriers ----------------------------------------------------------
     def wait(self, keys=None):
@@ -459,19 +628,23 @@ class AsyncKVStore(KVStore):
         if keys is None:
             return self.wait_all()
         keys, _ = _key_list(keys)
+        self.flush()
         t0 = time.perf_counter()
         self._engine.wait(keys)
         self.metrics.note_wait(time.perf_counter() - t0)
 
     def wait_all(self, timeout=None):
+        self.flush()
         t0 = time.perf_counter()
         done = self._engine.wait_all(timeout)
         self.metrics.note_wait(time.perf_counter() - t0)
         return done
 
     def drain(self, timeout=None):
-        """Wait — bounded by ``timeout`` seconds — for every in-flight op,
-        swallowing op failures.  Returns True when the engine drained."""
+        """The preemption drain: flush the buckets and wait — bounded by
+        ``timeout`` seconds — for every in-flight op, swallowing op
+        failures (a worker about to leave gets its last gradients out if
+        it can).  Returns True when the engine drained."""
         try:
             return bool(self.wait_all(timeout))
         except MXNetError:
@@ -479,7 +652,7 @@ class AsyncKVStore(KVStore):
 
     def sparse_plane(self):
         raise MXNetError("the row-sparse parameter plane is not ported yet: "
-                         "it comes with sparse/ (slice A.6 of the port)")
+                         "it comes with sparse/ (slice A.6b of the port)")
 
     # -- control plane (drain first) ----------------------------------------
     def init(self, key, value):
@@ -516,11 +689,18 @@ class AsyncKVStore(KVStore):
 
     # -- observability -----------------------------------------------------
     def comm_stats(self):
-        """Snapshot of the comm counters + the engine's queue depth and
-        peak."""
+        """Snapshot of the comm counters and live gauges: the engine's
+        queue depth and peak and, over a server fleet, the transport's
+        in-flight requests."""
         d = self.metrics.snapshot()
         d["queue_depth"] = self._engine.outstanding()
         d["queue_peak"] = self._engine.peak_outstanding
+        clients = getattr(self._kv, "_clients", None)
+        if clients:
+            d["inflight_requests"] = sum(
+                len(getattr(c, "_inflight", ())) for c in clients)
+            d["inflight_peak"] = max(
+                getattr(c, "max_inflight", 0) for c in clients)
         return d
 
     # -- lifecycle ---------------------------------------------------------

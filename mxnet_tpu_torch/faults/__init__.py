@@ -5,7 +5,9 @@ Instrumented sites name themselves with dotted operation strings and call
 :func:`fire` before touching the real resource; in this package those are
 the generation engine and its KV pool (``generation.engine.*``,
 ``generation.kv.alloc``, ``generation.prefix.lookup``,
-``generation.draft.verify``).  An installed :class:`FaultPlan` then
+``generation.draft.verify``) and the parameter server's wire
+(``kv.client.connect``/``send``/``recv``, ``kv.server.send``/``recv``,
+``kv.server.evict``).  An installed :class:`FaultPlan` then
 injects connection drops, delays, I/O errors or process kills on a
 reproducible schedule.
 

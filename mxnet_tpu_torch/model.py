@@ -10,7 +10,9 @@ sets another.  ``_create_kvstore`` resolves a kvstore spec as the reference
 does (model.py:40-77): none for one device unless the store is ``dist_*``,
 ``update_on_kvstore`` off for ``local`` when no parameter reaches 16M
 elements; ``_update_params_on_kvstore`` pushes in backward order and pulls,
-leaving an async store's traffic in flight when asked.  The JAX package's
+leaving an async store's traffic in flight when asked (over a sync-mode
+parameter server it waits at a barrier between the two, which the JAX
+package does not).  The JAX package's
 sidecars (CRC, PRNG state, last-good marker, retention ring) are not
 ported.
 """
@@ -85,6 +87,10 @@ def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
     for index in param_order:
         if grad_arrays[index] is not None:
             kvstore.push(index, grad_arrays[index], priority=-index)
+    if getattr(kvstore, "sync_rounds", False):
+        # a sync-mode server applies a round once every worker pushed; a
+        # pull before then would read the weights from before the round
+        kvstore._barrier()
     for index in range(n):
         if grad_arrays[index] is not None:
             kvstore.pull(index, param_arrays[index], priority=-index)

@@ -29,6 +29,7 @@ monitor's telemetry.
 from __future__ import annotations
 
 import logging
+import os
 
 from .. import context as ctx_mod
 from .. import ndarray as nd
@@ -305,6 +306,14 @@ class Module(BaseModule):
         kvstore, update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
         multiprocess = self._exec_group._multiprocess
+        if multiprocess and kvstore and kvstore.type == "dist_async":
+            # dist_async needs each worker's own gradient at the server;
+            # the step has already summed them over the group: the two
+            # data planes cannot compose
+            raise MXNetError(
+                "dist_async requires per-worker gradients: construct the "
+                "Module with dist_mesh=False to train process-local "
+                "replicas against the parameter server")
         if multiprocess and kvstore and "dist" in kvstore.type:
             # the gradients are summed over the workers inside the step
             # and every worker applies the identical update to its
@@ -370,6 +379,13 @@ class Module(BaseModule):
             kvstore.set_optimizer(self._optimizer)
         else:
             self._updater = opt.get_updater(optimizer)
+        if kvstore and "dist" in kvstore.type and \
+                os.environ.get("MXNET_KVSTORE_ELASTIC", "0") == "1":
+            # the elastic preemption path: SIGTERM drains the comm ops,
+            # leaves the membership and exits 0
+            from ..kvstore import install_preemption_handler
+
+            install_preemption_handler(kvstore)
         self.optimizer_initialized = True
         self._fused_ok = self._decide_fused()
         if self._preload_opt_states is not None:

@@ -355,6 +355,31 @@ class NDArray:
         return "<NDArray %s @%s>" % ("x".join(str(d) for d in self.shape),
                                      self._ctx)
 
+    # -- pickling: the JAX package's state dict (host data, context), so a
+    # pickled optimizer state (a server snapshot) restores onto the
+    # context it was taken on; bfloat16 data travels widened to float32
+    # and says so under "dtype".  An array stored as pieces keeps them
+    # (the pieces pickle as tensors on their devices).
+    def __getstate__(self):
+        state = {"ctx_type": self._ctx.device_type,
+                 "ctx_id": self._ctx.device_id, "writable": True}
+        if isinstance(self._data, ShardedTensor):
+            state["pieces"] = self._data
+            return state
+        state["data"] = self.asnumpy()
+        if self._data.dtype == torch.bfloat16:
+            state["dtype"] = "bfloat16"
+        return state
+
+    def __setstate__(self, state):
+        self._ctx = Context(state["ctx_type"], state["ctx_id"])
+        if "pieces" in state:
+            self._data = state["pieces"]
+            return
+        self._data = torch.from_numpy(np.array(state["data"])).to(
+            device=self._ctx.torch_device(),
+            dtype=torch_dtype(state.get("dtype", state["data"].dtype)))
+
 
 # ---------------------------------------------------------------------------
 # Imperative invoke — the analogue of MXImperativeInvoke

@@ -1,9 +1,11 @@
 """The port's async kvstore comm engine (``mxnet_tpu_torch.comm_engine``)
-against the JAX package's on the cases of tests/test_comm_engine.py that
-need no parameter server: priority among ready ops, per-key FIFO, scoped
-waits, failures raised at the barrier, the read guard, the env gate,
-training through the async store bit-identical to the synchronous loop,
-and ``backward_param_order``."""
+against the JAX package's on the cases of tests/test_comm_engine.py:
+priority among ready ops, per-key FIFO, scoped waits, failures raised at
+the barrier, the read guard, the env gate, training through the async
+store bit-identical to the synchronous loop, ``backward_param_order``,
+and the bucketed wire over ``dist_async`` (values, bucket metrics, per-key
+order across buckets, a bucket replayed whole after a dropped ACK, and
+``maybe_async`` coalescing small keys)."""
 
 import threading
 import time
@@ -220,3 +222,130 @@ def test_updates_launch_on_the_submitters_stream(monkeypatch):
     finally:
         kv.close()
     assert called == []
+
+
+# ---------------------------------------------------------------------------
+# gradient bucketing over dist_async (the bucketed wire)
+# ---------------------------------------------------------------------------
+def _dist_async(pkg):
+    with pkg.cpu():
+        return pkg.kv.create("dist_async")
+
+
+def _nd(pkg, x):
+    return pkg.nd.array(np.asarray(x, np.float32), pkg.cpu())
+
+
+@pytest.mark.parametrize("ce,pkg", list(zip(ENGINES, [mx, mt])), ids=IDS)
+def test_bucketed_push_pull_values_and_metrics(ce, pkg):
+    kv = ce.make_async(_dist_async(pkg), num_threads=4, bucket_bytes=1 << 16)
+    try:
+        n = 40
+        for i in range(n):
+            kv.init(i, pkg.nd.zeros((8,), pkg.cpu()))
+        for i in range(n):
+            kv.push(i, _nd(pkg, np.full(8, float(i))))
+        outs = [pkg.nd.zeros((8,), pkg.cpu()) for _ in range(n)]
+        for i in range(n):
+            kv.pull(i, outs[i])
+        kv.wait_all()
+        for i in range(n):
+            np.testing.assert_array_equal(outs[i].asnumpy(),
+                                          np.full(8, float(i)))
+        stats = kv.comm_stats()
+        assert stats["pushes"] == n and stats["pulls"] == n
+        assert stats["bucket_flushes"] >= 2  # a push and a pull bucket
+        assert stats["bucket_keys"] >= 2 * n - 2
+        assert 0.0 < stats["bucket_fill_ratio"] <= 1.0
+        assert stats["bytes_pushed"] == stats["bytes_pulled"] == n * 8 * 4
+        assert stats["queue_depth"] == 0 and stats["inflight_peak"] >= 1
+        if pkg is mt:
+            assert kv.inner.wire["push_items"] == n
+            assert "mxtpu_comm_inflight_rpcs 0" in \
+                kv.metrics.render_prometheus()
+    finally:
+        kv.close()
+
+
+@pytest.mark.parametrize("ce,pkg", list(zip(ENGINES, [mx, mt])), ids=IDS)
+def test_bucket_keeps_per_key_order_across_buckets(ce, pkg):
+    """push(k); pull(k); push(k); pull(k) with every op buffered: each pull
+    sees the pushes before it (the opposing bucket is flushed first)."""
+    kv = ce.make_async(_dist_async(pkg), num_threads=4, bucket_bytes=1 << 20)
+    try:
+        kv.init(0, pkg.nd.zeros((4,), pkg.cpu()))
+        kv.init(1, pkg.nd.zeros((4,), pkg.cpu()))
+        a, b = (pkg.nd.zeros((4,), pkg.cpu()) for _ in range(2))
+        kv.push(0, _nd(pkg, np.full(4, 3.0)))
+        kv.push(1, _nd(pkg, np.full(4, 1.0)))
+        kv.pull(0, a)
+        kv.push(0, _nd(pkg, np.full(4, 2.0)))
+        kv.pull(0, b)
+        kv.wait_all()
+        np.testing.assert_array_equal(a.asnumpy(), np.full(4, 3.0))
+        np.testing.assert_array_equal(b.asnumpy(), np.full(4, 5.0))
+    finally:
+        kv.close()
+
+
+@pytest.mark.parametrize("ce,pkg,faults", [
+    (jce, mx, __import__("mxnet_tpu.faults").faults),
+    (tce, mt, mt.faults)], ids=IDS)
+def test_bucketed_push_survives_socket_loss(monkeypatch, ce, pkg, faults):
+    """A bucket rides one idempotency token: a dropped ACK replays the
+    fused envelope and every inner push applies once."""
+    monkeypatch.setenv("MXNET_KVSTORE_RETRY_MAX", "40")
+    monkeypatch.setenv("MXNET_KVSTORE_RETRY_INITIAL_MS", "1")
+    monkeypatch.setenv("MXNET_KVSTORE_RETRY_MAX_MS", "20")
+    with faults.inject("kv.client.recv:drop=1@#4") as plan:
+        kv = ce.make_async(_dist_async(pkg), num_threads=2,
+                           bucket_bytes=1 << 16)
+        try:
+            n = 20
+            for i in range(n):
+                kv.init(i, pkg.nd.zeros((8,), pkg.cpu()))
+            for i in range(n):
+                kv.push(i, _nd(pkg, np.full(8, float(i))))
+            outs = [pkg.nd.zeros((8,), pkg.cpu()) for _ in range(n)]
+            for i in range(n):
+                kv.pull(i, outs[i])
+            kv.wait_all()
+            for i in range(n):
+                np.testing.assert_array_equal(outs[i].asnumpy(),
+                                              np.full(8, float(i)))
+            assert kv.inner._server.applied_pushes == n
+            assert plan.events == [("kv.client.recv", "drop", 4)]
+        finally:
+            kv.close()
+
+
+def test_maybe_async_over_dist_async_buckets_small_keys(monkeypatch):
+    """Module's policy hook wraps dist_async so that keys under the bucket
+    size ride push_multi/pull_multi; a key over it goes alone."""
+    monkeypatch.setenv("MXNET_KVSTORE_ASYNC", "1")
+    monkeypatch.setenv("MXNET_KVSTORE_BUCKET_BYTES", "256")
+    kv = tce.maybe_async(_dist_async(mt))
+    calls = []
+    inner = kv.inner
+    for name in ("push", "pull", "push_multi", "pull_multi"):
+        real = getattr(inner, name)
+        setattr(inner, name, lambda *a, _n=name, _r=real, **k:
+                (calls.append(_n), _r(*a, **k))[1])
+    try:
+        for i in range(4):
+            kv.init(i, mt.nd.zeros((8,), mt.cpu()))
+        kv.init("big", mt.nd.zeros((100,), mt.cpu()))
+        for i in range(4):
+            kv.push(i, mt.nd.ones((8,), mt.cpu()))
+        kv.push("big", mt.nd.ones((100,), mt.cpu()))
+        outs = [mt.nd.zeros((8,), mt.cpu()) for _ in range(4)]
+        for i in range(4):
+            kv.pull(i, outs[i])
+        kv.wait_all()
+        assert sorted(calls) == ["pull_multi", "push", "push_multi"]
+        stats = kv.comm_stats()
+        assert stats["bucket_flushes"] == 2 and stats["bucket_keys"] == 8
+        for o in outs:
+            np.testing.assert_array_equal(o.asnumpy(), np.ones(8))
+    finally:
+        kv.close()

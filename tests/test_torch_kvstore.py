@@ -167,8 +167,17 @@ def test_pull_keeps_the_destination_device_and_dtype():
     np.testing.assert_array_equal(out.asnumpy(), np.arange(4))
 
 
-def test_dist_async_names_its_slice():
-    with pytest.raises(mt.MXNetError, match="A.4c"):
-        mt.kv.create("dist_async")
+def test_create_dist_async_returns_a_parameter_server_store():
+    with mt.cpu():
+        kv = mt.kv.create("dist_async")
+    try:
+        assert isinstance(kv, mt.kvstore.DistAsyncKVStore)
+        assert kv.type == "dist_async" and kv._server.ctx == mt.cpu()
+        kv.init(3, _nd(mt, np.ones(SHAPE)))
+        out = _nd(mt, np.zeros(SHAPE))
+        kv.pull(3, out=out)
+        np.testing.assert_array_equal(out.asnumpy(), np.ones(SHAPE))
+    finally:
+        kv.close()
     with pytest.raises(mt.MXNetError, match="unknown KVStore"):
         mt.kv.create("nonsense")

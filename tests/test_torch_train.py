@@ -565,17 +565,28 @@ def test_bf16_compute_rounds_token_ids_in_both_packages():
         np.testing.assert_array_equal(r[0], expected.numpy())
 
 
-def test_kvstore_the_port_cannot_honour_raises(lm_setup):
+def test_init_optimizer_takes_dist_async(lm_setup):
+    """The update goes to the parameter server (an in-process one here,
+    its updater on the CPU) through the async comm engine."""
     _, tn, params, _, _ = lm_setup
     mod = mt.mod.Module(tn, context=mt.cpu())
     mod.bind(data_shapes=[("data", SHAPE)],
              label_shapes=[("softmax_label", SHAPE)])
     mod.init_params(arg_params={k: mt.nd.array(v, mt.cpu())
                                 for k, v in params.items()}, aux_params={})
-    with pytest.raises(mt.MXNetError, match="not ported"):
+    with mt.cpu():
         mod.init_optimizer(kvstore="dist_async")
+    try:
+        assert mod._update_on_kvstore and mod._kvstore.type == "dist_async"
+        assert isinstance(mod._kvstore.inner, mt.kvstore.DistAsyncKVStore)
+    finally:
+        mod._kvstore.close()
+
+
+def test_mesh_binds_over_the_module_contexts(lm_setup):
     # a mesh, which raised before the GSPMD layer was ported, now binds:
     # resolved over the Module's own two contexts
+    _, tn, _, _, _ = lm_setup
     meshed = mt.mod.Module(tn, context=[mt.cpu(0), mt.cpu(1)])
     meshed.bind(data_shapes=[("data", SHAPE)],
                 label_shapes=[("softmax_label", SHAPE)], mesh="data=-1")
