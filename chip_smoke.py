@@ -455,7 +455,63 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ends it; the kernel table's d=128 rows add (a), (c) and (d)'s
              workers' launches on the bf16 rows and (b)'s on the float32
              rows ("parameter server").
-
+20. serving — the serving tier (``mt.serving``) on the card, with its own
+             checkpoints written by ``model.save_checkpoint`` in a
+             temporary directory.  (a) The full-width LM (float32, TF32
+             off, weights N(0, 0.02) drawn on the card from SEED) through
+             ``InferenceServer.from_checkpoint`` with ``input_shapes``
+             {"data", "softmax_label": (2, 4096)} (buckets 1 and 2) and a
+             generator: 6 requests from 6 threads, each request's rows (its
+             row of the batch, recorded at the batcher, times 4096) within
+             1e-4 of their largest |value| of a direct batch-1
+             ``Predictor``, rows summing to 1 within 1e-4, K1 launched 6
+             times per executor call (the counts zeroed just before the
+             requests), no cold bucket run; latency p50/p99, queue wait,
+             the executor per bucket beside the serve phase's Predictor ms,
+             the bucket-2 output's host copy (1.05 GB), occupancy and peak
+             memory.  (c) ``POST /generate`` on that server (engine: lanes
+             1/2/4, prefill lengths 128/512/1024, batches 1/2, pages for 4
+             lanes of 1152 tokens): 4 prompts one at a time, their NDJSON
+             records the JAX server's keys and their tokens a second LM
+             server's engine's, one request at a time; 8 streams at once,
+             all ending, under the near-tie rule; tokens/s and the client's
+             TTFT/ITL beside the engine's.  (b) ResNet-50 (BASELINE.md's
+             inference configuration: 224², 1000 classes, float32, batch
+             32; a random init, SRV_RESNET_INIT) under ``InferenceServer``
+             at pow2 buckets to 32: 256 single-image requests from 32
+             threads on 2 replicas of the card (one queue), then on 1, each
+             answer within 1e-4 of a direct batch-1 ``Predictor``'s; img/s,
+             latency, occupancy; 4 ``POST /predict`` bit for bit the
+             in-process answers, ``/healthz`` and ``/readyz`` 200,
+             ``/metrics`` the JAX package's series, the handler's JSON
+             decode and encode ms; ``/generate`` 404 without a generator.
+             (d1) A ``Router`` over two ResNet servers under 32-thread
+             load, one stopped mid-load (``stop(drain=False)``): no failed
+             request, its breaker opens, a new server in its place serves.
+             (d2) Epochs 1 and 2 saved with ``max_to_keep=2`` (epoch 0
+             pruned) and a byte of epoch 2 flipped: ``find_latest_checkpoint``
+             gives 1; ``router.swap`` to it under load: no failed request, a
+             replica ready throughout, every answer epoch 0's or 1's and
+             every one submitted after the swap epoch 1's, device memory
+             within 64 MB.  (d3) A router over the two LM servers: one
+             128-token stream, its replica stopped after 32 tokens; it ends
+             on the other, equal to an uninterrupted run (near-tie rule),
+             one resume counted.  (d4) A router over one server through
+             HTTP: answers bit for bit the local ones, the overhead per
+             request.  (e) A ``ReplicaRegistry`` over HTTP, an
+             ``Autoscaler`` (1-3) with ``LocalCheckpointProvider``: a crowd
+             of 64 clients for 5 s scales out and back to 1 with no failed
+             request, every spawned replica without a cold bucket run;
+             then one ``ProcessProvider`` replica process (``python -m
+             mxnet_tpu_torch.serving.launch``, started before (d1) so that
+             its start-up overlaps (d1)-(d2)) registers, answers one
+             ``/predict`` bit for bit, exits 0 on SIGTERM and leaves the
+             registry.  (f) Every server stopped: ``resident_bytes()`` 0
+             and the card's live tensors within 64 MB of the phase's start
+             (cuBLAS's per-thread workspaces cleared first).  A ``serving``
+             JSON line ends it; the float32 d=128 K1 row adds (a)'s
+             launches ("serving").  Replicas share one card: img/s of two
+             is not a two-card number.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -1506,6 +1562,9 @@ def lm_params(mt, sym, shapes, rng, std):
     return params
 
 
+#: the serve phase's steady ms per request, printed beside phase 20's
+SERVE_READINGS = {}
+
 # the label is bound too (as zeros): its shape cannot be inferred back
 # through the symbol's Reshape, in this package or the JAX one
 SERVE_SHAPES = {"data": (BATCH, FULL["seq_len"]),
@@ -1578,6 +1637,7 @@ def serve_phase(torch, mt):
     check(launches["flash_fwd"] > 0, "the serving path never launched "
           "flash_fwd")
     steady = float(np.mean(times[1:]))
+    SERVE_READINGS["steady_ms"] = steady * 1e3
     print("serve: %d requests of %d tokens; first %.2f ms, then %.2f ms per "
           "request = %.1f tokens/s; peak device memory %.2f GB; launches %s"
           % (REQUESTS, b * s, times[0] * 1e3, steady * 1e3, b * s / steady,
@@ -8111,6 +8171,1005 @@ def param_server_phase(torch, mt, replay, train_losses):
             "f32": {"parameter server": f32["launches"]}}
 
 
+# -- phase 20: the serving tier ---------------------------------------------
+
+#: (a): the full-width LM scored through InferenceServer at buckets (1, 2)
+SRV_LM_SHAPES = {"data": (2, FULL["seq_len"]),
+                 "softmax_label": (2, FULL["seq_len"])}
+SRV_LM_REQUESTS = 6
+#: (c): a smaller engine of the full-width LM: 4 lanes of 1152 tokens
+SRV_GEN = dict(GEN_MODEL, lane_buckets=(1, 2, 4), page_size=16,
+               num_pages=4 * 72 + 1, prefill_len_buckets=(128, 512, 1024),
+               prefill_batch_buckets=(1, 2))
+SRV_GEN_PROMPTS = (100, 300, 700, 1000)   # one at a time over HTTP
+SRV_GEN_CONCURRENT = 8
+SRV_GEN_NEW = 32
+SRV_RESUME = (200, 128, 32)   # (d3): prompt, new tokens, stop after
+#: (b): BASELINE.md's inference configuration (benchmark_score.py)
+SRV_RESNET_SHAPES = {"data": (32,) + RESNET["image_shape"]}
+SRV_RESNET_REQUESTS = 256
+SRV_RESNET_IMAGES = 32        # distinct images, cycled over the requests
+SRV_CLIENTS = 32
+#: the random ResNet's init: Xavier("in", 6) keeps each conv + relu's
+#: variance (He's), and the residual branch's last BatchNorm at 0.25 keeps
+#: 16 residual additions from saturating the softmax (at Xavier("in",
+#: 2.34) the activations fade and the softmax is uniform, at unit gamma it
+#: is one-hot; these give a top probability near 0.15 on U(-1, 1) images)
+SRV_RESNET_INIT = (6.0, 0.25)
+SRV_P100_IMG_S = 713.17       # BASELINE.md, a yardstick only
+SRV_CROWD = (64, 5.0)         # (e): clients, seconds
+SRV_MEM_SLACK = 64 << 20
+SRV_TOL = 1e-4
+#: the JAX package's serving series (mxnet_tpu/serving/metrics.py)
+SRV_SERIES = {"mxtpu_serving_" + k for k in (
+    "requests_total", "requests_completed", "requests_rejected",
+    "requests_expired", "requests_failed", "worker_crashes",
+    "batches_total", "padded_items_total", "queue_depth",
+    "queue_depth_peak", "batch_size", "batch_occupancy", "latency_ms",
+    "qps")}
+
+
+def srv_lm_checkpoint(torch, mt, net, prefix):
+    """The LM's weights, N(0, 0.02) from SEED drawn on the card (unit
+    LayerNorm gains, zero biases and shifts), saved by save_checkpoint."""
+    arg_shapes, _, _ = net.infer_shape(**SRV_LM_SHAPES)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in SRV_LM_SHAPES:
+            continue
+        if name.endswith("_gamma"):
+            t = torch.ones(shape, device="cuda")
+        elif name.endswith(("_beta", "_bias")):
+            t = torch.zeros(shape, device="cuda")
+        else:
+            t = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        params[name] = mt.nd.NDArray(t, mt.gpu(0))
+    mt.model.save_checkpoint(prefix, 0, net, params, {})
+    return sum(int(np.prod(p.shape)) for p in params.values())
+
+
+def srv_resnet_checkpoint(mt, net, prefix, epoch, seed, **kw):
+    """ResNet-50 initialized from ``seed`` on the CPU as SRV_RESNET_INIT
+    says, saved by save_checkpoint."""
+    mt.random.seed(seed)
+    mod = mt.mod.Module(net, context=mt.cpu())
+    shape = (1,) + RESNET["image_shape"]
+    mod.bind(data_shapes=[mt.io.DataDesc("data", shape)],
+             label_shapes=[mt.io.DataDesc("softmax_label", (1,))],
+             for_training=False)
+    magnitude, gamma = SRV_RESNET_INIT
+    mod.init_params(initializer=mt.init.Xavier(factor_type="in",
+                                               magnitude=magnitude))
+    args, aux = mod.get_params()
+    for k in args:
+        if k.endswith("_c_bn_gamma"):
+            args[k] = mt.nd.array(np.full(args[k].shape, gamma, np.float32),
+                                  mt.cpu())
+    mt.model.save_checkpoint(prefix, epoch, net, args, aux, **kw)
+
+
+def srv_rel(torch, got, ref):
+    """max |got - ref| over the largest |ref|, on the card."""
+    g = torch.as_tensor(np.asarray(got), device="cuda")
+    r = torch.as_tensor(np.asarray(ref), device="cuda")
+    return float((g - r).abs().max() / r.abs().max())
+
+
+def srv_post(url, payload, timeout=600):
+    """(status, body bytes) of one JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        body = exc.read()
+        exc.close()
+        return exc.code, body
+
+
+def srv_get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        body = exc.read().decode()
+        exc.close()
+        return exc.code, body
+
+
+def srv_stream(url, payload):
+    """One NDJSON /generate stream: (tokens, final record, the client's
+    ttft ms, its inter-token gaps in ms, key sets seen)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    toks, final, gaps, keys = [], None, [], set()
+    t0 = time.perf_counter()
+    t_prev, ttft = None, None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.headers["Content-Type"] == "application/x-ndjson",
+              "(c) /generate answered %s" % resp.headers["Content-Type"])
+        for line in resp:
+            obj = json.loads(line)
+            keys.add(tuple(sorted(obj)))
+            now = time.perf_counter()
+            if "token" in obj:
+                if t_prev is None:
+                    ttft = (now - t0) * 1e3
+                else:
+                    gaps.append((now - t_prev) * 1e3)
+                t_prev = now
+                toks.append(obj["token"])
+            else:
+                final = obj
+                break
+    return toks, final, ttft, gaps, keys
+
+
+def srv_load(fn, n, clients):
+    """Run ``fn(i)`` for i < n from ``clients`` threads; (results by i,
+    errors, per-call latency ms, wall s)."""
+    import threading
+
+    out, errors, lat = {}, [], {}
+    lock = threading.Lock()
+    nxt = iter(range(n))
+
+    def worker():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                res = fn(i)
+            except Exception as exc:  # counted, then fatal at the caller
+                with lock:
+                    errors.append(repr(exc))
+                continue
+            with lock:
+                out[i] = res
+                lat[i] = (time.perf_counter() - t0) * 1e3
+    threads = [threading.Thread(target=worker) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return out, errors, [lat[i] for i in sorted(lat)], \
+        time.perf_counter() - t0
+
+
+class SrvLoop:
+    """``fn(i)`` called in a loop from ``clients`` threads until stopped;
+    records (i, submit time, result) and every error."""
+
+    def __init__(self, fn, clients):
+        import threading
+
+        self.fn, self.done, self.errors = fn, [], []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._run, args=(k,
+                                                                  clients))
+                         for k in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, k, step):
+        i = k
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            try:
+                res = self.fn(i)
+            except Exception as exc:  # counted, then fatal at the caller
+                with self._lock:
+                    self.errors.append(repr(exc))
+            else:
+                with self._lock:
+                    self.done.append((i, t0, res))
+            i += step
+
+    def wait_for(self, n, timeout=120):
+        t_end = time.monotonic() + timeout
+        while len(self.done) < n and not self.errors:
+            check(time.monotonic() < t_end, "serving: the load stalled at "
+                  "%d answers" % len(self.done))
+            time.sleep(0.005)
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(600)
+        return self.done, self.errors
+
+
+def srv_batch_index(srv):
+    """Record, for each request's future, its row within the batch the
+    batcher ran it in (the LM's flattened output gives every item the whole
+    batch's rows); returns the dict it fills."""
+    index = {}
+    batcher = srv._batcher
+    run = batcher._execute
+
+    def execute(replica, batch):
+        live = [it for it in batch if not it.future.done()]
+        for i, it in enumerate(live):
+            index[id(it.future)] = (i, time.monotonic() - it.t_enqueue)
+        return run(replica, batch)
+    batcher._execute = execute
+    return index
+
+
+def srv_lm_scoring(torch, mt, srv, prefix, card):
+    """(a): 6 requests from 6 threads against a direct batch-1 Predictor;
+    returns the K1 launches of the scoring window and the readings."""
+    s = FULL["seq_len"]
+    rng = np.random.default_rng(SEED + 20)
+    reqs = [rng.integers(0, FULL["vocab_size"], (s,)).astype(np.float32)
+            for _ in range(SRV_LM_REQUESTS)]
+    label = np.zeros((s,), np.float32)
+    index = srv_batch_index(srv)
+    rep = srv._replicas[0]
+    calls0 = rep.executor_calls
+    torch.cuda.reset_peak_memory_stats()
+    mt.kernels.reset_launches()
+    futs = {}
+
+    def one(i):
+        fut = srv.submit(data=reqs[i], softmax_label=label)
+        futs[i] = fut
+        return fut.result(600)[0]
+    outs, errors, lat, wall = srv_load(one, SRV_LM_REQUESTS,
+                                       SRV_LM_REQUESTS)
+    torch.cuda.synchronize()
+    launches = dict(mt.kernels.LAUNCHES)
+    calls = rep.executor_calls - calls0
+    peak = torch.cuda.max_memory_allocated()
+    check(not errors, "(a) failed requests %s" % errors[:3])
+    check(launches["flash_fwd"] == FULL["num_layers"] * calls,
+          "(a) flash_fwd launched %d times in %d executor calls, expected %d"
+          % (launches["flash_fwd"], calls, FULL["num_layers"] * calls))
+    check(srv.cold_bucket_runs() == 0, "(a) %d cold bucket runs"
+          % srv.cold_bucket_runs())
+    direct = mt.Predictor.from_checkpoint(
+        prefix, 0, {"data": (1, s), "softmax_label": (1, s)})
+    worst, row_err = 0.0, 0.0
+    for i in range(SRV_LM_REQUESTS):
+        row, _ = index[id(futs[i])]
+        got = torch.as_tensor(outs[i][row * s:(row + 1) * s], device="cuda")
+        ref = direct.forward(data=reqs[i][None],
+                             softmax_label=label[None])[0]._data
+        err = float((got - ref).abs().max() / ref.abs().max())
+        worst = max(worst, err)
+        row_err = max(row_err, float((got.sum(-1) - 1).abs().max()))
+        check(err <= SRV_TOL, "(a) request %d: %.3g of the largest |value| "
+              "off a direct batch-1 Predictor" % (i, err))
+    check(row_err <= SRV_TOL, "(a) rows sum to 1 only within %.3g" % row_err)
+    del direct, got, ref
+    outs.clear()
+    # the executor alone per bucket, and one bucket-2 output's host copy
+    item = {"data": reqs[0], "softmax_label": label}
+    exec_ms, copy_ms = {}, None
+    for b in srv.buckets:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, o = rep.forward_padded([item] * b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if b == srv.buckets[-1]:
+                t0 = time.perf_counter()
+                host = o[0].asnumpy()
+                copy_ms = (time.perf_counter() - t0) * 1e3
+                copy_gb = host.nbytes / 1e9
+                del host
+            del o
+        exec_ms[b] = float(np.median(times))
+    snap = srv.metrics.snapshot()
+    waits = [w * 1e3 for _, w in index.values()]
+    res = {"latency_ms_p50": pct(lat, 50), "latency_ms_p99": pct(lat, 99),
+           "server_latency_ms_p50": snap["latency_ms_p50"],
+           "server_latency_ms_p99": snap["latency_ms_p99"],
+           "queue_wait_ms_p50": pct(waits, 50),
+           "queue_wait_ms_p99": pct(waits, 99),
+           "executor_ms": exec_ms,
+           "serve_phase_predictor_ms_b4": SERVE_READINGS.get("steady_ms"),
+           "host_copy_ms": copy_ms, "host_copy_gb": copy_gb,
+           "batch_size_hist": snap["batch_size_hist"],
+           "occupancy_hist": snap["occupancy_hist"],
+           "executor_calls": calls, "flash_fwd": launches["flash_fwd"],
+           "max_rel_err": worst, "row_sum_err": row_err,
+           "peak_gb": peak / 1e9, "wall_s": wall}
+    print("serving (a) LM scoring (%s): %d requests from %d threads: "
+          "latency p50 %.1f / p99 %.1f ms (client), queue wait p50 %.1f / "
+          "p99 %.1f ms; executor ms by bucket %s beside the serve phase's "
+          "Predictor %.2f ms at batch 4; the bucket-2 output's host copy "
+          "%.1f ms for %.2f GB; buckets %s, occupancy %s; %d executor "
+          "calls, flash_fwd %d; max error %.3g of the largest |value|, rows "
+          "sum to 1 within %.2g; peak device memory %.2f GB"
+          % (card, SRV_LM_REQUESTS, SRV_LM_REQUESTS, res["latency_ms_p50"],
+             res["latency_ms_p99"], res["queue_wait_ms_p50"],
+             res["queue_wait_ms_p99"],
+             {b: round(v, 2) for b, v in exec_ms.items()},
+             res["serve_phase_predictor_ms_b4"] or float("nan"), copy_ms,
+             copy_gb, snap["batch_size_hist"], snap["occupancy_hist"], calls,
+             launches["flash_fwd"], worst, row_err, peak / 1e9), flush=True)
+    return {k: launches[k] for k in PS_NAMES}, res
+
+
+def srv_generate(torch, mt, srv, ref_srv, card):
+    """(c): /generate over HTTP, one at a time and 8 at once, against
+    ``ref_srv``'s engine one request at a time."""
+    host, port = srv.serve_http()
+    url = "http://%s:%d/generate" % (host, port)
+    rng = np.random.default_rng(SEED + 21)
+    vocab = GEN_MODEL["vocab_size"]
+    one_prompts = [[int(t) for t in rng.integers(0, vocab, n)]
+                   for n in SRV_GEN_PROMPTS]
+    many_prompts = [[int(t) for t in rng.integers(0, vocab, int(n))]
+                    for n in rng.choice(SRV_GEN_PROMPTS, SRV_GEN_CONCURRENT)]
+    ref_eng = ref_srv._generator
+    ref = {tuple(p): ref_eng.submit(p, SRV_GEN_NEW).result(600)
+           for p in one_prompts + many_prompts}
+    key_sets = set()
+    for p in one_prompts:
+        toks, final, _, _, keys = srv_stream(
+            url, {"prompt": p, "max_new_tokens": SRV_GEN_NEW})
+        key_sets |= keys
+        check(final is not None and final.get("done") is True,
+              "(c) a stream ended without its final record")
+        check(toks == ref[tuple(p)], "(c) the HTTP stream of a %d-token "
+              "prompt differs from the engine's one-at-a-time transcript"
+              % len(p))
+    check(key_sets == {("token",), ("done", "n", "ttft_ms")},
+          "(c) stream records %s, not the JAX server's" % sorted(key_sets))
+    itl_before = (srv._generator.metrics.itl.count,
+                  srv._generator.metrics.itl.sum)
+    t0 = time.perf_counter()
+    outs, errors, _, _ = srv_load(
+        lambda i: srv_stream(url, {"prompt": many_prompts[i],
+                                   "max_new_tokens": SRV_GEN_NEW}),
+        SRV_GEN_CONCURRENT, SRV_GEN_CONCURRENT)
+    wall = time.perf_counter() - t0
+    check(not errors and len(outs) == SRV_GEN_CONCURRENT,
+          "(c) concurrent streams failed: %s" % errors[:3])
+    got = [outs[i][0] for i in range(SRV_GEN_CONCURRENT)]
+    check(all(outs[i][1] and outs[i][1]["done"]
+              for i in range(SRV_GEN_CONCURRENT)),
+          "(c) a concurrent stream did not end")
+    logits_at = GenLogits(mt, ref_eng, ref_srv._model_params)
+    ties = near_tie_compare(got, [ref[tuple(p)] for p in many_prompts],
+                            [(p, SRV_GEN_NEW) for p in many_prompts],
+                            logits_at, "serving (c) concurrent")
+    del logits_at
+    n_itl = srv._generator.metrics.itl.count - itl_before[0]
+    eng_itl = (srv._generator.metrics.itl.sum - itl_before[1]) / max(1, n_itl)
+    ttft = [outs[i][2] for i in range(SRV_GEN_CONCURRENT)]
+    itl = [g for i in range(SRV_GEN_CONCURRENT) for g in outs[i][3]]
+    eng_ttft = [outs[i][1]["ttft_ms"] for i in range(SRV_GEN_CONCURRENT)]
+    tokens = sum(len(t) for t in got)
+    res = {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p99": pct(ttft, 99),
+           "itl_ms_p50": pct(itl, 50), "itl_ms_p99": pct(itl, 99),
+           "engine_ttft_ms_p50": pct(eng_ttft, 50),
+           "engine_ttft_ms_p99": pct(eng_ttft, 99),
+           "engine_itl_ms_mean": eng_itl, "near_ties": ties}
+    print("serving (c) /generate (%s): %d streams one at a time equal the "
+          "engine's transcripts; %d at once: %d tokens in %.2f s = %.1f "
+          "tokens/s, client TTFT p50 %.1f / p99 %.1f ms, ITL p50 %.1f / p99 "
+          "%.1f ms; the engine's TTFT p50 %.1f / p99 %.1f ms, ITL mean %.1f "
+          "ms; K1 launches none (prefill is dense)"
+          % (card, len(one_prompts), SRV_GEN_CONCURRENT, tokens, wall,
+             tokens / wall, res["ttft_ms_p50"], res["ttft_ms_p99"],
+             res["itl_ms_p50"], res["itl_ms_p99"], res["engine_ttft_ms_p50"],
+             res["engine_ttft_ms_p99"], eng_itl), flush=True)
+    return res
+
+
+def srv_resume(torch, mt, servers, card):
+    """(d3): one 128-token stream through a router over two LM servers;
+    the serving replica stopped after 32 tokens."""
+    import threading
+
+    from mxnet_tpu_torch import serving
+
+    plen, new, cut = SRV_RESUME
+    rng = np.random.default_rng(SEED + 23)
+    prompt = [int(t) for t in rng.integers(0, GEN_MODEL["vocab_size"], plen)]
+    ref = servers[1]._generator.submit(prompt, new).result(600)
+    router = serving.Router(servers, seed=3)
+    try:
+        out, victim, killer = [], None, None
+        t0 = time.perf_counter()
+        for tok in router.generate(prompt, new):
+            out.append(tok)
+            if len(out) == cut and victim is None:
+                victim = next(s for s in servers
+                              if s._generator.active_lanes() > 0)
+                killer = threading.Thread(target=victim.stop,
+                                          kwargs={"drain": False})
+                killer.start()
+        wall = time.perf_counter() - t0
+        killer.join(600)
+        resumes = router.metrics.snapshot()["stream_resumes"]
+    finally:
+        router.close()
+    check(len(out) == new, "(d3) the stream ended after %d of %d tokens"
+          % (len(out), new))
+    survivor = next(s for s in servers if s is not victim)
+    logits_at = GenLogits(mt, survivor._generator, survivor._model_params)
+    ties = near_tie_compare([out], [ref], [(prompt, new)], logits_at,
+                            "serving (d3) resumed")
+    check(resumes == 1, "(d3) %d stream resumes counted" % resumes)
+    print("serving (d3) stream resume (%s): replica %d of 2 stopped after %d "
+          "tokens, the stream completed on the other (%d tokens in %.2f s), "
+          "resumes counted %d, near ties %d"
+          % (card, servers.index(victim), cut, len(out), wall, resumes,
+             ties), flush=True)
+    return {"resumes": resumes, "near_ties": ties, "wall_s": wall}
+
+
+def srv_images(n, seed):
+    rng = np.random.RandomState(seed)
+    return rng.uniform(-1, 1, (n,) + RESNET["image_shape"]).astype(
+        np.float32)
+
+
+def srv_direct(mt, prefix, epoch, images):
+    """A direct batch-1 Predictor's answers, one image at a time."""
+    pred = mt.Predictor.from_checkpoint(
+        prefix, epoch, {"data": (1,) + RESNET["image_shape"]})
+    out = np.stack([pred.forward(data=x[None])[0].asnumpy()[0]
+                    for x in images])
+    del pred
+    return out
+
+
+def srv_resnet_load(torch, srv, images, direct, what, card):
+    """256 single-image requests from 32 threads, each answer held to its
+    image's direct answer."""
+    h0 = dict(srv.metrics.snapshot()["batch_size_hist"])
+    o0 = dict(srv.metrics.snapshot()["occupancy_hist"])
+    outs, errors, lat, wall = srv_load(
+        lambda i: srv.predict(data=images[i % len(images)])[0],
+        SRV_RESNET_REQUESTS, SRV_CLIENTS)
+    check(not errors, "(b) %s: failed requests %s" % (what, errors[:3]))
+    got = np.stack([outs[i] for i in range(SRV_RESNET_REQUESTS)])
+    ref = direct[np.arange(SRV_RESNET_REQUESTS) % len(images)]
+    err = float((np.abs(got - ref).max(axis=1) /
+                 np.abs(ref).max(axis=1)).max())
+    check(err <= SRV_TOL, "(b) %s: an answer %.3g of its largest |value| off "
+          "the direct batch-1 Predictor" % (what, err))
+    snap = srv.metrics.snapshot()
+    hist = {b: c - h0.get(b, 0) for b, c in snap["batch_size_hist"].items()
+            if c - h0.get(b, 0)}
+    occ = {n: c - o0.get(n, 0) for n, c in snap["occupancy_hist"].items()
+           if c - o0.get(n, 0)}
+    mean_occ = sum(n * c for n, c in occ.items()) / max(1, sum(occ.values()))
+    res = {"img_s": SRV_RESNET_REQUESTS / wall, "latency_ms_p50":
+           pct(lat, 50), "latency_ms_p99": pct(lat, 99),
+           "mean_occupancy": mean_occ, "batch_size_hist": hist,
+           "max_rel_err": err, "wall_s": wall}
+    print("serving (b) ResNet-50 %s (%s): %d requests from %d threads: %.1f "
+          "img/s (the reference's P100 %.2f img/s at batch 32 is a yardstick "
+          "only), latency p50 %.1f / p99 %.1f ms, mean occupancy %.1f, "
+          "batches per bucket %s, max error %.3g"
+          % (what, card, SRV_RESNET_REQUESTS, SRV_CLIENTS, res["img_s"],
+             SRV_P100_IMG_S, res["latency_ms_p50"], res["latency_ms_p99"],
+             mean_occ, hist, err), flush=True)
+    return res
+
+
+def srv_series_names(text):
+    names = set()
+    for line in text.strip().splitlines():
+        if not line.startswith("#"):
+            names.add(re.split(r"[{ ]", line, 1)[0])
+    return names
+
+
+def srv_resnet_http(torch, mt, srv, images, card):
+    """(b)'s HTTP part: 4 POST /predict equal to in-process answers bit
+    for bit; /healthz, /readyz, /metrics; /generate 404."""
+    host, port = srv.serve_http()
+    base = "http://%s:%d" % (host, port)
+    for i in range(4):
+        local = srv.predict(data=images[i])[0]
+        code, body = srv_post(base + "/predict",
+                              {"inputs": {"data": images[i].tolist()}})
+        check(code == 200, "(b) POST /predict answered %d" % code)
+        remote = np.asarray(json.loads(body)["outputs"][0], np.float32)
+        check(remote.tobytes() == local.tobytes(), "(b) the HTTP answer for "
+              "image %d is not the in-process answer bit for bit" % i)
+    health, ready = srv_get(base + "/healthz"), srv_get(base + "/readyz")
+    check(health == (200, "ok") and ready == (200, "ready"),
+          "(b) /healthz %s, /readyz %s" % (health, ready))
+    code, text = srv_get(base + "/metrics")
+    names = srv_series_names(text)
+    check(code == 200 and names == SRV_SERIES, "(b) /metrics series %s, "
+          "expected the JAX package's %s" % (sorted(names),
+                                             sorted(SRV_SERIES)))
+    code, _ = srv_post(base + "/generate", {"prompt": [1],
+                                            "max_new_tokens": 2})
+    check(code == 404, "(c) /generate answered %d on a server without a "
+          "generator" % code)
+    js = srv.http_json_ms()
+    print("serving (b) HTTP (%s): 4 POST /predict bit for bit the "
+          "in-process answers; JSON decode %.2f ms and encode %.3f ms per "
+          "request in the handler; /healthz, /readyz 200, /metrics has the "
+          "JAX package's %d series; /generate without a generator 404"
+          % (card, js["decode"], js["encode"], len(names)), flush=True)
+    return {"json_decode_ms": js["decode"], "json_encode_ms": js["encode"]}
+
+
+def srv_failover(torch, mt, prefix, images, direct, card):
+    """(d1): a router over two ResNet servers; one stopped mid-load and a
+    new one added in its place.  Returns the readings and every server."""
+    from mxnet_tpu_torch import serving
+
+    servers = [serving.InferenceServer.from_checkpoint(
+        prefix, 0, SRV_RESNET_SHAPES) for _ in range(2)]
+    # one failed call opens a breaker, and a long cooldown keeps it open
+    # until r1 is replaced
+    router = serving.Router(servers, seed=1, breaker_threshold=1,
+                            breaker_cooldown_ms=600000, workers=SRV_CLIENTS)
+    loop = SrvLoop(lambda i: (i % len(images), router.predict(
+        data=images[i % len(images)])[0]), SRV_CLIENTS)
+    try:
+        loop.wait_for(64)
+        # stopped with requests in its queue: they fail over to r0
+        t_wait = time.monotonic() + 60
+        while servers[1].queue_depth() == 0:
+            check(time.monotonic() < t_wait, "(d1) r1's queue stayed empty")
+        t_stop = time.perf_counter()
+        servers[1].stop(drain=False)
+        loop.wait_for(len(loop.done) + 64)
+        opened = router.metrics.snapshot()["breaker_transitions"].get(
+            "open", 0)
+        router.remove_replica("r1", drain=False)
+        servers.append(serving.InferenceServer.from_checkpoint(
+            prefix, 0, SRV_RESNET_SHAPES))
+        router.add_replica(servers[-1], name="r1")
+        calls0 = router.describe()[1]["calls"]
+        loop.wait_for(len(loop.done) + 64)
+        done, errors = loop.stop()
+        d = router.describe()
+        snap = router.metrics.snapshot()
+    finally:
+        loop.stop()
+        router.close(stop_backends=True)
+    wall = time.perf_counter() - t_stop
+    check(not errors and snap["failed"] == {}, "(d1) failed requests %s %s"
+          % (errors[:3], snap["failed"]))
+    check(opened >= 1, "(d1) r1's breaker never opened")
+    check(d[1]["state"] == "closed" and d[1]["calls"] > calls0,
+          "(d1) the re-added r1 is %s with %d calls" % (d[1]["state"],
+                                                        d[1]["calls"]))
+    err = max(float(np.abs(out - direct[k]).max() / np.abs(direct[k]).max())
+              for _, _, (k, out) in done)
+    check(err <= SRV_TOL, "(d1) an answer %.3g off" % err)
+    print("serving (d1) failover (%s): %d requests from %d threads, r1 "
+          "stopped mid-load: 0 failed, %d retries, r1's breaker opened %d "
+          "times, then a new server in its place closed and serving; breaker "
+          "transitions "
+          "%s; max error %.3g; %.1f s"
+          % (card, len(done), SRV_CLIENTS, snap["retries"], opened,
+             snap["breaker_transitions"], err, wall), flush=True)
+    return {"requests": len(done), "retries": snap["retries"],
+            "breaker_transitions": snap["breaker_transitions"]}, servers
+
+
+def srv_swap(torch, mt, net, prefix, images, direct0, card):
+    """(d2): the ring of 2, a corrupt epoch 2, then router.swap to epoch 1
+    under load.  Returns the readings and every server."""
+    import threading
+
+    from mxnet_tpu_torch import serving
+
+    servers = [serving.InferenceServer.from_checkpoint(
+        prefix, 0, SRV_RESNET_SHAPES) for _ in range(2)]
+    for epoch in (1, 2):
+        srv_resnet_checkpoint(mt, net, prefix, epoch, SEED + epoch,
+                              max_to_keep=2)
+    path = "%s-0002.params" % prefix
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    pruned = not any(os.path.exists("%s-0000%s" % (prefix, s))
+                     for s in (".params", ".params.crc32", ".state"))
+    latest = mt.model.find_latest_checkpoint(prefix)
+    check(pruned and latest == 1, "(d2) epoch 0 pruned %s, latest %s"
+          % (pruned, latest))
+    direct1 = srv_direct(mt, prefix, 1, images)
+    router = serving.Router(servers, seed=2, workers=SRV_CLIENTS)
+    ready_min = [2]
+    watching = threading.Event()
+
+    def watch():
+        while not watching.is_set():
+            now = time.monotonic()
+            ready_min[0] = min(ready_min[0], sum(
+                1 for r in router.replicas() if r.routable(now)))
+            time.sleep(0.001)
+    watcher = threading.Thread(target=watch)
+    mem0 = srv_mem(torch)
+    loop = SrvLoop(lambda i: (i % len(images), router.predict(
+        data=images[i % len(images)])[0]), SRV_CLIENTS)
+    try:
+        loop.wait_for(64)
+        watcher.start()
+        t0 = time.perf_counter()
+        swapped = router.swap(prefix, 1)
+        swap_s = time.perf_counter() - t0
+        t_after = time.monotonic()
+        loop.wait_for(len(loop.done) + 64)
+        done, errors = loop.stop()
+        watching.set()
+        watcher.join(60)
+        snap = router.metrics.snapshot()
+        servers += [r.server for r in router.replicas()]
+        mem1 = srv_mem(torch)
+    finally:
+        loop.stop()
+        watching.set()
+        router.close(stop_backends=True)
+    check(swapped == 2 and not errors and snap["failed"] == {},
+          "(d2) swapped %d, failed %s %s" % (swapped, errors[:3],
+                                             snap["failed"]))
+    check(ready_min[0] >= 1, "(d2) no replica was ready during the swap")
+    late = 0
+    for i, t_submit, (k, out) in done:
+        e0 = float(np.abs(out - direct0[k]).max() / np.abs(direct0[k]).max())
+        e1 = float(np.abs(out - direct1[k]).max() / np.abs(direct1[k]).max())
+        check(min(e0, e1) <= SRV_TOL, "(d2) an answer matches neither epoch "
+              "(%.3g, %.3g)" % (e0, e1))
+        if t_submit > t_after:
+            late += 1
+            check(e1 <= SRV_TOL, "(d2) a request submitted after the swap "
+                  "returned got epoch 0's answer")
+    check(late > 0, "(d2) no request was submitted after the swap")
+    check(abs(mem1 - mem0) <= SRV_MEM_SLACK, "(d2) device memory %.1f MB "
+          "after the swap, %.1f MB before" % (mem1 / 2**20, mem0 / 2**20))
+    print("serving (d2) hot swap (%s): epoch 0 pruned by the ring of 2, a "
+          "corrupt epoch 2 skipped: find_latest_checkpoint 1; router.swap "
+          "took %.2f s under %d-thread load: %d requests, 0 failed, at least "
+          "%d replica ready throughout, %d submitted after the swap all "
+          "epoch 1's; device memory %.1f MB after vs %.1f MB before"
+          % (card, swap_s, SRV_CLIENTS, len(done), ready_min[0], late,
+             mem1 / 2**20, mem0 / 2**20), flush=True)
+    return {"swap_s": swap_s, "requests": len(done), "after_swap": late,
+            "mem_delta_mb": (mem1 - mem0) / 2**20}, servers
+
+
+def srv_remote(torch, mt, srv, images, card):
+    """(d4): a router over one server through HTTP."""
+    from mxnet_tpu_torch import serving
+
+    host, port = srv._httpd.server_address[:2]
+    router = serving.Router(registry=serving.ReplicaRegistry())
+    try:
+        router.add_replica("%s:%d" % (host, port))
+        local_ms, remote_ms = [], []
+        for i in range(8):
+            t0 = time.perf_counter()
+            local = srv.predict(data=images[i])[0]
+            t1 = time.perf_counter()
+            remote = router.predict(data=images[i])[0]
+            t2 = time.perf_counter()
+            local_ms.append((t1 - t0) * 1e3)
+            remote_ms.append((t2 - t1) * 1e3)
+            check(remote.tobytes() == local.tobytes(), "(d4) the remote "
+                  "replica's answer for image %d differs" % i)
+        kind = router.describe()[0]["kind"]
+    finally:
+        router.close()
+    over = float(np.median(remote_ms) - np.median(local_ms))
+    print("serving (d4) remote replica (%s): 8 answers through the router "
+          "over HTTP bit for bit the local ones (replica kind %s); median "
+          "%.2f ms through the router, %.2f ms in-process: %.2f ms overhead "
+          "per request" % (card, kind, np.median(remote_ms),
+                           np.median(local_ms), over), flush=True)
+    return {"router_ms": float(np.median(remote_ms)),
+            "local_ms": float(np.median(local_ms)), "overhead_ms": over}
+
+
+def srv_fleet_start(mt, net, prefix):
+    """(e)'s registry over HTTP and its ProcessProvider replica process,
+    started before (d1) so that the process's start-up (imports, CUDA, the
+    checkpoint) overlaps (d1)-(d2); its checkpoint is a prefix of its own,
+    epoch 1's init, which (d2)'s ring does not touch."""
+    from mxnet_tpu_torch import serving
+
+    srv_resnet_checkpoint(mt, net, prefix, 1, SEED + 1)
+    registry = serving.ReplicaRegistry(ttl_ms=60000)
+    registry.serve_http()
+    provider = serving.ProcessProvider(
+        registry.addr, prefix, 1, {"data": (1,) + RESNET["image_shape"]})
+    t0 = time.perf_counter()
+    name, proc = provider.spawn()
+    return {"registry": registry, "provider": provider, "name": name,
+            "proc": proc, "t0": t0}
+
+
+def srv_fleet_kill(fleet):
+    proc = fleet["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(30)
+    fleet["registry"].close()
+
+
+def srv_fleet(torch, mt, prefix, images, card, fleet):
+    """(e): the autoscaler under a flash crowd over ``fleet``'s registry,
+    then ``fleet``'s replica process."""
+    from mxnet_tpu_torch import serving
+
+    registry, proc_provider = fleet["registry"], fleet["provider"]
+    pname, proc, t_proc = fleet["name"], fleet["proc"], fleet["t0"]
+    spawned = []
+
+    class Recording(serving.LocalCheckpointProvider):
+        def spawn(self):
+            t0 = time.perf_counter()
+            name, server = super().spawn()
+            spawned.append((name, server, time.perf_counter() - t0))
+            return name, server
+
+    seed = serving.InferenceServer.from_checkpoint(
+        prefix, 1, SRV_RESNET_SHAPES, max_queue=64)
+    # the spawned replicas announce themselves in the registry and the
+    # router adopts its model's members (the replica process registers
+    # under no model and stays out of the crowd)
+    router = serving.Router([seed], seed=4, registry=registry,
+                            registry_sync_ms=100, model="resnet",
+                            workers=SRV_CROWD[0])
+    provider = Recording(prefix, 1, SRV_RESNET_SHAPES, registry=registry,
+                         meta={"model": "resnet"}, max_queue=64)
+    asc = serving.Autoscaler(router, provider, min_replicas=1,
+                             max_replicas=3, interval_ms=100,
+                             out_pressure=0.25, in_pressure=0.05,
+                             hysteresis=2, cooldown_ms=500)
+    sizes = []
+    try:
+        asc.start()
+        clients, seconds = SRV_CROWD
+        loop = SrvLoop(lambda i: router.predict(
+            data=images[i % len(images)])[0], clients)
+        t_end = time.monotonic() + seconds
+        while time.monotonic() < t_end and not loop.errors:
+            sizes.append(len(router.replicas()))
+            time.sleep(0.05)
+        done, errors = loop.stop()
+        peak = max(sizes)
+        t_idle = time.monotonic() + 60
+        while len(router.replicas()) > 1:
+            check(time.monotonic() < t_idle, "(e) the fleet stayed at %d "
+                  "replicas after the crowd" % len(router.replicas()))
+            time.sleep(0.05)
+        scale_in_s = 60 - (t_idle - time.monotonic())
+        snap = router.metrics.snapshot()
+    finally:
+        asc.stop(retire_owned=True)
+        router.close(stop_backends=True)
+    check(not errors and snap["failed"] == {}, "(e) failed requests %s %s"
+          % (errors[:3], snap["failed"]))
+    check(peak >= 2, "(e) the fleet never scaled out (%s)" % sorted(
+        set(sizes)))
+    colds = [s.cold_bucket_runs() for _, s, _ in spawned]
+    check(spawned and not any(colds), "(e) spawned replicas' cold bucket "
+          "runs %s" % colds)
+    events = [(e["op"], e["ok"]) for e in asc.events]
+    print("serving (e) flash crowd (%s): %d clients for %.0f s: %d requests, "
+          "0 failed, replicas peaked at %d, back to 1 %.1f s after the crowd; "
+          "spawn-to-ready s %s (warm-up runs every bucket; no claim), cold "
+          "bucket runs %s; decisions %s"
+          % (card, clients, seconds, len(done), peak, scale_in_s,
+             ["%.2f" % s for _, _, s in spawned], colds, events), flush=True)
+    # the replica process: registered, answers, exits 0 on SIGTERM
+    local = serving.InferenceServer.from_checkpoint(
+        prefix, 1, {"data": (1,) + RESNET["image_shape"]})
+    try:
+        t_wait = time.monotonic() + 300
+        while pname not in registry.live()["replicas"]:
+            check(proc.poll() is None, "(e) the replica process exited %s"
+                  % proc.poll())
+            check(time.monotonic() < t_wait, "(e) the replica process never "
+                  "registered")
+            time.sleep(0.05)
+        ready_s = time.perf_counter() - t_proc
+        backend = registry.live()["replicas"][pname]
+        code, body = srv_post("http://%s/predict" % backend,
+                              {"inputs": {"data": images[0].tolist()}})
+        check(code == 200, "(e) the replica process answered %d" % code)
+        remote = np.asarray(json.loads(body)["outputs"][0], np.float32)
+        want = local.predict(data=images[0])[0]
+        check(remote.tobytes() == want.tobytes(), "(e) the replica process's "
+              "answer differs from the in-process answer")
+        t0 = time.perf_counter()
+        proc_provider.retire(pname, proc)
+        exit_s = time.perf_counter() - t0
+        check(proc.returncode == 0, "(e) the replica process exited %s on "
+              "SIGTERM" % proc.returncode)
+        check(pname not in registry.live()["replicas"], "(e) the retired "
+              "replica is still registered")
+    finally:
+        local.stop()
+        srv_fleet_kill(fleet)
+    print("serving (e) replica process (%s): python -m "
+          "mxnet_tpu_torch.serving.launch registered %.1f s after its spawn "
+          "(started before (d1)), "
+          "answered POST /predict bit for bit the in-process answer, exited "
+          "0 %.2f s after SIGTERM and left the registry"
+          % (card, ready_s, exit_s), flush=True)
+    return {"requests": len(done), "peak_replicas": peak,
+            "spawn_s": [s for _, _, s in spawned], "scale_in_s": scale_in_s,
+            "process_ready_s": ready_s, "process_exit_s": exit_s,
+            "stopped": [s for _, s, _ in spawned] + [seed, local]}
+
+
+def gc_collect():
+    import gc
+
+    gc.collect()
+
+
+def srv_mem(torch):
+    """Bytes of live tensors on the card after a collection, without
+    cuBLAS's workspaces: PyTorch keeps one per thread that ran a product
+    (32 MiB each on this card) until they are cleared, and the serving
+    tier's worker threads come and go."""
+    gc_collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def serving_phase(torch, mt):
+    """Phase 20 (module docstring).  Returns the K1-K3 launches of (a)'s
+    scoring window, by path, as ``parallel_phase`` does."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import get_resnet
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_and_limit()
+    t_phase = time.perf_counter()
+    walls = {}
+    torch.cuda.empty_cache()
+    mem_start = srv_mem(torch)
+    stopped = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- (a) and (c): the LM -------------------------------------------
+        t0 = time.perf_counter()
+        lm = os.path.join(tmp, "lm")
+        with mt.NameManager():
+            net = get_transformer_lm(**FULL)
+        n_params = srv_lm_checkpoint(torch, mt, net, lm)
+        walls["lm checkpoint"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lm_srv = [serving.InferenceServer.from_checkpoint(
+            lm, 0, SRV_LM_SHAPES, generator_spec=dict(SRV_GEN))
+            for _ in range(2)]
+        stopped += lm_srv
+        check(lm_srv[0].swap_config()["ctx"] == [mt.gpu(0)],
+              "(a) the server resolved its context to %s"
+              % lm_srv[0].swap_config()["ctx"])
+        walls["lm servers"] = time.perf_counter() - t0
+        print("serving: LM checkpoint of %d parameters; two servers with "
+              "generators built and warmed in %.1f s" % (
+                  n_params, walls["lm servers"]), flush=True)
+        t0 = time.perf_counter()
+        launches, scoring = srv_lm_scoring(torch, mt, lm_srv[0], lm, card)
+        walls["(a)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        generate = srv_generate(torch, mt, lm_srv[0], lm_srv[1], card)
+        walls["(c)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resume = srv_resume(torch, mt, lm_srv, card)
+        walls["(d3)"] = time.perf_counter() - t0
+        for s in lm_srv:
+            s.stop()
+        gc_collect()
+
+        # -- (b), (d) and (e): ResNet-50 -------------------------------------
+        t0 = time.perf_counter()
+        rn = os.path.join(tmp, "resnet")
+        with mt.NameManager():
+            rnet = get_resnet(**RESNET)
+        srv_resnet_checkpoint(mt, rnet, rn, 0, SEED)
+        images = srv_images(SRV_RESNET_IMAGES, SEED)
+        direct0 = srv_direct(mt, rn, 0, images)
+        top = float(direct0.max(axis=1).mean())
+        walls["resnet checkpoint"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = serving.InferenceServer.from_checkpoint(
+            rn, 0, SRV_RESNET_SHAPES, ctx=[mt.gpu(0), mt.gpu(0)])
+        one = serving.InferenceServer.from_checkpoint(
+            rn, 0, SRV_RESNET_SHAPES)
+        stopped += [two, one]
+        walls["resnet servers"] = time.perf_counter() - t0
+        print("serving (b): two replicas share one card's SMs: their img/s "
+              "is not a two-card number; mean top probability %.3f"
+              % top, flush=True)
+        t0 = time.perf_counter()
+        resnet = {"2 replicas": srv_resnet_load(torch, two, images, direct0,
+                                                "2 replicas", card)}
+        two.stop()
+        resnet["1 replica"] = srv_resnet_load(torch, one, images, direct0,
+                                              "1 replica", card)
+        resnet["http"] = srv_resnet_http(torch, mt, one, images, card)
+        walls["(b)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fl = os.path.join(tmp, "fleet")
+        fleet_proc = srv_fleet_start(mt, rnet, fl)
+        walls["(e) start"] = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            failover, servers = srv_failover(torch, mt, rn, images, direct0,
+                                             card)
+            stopped += servers
+            walls["(d1)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            remote = srv_remote(torch, mt, one, images, card)
+            one.stop()
+            walls["(d4)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            swap, servers = srv_swap(torch, mt, rnet, rn, images, direct0,
+                                     card)
+            stopped += servers
+            del servers
+            walls["(d2)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fleet = srv_fleet(torch, mt, fl, images, card, fleet_proc)
+            stopped += fleet.pop("stopped")
+            walls["(e)"] = time.perf_counter() - t0
+        finally:
+            srv_fleet_kill(fleet_proc)
+
+    # -- (f) release -------------------------------------------------------
+    resident = [s.resident_bytes() for s in stopped]
+    mem_end = srv_mem(torch)
+    check(not any(resident), "(f) resident bytes after stop %s" % resident)
+    check(abs(mem_end - mem_start) <= SRV_MEM_SLACK, "(f) device memory "
+          "%.1f MB at the phase's end, %.1f MB at its start"
+          % (mem_end / 2**20, mem_start / 2**20))
+    wall = time.perf_counter() - t_phase
+    print("serving (f) release (%s): %d servers stopped, resident bytes all "
+          "0; device memory (live tensors, cuBLAS's per-thread workspaces "
+          "cleared) %.1f MB at the end vs %.1f MB at the start"
+          % (card, len(stopped), mem_end / 2**20, mem_start / 2**20),
+          flush=True)
+    print("serving: walls %s; phase %.1f s on %s"
+          % ({k: round(v, 2) for k, v in walls.items()}, wall, card),
+          flush=True)
+    print(json.dumps({"serving": {
+        "card": card, "scoring": scoring, "generate": generate,
+        "resnet": resnet, "failover": failover, "swap": swap,
+        "resume": resume, "remote": remote, "fleet": fleet,
+        "release": {"mem_start_mb": mem_start / 2**20,
+                    "mem_end_mb": mem_end / 2**20},
+        "walls_s": walls, "wall_s": wall,
+        "note": "replicas share one card: img/s of two replicas is not a "
+                "two-card number"}}, default=str), flush=True)
+    return {"f32": {"serving": launches}}
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -8471,6 +9530,9 @@ def main():
     for tag in ("bf16", "f32"):
         par_launches[tag].update(ps_launches[tag])
     del replay
+    torch.cuda.empty_cache()
+    serving_launches = serving_phase(torch, mt)
+    par_launches["f32"].update(serving_launches["f32"])
     torch.cuda.empty_cache()
     d_main = FULL["hidden"] // FULL["num_heads"]
     for tag, kernel_rows in (

@@ -27,8 +27,8 @@ schemes), ``recordio``, ``native`` (the C++ reader and the JPEG codecs),
 (``ops/spatial.py``) — and generation: ``generation.DecodeEngine``
 (continuous batching over a paged KV pool on the device, prefix caching,
 speculative decoding) over the paged-attention ops (``ops/paged.py``) and
-the prefill/decode/catch-up/verify builders, with ``faults``, the metrics
-half of ``telemetry`` and ``serving.BucketedPredictor`` — and the recurrent
+the prefill/decode/catch-up/verify builders, with ``faults`` and the metrics
+half of ``telemetry`` — and the recurrent
 family: the ``RNN``, ``Sequence*`` and ``WarpCTC`` ops, ``rnn`` (the cells
 and ``BucketSentenceIter``), ``BucketingModule``, ``SequentialModule``,
 ``PythonModule`` and ``Monitor`` — and the GSPMD layer: ``sharding``
@@ -40,7 +40,12 @@ of the global batch) and ``checkpoint``'s sharded checkpoints — and the parame
 ``kv.create("dist_async")`` with range split, fp16 wire compression, the
 comm engine's bucketed wire, elastic membership, durable snapshots and the
 preemption handler.  A process started with ``DMLC_ROLE=server`` serves
-when it imports this package, then exits.  This package imports neither
+when it imports this package, then exits — and the serving tier:
+``serving`` (``InferenceServer`` with its micro-batcher and HTTP API,
+``Router``, ``ReplicaRegistry``, ``Autoscaler``, ``python -m
+mxnet_tpu_torch.serving.launch``) and the checkpoint sidecars
+(``model.find_latest_checkpoint``, ``load_checkpoint_state``).  This
+package imports neither
 ``jax`` nor ``mxnet_tpu``.
 """
 from . import base

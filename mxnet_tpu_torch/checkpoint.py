@@ -21,7 +21,8 @@ a tensor-parallel layout saves and restores without a whole-tensor gather:
 The JAX package's payload is an orbax tree (tensorstore); the port writes
 its own, so it cannot read an orbax payload written by the JAX package,
 nor the JAX package one written by the port (a kept difference).  The AOT
-bundle half of the JAX module has no port yet (slice A.5).
+bundle half of the JAX module has no port yet (compile-once, ROADMAP.md
+A.5c).
 """
 from __future__ import annotations
 

@@ -55,10 +55,10 @@ pages are freed — though complete ones stay in the prefix index — and the
 sequence re-queues for re-admission of prompt+generated; greedy decode is
 deterministic, so the stream continues seamlessly).
 
-Not ported yet (ROADMAP.md A.5): ``compiled_entries`` (AOT bundles) and
-the ``decode_engine``/``draft_k`` autotune sites; the engine takes what
-the JAX engine takes with autotuning off — explicit arguments, else the
-env defaults.
+Not ported yet (compile-once, ROADMAP.md A.5c): ``compiled_entries`` (AOT
+bundles) and the ``decode_engine``/``draft_k`` autotune sites; the engine
+takes what the JAX engine takes with autotuning off — explicit arguments,
+else the env defaults.
 """
 from __future__ import annotations
 
@@ -592,7 +592,7 @@ class DecodeEngine:
             # stop racing the loop): cancel whatever is left
             self._fail_all_locked(ServerClosedError("engine stopped"))
         # the JAX engine feeds the observed acceptance back to its
-        # draft_k autotune site here (not ported yet, ROADMAP.md A.5)
+        # draft_k autotune site here (compile-once, ROADMAP.md A.5c)
 
     def handoff(self) -> int:
         """Preempt every queued and active stream WITHOUT stopping the

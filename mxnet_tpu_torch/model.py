@@ -2,8 +2,16 @@
 ``FeedForward`` training API — counterpart of ``mxnet_tpu/model.py``.
 
 ``save_checkpoint`` writes ``prefix-symbol.json`` and ``prefix-%04d.params``
-(the ``.params`` bytes ``nd.save`` writes in both packages);
-``load_checkpoint`` reads them back.  ``FeedForward`` is the JAX package's
+(the ``.params`` bytes ``nd.save`` writes in both packages) with the JAX
+package's sidecars: the CRC32 file, the ``.state`` pickle, the
+``-last-good`` marker and the pruned retention ring;
+``load_checkpoint`` reads them back, ``find_latest_checkpoint`` picks the
+newest intact (or last-good) epoch and ``load_checkpoint_state`` reads the
+``.state`` pickle.  File names and bytes are the JAX package's, so each
+package finds and loads the other's checkpoints; only ``.state``'s
+``rng`` entry is per package (the JAX package's threefry key, this one's
+generator states), and restoring the other package's raises
+:class:`ForeignRNGStateError`.  ``FeedForward`` is the JAX package's
 thin adapter over ``Module``: ``fit``, ``predict``, ``score``, ``save`` and
 ``load``; ``ctx=None`` is the current context, the card unless the caller
 sets another.  ``_create_kvstore`` resolves a kvstore spec as the reference
@@ -12,22 +20,33 @@ does (model.py:40-77): none for one device unless the store is ``dist_*``,
 elements; ``_update_params_on_kvstore`` pushes in backward order and pulls,
 leaving an async store's traffic in flight when asked (over a sync-mode
 parameter server it waits at a barrier between the two, which the JAX
-package does not).  The JAX package's
-sidecars (CRC, PRNG state, last-good marker, retention ring) are not
-ported.
+package does not).
 """
 from __future__ import annotations
 
 import collections
+import glob
 import logging
+import os
+import pickle
+import re
+import struct
 
 import numpy as np
 
 from . import ndarray as nd
 from . import symbol as sym
+from .base import MXNetError
 
 __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
-           "FeedForward"]
+           "load_checkpoint_state", "find_latest_checkpoint",
+           "ForeignRNGStateError", "FeedForward"]
+
+
+class ForeignRNGStateError(MXNetError):
+    """``restore_rng`` was asked to restore a random state this package did
+    not write (the JAX package's threefry key): each package's ``.state``
+    keeps its own random stream; the rest of the state crosses."""
 
 BatchEndParam = collections.namedtuple(
     "BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
@@ -119,15 +138,148 @@ def _update_params(param_arrays, grad_arrays, updater, num_device=1,
         updater(index, grad, arg)
 
 
-def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
-    """Write prefix-symbol.json + prefix-%04d.params."""
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
+                    max_to_keep=None, extra_state=None,
+                    mark_last_good=False):
+    """Write prefix-symbol.json + prefix-%04d.params and the sidecars.
+
+    The params land atomically with a CRC32 sidecar (``.params.crc32``), so
+    :func:`find_latest_checkpoint` can reject a torn or corrupted file.
+    ``prefix-%04d.state`` pickles ``{"rng": random.get_state()}`` merged
+    with ``extra_state`` (e.g. ``DataIter.state_dict()``).
+    ``mark_last_good`` stamps this epoch into ``prefix-last-good``, the
+    epoch discovery prefers; ``max_to_keep`` then prunes all but the newest
+    N epochs (params, CRC and state), never the marked one."""
+    from . import random as _random
+    from .filesystem import atomic_write
+
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
     param_name = "%s-%04d.params" % (prefix, epoch)
-    nd.save(param_name, save_dict)
+    nd.save(param_name, save_dict, checksum=True, op="ckpt.write")
+    state = {"rng": _random.get_state()}
+    if extra_state:
+        state.update(extra_state)
+    blob = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+    atomic_write("%s-%04d.state" % (prefix, epoch),
+                 lambda f: f.write(blob), checksum=False, op="ckpt.state")
+    if mark_last_good:
+        _mark_last_good(prefix, epoch)
+    if max_to_keep is not None:
+        _prune_checkpoints(prefix, int(max_to_keep))
     logging.info("Saved checkpoint to \"%s\"", param_name)
+
+
+def _last_good_path(prefix):
+    return "%s-last-good" % prefix
+
+
+def _mark_last_good(prefix, epoch):
+    """Atomically stamp ``epoch`` as the rollback target for ``prefix``."""
+    from .filesystem import atomic_write
+
+    atomic_write(_last_good_path(prefix),
+                 lambda f: f.write(("%04d\n" % epoch).encode("ascii")),
+                 checksum=False, op="ckpt.state")
+
+
+def _read_last_good(prefix):
+    """The epoch :func:`_mark_last_good` stamped, or None."""
+    try:
+        with open(_last_good_path(prefix), "r") as f:
+            return int(f.read().strip())
+    except (OSError, ValueError):
+        return None
+
+
+def _saved_epochs(prefix):
+    """(epoch, path) of every ``prefix-NNNN.params`` on disk."""
+    out = []
+    for path in glob.glob("%s-[0-9][0-9][0-9][0-9].params" % prefix):
+        m = re.search(r"-(\d{4})\.params$", path)
+        if m:
+            out.append((int(m.group(1)), path))
+    return out
+
+
+def _prune_checkpoints(prefix, max_to_keep):
+    """Delete all but the newest ``max_to_keep`` epochs of ``prefix``
+    (params, CRC and state sidecars), never the last-good one."""
+    if max_to_keep < 1:
+        return
+    keep_always = _read_last_good(prefix)
+    epochs = sorted((ep for ep, _ in _saved_epochs(prefix)), reverse=True)
+    for ep in epochs[max_to_keep:]:
+        if ep == keep_always:
+            continue
+        for suffix in (".params", ".params.crc32", ".state"):
+            try:
+                os.remove("%s-%04d%s" % (prefix, ep, suffix))
+            except OSError:
+                pass
+
+
+def load_checkpoint_state(prefix, epoch, restore_rng=False):
+    """The ``.state`` dict :func:`save_checkpoint` wrote (None without
+    one).  ``restore_rng`` feeds its random state back into ``random``;
+    a state the JAX package wrote carries its threefry key instead and
+    raises :class:`ForeignRNGStateError`."""
+    from . import random as _random
+
+    try:
+        with open("%s-%04d.state" % (prefix, epoch), "rb") as f:
+            state = pickle.load(f)
+    except OSError:
+        return None
+    if restore_rng and "rng" in state:
+        rng = state["rng"]
+        if not isinstance(rng, dict) or "generators" not in rng:
+            raise ForeignRNGStateError(
+                "%s-%04d.state holds another package's random state (%s); "
+                "this package restores only its own generator states — "
+                "load it with restore_rng=False" % (
+                    prefix, epoch, sorted(rng) if isinstance(rng, dict)
+                    else type(rng).__name__))
+        _random.set_state(rng)
+    return state
+
+
+def _checkpoint_ok(path):
+    """Is ``path`` a loadable .params file?  The CRC sidecar's verdict when
+    there is one, else the container's magic."""
+    from .filesystem import verify_crc_sidecar
+
+    verdict = verify_crc_sidecar(path)
+    if verdict is not None:
+        return verdict
+    try:
+        with open(path, "rb") as f:
+            head = f.read(8)
+        return len(head) == 8 and struct.unpack("<Q", head)[0] == nd._MAGIC
+    except OSError:
+        return False
+
+
+def find_latest_checkpoint(prefix, prefer_last_good=True):
+    """The newest intact epoch of ``prefix`` (prefix-%04d.params), or None.
+
+    Files that fail their CRC sidecar, or carry no sidecar and a bad magic,
+    are skipped.  With ``prefer_last_good`` an intact ``prefix-last-good``
+    epoch wins over anything newer."""
+    if prefer_last_good:
+        marked = _read_last_good(prefix)
+        if marked is not None and \
+                _checkpoint_ok("%s-%04d.params" % (prefix, marked)):
+            return marked
+    best = None
+    for ep, path in _saved_epochs(prefix):
+        if not _checkpoint_ok(path):
+            logging.warning("skipping corrupt checkpoint %s", path)
+            continue
+        best = ep if best is None else max(best, ep)
+    return best
 
 
 def load_checkpoint(prefix, epoch, ctx=None):

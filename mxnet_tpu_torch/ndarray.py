@@ -695,9 +695,8 @@ def _load_one(f, ctx) -> NDArray:
     return array(host, ctx, dtype=np_dtype)
 
 
-def save(fname: str, data) -> None:
-    """Save an NDArray, a list or a ``{name: NDArray}`` dict in the
-    reference's .params container format."""
+def _save_stream(f, data) -> None:
+    """Write a .params container to a binary file object."""
     if isinstance(data, NDArray):
         data = [data]
     names: List[str] = []
@@ -706,16 +705,31 @@ def save(fname: str, data) -> None:
         arrays = [data[k] for k in names]
     else:
         arrays = list(data)
-    with open(fname, "wb") as f:
-        f.write(struct.pack("<QQ", _MAGIC, 0))
-        f.write(struct.pack("<Q", len(arrays)))
-        for arr in arrays:
-            _save_one(f, arr)
-        f.write(struct.pack("<Q", len(names)))
-        for n in names:
-            nb = n.encode("utf-8")
-            f.write(struct.pack("<Q", len(nb)))
-            f.write(nb)
+    f.write(struct.pack("<QQ", _MAGIC, 0))
+    f.write(struct.pack("<Q", len(arrays)))
+    for arr in arrays:
+        _save_one(f, arr)
+    f.write(struct.pack("<Q", len(names)))
+    for n in names:
+        nb = n.encode("utf-8")
+        f.write(struct.pack("<Q", len(nb)))
+        f.write(nb)
+
+
+def save(fname: str, data, checksum: bool = False,
+         op: str = "params.write") -> None:
+    """Save an NDArray, a list or a ``{name: NDArray}`` dict in the
+    reference's .params container format.
+
+    The file is written atomically (``filesystem.atomic_write``: a temp
+    file, fsync, ``os.replace``), so a crash mid-save never leaves a torn
+    file in its place; ``checksum`` adds the CRC32 sidecar
+    (``fname.crc32``) checkpoint discovery checks.  ``op`` names the write
+    site, as in the JAX package."""
+    from .filesystem import atomic_write
+
+    atomic_write(fname, lambda f: _save_stream(f, data), checksum=checksum,
+                 op=op)
 
 
 def load(fname: str, ctx: Optional[Context] = None):

@@ -9,8 +9,9 @@ full-prefix recompute), admit/retire churn, backpressure, preemption, a
 contained step fault, the cold-shape detector, telemetry, speculative
 decoding for K = 1, 2, 3, prefix-cache admission (full and partial hits,
 a preempted lane re-admitted through the index), copy-on-write isolation,
-and all eight pool-level prefix-cache tests.  Left out, with the serving
-tier they need (ROADMAP.md A.5): the HTTP, router and AOT-bundle tests.
+and all eight pool-level prefix-cache tests.  The HTTP and router tests
+live in tests/test_torch_router.py; the AOT-bundle tests wait for the
+compile-once tier (ROADMAP.md A.5c).
 
 Added for the port: the device-resident pool (each decode step copies
 each plane once, by the paged op, and the pool adopts the op's outputs;
