@@ -512,6 +512,54 @@ Phases, each fatal on failure (non-zero exit, no result line):
              JSON line ends it; the float32 d=128 K1 row adds (a)'s
              launches ("serving").  Replicas share one card: img/s of two
              is not a two-card number.
+21. platform — the multi-model platform (``mt.platform``): one
+             ``ModelManager`` and one ``FrontDoor`` (HTTP, port 0) over the
+             card serve lm-a and lm-b (the full-width LM from SEED and
+             SEED + 1, float32, slo "generate", tenant chat, phase 20's
+             engine, buckets 1 and 2; lm-b asks for 2 replicas), ResNet-50
+             (224², batch 32, float32, TF32 off, interactive, tenant
+             vision) and the DLRM at the MLPerf widths (``get_dlrm``: 26
+             slots of 128, bottom 13-512-256-128, top 1024-1024-512-256,
+             batch 2048 of bags of 8 ids, tables of 16384 rows, ids drawn
+             below; batch, tenant ads), on a pool of one device sized from
+             the specs' ``footprint()`` to hold the ResNet, the DLRM and one
+             LM.  (a) A replan with demand on lm-a faults in lm-a, ResNet-50
+             and the DLRM; the first ``/generate`` to lm-b faults it in on
+             its handler thread and 2 arrivals inside its fault-in window
+             get 503 with Retry-After; a replan with the demand on lm-b
+             pages lm-a out.  Every replan raises the plan generation by
+             one; every fault-in and page-out is metered: its seconds, no
+             cold bucket run, the server on gpu(0), ``footprint()`` beside
+             the card's measured delta, and a page-out hands back what its
+             fault-in took within 64 MB with ``resident_bytes()`` 0.  (b)
+             LM scoring through the front door (in process: an answer is
+             4096 x 32000 floats), 2 requests one at a time: K1 6 times per
+             executor call, each within 1e-4 of a direct ``Predictor``;
+             ``/v1/resnet/predict`` and the DLRM's ``/predict`` with
+             ``X-MXNet-Model`` within 1e-4 of direct ``Predictor``s; 3
+             ``/generate`` streams equal to the served engine driven
+             directly (near-tie rule); the front door's cost per DLRM
+             request over the model's own ``InferenceServer``, by HTTP and
+             in process.  (c) ads floods the DLRM from 16 threads past a
+             quota of 20/s while vision sends 12 ResNet-50 requests: only
+             ads gets 429 with Retry-After, every vision request is
+             answered.  (d) A second manager with a ``HealthPlane`` on a pool
+             of 2 one-device domains (bookkeeping: both are gpu(0)):
+             ResNet-50 with a replica in each, the DLRM demand-paged onto
+             domain 0; ``faults.inject("platform.health.domain.1:ioerr=1")``
+             and a probe: the ladder reaps domain 1's replica, re-faults it
+             onto domain 0, pages the DLRM out and browns the batch class
+             out (the DLRM 503 with Retry-After, ResNet-50 served);
+             ``mark_up`` clears it and the DLRM comes back on domain 1; a
+             ResNet-50 loop meanwhile fails only in the retryable family.
+             (e) lm-b's second replica faulted in by hand; a 64-token
+             ``/generate`` whose replica is paged out gracefully after 16
+             tokens finishes through the router's failover, bit for bit the
+             uninterrupted stream, one resume counted, memory back within
+             64 MB.  (f) Both front doors and managers closed: every
+             page-out metered as in (a), the card's live tensors within
+             64 MB of the phase's start.  A ``platform`` JSON line ends it;
+             the float32 d=128 K1 row adds (b)'s launches ("platform").
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -8209,12 +8257,12 @@ SRV_SERIES = {"mxtpu_serving_" + k for k in (
     "qps")}
 
 
-def srv_lm_checkpoint(torch, mt, net, prefix):
-    """The LM's weights, N(0, 0.02) from SEED drawn on the card (unit
+def srv_lm_checkpoint(torch, mt, net, prefix, seed=SEED):
+    """The LM's weights, N(0, 0.02) from ``seed`` drawn on the card (unit
     LayerNorm gains, zero biases and shifts), saved by save_checkpoint."""
     arg_shapes, _, _ = net.infer_shape(**SRV_LM_SHAPES)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
+    gen.manual_seed(seed)
     params = {}
     for name, shape in zip(net.list_arguments(), arg_shapes):
         if name in SRV_LM_SHAPES:
@@ -9170,6 +9218,845 @@ def serving_phase(torch, mt):
     return {"f32": {"serving": launches}}
 
 
+# -- phase 21: the multi-model platform ---------------------------------------
+
+#: the MLPerf DLRM's widths (26 slots of dimension 128, bottom MLP
+#: 13-512-256-128, top MLP 1024-1024-512-256, then get_dlrm's CTR head),
+#: served at batch 2048 with get_dlrm's bags of 8 ids: a batch touches at
+#: most 2048 x 8 = 16384 rows of a slot, the capacity each served table
+#: binds; the full vocabularies live on the parameter server's row plane
+#: (ROADMAP.md A.6b)
+PLAT_DLRM = dict(num_slots=26, embed_dim=128, dense_dim=13, bag_len=8,
+                 capacity=16384, bottom_hidden=(512, 256, 128),
+                 top_hidden=(1024, 1024, 512, 256))
+PLAT_DLRM_BATCH = 2048
+PLAT_PROMPTS = (100, 700)     # (b): /generate one at a time
+PLAT_NEW = 32
+PLAT_ARRIVALS = 2             # (a): requests sent into lm-b's fault-in window
+PLAT_SCORE = 2                # (b): LM scoring requests, one at a time
+PLAT_OVERHEAD_REPS = 20       # (b): DLRM requests each way, interleaved
+PLAT_ADS = dict(rate=20.0, burst=10.0)   # (c): the flooding tenant's quota
+PLAT_FLOOD = (16, 40)         # (c): threads, at most requests each
+PLAT_VISION = 12              # (c): vision's steady requests, one at a time
+PLAT_RESUME = (200, 64, 16)   # (e): prompt, new tokens, page out after
+
+
+def plat_post(url, payload, tenant=None, model=None, timeout=600):
+    """(status, JSON body, Retry-After) of one POST to a front door."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if tenant:
+        headers["X-Tenant"] = tenant
+    if model:
+        headers["X-MXNet-Model"] = model
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read()), None
+    except urllib.error.HTTPError as exc:
+        body, retry = exc.read(), exc.headers.get("Retry-After")
+        exc.close()
+        return exc.code, json.loads(body), retry
+
+
+def plat_stream(url, payload, tenant, on_token=None):
+    """One NDJSON /generate stream through a front door: (tokens, the final
+    record); ``on_token(n)`` after the n-th token."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", "X-Tenant": tenant})
+    toks, final = [], None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.headers["Content-Type"] == "application/x-ndjson",
+              "platform: /generate answered %s" % resp.headers["Content-Type"])
+        for line in resp:
+            obj = json.loads(line)
+            if "token" not in obj:
+                final = obj
+                break
+            toks.append(obj["token"])
+            if on_token is not None:
+                on_token(len(toks))
+    return toks, final
+
+
+def plat_dlrm_shapes(batch):
+    shapes = {"dense": (batch, PLAT_DLRM["dense_dim"])}
+    for i in range(PLAT_DLRM["num_slots"]):
+        shapes["slot%d_indices" % i] = (batch, PLAT_DLRM["bag_len"])
+    return shapes
+
+
+def plat_dlrm_items(n, seed):
+    """``n`` single-sample requests: 13 dense features and 26 bags of 8 ids
+    drawn in [0, capacity) (the port's Embedding clips an id past its table,
+    where the JAX package gives NaN)."""
+    rng = np.random.RandomState(seed)
+    items = []
+    for _ in range(n):
+        item = {"dense": rng.randn(PLAT_DLRM["dense_dim"]).astype(np.float32)}
+        for i in range(PLAT_DLRM["num_slots"]):
+            item["slot%d_indices" % i] = rng.randint(
+                0, PLAT_DLRM["capacity"], PLAT_DLRM["bag_len"]).astype(
+                    np.float32)
+        items.append(item)
+    return items
+
+
+def plat_dlrm_checkpoint(torch, mt, net, prefix):
+    """DLRM weights drawn on the card from SEED: the tables U(-0.01, 0.01)
+    (get_dlrm's init), the FullyConnected weights N(0, 1 / fan-in), zero
+    biases; saved by save_checkpoint.  Returns the parameter count."""
+    shapes = plat_dlrm_shapes(1)
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    params = {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in shapes or name.endswith("_label"):
+            continue
+        if name.endswith("_embed_weight"):
+            t = (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) \
+                * 0.01
+        elif name.endswith("_bias"):
+            t = torch.zeros(shape, device="cuda")
+        else:
+            t = torch.randn(shape, generator=gen, device="cuda") \
+                / math.sqrt(shape[1])
+        params[name] = mt.nd.NDArray(t, mt.gpu(0))
+    mt.model.save_checkpoint(prefix, 0, net, params, {})
+    return sum(int(np.prod(p.shape)) for p in params.values())
+
+
+def plat_direct(mt, prefix, shapes, items):
+    """A direct batch-1 Predictor's answers, one item at a time."""
+    pred = mt.Predictor.from_checkpoint(prefix, 0, shapes)
+    out = [pred.forward(**{k: v[None] for k, v in item.items()})[0]
+           .asnumpy()[0] for item in items]
+    del pred
+    return out
+
+
+class PlatMeter:
+    """Wraps a manager's ``fault_in`` and ``page_out``: for each call that
+    builds or releases a server, the card's live tensors (``srv_mem``) before
+    and after, the wall seconds and what the server reports.  While ``on``
+    is False calls pass through unmeasured: ``srv_mem`` clears cuBLAS's
+    workspaces, which is safe only while no other thread runs a product."""
+
+    def __init__(self, torch, mgr):
+        self.torch, self.mgr, self.on = torch, mgr, True
+        self.fault_ins, self.page_outs = [], []
+        self._fault_in, self._page_out = mgr.fault_in, mgr.page_out
+        mgr.fault_in, mgr.page_out = self.fault_in, self.page_out
+
+    def fault_in(self, name, device=None, replica=0):
+        if not self.on or int(replica) in \
+                self.mgr.replica_placement().get(name, {}):
+            return self._fault_in(name, device, replica)
+        before = srv_mem(self.torch)
+        t0 = time.perf_counter()
+        srv = self._fault_in(name, device, replica)
+        wall = time.perf_counter() - t0
+        self.fault_ins.append({
+            "model": name, "replica": int(replica), "before": before,
+            "after": srv_mem(self.torch), "wall_s": wall,
+            "manager_ms": self.mgr.fault_in_latency_ms(name),
+            "cold_runs": srv.cold_bucket_runs(),
+            "ctx": [str(c) for c in srv.swap_config()["ctx"]]})
+        return srv
+
+    def page_out(self, name, replica=None, graceful=False):
+        reps = {i: s for i, s in self.mgr._servers.get(name, {}).items()
+                if replica is None or i == int(replica)}
+        if not self.on or not reps:
+            return self._page_out(name, replica=replica, graceful=graceful)
+        before = srv_mem(self.torch)
+        t0 = time.perf_counter()
+        self._page_out(name, replica=replica, graceful=graceful)
+        wall = time.perf_counter() - t0
+        rec = {"model": name, "replicas": sorted(reps), "wall_s": wall,
+               "resident": [s.resident_bytes() for s in reps.values()],
+               "cold_runs": [s.cold_bucket_runs() for s in reps.values()],
+               "before": before}
+        del reps
+        rec["after"] = srv_mem(self.torch)
+        self.page_outs.append(rec)
+
+    def held(self, rec):
+        """The fault-in that built what ``rec`` (a page-out) released."""
+        ins = [r for r in self.fault_ins if r["model"] == rec["model"]
+               and r["replica"] in rec["replicas"]]
+        return ins[-1] if ins else None
+
+
+def plat_checkpoints(torch, mt, tmp):
+    """lm-a and lm-b (the full-width LM from SEED and SEED + 1), ResNet-50
+    and the DLRM, each saved by save_checkpoint; name -> prefix."""
+    from mxnet_tpu_torch.models import get_dlrm, get_resnet
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    ck = {}
+    with mt.NameManager():
+        net = get_transformer_lm(**FULL)
+    for i, name in enumerate(("lm-a", "lm-b")):
+        ck[name] = os.path.join(tmp, name)
+        n_lm = srv_lm_checkpoint(torch, mt, net, ck[name], seed=SEED + i)
+    with mt.NameManager():
+        rnet = get_resnet(**RESNET)
+    ck["resnet"] = os.path.join(tmp, "resnet")
+    srv_resnet_checkpoint(mt, rnet, ck["resnet"], 0, SEED)
+    with mt.NameManager():
+        dnet, slots = get_dlrm(**PLAT_DLRM)
+    ck["dlrm"] = os.path.join(tmp, "dlrm")
+    n_dlrm = plat_dlrm_checkpoint(torch, mt, dnet, ck["dlrm"])
+    print("platform: checkpoints of lm-a and lm-b (%d parameters each), "
+          "ResNet-50 and the DLRM (%d parameters: %d slots of %d rows x %d, "
+          "the rows one batch of %d bags of %d ids can touch; the full "
+          "vocabularies, %d rows a slot here by get_dlrm's default, live on "
+          "the parameter server's row plane, ROADMAP.md A.6b)"
+          % (n_lm, n_dlrm, PLAT_DLRM["num_slots"], PLAT_DLRM["capacity"],
+             PLAT_DLRM["embed_dim"], PLAT_DLRM_BATCH, PLAT_DLRM["bag_len"],
+             slots["slot0"]["num_rows"]), flush=True)
+    return ck
+
+
+def plat_specs(plat, ck):
+    lm = dict(slo="generate", tenant="chat", generator_spec=dict(SRV_GEN),
+              server_kwargs={"buckets": (1, 2)})
+    return [plat.ModelSpec("lm-a", ck["lm-a"], 0, SRV_LM_SHAPES, **lm),
+            plat.ModelSpec("lm-b", ck["lm-b"], 0, SRV_LM_SHAPES,
+                           replicas=2, **lm),
+            plat.ModelSpec("resnet", ck["resnet"], 0, SRV_RESNET_SHAPES,
+                           tenant="vision", slo="interactive"),
+            plat.ModelSpec("dlrm", ck["dlrm"], 0,
+                           plat_dlrm_shapes(PLAT_DLRM_BATCH), tenant="ads",
+                           slo="batch")]
+
+
+def plat_plan(mgr, what):
+    """One replan: the plan, its generation one above the last."""
+    gen = mgr.plan_generation()
+    t0 = time.perf_counter()
+    plan = mgr.replan()
+    wall = time.perf_counter() - t0
+    check(mgr.plan_generation() == gen + 1, "(a) %s: plan generation %d "
+          "after %d" % (what, mgr.plan_generation(), gen))
+    d = plan.describe()
+    print("platform (a) %s: generation %d, resident %s, paged %s, actions "
+          "%s, free bytes %s; actuated in %.2f s"
+          % (what, gen + 1, d["resident"], d["paged"], d["actions"],
+             d["free_bytes"], wall), flush=True)
+    return d, wall
+
+
+def plat_page(torch, mt, plat, ck, card):
+    """(a): plan, demand-page lm-b through the front door, page lm-a out."""
+    import threading
+
+    specs = plat_specs(plat, ck)
+    fp = {s.name: s.footprint() for s in specs}
+    budget = sum(fp[n]["total"] for n in ("lm-a", "resnet", "dlrm")) \
+        + (1 << 20)
+    check(fp["lm-b"]["total"] > budget - fp["lm-a"]["total"]
+          - fp["resnet"]["total"], "(a) the pool would hold both LMs")
+    mgr = plat.ModelManager(plat.DevicePool(1, budget))
+    door = plat.FrontDoor(mgr)
+    meter = PlatMeter(torch, mgr)
+    host, port = door.serve_http()
+    base = "http://%s:%d" % (host, port)
+    for s in specs:
+        mgr.register_model(s)
+    mgr.record_demand("lm-a", 1.0)
+    plan1, _ = plat_plan(mgr, "plan with demand on lm-a")
+    check(sorted(plan1["resident"]) == ["dlrm", "lm-a", "resnet"]
+          and plan1["paged"] == ["lm-b"], "(a) the first plan %s" % plan1)
+    # the first request for lm-b faults it in on its handler thread; two
+    # more arrive inside the fault-in window
+    rng = np.random.default_rng(SEED + 24)
+    vocab = GEN_MODEL["vocab_size"]
+    prompt0 = [int(t) for t in rng.integers(0, vocab, 300)]
+    owner = {}
+
+    def first():
+        try:
+            owner["out"] = plat_stream(
+                base + "/v1/lm-b/generate",
+                {"prompt": prompt0, "max_new_tokens": PLAT_NEW}, "chat")
+        except Exception as exc:  # fatal below
+            owner["error"] = repr(exc)
+    th = threading.Thread(target=first)
+    th.start()
+    t_end = time.monotonic() + 600
+    while mgr.fault_in_window("lm-b") is None:
+        check(th.is_alive() and time.monotonic() < t_end,
+              "(a) lm-b's fault-in window never opened: %s" % owner)
+        time.sleep(0.002)
+    arrivals = [plat_post(base + "/v1/lm-b/generate",
+                          {"prompt": prompt0[:8], "max_new_tokens": 2},
+                          "chat") for _ in range(PLAT_ARRIVALS)]
+    th.join(600)
+    check("out" in owner, "(a) lm-b's first request: %s" % owner)
+    toks0, final0 = owner["out"]
+    check(final0 == {"done": True, "n": PLAT_NEW}, "(a) lm-b's first stream "
+          "ended with %s" % final0)
+    for code, body, retry in arrivals:
+        check(code == 503 and retry is not None and float(retry) > 0
+              and "faulting in" in body.get("error", ""),
+              "(a) an arrival in lm-b's fault-in window got %d %s "
+              "(Retry-After %s), not 503 with a Retry-After"
+              % (code, body, retry))
+    mgr.record_demand("lm-a", -mgr.demand()["lm-a"])
+    plan2, _ = plat_plan(mgr, "plan with demand on lm-b")
+    check(sorted(plan2["resident"]) == ["dlrm", "lm-b", "resnet"]
+          and plan2["paged"] == ["lm-a"] and {"op": "page_out",
+                                              "model": "lm-a", "device": 0}
+          in plan2["actions"], "(a) the second plan %s" % plan2)
+    print("platform (a) (%s): %d arrivals in lm-b's fault-in window got 503 "
+          "with Retry-After %s s; lm-b's first stream %d tokens; the pool "
+          "one device of %d bytes (the footprints of lm-a, resnet and dlrm, "
+          "+1 MiB)" % (card, len(arrivals), [a[2] for a in arrivals],
+                       len(toks0), budget), flush=True)
+    return mgr, door, meter, base, fp, (prompt0, toks0), \
+        {"budget": budget, "plans": [plan1, plan2],
+         "arrivals": [(a[0], a[2]) for a in arrivals]}
+
+
+def plat_memory(meter, fp, card, what, released_only=False):
+    """The gates and readings of every metered fault-in and page-out: cold
+    runs 0, the manager's context, resident bytes 0 after a page-out, and a
+    page-out hands back what its fault-in took within SRV_MEM_SLACK (the
+    card's memory back to its level before that fault-in, net of the models
+    that came and stayed in between)."""
+    rows = {}
+    for r in meter.fault_ins:
+        check(r["cold_runs"] == 0, "%s: %s replica %d faulted in with %d "
+              "cold bucket runs" % (what, r["model"], r["replica"],
+                                    r["cold_runs"]))
+        check(r["ctx"] == ["gpu(0)"], "%s: %s runs on %s" % (
+            what, r["model"], r["ctx"]))
+        delta = r["after"] - r["before"]
+        total = fp[r["model"]]["total"]
+        rows.setdefault(r["model"], {}).update(
+            fault_in_s=r["wall_s"], manager_ms=r["manager_ms"],
+            footprint=total, measured=delta, ratio=total / max(delta, 1))
+    for r in meter.page_outs:
+        check(not any(r["resident"]), "%s: %s resident bytes %s after its "
+              "page-out" % (what, r["model"], r["resident"]))
+        held = meter.held(r)
+        check(held is not None, "%s: no metered fault-in of %s %s"
+              % (what, r["model"], r["replicas"]))
+        took = held["after"] - held["before"]
+        gave = r["before"] - r["after"]
+        check(abs(gave - took) <= SRV_MEM_SLACK, "%s: the page-out of %s "
+              "handed back %.1f MB, its fault-in took %.1f MB"
+              % (what, r["model"], gave / 2**20, took / 2**20))
+        rows[r["model"]].update(page_out_s=r["wall_s"], released=gave)
+    for name, row in sorted(rows.items()):
+        if released_only and "released" not in row:
+            continue
+        print("platform %s %s (%s): fault-in %.2f s (the manager's %.1f ms: "
+              "build + warm-up of every bucket, cold until A.5c)%s; "
+              "footprint() %d bytes vs the card's measured %d (%.3fx)%s"
+              % (what, name, card, row["fault_in_s"], row["manager_ms"],
+                 "" if "page_out_s" not in row else
+                 "; page-out %.2f s" % row["page_out_s"], row["footprint"],
+                 row["measured"], row["ratio"],
+                 "" if "released" not in row else
+                 ", released %d" % row["released"]), flush=True)
+    return rows
+
+
+def plat_serve(torch, mt, mgr, door, base, ck, first, card):
+    """(b): LM scoring, ResNet-50, DLRM and /generate through the door."""
+    import statistics
+
+    srv = mgr.server_for("lm-b")
+    rep = srv._replicas[0]
+    s = FULL["seq_len"]
+    rng = np.random.default_rng(SEED + 25)
+    reqs = [rng.integers(0, FULL["vocab_size"], (s,)).astype(np.float32)
+            for _ in range(PLAT_SCORE)]
+    label = np.zeros((s,), np.float32)
+    calls0 = rep.executor_calls
+    mt.kernels.reset_launches()
+    outs = [door.predict("lm-b", tenant="chat", data=x, softmax_label=label)
+            [0] for x in reqs]
+    torch.cuda.synchronize()
+    launches = dict(mt.kernels.LAUNCHES)
+    calls = rep.executor_calls - calls0
+    check(calls == PLAT_SCORE and launches["flash_fwd"] ==
+          FULL["num_layers"] * calls, "(b) flash_fwd launched %d times in "
+          "%d LM executor calls, expected %d a call"
+          % (launches["flash_fwd"], calls, FULL["num_layers"]))
+    direct = mt.Predictor.from_checkpoint(
+        ck["lm-b"], 0, {"data": (1, s), "softmax_label": (1, s)})
+    lm_err = 0.0
+    for x, out in zip(reqs, outs):
+        check(out.shape == (s, FULL["vocab_size"]), "(b) an LM answer of "
+              "shape %s" % (out.shape,))
+        ref = direct.forward(data=x[None], softmax_label=label[None])[0]._data
+        got = torch.as_tensor(out, device="cuda")
+        lm_err = max(lm_err, float((got - ref).abs().max()
+                                   / ref.abs().max()))
+        del got, ref
+    del direct, outs
+    check(lm_err <= SRV_TOL, "(b) LM scoring %.3g off a direct Predictor"
+          % lm_err)
+    images = srv_images(2, SEED + 26)
+    rn_direct = srv_direct(mt, ck["resnet"], 0, images)
+    rn_err = 0.0
+    for img, ref in zip(images, rn_direct):
+        code, body, _ = plat_post(base + "/v1/resnet/predict",
+                                  {"inputs": {"data": img.tolist()}},
+                                  "vision")
+        check(code == 200, "(b) ResNet-50 /predict answered %d %s"
+              % (code, body))
+        rn_err = max(rn_err, srv_rel(torch, body["outputs"][0], ref))
+    check(rn_err <= SRV_TOL, "(b) ResNet-50 %.3g off a direct Predictor"
+          % rn_err)
+    items = plat_dlrm_items(4, SEED + 27)
+    dl_direct = plat_direct(mt, ck["dlrm"], plat_dlrm_shapes(1), items)
+    payloads = [{"inputs": {k: v.tolist() for k, v in it.items()}}
+                for it in items]
+    dl_err = 0.0
+    for payload, ref in zip(payloads, dl_direct):
+        code, body, _ = plat_post(base + "/predict", payload, "ads",
+                                  model="dlrm")
+        check(code == 200, "(b) DLRM /predict (X-MXNet-Model) answered %d "
+              "%s" % (code, body))
+        dl_err = max(dl_err, srv_rel(torch, body["outputs"][0], ref))
+    check(dl_err <= SRV_TOL, "(b) DLRM %.3g off a direct Predictor" % dl_err)
+    # /generate one at a time against the served engine driven directly
+    eng = srv._generator
+    prompts = [first[0]] + [[int(t) for t in rng.integers(
+        0, FULL["vocab_size"], n)] for n in PLAT_PROMPTS]
+    got = [first[1]]
+    for p in prompts[1:]:
+        toks, final = plat_stream(base + "/v1/lm-b/generate",
+                                  {"prompt": p, "max_new_tokens": PLAT_NEW},
+                                  "chat")
+        check(final == {"done": True, "n": PLAT_NEW}, "(b) a stream ended "
+              "with %s" % final)
+        got.append(toks)
+    ref = [eng.submit(p, PLAT_NEW).result(600) for p in prompts]
+    logits_at = GenLogits(mt, eng, srv._model_params)
+    ties = near_tie_compare(got, ref, [(p, PLAT_NEW) for p in prompts],
+                            logits_at, "platform (b)")
+    del logits_at
+    # the front door's cost per request over the model's own server
+    dsrv = mgr.server_for("dlrm")
+    dhost, dport = dsrv.serve_http()
+    straight_url = "http://%s:%d/predict" % (dhost, dport)
+    via, straight, via_in, straight_in = [], [], [], []
+    for i in range(PLAT_OVERHEAD_REPS):
+        payload, item = payloads[i % len(payloads)], items[i % len(items)]
+        for url, tenant, sink in ((base + "/v1/dlrm/predict", "ads", via),
+                                  (straight_url, None, straight)):
+            t0 = time.perf_counter()
+            code, _, _ = plat_post(url, payload, tenant)
+            sink.append((time.perf_counter() - t0) * 1e3)
+            check(code == 200, "(b) overhead: %s answered %d" % (url, code))
+        t0 = time.perf_counter()
+        door.predict("dlrm", tenant="ads", **item)
+        via_in.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        dsrv.predict(**item)
+        straight_in.append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in (
+        ("http_door", via), ("http_server", straight),
+        ("door", via_in), ("server", straight_in))}
+    res = {"lm_calls": calls, "flash_fwd": launches["flash_fwd"],
+           "lm_err": lm_err, "resnet_err": rn_err, "dlrm_err": dl_err,
+           "near_ties": ties, "median_ms": med,
+           "overhead_http_ms": med["http_door"] - med["http_server"],
+           "overhead_in_process_ms": med["door"] - med["server"]}
+    print("platform (b) (%s): LM scoring through the front door, %d "
+          "requests one at a time (in process: an answer is 4096 x 32000 "
+          "floats), %d executor calls, flash_fwd %d, %.3g off a direct "
+          "Predictor; ResNet-50 /v1/resnet/predict %.3g; DLRM /predict with "
+          "X-MXNet-Model %.3g; %d /generate streams equal to the engine "
+          "driven directly (%d near ties); the front door's overhead per "
+          "DLRM request %.2f ms over HTTP (median %.2f vs %.2f straight to "
+          "its InferenceServer), %.2f ms in process (%.2f vs %.2f)"
+          % (card, PLAT_SCORE, calls, launches["flash_fwd"], lm_err, rn_err,
+             dl_err, len(prompts), ties, res["overhead_http_ms"],
+             med["http_door"], med["http_server"],
+             res["overhead_in_process_ms"], med["door"], med["server"]),
+          flush=True)
+    return {k: launches[k] for k in PS_NAMES}, res, items, images, \
+        rn_direct, dl_direct
+
+
+def plat_tenants(door, base, items, card):
+    """(c): ads floods the DLRM past its quota from 16 threads while vision
+    streams ResNet-50 requests."""
+    import threading
+
+    door.quotas.set_quota("ads", rate=PLAT_ADS["rate"],
+                          burst=PLAT_ADS["burst"])
+    snap0 = door.quotas.snapshot()
+    payloads = [{"inputs": {k: v.tolist() for k, v in it.items()}}
+                for it in items]
+    images = srv_images(PLAT_VISION, SEED + 28)
+    lock = threading.Lock()
+    ads = {"ok": 0, "shed": 0, "other": []}
+    vision = {"ok": 0, "other": []}
+    vision_done = threading.Event()
+
+    def flood(k):
+        for i in range(PLAT_FLOOD[1]):
+            if vision_done.is_set():
+                return
+            code, body, retry = plat_post(base + "/v1/dlrm/predict",
+                                          payloads[(k + i) % len(payloads)],
+                                          "ads")
+            with lock:
+                if code == 200:
+                    ads["ok"] += 1
+                elif code == 429 and retry is not None and float(retry) > 0:
+                    ads["shed"] += 1
+                else:
+                    ads["other"].append((code, body, retry))
+
+    def steady():
+        try:
+            for img in images:
+                code, body, retry = plat_post(
+                    base + "/v1/resnet/predict",
+                    {"inputs": {"data": img.tolist()}}, "vision")
+                with lock:
+                    if code == 200:
+                        vision["ok"] += 1
+                    else:
+                        vision["other"].append((code, body, retry))
+        finally:
+            vision_done.set()
+    threads = [threading.Thread(target=flood, args=(k,))
+               for k in range(PLAT_FLOOD[0])]
+    threads.append(threading.Thread(target=steady))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    snap = door.quotas.snapshot()
+    sent = ads["ok"] + ads["shed"] + len(ads["other"])
+    check(not ads["other"] and ads["shed"] > 0, "(c) ads: %d shed with "
+          "429, other answers %s" % (ads["shed"], ads["other"][:3]))
+    check(vision["ok"] == PLAT_VISION and not vision["other"]
+          and snap["vision"]["shed"] == snap0.get("vision", {}).get(
+              "shed", 0), "(c) vision: %d of %d answered, others %s, shed "
+          "%s" % (vision["ok"], PLAT_VISION, vision["other"][:3],
+                  snap["vision"]))
+    counts = {t: {"admitted": snap[t]["admitted"]
+                  - snap0.get(t, {}).get("admitted", 0),
+                  "shed": snap[t]["shed"] - snap0.get(t, {}).get("shed", 0)}
+              for t in ("ads", "vision")}
+    print("platform (c) tenants (%s): ads sent %d DLRM requests from %d "
+          "threads in %.2f s against a quota of %g/s (burst %g): %d "
+          "answered, %d shed with 429 + Retry-After; vision's %d ResNet-50 "
+          "requests all answered; the gate's counts %s"
+          % (card, sent, PLAT_FLOOD[0], wall, PLAT_ADS["rate"],
+             PLAT_ADS["burst"], ads["ok"], ads["shed"], PLAT_VISION,
+             counts), flush=True)
+    return {"ads_sent": sent, "ads_ok": ads["ok"], "ads_429": ads["shed"],
+            "vision_ok": vision["ok"], "gate": counts, "wall_s": wall}
+
+
+def plat_ladder(torch, mt, plat, ck, items, images, rn_direct, dl_direct,
+                card):
+    """(d): two failure domains of the card (bookkeeping), ResNet-50 on
+    both, the DLRM demand-paged onto domain 0; domain 1 killed by an
+    injected probe fault, then marked up."""
+    import threading
+
+    from mxnet_tpu_torch.serving.batcher import ServerClosedError
+    from mxnet_tpu_torch.serving.router import NoReplicaAvailableError
+
+    rspec = plat.ModelSpec("resnet", ck["resnet"], 0, SRV_RESNET_SHAPES,
+                           tenant="vision", slo="interactive", replicas=2)
+    dspec = plat.ModelSpec("dlrm", ck["dlrm"], 0,
+                           plat_dlrm_shapes(PLAT_DLRM_BATCH), tenant="ads",
+                           slo="batch")
+    r, d = rspec.footprint()["total"], dspec.footprint()["total"]
+    check(d > r, "(d) the ladder's scenario needs the DLRM's footprint above "
+          "ResNet-50's: %d vs %d" % (d, r))
+    # a device holds two ResNets, or the DLRM, but not a ResNet and the DLRM
+    per_device = max(2 * r, d) + (r + d - max(2 * r, d)) // 2
+    pool = plat.DevicePool(2, per_device, devices_per_host=1)
+    mgr = plat.ModelManager(pool)
+    hp = mgr.attach_health(plat.HealthPlane(pool, registry=mgr.registry,
+                                            probe_fails=1))
+    door = plat.FrontDoor(mgr)
+    host, port = door.serve_http()
+    base = "http://%s:%d" % (host, port)
+    retryable = (ServerClosedError, NoReplicaAvailableError,
+                 plat.FaultInProgressError)
+    loop = {"ok": 0, "retryable": [], "bad": []}
+    stop = threading.Event()
+
+    def interactive():
+        i = 0
+        while not stop.is_set():
+            try:
+                door.predict("resnet", tenant="vision",
+                             data=images[i % len(images)])
+                loop["ok"] += 1
+            except retryable as exc:
+                loop["retryable"].append(type(exc).__name__)
+            except Exception as exc:  # fatal below
+                loop["bad"].append(repr(exc))
+            i += 1
+    th = None
+    try:
+        mgr.register_model(rspec)
+        mgr.record_demand("resnet", 5.0)
+        mgr.replan()
+        check(mgr.replica_placement() == {"resnet": {0: 0, 1: 1}},
+              "(d) ResNet-50's replicas placed %s, not one per domain"
+              % mgr.replica_placement())
+        mgr.register_model(dspec)
+        payload = {"inputs": {k: v.tolist() for k, v in items[0].items()}}
+        code, body, _ = plat_post(base + "/v1/dlrm/predict", payload, "ads")
+        check(code == 200 and mgr.replica_placement().get("dlrm")
+              == {0: 0}, "(d) the DLRM's demand paging: %d, placed %s"
+              % (code, mgr.replica_placement()))
+        th = threading.Thread(target=interactive)
+        th.start()
+        gen0 = mgr.plan_generation()
+        t0 = time.perf_counter()
+        with mt.faults.inject("platform.health.domain.1:ioerr=1", seed=SEED):
+            trans = hp.probe()
+        ladder_s = time.perf_counter() - t0
+        placed = mgr.replica_placement()
+        brown = door.quotas.brownout()
+        check(trans == [(1, False)] and hp.dead_domains() == [1],
+              "(d) the probe under the injected fault: %s" % trans)
+        check(placed == {"resnet": {0: 0, 1: 0}}, "(d) after the ladder %s: "
+              "ResNet-50's second replica not re-faulted onto domain 0, or "
+              "the DLRM kept" % placed)
+        check(brown is not None and brown[0] == 1, "(d) brownout %s, "
+              "expected the batch class shed (floor 1)" % (brown,))
+        check(all(s.cold_bucket_runs() == 0
+                  for s in mgr._servers["resnet"].values()),
+              "(d) a re-faulted replica ran a cold bucket")
+        code, body, retry = plat_post(base + "/v1/dlrm/predict", payload,
+                                      "ads")
+        check(code == 503 and retry is not None and float(retry) > 0
+              and "platform degraded" in body.get("error", ""),
+              "(d) the DLRM in brownout answered %d %s (Retry-After %s)"
+              % (code, body, retry))
+        code, body, _ = plat_post(base + "/v1/resnet/predict",
+                                  {"inputs": {"data": images[0].tolist()}},
+                                  "vision")
+        check(code == 200 and srv_rel(torch, body["outputs"][0],
+                                      rn_direct[0]) <= SRV_TOL,
+              "(d) ResNet-50 in brownout answered %d" % code)
+        t0 = time.perf_counter()
+        hp.mark_up(1)
+        recover_s = time.perf_counter() - t0
+        check(door.quotas.brownout() is None and
+              mgr.replica_placement().get("dlrm") == {0: 1},
+              "(d) after mark_up: brownout %s, placed %s"
+              % (door.quotas.brownout(), mgr.replica_placement()))
+        code, body, _ = plat_post(base + "/v1/dlrm/predict", payload, "ads")
+        check(code == 200 and srv_rel(torch, body["outputs"][0],
+                                      dl_direct[0]) <= SRV_TOL,
+              "(d) the DLRM after recovery answered %d" % code)
+        gens = (gen0, mgr.plan_generation())
+    finally:
+        stop.set()
+        if th is not None:
+            th.join(600)
+        door.close()
+        mgr.close()
+    check(not loop["bad"] and loop["ok"] > 0, "(d) interactive requests "
+          "failed outside the retryable family: %s (%d answered)"
+          % (loop["bad"][:3], loop["ok"]))
+    print("platform (d) ladder (%s): 2 domains of %d bytes (bookkeeping, "
+          "both on gpu(0)); domain 1 killed by an injected probe fault: the "
+          "ladder reaped its replica, re-faulted ResNet-50's second replica "
+          "onto domain 0, paged the DLRM out and browned out the batch "
+          "class in %.2f s (plan generation %d -> %d); the DLRM 503 with "
+          "Retry-After, ResNet-50 served; mark_up cleared the brownout and "
+          "brought the DLRM back on domain 1 in %.2f s; the interactive "
+          "loop: %d answered, retryable failures %s"
+          % (card, per_device, ladder_s, gens[0], gens[1], recover_s,
+             loop["ok"], loop["retryable"]), flush=True)
+    return {"ladder_s": ladder_s, "recover_s": recover_s,
+            "interactive_ok": loop["ok"],
+            "interactive_retryable": len(loop["retryable"]),
+            "generations": gens}
+
+
+def plat_graceful(torch, mgr, door, base, card):
+    """(e): lm-b's second replica by hand (the one-device pool plans one),
+    then one stream paged out from under mid-way, gracefully."""
+    import threading
+
+    before = srv_mem(torch)
+    t0 = time.perf_counter()
+    mgr.fault_in("lm-b", 0, replica=1)
+    fault_s = time.perf_counter() - t0
+    took = srv_mem(torch) - before
+    router = door.router_for("lm-b")
+    router.sync_registry()
+    check(len(router.replicas()) == 2, "(e) lm-b's router sees %d replicas"
+          % len(router.replicas()))
+    plen, new, cut = PLAT_RESUME
+    rng = np.random.default_rng(SEED + 29)
+    prompt = [int(t) for t in rng.integers(0, FULL["vocab_size"], plen)]
+    url = base + "/v1/lm-b/generate"
+    payload = {"prompt": prompt, "max_new_tokens": new}
+    ref, final = plat_stream(url, payload, "chat")
+    check(final == {"done": True, "n": new}, "(e) the uninterrupted stream "
+          "ended with %s" % final)
+    resumes0 = router.metrics.snapshot()["stream_resumes"]
+    state = {}
+
+    def page_out():
+        try:
+            t1 = time.perf_counter()
+            mgr.page_out("lm-b", replica=state["victim"], graceful=True)
+            state["page_out_s"] = time.perf_counter() - t1
+        except Exception as exc:  # fatal below
+            state["error"] = repr(exc)
+
+    def on_token(n):
+        if n == cut and "thread" not in state:
+            reps = dict(mgr._servers["lm-b"])
+            live = [i for i, s in reps.items()
+                    if s._generator.active_lanes() > 0]
+            check(len(live) == 1, "(e) %d replicas hold the stream"
+                  % len(live))
+            state["victim"] = live[0]
+            state["server"] = reps[live[0]]
+            state["thread"] = threading.Thread(target=page_out)
+            state["thread"].start()
+    t0 = time.perf_counter()
+    out, final = plat_stream(url, payload, "chat", on_token)
+    wall = time.perf_counter() - t0
+    check("thread" in state, "(e) the stream never reached token %d" % cut)
+    state["thread"].join(600)
+    check("error" not in state and "page_out_s" in state,
+          "(e) the graceful page-out: %s" % state.get("error"))
+    resumes = router.metrics.snapshot()["stream_resumes"] - resumes0
+    check(final == {"done": True, "n": new} and out == ref,
+          "(e) the stream across the graceful page-out (%d tokens, final "
+          "%s) differs from the uninterrupted one at %s"
+          % (len(out), final, [j for j, (a, b) in enumerate(zip(out, ref))
+                               if a != b][:3]))
+    check(resumes == 1, "(e) %d stream resumes counted" % resumes)
+    resident = state.pop("server").resident_bytes()
+    check(resident == 0, "(e) the paged-out replica holds %d bytes"
+          % resident)
+    gave = srv_mem(torch) - before
+    check(abs(gave) <= SRV_MEM_SLACK, "(e) device memory %.1f MB off its "
+          "level before the second replica's fault-in (which took %.1f MB)"
+          % (gave / 2**20, took / 2**20))
+    print("platform (e) graceful page-out (%s): lm-b's replica %d faulted in "
+          "in %.2f s (%.1f MB), a %d-token stream paged out from under "
+          "after %d tokens (page-out %.2f s): finished through the router's "
+          "failover (%d resume) in %.2f s, bit for bit the uninterrupted "
+          "transcript; memory back within %.1f MB"
+          % (card, 1, fault_s, took / 2**20, new, cut, state["page_out_s"],
+             resumes, wall, gave / 2**20), flush=True)
+    return {"fault_in_s": fault_s, "page_out_s": state["page_out_s"],
+            "victim": state["victim"], "resumes": resumes, "wall_s": wall,
+            "took_mb": took / 2**20, "left_mb": gave / 2**20}, \
+        {"model": "lm-b", "replica": 1, "before": before,
+         "after": before + took, "wall_s": fault_s,
+         "manager_ms": mgr.fault_in_latency_ms("lm-b"), "cold_runs": 0,
+         "ctx": ["gpu(0)"]}
+
+
+def platform_phase(torch, mt):
+    """Phase 21 (module docstring).  Returns the K1-K3 launches of (b)'s LM
+    scoring, by path, as ``serving_phase`` does."""
+    from mxnet_tpu_torch import platform as plat
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_and_limit()
+    t_phase = time.perf_counter()
+    walls = {}
+    torch.cuda.empty_cache()
+    mem_start = srv_mem(torch)
+    env_before = os.environ.get("MXNET_PLATFORM_MIN_RESIDENT_S")
+    # a replan evicts a model however recently it came in
+    os.environ["MXNET_PLATFORM_MIN_RESIDENT_S"] = "0"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ck = plat_checkpoints(torch, mt, tmp)
+            walls["checkpoints"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mgr, door, meter, base, fp, first, res_a = plat_page(
+                torch, mt, plat, ck, card)
+            meter.on = False  # traffic from here to (f)
+            res_a["models"] = plat_memory(meter, fp, card, "(a)")
+            walls["(a)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            launches, res_b, items, images, rn_direct, dl_direct = \
+                plat_serve(torch, mt, mgr, door, base, ck, first, card)
+            walls["(b)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res_c = plat_tenants(door, base, items, card)
+            walls["(c)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res_d = plat_ladder(torch, mt, plat, ck, items, images,
+                                rn_direct, dl_direct, card)
+            walls["(d)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res_e, second = plat_graceful(torch, mgr, door, base, card)
+            meter.fault_ins.append(second)
+            walls["(e)"] = time.perf_counter() - t0
+            # -- (f) close: every model paged out, metered ---------------
+            t0 = time.perf_counter()
+            door.close()
+            meter.on = True
+            meter.page_outs.clear()
+            mgr.close()
+            res_f = plat_memory(meter, fp, card, "(f)", released_only=True)
+            walls["(f)"] = time.perf_counter() - t0
+    finally:
+        if env_before is None:
+            os.environ.pop("MXNET_PLATFORM_MIN_RESIDENT_S", None)
+        else:
+            os.environ["MXNET_PLATFORM_MIN_RESIDENT_S"] = env_before
+    check(mgr.resident_bytes() == 0, "(f) the manager holds %d bytes after "
+          "close" % mgr.resident_bytes())
+    del mgr, door, meter
+    mem_end = srv_mem(torch)
+    check(abs(mem_end - mem_start) <= SRV_MEM_SLACK, "(f) device memory "
+          "%.1f MB after close, %.1f MB at the phase's start"
+          % (mem_end / 2**20, mem_start / 2**20))
+    wall = time.perf_counter() - t_phase
+    print("platform (f) close (%s): every model paged out; device memory "
+          "(live tensors, cuBLAS's per-thread workspaces cleared) %.1f MB "
+          "at the end vs %.1f MB at the start" % (
+              card, mem_end / 2**20, mem_start / 2**20), flush=True)
+    print("platform: walls %s; phase %.1f s on %s"
+          % ({k: round(v, 2) for k, v in walls.items()}, wall, card),
+          flush=True)
+    print(json.dumps({"platform": {
+        "card": card, "plan_and_page": res_a, "serve": res_b,
+        "tenants": res_c, "ladder": res_d, "graceful": res_e,
+        "close": {"models": res_f, "mem_start_mb": mem_start / 2**20,
+                  "mem_end_mb": mem_end / 2**20},
+        "walls_s": walls, "wall_s": wall,
+        "note": "one card: the pool's devices and domains are bookkeeping, "
+                "every replica runs on gpu(0)"}}, default=str), flush=True)
+    return {"f32": {"platform": launches}}
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -9533,6 +10420,9 @@ def main():
     torch.cuda.empty_cache()
     serving_launches = serving_phase(torch, mt)
     par_launches["f32"].update(serving_launches["f32"])
+    torch.cuda.empty_cache()
+    platform_launches = platform_phase(torch, mt)
+    par_launches["f32"].update(platform_launches["f32"])
     torch.cuda.empty_cache()
     d_main = FULL["hidden"] // FULL["num_heads"]
     for tag, kernel_rows in (

@@ -44,8 +44,12 @@ when it imports this package, then exits — and the serving tier:
 ``serving`` (``InferenceServer`` with its micro-batcher and HTTP API,
 ``Router``, ``ReplicaRegistry``, ``Autoscaler``, ``python -m
 mxnet_tpu_torch.serving.launch``) and the checkpoint sidecars
-(``model.find_latest_checkpoint``, ``load_checkpoint_state``).  This
-package imports neither
+(``model.find_latest_checkpoint``, ``load_checkpoint_state``) — and the
+multi-model platform: ``platform`` (``ModelSpec``, ``PlacementPlanner``
+over a ``DevicePool``, ``TenantQuotas``, ``HealthPlane``, ``ModelManager``
+with its degradation ladder, ``FrontDoor``), a subpackage loaded by
+``import mxnet_tpu_torch.platform`` as the JAX package's is, and
+``models.get_dlrm``.  This package imports neither
 ``jax`` nor ``mxnet_tpu``.
 """
 from . import base

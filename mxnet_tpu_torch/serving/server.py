@@ -195,7 +195,14 @@ class InferenceServer:
         An AOT bundle (``prefix-NNNN.aot/``) is the compile-once tier,
         ROADMAP.md A.5c: with ``attach_aot`` and a bundle on disk this
         raises :class:`MXNetError` instead of serving without it; pass
-        ``attach_aot=False`` to serve the checkpoint alone."""
+        ``attach_aot=False`` to serve the checkpoint alone.  With
+        ``attach_aot`` the JAX package's chaos seam
+        ``checkpoint.aot.attach`` fires first (an injected error is a torn
+        bundle read mid-fault-in)."""
+        if attach_aot:
+            from .. import faults
+
+            faults.fire("checkpoint.aot.attach")
         if attach_aot and os.path.isdir("%s-%04d.aot" % (prefix, epoch)):
             raise MXNetError(
                 "%s-%04d.aot is an AOT bundle, which this package cannot "
