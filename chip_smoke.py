@@ -421,7 +421,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              4 in halves) and 2 servers: every 2048x2048 weight and the
              embedding range-split, the LayerNorm vectors in buckets.  (a)
              Sync rounds (``MXNET_KVSTORE_SYNC=1``: Module waits at a
-             barrier between pushes and pulls), 2 + 3 steps: step ms split
+             barrier between pushes and pulls), 1 + 2 steps: step ms split
              into compute, push (to the round's barrier), pull wait and the
              server's update, bytes pushed and pulled per step, wire GB/s,
              each process's peak device memory, the updater's context;
@@ -432,7 +432,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              momentum 0.9), 2 sync workers against one process on the
              concatenated batch: after 3 steps every parameter within 1e-5
              of its largest |value|, and the 3-step move printed.  (c)
-             Async (``MXNET_KVSTORE_SYNC=0``), 5 steps: the servers' applied
+             Async (``MXNET_KVSTORE_SYNC=0``), 4 steps: the servers' applied
              pushes equal the push items the workers sent (a range-split
              key once per server, a bucket's keys once each), the loss
              falls, every parameter finite (adam at a quarter of the lr:
@@ -560,6 +560,53 @@ Phases, each fatal on failure (non-zero exit, no result line):
              page-out metered as in (a), the card's live tensors within
              64 MB of the phase's start.  A ``platform`` JSON line ends it;
              the float32 d=128 K1 row adds (b)'s launches ("platform").
+22. compile_once — the compile-once tier (``mt.compile_cache``,
+             ``mt.autotune``, AOT bundles) cold and then warm, in two
+             processes (this script with ``--cc-worker``), over the
+             full-width LM (float32, weights from SEED, the checkpoint
+             written here) as a platform model: scoring buckets 1 and 2
+             and a ``DecodeEngine`` with lanes 1/2/4/8 (GEN_ENGINE's pool;
+             prefill lengths 128 and 1024), under ``MXNET_COMPILE_CACHE_DIR``
+             and ``MXNET_AUTOTUNE=record``.  (a) Cold, in the repository
+             tree with an empty cache: ``ModelManager.fault_in``
+             (``InferenceServer.from_checkpoint``, warm-up: 8 entries, all
+             misses, the 2 scoring and 2 prefill buckets each a CUDA graph,
+             the 4 lane buckets eager; ``save_aot_bundle`` at the first
+             build), ``page_out`` (the bundle refreshed before the server
+             stops); an ``rtc`` axpy and the ``rtc_gelu`` op (forward and
+             backward) through NVRTC (3 compiles).  (b) Warm, in a fresh
+             copy of ``mxnet_tpu_torch/`` without ``_build/`` in a temporary
+             directory, the same cache and the bundle: the same fault-in
+             runs no nvcc (``kernels.BUILD_LOGS`` empty; the library
+             restored from the cache), no NVRTC compile and no tuning
+             (``tuning_ms`` 0, DB misses 0), 8 hits, no cold bucket run;
+             K4/K5 from the cached cubins within 1 ulp of their plain
+             versions.  (c) On that server, every graph's replay
+             (scoring, prefill) bit for bit its eager walk on the same
+             inputs; 2 scoring replies within 1e-4 of a direct batch-1
+             forward (eager); K1 6 times per executor call counted through
+             the replays, and one replay of each scoring bucket traced with
+             torch.profiler: its ``flash_fwd_tf32_kernel`` device ops equal
+             to the host count; the LM executor at buckets 1 and 2 eager
+             against graph by CUDA events; 8 prompts (4 of 128 tokens, 4
+             of 1024) through ``submit_generate``, token for token those of
+             an eager engine (cache off, ``attach_aot=False``), and the
+             8-lane step through ``_run_lanes`` (inputs, forward and the
+             planes' adoption) timed by CUDA events in both.  (d) A bundle
+             whose manifest names another ``device_kind``, and one with a
+             JAX-shaped manifest, raise ``MXNetError``;
+             ``attach_aot=False`` serves.  (e) The fault-ins of (a) and
+             (b), cold against warm (each worker starts its CUDA context
+             and the profiler first, timed apart), and once more in each
+             worker after that (the in-memory entries dropped; a second
+             checkpoint and cache directory): the seconds split into load,
+             entries, first runs, captures and build, ``footprint()``
+             against the card's delta in live tensors and in reserved
+             bytes (a graph's pool is reserved whole), each page-out
+             handing back its fault-in within 64 MB of both.  A
+             ``compile_once`` JSON line ends it; the float32 d=128 K1 row
+             adds (c)'s launches ("compile_once"), the user-kernel rows
+             (b)'s.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -570,8 +617,10 @@ import json
 import math
 import os
 import re
+import shutil
 import struct
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -7456,9 +7505,11 @@ def sharding_phase(torch, mt, batch, replay):
 # ---------------------------------------------------------------------------
 PS_WORKERS, PS_SERVERS = 2, 2
 PS_BATCH = BATCH // PS_WORKERS      # the train phase's batch split in halves
-PS_RUNS = (("a", "sync", 2, 3),     # tag, case, warm-up, timed steps
-           ("c", "async", 0, 5),
-           ("d", "fp16", 2, 3))
+# tag, case, warm-up, timed steps (cut from 2 + 3, 5, 2 + 3 to make room
+# for phase 22: 3 steps still give the first 3 losses the gates compare)
+PS_RUNS = (("a", "sync", 1, 2),
+           ("c", "async", 0, 4),
+           ("d", "fp16", 1, 2))
 # (c): each worker's push is an adam update of its own, two a step from
 # stale gradients; at the train phase's lr 3e-4 the loss spiked at step 4
 # (9.45 -> 12.71), at 1.5e-4 too (9.61 -> 10.63, back to 9.22 at step 5);
@@ -9561,7 +9612,8 @@ def plat_memory(meter, fp, card, what, released_only=False):
         if released_only and "released" not in row:
             continue
         print("platform %s %s (%s): fault-in %.2f s (the manager's %.1f ms: "
-              "build + warm-up of every bucket, cold until A.5c)%s; "
+              "build + warm-up of every bucket, the compile cache off in "
+              "this phase)%s; "
               "footprint() %d bytes vs the card's measured %d (%.3fx)%s"
               % (what, name, card, row["fault_in_s"], row["manager_ms"],
                  "" if "page_out_s" not in row else
@@ -10057,6 +10109,624 @@ def platform_phase(torch, mt):
     return {"f32": {"platform": launches}}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: compile-once, cold against warm
+# ---------------------------------------------------------------------------
+
+#: the LM server of phase 22: scoring buckets 1 and 2 and an engine with
+#: lanes 1/2/4/8 over GEN_ENGINE's pool (S.7's decode step at 8 lanes)
+CC_GEN = dict(GEN_MODEL, lane_buckets=(1, 2, 4, 8), page_size=16,
+              num_pages=577, prefill_len_buckets=(128, 1024),
+              prefill_batch_buckets=(1,))
+#: entries of that server: 2 scoring buckets, 2 prefill, 4 decode lanes;
+#: the first 4 are CUDA graphs, the lane buckets run eagerly
+CC_ENTRIES = 8
+CC_GRAPHS = 4
+CC_SCORE = 2                # (c): scoring calls whose K1 launches count
+CC_REPS = (1, 3)            # (c): eager/graph scoring runs, warm-up, timed
+CC_PROMPTS = (128, 1024) * 4   # (c): the engine's prompts, 8 live lanes
+CC_NEW = 24                 # (c): tokens generated for each prompt
+CC_TOL = 1e-4               # (c): replies against a direct batch-1 forward
+CC_ULPS = 1                 # (b): K4/K5 from cached cubins, plain versions
+CC_RTC = (4096, 4096)       # (a)/(b): the axpy and gelu shape
+CC_TIMEOUT = 600
+
+
+def cc_rtc(torch, mt):
+    """K4 (``rtc`` axpy, float32) and K5 (the ``rtc_gelu`` op, gelu_fwd and
+    gelu_bwd, bf16) on the card: (launches, ulps from the plain versions)."""
+    from mxnet_tpu_torch import rtc_kernels as rk
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 22)
+    x, y = (torch.randn(CC_RTC, generator=gen, device="cuda")
+            for _ in range(2))
+    xb, dyb = (torch.randn(CC_RTC, generator=gen, device="cuda")
+               .to(torch.bfloat16) * 3 for _ in range(2))
+    rk.register_rtc_gelu()
+    mt.kernels.reset_launches()
+    out = rk.axpy(x, y, torch.empty_like(x))
+    fwd = mt.nd.rtc_gelu(mt.nd.NDArray(xb, mt.gpu(0)))._data
+    bwd = rk.gelu_backward(xb, dyb)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in mt.kernels.LAUNCHES.items()
+                if k.startswith("rtc:") and v}
+    return launches, {"rtc:axpy": ulps(torch, out, rk.axpy_plain(x, y)),
+                      "rtc:gelu_fwd": ulps(torch, fwd, rk.gelu_plain(xb)),
+                      "rtc:gelu_bwd": ulps(torch, bwd,
+                                           rk.gelu_grad_plain(xb, dyb))}
+
+
+def cc_reserved(torch):
+    """Bytes the caching allocator holds on the card after a collection,
+    cuBLAS's workspaces cleared and the free cached segments released: a
+    CUDA graph's pool is reserved whole (its freed intermediates stay in
+    it), which ``srv_mem``'s live tensors do not show."""
+    srv_mem(torch)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def cc_fault_in(torch, mt, prefix, what, card):
+    """The LM at ``prefix`` as a platform model, faulted in on a fresh
+    manager: (manager, server, readings).  The seconds split into load (the
+    params file read onto the card, timed apart), the entries' load and
+    restore, the first runs, the captures and the rest (building the
+    server); ``footprint()`` against the card's delta."""
+    from mxnet_tpu_torch import compile_cache as cc
+    from mxnet_tpu_torch.platform import DevicePool, ModelManager, ModelSpec
+
+    os.environ["MXNET_PLATFORM_MIN_RESIDENT_S"] = "0"
+    t0 = time.perf_counter()
+    arrays = mt.nd.load("%s-0000.params" % prefix, mt.gpu(0))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del arrays
+    mgr = ModelManager(DevicePool(1, 78 << 30))
+    mspec = ModelSpec("lm", prefix, 0, SRV_LM_SHAPES,
+                      tenant="chat", slo="generate",
+                      generator_spec=dict(CC_GEN))
+    mgr.register_model(mspec)
+    estimate = mspec.footprint()
+    reserved = cc_reserved(torch)
+    before = srv_mem(torch)
+    s0 = cc.stats()
+    t0 = time.perf_counter()
+    srv = mgr.fault_in("lm")
+    wall = time.perf_counter() - t0
+    s1 = cc.stats()
+    took = srv_mem(torch) - before
+    took_reserved = cc_reserved(torch) - reserved
+    fp = mspec.footprint()
+    split = {k: (s1[k] - s0[k]) / 1e3 for k in
+             ("deserialize_ms", "first_run_ms", "capture_ms")}
+    entries = srv.compiled_entries()
+    res = {"fault_in_s": wall, "load_s": load_s,
+           "entries_s": split["deserialize_ms"],
+           "first_runs_s": split["first_run_ms"],
+           "captures_s": split["capture_ms"],
+           "build_s": wall - load_s - sum(split.values()),
+           "states": [e.cache_state for e in entries],
+           "graphs": [(e._kind, r["graph"]) for e in entries
+                      for r in e.records],
+           "cold_runs": srv.cold_bucket_runs(), "before": before,
+           "took": took, "reserved_before": reserved,
+           "took_reserved": took_reserved, "footprint": fp["total"],
+           "exec_bytes": fp["exec_bytes"],
+           "estimate_exec_bytes": estimate["exec_bytes"],
+           "ratio": fp["total"] / max(took, 1),
+           "ratio_reserved": fp["total"] / max(took_reserved, 1)}
+    check(len(entries) == CC_ENTRIES and
+          all(g == (k in cc.GRAPH_KINDS) for k, g in res["graphs"]) and
+          sum(g for _, g in res["graphs"]) == CC_GRAPHS,
+          "(e) %s: %d entries, graphs %s" % (what, len(entries),
+                                             res["graphs"]))
+    check(res["cold_runs"] == 0, "(e) %s: %d cold bucket runs"
+          % (what, res["cold_runs"]))
+    print("compile_once (e) %s fault-in (%s): %.2f s = load %.2f (the params "
+          "file onto the card, timed apart) + entries %.3f + first runs %.2f "
+          "+ captures %.2f + build %.2f; entries %s; cold bucket runs 0; "
+          "footprint() %d bytes (exec %d measured, %d estimated before) vs "
+          "the card's measured delta %d allocated (%.3fx), %d reserved "
+          "(%.3fx)"
+          % (what, card, wall, load_s, res["entries_s"], res["first_runs_s"],
+             res["captures_s"], res["build_s"], sorted(set(res["states"])),
+             fp["total"], fp["exec_bytes"], estimate["exec_bytes"], took,
+             res["ratio"], took_reserved, res["ratio_reserved"]), flush=True)
+    return mgr, srv, res
+
+
+def cc_page_out(torch, mgr, res, what, card):
+    """Page the LM out (its bundle refreshed before the server stops): the
+    memory handed back against what its fault-in took."""
+    t0 = time.perf_counter()
+    mgr.page_out("lm")
+    res["page_out_s"] = time.perf_counter() - t0
+    mgr.close()
+    res["gave"] = res["took"] - (srv_mem(torch) - res["before"])
+    res["gave_reserved"] = res["took_reserved"] - (
+        cc_reserved(torch) - res["reserved_before"])
+    for k in ("", "_reserved"):
+        check(abs(res["gave" + k] - res["took" + k]) <= SRV_MEM_SLACK,
+              "(e) %s: the page-out handed back %.1f MB%s, its fault-in "
+              "took %.1f MB" % (what, res["gave" + k] / 2**20,
+                                k.replace("_", " "), res["took" + k] / 2**20))
+    print("compile_once (e) %s page-out (%s): %.2f s, handed back %.1f MB of "
+          "%.1f MB allocated, %.1f MB of %.1f MB reserved (the graphs' pools "
+          "freed)" % (what, card, res["page_out_s"], res["gave"] / 2**20,
+                      res["took"] / 2**20, res["gave_reserved"] / 2**20,
+                      res["took_reserved"] / 2**20), flush=True)
+
+
+def cc_bitwise(torch, pred):
+    """The executor's graph replay against its eager walk on the same bound
+    inputs: (outputs equal bit for bit, replayed through a graph)."""
+    ex = pred._exec
+    got = [o._data.clone() for o in ex.forward(is_train=False)]
+    ex._output_arrays = []
+    ref, _ = ex._infer(*ex._bound())
+    graph = any(r["graph"] for fn in ex._jit_cache.values()
+                for r in fn.records)
+    return all(torch.equal(a, b) for a, b in zip(got, ref)), graph
+
+
+def cc_traced_k1(torch, mt, ex):
+    """One replay of ``ex`` traced with torch.profiler: (K1 launches the
+    host counted, ``flash_fwd_tf32_kernel`` ops the device ran)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    before = mt.kernels.LAUNCHES["flash_fwd"]
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        ex.forward(is_train=False)
+        torch.cuda.synchronize()
+    ex._output_arrays = []
+    host = mt.kernels.LAUNCHES["flash_fwd"] - before
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as trace:
+            events = json.load(trace)["traceEvents"]
+    device = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "flash_fwd_tf32_kernel" in e.get("name", ""))
+    return host, device
+
+
+def cc_generate(torch, srv, prompts):
+    """``prompts`` through ``srv.submit_generate`` at once, CC_NEW tokens
+    each: (the token lists, the ms of every step of the widest lane bucket
+    through ``_run_lanes``, by CUDA events around the loop thread's
+    calls)."""
+    eng = srv._generator
+    widest = eng._decode[eng.lane_buckets[-1]]
+    real, marks = eng._run_lanes, []
+
+    def run_lanes(pred, *args):
+        if pred is not widest:
+            return real(pred, *args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = real(pred, *args)
+        end.record()
+        marks.append((start, end))
+        return logits
+
+    eng._run_lanes = run_lanes
+    try:
+        streams = [srv.submit_generate(p, CC_NEW) for p in prompts]
+        tokens = [s.result(600) for s in streams]
+    finally:
+        del eng._run_lanes
+    torch.cuda.synchronize()
+    return tokens, [a.elapsed_time(b) for a, b in marks]
+
+
+def cc_ms(torch, fn, reps):
+    """Median ms of ``fn`` by CUDA events after ``reps[0]`` warm-up runs."""
+    warm, timed = reps
+    times = []
+    for i in range(warm + timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def cc_again(torch, mt, spec, what, card):
+    """(e) once more in this process, now that it ran CUDA work: the
+    in-memory entries dropped, the second checkpoint (its own bundle) with
+    the second cache directory."""
+    from mxnet_tpu_torch import compile_cache as cc
+
+    cc.reset_stats()
+    mt.autotune.reset_for_tests()
+    os.environ["MXNET_COMPILE_CACHE_DIR"] = spec["cc2"]
+    mgr, srv, res = cc_fault_in(torch, mt, spec["prefix2"], what, card)
+    want = "miss" if what.startswith("cold") else "hit"
+    check(res["states"] == [want] * CC_ENTRIES, "(e) %s: entries %s"
+          % (what, res["states"]))
+    del srv
+    cc_page_out(torch, mgr, res, what, card)
+    return res
+
+
+def cc_cold(torch, mt, spec, card):
+    """The cold worker (the repo tree, its ``_build/`` built by the build
+    phase, an empty cache directory): (a) the LM faulted in from its
+    checkpoint through the platform (``InferenceServer.from_checkpoint``,
+    warm-up with every entry a miss, ``save_aot_bundle`` at the first
+    build), paged out (the bundle refreshed); K4/K5 through NVRTC."""
+    from mxnet_tpu_torch import compile_cache as cc
+
+    mgr, srv, fault = cc_fault_in(torch, mt, spec["prefix"], "cold", card)
+    check(fault["states"] == ["miss"] * CC_ENTRIES, "(a) cold entries %s, "
+          "expected %d misses" % (fault["states"], CC_ENTRIES))
+    bundle = mt.checkpoint.aot_bundle_path(spec["prefix"], 0)
+    check(os.path.exists(os.path.join(bundle, cc.MANIFEST_NAME)),
+          "(a) the first build wrote no bundle")
+    del srv
+    cc_page_out(torch, mgr, fault, "cold", card)
+    manifest = cc.read_manifest(bundle)
+    res = {"fault": fault, "stats_a": cc.stats(),
+           "autotune_a": mt.autotune.stats(),
+           "bundle_entries": len(manifest["entries"]),
+           "bundle_blobs": [b["name"] for b in manifest["blobs"]],
+           "bundle_mb": sum(os.path.getsize(os.path.join(bundle, n))
+                            for n in os.listdir(bundle)) / 2**20}
+    check(res["bundle_entries"] == CC_ENTRIES and res["bundle_blobs"],
+          "(a) the bundle holds %d entries and blobs %s"
+          % (res["bundle_entries"], res["bundle_blobs"]))
+    res["rtc_launches"], res["rtc_ulps"] = cc_rtc(torch, mt)
+    res["nvrtc_compiles"] = mt.cuda_rtc.COMPILES["n"]
+    check(res["nvrtc_compiles"] == 3, "(a) %d NVRTC compiles, expected 3 "
+          "(axpy, gelu_fwd, gelu_bwd)" % res["nvrtc_compiles"])
+    check(res["autotune_a"]["tuning_ms"] > 0, "(a) no tuning ran cold")
+    print("compile_once (a) cold (%s): the LM faulted in from its checkpoint "
+          "with %d entries, all misses, %d of them CUDA graphs (scoring and "
+          "prefill; the lane buckets eager); its bundle of %d "
+          "entries and blobs %s (%.1f MB) written at the first build and "
+          "refreshed at the page-out; %d NVRTC compiles; tuning %.1f ms, %d "
+          "winners stored"
+          % (card, CC_ENTRIES, CC_GRAPHS, res["bundle_entries"],
+             res["bundle_blobs"],
+             res["bundle_mb"], res["nvrtc_compiles"],
+             res["autotune_a"]["tuning_ms"], res["autotune_a"]["stores"]),
+          flush=True)
+    res["again"] = cc_again(torch, mt, spec, "cold, a warm process", card)
+    return res
+
+
+def cc_warm(torch, mt, spec, card):
+    """The warm worker (a fresh copy of the package, no ``_build/``, the
+    same cache directory and the bundle): (b) nothing built, (c) the graphs
+    on the card, (d) the bundle's refusals, (e) the fault-in warm."""
+    from mxnet_tpu_torch import compile_cache as cc
+
+    res = {"package": os.path.dirname(os.path.abspath(mt.__file__))}
+    check(not os.path.isdir(mt.kernels._BUILD), "(b) the fresh copy has "
+          "a _build directory before anything ran")
+    mgr, srv, fault = cc_fault_in(torch, mt, spec["prefix"], "warm", card)
+    res["fault"] = fault
+    rtc_launches, rtc_ulps = cc_rtc(torch, mt)
+    s = cc.stats()
+    at = mt.autotune.stats()
+    res.update(stats_b=s, autotune_b=at, rtc_launches=rtc_launches,
+               rtc_ulps=rtc_ulps, nvcc_builds=sorted(mt.kernels.BUILD_LOGS),
+               nvrtc_compiles=mt.cuda_rtc.COMPILES["n"],
+               restored=sorted(os.listdir(mt.kernels._BUILD)))
+    check(srv._generator is not None, "(b) the bundle did not restore the "
+          "generator")
+    check(not res["nvcc_builds"], "(b) nvcc ran: %s" % res["nvcc_builds"])
+    check(res["nvrtc_compiles"] == 0, "(b) %d NVRTC compiles"
+          % res["nvrtc_compiles"])
+    check(at["tuning_ms"] == 0 and at["misses"] == 0 and at["hits"] > 0,
+          "(b) the autotuner tuned or missed: %s" % at)
+    check(s["misses"] == 0 and s["hits"] == CC_ENTRIES and
+          s["bypass"] == 0 and s["errors"] == 0,
+          "(b) compile cache %s, expected %d hits" % (s, CC_ENTRIES))
+    check(fault["states"] == ["hit"] * CC_ENTRIES, "(b) entry states %s"
+          % fault["states"])
+    check(all(d <= CC_ULPS for d in rtc_ulps.values()), "(b) K4/K5 from "
+          "cached cubins: %s ulps from the plain versions" % rtc_ulps)
+    check(set(rtc_launches) == {"rtc:axpy", "rtc:gelu_fwd", "rtc:gelu_bwd"},
+          "(b) user-kernel launches %s" % rtc_launches)
+    print("compile_once (b) warm (%s): a fresh copy of the package without "
+          "_build/ served from the bundle and the cache: %d hits, 0 misses, "
+          "0 bypass; nvcc builds none (libraries restored: %s), NVRTC "
+          "compiles 0, tuning 0 ms (%d DB hits, 0 misses), cold bucket runs "
+          "0; K4/K5 from cached cubins %s ulps from the plain versions"
+          % (card, s["hits"], res["restored"], at["hits"], rtc_ulps),
+          flush=True)
+
+    # -- (c) the graphs on the card --------------------------------------
+    rep = srv._replicas[0]
+    eng = srv._generator
+    preds = [("score b%d" % b, rep._preds[b]) for b in rep.buckets]
+    preds += [("prefill %d" % L, bp._preds[b])
+              for L, bp in sorted(eng._prefill.items())
+              for b in bp.buckets]
+    s_len = FULL["seq_len"]
+    rng = np.random.default_rng(SEED + 22)
+    tokens = rng.integers(0, FULL["vocab_size"], (2, s_len)).astype(
+        np.float32)
+    for name, pred in preds:
+        shape = pred._input_shapes["data"]
+        pred.set_input("data", tokens[:shape[0], :shape[1]])
+        same, graph = cc_bitwise(torch, pred)
+        check(graph, "(c) %s runs without a CUDA graph" % name)
+        check(same, "(c) %s: the replay differs from its eager walk" % name)
+    res["bitwise"] = [name for name, _ in preds]
+    for b in eng.lane_buckets:
+        fns = eng._decode[b]._exec._jit_cache.values()
+        check(fns and not any(r["graph"] for fn in fns for r in fn.records),
+              "(c) decode %d: not an entry that runs eagerly" % b)
+    # replies against a direct batch-1 forward (eager: no graph), and K1
+    # counted through the replays, then traced on the device
+    label = np.zeros((s_len,), np.float32)
+    mt.kernels.reset_launches()
+    calls0 = rep.executor_calls
+    replies = [srv.predict(data=tokens[i], softmax_label=label)[0]
+               for i in range(CC_SCORE)]
+    torch.cuda.synchronize()
+    k1 = mt.kernels.LAUNCHES["flash_fwd"]
+    calls = rep.executor_calls - calls0
+    check(calls == CC_SCORE and k1 == FULL["num_layers"] * calls,
+          "(c) flash_fwd launched %d times in %d executor calls, expected "
+          "%d" % (k1, calls, FULL["num_layers"] * calls))
+    res["k1_launches"] = k1
+    traced = {}
+    for b in rep.buckets:
+        host, device = cc_traced_k1(torch, mt, rep._preds[b]._exec)
+        traced["score b%d" % b] = (host, device)
+        check(host == device == FULL["num_layers"], "(c) score b%d: one "
+              "traced replay counted %d K1 on the host and ran %d "
+              "flash_fwd_tf32_kernel on the device, expected %d"
+              % (b, host, device, FULL["num_layers"]))
+    res["k1_traced"] = traced
+    direct = mt.Predictor.from_checkpoint(
+        spec["prefix"], 0, {"data": (1, s_len), "softmax_label": (1, s_len)})
+    worst = 0.0
+    for i, got in enumerate(replies):
+        direct.set_input("data", tokens[i:i + 1])
+        ref = direct._exec._infer(*direct._exec._bound())[0][0]
+        got = torch.as_tensor(got, device="cuda")
+        worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+    del direct, replies, ref, got
+    check(worst <= CC_TOL, "(c) replies %.3g of the largest |value| off a "
+          "direct batch-1 forward" % worst)
+    res["max_rel_err"] = worst
+    # the LM executor eager against graph
+    ms = {}
+    for b in rep.buckets:
+        ex = rep._preds[b]._exec
+        ms["score b%d" % b] = (
+            cc_ms(torch, lambda: ex._infer(*ex._bound()), CC_REPS),
+            cc_ms(torch, lambda: ex.forward(is_train=False), CC_REPS))
+        ex._output_arrays = []
+    res["eager_graph_ms"] = ms
+    # the engine's own path: 8 live lanes through submit_generate
+    prompts = [[int(t) for t in rng.integers(0, FULL["vocab_size"], n)]
+               for n in CC_PROMPTS]
+    gen_tokens, steps = cc_generate(torch, srv, prompts)
+    check(len(steps) >= CC_NEW // 2, "(c) %d steps of %d lanes"
+          % (len(steps), eng.lane_buckets[-1]))
+    print("compile_once (c) graphs (%s): %d executors replay bit for bit "
+          "their eager walks (%s); the %d lane buckets are entries that run "
+          "eagerly; %d scoring replies within %.3g of the largest |value| "
+          "of a direct batch-1 forward (eager; limit %g); flash_fwd %d in "
+          "%d executor calls (6 a call, counted through the replays), one "
+          "traced replay (host, device ops) %s; ms eager vs graph: %s "
+          "(phase 20's executor: 72.93 and 143.22 ms)"
+          % (card, len(preds), ", ".join(res["bitwise"]),
+             len(eng.lane_buckets), CC_SCORE, worst, CC_TOL, k1, calls,
+             traced, {k: "%.3f vs %.3f" % v for k, v in ms.items()}),
+          flush=True)
+    del srv, rep, eng, preds, pred, ex
+    cc_page_out(torch, mgr, fault, "warm", card)
+    # the same prompts through an eager engine: the cache off, no bundle
+    os.environ["MXNET_COMPILE_CACHE_DIR"] = ""
+    cc.detach_bundles()
+    eager = mt.serving.InferenceServer.from_checkpoint(
+        spec["prefix"], 0, {"data": (1, s_len), "softmax_label": (1, s_len)},
+        attach_aot=False, generator_spec=dict(CC_GEN))
+    check(not eager.compiled_entries(), "(c) the eager engine has entries")
+    eager_tokens, eager_steps = cc_generate(torch, eager, prompts)
+    eager.stop()
+    del eager
+    os.environ["MXNET_COMPILE_CACHE_DIR"] = spec["cc"]
+    same = sum(a == b for a, b in zip(gen_tokens, eager_tokens))
+    check(same == len(prompts), "(c) %d of %d prompts generated the eager "
+          "engine's tokens" % (same, len(prompts)))
+    res["step_ms"] = {"warm server": steps, "eager engine": eager_steps}
+    print("compile_once (c) engine (%s): %d prompts (%s tokens) through "
+          "submit_generate, %d new tokens each, token for token those of an "
+          "eager engine (cache off, attach_aot=False); the %d-lane step "
+          "through _run_lanes (inputs, forward, the planes adopted) median "
+          "%.3f ms over %d steps on the warm server (prefill graphs, lanes "
+          "eager) vs %.3f ms over %d on the eager engine (S.7's synthetic "
+          "step 11.854-11.971 ms)"
+          % (card, len(prompts), "/".join(map(str, sorted(set(CC_PROMPTS)))),
+             CC_NEW, CC_GEN["lane_buckets"][-1], float(np.median(steps)),
+             len(steps), float(np.median(eager_steps)), len(eager_steps)),
+          flush=True)
+
+    # -- (d) the bundle's refusals ---------------------------------------
+    bundle = mt.checkpoint.aot_bundle_path(spec["prefix"], 0)
+    refused = {}
+    for tag in ("device_kind", "jax"):
+        prefix = os.path.join(spec["tmp"], "refuse_" + tag)
+        for suffix in ("-symbol.json", "-0000.params"):
+            os.link(spec["prefix"] + suffix, prefix + suffix)
+        copy = mt.checkpoint.aot_bundle_path(prefix, 0)
+        shutil.copytree(bundle, copy)
+        manifest = cc.read_manifest(copy)
+        if tag == "jax":
+            manifest["env"] = {"schema": 1, "jax": "0.4.35",
+                               "jaxlib": "0.4.35", "platform": "gpu",
+                               "device_kind": torch.cuda.get_device_name(0),
+                               "device_count": 1, "process_count": 1}
+        else:
+            manifest["env"]["device_kind"] = "TPU v5 lite"
+        with open(os.path.join(copy, cc.MANIFEST_NAME), "w") as f:
+            json.dump(manifest, f)
+        try:
+            mt.serving.InferenceServer.from_checkpoint(
+                prefix, 0, {"data": (1, s_len), "softmax_label": (1, s_len)})
+            refused[tag] = None
+        except mt.base.MXNetError as exc:
+            refused[tag] = str(exc)[:160]
+        check(refused[tag] is not None, "(d) the %s manifest was attached"
+              % tag)
+    plain = mt.serving.InferenceServer.from_checkpoint(
+        prefix, 0, {"data": (1, s_len), "softmax_label": (1, s_len)},
+        attach_aot=False)
+    answer = plain.predict(data=tokens[0], softmax_label=label)[0]
+    plain.stop()
+    check(answer.shape == (s_len, FULL["vocab_size"]) and
+          np.isfinite(answer).all(), "(d) attach_aot=False answered %s"
+          % (answer.shape,))
+    res["refused"] = refused
+    print("compile_once (d) refusals (%s): a manifest edited to another "
+          "device_kind raised MXNetError (%s); a JAX-shaped manifest raised "
+          "MXNetError (%s); attach_aot=False served the checkpoint, a finite "
+          "(%d, %d) answer" % (card, refused["device_kind"],
+                              refused["jax"], s_len, FULL["vocab_size"]),
+          flush=True)
+    res["again"] = cc_again(torch, mt, spec, "warm, a warm process", card)
+    return res
+
+
+def cc_worker(path):
+    """``--cc-worker SPEC``: one process of phase 22 (cold or warm), its
+    readings written to SPEC's ``out`` as JSON."""
+    import torch
+
+    import mxnet_tpu_torch as mt
+
+    with open(path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_and_limit()
+    t0 = time.perf_counter()
+    # the CUDA context and the profiler (CUPTI) start before any graph is
+    # captured, in both workers: (c) traces replays of the fault-in's graphs
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    fn = cc_cold if spec["role"] == "cold" else cc_warm
+    res = fn(torch, mt, spec, card)
+    res["cuda_start_s"] = start_s
+    res["wall_s"] = time.perf_counter() - t0
+    with open(spec["out"], "w") as f:
+        json.dump(res, f, default=str)
+
+
+def cc_process(spec, root):
+    """Run one worker of phase 22 from ``root`` (its ``chip_smoke.py`` and
+    package); its output printed, its readings returned."""
+    path = os.path.join(spec["tmp"], spec["role"] + ".spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, MXNET_COMPILE_CACHE_DIR=spec["cc"],
+               MXNET_AUTOTUNE="record")
+    for name in ("MXNET_AUTOTUNE_DIR", "MXNET_COMPILE_CACHE_STRICT"):
+        env.pop(name, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "chip_smoke.py"), "--cc-worker",
+         path], cwd=root, env=env, capture_output=True, text=True,
+        timeout=CC_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(line, flush=True)
+    check(proc.returncode == 0, "the %s worker exited %d:\n%s"
+          % (spec["role"], proc.returncode, proc.stderr[-3000:]))
+    with open(spec["out"]) as f:
+        res = json.load(f)
+    res["process_s"] = wall
+    return res
+
+
+def compile_once_phase(torch, mt):
+    """Phase 22 (module docstring).  Returns the K1 launches of (c)'s
+    scoring window and the user kernels' of (b), by path."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    card = card_and_limit()
+    t_phase = time.perf_counter()
+    walls = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        prefix, prefix2 = os.path.join(tmp, "lm"), os.path.join(tmp, "lm2")
+        with mt.NameManager():
+            net = get_transformer_lm(**FULL)
+        srv_lm_checkpoint(torch, mt, net, prefix)
+        for suffix in ("-symbol.json", "-0000.params"):
+            os.link(prefix + suffix, prefix2 + suffix)
+        del net
+        torch.cuda.empty_cache()
+        walls["checkpoint"] = time.perf_counter() - t0
+        spec = {"tmp": tmp, "prefix": prefix, "prefix2": prefix2,
+                "cc": os.path.join(tmp, "cc"),
+                "cc2": os.path.join(tmp, "cc2")}
+        t0 = time.perf_counter()
+        cold = cc_process(dict(spec, role="cold",
+                               out=os.path.join(tmp, "cold.json")), here)
+        walls["cold"] = time.perf_counter() - t0
+        # the warm worker runs a fresh copy of the package: no _build/
+        t0 = time.perf_counter()
+        fresh = os.path.join(tmp, "fresh")
+        shutil.copytree(os.path.join(here, "mxnet_tpu_torch"),
+                        os.path.join(fresh, "mxnet_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        shutil.copy(os.path.join(here, "chip_smoke.py"), fresh)
+        warm = cc_process(dict(spec, role="warm",
+                               out=os.path.join(tmp, "warm.json")), fresh)
+        walls["warm"] = time.perf_counter() - t0
+    check(warm["package"].startswith(fresh), "(b) the warm worker imported "
+          "%s" % warm["package"])
+    wall = time.perf_counter() - t_phase
+    fc, fw = cold["fault"], warm["fault"]
+    ac, aw = cold["again"], warm["again"]
+    print("compile_once (e) (%s): the platform LM's fault-in as its "
+          "process's first model work (after %.2f s cold, %.2f s warm of "
+          "CUDA context and profiler start) %.2f s cold against %.2f s warm "
+          "(%.2fx), in a process that ran the LM %.2f s cold against "
+          "%.2f s warm (%.2fx; phase 21's cold fault-ins 5.05-6.40 s); "
+          "footprint() against the card's reserved delta %.3fx cold, %.3fx "
+          "warm (allocated %.3fx, %.3fx; S.13 with the estimate and no "
+          "graphs: 0.668x allocated)"
+          % (card, cold["cuda_start_s"], warm["cuda_start_s"],
+             fc["fault_in_s"], fw["fault_in_s"],
+             fc["fault_in_s"] / fw["fault_in_s"], ac["fault_in_s"],
+             aw["fault_in_s"], ac["fault_in_s"] / aw["fault_in_s"],
+             fc["ratio_reserved"], fw["ratio_reserved"], fc["ratio"],
+             fw["ratio"]), flush=True)
+    print("compile_once: walls %s; workers %.1f s cold, %.1f s warm; phase "
+          "%.1f s on %s" % ({k: round(v, 2) for k, v in walls.items()},
+                            cold["process_s"], warm["process_s"], wall, card),
+          flush=True)
+    print(json.dumps({"compile_once": {"card": card, "cold": cold,
+                                       "warm": warm, "walls_s": walls,
+                                       "wall_s": wall}}, default=str),
+          flush=True)
+    zero = {k: 0 for k in PS_NAMES}
+    return ({"f32": {"compile_once": dict(zero,
+                                          flash_fwd=warm["k1_launches"])}},
+            warm["rtc_launches"])
+
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -10274,6 +10944,7 @@ def main():
     ap.add_argument("--dist-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--shard-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--ps-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--cc-worker", metavar="SPEC", help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if opts.dist_worker:
         dist_worker(opts.dist_worker)
@@ -10283,6 +10954,9 @@ def main():
         return
     if opts.ps_worker:
         ps_worker(opts.ps_worker)
+        return
+    if opts.cc_worker:
+        cc_worker(opts.cc_worker)
         return
 
     import torch
@@ -10424,6 +11098,13 @@ def main():
     platform_launches = platform_phase(torch, mt)
     par_launches["f32"].update(platform_launches["f32"])
     torch.cuda.empty_cache()
+    cc_launches, cc_rtc_launches = compile_once_phase(torch, mt)
+    par_launches["f32"].update(cc_launches["f32"])
+    for r in rtc_rows:
+        r["launches_by_path"] = {
+            "extend": r["launches"],
+            "compile_once": cc_rtc_launches.get(r["name"], 0)}
+        r["launches"] = sum(r["launches_by_path"].values())
     d_main = FULL["hidden"] // FULL["num_heads"]
     for tag, kernel_rows in (
             ("bf16", main_rows),

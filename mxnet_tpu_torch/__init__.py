@@ -70,7 +70,7 @@ from . import cuda_rtc
 from . import rtc
 from . import operator
 from . import models
-from .predictor import Predictor
+from .predictor import Predictor, load_exported
 from .ops import register_kernel_op, Param
 from . import random
 from . import initializer
@@ -100,6 +100,8 @@ from . import generation
 from . import parallel
 from . import sharding
 from . import checkpoint
+from . import compile_cache
+from . import autotune
 from . import rnn
 from . import monitor
 from . import monitor as mon

@@ -20,9 +20,13 @@ a tensor-parallel layout saves and restores without a whole-tensor gather:
 
 The JAX package's payload is an orbax tree (tensorstore); the port writes
 its own, so it cannot read an orbax payload written by the JAX package,
-nor the JAX package one written by the port (a kept difference).  The AOT
-bundle half of the JAX module has no port yet (compile-once, ROADMAP.md
-A.5c).
+nor the JAX package one written by the port (a kept difference).
+
+The AOT half: ``aot_bundle_path``, ``save_aot_bundle`` and
+``attach_aot_bundle`` write and attach ``prefix-NNNN.aot/``, the
+compile-once bundle (``compile_cache.save_bundle``/``attach_bundle``)
+beside the params.  A bundle the JAX package wrote is refused with
+``MXNetError``, as a bundle of another topology is.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ import numpy as np
 from .base import MXNetError
 
 __all__ = ["save_sharded_checkpoint", "load_sharded_checkpoint",
-           "load_sharded_checkpoint_state", "load_partition_specs"]
+           "load_sharded_checkpoint_state", "load_partition_specs",
+           "aot_bundle_path", "save_aot_bundle", "attach_aot_bundle"]
 
 # written (by process 0) only after every process's pieces have landed; a
 # directory without it is a crash-torn save
@@ -292,3 +297,46 @@ def load_sharded_checkpoint(prefix, epoch, shardings=None, mesh=None):
     if os.path.exists(sym_path):
         symbol = sym.load(sym_path)
     return symbol, out["arg"], out["aux"]
+
+
+# ---------------------------------------------------------------------------
+# AOT bundles — the compiled half of a checkpoint.  Params say WHAT the
+# model computes; the bundle carries what a fresh replica needs to warm
+# without building anything (plan entries, the kernels' libraries and
+# cubins, the tuning winners) and a warm-up manifest.
+# ---------------------------------------------------------------------------
+
+def aot_bundle_path(prefix, epoch):
+    """``prefix-NNNN.aot/`` next to the params — same naming family as
+    ``prefix-NNNN.params`` / ``prefix-NNNN.orbax``."""
+    return os.path.abspath("%s-%04d.aot" % (prefix, epoch))
+
+
+def save_aot_bundle(prefix, epoch, entries, warmup=None):
+    """Write the AOT bundle beside a checkpoint.
+
+    ``entries``: primed ``compile_cache.CachedFunction`` wrappers —
+    typically ``InferenceServer.compiled_entries()``, one per warmed
+    bucket.  ``warmup``: a manifest dict (input shapes, buckets, dtype)
+    recording how to re-drive the same warm-up.  Returns the bundle
+    path."""
+    from . import compile_cache
+
+    return compile_cache.save_bundle(aot_bundle_path(prefix, epoch),
+                                     entries, warmup=warmup)
+
+
+def attach_aot_bundle(prefix, epoch, mesh=None):
+    """Attach ``prefix-NNNN.aot/`` as a read-only compile-cache overlay;
+    returns the manifest (or None when no bundle exists).  Raises
+    :class:`MXNetError` when the bundle was written by another framework
+    or for another device topology or mesh."""
+    from . import compile_cache, faults
+
+    # chaos seam: checkpoint.aot.attach:ioerr=1 simulates a torn or
+    # unreadable bundle mid-fault-in (the platform leak-path drill)
+    faults.fire("checkpoint.aot.attach")
+    path = aot_bundle_path(prefix, epoch)
+    if not os.path.exists(os.path.join(path, compile_cache.MANIFEST_NAME)):
+        return None
+    return compile_cache.attach_bundle(path, mesh=mesh)

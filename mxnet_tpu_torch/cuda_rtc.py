@@ -9,7 +9,11 @@ and launches.
   ``MXNetError`` carrying NVRTC's log.
 - ``function(source, name, device)``: the kernel loaded into the device's
   primary context (``cuModuleLoadData``), compiled and loaded once per
-  (source, device) and cached.
+  (source, device) and cached.  Cubins are held by ``source_key`` (a hash
+  of the name, the source and the options); with the compile cache on, a
+  cubin not compiled in this process is first looked for there (no
+  NVRTC), and a cubin NVRTC compiled is kept there.  ``COMPILES`` counts
+  NVRTC compilations.
 - ``LaunchPlan(func, device, n_args)``: ``cuLaunchKernel`` of one
   kernel on one device, many times, on a given stream.  It exists for a
   caller that pushes the same kernel over and over (an update loop pushes
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import glob
+import hashlib
 import os
 import struct
 import threading
@@ -48,7 +53,8 @@ from typing import Dict, List, Sequence, Tuple
 from .base import MXNetError, env
 
 __all__ = ["NVRTC_OPTIONS", "nvrtc_version", "nvrtc_search", "compile_cubin",
-           "function", "LaunchPlan", "error_string"]
+           "function", "LaunchPlan", "error_string", "source_key", "cubin",
+           "register_cubin", "COMPILES"]
 
 #: NVRTC options besides the include path: Hopper with its arch-specific
 #: features (``wgmma``, ``setmaxnreg``), C++17
@@ -56,7 +62,10 @@ NVRTC_OPTIONS = ("--gpu-architecture=sm_90a", "-std=c++17")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: cubins by ``source_key``
 _CUBINS: Dict[str, bytes] = {}
+#: NVRTC compilations this process ran (``{"n": count}``)
+COMPILES = {"n": 0}
 _FUNCS: Dict[Tuple[str, str, int], Tuple[ctypes.c_void_p, ctypes.c_void_p]] = {}
 _PRIMARY: Dict[int, ctypes.c_void_p] = {}
 
@@ -200,6 +209,25 @@ def compile_cubin(source: str, name: str) -> bytes:
         lib.nvrtcDestroyProgram(ctypes.byref(prog))
 
 
+def source_key(source: str, name: str) -> str:
+    """The hash a cubin is held by: kernel name, source and NVRTC options
+    (the include path left out: it names this machine's CUDA_HOME)."""
+    blob = "\0".join([name, source] + list(NVRTC_OPTIONS)).encode()
+    return hashlib.sha256(blob).hexdigest()[:32]
+
+
+def cubin(key: str):
+    """The cubin held for ``key`` in this process, or None."""
+    return _CUBINS.get(key)
+
+
+def register_cubin(key: str, data: bytes) -> None:
+    """Hold ``data`` as the cubin of ``key`` (from a compile-cache entry):
+    ``function`` then loads it without NVRTC."""
+    with _LOCK:
+        _CUBINS.setdefault(key, bytes(data))
+
+
 def _primary(lib, device: int) -> ctypes.c_void_p:
     """``device``'s primary context, retained at the first request."""
     ctx = _PRIMARY.get(device)
@@ -218,13 +246,22 @@ def function(source: str, name: str, device: int) -> ctypes.c_void_p:
     """Kernel ``name`` of ``source`` loaded on CUDA device ``device``:
     compiled at the first request for the source, loaded at the first for
     the device, cached after."""
+    from . import compile_cache, kernels
+
     key = (source, name, device)
+    ckey = source_key(source, name)
+    kernels.note("cubins", ckey)
     with _LOCK:
         hit = _FUNCS.get(key)
         if hit is None:
-            cubin = _CUBINS.get(source)
+            cubin = _CUBINS.get(ckey)
+            if cubin is None and compile_cache.active():
+                cubin = compile_cache.load_blob("cubin", ckey)
             if cubin is None:
-                cubin = _CUBINS[source] = compile_cubin(source, name)
+                cubin = compile_cubin(source, name)
+                COMPILES["n"] += 1
+                compile_cache.store_cubin(ckey, cubin)
+            _CUBINS[ckey] = cubin
             lib = _libcuda()
             _check_cu(lib, lib.cuCtxSetCurrent(_primary(lib, device)),
                       "cuCtxSetCurrent")

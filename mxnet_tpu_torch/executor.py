@@ -63,10 +63,22 @@ The monitor callback (``set_monitor_callback``, what ``Monitor.install``
 sets): ``forward`` hands it every node output by output name, as the JAX
 package's forward does.
 
-Left out, with their reason: jit, buffer donation and the compile cache
-(PyTorch runs eagerly; a CUDA graph is the later tool), the training
-guardian's on-device step guard, the autotuner and remat
-(``MXNET_BACKWARD_DO_MIRROR``).
+The compile cache (``compile_cache``): with ``MXNET_COMPILE_CACHE_DIR``
+set or an AOT bundle attached, ``forward(is_train=False)``,
+``forward_backward`` and ``fused_step`` go through
+``compile_cache.maybe_cached`` under the kinds ``_cache_kind`` (``"fwd"``
+unless a caller such as the generation engine names another),
+``"fwdbwd"`` and ``"fused"``: content-keyed entries, and for the kinds
+of ``compile_cache.GRAPH_KINDS`` on the card (``"fwd"`` and the engine's
+prefill kinds) a CUDA graph captured at the first call and replayed after
+it (in ``_graph_pool``, which a replica's buckets share).  With the cache
+off nothing is wrapped.  ``fused_step`` consults the ``fused_step``
+autotune site once per step key; it has nothing to choose until remat is
+ported, so it records the default and the step ignores it.
+
+Left out, with their reason: jit and buffer donation (PyTorch runs
+eagerly, and donation has no torch counterpart), the training guardian's
+on-device step guard and remat (``MXNET_BACKWARD_DO_MIRROR``).
 """
 from __future__ import annotations
 
@@ -75,7 +87,7 @@ from typing import Any, Dict, List
 import torch
 
 from . import random as _random
-from .base import MXNetError
+from .base import MXNetError, env
 from .context import Context
 from .ops.param import torch_dtype
 from .ops import OpContext
@@ -139,6 +151,18 @@ class _GraphPlan:
             for p, idx in n.inputs:
                 e = (id(p), idx)
                 self.readers[e] = self.readers.get(e, 0) + 1
+        self._fingerprint = None
+
+    def fingerprint(self) -> str:
+        """Content hash of the graph (serialized symbol), the JAX
+        package's: the process-independent half of a persistent
+        compile-cache key."""
+        if self._fingerprint is None:
+            import hashlib
+
+            self._fingerprint = hashlib.sha256(
+                self.symbol.tojson().encode()).hexdigest()[:16]
+        return self._fingerprint
 
     def no_grad_args(self) -> List[str]:
         """Variables fed straight into an input its op declares
@@ -312,6 +336,40 @@ class Executor:
         # draw the same numbers (the JAX package reuses the forward's key)
         self._last_rng = None
         self._monitor_callback = None
+        # compile-cache wrappers by call key (only while the cache is on);
+        # the entry label of this executor's inference forwards ("fwd";
+        # the generation engine names its executors "gen-step", ...); the
+        # graph memory pool a replica's buckets share; and the arguments
+        # that are inputs, whose bytes count as the graphs' static buffers
+        self._jit_cache: Dict[Any, Any] = {}
+        self._cache_kind = "fwd"
+        self._graph_pool = None
+        self._cache_inputs = frozenset()
+        # the step keys whose fused_step site has been consulted
+        self._fused_sites = set()
+
+    def _cached(self, kind, key, fn):
+        """``fn`` wrapped by the compile cache under ``kind`` (kept per
+        ``key``), or ``fn`` itself while the cache is off."""
+        hit = self._jit_cache.get(key)
+        if hit is None:
+            from . import compile_cache as _cc
+
+            hit = _cc.maybe_cached(fn, kind, key, self)
+            if hit is fn:
+                return fn
+            self._jit_cache[key] = hit
+        return hit
+
+    def release_cache(self):
+        """Drop this executor's compile-cache wrappers and their CUDA
+        graphs (a paged-out replica hands their memory back)."""
+        self._jit_cache.clear()
+        self._graph_pool = None
+
+    def _bound(self):
+        return ({k: v._data for k, v in self.arg_dict.items()},
+                {k: v._data for k, v in self.aux_dict.items()})
 
     def _as_nd(self, v):
         """Bound arrays live on the executor's context: an NDArray already
@@ -478,8 +536,14 @@ class Executor:
         self._output_arrays = []  # release the previous call's outputs
         gen = self._generator(remember=True)
         internals = [] if self._monitor_callback is not None else None
-        with torch.no_grad():
-            outs, new_aux = self._run(args, aux, is_train, gen, internals)
+        if is_train or internals is not None:
+            with torch.no_grad():
+                outs, new_aux = self._run(args, aux, is_train, gen,
+                                          internals)
+        else:
+            kind = self._cache_kind
+            outs, new_aux = self._cached(kind, (kind, False), self._infer)(
+                args, aux, generator=gen)
         for n, i, o in internals or ():
             self._monitor_callback(
                 n.op.output_names(n.attrs, n.name)[i],
@@ -488,6 +552,12 @@ class Executor:
             self._store_aux(new_aux)
         self._set_outputs(outs)
         return self._output_arrays
+
+    def _infer(self, args, aux, generator=None):
+        """The inference walk over the bound tensors ``args``/``aux`` (what
+        a CUDA graph of this executor captures)."""
+        with torch.no_grad():
+            return self._run(args, aux, False, generator)
 
     def backward(self, out_grads=None, is_train: bool = True):
         """Gradients of the bound arguments into ``grad_dict``.  Like the
@@ -547,6 +617,10 @@ class Executor:
             self._grad_hook(grads)
         return [o.detach() for o in outs], new_aux, grads
 
+    def _grads_of(self, args, aux, **kw):
+        """``_grads`` as a compile-cache call (the bound tensors key it)."""
+        return self._grads(**kw)
+
     def _forward_backward(self, out_grads, is_train, update_aux, set_outputs,
                           generator):
         from . import ndarray as nd
@@ -558,8 +632,11 @@ class Executor:
             if set_outputs:
                 self.forward(is_train=is_train)
             return
-        outs, new_aux, grads = self._grads(diff_names, out_grads, is_train,
-                                           generator)
+        outs, new_aux, grads = self._cached(
+            "fwdbwd", ("fwdbwd", is_train, tuple(diff_names)),
+            self._grads_of)(*self._bound(), diff_names=diff_names,
+                            out_grads=out_grads, is_train=is_train,
+                            generator=generator)
         for name in diff_names:
             g = grads[name]
             held = self.grad_dict.get(name)
@@ -585,6 +662,52 @@ class Executor:
         float32 parameters and optimizer states in place.
         ``param_names`` gives the updater's index space (position ==
         index), as Module wires it."""
+        key = ("fused", type(optimizer).__name__, tuple(param_names))
+        if key not in self._fused_sites:  # the site, once per step's key
+            self._fused_sites.add(key)
+            self._autotune_fused(key)
+        return self._cached("fused", key, self._fused)(
+            *self._bound(), optimizer=optimizer, updater=updater,
+            param_names=param_names)
+
+    def _autotune_fused(self, stable_key):
+        """Consult the ``fused_step`` site for this step (autotune on).  Its
+        only candidate today is the default: remat is not ported
+        (ROADMAP.md A.6b.3) and donation has no torch counterpart, so a
+        record-mode run records the default under the step's key, as the
+        JAX package records its winner; the winner changes nothing here,
+        and neither the step nor its cache key reads it."""
+        try:
+            from . import autotune
+
+            if not autotune.enabled():
+                return None
+            args, aux = self._bound()
+            from .compile_cache import _signature
+
+            key = {"graph": self._plan.fingerprint(),
+                   "static": repr(stable_key),
+                   "compute_dtype": str(self._compute_dtype),
+                   "sig": repr(_signature(self, (args, aux))),
+                   "remat_env": int(env("MXNET_BACKWARD_DO_MIRROR", 0, int)
+                                    or 0),
+                   "donate_allowed": False}
+
+            def score(cand):
+                if cand["remat"]:
+                    raise MXNetError(
+                        "remat (MXNET_BACKWARD_DO_MIRROR) is not ported "
+                        "yet (ROADMAP.md A.6b.3)")
+                return 0.0
+
+            return autotune.get_or_tune(
+                "fused_step", key,
+                candidates=autotune.spaces.fused_step(donate_allowed=False),
+                score_fn=score, default=None)
+        except Exception:
+            return None
+
+    def _fused(self, args, aux, optimizer, updater, param_names):
         infos = []
         for idx, name in enumerate(param_names):
             if self._grad_req.get(name, "null") == "null":

@@ -158,13 +158,28 @@ def atomic_write(path: str, writer: Callable, checksum: bool = False,
     """Crash-safe replace of ``path``: ``writer(f)`` fills a same-dir temp
     file, which is fsync'd and ``os.replace``'d over the target — readers
     never observe a partial file.  With ``checksum`` a CRC32 sidecar is
-    written after the data lands.  ``op`` names this site (the JAX
-    package's fault layer keys on it)."""
+    written after the data lands.  ``op`` names this site to the fault
+    layer, as in the JAX package: an active plan's ``partial`` rule tears
+    the TEMP file and raises (power loss mid-write); the target is
+    untouched."""
+    from . import faults
+
+    faults.fire(op)
     d = os.path.dirname(os.path.abspath(path)) or "."
     tmp = "%s.tmp.%d" % (path, os.getpid())
     try:
         with open(tmp, "wb") as f:
             writer(f)
+            frac = faults.partial_fraction(op)
+            if frac is not None:
+                # torn write: keep a prefix, make it durable, then die the
+                # way a crashed writer would (before the replace)
+                f.flush()
+                f.truncate(max(0, int(f.tell() * frac)))
+                f.flush()
+                os.fsync(f.fileno())
+                raise faults.InjectedIOError(
+                    "injected torn write at %s (%s)" % (op, path))
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -177,6 +192,8 @@ def atomic_write(path: str, writer: Callable, checksum: bool = False,
                 os.close(dfd)
         except OSError:
             pass  # platform without dir fsync: best effort
+    except faults.InjectedIOError:
+        raise  # leave the torn temp behind, as a real crash would
     except BaseException:
         try:
             os.unlink(tmp)

@@ -55,10 +55,18 @@ pages are freed — though complete ones stay in the prefix index — and the
 sequence re-queues for re-admission of prompt+generated; greedy decode is
 deterministic, so the stream continues seamlessly).
 
-Not ported yet (compile-once, ROADMAP.md A.5c): ``compiled_entries`` (AOT
-bundles) and the ``decode_engine``/``draft_k`` autotune sites; the engine
-takes what the JAX engine takes with autotuning off — explicit arguments,
-else the env defaults.
+Compile-once: every executor carries the JAX engine's ``_cache_kind``
+(``gen-prefill``, ``gen-step``, ``gen-draft-prefill``, ``gen-draft-step``,
+``gen-verify``, ``gen-catchup``) and, with the compile cache on, primes
+through it at warm-up; ``compiled_entries`` lists them for an AOT bundle.
+On the card the prefill buckets are CUDA graphs in one memory pool the
+engine's executors share.  The lane buckets run eagerly: a step adopts
+its output planes as the pool's, and a graph reads the planes it was
+captured on, so it would copy every plane back on each step and keep a
+second set per bucket (ROADMAP.md S.7).  Unset knobs consult the
+``decode_engine`` (lane buckets, page size) and ``draft_k`` autotune
+sites before the env defaults, as in the JAX engine, and ``stop`` feeds
+the observed acceptance back to ``draft_k``.
 """
 from __future__ import annotations
 
@@ -105,6 +113,77 @@ register_env("MXNET_GEN_DRAFT_K", 4, int,
              "given.")
 
 _DONE = object()  # GenStream queue sentinel
+
+
+def _autotune_engine_config(num_layers, num_heads, head_dim, max_seq_len,
+                            dtype, max_lanes):
+    """Tuned {lane_buckets, page_size} for this model geometry, or None
+    (the JAX engine's site and objective).
+
+    The objective is analytic and deterministic: expected padded-lane
+    waste under uniform live-lane demand, KV fragmentation of a half page
+    per sequence, a per-bucket build-cost term (every lane bucket is one
+    more decode executor to build and keep warm) and a page-table-length
+    term penalizing tiny pages."""
+    try:
+        from .. import autotune
+    except Exception:
+        return None
+    if not autotune.enabled():
+        return None
+    key = {"num_layers": int(num_layers), "num_heads": int(num_heads),
+           "head_dim": int(head_dim), "max_seq_len": int(max_seq_len),
+           "max_lanes": int(max_lanes), "dtype": str(np.dtype(dtype))}
+
+    def score(cand):
+        buckets = sorted(int(b) for b in cand["lane_buckets"])
+        page = int(cand["page_size"])
+        waste = 0.0
+        for n in range(1, max_lanes + 1):
+            b = next((b for b in buckets if b >= n), buckets[-1])
+            waste += (b - n) / float(b)
+        waste /= max_lanes
+        frag = (page - 1) / 2.0 / max(1.0, max_seq_len / 2.0)
+        return (waste + frag + 0.02 * len(buckets)
+                + 0.0005 * (max_seq_len / float(page)))
+
+    return autotune.get_or_tune(
+        "decode_engine", key,
+        candidates=autotune.spaces.decode_engine(max_lanes, max_seq_len),
+        score_fn=score, default=None)
+
+
+def _autotune_draft_k(num_layers, hidden, draft_layers, draft_hidden,
+                      acceptance):
+    """Tuned {k: draft length} for a (target, draft) geometry pair, or
+    None (the JAX engine's site and objective).  Lower is better: the
+    expected cost per accepted token.  One iteration costs ``(k+1)``
+    target-token-FLOPs for the fused verify pass plus ``rho*k`` for the
+    draft rounds (``rho`` = draft/target per-token FLOP ratio, dominated by
+    ``layers*hidden^2``), and yields ``sum(a^i, i=0..k)`` expected tokens
+    under per-token acceptance probability ``a``."""
+    try:
+        from .. import autotune
+    except Exception:
+        return None
+    if not autotune.enabled():
+        return None
+    acceptance = min(0.99, max(0.0, float(acceptance)))
+    key = {"num_layers": int(num_layers), "hidden": int(hidden),
+           "draft_layers": int(draft_layers),
+           "draft_hidden": int(draft_hidden),
+           "acceptance": round(acceptance, 1)}
+    rho = ((int(draft_layers) * float(draft_hidden) ** 2)
+           / (int(num_layers) * float(hidden) ** 2))
+
+    def score(cand):
+        k = int(cand["k"])
+        expected = sum(acceptance ** i for i in range(k + 1))
+        return ((k + 1) + rho * k) / expected
+
+    return autotune.get_or_tune(
+        "draft_k", key, candidates=autotune.spaces.draft_k(),
+        score_fn=score, default=None)
 
 
 class GenStream:
@@ -318,8 +397,21 @@ class DecodeEngine:
         self.eos_id = eos_id
         self._ctx = ctx if ctx is not None else gpu(0)
         self._dtype = np.dtype(dtype)
-        # explicit constructor args pin, env vars are the defaults (the
-        # JAX engine consults its autotuner in between when it is on)
+        # unset knobs consult the autotuner before the env defaults:
+        # explicit constructor args always pin, tuned winners beat the
+        # built-in defaults, env vars remain the no-autotune fallback
+        tuned = None
+        if page_size is None or lane_buckets is None:
+            tuned = _autotune_engine_config(
+                self.num_layers, self.num_heads, self.head_dim,
+                self.max_seq_len, self._dtype,
+                max_lanes=(max(int(b) for b in lane_buckets)
+                           if lane_buckets is not None
+                           else env("MXNET_GEN_MAX_LANES", 8, int)))
+        if page_size is None and tuned:
+            page_size = tuned.get("page_size")
+        if lane_buckets is None and tuned:
+            lane_buckets = tuned.get("lane_buckets")
         self.page_size = int(env("MXNET_GEN_PAGE_SIZE", 16, int)
                              if page_size is None else page_size)
         self.num_pages = int(env("MXNET_GEN_NUM_PAGES", 128, int)
@@ -376,7 +468,10 @@ class DecodeEngine:
             hint = float(d.get("acceptance_hint", 0.8))
             k = d.get("k")
             if k is None:
-                k = env("MXNET_GEN_DRAFT_K", 4, int)
+                tuned_k = _autotune_draft_k(self.num_layers, self.hidden,
+                                            d_layers, d_hidden, hint)
+                k = (tuned_k.get("k") if tuned_k
+                     else env("MXNET_GEN_DRAFT_K", 4, int))
             k = max(1, min(int(k), self.max_seq_len - 1))
             dparams = d.get("params")
             self._draft = {"params": dparams, "num_layers": d_layers,
@@ -395,9 +490,20 @@ class DecodeEngine:
                                 ctx=self._ctx)
         self.metrics = _GenMetrics()
 
+        # one CUDA graph memory pool for every executor of the engine
+        # (the compile cache's prefill graphs; only the loop thread
+        # replays them)
+        from ..compile_cache import GraphPool
+
+        self._graph_pool = GraphPool()
+
+        def mark(pred, kind):
+            pred._exec._cache_kind = kind
+            pred._exec._graph_pool = self._graph_pool
+
         # Symbols build under a fresh NameManager so auto-generated op
         # names are independent of process construction history.
-        def prefill_rigs(params, n_layers, n_heads, n_hidden):
+        def prefill_rigs(params, n_layers, n_heads, n_hidden, kind):
             rigs = {}
             for L in self.prefill_len_buckets:
                 with NameManager():
@@ -407,10 +513,12 @@ class DecodeEngine:
                 rigs[L] = BucketedPredictor(
                     symbol, params, {"data": (L,)},
                     self.prefill_batch_buckets, ctx=self._ctx, dtype=dtype)
+                for pred in rigs[L]._preds.values():
+                    mark(pred, kind)
             return rigs
 
         def lane_rigs(builder, params, n_layers, n_heads, n_hidden, pool,
-                      width=None):
+                      kind, width=None):
             """One fixed-lane executor per lane bucket over ``pool``'s
             planes (bound as shared params, never as copied inputs) and
             the shared weights (``reshape`` passes both through)."""
@@ -433,15 +541,18 @@ class DecodeEngine:
             rigs = {self.max_lanes: base}
             for b in self.lane_buckets[:-1]:
                 rigs[b] = base.reshape(shapes(b))
+            for pred in rigs.values():
+                mark(pred, kind)
             return rigs
 
         # prefill: one BucketedPredictor per prompt-length bucket
         self._prefill: Dict[int, BucketedPredictor] = prefill_rigs(
-            self._params, self.num_layers, self.num_heads, self.hidden)
+            self._params, self.num_layers, self.num_heads, self.hidden,
+            "gen-prefill")
         # decode: one fixed-lane Predictor per lane bucket
         self._decode: Dict[int, Predictor] = lane_rigs(
             get_transformer_lm_decode, self._params, self.num_layers,
-            self.num_heads, self.hidden, self.pool)
+            self.num_heads, self.hidden, self.pool, "gen-step")
 
         # -- speculative rig: draft pool + prefill + decode, target verify
         self._draft_pool: Optional[PagedKVPool] = None
@@ -456,16 +567,16 @@ class DecodeEngine:
                                            dl, dh, dhid // dh,
                                            dtype=self._dtype, ctx=self._ctx)
             self._draft_prefill = prefill_rigs(self._draft_params, dl, dh,
-                                               dhid)
+                                               dhid, "gen-draft-prefill")
             self._draft_decode = lane_rigs(
                 get_transformer_lm_decode, self._draft_params, dl, dh, dhid,
-                self._draft_pool)
+                self._draft_pool, "gen-draft-step")
             # verification is teacher forcing too — the draft's K
             # proposals are known before the call — so the verify rig
             # uses the same windowed single-pass graph as catch-up
             self._verify = lane_rigs(
                 get_transformer_lm_catchup, self._params, self.num_layers,
-                self.num_heads, self.hidden, self.pool,
+                self.num_heads, self.hidden, self.pool, "gen-verify",
                 width=self._verify_width)
 
         # -- prefix-cache catch-up rig: a windowed teacher-forcing
@@ -479,7 +590,8 @@ class DecodeEngine:
             self._catchup_width = cw
             self._catchup = lane_rigs(
                 get_transformer_lm_catchup, self._params, self.num_layers,
-                self.num_heads, self.hidden, self.pool, width=cw)
+                self.num_heads, self.hidden, self.pool, "gen-catchup",
+                width=cw)
 
         # cold-shape bookkeeping: lane buckets warmup ran, post-warmup
         # steps that hit a novel (never-warmed) bucket
@@ -556,6 +668,30 @@ class DecodeEngine:
                 self.warmed_lane_buckets.add(b)
         return self
 
+    def _lane_preds(self):
+        return (list(self._decode.values())
+                + list(self._draft_decode.values())
+                + list(self._verify.values())
+                + list(self._catchup.values()))
+
+    def compiled_entries(self):
+        """Primed compile-cache wrappers across the prefill, decode,
+        draft, verify and catch-up executors (kinds ``gen-prefill`` /
+        ``gen-step`` / ``gen-draft-prefill`` / ``gen-draft-step`` /
+        ``gen-verify`` / ``gen-catchup``; empty with the cache off) — the
+        input to ``checkpoint.save_aot_bundle``, so a replica restored
+        from the bundle serves its first generate request with no cold
+        build."""
+        from ..compile_cache import entries_of
+
+        out = []
+        for bp in list(self._prefill.values()) + \
+                list(self._draft_prefill.values()):
+            out.extend(bp.compiled_entries())
+        for pred in self._lane_preds():
+            out.extend(entries_of(pred._exec))
+        return out
+
     def cold_decode_runs(self) -> int:
         """Post-warmup decode steps that hit a never-warmed lane bucket
         plus prefill runs on a never-warmed (length, batch) bucket — 0 is
@@ -591,8 +727,28 @@ class DecodeEngine:
             # drain deadline expired with work outstanding (or fail-fast
             # stop racing the loop): cancel whatever is left
             self._fail_all_locked(ServerClosedError("engine stopped"))
-        # the JAX engine feeds the observed acceptance back to its
-        # draft_k autotune site here (compile-once, ROADMAP.md A.5c)
+        # observed-acceptance feedback: when the measured EWMA drifts a
+        # decile from the configured hint, pre-record the draft_k winner
+        # for the observed rate so the NEXT construction (same geometry,
+        # honest hint) resolves without tuning from the stale prior
+        if self._draft is not None and self._accept_ewma is not None:
+            if abs(self._accept_ewma
+                   - self._draft["acceptance_hint"]) >= 0.1:
+                try:
+                    _autotune_draft_k(
+                        self.num_layers, self.hidden,
+                        self._draft["num_layers"], self._draft["hidden"],
+                        self._accept_ewma)
+                except Exception:
+                    pass
+        # a stopped engine hands its CUDA graphs' memory back (the loop
+        # thread has exited, so nothing replays them again)
+        if not self._loop_thread.is_alive():
+            for bp in list(self._prefill.values()) + \
+                    list(self._draft_prefill.values()):
+                bp.release()
+            for pred in self._lane_preds():
+                pred._exec.release_cache()
 
     def handoff(self) -> int:
         """Preempt every queued and active stream WITHOUT stopping the
@@ -854,7 +1010,7 @@ class DecodeEngine:
             buf = np.zeros((L,), self._dtype)
             buf[:len(seq.tokens)] = seq.tokens
             items.append({"data": buf})
-        _, outs = bp.forward_padded(items)
+        _, outs = bp.forward_padded(items, copy=False)
         outs = [o._data for o in outs]
         for i, seq in enumerate(seqs):
             n = len(seq.tokens)

@@ -14,9 +14,17 @@ its C entry reports) right after a call that returned no error, and
 nowhere else, so a caller can show which kernels a run went through.  Kernels compiled at run
 time by ``rtc.MXRtc`` count under ``rtc:<name>``, added at their first
 launch.
+
+``recording()`` collects, on the calling thread, the launches counted,
+the libraries loaded and the NVRTC cubins used while it is open (what a
+compile-cache entry names, and what a CUDA graph capture takes back off
+``LAUNCHES`` with ``uncount``).  With the compile cache on, a library
+missing from ``_build/`` is first looked for there (its bytes checked
+against their sha256, no nvcc), and a library nvcc built is kept there.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +37,7 @@ from typing import Dict, Iterable, Optional
 from .base import MXNetError, env
 
 __all__ = ["SOURCES", "LAUNCHES", "build_all", "library", "count",
-           "reset_launches"]
+           "reset_launches", "recording", "uncount"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -53,14 +61,52 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()
 
 
+#: the open ``recording()`` records of each thread
+_RECORDING = threading.local()
+
+
+def _records():
+    return getattr(_RECORDING, "stack", ())
+
+
 def count(name: str, n: int = 1) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] = LAUNCHES.get(name, 0) + n
+    for rec in _records():
+        rec["launches"][name] = rec["launches"].get(name, 0) + n
+
+
+def uncount(launches: Dict[str, int]) -> None:
+    """Take counts back off ``LAUNCHES`` (launches recorded into a CUDA
+    graph during its capture: nothing ran)."""
+    with _COUNT_LOCK:
+        for name, n in launches.items():
+            LAUNCHES[name] = LAUNCHES.get(name, 0) - n
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def note(what: str, key: str) -> None:
+    """Record that ``key`` (a source under ``csrc/`` for "libs", a cubin
+    key for "cubins") was used, in every open ``recording()``."""
+    for rec in _records():
+        rec[what].add(key)
+
+
+@contextlib.contextmanager
+def recording():
+    """``{"launches": {name: n}, "libs": {source}, "cubins": {key}}``
+    of what this thread launched and loaded while the block ran."""
+    rec = {"launches": {}, "libs": set(), "cubins": set()}
+    stack = list(_records())
+    _RECORDING.stack = stack + [rec]
+    try:
+        yield rec
+    finally:
+        _RECORDING.stack = stack
 
 
 def _nvcc() -> str:
@@ -128,7 +174,15 @@ def library(name: str) -> ctypes.CDLL:
     source = SOURCES[name]
     lib = _LIBS.get(source)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(_lib_path(source))
+        from . import compile_cache
+
+        path = _lib_path(source)
+        if compile_cache.active() and not os.path.exists(path):
+            compile_cache.restore_library(path)
+        if build_all([name]) and compile_cache.enabled():
+            compile_cache.store_library(path)
+        lib = ctypes.CDLL(path)
         _LIBS[source] = lib
+    if _records():
+        note("libs", source)
     return lib

@@ -737,16 +737,21 @@ def load(fname: str, ctx: Optional[Context] = None):
     Arrays go to ``ctx``, or by default to the context each array's header
     records (the reference's NDArray::Load)."""
     with open(fname, "rb") as f:
-        magic, _res = struct.unpack("<QQ", f.read(16))
-        if magic != _MAGIC:
-            raise MXNetError("Invalid NDArray file format (magic %#x)" % magic)
-        (n,) = struct.unpack("<Q", f.read(8))
-        arrays = [_load_one(f, ctx) for _ in range(n)]
-        (nk,) = struct.unpack("<Q", f.read(8))
-        names = []
-        for _ in range(nk):
-            (ln,) = struct.unpack("<Q", f.read(8))
-            names.append(f.read(ln).decode("utf-8"))
+        return _load_stream(f, ctx)
+
+
+def _load_stream(f, ctx: Optional[Context] = None):
+    """Read a .params container from a binary file object."""
+    magic, _res = struct.unpack("<QQ", f.read(16))
+    if magic != _MAGIC:
+        raise MXNetError("Invalid NDArray file format (magic %#x)" % magic)
+    (n,) = struct.unpack("<Q", f.read(8))
+    arrays = [_load_one(f, ctx) for _ in range(n)]
+    (nk,) = struct.unpack("<Q", f.read(8))
+    names = []
+    for _ in range(nk):
+        (ln,) = struct.unpack("<Q", f.read(8))
+        names.append(f.read(ln).decode("utf-8"))
     if names:
         return dict(zip(names, arrays))
     return arrays

@@ -42,7 +42,8 @@ from ..base import MXNetError
 __all__ = ["attention_reference", "attention_backward_reference",
            "attention_bwd_reference",
            "flash_forward", "flash_backward", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_attention", "kernel_width", "splash_attention"]
+           "flash_attention", "kernel_width", "splash_attention",
+           "resolve_blocks"]
 
 _NEG = -1e30
 _LOG2E = 1.4426950408889634
@@ -358,6 +359,97 @@ def flash_backward(q, k, v, o, lse, do, causal: bool = False, scale=None):
     raise MXNetError("flash_backward: no kernel for device %s" % q.device)
 
 
+# ---------------------------------------------------------------------------
+# the flash_attention autotune site.  The JAX package's winner sizes its
+# Pallas tiles; the card's kernels pick their own tiles and read no
+# block_q/block_k, so here the winner sizes nothing.  The site is kept so
+# that its key and winner travel in tuning DBs and AOT bundles.
+# ---------------------------------------------------------------------------
+
+_DEFAULT_BLOCK = 512
+_SITE_SEEN = {}
+
+
+def _pick_block(block, seq):
+    """The JAX package's clamp: the largest block <= ``block`` that
+    divides ``seq``, halving from the request (a sequence shorter than
+    the block is one block; a longer one no block divides raises)."""
+    b = min(block, seq)
+    while b > 128 and seq % b:
+        b //= 2
+    if seq % b:
+        if seq <= block:
+            return seq
+        raise ValueError(
+            "flash_attention: sequence length %d is not divisible by any "
+            "block size <= %d; pad the sequence or pass block sizes that "
+            "divide it" % (seq, block))
+    return b
+
+
+def _autotune_blocks(seq_q, seq_k, head_dim, dtype, causal):
+    """The tuning DB's (block_q, block_k) for this shape family, or None.
+    The objective is analytic: every candidate runs the same kernels
+    here, so the score is the distance from the JAX package's default
+    (512/512) and a record-mode run records the default."""
+    from .. import autotune
+
+    if not autotune.enabled():
+        return None
+    key = {"seq_q": int(seq_q), "seq_k": int(seq_k),
+           "head_dim": int(head_dim), "dtype": str(dtype),
+           "causal": bool(causal)}
+
+    def score(cand):
+        return (abs(np.log2(cand["block_q"] / _DEFAULT_BLOCK))
+                + abs(np.log2(cand["block_k"] / _DEFAULT_BLOCK)))
+
+    return autotune.get_or_tune(
+        "flash_attention", key,
+        candidates=autotune.spaces.flash_blocks(seq_q, seq_k),
+        score_fn=score, default=None)
+
+
+def resolve_blocks(block_q, block_k, seq_q, seq_k, head_dim=128,
+                   dtype="bfloat16", causal=False):
+    """The JAX package's (block_q, block_k) for a call: explicit ints as
+    given, None from the autotuner's winner when it is on, else 512; both
+    clamped by ``_pick_block``.  No kernel here reads them."""
+    if block_q is None or block_k is None:
+        tuned = None
+        try:
+            tuned = _autotune_blocks(seq_q, seq_k, head_dim, dtype, causal)
+        except Exception:
+            tuned = None
+        if block_q is None:
+            block_q = (tuned or {}).get("block_q", _DEFAULT_BLOCK)
+        if block_k is None:
+            block_k = (tuned or {}).get("block_k", _DEFAULT_BLOCK)
+    return _pick_block(int(block_q), seq_q), _pick_block(int(block_k), seq_k)
+
+
+def _consult_site(attrs, q, k):
+    """Consult the flash_attention site once per shape family and tuning
+    DB state while the autotuner is on (its winner sizes nothing)."""
+    from .. import autotune
+
+    if autotune.mode() == "off":
+        return
+    try:
+        db = autotune.db()
+        dtype = str(q.dtype).replace("torch.", "")
+        key = (q.shape[1], k.shape[1], q.shape[-1], dtype,
+               bool(attrs.get("causal", False)), attrs.get("block_q"),
+               attrs.get("block_k"), db._dir, db.generation)
+        if key not in _SITE_SEEN:
+            _SITE_SEEN[key] = resolve_blocks(
+                attrs.get("block_q"), attrs.get("block_k"), q.shape[1],
+                k.shape[1], q.shape[-1], dtype,
+                bool(attrs.get("causal", False)))
+    except Exception:
+        pass
+
+
 def flash_attention(q, k, v, causal: bool = False, scale=None,
                     block_q=None, block_k=None):
     """Exact fused attention output, q, k, v: [b, seq, heads, d].  The
@@ -420,11 +512,13 @@ def _attrs_config(attrs, q):
 
 def _fa_fn(attrs, query, key, value):
     causal, scale = _attrs_config(attrs, query)
+    _consult_site(attrs, query, key)
     return flash_forward(query, key, value, causal, scale)[0]
 
 
 def _fa_fwd(attrs, query, key, value):
     causal, scale = _attrs_config(attrs, query)
+    _consult_site(attrs, query, key)
     o, lse = flash_forward(query, key, value, causal, scale)
     return o, (query, key, value, o, lse)
 

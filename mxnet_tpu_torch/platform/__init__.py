@@ -17,10 +17,9 @@ shared pool serving many models for many tenants:
   :class:`~mxnet_tpu_torch.serving.server.InferenceServer` replicas
   (registered with ``model``/``tenant`` meta so per-model routers can
   filter one shared registry); cold models are paged out (their device
-  memory released) and faulted back in — built and warmed, so zero
-  cold-bucket runs once serving.  The JAX package pages out to AOT
-  bundles and faults in from them without compiling; that is the
-  compile-once tier, ROADMAP.md A.5c.
+  memory released, after an AOT bundle is written beside the
+  checkpoint when the compile cache is on) and faulted back in — from
+  the bundle when there is one, so zero cold-bucket runs once serving.
 * :class:`TenantQuotas` — per-tenant admission control: token-bucket
   rate limits plus weighted fair sharing under pressure, so one
   tenant's flood sheds THAT tenant (429 + Retry-After), never its

@@ -15,8 +15,8 @@ behind it — and every admitted request feeds the manager's demand
 EWMA, which is what earns a paged-out model its fault-in.
 
 A request for a paged-out model blocks on the fault-in (a build plus
-a warm-up of every bucket; the JAX package's AOT bundles, which make it
-a deserialize, are ROADMAP.md A.5c) and then routes normally — demand
+a warm-up of every bucket, from the model's AOT bundle when the compile
+cache wrote one: no nvcc, no NVRTC, no tuning) and then routes normally — demand
 paging, model edition.  Only the FIRST
 such request pays that stall: while the model's fault-in window is open,
 later arrivals are rejected with 503 + ``Retry-After`` set to the

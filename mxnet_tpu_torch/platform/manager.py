@@ -36,13 +36,16 @@ Every actuation is a ``faults`` dotted op (``platform.fault_in`` /
 ``platform.page_out`` / ``platform.migrate``) and counts in the
 model-labeled platform telemetry.
 
-Kept differences from the JAX package.  The JAX manager pages a model out
-to an AOT bundle and faults it back in from it without compiling; that is
-the compile-once tier (ROADMAP.md A.5c), and the port has no executables
-to bundle, so every fault-in builds and warms (as the JAX manager does
-with its compile cache off), a page-out writes nothing, and the
-executable estimate stays at ``MXNET_PLATFORM_EXEC_OVERHEAD``.  The
-default context is per thread, and a fault-in may run on the replan
+Compile-once, as in the JAX manager: a fault-in attaches the model's AOT
+bundle (``prefix-NNNN.aot/``) when there is one, a cold build writes its
+bundle at once (bundle-on-first-build: a replica reaped with its host
+saves nothing, and the ladder's re-fault must still come back warm), a
+page-out refreshes it before the server stops, and the compile cache's
+measured bytes (the CUDA graphs' pool and static buffers) refine the
+spec's executable estimate (``_observe_exec_bytes``).  With the compile
+cache off there is nothing to bundle: every fault-in builds and warms.
+
+Kept differences from the JAX package.  The default context is per thread, and a fault-in may run on the replan
 loop's thread, a front door handler's or the health plane's: the manager
 resolves the constructing thread's context once, in its constructor, and
 every server whose ``server_kwargs`` name no ``ctx`` runs there.  A
@@ -322,6 +325,19 @@ class ModelManager:
                                  replica=replica, gen=gen,
                                  error=repr(exc))
             raise
+        self._observe_exec_bytes(spec, server)
+        # bundle-on-first-build: a cold build writes its AOT bundle
+        # immediately, not just at graceful page-out — a replica reaped
+        # with its host saves nothing, and the degradation ladder's
+        # re-fault onto survivors must still come back warm
+        # (a build is cold when an entry missed the cache; the JAX
+        # manager tests cold_bucket_runs() > 0, which warm-up keeps at 0)
+        try:
+            entries = server.compiled_entries()
+            if any(e.cache_state == "miss" for e in entries):
+                server.save_aot_bundle(spec.prefix, spec.epoch)
+        except Exception:
+            pass
         rep_name = None
         if device is None:
             # demand-paged arrivals carry no device: place on surviving
@@ -414,6 +430,15 @@ class ModelManager:
                     env("MXNET_PLATFORM_DRAIN_MS", 5000.0, float) / 1e3)
             except Exception:
                 pass
+        # bundle BEFORE stop: compiled_entries() is empty once the
+        # predictors are released
+        try:
+            if server.compiled_entries():
+                spec = self.spec(name)
+                server.save_aot_bundle(spec.prefix, spec.epoch)
+        except Exception:
+            pass  # bundle refresh is best-effort; the next fault-in
+            # still warms from the previous bundle (or builds)
         if beat is not None:
             beat[1]()
         if graceful:
@@ -611,6 +636,23 @@ class ModelManager:
         return server is not None
 
     # -- observability -----------------------------------------------------
+    def _observe_exec_bytes(self, spec, server):
+        """Refine the spec's executable-footprint estimate from the live
+        server's compile-cache entries (when the cache primed it): the
+        bytes each CUDA graph's pool took at its capture, and its static
+        input buffers.  The parameters are not in them (``param_footprint``
+        counts those)."""
+        try:
+            total = 0
+            for entry in server.compiled_entries():
+                info = getattr(entry, "cost_info", None) or {}
+                total += int(info.get("pool_bytes") or 0)
+                total += int(info.get("static_bytes") or 0)
+            if total:
+                spec.observe_exec_bytes(total)
+        except Exception:
+            pass
+
     def resident_bytes(self) -> int:
         """Device bytes pinned by resident models right now — the value
         behind ``mxtpu_platform_resident_bytes``.  Falls after

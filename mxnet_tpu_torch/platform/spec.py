@@ -5,11 +5,11 @@ The planner never loads a model to decide where it fits: placement runs
 off *estimates* that are cheap to compute from what is already on disk
 (the checkpoint's param file size, the same ``.params`` bytes in both
 packages), what the spec declares (a generator spec implies a paged KV
-pool of known geometry), and what past runs measured.  In the JAX package
-a live server's compile-cache cost analysis refines the executable guess;
-the port has no compiled executables until the compile-once tier
-(ROADMAP.md A.5c), so the executable estimate stays at
-``MXNET_PLATFORM_EXEC_OVERHEAD`` unless a caller observes a measurement.
+pool of known geometry), and what past runs measured.  A live server's
+compile-cache entries refine the executable guess (``ModelManager.
+_observe_exec_bytes``: the bytes its CUDA graphs' pool and static buffers
+took on the card, where the JAX package reads XLA's cost analysis); until
+one has reported, the estimate is ``MXNET_PLATFORM_EXEC_OVERHEAD``.
 """
 from __future__ import annotations
 
@@ -24,8 +24,9 @@ __all__ = ["ModelSpec", "SLO_RANK"]
 
 register_env("MXNET_PLATFORM_EXEC_OVERHEAD", 0.25, float,
              "Executable-footprint estimate as a fraction of a model's "
-             "param bytes, used by the placement planner unless a "
-             "measurement is observed (ModelSpec.observe_exec_bytes).")
+             "param bytes, used by the placement planner until a "
+             "measurement is observed (ModelSpec.observe_exec_bytes, fed "
+             "by the compile cache's CUDA graph bytes).")
 
 # placement priority by SLO class: interactive models evict last,
 # batch models evict first, generators sit between (their KV pool makes
@@ -41,9 +42,8 @@ class ModelSpec:
     name : str
         Platform-unique model name (the routing key in request paths).
     prefix, epoch : str, int
-        ``save_checkpoint`` prefix/epoch this model loads from.  An AOT
-        bundle beside it (``prefix-NNNN.aot/``) is the compile-once tier
-        (ROADMAP.md A.5c): the port's fault-in refuses one.
+        ``save_checkpoint`` prefix/epoch this model loads from; an AOT
+        bundle beside it (``prefix-NNNN.aot/``) is attached at fault-in.
     input_shapes : dict
         ``{input: shape}`` including the batch axis, as for
         :class:`~mxnet_tpu_torch.serving.server.InferenceServer`.
@@ -142,9 +142,8 @@ class ModelSpec:
         return int(self.param_footprint() * frac)
 
     def observe_exec_bytes(self, nbytes: int):
-        """Refine the executable estimate from a measurement (the JAX
-        package feeds its compile cache's ``bytes_accessed`` here; the
-        port has no compiled executables to measure, A.5c)."""
+        """Refine the executable estimate from a measurement (the
+        manager feeds the compile cache's graph bytes here)."""
         self._measured_exec_bytes = int(nbytes)
 
     def footprint(self) -> dict:

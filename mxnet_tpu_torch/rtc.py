@@ -304,6 +304,8 @@ class MXRtc:
             raise MXNetError("rtc %r: kernel launch failed: %s"
                              % (self.name, cuda_rtc.error_string(res)))
         kernels.count(plan.counter)
+        if kernels._records():  # a compile-cache entry's first run
+            kernels.note("cubins", plan.cubin_key)
 
     def _plan(self, device: torch.device) -> "_Plan":
         """The launch plan of ``device``, built (the kernel compiled and
@@ -338,3 +340,4 @@ class _Plan:
         self.launch = cuda_rtc.LaunchPlan(
             func, self.index, len(krnl._in_protos) + len(krnl._out_protos))
         self.counter = "rtc:" + krnl.name
+        self.cubin_key = cuda_rtc.source_key(krnl.source, krnl.name)

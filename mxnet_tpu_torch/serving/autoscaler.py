@@ -344,8 +344,9 @@ class LocalCheckpointProvider:
 
     Each spawn warms every bucket before it is handed out, so the
     scaled-out replica's first request runs with ``cold_bucket_runs() ==
-    0``; ``attach_aot`` is passed on to ``from_checkpoint`` (AOT bundles
-    are ROADMAP.md A.5c).  Without a ``ctx`` the replicas go to the
+    0``; with ``attach_aot`` (default) it attaches the checkpoint's AOT
+    bundle before warm-up, so every bucket warms from its entry.
+    Without a ``ctx`` the replicas go to the
     constructing thread's current context, resolved here: spawns run on
     the autoscaler's thread, which never sees the caller's ``with
     mt.cpu():``.  Given a

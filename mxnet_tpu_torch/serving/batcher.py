@@ -8,7 +8,11 @@ set of executors serves every occupancy and :meth:`BucketedPredictor.
 warmup` can run each once before traffic arrives.  Weights are shared
 across bucket executors through ``Predictor.reshape`` (NDArrays already on
 the context pass through the rebind), so N buckets cost one copy of the
-parameters.
+parameters.  With the compile cache on (``MXNET_COMPILE_CACHE_DIR`` or an
+attached AOT bundle) every bucket's forward primes through it at warm-up,
+on the card as a CUDA graph in one memory pool the buckets share
+(``compile_cache.GraphPool``); ``compiled_entries()`` lists the primed
+entries.
 """
 from __future__ import annotations
 
@@ -91,6 +95,11 @@ class BucketedPredictor:
         for b in self.buckets[:-1]:
             self._preds[b] = base.reshape(
                 {k: (b,) + s for k, s in self.item_shapes.items()})
+        from ..compile_cache import GraphPool
+
+        pool = GraphPool()
+        for pred in self._preds.values():
+            pred._exec._graph_pool = pool
         self.executor_calls = 0
         # buckets whose executor warmup() ran, and how many post-warmup
         # flushes hit a bucket warmup never touched (the "steady state
@@ -124,15 +133,38 @@ class BucketedPredictor:
             self.warmed_buckets.add(b)
 
     def compiled_entries(self):
-        """Every bucket's compile-cache entry, the input of an AOT bundle:
-        empty, as the JAX package's is with its compile cache off (the
-        compile-once tier is ROADMAP.md A.5c)."""
-        return []
+        """Every bucket's primed ``compile_cache.CachedFunction`` (empty
+        when the compile cache is off) — the input to
+        ``checkpoint.save_aot_bundle``."""
+        from ..compile_cache import entries_of
 
-    def forward_padded(self, items: List[Dict[str, np.ndarray]]):
+        out = []
+        for b in self.buckets:
+            out.extend(entries_of(self._preds[b]._exec))
+        return out
+
+    def release(self):
+        """Drop every bucket executor's compile-cache entries and CUDA
+        graphs (their pool's memory comes back with them)."""
+        for pred in self._preds.values():
+            pred._exec.release_cache()
+
+    def forward_padded(self, items: List[Dict[str, np.ndarray]],
+                       copy: bool = True):
         """Run one padded batch; returns ``(bucket, outputs)`` with the
         outputs left on the device, the batch axis padded to the bucket —
-        for callers that keep the results on the card."""
+        for callers that keep the results on the card.  An output of a
+        CUDA graph is the graph's own buffer, which its next replay
+        overwrites, so the caller gets a copy of it, unless ``copy`` is
+        False (a caller done with them before this bucket runs again)."""
+        b, outs = self._forward(items)
+        if copy and self._preds[b]._exec._jit_cache:
+            from ..ndarray import NDArray
+
+            outs = [NDArray(o._data.clone(), o.context) for o in outs]
+        return b, outs
+
+    def _forward(self, items: List[Dict[str, np.ndarray]]):
         n = len(items)
         b = self.bucket_for(n)
         if b not in self.warmed_buckets:
@@ -154,7 +186,7 @@ class BucketedPredictor:
         """Run one padded batch; returns per-item output lists on the host
         (the batch axis is stripped from every output that carries one)."""
         n = len(items)
-        b, outs = self.forward_padded(items)
+        b, outs = self._forward(items)
         outs = [o.asnumpy() for o in outs]
         per_item = []
         for i in range(n):
@@ -307,7 +339,9 @@ class MicroBatcher:
         stopped in-process server keeps every bucket executable and the
         parameter arrays alive through this closure."""
         with self._cv:
-            self._replicas = []
+            replicas, self._replicas = self._replicas, []
+        for rep in replicas:
+            rep.release()
 
     def _force_cancel(self):
         """Drain deadline expired: fail every future still outstanding

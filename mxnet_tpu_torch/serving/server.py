@@ -11,16 +11,21 @@ queue: beyond ``max_queue`` pending requests, ``submit`` raises
 without bound — callers retry with backoff, which is the backpressure
 contract.
 
-Kept differences from the JAX package: the compile-once tier (compile
-cache, AOT bundles, autotune) is ROADMAP.md A.5c, so ``compiled_entries()``
-is empty, ``save_aot_bundle`` raises the JAX package's own compile-cache-off
-error, buckets are ``pow2_buckets`` (the JAX package's ladder with
-autotune off) and ``from_checkpoint`` refuses a ``prefix-NNNN.aot/`` bundle
-rather than ignore it; the preemption handler's flight-recorder dump is
-ROADMAP.md A.6b.  ``ctx=None`` resolves to the constructing thread's
-current context once, in the constructor, because the default context is
-per thread and the worker, HTTP and router threads never see a ``with
-mt.cpu():`` the caller entered.
+The compile-once tier: with ``MXNET_COMPILE_CACHE_DIR`` set (or a bundle
+attached) every bucket primes through the compile cache at warm-up (on
+the card, a CUDA graph per bucket); ``compiled_entries()`` lists them,
+``save_aot_bundle`` writes ``prefix-NNNN.aot/`` with the warm-up recipe,
+and ``from_checkpoint(attach_aot=True)`` attaches one this package wrote
+(a JAX-written or other-topology bundle raises ``MXNetError``;
+``attach_aot=False`` serves the checkpoint alone).  Buckets default to the
+``serving_buckets`` autotune site's winner when the autotuner is on, else
+``pow2_buckets``.
+
+Kept differences from the JAX package: the preemption handler's
+flight-recorder dump is ROADMAP.md A.6b.  ``ctx=None`` resolves to the
+constructing thread's current context once, in the constructor, because
+the default context is per thread and the worker, HTTP and router threads
+never see a ``with mt.cpu():`` the caller entered.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..base import MXNetError, env, register_env
-from ..context import current_context
+from ..context import cpu as mt_cpu, current_context
 from .batcher import (BucketedPredictor, DeadlineExceededError, MicroBatcher,
                       QueueFullError, ServerClosedError, pow2_buckets)
 from .metrics import ServingMetrics
@@ -50,6 +55,39 @@ register_env("MXNET_SERVING_DRAIN_TIMEOUT_MS", 30000.0, float,
              "still-pending requests are force-cancelled with "
              "DrainTimeoutError instead of letting a wedged batch worker "
              "hang retirement forever.")
+
+
+def _autotune_buckets(max_batch):
+    """Tuned micro-batch bucket ladder for ``max_batch``, or None (the
+    JAX package's site and objective).
+
+    Analytic objective: expected relative padding waste under uniform
+    1..max_batch batch demand, plus a per-bucket penalty — every bucket
+    is one more executor to build, warm, and keep resident."""
+    try:
+        from .. import autotune
+    except Exception:
+        return None
+    if not autotune.enabled():
+        return None
+    mb = int(max_batch)
+
+    def score(cand):
+        buckets = sorted(int(b) for b in cand["buckets"])
+        waste = 0.0
+        for n in range(1, mb + 1):
+            b = next((b for b in buckets if b >= n), buckets[-1])
+            waste += (b - n) / float(b)
+        return waste / mb + 0.03 * len(buckets)
+
+    try:
+        cfg = autotune.get_or_tune(
+            "serving_buckets", {"max_batch": mb},
+            candidates=autotune.spaces.serving_buckets(mb),
+            score_fn=score, default=None)
+    except Exception:
+        return None
+    return list(cfg["buckets"]) if cfg else None
 
 
 class InferenceServer:
@@ -70,7 +108,9 @@ class InferenceServer:
         mt.cpu():`` is active), fixed here for every thread the server
         runs.
     buckets : sequence of int, optional
-        Allowed padded batch sizes; default ``pow2_buckets(max_batch)``.
+        Allowed padded batch sizes; default the ``serving_buckets``
+        autotune site's winner when the autotuner is on, else
+        ``pow2_buckets(max_batch)``.
     max_wait_us : int
         Flush deadline: a queued request never waits longer than this for
         its batch to fill.
@@ -94,8 +134,9 @@ class InferenceServer:
                 % shapes)
         max_batch = batch_dims.pop()
         if buckets is None:
-            # the JAX package's ladder with its autotune off (A.5c)
-            buckets = pow2_buckets(max_batch)
+            tuned = _autotune_buckets(max_batch)
+            buckets = (tuned if tuned is not None
+                       else pow2_buckets(max_batch))
         self._item_shapes = {k: s[1:] for k, s in shapes.items()}
         self._input_shapes = shapes
         self._dtype = np.dtype(dtype)
@@ -192,23 +233,26 @@ class InferenceServer:
         """Serve ``save_checkpoint`` files directly (the file pair
         ``Predictor.from_checkpoint`` consumes).
 
-        An AOT bundle (``prefix-NNNN.aot/``) is the compile-once tier,
-        ROADMAP.md A.5c: with ``attach_aot`` and a bundle on disk this
-        raises :class:`MXNetError` instead of serving without it; pass
-        ``attach_aot=False`` to serve the checkpoint alone.  With
-        ``attach_aot`` the JAX package's chaos seam
-        ``checkpoint.aot.attach`` fires first (an injected error is a torn
-        bundle read mid-fault-in)."""
+        When an AOT bundle (``prefix-NNNN.aot/``, written by
+        :meth:`save_aot_bundle`) sits beside the params and
+        ``attach_aot`` is True it is attached as a read-only
+        compile-cache overlay BEFORE warm-up, so every bucket warms from
+        its entry: no nvcc, no NVRTC, no tuning.  A bundle written by the
+        JAX package or for a different device topology raises
+        :class:`MXNetError` (pass ``attach_aot=False`` to serve without
+        it).  With ``attach_aot`` the chaos seam
+        ``checkpoint.aot.attach`` fires first.  A bundle whose warm-up
+        manifest records a generator spec restores the
+        :class:`~mxnet_tpu_torch.generation.DecodeEngine` too (pass an
+        explicit ``generator_spec`` to override)."""
         if attach_aot:
-            from .. import faults
+            from ..checkpoint import attach_aot_bundle
 
-            faults.fire("checkpoint.aot.attach")
-        if attach_aot and os.path.isdir("%s-%04d.aot" % (prefix, epoch)):
-            raise MXNetError(
-                "%s-%04d.aot is an AOT bundle, which this package cannot "
-                "attach yet (compile-once, ROADMAP.md A.5c); pass "
-                "attach_aot=False to serve the checkpoint without it"
-                % (prefix, epoch))
+            manifest = attach_aot_bundle(prefix, epoch)
+            gen_spec = ((manifest or {}).get("warmup") or {}) \
+                .get("generator")
+            if gen_spec and "generator_spec" not in kwargs:
+                kwargs["generator_spec"] = gen_spec
         return cls("%s-symbol.json" % prefix,
                    "%s-%04d.params" % (prefix, epoch),
                    input_shapes, **kwargs)
@@ -239,22 +283,54 @@ class InferenceServer:
                                       deadline_ms=deadline_ms)
 
     def compiled_entries(self):
-        """Compile-cache entries across every replica and bucket: empty,
-        as the JAX package's are with its compile cache off (A.5c)."""
+        """Primed compile-cache wrappers across every replica and bucket,
+        plus the attached generator's prefill, decode, draft, verify and
+        catch-up executors (empty unless ``MXNET_COMPILE_CACHE_DIR`` is set
+        or a bundle is attached)."""
         out = []
         for rep in self._replicas:
             out.extend(rep.compiled_entries())
+        if self._generator is not None:
+            out.extend(self._generator.compiled_entries())
         return out
 
     def save_aot_bundle(self, prefix, epoch):
-        """Write this server's executables as an AOT bundle.  That is the
-        compile-once tier (ROADMAP.md A.5c): there are none to write, and
-        this raises the error the JAX package raises with its compile
-        cache off."""
-        raise MXNetError(
-            "no cached executables to bundle — set "
-            "MXNET_COMPILE_CACHE_DIR before building the server so "
-            "its buckets prime through the compile cache")
+        """Write this server's compiled entries as an AOT bundle beside
+        the checkpoint (``prefix-NNNN.aot/``) with a warm-up manifest, so
+        the next replica restored from this prefix warms from it.
+        Requires the compile cache to be on (the buckets must have primed
+        through it)."""
+        from ..checkpoint import save_aot_bundle as _save
+
+        entries = self.compiled_entries()
+        if not entries:
+            raise MXNetError(
+                "no cached executables to bundle — set "
+                "MXNET_COMPILE_CACHE_DIR before building the server so "
+                "its buckets prime through the compile cache")
+        warmup = {
+            "input_shapes": {k: list(v)
+                             for k, v in self._input_shapes.items()},
+            "buckets": list(self.buckets),
+            "dtype": self._dtype.name,
+        }
+        if self._generator_spec is not None:
+            gen_spec = dict(self._generator_spec)
+            draft = gen_spec.get("draft")
+            if draft and not isinstance(draft.get("params"), str):
+                # the warm-up manifest is JSON: in-memory draft weights
+                # travel as a sibling .params file, path-referenced
+                from .. import ndarray as nd
+
+                draft = dict(draft)
+                dpath = "%s-%04d.draft.params" % (prefix, int(epoch))
+                nd.save(dpath, {k: v if isinstance(v, nd.NDArray)
+                                else nd.array(np.asarray(v), mt_cpu())
+                                for k, v in draft["params"].items()})
+                draft["params"] = dpath
+                gen_spec["draft"] = draft
+            warmup["generator"] = gen_spec
+        return _save(prefix, epoch, entries, warmup=warmup)
 
     # -- lifecycle --------------------------------------------------------
     def start(self):

@@ -10,8 +10,8 @@ contained step fault, the cold-shape detector, telemetry, speculative
 decoding for K = 1, 2, 3, prefix-cache admission (full and partial hits,
 a preempted lane re-admitted through the index), copy-on-write isolation,
 and all eight pool-level prefix-cache tests.  The HTTP and router tests
-live in tests/test_torch_router.py; the AOT-bundle tests wait for the
-compile-once tier (ROADMAP.md A.5c).
+live in tests/test_torch_router.py; the AOT-bundle tests are in
+tests/test_torch_compile_cache.py.
 
 Added for the port: the device-resident pool (each decode step copies
 each plane once, by the paged op, and the pool adopts the op's outputs;

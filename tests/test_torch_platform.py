@@ -4,8 +4,8 @@ JAX package's (tests/test_platform.py), on the CPU, case for case.
 Both packages run the same scenario on the same checkpoints, written by the
 JAX package's ``save_checkpoint`` (the same ``.params`` bytes, so
 ``param_footprint`` agrees exactly), with ``MXNET_COMPILE_CACHE_DIR`` unset so
-neither writes an AOT bundle (the compile-once tier is ROADMAP.md A.5c in the
-port).  The port's managers are built under ``with mt.cpu():``.  Equal: plans
+neither writes an AOT bundle (the port's bundle steps are held in
+tests/test_torch_compile_cache.py).  The port's managers are built under ``with mt.cpu():``.  Equal: plans
 and their actions, quota decisions and ``Retry-After`` under a fake clock,
 error types and messages, HTTP codes and JSON bodies, ``mxtpu_platform_*``
 series; served outputs within 1e-5 and generated transcripts equal.  Every

@@ -5,8 +5,8 @@ re-fault, brownout, graceful page-out), leak-free fault-in failure, 503 +
 Retry-After during the fault-in window, and page-out racing live traffic.
 
 Both packages run each scenario on checkpoints written by the JAX package's
-``save_checkpoint``, with ``MXNET_COMPILE_CACHE_DIR`` unset (no AOT bundles,
-ROADMAP.md A.5c); the port's managers are built under ``with mt.cpu():``.
+``save_checkpoint``, with ``MXNET_COMPILE_CACHE_DIR`` unset (no AOT bundles);
+the port's managers are built under ``with mt.cpu():``.
 Equal: health states and transitions after the same injected faults,
 placements, the ladder's ``platform_*`` event kinds in order with their plan
 generations, error types and messages; outputs within 1e-5.  Registry TTLs

@@ -549,7 +549,7 @@ def test_http_status_and_bodies_match_jax(http_pair, case):
                      "deadline_header": 504, "generate_404": 404}[case]
 
 
-# -- compile-once (ROADMAP A.5c) ---------------------------------------------
+# -- compile-once -----------------------------------------------------------
 def test_save_aot_bundle_raises_the_jax_error(tmp_path):
     servers = _both()
     try:
@@ -571,8 +571,13 @@ def test_attach_aot_refuses_a_bundle_it_cannot_read(tmp_path):
     srv = tserving.InferenceServer.from_checkpoint(
         prefix, 1, {"data": (4, IN_DIM)}, ctx=mt.cpu())  # no bundle: serves
     srv.stop()
-    os.makedirs(prefix + "-0001.aot")
-    with pytest.raises(mt.base.MXNetError, match="A.5c"):
+    # a bundle the JAX package wrote (its manifest's envelope has no
+    # "framework": "torch"): refused, even on the CPU where the topology
+    # keys of the two envelopes can match
+    from mxnet_tpu import compile_cache as jcc
+
+    jcc.save_bundle(prefix + "-0001.aot", entries=[])
+    with pytest.raises(mt.base.MXNetError, match="framework"):
         tserving.InferenceServer.from_checkpoint(
             prefix, 1, {"data": (4, IN_DIM)}, ctx=mt.cpu())
     srv = tserving.InferenceServer.from_checkpoint(
