@@ -432,7 +432,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              momentum 0.9), 2 sync workers against one process on the
              concatenated batch: after 3 steps every parameter within 1e-5
              of its largest |value|, and the 3-step move printed.  (c)
-             Async (``MXNET_KVSTORE_SYNC=0``), 4 steps: the servers' applied
+             Async (``MXNET_KVSTORE_SYNC=0``), 3 steps, run beside (b),
+             (e1) and (e2) (its times printed as such): the servers' applied
              pushes equal the push items the workers sent (a range-split
              key once per server, a bucket's keys once each), the loss
              falls, every parameter finite (adam at a quarter of the lr:
@@ -448,7 +449,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              server with a snapshot path: after step 4 rank 0 snapshots, the
              server is SIGKILLed and restarted from it while the workers'
              pushes retry; parameters and losses bitwise equal to an
-             uninterrupted run's (run beside it, and beside (e1)).  (e3) A
+             uninterrupted run's (run beside it, and beside (e1); all
+             three beside (b) and (c), which they start with).  (e3) A
              NaN push into an in-process server on the card raises
              ``NonFiniteGradientError`` and leaves the store and the
              momentum unchanged bit for bit.  A ``param_server`` JSON line
@@ -587,7 +589,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              forward (eager); K1 6 times per executor call counted through
              the replays, and one replay of each scoring bucket traced with
              torch.profiler: its ``flash_fwd_tf32_kernel`` device ops equal
-             to the host count; the LM executor at buckets 1 and 2 eager
+             to the host count, 6, and the graph's own DOT dump (the warm
+             worker keeps each graph's nodes) holds 6 such kernel nodes;
+             the trace's kernel records and the graph's kernel nodes
+             printed by family; a trace short of K1 passes only if it
+             holds no record the graph lacks (the missing ones are records
+             the profiler lost); the LM executor at buckets 1 and 2 eager
              against graph by CUDA events; 8 prompts (4 of 128 tokens, 4
              of 1024) through ``submit_generate``, token for token those of
              an eager engine (cache off, ``attach_aot=False``), and the
@@ -607,6 +614,43 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``compile_once`` JSON line ends it; the float32 d=128 K1 row
              adds (c)'s launches ("compile_once"), the user-kernel rows
              (b)'s.
+23. observe — observability and the training guardian (``mt.telemetry``,
+             ``mt.guardian``, ``mt.profiler``) on the train phase's LM
+             (bf16, adam lr 3e-4, Xavier from SEED).  (a) Steps with
+             telemetry (the tracer on) and the guardian (the fused step's
+             guard and its ladder) off and on: 2 warm-up each way, then 5
+             timed in turns off, on, on, off; step ms both ways and their
+             ratio, then 1 + 5 steps with telemetry alone and with the
+             guardian alone; every step 6 launches of K1, K2 and K3; the step
+             monitor's ``flops_per_step`` (the eager plan's cost model)
+             within 10% of the hand count (6 x the product parameters x
+             16,384 tokens, plus the causal attention's products), MFU over
+             989 TFLOP/s at the on steps' mean, ``device_peak_bytes`` equal
+             to ``torch.cuda.max_memory_allocated()``, the merged trace
+             valid.  (d) One step under ``profiler_set_state("run")``: the
+             torch.profiler trace holds 6 device ops of each of K1-K3 inside
+             the ``Executor.fused_step`` range, as the host counted; the
+             profiler's start seconds.  (b) ``Module.fit`` over 11 batches
+             under the guardian (snapshots every 4, the JAX defaults
+             otherwise), SGD-momentum: an uninterrupted run (one snapshot,
+             before batch 0), then one whose
+             batch-end callback sets one weight to NaN after batch 4: the
+             ladder answers skip, skip, rewarm, skip, skip, rollback; every
+             parameter and momentum keeps its bits across each skipped
+             step; the rollback to the snapshot taken before batch 4
+             (seconds, the snapshot's bytes: the parameters and the pickled
+             momentum) writes a flight-recorder postmortem; the replay's
+             losses and final
+             parameters are the uninterrupted run's bits; the merged trace
+             holds the fit's spans.  Under adam (the small LM, float32,
+             card and CPU from one numpy init) a rolled-back run is not an
+             uninterrupted one (the update counts run on, ROADMAP.md C),
+             and the card's equals the CPU route's within 1e-3 of the
+             largest parameter.  (c) ``OBS_FAULT`` on a 2-layer LM at the
+             full widths takes the eager loop: the guard answers skip,
+             nothing changes, one anomaly counted.  An ``observe`` JSON line
+             ends it; the bf16 d=128 K1-K3 rows add the phase's full-width
+             launches ("observe").
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -622,6 +666,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -6075,7 +6120,8 @@ def dist_phase(torch, mt):
         tail = "\n".join(log.strip().splitlines()[-12:])
         print("parallel dist: worker %d exit %s; log tail:\n%s"
               % (r, p.returncode, tail), flush=True)
-        check(p.returncode == 0, "dist worker %d failed" % r)
+        check(p.returncode == 0, "dist worker %d failed (exit %s):\n%s"
+              % (r, p.returncode, tail))
     got = [dict(np.load(os.path.join(outdir, "rank%d.npz" % r)))
            for r in range(DIST_WORKERS)]
     backends = {str(g["backend"]) for g in got}
@@ -7411,8 +7457,8 @@ def shard_global_batch(torch, mt):
         tail = "\n".join(log.strip().splitlines()[-8:])
         print("sharding global batch: worker %d exit %s; log tail:\n%s"
               % (r, p.returncode, tail), flush=True)
-        check(p.returncode == 0, "sharding global batch: worker %d failed"
-              % r)
+        check(p.returncode == 0, "sharding global batch: worker %d failed "
+              "(exit %s):\n%s" % (r, p.returncode, tail))
     got = [dict(np.load(os.path.join(outdir, "rank%d.npz" % r)))
            for r in range(SHARD_WORKERS)]
     X, Y = shard_bn_data()
@@ -7506,10 +7552,14 @@ def sharding_phase(torch, mt, batch, replay):
 PS_WORKERS, PS_SERVERS = 2, 2
 PS_BATCH = BATCH // PS_WORKERS      # the train phase's batch split in halves
 # tag, case, warm-up, timed steps (cut from 2 + 3, 5, 2 + 3 to make room
-# for phase 22: 3 steps still give the first 3 losses the gates compare)
+# for phase 22, and (c) from 4 to 3 for phase 23: the gates compare the
+# first PS_LOSSES losses, two updates after the init's, and the async loss
+# falls over 3 steps).  (a) and (d) run alone, one after the other; (c)
+# runs beside (b), (e1) and (e2)
 PS_RUNS = (("a", "sync", 1, 2),
-           ("c", "async", 0, 4),
+           ("c", "async", 0, 3),
            ("d", "fp16", 1, 2))
+PS_LOSSES = 3
 # (c): each worker's push is an adam update of its own, two a step from
 # stale gradients; at the train phase's lr 3e-4 the loss spiked at step 4
 # (9.45 -> 12.71), at 1.5e-4 too (9.61 -> 10.63, back to 9.22 at step 5);
@@ -7816,24 +7866,34 @@ def ps_worker(outdir):
         ps_lm_worker(outdir, case)
 
 
+#: ports free_ports has handed out in this process (under its lock): jobs
+#: started side by side must not get the same ones before their servers
+#: bind them
+PS_PORTS, PS_PORTS_LOCK = set(), threading.Lock()
+
+
 def free_ports(n):
-    """A port p with p..p+n-1 free on 127.0.0.1."""
+    """A port p with p..p+n-1 free on 127.0.0.1, none handed out before."""
     import socket
 
-    for _ in range(100):
-        base = free_port()
-        socks = []
-        try:
-            for i in range(n):
-                s = socket.socket()
-                socks.append(s)
-                s.bind(("127.0.0.1", base + i))
+    with PS_PORTS_LOCK:
+        for _ in range(100):
+            base = free_port()
+            if PS_PORTS & set(range(base, base + n)):
+                continue
+            socks = []
+            try:
+                for i in range(n):
+                    s = socket.socket()
+                    socks.append(s)
+                    s.bind(("127.0.0.1", base + i))
+            except OSError:
+                continue
+            finally:
+                for s in socks:
+                    s.close()
+            PS_PORTS.update(range(base, base + n))
             return base
-        except OSError:
-            continue
-        finally:
-            for s in socks:
-                s.close()
     raise SystemExit("param_server: no %d free consecutive ports" % n)
 
 
@@ -7979,42 +8039,46 @@ def ps_print(tag, what, s, card):
           flush=True)
 
 
-def ps_lm_phases(torch, mt, replay, train_losses, card):
-    """(a), (c), (d): the full-width LM over two servers."""
-    want_crc = ps_init_crc(replay["init"])
-    runs, per_layer = {}, FULL["num_layers"]
-    for tag, case, warm, timed in PS_RUNS:
-        env = {"MXNET_KVSTORE_COMPRESS": "fp16"} if case == "fp16" else {}
-        got, stats, _ = ps_lm_run(tag, case, case != "async", **env)
-        s = ps_summary(got, stats, warm)
-        ps_print(tag, case, s, card)
-        for g in got:
-            check(g["rescale_grad"] == 1.0 / BATCH, "param_server (%s): "
-                  "worker %d's rescale_grad %r is not 1/(global batch)"
-                  % (tag, g["rank"], g["rescale_grad"]))
-            check(all(d == {n: per_layer for n in PS_NAMES}
-                      for d in g["launches"]), "param_server (%s): worker "
-                  "%d launched %s, expected %d of each K1-K3 a step"
-                  % (tag, g["rank"], g["launches"], per_layer))
-            check(g["finite"], "param_server (%s): worker %d has a "
-                  "parameter that is not finite" % (tag, g["rank"]))
-        check(got[0]["init_crc"] == want_crc, "param_server (%s): rank "
-              "0's init is not the train phase's" % tag)
-        check(len({g["final_crc"] for g in got}) == 1 or case == "async",
-              "param_server (%s): the workers end on different parameters"
-              % tag)
-        s["launches"] = {n: sum(d[n] for g in got for d in g["launches"])
-                         for n in PS_NAMES}
-        s["applied_pushes"] = sum(st["applied_pushes"] for st in stats)
-        s["push_items"] = sum(g["wire"]["push_items"] for g in got)
-        s["losses"] = [g["loss"] for g in got]
-        runs[tag] = s
+def ps_lm_one(tag, case, warm, want_crc, card, note=""):
+    """One of (a), (c), (d): the full-width LM over two servers, its
+    per-run gates; its summary."""
+    per_layer = FULL["num_layers"]
+    env = {"MXNET_KVSTORE_COMPRESS": "fp16"} if case == "fp16" else {}
+    got, stats, _ = ps_lm_run(tag, case, case != "async", **env)
+    s = ps_summary(got, stats, warm)
+    ps_print(tag, case + note, s, card)
+    for g in got:
+        check(g["rescale_grad"] == 1.0 / BATCH, "param_server (%s): "
+              "worker %d's rescale_grad %r is not 1/(global batch)"
+              % (tag, g["rank"], g["rescale_grad"]))
+        check(all(d == {n: per_layer for n in PS_NAMES}
+                  for d in g["launches"]), "param_server (%s): worker "
+              "%d launched %s, expected %d of each K1-K3 a step"
+              % (tag, g["rank"], g["launches"], per_layer))
+        check(g["finite"], "param_server (%s): worker %d has a "
+              "parameter that is not finite" % (tag, g["rank"]))
+    check(got[0]["init_crc"] == want_crc, "param_server (%s): rank "
+          "0's init is not the train phase's" % tag)
+    check(len({g["final_crc"] for g in got}) == 1 or case == "async",
+          "param_server (%s): the workers end on different parameters"
+          % tag)
+    s["launches"] = {n: sum(d[n] for g in got for d in g["launches"])
+                     for n in PS_NAMES}
+    s["applied_pushes"] = sum(st["applied_pushes"] for st in stats)
+    s["push_items"] = sum(g["wire"]["push_items"] for g in got)
+    s["losses"] = [g["loss"] for g in got]
+    return s
+
+
+def ps_lm_gates(runs, train_losses):
+    """The gates across (a), (c), (d) (``runs``, by tag)."""
     a, c, d = runs["a"], runs["c"], runs["d"]
-    gaps = [rel(a["mean_losses"][i], train_losses[i]) for i in range(3)]
-    print("param_server (a): mean of the workers' first 3 losses %s vs the "
+    gaps = [rel(a["mean_losses"][i], train_losses[i])
+            for i in range(PS_LOSSES)]
+    print("param_server (a): mean of the workers' first %d losses %s vs the "
           "train phase's one-context %s: relative gaps %s (tolerance %g)"
-          % (["%.6f" % x for x in a["mean_losses"][:3]],
-             ["%.6f" % x for x in train_losses[:3]],
+          % (PS_LOSSES, ["%.6f" % x for x in a["mean_losses"][:PS_LOSSES]],
+             ["%.6f" % x for x in train_losses[:PS_LOSSES]],
              ["%.2e" % x for x in gaps], PS_LOSS_TOL), flush=True)
     check(max(gaps) <= PS_LOSS_TOL, "param_server (a): the losses leave "
           "the train phase's")
@@ -8028,10 +8092,12 @@ def ps_lm_phases(torch, mt, replay, train_losses, card):
     check(all(l[-1] < l[0] for l in c["losses"]), "param_server (c): the "
           "async loss did not fall")
     ratio = d["push_bytes"] / a["push_bytes"]
-    gaps = [rel(d["mean_losses"][i], a["mean_losses"][i]) for i in range(3)]
+    gaps = [rel(d["mean_losses"][i], a["mean_losses"][i])
+            for i in range(PS_LOSSES)]
     print("param_server (d): fp16 wire pushes %.4fx (a)'s bytes (limit "
-          "%g); first 3 losses' relative gaps to (a) %s (tolerance %g)"
-          % (ratio, PS_FP16_BYTES, ["%.2e" % x for x in gaps], PS_LOSS_TOL),
+          "%g); first %d losses' relative gaps to (a) %s (tolerance %g)"
+          % (ratio, PS_FP16_BYTES, PS_LOSSES, ["%.2e" % x for x in gaps],
+             PS_LOSS_TOL),
           flush=True)
     check(ratio <= PS_FP16_BYTES, "param_server (d): fp16 did not halve "
           "the pushed bytes")
@@ -8224,20 +8290,52 @@ def param_server_phase(torch, mt, replay, train_losses):
           "card (%s): the times measure the parameter server's own cost, "
           "not a multi-host speed-up" % card, flush=True)
     torch.cuda.empty_cache()
-    runs = ps_lm_phases(torch, mt, replay, train_losses, card)
-    f32 = ps_f32(torch, mt, card)
+    want_crc = ps_init_crc(replay["init"])
+    runs = {tag: ps_lm_one(tag, case, warm, want_crc, card)
+            for tag, case, warm, _ in PS_RUNS if case != "async"}
     torch.cuda.empty_cache()
-    # (e1) and (e2) are small: their processes run side by side
+    # (b), (c), (e1) and (e2) gate on results, not times: their processes
+    # run side by side, (c), (e1) and (e2) driven from threads
     churn = ps_churn_start()
     durable = [ps_durable_start(kill) for kill in (False, True)]
-    try:
+    side = {}
+
+    def drive_e():
         for job in durable:
             ps_durable_release(job)
-        elastic = ps_churn_finish(churn)
-        (ref, _), (got, stats) = [ps_durable_finish(j) for j in durable]
+        side["elastic"] = ps_churn_finish(churn)
+        side["durable"] = [ps_durable_finish(j) for j in durable]
+
+    def drive_c():
+        tag, case, warm, _ = next(r for r in PS_RUNS if r[1] == "async")
+        side[tag] = ps_lm_one(tag, case, warm, want_crc, card,
+                              " (beside (b), (e1) and (e2))")
+
+    def guarded(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as exc:  # check() raises SystemExit
+                side.setdefault("error", exc)
+        return run
+
+    threads = [threading.Thread(target=guarded(fn), daemon=True)
+               for fn in (drive_e, drive_c)]
+    for t in threads:
+        t.start()
+    try:
+        f32 = ps_f32(torch, mt, card)
+        for t in threads:
+            t.join()
     finally:
         for job in [churn] + durable:
             job.close()
+    if "error" in side:
+        raise side["error"]
+    runs["c"] = side["c"]
+    ps_lm_gates(runs, train_losses)
+    elastic = side["elastic"]
+    (ref, _), (got, stats) = side["durable"]
     equal = all(ref[r][k].tobytes() == got[r][k].tobytes()
                 for r in (0, 1) for k in ref[r])
     print("param_server (e2): the server SIGKILLed after step %d and "
@@ -10270,9 +10368,69 @@ def cc_bitwise(torch, pred):
     return all(torch.equal(a, b) for a, b in zip(got, ref)), graph
 
 
+def cc_keep_graphs(torch):
+    """CUDA graphs captured from here on keep their cudaGraph_t
+    (``keep_graph``: instantiated at the first replay, not at the capture's
+    end), so (c) can read a graph's nodes from its DOT dump
+    (``cc_graph_kernels``): what every replay of it launches."""
+    real = torch.cuda.CUDAGraph
+
+    def kept(*args, **kwargs):
+        graph = real(*args, **dict(kwargs, keep_graph=True))
+        graph.enable_debug_mode()
+        return graph
+
+    torch.cuda.CUDAGraph = kept
+
+
+#: kernel families, each a substring of a kernel's mangled name in a
+#: graph's DOT dump and of its demangled name in a trace: (c) holds a
+#: graph's kernel nodes against a traced replay's kernel records by family
+CC_FAMILIES = ("flash_fwd_tf32_kernel", "gemm", "elementwise_kernel",
+               "reduce_kernel", "gather", "softmax")
+
+
+def cc_families(texts):
+    """A Counter of ``texts`` (kernel names or node blocks) by family."""
+    import collections
+
+    out = collections.Counter()
+    for text in texts:
+        low = text.lower()
+        out[next((f for f in CC_FAMILIES if f in low), "other")] += 1
+    return out
+
+
+def cc_graph_kernels(mt, ex):
+    """The kernel nodes of ``ex``'s one CUDA graph by family, from its DOT
+    dump: what every replay of the graph launches."""
+    from mxnet_tpu_torch import compile_cache as cc
+
+    graphs = [run for fn in ex._jit_cache.values()
+              for run in fn._by_sig.values() if isinstance(run, cc._Graph)]
+    check(len(graphs) == 1, "(c) %d CUDA graphs in a scoring executor, "
+          "expected 1" % len(graphs))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        graphs[0].graph.debug_dump(path)
+        check(os.path.exists(path), "(c) the graph left no DOT dump")
+        with open(path) as f:
+            text = f.read()
+    # a node's definition starts its line ("name"[...]); an edge's
+    # ("a" -> "b" [...]) does not match
+    nodes = {}
+    for m in re.finditer(r'(?m)^"(graph_\d+_node_\d+)"\[(.*?)\];$', text,
+                         re.S):
+        nodes.setdefault(m.group(1), m.group(2))
+    kernels = [blk for blk in nodes.values() if 'label="{KERNEL' in blk]
+    check(kernels and len(kernels) == len(nodes), "(c) the graph's DOT dump "
+          "holds %d nodes, %d of them kernels" % (len(nodes), len(kernels)))
+    return cc_families(kernels)
+
+
 def cc_traced_k1(torch, mt, ex):
     """One replay of ``ex`` traced with torch.profiler: (K1 launches the
-    host counted, ``flash_fwd_tf32_kernel`` ops the device ran)."""
+    host counted, the trace's kernel records by family)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     before = mt.kernels.LAUNCHES["flash_fwd"]
@@ -10285,9 +10443,8 @@ def cc_traced_k1(torch, mt, ex):
         prof.export_chrome_trace(f.name)
         with open(f.name) as trace:
             events = json.load(trace)["traceEvents"]
-    device = sum(1 for e in events if e.get("cat") == "kernel"
-                 and "flash_fwd_tf32_kernel" in e.get("name", ""))
-    return host, device
+    return host, cc_families(e.get("name", "") for e in events
+                             if e.get("cat") == "kernel")
 
 
 def cc_generate(torch, srv, prompts):
@@ -10480,12 +10637,33 @@ def cc_warm(torch, mt, spec, card):
     res["k1_launches"] = k1
     traced = {}
     for b in rep.buckets:
-        host, device = cc_traced_k1(torch, mt, rep._preds[b]._exec)
-        traced["score b%d" % b] = (host, device)
-        check(host == device == FULL["num_layers"], "(c) score b%d: one "
-              "traced replay counted %d K1 on the host and ran %d "
-              "flash_fwd_tf32_kernel on the device, expected %d"
-              % (b, host, device, FULL["num_layers"]))
+        # one traced replay: 6 K1 on the host and 6 device ops.  The
+        # graph's own nodes (its DOT dump) say what every replay launches;
+        # a trace short of K1 passes only if the graph holds 6 K1 nodes and
+        # the trace holds no record the graph lacks (the missing ones are
+        # records the profiler lost, not launches)
+        ex = rep._preds[b]._exec
+        host, seen = cc_traced_k1(torch, mt, ex)
+        graph = cc_graph_kernels(mt, ex)
+        n, fam = FULL["num_layers"], CC_FAMILIES[0]
+        missing, extra = graph - seen, seen - graph
+        traced["score b%d" % b] = {
+            "host": host, "device": seen[fam], "graph_k1_nodes": graph[fam],
+            "kernel_records": sum(seen.values()),
+            "graph_kernel_nodes": sum(graph.values()),
+            "missing": dict(missing), "extra": dict(extra)}
+        check(host == graph[fam] == n and (seen[fam] == n or not extra),
+              "(c) score b%d: one traced replay counted %d K1 on the host "
+              "and ran %d flash_fwd_tf32_kernel on the device; its graph "
+              "holds %d of them; kernel records by family %s, the graph's "
+              "kernel nodes %s; expected %d"
+              % (b, host, seen[fam], graph[fam], dict(seen), dict(graph), n))
+        if seen[fam] != n:
+            print("compile_once (c) score b%d: the trace lacks %d of the "
+                  "graph's %d kernel records (%s), %d of them K1's: records "
+                  "the profiler lost (PERF.md section 7)"
+                  % (b, sum(missing.values()), sum(graph.values()),
+                     dict(missing), n - seen[fam]), flush=True)
     res["k1_traced"] = traced
     direct = mt.Predictor.from_checkpoint(
         spec["prefix"], 0, {"data": (1, s_len), "softmax_label": (1, s_len)})
@@ -10518,8 +10696,8 @@ def cc_warm(torch, mt, spec, card):
           "their eager walks (%s); the %d lane buckets are entries that run "
           "eagerly; %d scoring replies within %.3g of the largest |value| "
           "of a direct batch-1 forward (eager; limit %g); flash_fwd %d in "
-          "%d executor calls (6 a call, counted through the replays), one "
-          "traced replay (host, device ops) %s; ms eager vs graph: %s "
+          "%d executor calls (6 a call, counted through the replays), "
+          "one traced replay each %s; ms eager vs graph: %s "
           "(phase 20's executor: 72.93 and 143.22 ms)"
           % (card, len(preds), ", ".join(res["bitwise"]),
              len(eng.lane_buckets), CC_SCORE, worst, CC_TOL, k1, calls,
@@ -10621,6 +10799,8 @@ def cc_worker(path):
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
     start_s = time.perf_counter() - t0
+    if spec["role"] == "warm":
+        cc_keep_graphs(torch)
     fn = cc_cold if spec["role"] == "cold" else cc_warm
     res = fn(torch, mt, spec, card)
     res["cuda_start_s"] = start_s
@@ -10725,6 +10905,611 @@ def compile_once_phase(torch, mt):
                                           flash_fwd=warm["k1_launches"])}},
             warm["rtc_launches"])
 
+
+
+# ---------------------------------------------------------------------------
+# phase 23: observability and the guardian
+# ---------------------------------------------------------------------------
+OBS_WARMUP, OBS_STEPS = 2, 5
+#: (b)'s iterator: batches of the train phase's shape; the poison lands
+#: after batch OBS_POISON, the next snapshot is due at OBS_SNAP_EVERY
+OBS_BATCHES, OBS_POISON, OBS_SNAP_EVERY = 11, 4, 4
+OBS_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+#: the small LM's adam rollback, card against CPU: 10 applied float32
+#: steps at the agree phase's adam (its 3 steps are held to 1e-4)
+OBS_ADAM_TOL = 1e-3
+OBS_ENV = {"MXNET_GUARDIAN_SNAPSHOT_EVERY": str(OBS_SNAP_EVERY),
+           "MXNET_GUARDIAN_SKIP_MAX": "2", "MXNET_GUARDIAN_REWARM_STEPS": "50",
+           "MXNET_GUARDIAN_ROLLBACK_MAX": "2", "MXNET_GUARDIAN_RING": "2"}
+
+
+def obs_batch(mt, cfg, b, seed=SEED):
+    """One batch as the train phase makes it (X, its next tokens)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randint(0, cfg["vocab_size"], size=(b, cfg["seq_len"])).astype(
+        np.float32)
+    Y = (X + 1) % cfg["vocab_size"]
+    return mt.io.NDArrayIter(X, Y, batch_size=b,
+                             label_name="softmax_label").next(), Y
+
+
+def obs_hand_flops(net, cfg, b):
+    """PERF.md's hand count of one LM step: 6 x the product parameters x
+    the tokens, plus the causal attention's products (forward 2, backward
+    5, 2·d per visible pair) per layer."""
+    shapes = {"data": (b, cfg["seq_len"]),
+              "softmax_label": (b, cfg["seq_len"])}
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    products = sum(int(np.prod(s)) for n, s in zip(net.list_arguments(),
+                                                   arg_shapes)
+                   if len(s) == 2 and not n.startswith("tok_embed"))
+    s, h = cfg["seq_len"], cfg["num_heads"]
+    d = cfg["hidden"] // h
+    pairs = s * (s + 1) // 2
+    attention = cfg["num_layers"] * 7 * 2 * d * pairs * b * h
+    return 6 * products * b * s, attention, products
+
+
+def obs_steps(torch, mt, mod, batch, n, per_step):
+    """``n`` steps: their ms (host clock to a synchronize) and each step's
+    K1-K3 launches held to ``per_step``."""
+    times = []
+    for i in range(n):
+        before = dict(mt.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = {k: mt.kernels.LAUNCHES[k] - before[k] for k in PS_NAMES}
+        check(all(v == per_step for v in got.values()),
+              "observe: a step launched %s, expected %d of each"
+              % (got, per_step))
+    return times
+
+
+def obs_guard_pass(torch, mt, mod):
+    """The fused step's guard alone (``executor._guard_check``) on arrays of
+    the step's shapes, float32 gradients one per parameter and the
+    module's output: (ms by CUDA events, the bytes bound: each array read
+    once over the card's memory rate)."""
+    from mxnet_tpu_torch.executor import _guard_check
+
+    ex = mod._exec_group.execs[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = [torch.randn(ex.arg_dict[n].shape, device="cuda", generator=gen)
+             for n in mod._exec_group.param_names]
+    outs = [o._data for o in mod.get_outputs()]
+    ms = cuda_ms(lambda: _guard_check(grads, outs), 10)
+    nbytes = sum(t.numel() * t.element_size() for t in grads + outs)
+    _, peak = peaks_for(torch.cuda.get_device_name(0))
+    # the verdicts on the card: one NaN or inf in the output, one finite
+    # gradient whose square overflows
+    verdicts = {"clean": _guard_check(grads, outs)[0]}
+    bad = outs[0].clone(memory_format=torch.contiguous_format)
+    for what, value in (("nan output", np.nan), ("inf output", np.inf)):
+        bad.view(-1)[bad.numel() // 2] = value
+        verdicts[what] = _guard_check(grads, [bad] + outs[1:])[0]
+    big = grads[0].clone()
+    big.view(-1)[0] = 3e38
+    verdicts["overflowing gradient"] = _guard_check([big] + grads[1:],
+                                                    outs)[0]
+    del grads, bad, big
+    check(verdicts == {"clean": True, "nan output": False,
+                       "inf output": False, "overflowing gradient": False},
+          "observe (a): the guard's verdicts on the card %s" % verdicts)
+    return ms, nbytes / (peak["tbs"] * 1e12) * 1e3, verdicts
+
+
+def obs_cost(torch, mt, net, cfg, b, per_step, card):
+    """(a): the LM's steps with telemetry and the guardian off and on, in
+    turns.  Returns the module and its batch, for (d)."""
+    tm, gd = mt.telemetry, mt.guardian
+    batch, _ = obs_batch(mt, cfg, b)
+    mt.random.seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    mod = train_module(mt, net, None, (b, cfg["seq_len"]),
+                       init=mt.init.Xavier(factor_type="in", magnitude=2.34),
+                       compute_dtype="bfloat16")
+
+    def turn(on):
+        if on:
+            tm.enable(trace=True)
+            gd.enable()
+            mod._guardian = gd.Guardian()
+        else:
+            tm.disable()
+            gd.disable()
+            mod._guardian = None
+
+    got = {False: [], True: []}
+    for on in (False, True):  # warm-up: each way's first build
+        turn(on)
+        obs_steps(torch, mt, mod, batch, OBS_WARMUP, per_step)
+    trace = report = None
+    for on in (False, True, True, False):
+        turn(on)
+        got[on] += obs_steps(torch, mt, mod, batch, OBS_STEPS, per_step)
+        if on and len(got[on]) == 2 * OBS_STEPS:
+            check(all(a == "ok" for a, _, _ in mod._guardian.history) and
+                  mod._guardian_action == "ok", "observe (a): the guardian "
+                  "answered %s on clean steps" % mod._guardian.history)
+            ok, gnorm = mod._exec_group.execs[0]._guard_verdict
+            check(ok and np.isfinite(gnorm), "observe (a): the step's "
+                  "verdict (%s, %s)" % (ok, gnorm))
+            report = tm.current_step_monitor().report()
+            peak = torch.cuda.max_memory_allocated()
+            trace = tm.merged_trace()
+    parts = {}
+    for name, (tele, guard) in (("telemetry only", (True, False)),
+                                ("guardian only", (False, True))):
+        turn(False)
+        if tele:
+            tm.enable(trace=True)
+        if guard:
+            gd.enable()
+            mod._guardian = gd.Guardian()
+        obs_steps(torch, mt, mod, batch, 1, per_step)
+        parts[name] = float(np.mean(obs_steps(torch, mt, mod, batch,
+                                              OBS_STEPS, per_step)))
+    turn(False)
+    guard_ms, guard_bound_ms, verdicts = obs_guard_pass(torch, mt, mod)
+    off, on = float(np.mean(got[False])), float(np.mean(got[True]))
+    hand, attention, products = obs_hand_flops(net, cfg, b)
+    flops = report["flops_per_step"]
+    check(flops and abs(flops / (hand + attention) - 1) <= 0.10,
+          "observe (a): the step monitor counts %s flops a step, the hand "
+          "count %.4g" % (flops, hand + attention))
+    mfu = flops / (on / 1e3) / tm.peak_flops()
+    check(report["device_peak_bytes"] == peak, "observe (a): the monitor's "
+          "device_peak_bytes %s, torch.cuda.max_memory_allocated() %s"
+          % (report["device_peak_bytes"], peak))
+    tm.validate_trace(trace)
+    names = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+    check({"Executor.fused_step"} <= names, "observe (a): the merged trace "
+          "holds %s" % sorted(names))
+    print("observe (a) (%s): step ms off %s, on %s; mean %.2f off, %.2f on: "
+          "on/off %.4f; %d launches of each of K1-K3 a step both ways"
+          % (card, ["%.2f" % t for t in got[False]],
+             ["%.2f" % t for t in got[True]], off, on, on / off, per_step),
+          flush=True)
+    print("observe (a): after them, 1 + 5 steps each: %s; the guard's "
+          "pass alone over the step's gradients and output %.4f ms by CUDA "
+          "events (its host read included), its bytes bound %.4f ms; its "
+          "verdicts (finite?) %s"
+          % (", ".join("%s %.2f ms (%.4fx off)" % (k, v, v / off)
+                       for k, v in parts.items()), guard_ms, guard_bound_ms,
+             verdicts), flush=True)
+    print("observe (a): the step monitor's flops_per_step %.6g (the eager "
+          "plan's cost model), PERF.md's hand count %.6g = 6 x %d product "
+          "parameters x %d tokens (%.6g) + causal attention (%.6g): %.4fx; "
+          "MFU %.4f over %.0f TFLOP/s at the on steps' mean; the monitor's "
+          "report %s" % (flops, hand + attention, products,
+                         b * cfg["seq_len"], hand, attention,
+                         flops / (hand + attention), mfu,
+                         tm.peak_flops() / 1e12, report), flush=True)
+    print("observe (a): device_peak_bytes %s == max_memory_allocated; the "
+          "merged trace: %d events, spans %s"
+          % (peak, len(trace["traceEvents"]), sorted(names)), flush=True)
+    return mod, batch, {"off_ms": got[False], "on_ms": got[True],
+                        "ratio": on / off, "parts_ms": parts,
+                        "guard_ms": guard_ms, "guard_bound_ms": guard_bound_ms,
+                        "flops": flops,
+                        "hand_flops": hand + attention, "mfu": mfu,
+                        "peak_bytes": peak}
+
+
+def obs_profile(torch, mt, mod, batch, per_step, card):
+    """(d): one step under ``profiler_set_state("run")``: the kineto trace
+    holds K1-K3's device ops inside the ``Executor.fused_step`` range."""
+    prof = mt.profiler
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.profiler_set_config(mode="all",
+                                 filename=os.path.join(tmp, "prof.json"))
+        t0 = time.perf_counter()
+        prof.profiler_set_state("run")
+        t_start = time.perf_counter() - t0
+        before = dict(mt.kernels.LAUNCHES)
+        with prof.Frame("Module.fit:step", "fit"):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        host = {k: mt.kernels.LAUNCHES[k] - before[k] for k in PS_NAMES}
+        t0 = time.perf_counter()
+        prof.profiler_set_state("stop")
+        t_stop = time.perf_counter() - t0
+        path = prof.device_trace_path()
+        check(path is not None and os.path.exists(path), "observe (d): no "
+              "torch.profiler trace was written")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        dump = prof.dump_profile()
+        with open(dump) as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"]}
+    # the range on the host (any thread: the backward's kernels launch
+    # from autograd's device thread) and its projection on the card's
+    # timeline (the launching thread's own kernels)
+    cpu = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") == "user_annotation"
+           and e.get("name") == "Executor.fused_step"]
+    gpu = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") == "gpu_user_annotation"
+           and e.get("name") == "Executor.fused_step"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    inside = {k: 0 for k in PS_NAMES}
+    on_card = {k: 0 for k in PS_NAMES}
+    for e in kernels:
+        group = device_op_group(e)
+        for k in PS_NAMES:
+            if not group.endswith(k):
+                continue
+            t = launched.get(e.get("args", {}).get("correlation"))
+            if t is not None and any(lo <= t <= hi for lo, hi in cpu):
+                inside[k] += 1
+            if any(lo <= e["ts"] < hi for lo, hi in gpu):
+                on_card[k] += 1
+    check(cpu and all(v == per_step for v in inside.values()) and
+          host == inside, "observe (d): K1-K3 device ops launched inside "
+          "the Executor.fused_step range %s (on its device range %s), host "
+          "launches %s, expected %d" % (inside, on_card, host, per_step))
+    check({"Module.fit:step", "Executor.fused_step"} <= spans,
+          "observe (d): dump_profile holds %s" % sorted(spans))
+    print("observe (d) (%s): profiler start %.2f s, stop and export %.2f s; "
+          "%d device kernels in the step, K1-K3 launched inside the "
+          "Executor.fused_step range %s (host count %s; inside its range on "
+          "the card's timeline, the main thread's: %s); dump_profile spans "
+          "%s" % (card, t_start, t_stop, len(kernels), inside, host,
+                  on_card, sorted(spans)), flush=True)
+    return {"start_s": t_start, "stop_s": t_stop, "inside": inside,
+            "on_card_range": on_card}
+
+
+def obs_bits(torch, tensors):
+    """A tensor's bits as an integer view (NaN compares equal to itself)."""
+    return [t.view(torch.int32) if t.element_size() == 4 else
+            t.view(torch.int16) for t in tensors]
+
+
+def obs_state(mod):
+    """The module's parameters and optimizer states on the card."""
+    ex = mod._exec_group.execs[0]
+    out = [ex.arg_dict[n]._data for n in mod._exec_group.param_names]
+    for idx in sorted(mod._updater.states):
+        st = mod._updater.states[idx]
+        for s in (st if isinstance(st, (list, tuple)) else [st]):
+            if s is not None:
+                out.append(s._data)
+    return out
+
+
+def obs_fit(torch, mt, net, cfg, b, optimizer, params, poison, ctx=None,
+            compute_dtype="bfloat16", watch=False, arg_params=None,
+            snapshot_every=OBS_SNAP_EVERY):
+    """``Module.fit`` over OBS_BATCHES batches under the guardian; with
+    ``poison`` a batch-end callback sets one element of the first weight
+    to NaN once, after batch OBS_POISON.  Returns (losses of the applied
+    steps by batch, the final parameters, guardian stats, the ring's
+    snapshot and rollback seconds and bytes, the skipped steps checked)."""
+    rng = np.random.RandomState(SEED + 1)
+    X = rng.randint(0, cfg["vocab_size"], size=(
+        OBS_BATCHES * b, cfg["seq_len"])).astype(np.float32)
+    it = mt.io.NDArrayIter(X, (X + 1) % cfg["vocab_size"], batch_size=b,
+                           label_name="softmax_label")
+    mod = mt.mod.Module(net, label_names=("softmax_label",), context=ctx,
+                        compute_dtype=compute_dtype)
+    mt.guardian.reset_stats()
+    losses, fired, held, checked = {}, [], [], [0]
+    timing = {"snapshot_s": [], "snapshot_bytes": [], "rollback_s": [],
+              "rollback_bytes": []}
+
+    def nbytes(snapshot):
+        return sum(v._data.numel() * v._data.element_size()
+                   for part in ("arg", "aux")
+                   for v in snapshot[part].values()) + \
+            len(snapshot["updater"] or b"")
+
+    def on_batch(param):
+        outs = mod.get_outputs()[0]
+        act = mod._guardian_action
+        if act == "ok":
+            lab = param.locals["data_batch"].label[0].asnumpy()
+            losses[param.nbatch] = lm_loss(torch, outs, lab)
+        elif watch and held:
+            # a skipped step: every parameter and state keeps its bits
+            now = obs_bits(torch, obs_state(mod))
+            check(all(torch.equal(a, c) for a, c in zip(held[0], now)),
+                  "observe (b): a %s step changed a parameter or an "
+                  "optimizer state" % act)
+            checked[0] += 1
+        if poison and not fired and param.nbatch == OBS_POISON:
+            fired.append(param.nbatch)
+            arg, aux = mod.get_params()
+            w = arg["layer0_qkv_weight"].asnumpy().copy()
+            w[0, 0] = np.nan
+            arg = dict(arg)
+            arg["layer0_qkv_weight"] = mt.nd.array(w, arg[
+                "layer0_qkv_weight"].context)
+            mod.set_params(arg, aux)
+            if watch:
+                held.append([t.clone() for t in obs_bits(
+                    torch, obs_state(mod))])
+
+    snap, roll = mod._guardian_snapshot, mod._guardian_rollback
+
+    def timed_snapshot(*a, **k):
+        t0 = time.perf_counter()
+        n = mt.guardian.stats()["snapshots"]
+        snap(*a, **k)
+        if mt.guardian.stats()["snapshots"] > n:
+            timing["snapshot_s"].append(time.perf_counter() - t0)
+            timing["snapshot_bytes"].append(nbytes(
+                mod._guardian._ring[-1][1]))
+
+    def timed_rollback(*a, **k):
+        target = mod._guardian.rollback_target(
+            lambda snapshot: snapshot.get("epoch") == 0)
+        timing["rollback_bytes"].append(nbytes(target[1]))
+        timing["rollback_nbatch"] = target[1]["nbatch"]
+        t0 = time.perf_counter()
+        out = roll(*a, **k)
+        timing["rollback_s"].append(time.perf_counter() - t0)
+        return out  # the replay's losses overwrite the poisoned batches
+
+    mod._guardian_snapshot, mod._guardian_rollback = timed_snapshot, \
+        timed_rollback
+    os.environ["MXNET_GUARDIAN_SNAPSHOT_EVERY"] = str(snapshot_every)
+    mt.random.seed(SEED)
+    mod.fit(it, num_epoch=1, optimizer=optimizer, optimizer_params=params,
+            initializer=mt.init.Xavier(factor_type="in", magnitude=2.34),
+            arg_params=arg_params, batch_end_callback=on_batch,
+            eval_metric="acc")
+    check(mod._fused_ok, "observe (b): fit did not take the fused step")
+    final = [t.clone() for t in obs_state(mod)[:len(
+        mod._exec_group.param_names)]]
+    return losses, final, mt.guardian.stats(), timing, checked[0], mod
+
+
+def obs_guardian(torch, mt, net, cfg, b, card):
+    """(b): the guardian on the fused path through ``Module.fit``: an
+    uninterrupted run, then one poisoned after batch OBS_POISON whose
+    ladder climbs skip -> re-warm -> rollback and replays."""
+    tm = mt.telemetry
+    per = {k: os.environ.get(k) for k in OBS_ENV}
+    os.environ.update(OBS_ENV)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["MXNET_TELEMETRY_POSTMORTEM_DIR"] = tmp
+            tm.enable(trace=True)
+            mt.guardian.enable()
+            t0 = time.perf_counter()
+            # no snapshot but the first (the ring's copies change no
+            # number; each full one takes seconds)
+            clean, clean_final, st0, tc, _, mod = obs_fit(
+                torch, mt, net, cfg, b, "sgd", OBS_SGD, poison=False,
+                snapshot_every=OBS_BATCHES + 1)
+            t_clean = time.perf_counter() - t0
+            del mod
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            got, final, st, tp, checked, mod = obs_fit(
+                torch, mt, net, cfg, b, "sgd", OBS_SGD, poison=True,
+                watch=True)
+            t_poisoned = time.perf_counter() - t0
+            history = [a for a, _, _ in mod._guardian.history
+                       if a != "ok"]
+            trace = tm.merged_trace()
+            post = tm.flight_recorder.last_path()
+            reason = None
+            if post:
+                with open(post) as f:
+                    reason = json.load(f)["reason"]
+            del mod
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("MXNET_TELEMETRY_POSTMORTEM_DIR", None)
+        for k, v in per.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tm.disable()
+        mt.guardian.disable()
+    check(st0["anomalies"] == 0 and st0["rollbacks"] == 0,
+          "observe (b): the uninterrupted run's guardian %s" % st0)
+    check(history == ["skip", "skip", "rewarm", "skip", "skip", "rollback"],
+          "observe (b): the ladder answered %s" % history)
+    check(st["rollbacks"] == 1 and checked == 5,
+          "observe (b): %d rollbacks, %d skipped steps checked"
+          % (st["rollbacks"], checked))
+    check(reason == "guardian-rollback", "observe (b): the rollback's "
+          "postmortem %s (%s)" % (post, reason))
+    tm.validate_trace(trace)
+    names = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+    check({"Module.fit:step", "Module.fit:epoch0",
+           "Executor.fused_step"} <= names, "observe (b): the merged trace "
+          "holds %s" % sorted(names))
+    check(sorted(got) == sorted(clean) == list(range(OBS_BATCHES)) and
+          all(got[k] == clean[k] for k in clean),
+          "observe (b): the replay's losses %s, the uninterrupted run's %s"
+          % (got, clean))
+    same = all(torch.equal(a, c) for a, c in zip(
+        obs_bits(torch, clean_final), obs_bits(torch, final)))
+    check(same, "observe (b): the replay's parameters are not the "
+          "uninterrupted run's bits")
+    nbytes = tp["rollback_bytes"][0]
+    check(tp["rollback_nbatch"] == OBS_POISON and
+          nbytes == max(tp["snapshot_bytes"]), "observe (b): the rollback "
+          "restored the snapshot of batch %s, %d bytes"
+          % (tp["rollback_nbatch"], nbytes))
+    snaps = ["%.3f s, %d bytes" % sb for sb in zip(
+        tc["snapshot_s"] + tp["snapshot_s"],
+        tc["snapshot_bytes"] + tp["snapshot_bytes"])]
+    print("observe (b) (%s): fit over %d batches of %s, SGD momentum; the "
+          "poisoned run's ladder %s, %d skipped steps held bit for bit, "
+          "the rollback %.3f s to the snapshot of batch %d, %d bytes "
+          "(%.2f GB: parameters and the pickled momentum); snapshots %s; "
+          "the replay's %d losses and every parameter the uninterrupted "
+          "run's bits; postmortem %s; fits %.1f s clean, %.1f s poisoned; "
+          "guardian %s"
+          % (card, OBS_BATCHES, (b, cfg["seq_len"]), history, checked,
+             tp["rollback_s"][0], tp["rollback_nbatch"], nbytes,
+             nbytes / 1e9, snaps, len(got), reason, t_clean, t_poisoned,
+             st), flush=True)
+    return {"rollback_s": tp["rollback_s"][0], "rollback_bytes": nbytes,
+            "snapshots": snaps,
+            "clean_losses": [clean[k] for k in sorted(clean)]}
+
+
+def obs_adam_cpu(torch, mt, card):
+    """(b) under adam, on the small LM: the ring's updater snapshot keeps
+    adam's moments but not its update counts (ROADMAP.md C), so the
+    replay is not an uninterrupted run's; the card's rolled-back run
+    matches the CPU route's."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    with mt.NameManager():
+        net = get_transformer_lm(**SMALL)
+    shape = (BATCH, SMALL["seq_len"])
+    # one numpy init for both routes, at the agree phase's float32 spread
+    init = {k[4:]: v for k, v in lm_params(
+        mt, net, {"data": shape, "softmax_label": shape},
+        np.random.default_rng(SEED + 2), AGREE[None][0]).items()}
+    per = {k: os.environ.get(k) for k in OBS_ENV}
+    os.environ.update(OBS_ENV)
+    mt.guardian.enable()
+    got = {}
+    try:
+        for where, ctx in (("card", None), ("cpu", mt.cpu())):
+            for poison in (False, True):
+                _, final, st, _, _, mod = obs_fit(
+                    torch, mt, net, SMALL, BATCH, AGREE_ADAM[0],
+                    AGREE_ADAM[1], poison, ctx=ctx, compute_dtype=None,
+                    arg_params=init)
+                got[where, poison] = ([t.cpu() for t in final], st)
+                del mod
+    finally:
+        mt.guardian.disable()
+        for k, v in per.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    gap = max((a - c).abs().max().item() for a, c in zip(
+        got["card", True][0], got["card", False][0]))
+    scale = max(c.abs().max().item() for c in got["cpu", True][0])
+    err = max((a - c).abs().max().item() for a, c in zip(
+        got["card", True][0], got["cpu", True][0])) / scale
+    check(got["card", True][1]["rollbacks"] == 1 and gap > 0,
+          "observe (b, adam): rollbacks %s, gap to the uninterrupted run %g"
+          % (got["card", True][1], gap))
+    check(err <= OBS_ADAM_TOL, "observe (b, adam): the card's rolled-back "
+          "run within %.3g of the CPU route's (tolerance %g)"
+          % (err, OBS_ADAM_TOL))
+    print("observe (b, adam) (%s): the small LM under adam, rolled back "
+          "once: its parameters %.3g (largest |difference|) from an "
+          "uninterrupted run's (update counts run on, ROADMAP.md C), and "
+          "within %.3g of the largest parameter (tolerance %g) of the CPU "
+          "route's rolled-back run" % (card, gap, err, OBS_ADAM_TOL),
+          flush=True)
+
+
+#: (c)'s fault: the exponent's top bit of one element of the second
+#: gradient the eager loop hands the fault site, the position embedding's,
+#: which every token reads.  The first, the token embedding's, is zero in
+#: every row the batch does not read, and the flip turns 0.0 into 2.0,
+#: which is no anomaly.
+OBS_FAULT = "guardian.grad:bitflip@#2"
+
+
+def obs_eager(torch, mt, card):
+    """(c): ``OBS_FAULT`` on a 2-layer LM at the full widths: the plan
+    keeps the eager loop, whose guard reads every gradient's host copy;
+    the answer is skip and nothing changes."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    cfg = dict(FULL, num_layers=2)
+    with mt.NameManager():
+        net = get_transformer_lm(**cfg)
+    batch, _ = obs_batch(mt, cfg, BATCH)
+    mt.guardian.enable()
+    mt.guardian.reset_stats()
+    mt.faults.install(mt.faults.FaultPlan(OBS_FAULT, seed=0))
+    try:
+        mt.random.seed(SEED)
+        mod = train_module(mt, net, None, (BATCH, cfg["seq_len"]),
+                           init=mt.init.Xavier(factor_type="in",
+                                               magnitude=2.34),
+                           compute_dtype="bfloat16")
+        check(not mod._fused_ok, "observe (c): a guardian.grad plan left "
+              "the fused step on")
+        mod._guardian = mt.guardian.Guardian()
+        before = [t.clone() for t in obs_bits(torch, obs_state(mod))]
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        action = mod._guardian_action
+        same = all(torch.equal(a, c) for a, c in zip(
+            before, obs_bits(torch, obs_state(mod))))
+        st = mt.guardian.stats()
+        del mod, before
+    finally:
+        mt.faults.uninstall()
+        mt.guardian.disable()
+    torch.cuda.empty_cache()
+    check(action == "skip" and same and st["anomalies"] == 1,
+          "observe (c): the eager guard answered %s, parameters unchanged "
+          "%s, stats %s" % (action, same, st))
+    print("observe (c) (%s): a 2-layer LM at the full widths, %s on the "
+          "eager path: %s, every parameter and state the same bits, "
+          "guardian %s; the step with the host guard %.1f ms"
+          % (card, OBS_FAULT, action, st, ms), flush=True)
+    return ms
+
+
+def observe_phase(torch, mt):
+    """Phase 23 (module docstring).  Returns the K1-K3 launches of the
+    phase's full-width bf16 runs."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    card = card_and_limit()
+    t_phase = time.perf_counter()
+    walls = {}
+    with mt.NameManager():
+        net = get_transformer_lm(**FULL)
+    per_step = FULL["num_layers"]
+    mt.kernels.reset_launches()
+    t0 = time.perf_counter()
+    mod, batch, cost = obs_cost(torch, mt, net, FULL, BATCH, per_step, card)
+    walls["cost"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = obs_profile(torch, mt, mod, batch, per_step, card)
+    walls["profile"] = time.perf_counter() - t0
+    del mod, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    guard = obs_guardian(torch, mt, net, FULL, BATCH, card)
+    walls["guardian"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eager_ms = obs_eager(torch, mt, card)
+    walls["eager"] = time.perf_counter() - t0
+    launches = {k: mt.kernels.LAUNCHES[k] for k in PS_NAMES}
+    t0 = time.perf_counter()
+    obs_adam_cpu(torch, mt, card)
+    walls["adam"] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    print("observe: walls %s; phase %.1f s on %s; K1-K3 launches of the "
+          "full-width runs %s" % ({k: round(v, 2) for k, v in walls.items()},
+                                  wall, card, launches), flush=True)
+    print(json.dumps({"observe": {"card": card, "cost": cost,
+                                  "profile": prof, "guardian": guard,
+                                  "eager_ms": eager_ms, "walls_s": walls,
+                                  "wall_s": wall}}, default=str), flush=True)
+    return {"bf16": {"observe": launches}}
 
 
 def device_op_group(event):
@@ -11100,6 +11885,9 @@ def main():
     torch.cuda.empty_cache()
     cc_launches, cc_rtc_launches = compile_once_phase(torch, mt)
     par_launches["f32"].update(cc_launches["f32"])
+    torch.cuda.empty_cache()
+    obs_launches = observe_phase(torch, mt)
+    par_launches["bf16"].update(obs_launches["bf16"])
     for r in rtc_rows:
         r["launches_by_path"] = {
             "extend": r["launches"],

@@ -49,8 +49,12 @@ multi-model platform: ``platform`` (``ModelSpec``, ``PlacementPlanner``
 over a ``DevicePool``, ``TenantQuotas``, ``HealthPlane``, ``ModelManager``
 with its degradation ladder, ``FrontDoor``), a subpackage loaded by
 ``import mxnet_tpu_torch.platform`` as the JAX package's is, and
-``models.get_dlrm``.  This package imports neither
-``jax`` nor ``mxnet_tpu``.
+``models.get_dlrm`` — and observability and the training guardian:
+``profiler`` (spans, and ``torch.profiler`` traces of the card),
+``telemetry`` (the tracer, the flight recorder, fleet aggregation, the
+step monitor over ``hlo_analysis``'s cost model of the eager plan) and
+``guardian`` (the fused step's guard, skip → re-warm → rollback under
+``Module.fit``).  This package imports neither ``jax`` nor ``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -95,6 +99,8 @@ from . import test_utils
 from . import image
 from . import faults
 from . import telemetry
+from . import guardian
+from . import profiler
 from . import serving
 from . import generation
 from . import parallel

@@ -10,11 +10,12 @@ Following the TVM autotuning loop (arXiv 1802.04799):
   their own tiles, so its winner sizes nothing; the key is kept so that
   bundles carry its entry) and ``fused_step`` (``executor.py``: nothing
   to choose until remat is ported, A.6b.3; it records the default);
-* the :class:`.Tuner` scores candidates with a closed-form ``score_fn``,
-  refining the top-K by CUDA-event timing (``measure_fn``) where a card
-  is present.  The JAX package's roofline proxy over XLA's cost analysis
-  (``build_fn``) raises here (``hlo_analysis`` is ROADMAP.md A.6b.1) and
-  every such candidate is logged as failed;
+* the :class:`.Tuner` scores candidates with a closed-form ``score_fn``
+  or by the roofline over the cost model of the candidate's program
+  (``build_fn``, ``hlo_analysis``: the eager plan counted on meta
+  tensors, where the JAX package reads XLA's cost analysis), refining
+  the top-K by CUDA-event timing (``measure_fn``) where a card is
+  present;
 * winners persist in the :class:`.TuningDB` — the same atomic
   CRC-checked entry format, env-envelope invalidation, and admin
   surface as the compile cache (shared :mod:`..artifact_store`

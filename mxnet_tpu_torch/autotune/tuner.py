@@ -6,10 +6,12 @@ Objective ladder (cheapest that applies wins):
 
 * ``score_fn`` — closed-form analytic cost (bucket sets: expected
   padding waste + per-bucket build cost).  No compiler involved.
-* ``build_fn`` — the JAX package's per-candidate lowering scored by the
-  roofline over XLA's cost analysis (``hlo_analysis``).  That cost model
-  is ROADMAP.md A.6b.1: here the path raises ``MXNetError``, and the
-  Tuner logs each such candidate as failed.
+* ``build_fn`` — ``(fn, abstract)`` per candidate, counted by the shared
+  :func:`mxnet_tpu_torch.hlo_analysis.lower_and_analyze` (the program run
+  once on meta tensors of the abstract shapes, every op's operations and
+  bytes counted; no card needed) and scored by the roofline bound
+  max(flops/peak, bytes/bandwidth).  The RANKING across candidates of the
+  same program tracks the roofline even where absolute times don't.
 * ``measure_fn`` — real timed execution of the top-K candidates (CUDA
   events on the card), used where CUDA is available (or where
   ``MXNET_AUTOTUNE_MEASURE=1`` forces it).  The measured winner
@@ -24,7 +26,7 @@ import json
 import time
 from typing import Callable, List, Optional
 
-from ..base import MXNetError, env
+from ..base import env
 
 __all__ = ["Tuner"]
 
@@ -69,10 +71,13 @@ class Tuner:
                 if score_fn is not None:
                     score = float(score_fn(cand))
                 elif build_fn is not None:
-                    raise MXNetError(
-                        "the roofline proxy reads XLA's cost analysis "
-                        "(hlo_analysis), which is not ported yet "
-                        "(ROADMAP.md A.6b.1); give the site a score_fn")
+                    from ..hlo_analysis import lower_and_analyze, roofline_ms
+
+                    fn, abstract = build_fn(cand)
+                    _, info = lower_and_analyze(fn, abstract)
+                    score = roofline_ms(info)
+                    if score is None:
+                        raise ValueError("no cost analysis")
                 else:
                     raise ValueError("tune() needs score_fn or build_fn")
             except Exception as exc:

@@ -52,7 +52,9 @@ def log_train_metric(period, auto_reset=False):
 class Speedometer:
     """Log samples/s every ``frequent`` batches, timed with
     ``time.monotonic()`` between callbacks (the batch-end callback runs
-    after the metric update, which waits for the step)."""
+    after the metric update, which waits for the step).  While telemetry
+    is on, the window's data-wait time (from the active StepMonitor) rides
+    along, so a starving input pipeline shows in the training log."""
 
     def __init__(self, batch_size, frequent=50, auto_reset=True):
         self.batch_size = batch_size
@@ -62,6 +64,23 @@ class Speedometer:
         self.tic = 0
         self.last_count = 0
         self.last_speed = None
+        self.last_data_wait_ms = None
+        self._wait_seen_ms = 0.0
+
+    def _data_wait_window_ms(self):
+        """Data wait accumulated since the last report, from the active
+        StepMonitor; None while telemetry is off."""
+        from . import telemetry as _tm
+
+        if not _tm.enabled():
+            return None
+        mon = _tm.current_step_monitor()
+        if mon is None:
+            return None
+        total = mon.data_wait_ms_total
+        delta = total - self._wait_seen_ms
+        self._wait_seen_ms = total
+        return max(0.0, delta)
 
     def __call__(self, param):
         count = param.nbatch
@@ -76,17 +95,20 @@ class Speedometer:
             return
         speed = self.frequent * self.batch_size / (time.monotonic() - self.tic)
         self.last_speed = speed
+        wait_ms = self._data_wait_window_ms()
+        self.last_data_wait_ms = wait_ms
+        wait_sfx = "" if wait_ms is None else "\tdata-wait=%.1f ms" % wait_ms
         if param.eval_metric is not None:
             name_value = param.eval_metric.get_name_value()
             if self.auto_reset:
                 param.eval_metric.reset()
             for name, value in name_value:
                 logging.info("Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec\t"
-                             "Train-%s=%f", param.epoch, count, speed, name,
-                             value)
+                             "Train-%s=%f%s", param.epoch, count, speed, name,
+                             value, wait_sfx)
         else:
-            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
-                         param.epoch, count, speed)
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec%s",
+                         param.epoch, count, speed, wait_sfx)
         self.tic = time.monotonic()
 
 

@@ -24,9 +24,11 @@ so the updater's kernels queue behind the backward that produced the
 gradients, and the next forward's behind them.
 
 Per-key FIFO makes the per-key update sequence identical to the
-synchronous path, so async training reaches bit-identical weights.  Left
-for later slices: ``sparse_plane`` (A.6b) and the tracer/profiler spans
-(A.6b's ``telemetry`` tracer).
+synchronous path, so async training reaches bit-identical weights.  Each
+op runs inside a profiler span named by its label (``comm.push``,
+``comm.pull_bucket``, ...) on its worker's track, and while the tracer is
+active a flow event links the submitting thread to it.  Left for a later
+slice: ``sparse_plane`` (A.6b.2, with ``sparse/``).
 """
 from __future__ import annotations
 
@@ -42,10 +44,12 @@ from typing import Dict, List
 
 import numpy as np
 
+from . import profiler as _prof
 from .base import MXNetError, register_env
 from .ndarray import NDArray
 from . import ndarray as _nd_mod
 from .kvstore import KVStore, _key_list, _val_list
+from .telemetry import tracer as _tracer
 
 __all__ = ["CommEngine", "AsyncKVStore", "CommMetrics", "make_async",
            "maybe_async"]
@@ -128,7 +132,7 @@ class CommMetrics:
 # ---------------------------------------------------------------------------
 class _Op:
     __slots__ = ("fn", "keys", "priority", "seq", "label", "nleft",
-                 "event", "exc", "cleanup")
+                 "event", "exc", "cleanup", "flow_id")
 
     def __init__(self, fn, keys, priority, seq, label, cleanup):
         self.fn = fn
@@ -140,6 +144,7 @@ class _Op:
         self.nleft = 0            # chains where a predecessor still runs
         self.event = threading.Event()
         self.exc = None
+        self.flow_id = None
 
 
 _ENGINES = weakref.WeakSet()
@@ -204,6 +209,11 @@ class CommEngine:
             if op.nleft == 0:
                 heapq.heappush(self._ready, (-op.priority, op.seq, op))
                 self._ready_cv.notify()
+        if _tracer.active():
+            # flow arrow from the submitting thread to the worker-thread
+            # span executing the op (the finish lands in _worker)
+            op.flow_id = "comm-%d-%d" % (os.getpid(), op.seq)
+            _tracer.flow_event(op.label or "comm.op", "s", op.flow_id)
         return op
 
     def outstanding(self):
@@ -220,7 +230,11 @@ class CommEngine:
                     return
                 _, _, op = heapq.heappop(self._ready)
             try:
-                op.fn()
+                with _prof.Frame(op.label or "comm.op", "comm"):
+                    if op.flow_id is not None:
+                        _tracer.flow_event(op.label or "comm.op", "f",
+                                           op.flow_id)
+                    op.fn()
             except BaseException as e:  # recorded, raised at the barrier
                 op.exc = e
             if op.cleanup is not None:

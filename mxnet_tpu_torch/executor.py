@@ -76,9 +76,29 @@ off nothing is wrapped.  ``fused_step`` consults the ``fused_step``
 autotune site once per step key; it has nothing to choose until remat is
 ported, so it records the default and the step ignores it.
 
+The training guardian's step guard (``guardian.enabled()``, part of the
+fused step's key): the step reduces finiteness over every gradient and
+floating output, and the float32 global gradient norm (an overflow counts
+as non-finite), on the device, and reads that verdict on the host once,
+before the list update (``_guard_verdict``: (ok, norm)).  A non-finite
+step skips the update and the aux write, so every parameter, optimizer
+state and aux state keeps its bits; the optimizer's update counts still
+advance, as the JAX package counts before its program runs.  Where the
+JAX package selects with a ``where`` inside one program, the port's list
+update writes in place, so the verdict is read first (a kept difference,
+ROADMAP.md C: one host read per guarded step).
+
+The cost model (``hlo_analysis``): the first build of each fused-step key
+records ``_fused_introspect`` = (``_fused``, the step as a function of its
+tensors, and their shapes), which ``telemetry.fused_cost_analysis`` counts
+on meta tensors, and sets ``_fused_new_compile`` for the step monitor.
+``fused_step``, ``forward`` and ``forward_backward`` are profiler spans
+(``Executor.fused_step``, ``Executor.forward``,
+``Executor.forward_backward``).
+
 Left out, with their reason: jit and buffer donation (PyTorch runs
-eagerly, and donation has no torch counterpart), the training guardian's
-on-device step guard and remat (``MXNET_BACKWARD_DO_MIRROR``).
+eagerly, and donation has no torch counterpart) and remat
+(``MXNET_BACKWARD_DO_MIRROR``).
 """
 from __future__ import annotations
 
@@ -86,6 +106,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from . import profiler as _prof
 from . import random as _random
 from .base import MXNetError, env
 from .context import Context
@@ -127,6 +148,34 @@ def _zip(x, y, fn):
         return ShardedTensor({c: fn(p, y.shards[c])
                               for c, p in x.shards.items()}, x.mesh, x.spec)
     return fn(x, y)
+
+
+def _guard_check(grads, outs):
+    """The guardian's step verdict, read on the host in one transfer: (every
+    gradient and floating output finite and the float32 global gradient
+    norm finite, that norm).  The norm of the squares overflows for a
+    finite but huge gradient (an exponent bit-flip), which counts as
+    non-finite, as in the JAX package.  An output is checked by its largest
+    |value| (``_foreach_norm`` at inf: one reduction per output, NaN and
+    inf propagate, nothing overflows or is allocated at its size).  On
+    meta tensors (the cost model's walk) the pass is counted and the
+    verdict is not read."""
+    dev = grads[0].device if grads else outs[0].device
+    gnorm = torch.zeros((), dtype=torch.float32, device=dev)
+    if grads:
+        norms = torch._foreach_norm([g.float() for g in grads])
+        gnorm = torch.stack([n.to(dev) for n in norms]).square().sum().sqrt()
+    checks = [gnorm]
+    floats = [o for o in outs if o.is_floating_point()]
+    if floats:
+        checks += [n.to(dev, torch.float32)
+                   for n in torch._foreach_norm(floats, float("inf"))]
+    verdict = torch.stack([torch.isfinite(torch.stack(checks)).all().float(),
+                           gnorm])
+    if verdict.is_meta:
+        return True, float("nan")
+    host = verdict.cpu()
+    return bool(host[0]), float(host[1])
 
 
 class _GraphPlan:
@@ -397,12 +446,13 @@ class Executor:
                 if k not in self._cast_exclude and v.dtype == torch.float32
                 else v for k, v in args.items()}
 
-    def _run(self, args, aux, is_train, generator, internals=None):
+    def _run(self, args, aux, is_train, generator, internals=None,
+             device=None):
         """The graph over the bound (uncast) argument tensors: on the
-        executor's device, placed by ``group2ctx``, or over the data-
-        parallel shards."""
+        executor's device (or ``device``: the cost model's meta walk),
+        placed by ``group2ctx``, or over the data-parallel shards."""
         return self._plan.run(self._cast(args), aux, is_train,
-                              self._ctx.torch_device(), generator,
+                              device or self._ctx.torch_device(), generator,
                               self._placement, self._dp, internals)
 
     def _set_data_parallel(self, contexts, batch_names, group=False):
@@ -528,6 +578,10 @@ class Executor:
         self._monitor_callback = callback
 
     def forward(self, is_train: bool = False, **kwargs):
+        with _prof.Frame("Executor.forward", "exec"):
+            return self._forward(is_train, kwargs)
+
+    def _forward(self, is_train, kwargs):
         from . import ndarray as nd
 
         self._write_inputs(kwargs)
@@ -571,22 +625,24 @@ class Executor:
                          **kwargs):
         """Forward, gradients and aux update in one call — the training
         step Module runs."""
-        self._write_inputs(kwargs)
-        self._forward_backward(out_grads, is_train, update_aux=True,
-                               set_outputs=True,
-                               generator=self._generator(remember=True))
+        with _prof.Frame("Executor.forward_backward", "exec"):
+            self._write_inputs(kwargs)
+            self._forward_backward(out_grads, is_train, update_aux=True,
+                                   set_outputs=True,
+                                   generator=self._generator(remember=True))
         return self._output_arrays
 
-    def _grads(self, diff_names, out_grads, is_train, generator):
+    def _grads(self, args, aux, diff_names, out_grads, is_train, generator,
+               device=None):
         """(outputs, new aux, {name: gradient}) of one differentiated
-        forward over the arguments ``diff_names``."""
-        leaves = {n: _map(self.arg_dict[n]._data,
-                          lambda t: t.detach().requires_grad_(True))
+        forward of the tensors ``args``/``aux`` (the bound ones, or the
+        cost model's meta tensors) over the arguments ``diff_names``."""
+        leaves = {n: _map(args[n], lambda t: t.detach().requires_grad_(True))
                   for n in diff_names}
-        args = {k: leaves.get(k, v._data) for k, v in self.arg_dict.items()}
-        aux = {k: v._data for k, v in self.aux_dict.items()}
+        args = {k: leaves.get(k, v) for k, v in args.items()}
         with torch.enable_grad():
-            outs, new_aux = self._run(args, aux, is_train, generator)
+            outs, new_aux = self._run(args, aux, is_train, generator,
+                                      device=device)
         if out_grads is None:
             ogs = [None] * len(outs)
         elif isinstance(out_grads, (list, tuple)):
@@ -617,10 +673,6 @@ class Executor:
             self._grad_hook(grads)
         return [o.detach() for o in outs], new_aux, grads
 
-    def _grads_of(self, args, aux, **kw):
-        """``_grads`` as a compile-cache call (the bound tensors key it)."""
-        return self._grads(**kw)
-
     def _forward_backward(self, out_grads, is_train, update_aux, set_outputs,
                           generator):
         from . import ndarray as nd
@@ -634,7 +686,7 @@ class Executor:
             return
         outs, new_aux, grads = self._cached(
             "fwdbwd", ("fwdbwd", is_train, tuple(diff_names)),
-            self._grads_of)(*self._bound(), diff_names=diff_names,
+            self._grads)(*self._bound(), diff_names=diff_names,
                             out_grads=out_grads, is_train=is_train,
                             generator=generator)
         for name in diff_names:
@@ -662,13 +714,69 @@ class Executor:
         float32 parameters and optimizer states in place.
         ``param_names`` gives the updater's index space (position ==
         index), as Module wires it."""
-        key = ("fused", type(optimizer).__name__, tuple(param_names))
-        if key not in self._fused_sites:  # the site, once per step's key
+        from . import guardian as _guardian
+
+        guard = _guardian.enabled()
+        key = ("fused", type(optimizer).__name__, tuple(param_names),
+               ("guard", int(guard)))
+        first_build = key not in self._fused_sites
+        if first_build:  # the site, once per step's key
             self._fused_sites.add(key)
             self._autotune_fused(key)
-        return self._cached("fused", key, self._fused)(
-            *self._bound(), optimizer=optimizer, updater=updater,
-            param_names=param_names)
+        infos = []
+        for idx, name in enumerate(param_names):
+            if self._grad_req.get(name, "null") == "null":
+                continue
+            if self._grad_req[name] == "add":
+                raise MXNetError("fused_step: grad_req 'add' for %s; use "
+                                 "forward_backward and the updater" % name)
+            if idx not in updater.states:
+                updater.states[idx] = _new_state(optimizer, idx,
+                                                 self.arg_dict[name])
+            infos.append((name, idx))
+            optimizer._update_count(idx)
+        states = [_tensors(updater.states[idx]) for _, idx in infos]
+        step = dict(optimizer=optimizer, infos=infos,
+                    t=optimizer.num_update, guard=guard)
+        with _prof.Frame("Executor.fused_step", "exec"):
+            outs, new_aux, verdict = self._cached("fused", key, self._fused)(
+                *self._bound(), states=states,
+                generator=self._generator(remember=True), **step)
+            self._guard_verdict = verdict
+            if verdict is None or verdict[0]:
+                self._store_aux(new_aux)
+            # a poisoned step writes nothing but its outputs
+            self._set_outputs(outs)
+        if first_build:
+            # what the cost model counts, once per key; the step monitor
+            # consumes the flag
+            self._fused_introspect = self._fused_abstract(states, step)
+            self._fused_new_compile = True
+        return self._output_arrays
+
+    def _fused_abstract(self, states, step):
+        """(fn, abstract) of the fused step for
+        ``hlo_analysis.lower_and_analyze``: ``_fused`` itself over meta
+        tensors of the bound arguments, aux and optimizer states.  (None,
+        None) where the walk is placed or partitioned over several
+        contexts, or a hook reads the gradients."""
+        if self._placement or self._dp is not None or \
+                self._grad_hook is not None:
+            return None, None
+        from functools import partial
+
+        from .hlo_analysis import TensorSpec
+
+        def specs(x):
+            if isinstance(x, dict):
+                return {k: specs(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(specs(v) for v in x)
+            return x if x is None else TensorSpec(x.shape, x.dtype)
+
+        args, aux = self._bound()
+        return (partial(self._fused, device=torch.device("meta"), **step),
+                (specs(args), specs(aux), specs(states)))
 
     def _autotune_fused(self, stable_key):
         """Consult the ``fused_step`` site for this step (autotune on).  Its
@@ -707,33 +815,29 @@ class Executor:
         except Exception:
             return None
 
-    def _fused(self, args, aux, optimizer, updater, param_names):
-        infos = []
-        for idx, name in enumerate(param_names):
-            if self._grad_req.get(name, "null") == "null":
-                continue
-            if self._grad_req[name] == "add":
-                raise MXNetError("fused_step: grad_req 'add' for %s; use "
-                                 "forward_backward and the updater" % name)
-            if idx not in updater.states:
-                updater.states[idx] = _new_state(optimizer, idx,
-                                                 self.arg_dict[name])
-            infos.append((name, idx))
-            optimizer._update_count(idx)
-        t = optimizer.num_update
-        outs, new_aux, grads = self._grads([n for n, _ in infos], None, True,
-                                           self._generator(remember=True))
+    def _fused(self, args, aux, states, optimizer, infos, t, guard=False,
+               generator=None, device=None):
+        """The fused step as a function of its tensors: the forward and
+        backward of ``args``/``aux`` and one list update of the parameters
+        ``infos`` names ((name, updater index)) and their ``states``, in
+        place.  Returns (outputs, new aux, the guard's verdict or None);
+        under the guard a non-finite step updates nothing."""
+        outs, new_aux, grads = self._grads(
+            args, aux, [n for n, _ in infos], None, True, generator, device)
+        verdict = None
+        if guard:
+            verdict = _guard_check(
+                [g for name, _ in infos for _, g in _items(grads[name])],
+                outs)
+            if not verdict[0]:
+                return outs, new_aux, verdict
         # one list update over every array; the gradients are this step's
         # own, so the update may use them as scratch
         optimizer.update_tensors_list(
-            [idx for _, idx in infos],
-            [self.arg_dict[name]._data for name, _ in infos],
-            [grads.pop(name) for name, _ in infos],
-            [_tensors(updater.states[idx]) for _, idx in infos],
+            [idx for _, idx in infos], [args[name] for name, _ in infos],
+            [grads.pop(name) for name, _ in infos], states,
             [t] * len(infos), owned_grads=True)
-        self._store_aux(new_aux)
-        self._set_outputs(outs)
-        return self._output_arrays
+        return outs, new_aux, verdict
 
     # ------------------------------------------------------------------
     def copy_params_from(self, arg_params, aux_params=None,

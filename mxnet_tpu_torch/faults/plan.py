@@ -216,9 +216,14 @@ class FaultPlan:
                     "injected I/O error at %s (call #%d, seed %d)"
                     % (op, n, self.seed))
             elif rule.kind == "kill":
-                # the JAX package dumps its flight recorder here first;
-                # the port's telemetry has no flight recorder yet
-                # (ROADMAP.md A.6)
+                try:
+                    # flight recorder: leave postmortem evidence of the
+                    # victim's last spans/events before the hard exit
+                    from .. import telemetry as _tm
+
+                    _tm.flight_recorder.dump("fault-kill:%s" % op)
+                except Exception:
+                    pass
                 os._exit(137)
             # 'partial' and the corrupt kinds intentionally inert in
             # fire() — polled by their instrumented sites instead

@@ -19,6 +19,7 @@ import gzip
 import queue
 import struct
 import threading
+import time
 
 import numpy as np
 
@@ -288,6 +289,10 @@ class ResizeIter(DataIter):
         self.cur = int(state["cur"])
 
 
+#: the global registry's prefetch instruments, made on first use while
+#: telemetry is on (telemetry._reset_for_tests drops them)
+_PREFETCH_TELEM = None
+
 #: queue item marking a source iterator's end of epoch
 _END_OF_EPOCH = object()
 
@@ -301,9 +306,9 @@ class PrefetchingIter(DataIter):
     A source's exception reaches the consumer; sources that end at
     different batch counts raise.  ``reset`` stops the workers, resets the
     sources and starts the workers again; ``close`` (or leaving a ``with``
-    block) stops them for good, until a ``reset``.  The JAX package's
-    telemetry hooks (starvation time, queue occupancy) wait for the port of
-    ``telemetry/``."""
+    block) stops them for good, until a ``reset``.  While telemetry is on,
+    each pop records the time the consumer blocked on empty queues, the
+    queues' fill and the batch count (``mxtpu_prefetch_*``)."""
 
     def __init__(self, iters, rename_data=None, rename_label=None,
                  prefetch_depth=2):
@@ -441,10 +446,41 @@ class PrefetchingIter(DataIter):
         self._exhausted = False
         self._spin_up()
 
+    @staticmethod
+    def _prefetch_metrics():
+        """Lazy global-registry instruments shared by all prefetchers."""
+        global _PREFETCH_TELEM
+        if _PREFETCH_TELEM is None:
+            from . import telemetry as _tm
+
+            reg = _tm.registry()
+            _PREFETCH_TELEM = {
+                "starved_ms": reg.counter(
+                    "mxtpu_prefetch_starvation_ms_total",
+                    "Time the consumer blocked on empty prefetch queues."),
+                "occupancy": reg.histogram(
+                    "mxtpu_prefetch_queue_occupancy",
+                    "Prefetch queue fill observed at each batch pop.",
+                    start=1.0, factor=2.0, count=8),
+                "batches": reg.counter("mxtpu_prefetch_batches_total",
+                                       "Batches popped from the pipeline."),
+            }
+        return _PREFETCH_TELEM
+
     def iter_next(self):
         if self._exhausted:  # the workers are gone
             return False
-        parts = [q.get() for q in self._queues]
+        from . import telemetry as _tm
+
+        if _tm.enabled():
+            m = self._prefetch_metrics()
+            m["occupancy"].observe(sum(q.qsize() for q in self._queues))
+            t0 = time.monotonic()
+            parts = [q.get() for q in self._queues]
+            m["starved_ms"].inc((time.monotonic() - t0) * 1e3)
+        else:
+            m = None
+            parts = [q.get() for q in self._queues]
         for p in parts:
             if isinstance(p, Exception):
                 raise p
@@ -455,6 +491,8 @@ class PrefetchingIter(DataIter):
                     "prefetch sources ended at different batch counts")
             self._exhausted = True
             return False
+        if m is not None:  # the end-of-epoch pop is not a batch
+            m["batches"].inc()
         self._consumed += 1
         first = parts[0]
         if any(p.pad != first.pad for p in parts):

@@ -706,6 +706,14 @@ def install_preemption_handler(kv, checkpoint_fn=None, sig=None,
                 leave()
             except Exception as e:
                 logging.warning("preemption leave failed: %s", e)
+        try:
+            # flight recorder: the postmortem is the only record of this
+            # process's final state once we _exit (no atexit hooks run)
+            from . import telemetry as _tm
+
+            _tm.flight_recorder.dump("preemption-sigterm")
+        except Exception:
+            pass
         if exit_process:
             os._exit(0)
 

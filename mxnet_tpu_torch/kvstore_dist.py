@@ -19,6 +19,7 @@ worker degrades to local semantics without a process group.
 """
 from __future__ import annotations
 
+import atexit
 import logging
 import os
 import sys
@@ -145,6 +146,20 @@ def all_gather_rows(x):
     return torch.cat(parts).to(x.device, x.dtype)
 
 
+def _stop_heartbeat():
+    """Stop and join the liveness beat before the interpreter tears down.
+    A beat left inside the store's C++ client at shutdown aborts the
+    process (``terminate called without an active exception``), and the
+    store's host, rank 0, may already have left after the last barrier."""
+    hb = DistSyncKVStore._hb_thread
+    if hb is None:
+        return
+    t, stop = hb
+    stop.set()
+    t.join(timeout=30)
+    DistSyncKVStore._hb_thread = None
+
+
 class DistSyncKVStore(KVStore):
     """Synchronous multi-worker store: ``init`` takes rank 0's value
     (broadcast), ``push`` sums the local values, then across all workers
@@ -245,6 +260,7 @@ class DistSyncKVStore(KVStore):
                              name="kv-heartbeat")
         t.start()
         DistSyncKVStore._hb_thread = (t, stop)
+        atexit.register(_stop_heartbeat)
 
     def get_num_dead_node(self, node_id=0, timeout=None):
         """Count workers whose heartbeat counter has stopped advancing for

@@ -22,12 +22,17 @@ Bootstrap parity with python/mxnet/kvstore_server.py:11-58: importing
 ``mxnet_tpu_torch`` in a process whose ``DMLC_ROLE=server`` serves and
 exits when a stop command arrives.
 
-Not ported yet: the sparse row plane (``init_table``/``push_rows``/
-``pull_rows``/``table_info``/``set_sparse_optimizer`` answer an error
-naming slice A.6b, which brings ``sparse/``), the tracer's spans and flow
-events, and the flight recorder's dumps (A.6b's telemetry).  Snapshots hold
-this package's classes (the updater pickles the port's optimizer), so
-neither package restores the other's.
+While telemetry is on, a client stamps a trace context into each request
+envelope (its 5th field, as the JAX client does) and opens a
+``kv.client.<cmd>`` span that starts a flow; the server's handler span
+``kv.rpc.<cmd>`` carries the same trace id and finishes the flow, so a
+merged fleet trace links them.  A membership eviction leaves a flight-
+recorder postmortem.  Not ported yet: the sparse row plane
+(``init_table``/``push_rows``/``pull_rows``/``table_info``/
+``set_sparse_optimizer`` answer an error naming slice A.6b, which brings
+``sparse/``; ROADMAP.md A.6b.2).  Snapshots hold this package's classes
+(the updater pickles the port's optimizer), so neither package restores
+the other's.
 
 .. warning:: **Trust model** — same as the reference's ps-lite: the wire
    format is unauthenticated pickles, so any peer that can connect to the
@@ -60,12 +65,14 @@ import torch
 from . import faults
 from . import ndarray as nd
 from . import optimizer as opt
+from . import profiler as _prof
 from . import telemetry as _telemetry
 from .base import MXNetError
 from .base import env as _env
 from .base import register_env
 from .context import Context, current_context
 from .filesystem import atomic_write, verify_crc_sidecar
+from .telemetry import tracer
 
 __all__ = ["KVStoreServer", "start_server", "ServerClient",
            "KVStoreConnectionError", "NonFiniteGradientError"]
@@ -435,26 +442,27 @@ class KVStoreServer:
                         msg = _recv_msg(sock, op="kv.server.recv")
                         if isinstance(msg, tuple) and msg and \
                                 msg[0] == "req":
-                            # slot 4, the trace context of a telemetry-
-                            # enabled client, is accepted and not read
+                            # slot 4: the trace context of a telemetry-
+                            # enabled client
                             cid, seq, inner = msg[1], msg[2], msg[3]
+                            ctx = msg[4] if len(msg) > 4 else None
                             wrapped = True
                         else:
-                            cid, seq, inner = None, None, msg
+                            cid, seq, inner, ctx = None, None, msg, None
                             wrapped = False
                         if wrapped and inner[0] == "barrier":
                             # a barrier parks; serve it off-thread so the
                             # pipelined requests behind it keep flowing
-                            def run(cid=cid, seq=seq, inner=inner):
+                            def run(cid=cid, seq=seq, inner=inner, ctx=ctx):
                                 try:
                                     respond(True, seq, server_self.
-                                            _serve_one(cid, seq, inner))
+                                            _serve_one(cid, seq, inner, ctx))
                                 except (ConnectionError, OSError):
                                     pass
 
                             threading.Thread(target=run, daemon=True).start()
                             continue
-                        reply = server_self._serve_one(cid, seq, inner)
+                        reply = server_self._serve_one(cid, seq, inner, ctx)
                         respond(wrapped, seq, reply)
                         if inner[0] == "stop":
                             break
@@ -480,13 +488,14 @@ class KVStoreServer:
             self._evict_thread.start()
 
     # -- idempotent request admission --------------------------------------
-    def _serve_one(self, cid, seq, msg):
+    def _serve_one(self, cid, seq, msg, ctx=None):
         """Dispatch one request, deduplicating retries by (cid, seq).  A
         replayed token returns the recorded reply (waiting out a still-
         running original, e.g. a barrier whose connection died while
-        parked) without running the command again."""
+        parked) without running the command again.  ``ctx`` is the
+        envelope's trace context, if any."""
         if cid is None:
-            return self._dispatch_timed(msg)
+            return self._dispatch_timed(msg, ctx)
         with self._dedup_cv:
             rec = self._dedup.setdefault(
                 cid, {"floor": 0, "window": OrderedDict()})
@@ -502,7 +511,7 @@ class KVStoreServer:
                         % (seq, rec["floor"], cid))
             ent = {"done": False, "reply": None}
             rec["window"][seq] = ent
-        reply = self._dispatch_timed(msg)
+        reply = self._dispatch_timed(msg, ctx)
         with self._dedup_cv:
             if rec["window"].get(seq) is ent:
                 ent["reply"] = reply
@@ -533,16 +542,29 @@ class KVStoreServer:
         except Exception as e:  # keep serving; tell the client
             return ("err", "%s: %s" % (type(e).__name__, e))
 
-    def _dispatch_timed(self, msg):
+    def _dispatch_timed(self, msg, ctx=None):
         """_dispatch_safe plus telemetry (off: one bool read): the RPC
-        latency histograms, overall and per command, and the per-command
-        counter."""
+        latency histograms, overall and per command, the per-command
+        counter, and a span on the merged trace carrying the envelope's
+        trace context, so the handler span shares the client span's trace
+        id."""
         if not _telemetry.enabled():
             return self._dispatch_safe(msg)
         cmd = msg[0] if isinstance(msg, tuple) and msg else "?"
         m = _srv_metrics()
+        args = None
+        if ctx:
+            trace = ctx.get("trace")
+            args = {"trace": trace,
+                    "src": "%s%s" % (ctx.get("role", "?"),
+                                     ctx.get("rank", "?"))}
+            if trace is not None:
+                # finish the flow the client started: the merged fleet
+                # trace draws the arrow client span -> this handler span
+                tracer.flow_event("kv.rpc", "f", trace)
         t0 = time.perf_counter()
-        reply = self._dispatch_safe(msg)
+        with _prof.Frame("kv.rpc.%s" % cmd, "kvserver", args=args):
+            reply = self._dispatch_safe(msg)
         dur_ms = (time.perf_counter() - t0) * 1e3
         m["rpc_ms"].observe(dur_ms)
         _cmd_hist(m, cmd).observe(dur_ms)
@@ -943,6 +965,14 @@ class KVStoreServer:
                     r, gen, ranks_now, reason=reason)
             logging.info("kvstore membership: %s — rank(s) %s removed "
                          "(gen %d, live %s)", reason, gone, gen, ranks_now)
+            if reason != "leave" and _telemetry.enabled():
+                # an eviction is a death the victim could not report: the
+                # server's flight recorder keeps the evidence (round state,
+                # membership events, recent spans)
+                _telemetry.flight_recorder.dump(
+                    "evict:%s" % reason,
+                    extra={"evicted": gone, "gen": gen,
+                           "live": ranks_now})
         return gen
 
     def _note_membership(self, kind, rank, gen, ranks, reason=None):
@@ -1233,16 +1263,20 @@ class ServerClient:
             except OSError:
                 pass
 
-    def _submit(self, msg, retries=None):
+    def _submit(self, msg, retries=None, ctx=None):
         """Register an in-flight entry and send its envelope; returns the
         entry whose ``event`` fires when the reply (or failure) lands.
-        Non-blocking beyond the socket write: the pipelining primitive."""
+        Non-blocking beyond the socket write: the pipelining primitive.
+        ``ctx`` (telemetry on only) rides as the envelope's 5th field, so
+        a replay carries the same trace id."""
         with self._state_cv:
             if self._closed:
                 raise ConnectionError("ServerClient is closed")
             self._seq += 1
             seq = self._seq
-            ent = {"seq": seq, "env": ("req", self._cid, seq, msg),
+            env = ("req", self._cid, seq, msg) if ctx is None \
+                else ("req", self._cid, seq, msg, ctx)
+            ent = {"seq": seq, "env": env,
                    "event": threading.Event(), "reply": None, "exc": None,
                    "retries": retries, "replays": 0}
             self._inflight[seq] = ent
@@ -1367,8 +1401,20 @@ class ServerClient:
     def _rpc(self, *msg, **kw):
         if self._closed:
             raise ConnectionError("ServerClient is closed")
-        ent = self._submit(msg, retries=kw.get("retries"))
-        ent["event"].wait()
+        if not _telemetry.enabled():
+            # hot path: one bool read, the 4-element envelope, no spans
+            ent = self._submit(msg, retries=kw.get("retries"))
+            ent["event"].wait()
+        else:
+            # distributed tracing: a trace context in the envelope, a
+            # client span (the whole round trip) carrying the same trace
+            # id, and a flow the server's handler span finishes
+            ctx = _telemetry.distributed.new_trace_ctx(self._cid[:8])
+            with _prof.Frame("kv.client.%s" % msg[0], "kvclient",
+                             args={"trace": ctx["trace"]}):
+                tracer.flow_event("kv.rpc", "s", ctx["trace"])
+                ent = self._submit(msg, retries=kw.get("retries"), ctx=ctx)
+                ent["event"].wait()
         if ent["exc"] is not None:
             raise ent["exc"]
         return _unwrap(ent["reply"])

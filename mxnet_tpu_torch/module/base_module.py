@@ -1,7 +1,16 @@
 """BaseModule — the abstract training interface and the fit loop;
 counterpart of ``mxnet_tpu/module/base_module.py`` (``fit``, ``score``,
-``predict``, ``forward_backward``).  The training guardian's snapshot ring
-and rollback, and the telemetry hooks, are not ported."""
+``predict``, ``forward_backward``).
+
+``fit`` draws each epoch and each step as a profiler span
+(``Module.fit:epoch<N>``, ``Module.fit:step``), measures the time it
+blocks on the iterator while telemetry is on (the step monitor's data
+wait), and under the training guardian (``guardian.enabled()``) offers a
+last-good snapshot at the guardian's cadence and at each epoch start
+(parameters, aux states, the updater's states, the random state and the
+iterator's position captured before the batch's fetch) and answers a
+``rollback`` by restoring the newest snapshot of the epoch and replaying
+from its batch."""
 from __future__ import annotations
 
 import logging
@@ -146,21 +155,72 @@ class BaseModule:
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
 
+        from .. import guardian as _guardian_mod
+        from .. import profiler as _prof
+        from .. import telemetry as _telemetry
+
+        guardian = _guardian_mod.Guardian() if _guardian_mod.enabled() \
+            else None
+        self._guardian = guardian
+
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
-                if monitor is not None:
-                    monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                if monitor is not None:
-                    monitor.toc_print()
-                for callback in _as_list(batch_end_callback):
-                    callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric,
-                                           locals=locals()))
+            data_iter = iter(train_data)
+            nbatch = 0
+            with _prof.Frame("Module.fit:epoch%d" % epoch, "fit"):
+                while True:
+                    # the iterator's cursor is captured BEFORE the fetch
+                    # (a rollback replays the batch about to run) but the
+                    # snapshot is committed only after the fetch succeeds;
+                    # forced at each epoch start, since replaying across an
+                    # epoch boundary would re-apply the prior epoch's tail
+                    snap_force = guardian is not None and nbatch == 0
+                    snap_due = guardian is not None and \
+                        (snap_force or guardian.snapshot_due())
+                    snap_iter = None
+                    if snap_due:
+                        try:
+                            snap_iter = train_data.state_dict()
+                        except (NotImplementedError, ValueError,
+                                AttributeError):
+                            pass  # the replay reads on from the live cursor
+                    # data wait: time blocked on the iterator, measured only
+                    # while telemetry is on
+                    t_fetch = time.monotonic() if _telemetry.enabled() \
+                        else None
+                    try:
+                        data_batch = next(data_iter)
+                    except StopIteration:
+                        break
+                    mon = getattr(self, "_telemetry_monitor", None)
+                    if t_fetch is not None and mon is not None:
+                        mon().note_data_wait(time.monotonic() - t_fetch)
+                    if snap_due:
+                        self._guardian_snapshot(guardian, snap_iter, epoch,
+                                                nbatch, force=snap_force)
+                    if monitor is not None:
+                        monitor.tic()
+                    with _prof.Frame("Module.fit:step", "fit"):
+                        self.forward_backward(data_batch)
+                        self.update()
+                    if guardian is not None and \
+                            getattr(self, "_guardian_action", "ok") == \
+                            "rollback":
+                        # parameters, updater, random state and iterator
+                        # all rolled back: the replayed steps are those of
+                        # an uncorrupted run
+                        nbatch = self._guardian_rollback(guardian,
+                                                         train_data, epoch)
+                        continue
+                    self.update_metric(eval_metric, data_batch.label)
+                    if monitor is not None:
+                        monitor.toc_print()
+                    for callback in _as_list(batch_end_callback):
+                        callback(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                               eval_metric=eval_metric,
+                                               locals=locals()))
+                    nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -178,6 +238,65 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    # ------------------------------------------------------------------
+    # guardian: last-good retention ring + rollback-and-replay
+    # ------------------------------------------------------------------
+    def _guardian_snapshot(self, guardian, iter_state, epoch, nbatch,
+                           force=False):
+        """Offer a last-good ring snapshot before this batch runs
+        (``iter_state`` was captured before the fetch, so it replays this
+        very batch).  The capture runs only on the batches the guardian
+        elects (every MXNET_GUARDIAN_SNAPSHOT_EVERY applied steps plus each
+        epoch start, never while anomalies are live): it copies every
+        parameter."""
+
+        def capture():
+            from .. import random as _random
+
+            arg_params, aux_params = self.get_params()
+            snap = {"arg": {k: v.copy() for k, v in arg_params.items()},
+                    "aux": {k: v.copy() for k, v in aux_params.items()},
+                    "rng": _random.get_state(),
+                    "epoch": epoch, "nbatch": nbatch,
+                    "updater": None, "iter": iter_state}
+            upd = getattr(self, "_updater", None)
+            if upd is not None:
+                snap["updater"] = upd.get_states()
+            return snap
+
+        guardian.offer_snapshot(capture, force=force)
+
+    def _guardian_rollback(self, guardian, train_data, epoch):
+        """Restore the newest ring snapshot from the current epoch —
+        parameters, updater states, the random state and the iterator's
+        position — so fit replays from last-good.  Returns the restored
+        nbatch.  Raises GuardianAbort when the rollback budget is spent or
+        no snapshot of the epoch was retained."""
+        from .. import guardian as _guardian_mod
+        from .. import random as _random
+
+        target = guardian.rollback_target(
+            lambda snap: snap.get("epoch") == epoch)
+        guardian.note_rollback(
+            to_step=target[0] if target is not None else None)
+        if target is None:
+            raise _guardian_mod.GuardianAbort(
+                "guardian must roll back but the last-good ring holds no "
+                "snapshot from the current epoch")
+        snap = target[1]
+        self.set_params(snap["arg"], snap["aux"])
+        upd = getattr(self, "_updater", None)
+        if upd is not None and snap["updater"] is not None:
+            upd.set_states(snap["updater"])
+        _random.set_state(snap["rng"])
+        if snap["iter"] is not None:
+            train_data.set_state(snap["iter"])
+        self._guardian_action = "ok"
+        self.logger.info(
+            "guardian: rolled back to last-good snapshot "
+            "(epoch %d, batch %d)", snap["epoch"], snap["nbatch"])
+        return snap["nbatch"]
 
     # ------------------------------------------------------------------
     # symbol / params

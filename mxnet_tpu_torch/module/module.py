@@ -23,17 +23,29 @@ update itself.  ``bind(mesh=, partition_rules=)`` (or
 on a named mesh by regex rules (``sharding``): the update then runs inside
 the fused step over the parameters' pieces and a store passed in is a
 facade.  ``BucketingModule`` binds one Module per bucket over the default
-bucket's (``shared_module``).  Left out: the guardian and the step
-monitor's telemetry.
+bucket's (``shared_module``).
+
+Telemetry (``MXNET_TELEMETRY``): a ``StepMonitor`` per module, built on
+first use, takes each step's begin (and input signature, the recompile
+detector), end and batch size, and one cost count per new fused-step key.
+The training guardian (``fit`` sets ``_guardian``): on the fused path the
+step's own guard skips a poisoned update and its verdict feeds the
+guardian's ladder (``_guardian_action``); on the eager path
+``_guardian_observe_eager`` checks the host copies of the gradients, and
+a fault plan that targets ``guardian.grad`` corrupts them first, so such
+a plan turns the fused step off.
 """
 from __future__ import annotations
 
 import logging
 import os
 
+import numpy as np
+
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from .. import optimizer as opt
+from .. import telemetry as _telemetry
 from ..base import MXNetError
 from ..initializer import InitDesc, Uniform
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
@@ -96,6 +108,9 @@ class Module(BaseModule):
         self._label_shapes = None
         self._fused_ok = False
         self._fused_pending = None
+        self._tm_mon = None  # telemetry.StepMonitor, created when enabled
+        self._guardian = None  # the guardian fit runs under, if any
+        self._guardian_action = "ok"
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -269,6 +284,8 @@ class Module(BaseModule):
             self._fixed_param_names, grad_req, state_names=self._state_names,
             compute_dtype=self._compute_dtype, dist_mesh=self._dist_mesh,
             mesh=mesh, partition_rules=partition_rules)
+        if _telemetry.enabled() and self._exec_group._mesh is not None:
+            self._telemetry_monitor().note_mesh(self._exec_group._mesh)
         if shared_module is not None:
             self.params_initialized = True
             self._arg_params = shared_module._arg_params
@@ -396,7 +413,17 @@ class Module(BaseModule):
         """Whether update() runs forward, backward and the optimizer as one
         ``Executor.fused_step``: the replicated updater without a store
         round trip, a list update rule, plain grad_req 'write', and no
-        monitor (which reads every tensor of the forward)."""
+        monitor (which reads every tensor of the forward).  A fault plan
+        that corrupts ``guardian.grad`` rewrites host-visible gradients,
+        which the fused step never has: such a plan keeps the eager loop.
+        ``MXNET_FUSED_STEP=0`` is the escape hatch back to it."""
+        from .. import faults as _faults
+        from ..base import env
+
+        if env("MXNET_FUSED_STEP", "1", str) == "0":
+            return False
+        if _faults.targets_corruption("guardian.grad"):
+            return False
         if self._update_on_kvstore or self._updater is None:
             return False
         if self._kvstore is not None and "dist" in self._kvstore.type \
@@ -442,10 +469,22 @@ class Module(BaseModule):
         self._flush_fused_pending()
         self._exec_group.backward(out_grads=out_grads)
 
+    def _telemetry_monitor(self):
+        """Per-module StepMonitor, created on first use; callers must gate
+        on ``telemetry.enabled()`` so the off path allocates nothing."""
+        if self._tm_mon is None:
+            self._tm_mon = _telemetry.StepMonitor(
+                _telemetry, device=self._context[0].torch_device())
+        return self._tm_mon
+
     def forward_backward(self, data_batch):
         """Forward and backward of one batch; on the fused path the batch
         waits for update(), which runs it with the optimizer."""
         assert self.binded and self.params_initialized
+        if _telemetry.enabled():
+            mon = self._telemetry_monitor()
+            mon.step_begin()
+            mon.note_batch(data_batch)  # recompile fingerprint
         if self._fused_ok and self.optimizer_initialized:
             self._flush_fused_pending()
             self._fused_pending = data_batch
@@ -465,10 +504,34 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
+        self._guardian_action = "ok"
         if self._fused_pending is not None:
             batch, self._fused_pending = self._fused_pending, None
             self._exec_group.fused_step(batch, self._optimizer, self._updater)
+            g = self._guardian
+            if g is not None and self._exec_group.execs:
+                # the step's guard already skipped a poisoned update; its
+                # verdict (read on the host by the step) feeds the ladder
+                verdict = getattr(self._exec_group.execs[0],
+                                  "_guard_verdict", None)
+                if verdict is not None:
+                    ok, gnorm = verdict
+                    self._guardian_action = g.observe(finite=ok,
+                                                      gnorm=gnorm)
+            if _telemetry.enabled():
+                self._telemetry_step_end()
             return
+        from .. import faults as _faults
+
+        if _faults.targets_corruption("guardian.grad"):
+            self._corrupt_grads()
+        self._update_eager()
+        if _telemetry.enabled():
+            self._telemetry_step_end()
+
+    def _update_eager(self):
+        """The eager update: through the store, or the updater over the
+        gradients unless the guardian answers an anomaly."""
         if self._update_on_kvstore:
             # pushes go out in backward order with priority=-index; the
             # wait is deferred so an async store overlaps its traffic with
@@ -484,9 +547,66 @@ class Module(BaseModule):
         # must not reduce them again
         kv = None if self._exec_group._multiprocess or \
             self._exec_group._rules is not None else self._kvstore
+        if self._guardian_observe_eager() != "ok":
+            # anomalous batch: parameters and updater state untouched —
+            # the eager path's counterpart of the fused guard's skip
+            return
         _update_params(self._exec_group.param_arrays,
                        self._exec_group.grad_arrays, updater=self._updater,
                        num_device=1, kvstore=kv)
+
+    def _each_grad(self):
+        for arr in self._exec_group.grad_arrays:
+            for a in (arr if isinstance(arr, list) else [arr]):
+                if a is not None:
+                    yield a
+
+    def _corrupt_grads(self):
+        """Run every host-visible gradient past the fault plan's corrupt
+        hook (nan/bitflip kinds on the ``guardian.grad`` op); an armed rule
+        rewrites the chosen element in place.  Reached only when a plan
+        targets corruption, so the normal path never copies gradients to
+        the host."""
+        from .. import faults as _faults
+
+        for a in self._each_grad():
+            before = a.asnumpy()
+            after = _faults.corrupt("guardian.grad", before)
+            if after is not before:
+                a[:] = after
+
+    def _guardian_observe_eager(self):
+        """Host-side guard for the eager update path: finiteness + global
+        grad-norm over every gradient, fed to the guardian's response
+        ladder.  Returns the action ("ok" = apply this batch)."""
+        g = self._guardian
+        if g is None:
+            return "ok"
+        finite = True
+        # accumulate the norm in float32, as the fused guard does: a
+        # finite-but-huge corruption (exponent bit-flip ~1e38) overflows
+        # the square-sum and reads as non-finite right here
+        sq = np.float32(0)
+        with np.errstate(over="ignore"):  # overflow IS the signal
+            for a in self._each_grad():
+                v = np.asarray(a.asnumpy(), dtype=np.float32)
+                if not np.all(np.isfinite(v)):
+                    finite = False
+                    break
+                sq += np.sum(np.square(v))
+        gnorm = float(np.sqrt(sq)) if finite else float("inf")
+        self._guardian_action = g.observe(finite=finite, gnorm=gnorm)
+        return self._guardian_action
+
+    def _telemetry_step_end(self):
+        """Close the step: batch size, wall time, and — on the first build
+        of a fused-step key — one cost count for MFU."""
+        mon = self._telemetry_monitor()
+        ex = self._exec_group.execs[0] if self._exec_group.execs else None
+        if ex is not None and getattr(ex, "_fused_new_compile", False):
+            ex._fused_new_compile = False
+            mon.note_compile(ex)
+        mon.step_end(getattr(self._exec_group, "batch_size", 0))
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

@@ -38,6 +38,7 @@ import torch
 
 from .. import kernels
 from ..base import MXNetError
+from ..hlo_analysis import kernel_cost
 
 __all__ = ["attention_reference", "attention_backward_reference",
            "attention_bwd_reference",
@@ -236,6 +237,25 @@ def _flash_forward_cuda(q, k, v, causal: bool, scale: float,
     return o, lse
 
 
+def attention_work(kind, q, k, causal):
+    """(operations, bytes) the kernels must do for attention of q [b, sq,
+    h, d] over k [b, sk, h, d]: 2·d operations per visible (query, key)
+    pair for each distinct product — QKᵀ and PV forward ("fwd"), the
+    backward's five ("bwd") — each input read once and each output written
+    once.  What the cost model (``hlo_analysis``) counts for K1, and for
+    K2 with K3, on meta tensors."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pairs = int(np.minimum(np.arange(sq) + 1, sk).sum()) if causal \
+        else sq * sk
+    qs = b * sq * h * d * q.element_size()
+    ks = b * sk * h * d * k.element_size()
+    rows = b * h * sq * 4
+    products, nbytes = {"fwd": (2, 2 * qs + 2 * ks + rows),
+                        "bwd": (5, 4 * qs + 4 * ks + rows)}[kind]
+    return 2.0 * products * d * pairs * b * h, nbytes
+
+
 def flash_forward(q, k, v, causal: bool = False, scale=None,
                   split_p: bool = False):
     """Flash-attention forward: (o [b, sq, h, d], lse [b*h, sq] float32,
@@ -254,7 +274,10 @@ def flash_forward(q, k, v, causal: bool = False, scale=None,
         scale = 1.0 / np.sqrt(q.shape[-1])
     if q.device.type == "cuda":
         return _flash_forward_cuda(q, k, v, causal, scale, split_p)
-    if q.device.type in ("cpu", "meta"):
+    if q.device.type == "meta":
+        with kernel_cost(*attention_work("fwd", q, k, causal)):
+            return attention_reference(q, k, v, causal, scale)
+    if q.device.type == "cpu":
         return attention_reference(q, k, v, causal, scale)
     raise MXNetError("flash_forward: no kernel for device %s" % q.device)
 
@@ -353,7 +376,11 @@ def flash_backward(q, k, v, o, lse, do, causal: bool = False, scale=None):
         dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
         return dq, dk, dv
-    if q.device.type in ("cpu", "meta"):
+    if q.device.type == "meta":
+        with kernel_cost(*attention_work("bwd", q, k, causal)):
+            return attention_backward_reference(q, k, v, o, lse, do, causal,
+                                                scale)
+    if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, o, lse, do, causal,
                                             scale)
     raise MXNetError("flash_backward: no kernel for device %s" % q.device)

@@ -55,6 +55,13 @@ class _EmbeddingRows(torch.autograd.Function):
             return None, None
         ids, = ctx.saved_tensors
         n_rows, dtype = ctx.table
+        if grad.device.type == "meta":
+            # the runs of equal ids have data-dependent shapes: on meta
+            # tensors (the cost model) the same table gradient as a
+            # scatter-add
+            return torch.zeros((n_rows,) + tuple(grad.shape[1:]),
+                               dtype=dtype, device=grad.device).index_add(
+                0, ids, grad.to(dtype)), None
         order = torch.argsort(ids, stable=True)
         uniq, counts = torch.unique_consecutive(ids[order], return_counts=True)
         sums = torch.segment_reduce(grad[order].to(torch.float32), "sum",

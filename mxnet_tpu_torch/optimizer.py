@@ -29,6 +29,9 @@ The gradients a caller hands in are read, never written, unless it owns
 them (``owned_grads``: the fused step, whose gradients nobody sees);
 otherwise the rescaled copy is made a chunk of at most ``_CHUNK`` elements
 at a time, which bounds the temporaries.
+
+While the training guardian's re-warm ramp runs, every lr is multiplied by
+``guardian.current_lr_mult()`` (``_get_lr``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Dict
 
 import torch
 
+from . import guardian as _guardian
 from . import random as _random
 from .ndarray import NDArray
 from .ops import optimizer_ops as ops
@@ -242,6 +246,10 @@ class Optimizer:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:
             lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        if _guardian._governor is not None:
+            # guardian re-warm ramp after an anomaly burst; a plain
+            # None-check when no ramp is live
+            lr *= _guardian.current_lr_mult()
         return lr
 
     def _get_wd(self, index):

@@ -12,7 +12,7 @@ parameters.  With the compile cache on (``MXNET_COMPILE_CACHE_DIR`` or an
 attached AOT bundle) every bucket's forward primes through it at warm-up,
 on the card as a CUDA graph in one memory pool the buckets share
 (``compile_cache.GraphPool``); ``compiled_entries()`` lists the primed
-entries.
+entries.  Each flushed batch is a profiler span, ``serving/batch[n=...]``.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import profiler
 from ..base import MXNetError
 
 __all__ = ["pow2_buckets", "BucketedPredictor", "MicroBatcher",
@@ -444,10 +445,10 @@ class MicroBatcher:
             return
         try:
             n = len(live)
-            # the JAX package wraps this in profiler.Frame("serving/batch
-            # [n=...]"); the port's profiler is ROADMAP.md A.6b
-            bucket, results = replica.forward_batch(
-                [item.inputs for item in live])
+            with profiler.Frame("serving/batch[n=%d]" % n,
+                                category="serving"):
+                bucket, results = replica.forward_batch(
+                    [item.inputs for item in live])
             self._metrics.on_batch(bucket, n)
             done = time.monotonic()
             for item, res in zip(live, results):

@@ -6,9 +6,10 @@ registered as a collector, so the series also appear in
 ``telemetry.render_prometheus()``; :meth:`ServingMetrics.render_text` is the
 JAX package's exposition byte for byte (the same ``mxtpu_serving_*`` names
 and lines).  The latency reservoir and the QPS window are summary estimates
-with no registry analogue and stay local.  The JAX package also draws each
-flushed batch as a profiler span; the port's profiler is not there yet
-(ROADMAP.md A.6b).
+with no registry analogue and stay local.  Each flushed batch is also a
+profiler span (``serving/batch[n=...]``, drawn by the batcher), so a
+``profiler_set_state("run")``/``dump_profile()`` or the telemetry tracer
+around serving traffic shows it on the timeline.
 """
 from __future__ import annotations
 

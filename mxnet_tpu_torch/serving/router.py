@@ -40,9 +40,9 @@ Every decision point is a ``mxnet_tpu_torch.faults`` dotted op
 ``serving.router.swap``), so chaos scenarios drive the whole path
 deterministically, and everything observable exports through
 ``mxnet_tpu_torch.telemetry`` (RouterMetrics registry collector, breaker
-transition counters, hedge wins, swap events).  The JAX package also
-draws dispatch, call and swap spans on its profiler; the port's profiler
-is ROADMAP.md A.6b.
+transition counters, hedge wins, swap events) and the profiler's spans
+(``router/dispatch[slo]``, ``router/call[replica]``,
+``router/swap[replica]``).
 """
 from __future__ import annotations
 
@@ -59,6 +59,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from .. import faults
+from .. import profiler
 from .. import telemetry as _telemetry
 from ..base import MXNetError, env, register_env
 from .batcher import (DeadlineExceededError, QueueFullError,
@@ -1241,10 +1242,10 @@ class Router:
         try:
             faults.fire("serving.replica.call")
             faults.fire("serving.replica.%s.call" % rep.name)
-            # the JAX package's profiler.Frame("router/call[...]") span is
-            # ROADMAP.md A.6b
-            out = rep.call(req.inputs, req.remaining_ms(), req.rid,
-                           req.slo)
+            with profiler.Frame("router/call[%s]" % rep.name,
+                                category="serving"):
+                out = rep.call(req.inputs, req.remaining_ms(), req.rid,
+                               req.slo)
             ok = True
             return out
         except DeadlineExceededError:
@@ -1303,10 +1304,13 @@ class Router:
         raise last_exc
 
     def _dispatch(self, req: _Request):
+        with profiler.Frame("router/dispatch[%s]" % req.slo,
+                            category="serving"):
+            return self._dispatch_attempts(req)
+
+    def _dispatch_attempts(self, req: _Request):
         last_exc = None
         tried = set()
-        # the JAX package's profiler.Frame("router/dispatch[...]") span is
-        # ROADMAP.md A.6b
         for attempt in range(self.retries + 1):
             faults.fire("serving.router.dispatch")
             rep = self._pick(tried)
@@ -1358,26 +1362,26 @@ class Router:
         swapped = 0
         for rep in self.replicas():
             faults.fire("serving.router.swap")
-            # the JAX package's profiler.Frame("router/swap[...]") span is
-            # ROADMAP.md A.6b
-            if isinstance(rep, _RemoteReplica):
-                rep.swap(prefix, epoch)
-            else:
-                old_srv = rep.server
-                cfg = old_srv.swap_config()
-                shadow = InferenceServer.from_checkpoint(
-                    prefix, epoch, cfg.pop("input_shapes"),
-                    warmup=True, start=True, **cfg)
-                new_rep = _LocalReplica(rep.name, shadow, self)
-                with self._lock:
-                    self._owned.append(shadow)
-                    idx = self._replicas.index(rep)
-                    self._replicas[idx] = new_rep
-                # drain: in-flight work finishes, the old server then
-                # rejects with ServerClosedError -> router retries
-                old_srv.stop(drain=True)
-                if old_srv in self._owned:
-                    self._owned.remove(old_srv)
+            with profiler.Frame("router/swap[%s]" % rep.name,
+                                category="serving"):
+                if isinstance(rep, _RemoteReplica):
+                    rep.swap(prefix, epoch)
+                else:
+                    old_srv = rep.server
+                    cfg = old_srv.swap_config()
+                    shadow = InferenceServer.from_checkpoint(
+                        prefix, epoch, cfg.pop("input_shapes"),
+                        warmup=True, start=True, **cfg)
+                    new_rep = _LocalReplica(rep.name, shadow, self)
+                    with self._lock:
+                        self._owned.append(shadow)
+                        idx = self._replicas.index(rep)
+                        self._replicas[idx] = new_rep
+                    # drain: in-flight work finishes, the old server then
+                    # rejects with ServerClosedError -> router retries
+                    old_srv.stop(drain=True)
+                    if old_srv in self._owned:
+                        self._owned.remove(old_srv)
             swapped += 1
             self.metrics.on_swap()
             _telemetry.log_event("router_swap", replica=rep.name,

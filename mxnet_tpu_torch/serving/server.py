@@ -21,8 +21,8 @@ and ``from_checkpoint(attach_aot=True)`` attaches one this package wrote
 ``serving_buckets`` autotune site's winner when the autotuner is on, else
 ``pow2_buckets``.
 
-Kept differences from the JAX package: the preemption handler's
-flight-recorder dump is ROADMAP.md A.6b.  ``ctx=None`` resolves to the
+The preemption handler leaves a flight-recorder postmortem before it
+exits.  Kept difference from the JAX package: ``ctx=None`` resolves to the
 constructing thread's current context once, in the constructor, because
 the default context is per thread and the worker, HTTP and router threads
 never see a ``with mt.cpu():`` the caller entered.
@@ -811,7 +811,14 @@ def install_preemption_handler(server, deregister=None, sig=None,
             server.stop(drain=True, timeout_ms=drain_timeout_ms)
         except Exception as e:
             logging.warning("preemption drain/stop failed: %s", e)
-        # the JAX package dumps its flight recorder here (ROADMAP.md A.6b)
+        try:
+            # flight recorder: the postmortem is the only record of this
+            # replica's final state once we _exit (no atexit hooks run)
+            from .. import telemetry as _tm
+
+            _tm.flight_recorder.dump("preemption-sigterm-serving")
+        except Exception:
+            pass
         if exit_process:
             os._exit(0)
 

@@ -12,9 +12,10 @@ a fresh process inheriting a record-mode winner with zero re-tuning (this
 file run as a script, ``--worker``).  Side by side with the JAX package:
 the ``spaces`` lists are equal, and the analytic winners of
 ``serving_buckets``, ``decode_engine`` and ``draft_k`` are equal for the
-same keys.  Plus: the roofline path (``build_fn``) raises ``MXNetError``
-naming A.6b.1 and the Tuner logs it as a failed candidate; a JAX ``.mxt``
-entry in the port's DB is a stale-env miss.
+same keys.  Plus: the roofline path (``build_fn``, the cost model of
+``hlo_analysis`` on meta tensors) scores candidates as the JAX package's
+XLA cost analysis does under the same peaks; a JAX ``.mxt`` entry in the
+port's DB is a stale-env miss.
 """
 import importlib
 import json
@@ -142,18 +143,45 @@ def test_deterministic_winner_ties_break_canonically(tune_dir):
     assert w == {"x": 1}
 
 
-def test_roofline_path_names_its_missing_module(tune_dir, events):
-    """``build_fn`` is the JAX package's XLA cost-analysis proxy: here it
-    raises MXNetError naming A.6b.1, every candidate is logged as failed
-    and the default comes back, nothing stored."""
+def test_roofline_objective_scores_as_the_jax_package_does(tune_dir,
+                                                          monkeypatch):
+    """``build_fn`` gives (program, abstract arguments) per candidate; the
+    Tuner scores each by the roofline over the cost model's count.  For a
+    product of two n x n float32 matrices both packages count 2·n³
+    operations and 3·n²·4 bytes, so under the same peaks the scores and
+    the winner are the JAX package's, and the provenance names the
+    roofline objective."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from mxnet_tpu_torch.hlo_analysis import TensorSpec
+
+    monkeypatch.setenv("MXNET_TELEMETRY_PEAK_FLOPS", "1e12")
+    monkeypatch.setenv("MXNET_TELEMETRY_HBM_GBS", "100")
+    cands = [{"n": 48}, {"n": 16}, {"n": 32}]
+
+    def port_build(c):
+        n = c["n"]
+        return (lambda a, b: a @ b,
+                (TensorSpec((n, n), torch.float32),) * 2)
+
+    def jax_build(c):
+        n = c["n"]
+        return (jax.jit(lambda a, b: a @ b),
+                (jax.ShapeDtypeStruct((n, n), jnp.float32),) * 2)
+
     got = autotune.Tuner(autotune.db(), measure=False).tune(
-        "t_build", {"k": 1}, [{"a": 1}, {"a": 2}],
-        build_fn=lambda c: (None, None), default={"a": 0})
-    assert got == {"a": 0}
-    assert events().count("autotune_candidate_failed") == 2
-    failed = telemetry.events_of("autotune_candidate_failed")
-    assert "A.6b.1" in failed[0]["error"]
-    assert not atdb.ls_entries(tune_dir)
+        "t_build", {"k": 1}, cands, build_fn=port_build, default={"n": 0})
+    want = jautotune.Tuner(jautotune.db(), measure=False).tune(
+        "t_build", {"k": 2}, cands, build_fn=jax_build, default={"n": 0})
+    assert got == want == {"n": 16}
+    prov = autotune.db().get("t_build", {"k": 1})["meta"]
+    assert prov["objective"] == "roofline_proxy"
+    jprov = jautotune.db().get("t_build", {"k": 2})["meta"]
+    assert jprov["objective"] == "roofline_proxy"
+    # 2·16³ operations over 1e12 against 3·16²·4 bytes over 100 GB/s
+    assert prov["score"] == pytest.approx(jprov["score"], rel=1e-9)
+    assert prov["score"] == pytest.approx(3 * 16 * 16 * 4 / 100e9 * 1e3)
 
 
 def test_measurement_turns_on_where_cuda_is(tune_dir, monkeypatch):

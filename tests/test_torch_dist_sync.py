@@ -373,6 +373,49 @@ def test_dist_sync_in_process_single_worker(monkeypatch):
     assert kv.get_num_dead_node() == 0
 
 
+def exit_worker():
+    """A worker that joins the group, pushes once and leaves after the
+    barrier while its liveness beat runs flat out."""
+    import mxnet_tpu_torch as mt
+
+    kv = mt.kv.create("dist_sync")
+    kv.init("p", mt.nd.array(np.ones(2, np.float32), mt.cpu()))
+    kv.push("p", mt.nd.array(np.ones(2, np.float32), mt.cpu()))
+    kv._barrier()
+
+
+def test_workers_leave_cleanly_while_their_heartbeat_beats():
+    """Rank 0 hosts the group's store and may leave first: a worker whose
+    heartbeat is still inside the store's client when the interpreter
+    tears down must not abort (three pairs at once, beating every 0.5
+    ms, so a beat is nearly always in flight at exit)."""
+    pairs = []
+    for _ in range(3):
+        env = dict(os.environ, DMLC_NUM_WORKER=str(WORKERS),
+                   DMLC_PS_ROOT_URI="127.0.0.1",
+                   DMLC_PS_ROOT_PORT=str(_free_port()),
+                   MXNET_KVSTORE_HEARTBEAT_INTERVAL="0.0005",
+                   PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""),
+                   CUDA_VISIBLE_DEVICES="")
+        env.pop("DMLC_ROLE", None)
+        pairs.append([subprocess.Popen(
+            [sys.executable, __file__, "--exit-worker"],
+            env=dict(env, DMLC_WORKER_ID=str(r)), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(WORKERS)])
+    procs = [p for pair in pairs for p in pair]
+    try:
+        logs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, (p.returncode, log[-3000:])
+
+
 def test_backend_rule():
     from mxnet_tpu_torch import kvstore_dist
 
@@ -387,4 +430,7 @@ def test_backend_rule():
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
-    worker(sys.argv[1])
+    if sys.argv[1] == "--exit-worker":
+        exit_worker()
+    else:
+        worker(sys.argv[1])
