@@ -149,7 +149,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              timed steps), then float32 at batch 32 (2 + 3; both TF32 flags
              off).  Each prints step ms, img/s, MFU and peak memory; the
              loss must be finite and fall, every moving statistic move and
-             every parameter stay on the card.  The float32 run's first 3
+             every parameter stay on the card.  The float32 run's first 2
              states go to the port's CPU route: its losses there within
              1e-4 of the card's, and, trained from the card's init, within
              4x the distance one ulp of the init moves the CPU's own run
@@ -523,7 +523,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
              vision) and the DLRM at the MLPerf widths (``get_dlrm``: 26
              slots of 128, bottom 13-512-256-128, top 1024-1024-512-256,
              batch 2048 of bags of 8 ids, tables of 16384 rows, ids drawn
-             below; batch, tenant ads), on a pool of one device sized from
+             below; batch, tenant ads; phase 24 trains it over the full
+             vocabularies), on a pool of one device sized from
              the specs' ``footprint()`` to hold the ResNet, the DLRM and one
              LM.  (a) A replan with demand on lm-a faults in lm-a, ResNet-50
              and the DLRM; the first ``/generate`` to lm-b faults it in on
@@ -651,6 +652,57 @@ Phases, each fatal on failure (non-zero exit, no result line):
              nothing changes, one anomaly counted.  An ``observe`` JSON line
              ends it; the bf16 d=128 K1-K3 rows add the phase's full-width
              launches ("observe").
+24. sparse — the sparse plane (``mt.sparse``) training the MLPerf
+             Training DLRM reference (facebookresearch/dlrm on Criteo
+             Terabyte, --max-ind-range=40000000) at phase 21's widths with
+             its 26 full vocabularies (187,767,399 rows, 96.1 GB of
+             float32: more than the card holds) through
+             ``SparseEmbeddingModule`` on gpu(0) over ``dist_async`` and 2
+             server processes (the tables numpy on the servers, each slot
+             bound at 16,384 rows on the card), SGD lr 1.0, batch 2048 of
+             bags of 8 int32 ids drawn uniformly in each vocabulary (the
+             lazy rows' worst case; Criteo's own ids are not in the
+             repository).  (a) 3 steps: each step's route (ids
+             uniquified, rows pulled, rows copied to the card),
+             forward and backward on the card (CUDA events), update (rows
+             to the host, push, the wait for the servers), the servers'
+             seconds and the bytes moved; each server holds part of every
+             table and no misplaced row, the worker's logical bytes at
+             least 10x its resident ones; a probe batch's outputs finite.
+             (b) The same 3 steps over 2 fresh servers, both shards
+             snapshotted after step 2 and server 1 SIGKILLed and restarted
+             from its snapshot: the touched rows and the probe's outputs
+             bit for bit (a)'s.  (c) Beside (b): 2 steps at the same widths
+             with every table at 65,536 rows and ids unique within a
+             batch, ``SparseEmbeddingModule`` over 2 servers in this
+             process against a ``Module`` holding the tables on the card
+             from the same rows
+             and weights: every touched row and dense weight within 2
+             float32 ulps of its array's largest |value| (the reason at
+             ``SPARSE_TOL_ULPS``).  (a)'s and (b)'s server processes start
+             during phase 23's untimed half.  A ``sparse`` JSON line ends
+             it; the phase launches no kernel of the port's own.
+
+Side by side, to keep the whole run well inside its time limit (each
+clock: line gives a phase's seconds and the script's so far):
+
+- The serve phase's checkpoint is drawn and written on a thread while
+  the build's nvcc processes run, and joined before any kernel is timed;
+  the splash phase reuses its weights.
+- Lane A: phases 9, 10, 11, 13, 14, 15 and 17 run, in that order, in a
+  process of their own (this script with ``--lane``), started after the
+  extend phase, whose readings close the kernel table's timings, and
+  joined before phase 19's (b), (c), (e1) and (e2) start.  They read
+  none of the main sequence's state and add nothing to the table.  Their
+  output is printed when the lane is joined; a lane that failed fails
+  the script at the next phase's end.  Their times, and those of phases
+  8, 12, 16, 18 and 19 (a) and (d), are read with both processes on the
+  card.
+- Phase 16 (d)'s and phase 18 (e)'s gloo worker processes start at
+  their phase's start and run beside its (a)-(c) and (a)-(d).
+- Phase 22's checkpoint is written before phase 20, and its two worker
+  processes run, one after the other, beside phases 20 and 21; its
+  output is printed where it is joined, after phase 21.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -727,6 +779,57 @@ PEAKS = {
     "H100 SXM": {"float32": 67.0, "bfloat16": 989.0, "tf32": 495.0,
                  "tbs": 3.35},
 }
+
+
+class PhaseClock:
+    """Prints each phase's seconds and the script's seconds so far, so the
+    budget of the whole run can be read phase by phase.  Each mark first
+    collects the phase's garbage and returns the card's cached blocks (a
+    phase's Module can sit in a reference cycle, its tensors on the card,
+    until the collector runs); and a lane (``LaneJob``) that has already
+    failed fails the script."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.lanes = []
+
+    def mark(self, name):
+        import gc
+
+        import torch
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        now = time.perf_counter()
+        print("clock: %s %.1f s (script at %.1f s; %.2f GB on the card "
+              "held by this process after it)"
+              % (name, now - self.last, now - self.t0,
+                 torch.cuda.memory_allocated() / 1e9), flush=True)
+        self.last = now
+        for lane in self.lanes:
+            lane.fail_early()
+
+
+class Background:
+    """``fn(*args)`` on a thread of its own; ``result()`` joins it and
+    returns what it returned, or raises what it raised."""
+
+    def __init__(self, fn, *args):
+        self._out = {}
+
+        def run():
+            try:
+                self._out["value"] = fn(*args)
+            except BaseException as exc:  # check() raises SystemExit
+                self._out["error"] = exc
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 def check(ok, msg):
@@ -1713,39 +1816,59 @@ SERVE_SHAPES = {"data": (BATCH, FULL["seq_len"]),
                 "softmax_label": (BATCH, FULL["seq_len"])}
 
 
+#: serve_inputs' draws by the net's argument names: the serve and splash
+#: phases share one draw of the 441M weights (main clears it after them)
+SERVE_INPUTS = {}
+SERVE_INPUTS_LOCK = threading.Lock()
+
+
 def serve_inputs(mt, net):
     """The served LM's weights (N(0, 0.02) from SEED, as a checkpoint
     stores them) and its requests, the same for every LM of the full
-    geometry whatever its attention op."""
-    rng = np.random.default_rng(SEED)
-    params = lm_params(mt, net, SERVE_SHAPES, rng, 0.02)
-    requests = [rng.integers(0, FULL["vocab_size"], SERVE_SHAPES["data"])
-                .astype(np.float32) for _ in range(REQUESTS)]
-    return params, requests
+    geometry whatever its attention op.  Drawn once a process for each
+    list of argument names; the callers only read them."""
+    key = tuple(net.list_arguments())
+    with SERVE_INPUTS_LOCK:
+        if key not in SERVE_INPUTS:
+            rng = np.random.default_rng(SEED)
+            params = lm_params(mt, net, SERVE_SHAPES, rng, 0.02)
+            requests = [rng.integers(0, FULL["vocab_size"],
+                                     SERVE_SHAPES["data"])
+                        .astype(np.float32) for _ in range(REQUESTS)]
+            SERVE_INPUTS[key] = params, requests
+        return SERVE_INPUTS[key]
 
 
-def serve_phase(torch, mt):
-    """Returns the Predictor, the first request and its output (on the
-    host)."""
-    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+def serve_checkpoint(mt, net, folder):
+    """The serve phase's checkpoint of ``net`` (serve_inputs' weights)
+    written in ``folder``; main runs it on a thread beside the build.
+    Returns its prefix, the requests, the parameter count and the seconds
+    it took."""
+    t0 = time.perf_counter()
+    prefix = os.path.join(folder, "lm")
+    params, requests = serve_inputs(mt, net)
+    n_params = sum(p.size for p in params.values())
+    net.save(prefix + "-symbol.json")
+    mt.nd.save(prefix + "-0000.params", params)
+    return prefix, requests, n_params, time.perf_counter() - t0
 
+
+def serve_phase(torch, mt, ckpt):
+    """Loads ``ckpt`` (``serve_checkpoint``'s result) into a Predictor and
+    serves its requests; removes the checkpoint's folder.  Returns the
+    Predictor, the first request and its output (on the host)."""
     b, s, vocab = BATCH, FULL["seq_len"], FULL["vocab_size"]
     shapes = SERVE_SHAPES
-    with mt.NameManager():
-        net = get_transformer_lm(**FULL)
-    with tempfile.TemporaryDirectory() as tmp:
-        prefix = os.path.join(tmp, "lm")
-        t0 = time.perf_counter()
-        params, requests = serve_inputs(mt, net)
-        n_params = sum(p.size for p in params.values())
-        net.save(prefix + "-symbol.json")
-        mt.nd.save(prefix + "-0000.params", params)
-        del params
+    prefix, requests, n_params, written_s = ckpt
+    try:
         t1 = time.perf_counter()
         pred = mt.Predictor.from_checkpoint(prefix, 0, shapes)
         t2 = time.perf_counter()
-    print("serve: %d parameters; checkpoint written in %.2f s, Predictor "
-          "built in %.2f s" % (n_params, t1 - t0, t2 - t1), flush=True)
+    finally:
+        shutil.rmtree(os.path.dirname(prefix), ignore_errors=True)
+    print("serve: %d parameters; checkpoint written in %.2f s (beside the "
+          "build), Predictor built in %.2f s" % (n_params, written_s,
+                                                 t2 - t1), flush=True)
 
     per_request = FULL["num_layers"]  # one attention per layer
     torch.cuda.reset_peak_memory_stats()
@@ -2738,6 +2861,10 @@ RESNET_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
 #: forward GFLOP per 224² image; a training step is 3x (bench.py:144-145)
 RESNET_GFLOP = 4.089
 RESNET_REPLAY = 2
+# the float32 run's states held to the CPU route (resnet_cpu_witness): its
+# init and the state after step 0; each more state is CPU ResNet-50 work at
+# batch 32 inside the script's time limit
+RESNET_WITNESS = 2
 #: the BASELINE.md yardstick: the reference on a P100, float32, batch 32
 P100_IMG_S = 181.53
 
@@ -3024,8 +3151,8 @@ def resnet_phase(torch, mt, profile_dir=None):
             min(losses[1:]) < losses[0]
         check(fell, "the ResNet %s loss did not fall: %s" % (label, losses))
         if dtype is None:
-            resnet_cpu_witness(torch, mt, net, states, batch, Y, losses,
-                               label)
+            resnet_cpu_witness(torch, mt, net, states[:RESNET_WITNESS],
+                               batch, Y, losses, label)
         del states
         check(all(ex.arg_dict[n]._data.is_cuda for n in names),
               "the ResNet parameters left the card")
@@ -6092,30 +6219,58 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def dist_phase(torch, mt):
-    """(d): DIST_WORKERS dist_sync workers on the card, against one
-    process's Module at the combined batch."""
-    import sys
-
-    torch.backends.cuda.matmul.allow_tf32 = False
+def start_workers(flag, n, prefix):
+    """``n`` processes of this script in the worker mode ``flag``, ranks
+    0..n-1 of one gloo group on a free port, each logging to
+    ``worker<rank>.log`` in a new folder.  Returns (folder, processes)."""
     port = free_port()
-    outdir = tempfile.mkdtemp(prefix="dist_sync_")
-    env = dict(os.environ, DMLC_NUM_WORKER=str(DIST_WORKERS),
+    outdir = tempfile.mkdtemp(prefix=prefix)
+    env = dict(os.environ, DMLC_NUM_WORKER=str(n),
                DMLC_PS_ROOT_URI="127.0.0.1", DMLC_PS_ROOT_PORT=str(port))
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dist-worker", outdir],
-        env=dict(env, DMLC_WORKER_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(DIST_WORKERS)]
-    logs = []
+    procs = []
+    for r in range(n):
+        with open(os.path.join(outdir, "worker%d.log" % r), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, outdir],
+                env=dict(env, DMLC_WORKER_ID=str(r)), stdout=log,
+                stderr=subprocess.STDOUT))
+    return outdir, procs
+
+
+def stop_workers(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def join_workers(job, timeout):
+    """Wait up to ``timeout`` s for ``start_workers``' processes, then stop
+    any still running; their logs, by rank."""
+    outdir, procs = job
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=DIST_TIMEOUT)
-            logs.append(out)
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop_workers(procs)
+    logs = []
+    for r in range(len(procs)):
+        with open(os.path.join(outdir, "worker%d.log" % r)) as f:
+            logs.append(f.read())
+    return logs
+
+
+def dist_phase(torch, mt, job):
+    """(d): DIST_WORKERS dist_sync workers on the card (``job``, started
+    by ``parallel_phase`` beside (a)-(c)), against one process's Module at
+    the combined batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outdir, procs = job
+    logs = join_workers(job, DIST_TIMEOUT)
     for r, (p, log) in enumerate(zip(procs, logs)):
         tail = "\n".join(log.strip().splitlines()[-12:])
         print("parallel dist: worker %d exit %s; log tail:\n%s"
@@ -6234,13 +6389,18 @@ def parallel_phase(torch, mt, att, batch, replay):
     and (b)'s bf16 cases) and "f32" (the d=128 float32 kernels: (b)'s
     float32 case and (c))."""
     card = card_and_limit()
-    dp = dp_phase(torch, mt, batch, replay)
-    # (b)-(e) run in float32 as the example does: no TF32 products
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    ring = ring_phase(torch, mt, att)
-    longctx = longctx_phase(torch, mt)
-    dist = dist_phase(torch, mt)
+    # (d)'s worker processes start first and run beside (a)-(c)
+    dist_job = start_workers("--dist-worker", DIST_WORKERS, "dist_sync_")
+    try:
+        dp = dp_phase(torch, mt, batch, replay)
+        # (b)-(e) run in float32 as the example does: no TF32 products
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        ring = ring_phase(torch, mt, att)
+        longctx = longctx_phase(torch, mt)
+        dist = dist_phase(torch, mt, dist_job)
+    finally:
+        stop_workers(dist_job[1])
     rest = rest_phase(torch, mt)
     print(json.dumps({"parallel": {
         "card": card,
@@ -7429,30 +7589,13 @@ def shard_worker(outdir):
     kv._barrier()
 
 
-def shard_global_batch(torch, mt):
-    """(e): two dist_sync workers over gloo on the card train the BatchNorm
-    net, each on its rows of the global batch, against one process on the
-    concatenated batch."""
-    import sys
-
-    port = free_port()
-    outdir = tempfile.mkdtemp(prefix="shard_bn_")
-    env = dict(os.environ, DMLC_NUM_WORKER=str(SHARD_WORKERS),
-               DMLC_PS_ROOT_URI="127.0.0.1", DMLC_PS_ROOT_PORT=str(port))
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--shard-worker",
-         outdir], env=dict(env, DMLC_WORKER_ID=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(SHARD_WORKERS)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+def shard_global_batch(torch, mt, job):
+    """(e): two dist_sync workers over gloo on the card (``job``, started
+    by ``sharding_phase`` beside (a)-(d)) train the BatchNorm net, each on
+    its rows of the global batch, against one process on the concatenated
+    batch."""
+    outdir, procs = job
+    logs = join_workers(job, DIST_TIMEOUT)
     for r, (p, log) in enumerate(zip(procs, logs)):
         tail = "\n".join(log.strip().splitlines()[-8:])
         print("sharding global batch: worker %d exit %s; log tail:\n%s"
@@ -7511,6 +7654,8 @@ def sharding_phase(torch, mt, batch, replay):
     card = card_and_limit()
     t0 = time.perf_counter()
     ckpt = tempfile.mkdtemp(prefix="shard_ckpt_")
+    # (e)'s worker processes start first and run beside (a)-(d)
+    bn_job = start_workers("--shard-worker", SHARD_WORKERS, "shard_bn_")
     try:
         runs, saved = {}, None
         for tag, mesh, shards, warm, timed in SHARD_RUNS:
@@ -7520,12 +7665,14 @@ def sharding_phase(torch, mt, batch, replay):
             saved = saved or got
         resume = shard_resume(torch, mt, batch, replay, ckpt, saved,
                               runs["tp"])
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        f32 = shard_f32(torch, mt, batch, replay)
+        global_batch = shard_global_batch(torch, mt, bn_job)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    f32 = shard_f32(torch, mt, batch, replay)
-    global_batch = shard_global_batch(torch, mt)
+        stop_workers(bn_job[1])
     wall = time.perf_counter() - t0
     print("sharding: phase wall time %.1f s on %s" % (wall, card),
           flush=True)
@@ -7554,8 +7701,8 @@ PS_BATCH = BATCH // PS_WORKERS      # the train phase's batch split in halves
 # tag, case, warm-up, timed steps (cut from 2 + 3, 5, 2 + 3 to make room
 # for phase 22, and (c) from 4 to 3 for phase 23: the gates compare the
 # first PS_LOSSES losses, two updates after the init's, and the async loss
-# falls over 3 steps).  (a) and (d) run alone, one after the other; (c)
-# runs beside (b), (e1) and (e2)
+# falls over 3 steps).  (a) and (d) run one after the other, beside only
+# the end of lane A; (c) runs beside (b), (e1) and (e2)
 PS_RUNS = (("a", "sync", 1, 2),
            ("c", "async", 0, 3),
            ("d", "fp16", 1, 2))
@@ -7870,6 +8017,8 @@ def ps_worker(outdir):
 #: started side by side must not get the same ones before their servers
 #: bind them
 PS_PORTS, PS_PORTS_LOCK = set(), threading.Lock()
+#: the PSJobs not yet closed: main closes them when the script fails
+PS_JOBS = set()
 
 
 def free_ports(n):
@@ -7913,6 +8062,7 @@ class PSJob:
                         MXNET_KVSTORE_RETRY_MAX="200",
                         MXNET_KVSTORE_RETRY_MAX_MS="100", **env)
         self.procs, self.servers = [], {}
+        PS_JOBS.add(self)
         for i in range(servers):
             self.server(i)
 
@@ -7978,6 +8128,7 @@ class PSJob:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        PS_JOBS.discard(self)
 
 
 def ps_lm_run(tag, case, sync, **env):
@@ -8281,9 +8432,10 @@ def ps_nonfinite(mt, card):
         kv.close()
 
 
-def param_server_phase(torch, mt, replay, train_losses):
-    """Phase 19 (module docstring).  Returns the launches of K1-K3 by path,
-    as ``parallel_phase`` does."""
+def param_server_phase(torch, mt, replay, train_losses, before_side=None):
+    """Phase 19 (module docstring).  ``before_side`` is called after (a)
+    and (d), before the processes of (b), (c), (e1) and (e2) start.
+    Returns the launches of K1-K3 by path, as ``parallel_phase`` does."""
     card = card_and_limit()
     t0 = time.perf_counter()
     print("param_server: servers and workers are processes sharing one "
@@ -8294,6 +8446,8 @@ def param_server_phase(torch, mt, replay, train_losses):
     runs = {tag: ps_lm_one(tag, case, warm, want_crc, card)
             for tag, case, warm, _ in PS_RUNS if case != "async"}
     torch.cuda.empty_cache()
+    if before_side is not None:
+        before_side()
     # (b), (c), (e1) and (e2) gate on results, not times: their processes
     # run side by side, (c), (e1) and (e2) driven from threads
     churn = ps_churn_start()
@@ -9373,8 +9527,8 @@ def serving_phase(torch, mt):
 #: 13-512-256-128, top MLP 1024-1024-512-256, then get_dlrm's CTR head),
 #: served at batch 2048 with get_dlrm's bags of 8 ids: a batch touches at
 #: most 2048 x 8 = 16384 rows of a slot, the capacity each served table
-#: binds; the full vocabularies live on the parameter server's row plane
-#: (ROADMAP.md A.6b)
+#: binds; phase 24 trains the full vocabularies on the parameter servers'
+#: row plane
 PLAT_DLRM = dict(num_slots=26, embed_dim=128, dense_dim=13, bag_len=8,
                  capacity=16384, bottom_hidden=(512, 256, 128),
                  top_hidden=(1024, 1024, 512, 256))
@@ -10809,9 +10963,10 @@ def cc_worker(path):
         json.dump(res, f, default=str)
 
 
-def cc_process(spec, root):
+def cc_process(spec, root, job):
     """Run one worker of phase 22 from ``root`` (its ``chip_smoke.py`` and
-    package); its output printed, its readings returned."""
+    package), its process kept in ``job["procs"]`` while it runs and its
+    output lines added to ``job["lines"]``; its readings returned."""
     path = os.path.join(spec["tmp"], spec["role"] + ".spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
@@ -10820,62 +10975,104 @@ def cc_process(spec, root):
     for name in ("MXNET_AUTOTUNE_DIR", "MXNET_COMPILE_CACHE_STRICT"):
         env.pop(name, None)
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, os.path.join(root, "chip_smoke.py"), "--cc-worker",
-         path], cwd=root, env=env, capture_output=True, text=True,
-        timeout=CC_TIMEOUT)
+         path], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    job["procs"].append(proc)
+    try:
+        out, err = proc.communicate(timeout=CC_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
     wall = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
-        print(line, flush=True)
-    check(proc.returncode == 0, "the %s worker exited %d:\n%s"
-          % (spec["role"], proc.returncode, proc.stderr[-3000:]))
+    job["lines"] += out.splitlines()
+    check(proc.returncode == 0, "the %s worker exited %s:\n%s"
+          % (spec["role"], proc.returncode, err[-3000:]))
     with open(spec["out"]) as f:
         res = json.load(f)
     res["process_s"] = wall
     return res
 
 
-def compile_once_phase(torch, mt):
-    """Phase 22 (module docstring).  Returns the K1 launches of (c)'s
-    scoring window and the user kernels' of (b), by path."""
+def cc_workers(job):
+    """Phase 22's cold worker, then its warm one in a fresh copy of the
+    package (no _build/); their readings."""
+    spec, here, walls = job["spec"], job["here"], job["walls"]
+    t0 = time.perf_counter()
+    cold = cc_process(dict(spec, role="cold",
+                           out=os.path.join(spec["tmp"], "cold.json")),
+                      here, job)
+    walls["cold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = os.path.join(spec["tmp"], "fresh")
+    shutil.copytree(os.path.join(here, "mxnet_tpu_torch"),
+                    os.path.join(fresh, "mxnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(here, "chip_smoke.py"), fresh)
+    warm = cc_process(dict(spec, role="warm",
+                           out=os.path.join(spec["tmp"], "warm.json")),
+                      fresh, job)
+    walls["warm"] = time.perf_counter() - t0
+    return cold, warm, fresh
+
+
+def compile_once_start(torch, mt):
+    """Phase 22 (module docstring), its first half: the checkpoint, then
+    the cold and the warm worker on a thread (``Background``), beside the
+    phases main runs until ``compile_once_finish``.  The workers are
+    processes of their own: nothing they launch reaches this process's
+    counts.  Returns the job; ``compile_once_close`` stops it."""
     from mxnet_tpu_torch.models.transformer import get_transformer_lm
 
-    card = card_and_limit()
-    t_phase = time.perf_counter()
-    walls = {}
-    here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        prefix, prefix2 = os.path.join(tmp, "lm"), os.path.join(tmp, "lm2")
-        with mt.NameManager():
-            net = get_transformer_lm(**FULL)
-        srv_lm_checkpoint(torch, mt, net, prefix)
-        for suffix in ("-symbol.json", "-0000.params"):
-            os.link(prefix + suffix, prefix2 + suffix)
-        del net
-        torch.cuda.empty_cache()
-        walls["checkpoint"] = time.perf_counter() - t0
-        spec = {"tmp": tmp, "prefix": prefix, "prefix2": prefix2,
-                "cc": os.path.join(tmp, "cc"),
-                "cc2": os.path.join(tmp, "cc2")}
-        t0 = time.perf_counter()
-        cold = cc_process(dict(spec, role="cold",
-                               out=os.path.join(tmp, "cold.json")), here)
-        walls["cold"] = time.perf_counter() - t0
-        # the warm worker runs a fresh copy of the package: no _build/
-        t0 = time.perf_counter()
-        fresh = os.path.join(tmp, "fresh")
-        shutil.copytree(os.path.join(here, "mxnet_tpu_torch"),
-                        os.path.join(fresh, "mxnet_tpu_torch"),
-                        ignore=shutil.ignore_patterns("_build",
-                                                      "__pycache__"))
-        shutil.copy(os.path.join(here, "chip_smoke.py"), fresh)
-        warm = cc_process(dict(spec, role="warm",
-                               out=os.path.join(tmp, "warm.json")), fresh)
-        walls["warm"] = time.perf_counter() - t0
+    job = {"card": card_and_limit(), "t_phase": time.perf_counter(),
+           "walls": {}, "procs": [], "lines": [],
+           "here": os.path.dirname(os.path.abspath(__file__)),
+           "tmp": tempfile.mkdtemp(prefix="compile_once_")}
+    tmp = job["tmp"]
+    t0 = time.perf_counter()
+    prefix, prefix2 = os.path.join(tmp, "lm"), os.path.join(tmp, "lm2")
+    with mt.NameManager():
+        net = get_transformer_lm(**FULL)
+    srv_lm_checkpoint(torch, mt, net, prefix)
+    for suffix in ("-symbol.json", "-0000.params"):
+        os.link(prefix + suffix, prefix2 + suffix)
+    del net
+    torch.cuda.empty_cache()
+    job["walls"]["checkpoint"] = time.perf_counter() - t0
+    job["spec"] = {"tmp": tmp, "prefix": prefix, "prefix2": prefix2,
+                   "cc": os.path.join(tmp, "cc"),
+                   "cc2": os.path.join(tmp, "cc2")}
+    job["workers"] = Background(cc_workers, job)
+    print("compile_once: checkpoint written in %.2f s; the cold and warm "
+          "workers run beside the phases that follow (their times are not "
+          "the card's alone)" % job["walls"]["checkpoint"], flush=True)
+    return job
+
+
+def compile_once_close(job):
+    """Stop phase 22's workers if they still run; remove its folder."""
+    for proc in job["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(job["tmp"], ignore_errors=True)
+
+
+def compile_once_finish(job):
+    """Phase 22, its second half: the workers joined, their output and
+    readings printed.  Returns the K1 launches of (c)'s scoring window
+    and the user kernels' of (b), by path."""
+    card, walls = job["card"], job["walls"]
+    try:
+        cold, warm, fresh = job["workers"].result()
+    finally:
+        for line in job["lines"]:
+            print(line, flush=True)
+        compile_once_close(job)
     check(warm["package"].startswith(fresh), "(b) the warm worker imported "
           "%s" % warm["package"])
-    wall = time.perf_counter() - t_phase
+    wall = time.perf_counter() - job["t_phase"]
     fc, fw = cold["fault"], warm["fault"]
     ac, aw = cold["again"], warm["again"]
     print("compile_once (e) (%s): the platform LM's fault-in as its "
@@ -10893,9 +11090,9 @@ def compile_once_phase(torch, mt):
              fc["ratio_reserved"], fw["ratio_reserved"], fc["ratio"],
              fw["ratio"]), flush=True)
     print("compile_once: walls %s; workers %.1f s cold, %.1f s warm; phase "
-          "%.1f s on %s" % ({k: round(v, 2) for k, v in walls.items()},
-                            cold["process_s"], warm["process_s"], wall, card),
-          flush=True)
+          "%.1f s from its checkpoint to its join on %s"
+          % ({k: round(v, 2) for k, v in walls.items()}, cold["process_s"],
+             warm["process_s"], wall, card), flush=True)
     print(json.dumps({"compile_once": {"card": card, "cold": cold,
                                        "warm": warm, "walls_s": walls,
                                        "wall_s": wall}}, default=str),
@@ -11471,9 +11668,10 @@ def obs_eager(torch, mt, card):
     return ms
 
 
-def observe_phase(torch, mt):
+def observe_phase(torch, mt, after_timed=None):
     """Phase 23 (module docstring).  Returns the K1-K3 launches of the
-    phase's full-width bf16 runs."""
+    phase's full-width bf16 runs.  ``after_timed()`` runs once the timed
+    steps (a) and (d) are done."""
     from mxnet_tpu_torch.models.transformer import get_transformer_lm
 
     card = card_and_limit()
@@ -11489,6 +11687,8 @@ def observe_phase(torch, mt):
     t0 = time.perf_counter()
     prof = obs_profile(torch, mt, mod, batch, per_step, card)
     walls["profile"] = time.perf_counter() - t0
+    if after_timed is not None:
+        after_timed()
     del mod, batch
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -11511,6 +11711,531 @@ def observe_phase(torch, mt):
                                   "wall_s": wall}}, default=str), flush=True)
     return {"bf16": {"observe": launches}}
 
+
+# ---------------------------------------------------------------------------
+# phase 24: the sparse plane
+# ---------------------------------------------------------------------------
+#: the MLPerf Training DLRM reference, facebookresearch/dlrm on Criteo
+#: Terabyte with --max-ind-range=40000000: its 26 vocabularies (187,767,399
+#: rows, 96.1 GB of float32 at dimension 128), at phase 21's widths
+SPARSE_VOCABS = (39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63,
+                 38532951, 2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14,
+                 39979771, 25641295, 39664984, 585935, 12972, 108, 36)
+SPARSE_BATCH = PLAT_DLRM_BATCH
+SPARSE_STEPS = 3           # (a), (b)
+SPARSE_SNAP_AFTER = 2      # (b): both shards snapshot after this step
+#: SGD as the reference's dlrm_s_criteo_terabyte.sh trains it (lr 1.0, no
+#: momentum, no weight decay), the loss averaged over the batch (the
+#: Module's rescale 1/batch)
+SPARSE_SGD = {"learning_rate": 1.0}
+SPARSE_RATIO = 10          # (a): logical bytes over resident bytes, at least
+SPARSE_CMP_ROWS = 65536    # (c): every table's rows
+SPARSE_CMP_STEPS = 2
+#: (c)'s bound, 2 float32 ulps of each array's largest |value|: the server's
+#: numpy rounds g x rescale and w - lr x g apart, the card's list update may
+#: fuse them into one rounding.  At lr 1 and rescale 2^-11 both products
+#: are exact and every id is unique within a batch (no sum in the table's
+#: gradient), so the bits are expected to agree, and whether they do is
+#: printed
+SPARSE_TOL_ULPS = 2
+SPARSE_TIMEOUT = 300
+
+
+def sparse_symbols(mt, capacity, vocabs):
+    with mt.NameManager():
+        return mt.models.get_dlrm(vocab_sizes=list(vocabs), **dict(
+            PLAT_DLRM, capacity=capacity))
+
+
+def sparse_params(mt, net):
+    """The dense layers' weights N(0, 1 / fan-in) from SEED, zero biases
+    (numpy, so every run of the phase starts from the same bits); the
+    tables' values come from the servers."""
+    shapes = plat_dlrm_shapes(SPARSE_BATCH)
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    rng = np.random.RandomState(SEED + 24)
+    params = {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in shapes or name.endswith("_label") or \
+                name.endswith("_embed_weight"):
+            continue
+        params[name] = (np.zeros(shape, np.float32) if name.endswith("_bias")
+                        else (rng.standard_normal(shape)
+                              / math.sqrt(shape[1])).astype(np.float32))
+    return params
+
+
+def sparse_batches(steps, vocabs, seed, unique=False):
+    """Batches of 13 dense features, 26 bags of 8 ids (uniform in each
+    table's vocabulary, or unique within the batch) and a click label.  The
+    ids are int32: float32 holds integers exactly only up to 2^24, and four
+    of the vocabularies pass 3.8e7."""
+    rng = np.random.RandomState(seed)
+    n = SPARSE_BATCH * PLAT_DLRM["bag_len"]
+    out = []
+    for _ in range(steps):
+        data = [rng.randn(SPARSE_BATCH, PLAT_DLRM["dense_dim"]).astype(
+            np.float32)]
+        for v in vocabs:
+            ids = rng.permutation(v)[:n] if unique else rng.randint(0, v, n)
+            data.append(ids.reshape(SPARSE_BATCH, -1).astype(np.int32))
+        label = rng.randint(0, 2, (SPARSE_BATCH, 1)).astype(np.float32)
+        out.append((data, label))
+    return out
+
+
+def sparse_data_batch(mt, batch):
+    data, label = batch
+    return mt.io.DataBatch([mt.nd.array(d, mt.gpu(0)) for d in data],
+                           [mt.nd.array(label, mt.gpu(0))])
+
+
+class SparseEnv:
+    """``env`` set in this process's environment, restored on exit; with
+    ``lock``, held so no other thread sees it (a kvstore reads the DMLC
+    variables when it is created, a client its retry budget whenever it
+    connects)."""
+
+    LOCK = threading.Lock()
+
+    def __init__(self, env, lock=False):
+        self.env, self.lock = env, lock
+
+    def __enter__(self):
+        if self.lock:
+            self.LOCK.acquire()
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if self.lock:
+            self.LOCK.release()
+
+
+def sparse_worker_env(job):
+    """The DMLC environment of this process as ``job``'s one worker."""
+    return SparseEnv(dict(DMLC_PS_ROOT_URI="127.0.0.1",
+                          DMLC_PS_ROOT_PORT=str(job.port),
+                          DMLC_NUM_SERVER="2", DMLC_NUM_WORKER="1",
+                          DMLC_WORKER_ID="0", MXNET_KVSTORE_SYNC="0"),
+                     lock=True)
+
+
+class SparseThread(threading.Thread):
+    """``fn()`` on a thread of its own; ``result()`` joins it and returns
+    its value or raises what it raised (a failed check included)."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self.fn, self.value, self.exc = fn, None, None
+        self.start()
+
+    def run(self):
+        try:
+            self.value = self.fn()
+        except BaseException as e:
+            self.exc = e
+
+    def result(self):
+        self.join()
+        if self.exc is not None:
+            raise self.exc
+        return self.value
+
+
+class SparseFleet:
+    """Two servers in this process on gpu(0) (for (c), whose servers are
+    killed by no one): what ``sparse_module`` and ``sparse_server_stats``
+    read of a ``PSJob``."""
+
+    def __init__(self, mt):
+        from mxnet_tpu_torch import kvstore_server as kvs
+
+        self.port = free_ports(2)
+        self.servers = [kvs.start_server(port=self.port + i, ctx=mt.gpu(0))
+                        for i in range(2)]
+
+    def close(self):
+        for srv in self.servers:
+            srv.stop()
+
+
+def sparse_start():
+    """Start (a)'s and (b)'s server processes; the caller starts them while
+    an earlier phase runs, so their start-up is over when phase 24 begins.
+    Returns the jobs and the snapshot directory."""
+    snap_dir = tempfile.mkdtemp(prefix="sparse_snap_")
+    return {"a": PSJob("sparse_a", 2, 0, False),
+            "b": PSJob("sparse_b", 2, 0, False,
+                       MXNET_KVSTORE_SNAPSHOT_PATH=os.path.join(
+                           snap_dir, "kv.snap"),
+                       MXNET_KVSTORE_SNAPSHOT_INTERVAL="0"),
+            "snap_dir": snap_dir}
+
+
+def sparse_module(mt, net, slots, params, job):
+    """A SparseEmbeddingModule on gpu(0) over ``job``'s two servers."""
+    names = list(plat_dlrm_shapes(1))
+    mod = mt.sparse.SparseEmbeddingModule(
+        net, sparse_slots=slots, data_names=names,
+        label_names=["ctr_label"], context=mt.gpu(0))
+    shapes = plat_dlrm_shapes(SPARSE_BATCH)
+    mod.bind(data_shapes=[(n, shapes[n]) for n in names],
+             label_shapes=[("ctr_label", (SPARSE_BATCH, 1))])
+    mod.init_params(arg_params={k: mt.nd.array(v, mt.gpu(0))
+                                for k, v in params.items()},
+                    aux_params={}, allow_missing=True)
+    with sparse_worker_env(job):
+        mod.init_optimizer(kvstore="dist_async", optimizer="sgd",
+                           optimizer_params=dict(SPARSE_SGD))
+    return mod
+
+
+def sparse_server_stats(job):
+    from mxnet_tpu_torch import kvstore_server as kvs
+
+    out = []
+    for i in range(2):
+        with kvs.ServerClient("127.0.0.1", job.port + i) as c:
+            out.append(c.stats())
+    return out
+
+
+def sparse_steps(torch, mt, mod, batches, job, tag, card, after_step=None):
+    """Train ``batches`` through ``mod``; print each step's split: the
+    route (ids uniquified, rows pulled, rows copied to the card), the
+    executor's forward and backward on the card (CUDA events), the update
+    (gradient rows to the host, the push submitted, then the wait for the
+    servers to apply it), the servers' seconds in the row store and in the
+    dense updater, and the bytes moved."""
+    eg = mod._exec_group
+    run_fb = eg.forward_backward
+    events = []
+
+    def timed_fb(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        run_fb(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+
+    eg.forward_backward = timed_fb
+    kv = mod._kvstore
+    rows = []
+    before = sparse_server_stats(job)
+    try:
+        for step, batch in enumerate(batches):
+            wire0 = dict(kv.inner.wire)
+            t0 = time.perf_counter()
+            mod.forward_backward(sparse_data_batch(mt, batch))
+            t1 = time.perf_counter()
+            mod.update()
+            t2 = time.perf_counter()
+            kv.wait_all()
+            t3 = time.perf_counter()
+            torch.cuda.synchronize()
+            st = mod.sparse_stats()["step"]
+            after = sparse_server_stats(job)
+            ev0, ev1 = events[-1]
+            row = {"step": step, "route_s": {k: round(st[k], 4) for k in
+                                             ("unique_s", "pull_s",
+                                              "copy_s")},
+                   "fb_ms": ev0.elapsed_time(ev1),
+                   "forward_backward_s": t1 - t0,
+                   "update_s": {"to_host_s": round(st["to_host_s"], 4),
+                                "push_s": round(st["push_s"], 4),
+                                "wait_s": round(t3 - t2, 4)},
+                   "step_s": t3 - t0,
+                   "server_rows_s": [round(a["sparse_seconds"]
+                                           - b["sparse_seconds"], 4)
+                                     for a, b in zip(after, before)],
+                   "server_dense_s": [round(a["update_seconds"]
+                                            - b["update_seconds"], 4)
+                                      for a, b in zip(after, before)],
+                   "pulled_rows_bytes": st["pulled_bytes"],
+                   "pushed_rows_bytes": st["pushed_bytes"],
+                   "dense_push_bytes": kv.inner.wire["push_bytes"]
+                   - wire0["push_bytes"],
+                   "dense_pull_bytes": kv.inner.wire["pull_bytes"]
+                   - wire0["pull_bytes"]}
+            rows.append(row)
+            before = after
+            print("sparse %s: step %d %.3f s: route unique %.3f, pull %.3f, "
+                  "copy to the card %.3f s; forward+backward %.3f ms on the "
+                  "card; update: rows to the host %.3f, push %.3f, wait for "
+                  "the servers %.3f s; servers' row store %s s, dense "
+                  "updater %s s; rows pulled %d B, pushed %d B; dense %d B "
+                  "pushed, %d B pulled (%s)"
+                  % (tag, step, row["step_s"], st["unique_s"], st["pull_s"],
+                     st["copy_s"], row["fb_ms"], st["to_host_s"],
+                     st["push_s"], t3 - t2, row["server_rows_s"],
+                     row["server_dense_s"], st["pulled_bytes"],
+                     st["pushed_bytes"], row["dense_push_bytes"],
+                     row["dense_pull_bytes"], card), flush=True)
+            if after_step is not None:
+                after_step(step)
+                before = sparse_server_stats(job)
+    finally:
+        eg.forward_backward = run_fb
+    return rows
+
+
+def sparse_touched(batches, nslots):
+    ids = [set() for _ in range(nslots)]
+    for data, _label in batches:
+        for i in range(nslots):
+            ids[i].update(np.unique(data[1 + i]).astype(np.int64).tolist())
+    return [np.array(sorted(s), np.int64) for s in ids]
+
+
+def sparse_digest(mod, touched, keys):
+    """Each table's touched rows, pulled, as a sha256 of their bytes."""
+    import hashlib
+
+    out = []
+    for key, ids in zip(keys, touched):
+        out.append(hashlib.sha256(
+            mod.sparse_plane.pull_rows(key, ids).tobytes()).hexdigest())
+    return out
+
+
+def sparse_train(torch, mt, net, slots, params, batches, probe, job, tag,
+                 card, kill=False):
+    """(a), or with ``kill`` (b): SPARSE_STEPS steps over ``job``'s
+    fleet.  Returns the per-step rows, the touched rows' digests, the probe
+    batch's outputs, the servers' table_info and the module's stats."""
+    mod = sparse_module(mt, net, slots, params, job)
+    kv = mod._kvstore
+    kill_s = {}
+
+    def after_step(step):
+        if not kill or step + 1 != SPARSE_SNAP_AFTER:
+            return
+        from mxnet_tpu_torch import kvstore_server as kvs
+
+        t0 = time.perf_counter()
+        mod.sparse_plane.wait()
+        kv.wait_all()
+        for i in range(2):
+            with kvs.ServerClient("127.0.0.1", job.port + i) as c:
+                check(c.snapshot() is not None, "sparse (b): server %d "
+                      "wrote no snapshot" % i)
+        t1 = time.perf_counter()
+        victim = job.servers[1]
+        victim.kill()
+        victim.wait(timeout=SPARSE_TIMEOUT)
+        check(victim.returncode == -9, "sparse (b): server 1 exited %s, "
+              "not by SIGKILL" % victim.returncode)
+        job.server(1)
+        with kvs.ServerClient("127.0.0.1", job.port + 1) as c:
+            c.membership()  # answered once it has restored and listens
+        t2 = time.perf_counter()
+        kill_s.update(snapshot_s=t1 - t0, restart_s=t2 - t1)
+        print("sparse (b): both shards snapshotted in %.3f s after step %d; "
+              "server 1 SIGKILLed, restarted and restored in %.3f s (%s)"
+              % (t1 - t0, step, t2 - t1, card), flush=True)
+
+    try:
+        rows = sparse_steps(torch, mt, mod, batches, job, tag, card,
+                            after_step)
+        mod.sparse_plane.wait()
+        kv.wait_all()
+        keys = [slots["slot%d" % i]["weight"] for i in range(len(slots))]
+        infos = mod.sparse_plane.table_info()
+        t0 = time.perf_counter()
+        digests = sparse_digest(mod, sparse_touched(batches, len(slots)),
+                                keys)
+        digest_s = time.perf_counter() - t0
+        mod.forward(sparse_data_batch(mt, probe), is_train=False)
+        out = mod.get_outputs()[0].asnumpy()
+        stats = mod.sparse_stats()
+    finally:
+        kv.close()
+    return {"rows": rows, "digests": digests, "out": out, "infos": infos,
+            "stats": stats, "keys": keys, "kill_s": kill_s,
+            "digest_s": digest_s}
+
+
+def sparse_gates(run, card):
+    """(a)'s gates: each server holds part of every table (0 < rows <
+    total), no row on the wrong shard, the worker's logical bytes at least
+    SPARSE_RATIO times its resident bytes; every output finite."""
+    infos, stats = run["infos"], run["stats"]
+    for key in run["keys"]:
+        rows = [info[key]["rows"] for info in infos]
+        check(all(0 < r < sum(rows) for r in rows), "sparse (a): table %s "
+              "rows by server %s" % (key, rows))
+        check(all(info[key]["misplaced"] == 0 for info in infos),
+              "sparse (a): table %s holds misplaced rows" % key)
+    logical = sum(s["logical_bytes"] for s in stats["slots"].values())
+    resident = sum(s["resident_bytes"] for s in stats["slots"].values())
+    check(logical >= SPARSE_RATIO * resident, "sparse (a): logical %d B < "
+          "%d x resident %d B" % (logical, SPARSE_RATIO, resident))
+    check(run["out"].shape == (SPARSE_BATCH, 1) and
+          bool(np.all(np.isfinite(run["out"]))), "sparse (a): the probe's "
+          "outputs are not finite of shape (%d, 1)" % SPARSE_BATCH)
+    held = [sum(info[k]["rows"] for k in run["keys"]) for info in infos]
+    nbytes = [sum(info[k]["bytes"] for k in run["keys"]) for info in infos]
+    print("sparse (a): %d logical rows, %d rows held by the servers %s "
+          "(%s B), misplaced 0; worker logical %d B / resident %d B = %.1fx; the "
+          "touched rows' digests pulled in %.3f s (%s)"
+          % (sum(SPARSE_VOCABS), sum(held), held, nbytes, logical, resident,
+             logical / resident, run["digest_s"], card), flush=True)
+    return {"held_rows": held, "held_bytes": nbytes,
+            "logical_over_resident": logical / resident}
+
+
+def sparse_against_dense(torch, mt, params, job, card):
+    """(c): SPARSE_CMP_STEPS steps of SparseEmbeddingModule over ``job``'s
+    servers against a plain Module holding the full tables on the card,
+    from the same tables (the touched rows pulled from the servers first)
+    and dense weights, with ids unique within a batch."""
+    vocabs = (SPARSE_CMP_ROWS,) * PLAT_DLRM["num_slots"]
+    snet, slots = sparse_symbols(mt, PLAT_DLRM["capacity"], vocabs)
+    dnet, _ = sparse_symbols(mt, SPARSE_CMP_ROWS, vocabs)
+    batches = sparse_batches(SPARSE_CMP_STEPS, vocabs, SEED + 243,
+                             unique=True)
+    touched = sparse_touched(batches, len(vocabs))
+    smod = sparse_module(mt, snet, slots, params, job)
+    keys = [slots["slot%d" % i]["weight"] for i in range(len(vocabs))]
+    try:
+        init = dict(params)
+        for key, ids in zip(keys, touched):
+            table = np.zeros((SPARSE_CMP_ROWS, PLAT_DLRM["embed_dim"]),
+                             np.float32)
+            table[ids] = smod.sparse_plane.pull_rows(key, ids)
+            init[key] = table
+        names = list(plat_dlrm_shapes(1))
+        shapes = plat_dlrm_shapes(SPARSE_BATCH)
+        dmod = mt.mod.Module(dnet, data_names=names,
+                             label_names=["ctr_label"], context=mt.gpu(0))
+        dmod.bind(data_shapes=[(n, shapes[n]) for n in names],
+                  label_shapes=[("ctr_label", (SPARSE_BATCH, 1))])
+        dmod.init_params(arg_params={k: mt.nd.array(v, mt.gpu(0))
+                                     for k, v in init.items()},
+                         aux_params={})
+        dmod.init_optimizer(kvstore=None, optimizer="sgd",
+                            optimizer_params=dict(SPARSE_SGD))
+        del init
+        for batch in batches:
+            for mod in (dmod, smod):
+                mod.forward_backward(sparse_data_batch(mt, batch))
+                mod.update()
+        smod.sparse_plane.wait()
+        smod._kvstore.wait_all()
+        dargs = dmod.get_params()[0]
+        sargs = smod.get_params()[0]
+        worst, bitwise = {}, True
+        pairs = [(key, smod.sparse_plane.pull_rows(key, ids),
+                  dargs[key].asnumpy()[ids])
+                 for key, ids in zip(keys, touched)]
+        pairs += [(name, sargs[name].asnumpy(), dargs[name].asnumpy())
+                  for name in sorted(params)]
+        for name, got, ref in pairs:
+            err = float(np.abs(got - ref).max())
+            bound = SPARSE_TOL_ULPS * np.finfo(np.float32).eps * \
+                float(np.abs(ref).max())
+            check(err <= bound, "sparse (c): %s off the dense Module by %.3g "
+                  "> %.3g (%d ulps of its largest |value|)"
+                  % (name, err, bound, SPARSE_TOL_ULPS))
+            worst[name] = err
+            bitwise = bitwise and got.tobytes() == ref.tobytes()
+    finally:
+        smod._kvstore.close()
+    tables = max(worst[k] for k in keys)
+    dense = max(worst[n] for n in params)
+    print("sparse (c): %d steps, 26 tables of %d rows, ids unique within a "
+          "batch: SparseEmbeddingModule over 2 servers against a Module "
+          "holding the tables on the card: rows off by %.3g, dense weights "
+          "by %.3g (bound %d ulps of each array's largest |value|); every "
+          "array bit for bit: %s (%s)"
+          % (SPARSE_CMP_STEPS, SPARSE_CMP_ROWS, tables, dense,
+             SPARSE_TOL_ULPS, bitwise, card), flush=True)
+    return {"rows_err": tables, "dense_err": dense, "bitwise": bitwise}
+
+
+def sparse_phase(torch, mt, started=None):
+    """Phase 24 (module docstring).  ``started``: sparse_start()'s servers,
+    else they start here."""
+    card = card_and_limit()
+    t_phase = time.perf_counter()
+    # a restarted server takes seconds to come back: every client of the
+    # phase keeps retrying for up to a minute
+    retry = SparseEnv(dict(MXNET_KVSTORE_RETRY_MAX="600",
+                           MXNET_KVSTORE_RETRY_MAX_MS="100"))
+    retry.__enter__()
+    jobs = dict(started or sparse_start())
+    snap_dir = jobs.pop("snap_dir")
+    walls, servers = {}, {}
+    try:
+        t0 = time.perf_counter()
+        net, slots = sparse_symbols(mt, PLAT_DLRM["capacity"], SPARSE_VOCABS)
+        params = sparse_params(mt, net)
+        walls["symbol"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches = sparse_batches(SPARSE_STEPS, SPARSE_VOCABS, SEED + 24)
+        probe = sparse_batches(1, SPARSE_VOCABS, SEED + 241)[0]
+        walls["data"] = time.perf_counter() - t0
+        runs = {}
+        t0 = time.perf_counter()
+        runs["a"] = sparse_train(torch, mt, net, slots, params, batches,
+                                 probe, jobs["a"], "a", card)
+        walls["a"] = time.perf_counter() - t0
+        servers["a"] = sparse_server_stats(jobs["a"])
+        jobs["a"].close()
+        # (c) runs beside (b), which gates on bits: (b)'s times are
+        # printed as such
+        t0 = time.perf_counter()
+        jobs["c"] = SparseFleet(mt)
+        cmp_thread = SparseThread(lambda: sparse_against_dense(
+            torch, mt, params, jobs["c"], card))
+        runs["b"] = sparse_train(torch, mt, net, slots, params, batches,
+                                 probe, jobs["b"], "b (beside (c))", card,
+                                 kill=True)
+        walls["b"] = time.perf_counter() - t0
+        servers["b"] = sparse_server_stats(jobs["b"])
+        jobs["b"].close()
+        cmp = cmp_thread.result()
+        walls["b+c"] = time.perf_counter() - t0
+        servers["c"] = sparse_server_stats(jobs["c"])
+        gates = sparse_gates(runs["a"], card)
+        check(runs["b"]["digests"] == runs["a"]["digests"], "sparse (b): "
+              "the touched rows after a SIGKILL and restart differ from "
+              "(a)'s")
+        check(runs["b"]["out"].tobytes() == runs["a"]["out"].tobytes(),
+              "sparse (b): the probe's outputs after a SIGKILL and restart "
+              "differ from (a)'s")
+        check(servers["b"][1]["restored"], "sparse (b): server 1's stats "
+              "do not say it was restored")
+        print("sparse (b): touched rows of the 26 tables and the probe's "
+              "outputs bit for bit (a)'s; server 1 restored from its "
+              "snapshot (%s)" % card, flush=True)
+    finally:
+        for job in jobs.values():
+            job.close()
+        shutil.rmtree(snap_dir, ignore_errors=True)
+        retry.__exit__()
+    wall = time.perf_counter() - t_phase
+    print("sparse: walls %s; phase %.1f s on %s"
+          % ({k: round(v, 2) for k, v in walls.items()}, wall, card),
+          flush=True)
+    print(json.dumps({"sparse": {
+        "card": card, "rows": sum(SPARSE_VOCABS),
+        "a": runs["a"]["rows"], "b": runs["b"]["rows"],
+        "b_kill_s": runs["b"]["kill_s"], "gates": gates, "c": cmp,
+        "servers": {t: [{k: s[k] for k in ("applied_pushes",
+                                           "applied_row_pushes",
+                                           "sparse_seconds",
+                                           "update_seconds", "ctx",
+                                           "device_peak_bytes", "restored")}
+                        for s in ss] for t, ss in servers.items()},
+        "walls_s": walls, "wall_s": wall}}, default=str), flush=True)
 
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
@@ -11702,6 +12427,134 @@ def build_phase(torch, mt, parent_csrcs=()):
     return parents
 
 
+# ---------------------------------------------------------------------------
+# lanes: phases in a process of their own, beside the main sequence
+# ---------------------------------------------------------------------------
+#: the phases of lane A, in order.  None of them reads the main sequence's
+#: state, adds to the kernel table (their launches are printed only) or
+#: times a kernel for it; main starts the lane after the extend phase,
+#: whose readings close the table's timings, and joins it before phase
+#: 19's side-by-side block.  Their times, and the main sequence's from
+#: the agree phase to phase 19's (d), are read with the other process on
+#: the card.
+LANE_A = ("resnet", "ssd", "random", "spatial", "image_io", "generate",
+          "recurrent")
+LANE_TIMEOUT = 900
+
+
+def lane_phase(torch, mt, name, profile_dir, state):
+    """Run phase ``name`` of a lane, with what main printed after it."""
+    if name == "resnet":
+        launches = resnet_phase(torch, mt, profile_dir)
+        print("resnet: kernel launches of the port's own in the phase: %s"
+              % (launches or "none (cuDNN and plain torch)"), flush=True)
+    elif name == "ssd":
+        launches, state["ssd_step_ms"] = ssd_phase(torch, mt, profile_dir)
+        print("ssd: kernel launches of the port's own in the phase: %s"
+              % (launches or "none (cuDNN, torch's CUDA convolution and "
+                 "plain torch)"), flush=True)
+    elif name == "random":
+        random_phase(torch, mt)
+    elif name == "spatial":
+        launches = spatial_phase(torch, mt)
+        print("spatial: kernel launches of the port's own in the phase: %s"
+              % ({k: v for k, v in launches.items() if v} or
+                 "none (plain torch and cuDNN)"), flush=True)
+    elif name == "image_io":
+        launches = image_io_phase(torch, mt, state["ssd_step_ms"],
+                                  profile_dir)
+        print("image_io: kernel launches of the port's own in the phase: %s"
+              % ({k: v for k, v in launches.items() if v} or
+                 "none (host decoding, cuDNN and plain torch)"), flush=True)
+    elif name == "generate":
+        launches = generate_phase(torch, mt, profile_dir)
+        print("generate: kernel launches of the port's own in the flash "
+              "prefill check: %s" % {k: v for k, v in launches.items() if v},
+              flush=True)
+    elif name == "recurrent":
+        launches = recurrent_phase(torch, mt, profile_dir)
+        print("recurrent: kernel launches of the port's own: %s"
+              % (launches or "none (plain torch and cuBLAS)"), flush=True)
+    else:
+        raise SystemExit("chip_smoke: no lane phase %r" % name)
+
+
+def lane_worker(path):
+    """``--lane SPEC``: the phases SPEC names, in order, in this process."""
+    import torch
+
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import attention  # noqa: F401 (as main)
+
+    with open(path) as f:
+        spec = json.load(f)
+    # as the main sequence has them when it reaches these phases
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clock, state = PhaseClock(), {}
+    for name in spec["phases"]:
+        lane_phase(torch, mt, name, spec["profile"], state)
+        clock.mark("%s (lane %s)" % (name, spec["tag"]))
+
+
+class LaneJob:
+    """The phases ``names`` in a process of their own (``--lane``) beside
+    the main sequence, its output in a file that ``finish`` prints."""
+
+    def __init__(self, tag, names, profile_dir):
+        self.tag, self.names, self.rc = tag, names, None
+        self.tmp = tempfile.mkdtemp(prefix="lane_%s_" % tag)
+        spec = os.path.join(self.tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"tag": tag, "phases": list(names),
+                       "profile": profile_dir}, f)
+        self.log = os.path.join(self.tmp, "lane.log")
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--lane", spec], cwd=here, stdout=log,
+                stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+        print("lane %s: %s in process %d beside the main sequence"
+              % (tag, ", ".join(names), self.proc.pid), flush=True)
+
+    def fail_early(self):
+        """Fail the script at once if the lane has already failed."""
+        if self.rc is None and self.proc.poll() not in (None, 0):
+            self.finish()
+
+    def finish(self):
+        """Wait for the lane, print its output; fatal unless it exited 0."""
+        if self.rc is not None:
+            return
+        try:
+            self.proc.wait(timeout=max(
+                1.0, LANE_TIMEOUT - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        wall = time.perf_counter() - self.t0
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.rc = self.proc.returncode
+        with open(self.log) as f:
+            text = f.read().rstrip()
+        self.close()
+        print("lane %s: its output:\n%s\nlane %s: %.1f s from its start "
+              "to its end, exit %s" % (self.tag, text, self.tag, wall,
+                                       self.rc), flush=True)
+        check(self.rc == 0, "lane %s (%s) exited %s" % (
+            self.tag, ", ".join(self.names), self.rc))
+
+    def close(self):
+        """Stop the lane if it still runs; remove its folder."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -11730,6 +12583,7 @@ def main():
     ap.add_argument("--shard-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--ps-worker", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--cc-worker", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--lane", metavar="SPEC", help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if opts.dist_worker:
         dist_worker(opts.dist_worker)
@@ -11743,6 +12597,9 @@ def main():
     if opts.cc_worker:
         cc_worker(opts.cc_worker)
         return
+    if opts.lane:
+        lane_worker(opts.lane)
+        return
 
     import torch
 
@@ -11752,19 +12609,49 @@ def main():
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.ops import attention as att
 
+    jobs = []  # what stops the processes a phase left running beside
+    try:
+        main_sequence(torch, mt, att, opts, jobs)
+    finally:
+        for close in jobs:
+            close()
+        for job in list(PS_JOBS):  # one a failed phase's thread still ran
+            job.close()
+
+
+def main_sequence(torch, mt, att, opts, jobs):
+    """The phases in order, with lane A beside them; each process started
+    beside them adds its stop to ``jobs``."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                      torch.cuda.get_device_name(0)),
           flush=True)
+    clock = PhaseClock()
+    # the serve phase's 441M weights are drawn and written beside the
+    # build's nvcc processes, and joined before any kernel is timed
+    with mt.NameManager():
+        serve_net = get_transformer_lm(**FULL)
+    serve_dir = tempfile.mkdtemp(prefix="serve_")
+    jobs.append(lambda: shutil.rmtree(serve_dir, ignore_errors=True))
+    serve_ckpt = Background(serve_checkpoint, mt, serve_net, serve_dir)
     parents = build_phase(torch, mt, opts.parent_csrc)
+    clock.mark("build")
+    ckpt = serve_ckpt.result()
+    clock.mark("the serve checkpoint's wait after the build")
     device = torch.device("cuda", 0)
     main_rows, dim_rows = kernel_phase(torch, att, device, parents)
+    clock.mark("kernel")
     splitp_row = main_rows.pop("flash_fwd_splitp")
     rows = list(main_rows.values())
     rtc_rows = rtc_kernel_phase(torch, mt, device, {
         os.path.basename(os.path.normpath(d)): parent_axpy(d)
         for d in opts.parent_rtc})
-    pred, tokens, flash_out = serve_phase(torch, mt)
+    clock.mark("rtc")
+    pred, tokens, flash_out = serve_phase(torch, mt, ckpt)
+    clock.mark("serve")
     mod, batch, launches, losses, step_ms, replay = train_phase(torch, mt)
+    clock.mark("train")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(launches[name] > 0, "the training path never launched %s"
               % name)
@@ -11792,14 +12679,18 @@ def main():
     torch.cuda.empty_cache()
     f32_launches = train_f32_phase(torch, mt, batch, replay["Y"], losses,
                                    opts.profile)
+    clock.mark("train_f32")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         dim_rows[(name, FULL["hidden"] // FULL["num_heads"], "f32")][
             "launches"] = f32_launches[name]
         check(f32_launches[name] > 0, "the float32 training path never "
               "launched %s" % name)
     replay_phase(torch, mt, batch, replay)
+    clock.mark("replay")
     splash_launches = splash_phase(torch, mt, batch, replay, losses, step_ms,
                                    tokens, flash_out, opts.profile)
+    clock.mark("splash")
+    SERVE_INPUTS.clear()
     splitp_row["launches"] = splash_launches["flash_fwd_splitp"]
     check(splitp_row["launches"] > 0, "the splash path never launched "
           "flash_fwd_splitp")
@@ -11808,12 +12699,17 @@ def main():
     torch.cuda.empty_cache()
     ext_launches, sgd_row = extend_phase(torch, mt, losses, step_ms,
                                          opts.profile)
+    clock.mark("extend")
     rtc_rows.insert(1, sgd_row)
     for r in rtc_rows:
         r["launches"] = ext_launches.get(r["name"], 0)
         check(r["launches"] > 0, "the extension path never launched %s"
               % r["name"])
     rows += rtc_rows
+    # the table's timings are all read: lane A starts beside the rest
+    lane = LaneJob("A", LANE_A, opts.profile)
+    jobs.append(lane.close)
+    clock.lanes.append(lane)
     small_agreement(mt)
     for dtype in (None, "bfloat16"):
         small_train_agreement(torch, mt, dtype)
@@ -11827,6 +12723,7 @@ def main():
                 check(got[name] > 0, "the d=%d LM never launched %s"
                       % (d, name))
     rows += [dim_rows[k] for k in sorted(dim_rows)]
+    clock.mark("agree (small LMs)")
     spread_witness(torch, mt)
     small_train_agreement(torch, mt, None, rtc_gelu=True)
     for optimizer in AGREE_MORE:
@@ -11839,55 +12736,54 @@ def main():
         for what in SMALL_IMAGE:
             image_agreement(torch, mt, what, dtype)
     small_ssd_agreement(torch, mt)
-    resnet_launches = resnet_phase(torch, mt, opts.profile)
-    print("resnet: kernel launches of the port's own in the phase: %s"
-          % (resnet_launches or "none (cuDNN and plain torch)"), flush=True)
-    ssd_launches, ssd_step_ms = ssd_phase(torch, mt, opts.profile)
-    print("ssd: kernel launches of the port's own in the phase: %s"
-          % (ssd_launches or "none (cuDNN, torch's CUDA convolution and "
-             "plain torch)"), flush=True)
-    random_phase(torch, mt)
+    clock.mark("agree (the rest)")
     train_api_phase(torch, mt, batch, replay)
-    torch.cuda.empty_cache()
-    spatial_launches = spatial_phase(torch, mt)
-    print("spatial: kernel launches of the port's own in the phase: %s"
-          % ({k: v for k, v in spatial_launches.items() if v} or
-             "none (plain torch and cuDNN)"), flush=True)
-    image_launches = image_io_phase(torch, mt, ssd_step_ms, opts.profile)
-    print("image_io: kernel launches of the port's own in the phase: %s"
-          % ({k: v for k, v in image_launches.items() if v} or
-             "none (host decoding, cuDNN and plain torch)"), flush=True)
-    gen_launches = generate_phase(torch, mt, opts.profile)
-    print("generate: kernel launches of the port's own in the flash "
-          "prefill check: %s" % {k: v for k, v in gen_launches.items() if v},
-          flush=True)
-    torch.cuda.empty_cache()
+    clock.mark("train_api")
     par_launches = parallel_phase(torch, mt, att, batch, replay)
-    torch.cuda.empty_cache()
-    rec_launches = recurrent_phase(torch, mt, opts.profile)
-    print("recurrent: kernel launches of the port's own: %s"
-          % (rec_launches or "none (plain torch and cuBLAS)"), flush=True)
+    clock.mark("parallel")
     shard_launches = sharding_phase(torch, mt, batch, replay)
+    clock.mark("sharding")
     for tag in ("bf16", "f32"):
         par_launches[tag].update(shard_launches[tag])
     del batch
     torch.cuda.empty_cache()
-    ps_launches = param_server_phase(torch, mt, replay, losses)
+    # lane A ends before the side-by-side block's processes start: their
+    # memory and lane A's together would crowd the card
+    ps_launches = param_server_phase(torch, mt, replay, losses,
+                                     before_side=lane.finish)
+    clock.mark("param_server")
     for tag in ("bf16", "f32"):
         par_launches[tag].update(ps_launches[tag])
     del replay
     torch.cuda.empty_cache()
+    cc_job = compile_once_start(torch, mt)
+    jobs.append(lambda: compile_once_close(cc_job))
+    clock.mark("compile_once's checkpoint")
     serving_launches = serving_phase(torch, mt)
+    clock.mark("serving")
     par_launches["f32"].update(serving_launches["f32"])
-    torch.cuda.empty_cache()
     platform_launches = platform_phase(torch, mt)
+    clock.mark("platform")
     par_launches["f32"].update(platform_launches["f32"])
-    torch.cuda.empty_cache()
-    cc_launches, cc_rtc_launches = compile_once_phase(torch, mt)
+    cc_launches, cc_rtc_launches = compile_once_finish(cc_job)
+    clock.mark("compile_once's join")
     par_launches["f32"].update(cc_launches["f32"])
-    torch.cuda.empty_cache()
-    obs_launches = observe_phase(torch, mt)
-    par_launches["bf16"].update(obs_launches["bf16"])
+    sparse_jobs = {}
+    try:
+        # phase 24's server processes start up beside phase 23's untimed
+        # half
+        obs_launches = observe_phase(
+            torch, mt, after_timed=lambda: sparse_jobs.update(sparse_start()))
+        clock.mark("observe")
+        par_launches["bf16"].update(obs_launches["bf16"])
+    except BaseException:
+        for job in sparse_jobs.values():
+            if isinstance(job, PSJob):
+                job.close()
+        shutil.rmtree(sparse_jobs.get("snap_dir", ""), ignore_errors=True)
+        raise
+    sparse_phase(torch, mt, sparse_jobs)
+    clock.mark("sparse")
     for r in rtc_rows:
         r["launches_by_path"] = {
             "extend": r["launches"],

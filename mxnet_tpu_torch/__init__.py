@@ -54,7 +54,10 @@ with its degradation ladder, ``FrontDoor``), a subpackage loaded by
 ``telemetry`` (the tracer, the flight recorder, fleet aggregation, the
 step monitor over ``hlo_analysis``'s cost model of the eager plan) and
 ``guardian`` (the fused step's guard, skip → re-warm → rollback under
-``Module.fit``).  This package imports neither ``jax`` nor ``mxnet_tpu``.
+``Module.fit``) — and the sparse plane: ``sparse`` (``RowSparseArray``,
+the server-placed updaters, ``SparseParamPlane`` on the comm engine,
+``SparseEmbeddingModule``) over the servers' sharded row tables.  This
+package imports neither ``jax`` nor ``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -90,6 +93,9 @@ from . import model
 from . import kvstore
 from . import kvstore as kv
 from . import comm_engine
+# row-sparse values and the sharded embedding-table plane (its eager surface
+# numpy only: kvstore_server imports row_merge from it)
+from . import sparse
 from . import kvstore_dist
 from . import module
 from . import module as mod

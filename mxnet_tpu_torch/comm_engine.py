@@ -27,8 +27,9 @@ Per-key FIFO makes the per-key update sequence identical to the
 synchronous path, so async training reaches bit-identical weights.  Each
 op runs inside a profiler span named by its label (``comm.push``,
 ``comm.pull_bucket``, ...) on its worker's track, and while the tracer is
-active a flow event links the submitting thread to it.  Left for a later
-slice: ``sparse_plane`` (A.6b.2, with ``sparse/``).
+active a flow event links the submitting thread to it.
+:meth:`AsyncKVStore.sparse_plane` binds the row-sparse plane
+(``sparse/plane.py``) to the engine's chains.
 """
 from __future__ import annotations
 
@@ -665,8 +666,17 @@ class AsyncKVStore(KVStore):
             return True  # drained; pending failures surfaced and dropped
 
     def sparse_plane(self):
-        raise MXNetError("the row-sparse parameter plane is not ported yet: "
-                         "it comes with sparse/ (slice A.6b of the port)")
+        """Build (once) the row-sparse parameter plane bound to this
+        engine: sparse pushes ride the same per-key FIFO chains as dense
+        traffic (keys ``("sparse", key)``), so they pipeline with compute
+        and a pull always observes the pushes submitted before it."""
+        plane = self.__dict__.get("_sparse_plane")
+        if plane is None:
+            from .sparse.plane import SparseParamPlane
+
+            plane = SparseParamPlane(self)
+            self.__dict__["_sparse_plane"] = plane
+        return plane
 
     # -- control plane (drain first) ----------------------------------------
     def init(self, key, value):

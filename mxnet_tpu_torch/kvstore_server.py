@@ -27,12 +27,18 @@ envelope (its 5th field, as the JAX client does) and opens a
 ``kv.client.<cmd>`` span that starts a flow; the server's handler span
 ``kv.rpc.<cmd>`` carries the same trace id and finishes the flow, so a
 merged fleet trace links them.  A membership eviction leaves a flight-
-recorder postmortem.  Not ported yet: the sparse row plane
-(``init_table``/``push_rows``/``pull_rows``/``table_info``/
-``set_sparse_optimizer`` answer an error naming slice A.6b, which brings
-``sparse/``; ROADMAP.md A.6b.2).  Snapshots hold this package's classes
-(the updater pickles the port's optimizer), so neither package restores
-the other's.
+recorder postmortem.
+
+The sparse row plane (``init_table``, ``push_rows``, ``pull_rows``,
+``table_info``, ``set_sparse_optimizer``; ``sparse/`` on the worker) keeps
+each embedding table sharded by ``row % num_servers`` as numpy rows on the
+host, materialised on first touch from a generator seeded by (key, row),
+with the server-placed optimizer's state beside each row.  Its commands
+are the JAX package's on the wire, but for ``set_sparse_optimizer``: an
+updater travels as this package's pickle behind a package tag, and a
+server of either package refuses the other's.  Snapshots hold this
+package's classes (the dense updater pickles the port's optimizer, the
+sparse one carries the tag), so neither package restores the other's.
 
 .. warning:: **Trust model** — same as the reference's ps-lite: the wire
    format is unauthenticated pickles, so any peer that can connect to the
@@ -46,6 +52,7 @@ import logging
 import os
 import pickle
 import random
+import re
 import socket
 import socketserver
 import struct
@@ -53,6 +60,7 @@ import sys
 import threading
 import time
 import uuid
+import zlib
 from collections import OrderedDict
 from typing import Dict
 
@@ -72,6 +80,8 @@ from .base import env as _env
 from .base import register_env
 from .context import Context, current_context
 from .filesystem import atomic_write, verify_crc_sidecar
+from .sparse.array import row_merge
+from .sparse.updaters import _SparseOptimizer
 from .telemetry import tracer
 
 __all__ = ["KVStoreServer", "start_server", "ServerClient",
@@ -124,8 +134,10 @@ register_env("MXNET_KVSTORE_SERVER_CTX", "gpu(0)", str,
              "Context the updater of a DMLC_ROLE=server process runs on: "
              "'gpu(N)' or 'cpu'.")
 
-_SPARSE_CMDS = ("init_table", "push_rows", "pull_rows", "table_info",
-                "set_sparse_optimizer")
+# the package tag before a pickled sparse updater, on the wire and in a
+# snapshot: each package's server refuses the other's updater (the JAX
+# server cannot unpickle a tagged one; this one refuses an untagged one)
+_UPDATER_TAG = b"mxnet_tpu_torch.sparse:"
 
 
 # -- retry/backoff knobs -----------------------------------------------------
@@ -304,10 +316,18 @@ def _srv_metrics():
                 "mxtpu_kvsrv_rejected_pushes_total", "rank",
                 "Gradient pushes NACKed for carrying non-finite values "
                 "(never applied to the store)."),
+            "sparse_pushed": reg.counter(
+                "mxtpu_kvsrv_sparse_rows_pushed_total",
+                "Row-sparse gradient rows received via push_rows."),
+            "sparse_pulled": reg.counter(
+                "mxtpu_kvsrv_sparse_rows_pulled_total",
+                "Embedding-table rows served via pull_rows."),
             # per-command latency and per-rank round-wait histograms,
-            # created lazily as commands and ranks appear
+            # created lazily as commands and ranks appear; per-table row
+            # and byte gauges likewise as tables are initialized
             "rpc_cmd_ms": {},
             "rank_wait_ms": {},
+            "table_gauges": {},
         }
     return _TELEM
 
@@ -333,6 +353,59 @@ def _rank_wait_hist(m, rank):
             start=0.5, factor=4.0, count=10)
         m["rank_wait_ms"][rank] = h
     return h
+
+
+def _register_table_gauges(server, key):
+    """Per-key callback gauges over a sharded table's local shard: its row
+    count and resident bytes, read at scrape time from the live dicts."""
+    if not _telemetry.enabled():
+        return
+    m = _srv_metrics()
+    if key in m["table_gauges"]:
+        return
+    safe = re.sub(r"[^A-Za-z0-9_]", "_", str(key))
+    reg = _telemetry.registry()
+
+    def _rows(server=server, key=key):
+        tbl = server.tables.get(key)
+        return len(tbl["rows"]) if tbl else 0
+
+    def _bytes(server=server, key=key):
+        tbl = server.tables.get(key)
+        if not tbl:
+            return 0
+        return sum(v.nbytes for v in tbl["rows"].values()) + \
+            sum(v.nbytes for v in tbl["state"].values())
+
+    m["table_gauges"][key] = (
+        reg.gauge("mxtpu_kvsrv_table_rows_%s" % safe,
+                  "Rows resident in this server's shard of table %r."
+                  % (key,), fn=_rows),
+        reg.gauge("mxtpu_kvsrv_table_bytes_%s" % safe,
+                  "Bytes resident in this server's shard of table %r "
+                  "(rows + optimizer state)." % (key,), fn=_bytes),
+    )
+
+
+def _load_sparse_updater(blob):
+    """A sparse updater from its tagged pickle; an untagged pickle (the JAX
+    package's client or snapshot) or any other class raises MXNetError."""
+    blob = bytes(blob)
+    if not blob.startswith(_UPDATER_TAG):
+        raise MXNetError(
+            "sparse updater not written by mxnet_tpu_torch (a JAX package "
+            "client or snapshot?): this server runs only "
+            "mxnet_tpu_torch.sparse updaters")
+    upd = pickle.loads(blob[len(_UPDATER_TAG):])
+    if not isinstance(upd, _SparseOptimizer):
+        raise MXNetError("sparse updater %s.%s is not an "
+                         "mxnet_tpu_torch.sparse updater"
+                         % (type(upd).__module__, type(upd).__name__))
+    return upd
+
+
+def _dump_sparse_updater(upd):
+    return _UPDATER_TAG + pickle.dumps(upd, pickle.HIGHEST_PROTOCOL)
 
 
 class KVStoreServer:
@@ -378,6 +451,21 @@ class KVStoreServer:
         self._barrier_gen = 0
         self._barrier_cv = threading.Condition()
         self._merge: Dict[object, list] = {}
+        # the sparse row plane: per-key sharded embedding tables, each
+        # {"meta": {...}, "rows": {row_id: ndarray}, "state": {row_id:
+        # ndarray}}.  This server holds only the rows with row_id %
+        # num_servers == server_index, materialized on first touch, with
+        # the server-placed optimizer's state beside them.  _sparse_merge
+        # mirrors _merge for sync-mode rounds: {rank: (ids, vals)} each
+        self.tables: Dict[object, dict] = {}
+        self.sparse_updater = None
+        self._sparse_merge: Dict[object, list] = {}
+        self.applied_row_pushes = 0  # distinct (non-replayed) push_rows
+        # seconds spent gathering and updating rows, read by stats
+        self.sparse_seconds = 0.0
+        # re-seeded for each lazy row (under _lock): the same bytes as a
+        # new RandomState(seed) per row at a fraction of its cost
+        self._row_rng = np.random.RandomState(0)
         # telemetry-only shadow of _merge: per-round {rank: arrival ts}
         # for straggler detection, kept apart so timestamps never reach
         # the snapshot
@@ -647,9 +735,97 @@ class KVStoreServer:
                 if not (is_recovery and self.updater is not None):
                     self.updater = opt.get_updater(optimizer)
             return ("ok",)
-        if cmd in _SPARSE_CMDS:
-            return ("err", "the sparse row plane (%s) is not ported yet: it "
-                    "comes with sparse/, slice A.6b of the port" % cmd)
+        # -- the sparse row plane (wire v2) ----------------------------
+        if cmd == "init_table":
+            _, key, meta = msg
+            meta = dict(meta)
+            meta.setdefault("num_servers", 1)
+            meta.setdefault("server_index", 0)
+            meta.setdefault("init", ("zeros",))
+            meta.setdefault("dtype", "float32")
+            with self._lock:
+                if key not in self.tables:
+                    self.tables[key] = {"meta": meta, "rows": {},
+                                        "state": {}}
+            _register_table_gauges(self, key)
+            return ("ok",)
+        if cmd == "push_rows":
+            faults.fire("kv.server.push_rows")
+            key, row_ids, values = msg[1], msg[2], msg[3]
+            rank = msg[4] if len(msg) > 4 else 0
+            nack = self._reject_nonfinite("push_rows", key, values, rank)
+            if nack is not None:
+                return nack
+            with self._lock:
+                if key not in self.tables:
+                    return ("err", "uninitialized table %r" % (key,))
+                if self.sync_mode and self._members \
+                        and rank not in self._members:
+                    # an evicted or departed rank's in-flight push: ack it
+                    # but keep it out of the survivors' rounds
+                    return ("ok",)
+                ids = np.asarray(row_ids, dtype=np.int64).reshape(-1)
+                vals = np.asarray(values)
+                self.applied_row_pushes += 1
+                if _telemetry.enabled():
+                    _srv_metrics()["sparse_pushed"].inc(ids.shape[0])
+                if self.sync_mode:
+                    # per-worker rounds, as on the dense path
+                    rounds = self._sparse_merge.setdefault(key, [])
+                    for rnd in rounds:
+                        if rank not in rnd:
+                            rnd[rank] = (ids, vals)
+                            break
+                    else:
+                        rounds.append({rank: (ids, vals)})
+                    self._flush_sparse_rounds_locked(key)
+                else:
+                    # duplicate ids summed first: the write-back is per row
+                    ids, vals = row_merge(ids, vals)
+                    self._apply_rows_locked(key, ids, vals)
+            return ("ok",)
+        if cmd == "pull_rows":
+            faults.fire("kv.server.pull_rows")
+            _, key, row_ids = msg
+            with self._lock:
+                if key not in self.tables:
+                    return ("err", "uninitialized table %r" % (key,))
+                ids = np.asarray(row_ids, dtype=np.int64).reshape(-1)
+                out = self._gather_rows_locked(key, ids)
+                if _telemetry.enabled():
+                    _srv_metrics()["sparse_pulled"].inc(ids.shape[0])
+                return ("ok", out)
+        if cmd == "table_info":
+            want = msg[1] if len(msg) > 1 else None
+            with self._lock:
+                info = {}
+                for key, tbl in self.tables.items():
+                    if want is not None and key != want:
+                        continue
+                    meta = tbl["meta"]
+                    ns = int(meta.get("num_servers", 1))
+                    si = int(meta.get("server_index", 0))
+                    misplaced = sum(1 for r in tbl["rows"]
+                                    if int(r) % ns != si)
+                    info[key] = {
+                        "rows": len(tbl["rows"]),
+                        "state_rows": len(tbl["state"]),
+                        "bytes": (sum(v.nbytes
+                                      for v in tbl["rows"].values())
+                                  + sum(v.nbytes
+                                        for v in tbl["state"].values())),
+                        "misplaced": misplaced,
+                        "meta": dict(meta),
+                    }
+                return ("ok", info)
+        if cmd == "set_sparse_optimizer":
+            is_recovery = bool(msg[2]) if len(msg) > 2 else False
+            updater = _load_sparse_updater(msg[1])
+            with self._lock:
+                # a rejoining rank 0 must not reset live optimizer state
+                if not (is_recovery and self.sparse_updater is not None):
+                    self.sparse_updater = updater
+            return ("ok",)
         if cmd == "heartbeat":
             rank = int(msg[1])
             with self._lock:
@@ -714,6 +890,9 @@ class KVStoreServer:
                                "ctx": str(self.ctx),
                                "device_peak_bytes": self._device_peak(),
                                "keys": len(self.store),
+                               "applied_row_pushes": self.applied_row_pushes,
+                               "sparse_seconds": self.sparse_seconds,
+                               "tables": len(self.tables),
                                "restored": self.restored})
         if cmd == "stop":
             self._stop.set()
@@ -946,12 +1125,18 @@ class KVStoreServer:
                     for rnd in rounds:
                         for r in gone:
                             rnd.pop(r, None)
+                for rounds in self._sparse_merge.values():
+                    for rnd in rounds:
+                        for r in gone:
+                            rnd.pop(r, None)
                 for tss in self._merge_ts.values():
                     for tsr in tss:
                         for r in gone:
                             tsr.pop(r, None)
                 for key in list(self._merge):
                     self._flush_rounds_locked(key)
+                for key in list(self._sparse_merge):
+                    self._flush_sparse_rounds_locked(key)
             gen = self._mgen
             ranks_now = sorted(self._members)
         if gone:
@@ -1038,10 +1223,119 @@ class KVStoreServer:
             t = t.clone()
         return nd.NDArray(t, self.ctx)
 
+    # -- sparse tables ------------------------------------------------------
+    def _row_init(self, meta, key, row_ids):
+        """Materialize absent rows as one (len(row_ids), *row_shape) block
+        (caller holds ``_lock``).  Each row's seed is a function of (key,
+        row_id) only, the JAX package's ``crc32("%r:%d")``, and its draws
+        are the JAX server's ``uniform``/``standard_normal`` bits:
+        resharding or a restart reproduces the same bytes, and so does the
+        JAX server.  The draws are taken per row, then scaled and cast for
+        the block at once, which rounds alike."""
+        shape = tuple(meta.get("row_shape", ()))
+        dtype = np.dtype(meta.get("dtype", "float32"))
+        spec = tuple(meta.get("init", ("zeros",)))
+        kind = spec[0]
+        n = len(row_ids)
+        if kind == "zeros":
+            return np.zeros((n,) + shape, dtype=dtype)
+        if kind == "constant":
+            return np.full((n,) + shape, spec[1], dtype=dtype)
+        if kind not in ("uniform", "normal"):
+            raise ValueError("unknown sparse init spec %r" % (spec,))
+        draws = np.empty((n,) + shape, dtype=np.float64)
+        prefix = zlib.crc32(("%r:" % (key,)).encode())
+        rng = self._row_rng
+        for i, r in enumerate(row_ids):
+            rng.seed(zlib.crc32(b"%d" % r, prefix))
+            draws[i] = (rng.random_sample(shape) if kind == "uniform"
+                        else rng.standard_normal(size=shape))
+        scale = float(spec[1]) if len(spec) > 1 else 0.01
+        if kind == "uniform":
+            # RandomState.uniform(low, high): low + (high - low) * u
+            return ((-scale) + (scale - (-scale)) * draws).astype(dtype)
+        return (draws * scale).astype(dtype)
+
+    def _gather_rows_locked(self, key, ids):
+        """The requested rows stacked into one (n, *row_shape) array,
+        absent rows materialized (caller holds ``_lock``)."""
+        t0 = time.perf_counter()
+        tbl = self.tables[key]
+        rows, meta = tbl["rows"], tbl["meta"]
+        out = np.empty((ids.shape[0],) + tuple(meta.get("row_shape", ())),
+                       dtype=np.dtype(meta.get("dtype", "float32")))
+        idl = ids.tolist()
+        got = [rows.get(r) for r in idl]
+        miss = [i for i, row in enumerate(got) if row is None]
+        if miss:
+            fresh = self._row_init(meta, key, [idl[i] for i in miss])
+            for i, row in zip(miss, fresh):
+                # a repeated id materializes once
+                got[i] = rows.setdefault(idl[i], row)
+        for i, row in enumerate(got):
+            out[i] = row
+        self.sparse_seconds += time.perf_counter() - t0
+        return out
+
+    def _apply_rows_locked(self, key, ids, vals):
+        """Apply a merged row-sparse gradient block to this shard: the
+        server-placed updater over the touched rows (their optimizer state
+        materialized as zeros on first touch), or an accumulation when no
+        updater is installed (caller holds ``_lock``)."""
+        tbl = self.tables[key]
+        meta = tbl["meta"]
+        weight = self._gather_rows_locked(key, ids)
+        t0 = time.perf_counter()
+        if vals.dtype != weight.dtype:
+            # fp16 wire compression: the update runs at the stored dtype
+            vals = np.asarray(vals, dtype=weight.dtype)
+        upd = self.sparse_updater
+        rid = ids.tolist()
+        if upd is None:
+            weight += vals
+        else:
+            sshape = upd.state_shape(tuple(meta.get("row_shape", ())))
+            if sshape is None:
+                upd.update_rows(weight, vals, None)
+            else:
+                state_rows = tbl["state"]
+                states = np.empty((ids.shape[0],) + tuple(sshape),
+                                  dtype=weight.dtype)
+                for i, r in enumerate(rid):
+                    s = state_rows.get(r)
+                    states[i] = 0 if s is None else s
+                upd.update_rows(weight, vals, states)
+                state_rows.update(zip(rid, states))
+        tbl["rows"].update(zip(rid, weight))
+        self.sparse_seconds += time.perf_counter() - t0
+
+    def _flush_sparse_rounds_locked(self, key):
+        """Sparse twin of ``_flush_rounds_locked`` (caller holds
+        ``_lock``): pop every leading complete round, concatenate its
+        contributions, sum duplicate row ids, renormalize by
+        ``num_workers / len(round)`` when the live set has shrunk, and
+        apply the merged block."""
+        rounds = self._sparse_merge.get(key)
+        while rounds and self._round_complete_locked(rounds[0]):
+            rnd = rounds.pop(0)
+            faults.fire("sparse.merge")
+            self.round_sizes[len(rnd)] = self.round_sizes.get(len(rnd), 0) + 1
+            ids = np.concatenate([c[0] for c in rnd.values()])
+            vals = np.concatenate([c[1] for c in rnd.values()])
+            ids, vals = row_merge(ids, vals)
+            if self._members and len(rnd) != self.num_workers:
+                vals = np.asarray(
+                    vals * (float(self.num_workers) / len(rnd)),
+                    dtype=vals.dtype)
+            self._apply_rows_locked(key, ids, vals)
+
     # -- durable snapshots --------------------------------------------------
     # Version 4 of the JAX package's format: v2 dedup windows, v3 the
-    # membership table ("members", "mgen"), v4 the sparse plane's keys,
-    # written empty here (the row plane is not ported).
+    # membership table ("members", "mgen"), v4 the sparse plane (the tables
+    # with their rows, optimizer state and meta, the sparse updater behind
+    # the package tag, pending sparse rounds, applied_row_pushes).  The
+    # "package" key marks the port's; sparse state without it (the JAX
+    # package's) is refused.
     _SNAP_VERSION = 4
 
     def snapshot(self):
@@ -1061,6 +1355,16 @@ class KVStoreServer:
             applied = self.applied_pushes
             members = sorted(self._members)
             mgen = self._mgen
+            tables = {k: {"meta": dict(t["meta"]),
+                          "rows": dict(t["rows"]),
+                          "state": dict(t["state"])}
+                      for k, t in self.tables.items()}
+            sparse_merge = {k: [dict(rnd) for rnd in rounds]
+                            for k, rounds in self._sparse_merge.items()}
+            sparse_updater_bytes = (
+                _dump_sparse_updater(self.sparse_updater)
+                if self.sparse_updater is not None else None)
+            applied_rows = self.applied_row_pushes
         with self._dedup_cv:
             dedup = {cid: {"floor": rec["floor"],
                            "window": {s: e["reply"]
@@ -1079,10 +1383,11 @@ class KVStoreServer:
             "sync_mode": self.sync_mode,
             "members": members,
             "mgen": mgen,
-            "tables": {},
-            "sparse_merge": {},
-            "sparse_updater": None,
-            "applied_row_pushes": 0,
+            "tables": tables,
+            "sparse_merge": sparse_merge,
+            "sparse_updater": sparse_updater_bytes,
+            "applied_row_pushes": applied_rows,
+            "package": "mxnet_tpu_torch",
         }
         payload = pickle.dumps(state, pickle.HIGHEST_PROTOCOL)
         atomic_write(self.snapshot_path, lambda f: f.write(payload),
@@ -1119,12 +1424,31 @@ class KVStoreServer:
             logging.warning("kvstore snapshot %s is unreadable (%s); "
                             "starting cold", path, e)
             return False
+        if state.get("package") != "mxnet_tpu_torch" and (
+                state.get("tables") or state.get("sparse_updater")):
+            raise MXNetError(
+                "kvstore snapshot %s holds sparse tables written by another "
+                "package (the JAX package's?): mxnet_tpu_torch restores only "
+                "its own" % path)
+        sparse_updater = (_load_sparse_updater(state["sparse_updater"])
+                          if state.get("sparse_updater") is not None
+                          else None)
         with self._lock:
             self.store = dict(state.get("store", {}))
             self._merge = {k: [dict(rnd) for rnd in rounds]
                            for k, rounds in state.get("merge", {}).items()}
             self.updater = updater
             self.applied_pushes = int(state.get("applied_pushes", 0))
+            self.tables = {k: {"meta": dict(t["meta"]),
+                               "rows": dict(t["rows"]),
+                               "state": dict(t["state"])}
+                           for k, t in state.get("tables", {}).items()}
+            self._sparse_merge = {
+                k: [dict(rnd) for rnd in rounds]
+                for k, rounds in state.get("sparse_merge", {}).items()}
+            self.sparse_updater = sparse_updater
+            self.applied_row_pushes = int(
+                state.get("applied_row_pushes", 0))
             self._members = set(state.get("members", []))
             self._mgen = int(state.get("mgen", 0))
             now = time.monotonic()
@@ -1137,6 +1461,8 @@ class KVStoreServer:
         with self._dedup_cv:
             self._dedup = self._load_dedup(state.get("dedup", {}),
                                            state.get("version"))
+        for key in self.tables:
+            _register_table_gauges(self, key)
         logging.info("kvstore server restored %d keys (barrier gen %d) "
                      "from %s", len(self.store), self._barrier_gen, path)
         return True
@@ -1513,6 +1839,36 @@ class ServerClient:
 
     def barrier(self, rank=0, is_recovery=False):
         self._rpc("barrier", rank, int(is_recovery))
+
+    # -- the sparse row plane (wire v2) -----------------------------------
+    def init_table(self, key, meta):
+        """Declare a sharded embedding table on this server: ``meta``
+        carries row_shape/dtype/init/num_servers/server_index/num_rows.
+        Idempotent: every worker declares every table."""
+        self._rpc("init_table", key, dict(meta))
+
+    def push_rows(self, key, row_ids, values, rank=0):
+        """Push a row-sparse gradient block (ids must be this shard's)."""
+        self._rpc("push_rows", key,
+                  np.asarray(row_ids, dtype=np.int64), np.asarray(values),
+                  rank)
+
+    def pull_rows(self, key, row_ids):
+        """Fetch rows by id; absent rows materialize deterministically."""
+        return self._rpc("pull_rows", key,
+                         np.asarray(row_ids, dtype=np.int64))
+
+    def table_info(self, key=None):
+        """Shard audit: per-table row and byte counts, misplaced rows and
+        meta for this server (the kvstore_admin surface)."""
+        return self._rpc("table_info", key)
+
+    def set_sparse_optimizer(self, updater, is_recovery=False):
+        """Install a server-placed sparse updater (``sparse.updaters``):
+        this package's pickle behind its package tag, which a JAX server
+        cannot load and a port server requires."""
+        self._rpc("set_sparse_optimizer", _dump_sparse_updater(updater),
+                  int(is_recovery))
 
     def snapshot(self):
         """Force a durable server snapshot now; returns its path."""

@@ -82,10 +82,16 @@ def _create_kvstore(kvstore, num_device, arg_params):
 
 
 def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
-                        update_on_kvstore):
+                        update_on_kvstore, skip_indices=()):
     """Every parameter into the store; with the update on the store, its
-    value (rank 0's, for ``dist_sync``) pulled back into the executor."""
+    value (rank 0's, for ``dist_sync``) pulled back into the executor.
+    ``skip_indices``: parameters routed elsewhere (a row_sparse slot's
+    table lives sharded on the servers' sparse plane and must never be
+    shipped as a dense copy)."""
+    skip = frozenset(skip_indices)
     for idx, param_on_devs in enumerate(param_arrays):
+        if idx in skip:
+            continue
         kvstore.init(idx, arg_params[param_names[idx]])
         if update_on_kvstore:
             kvstore.pull(idx, param_on_devs, priority=-idx)

@@ -1,7 +1,8 @@
 """Model symbol builders of the port (counterpart of
 ``mxnet_tpu/models``): the image classifiers, SSD, the transformer LM and
-the DLRM recommender.  ``get_dlrm`` builds the symbol alone; training its
-tables through the row-sparse plane (``sparse/``) is ROADMAP.md A.6b."""
+the DLRM recommender.  ``get_dlrm`` builds the symbol and its row_sparse
+slot config; ``sparse.SparseEmbeddingModule`` trains its tables through the
+servers' row plane."""
 from . import transformer  # noqa: F401
 from .lenet import get_lenet
 from .mlp import get_mlp

@@ -8,12 +8,13 @@ so under a fresh ``NameManager`` its JSON is byte-identical to the JAX
 package's and one checkpoint serves both.
 
 Each Embedding binds ``input_dim=capacity`` (the max distinct rows one batch
-touches), NOT the vocabulary.  ``sparse_slots`` is the routing config of the
-JAX package's SparseEmbeddingModule, which remaps ids per batch and pulls
-only the touched rows from a server-sharded table; that row plane is
-ROADMAP.md A.6b, so here a served table holds ``capacity`` rows and ids are
-drawn in ``[0, capacity)`` (the port's ``Embedding`` clips an id past the
-table where the JAX package gives NaN).
+touches), NOT the vocabulary.  ``sparse_slots`` is the routing config of
+``sparse.SparseEmbeddingModule``, which remaps ids per batch to positions
+below the capacity and pulls only the touched rows from the servers'
+sharded tables of the full vocabularies.  Served alone (``Predictor``, the
+platform), a table holds ``capacity`` rows and ids must be drawn in
+``[0, capacity)`` (the port's ``Embedding`` clips an id past the table
+where the JAX package gives NaN).
 
 ``get_dlrm`` returns ``(symbol, sparse_slots)`` — the symbol and the
 matching routing config are built together so the capacity/input_dim

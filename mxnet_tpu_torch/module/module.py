@@ -383,7 +383,8 @@ class Module(BaseModule):
                                 param_arrays=self._exec_group.param_arrays,
                                 arg_params=self._arg_params,
                                 param_names=self._param_names,
-                                update_on_kvstore=update_on_kvstore)
+                                update_on_kvstore=update_on_kvstore,
+                                skip_indices=self._sparse_param_indices())
             if not update_on_kvstore and "dist" in kvstore.type and \
                     multiprocess:
                 # rank 0's init, broadcast by the store, back into every
@@ -408,6 +409,12 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+
+    def _sparse_param_indices(self):
+        """Parameter indices routed around the dense kvstore path: none
+        here; ``sparse.SparseEmbeddingModule`` returns its row_sparse
+        slots, whose tables live sharded on the servers."""
+        return ()
 
     def _decide_fused(self):
         """Whether update() runs forward, backward and the optimizer as one

@@ -8,13 +8,15 @@ does in the JAX package.  Out-of-range Embedding ids are clipped to the
 table (the reference's Take semantics); JAX fills such rows with NaN, so the
 two packages agree on every in-range id.
 
-``Embedding``'s weight gradient is summed in a fixed order
-(``_EmbeddingRows``): the backward of ``index_select`` on CUDA adds rows with
-atomics, in an order that changes from run to run, and rounds after every
-add in a bf16 table.
+``embedding_row_sparse_grad`` is the row-sparse plane's numpy gradient of
+an Embedding (only the touched rows).  ``Embedding``'s weight gradient is
+summed in a fixed order (``_EmbeddingRows``): the backward of
+``index_select`` on CUDA adds rows with atomics, in an order that changes
+from run to run, and rounds after every add in a bf16 table.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .param import Param, torch_dtype
@@ -89,6 +91,29 @@ def _embedding(opctx, attrs, data, weight):
     ids = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
     rows = _EmbeddingRows.apply(weight, ids.reshape(-1))
     return rows.reshape(ids.shape + weight.shape[1:])
+
+
+def embedding_row_sparse_grad(data, out_grad, input_dim):
+    """Row-sparse weight gradient for Embedding (``mxnet_tpu/ops/
+    indexing.py``'s, numpy): only the touched rows, as a RowSparseArray,
+    never a dense (input_dim, output_dim) table.
+
+    data: integer index array of any shape; out_grad: data.shape +
+    (output_dim,).  Allocation is O(touched_rows * output_dim), never
+    O(input_dim).  Duplicate indices sum, as the dense gradient does."""
+    from ..sparse.array import RowSparseArray
+
+    data = np.asarray(data).astype(np.int64).reshape(-1)
+    out_grad = np.asarray(out_grad)
+    dim = out_grad.shape[-1]
+    rows = out_grad.reshape(-1, dim)
+    if rows.shape[0] != data.shape[0]:
+        raise ValueError("out_grad rows %d != index count %d"
+                         % (rows.shape[0], data.shape[0]))
+    uniq, inverse = np.unique(data, return_inverse=True)
+    merged = np.zeros((uniq.shape[0], dim), dtype=rows.dtype)
+    np.add.at(merged, inverse, rows)
+    return RowSparseArray(uniq, merged, (int(input_dim), dim))
 
 
 @register("take", inputs=("a", "indices"),

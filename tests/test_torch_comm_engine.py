@@ -3,9 +3,10 @@ against the JAX package's on the cases of tests/test_comm_engine.py:
 priority among ready ops, per-key FIFO, scoped waits, failures raised at
 the barrier, the read guard, the env gate, training through the async
 store bit-identical to the synchronous loop, ``backward_param_order``,
-and the bucketed wire over ``dist_async`` (values, bucket metrics, per-key
+the bucketed wire over ``dist_async`` (values, bucket metrics, per-key
 order across buckets, a bucket replayed whole after a dropped ACK, and
-``maybe_async`` coalescing small keys)."""
+``maybe_async`` coalescing small keys), and the sparse plane bound to the
+engine's chains."""
 
 import threading
 import time
@@ -122,13 +123,31 @@ def test_maybe_async_env_gate(monkeypatch, ce, pkg):
         wrapped.close()
 
 
-def test_sparse_plane_names_its_slice():
-    kv = tce.make_async(mt.kv.create("local"))
-    try:
-        with pytest.raises(mt.MXNetError, match="A.6"):
-            kv.sparse_plane()
-    finally:
-        kv.close()
+def test_sparse_plane_rides_the_engines_chains():
+    """``sparse_plane()`` is built once and bound to the engine: a push
+    waits behind a parked op on its ("sparse", key) chain, a pull observes
+    it, and the rows equal the JAX package's plane's on the same pushes."""
+    got = {}
+    for ce, pkg in zip(ENGINES, [mx, mt]):
+        with pkg.cpu():
+            kv = ce.make_async(pkg.kv.create("dist_async"), num_threads=2)
+        try:
+            plane = kv.sparse_plane()
+            assert kv.sparse_plane() is plane
+            assert plane._engine is kv._engine and plane.rank == 0
+            plane.init_table("emb", num_rows=50, row_shape=(3,),
+                             init=("uniform", 0.1))
+            gate = threading.Event()
+            kv._engine.submit(lambda: gate.wait(5), [("sparse", "emb")])
+            plane.push_rows("emb", [4, 9, 4],
+                            np.ones((3, 3), np.float32))
+            assert kv._engine.outstanding() == 2  # queued behind the gate
+            gate.set()
+            got[pkg] = plane.pull_rows("emb", np.array([4, 9, 11]))
+            assert plane.table_info()[0]["emb"]["rows"] == 3
+        finally:
+            kv.close()
+    assert got[mt].tobytes() == got[mx].tobytes()
 
 
 # ---------------------------------------------------------------------------

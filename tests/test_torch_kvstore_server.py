@@ -10,8 +10,9 @@ the JAX package's (tests/test_kvstore_server.py, tests/test_chaos.py):
   relative, the update ops' tolerance of tests/test_torch_optimizer.py),
   sync per-worker rounds, a recovery worker's barriers, ``set_optimizer``
   recovery, an error reply that keeps the connection, a dropped ACK
-  applied once, the sparse commands' error, the snapshot round-trip and a
-  server killed with SIGKILL and restarted from its snapshot;
+  applied once, the sparse row commands across the packages, the
+  snapshot round-trip and a server killed with SIGKILL and restarted
+  from its snapshot;
 * the ``DMLC_ROLE=server`` bootstrap in one subprocess.
 
 Every other comparison is bitwise.  Servers run in-process on threads,
@@ -372,18 +373,35 @@ def test_dedup_window_floor_and_stale_token(monkeypatch):
     assert out[4] == 2 and out[6][0] == "err" and "stale" in out[6][1]
 
 
-def test_sparse_commands_name_their_slice():
-    srv = start(tkvs, num_workers=1)
-    try:
-        with tkvs.ServerClient(*srv.addr) as c:
-            for cmd in ("init_table", "push_rows", "pull_rows", "table_info",
-                        "set_sparse_optimizer"):
-                with pytest.raises(mt.MXNetError, match="A.6b"):
-                    c._rpc(cmd, "emb", {})
-            c.init(0, np.ones(2, np.float32))  # the connection lives on
-            assert same(c.pull(0), np.ones(2, np.float32))
-    finally:
-        srv.stop()
+def test_sparse_commands_across_the_packages():
+    """The row commands on the JAX wire: a JAX client against a port
+    server and a port client against a JAX server declare, push, pull and
+    audit a table alike; the connection lives on for dense commands."""
+    ids = np.array([5, 2, 5], np.int64)
+    vals = np.arange(9, dtype=np.float32).reshape(3, 3)
+
+    def case(kvs, pkg, faults):
+        other = jkvs if kvs is tkvs else tkvs
+        srv = start(kvs, num_workers=1)
+        try:
+            with other.ServerClient(*srv.addr) as c:
+                c.init_table("emb", {"num_rows": 10, "row_shape": (3,),
+                                     "init": ("normal", 0.1)})
+                before = c.pull_rows("emb", [7])
+                c.push_rows("emb", ids, vals)
+                rows = c.pull_rows("emb", [2, 5, 7])
+                info = c.table_info("emb")["emb"]
+                c.init(0, np.ones(2, np.float32))
+                dense = c.pull(0)
+            return (before, rows, dense, info["rows"], info["misplaced"],
+                    srv.applied_row_pushes)
+        finally:
+            srv.stop()
+
+    before, rows, dense, n_rows, misplaced, applied = both(case)
+    assert same(rows[2:], before)  # row 7: touched by no push
+    assert np.std(before) > 0 and same(dense, np.ones(2, np.float32))
+    assert (n_rows, misplaced, applied) == (3, 0, 1)
 
 
 def test_stats_command_and_server_context():
