@@ -682,6 +682,49 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``SPARSE_TOL_ULPS``).  (a)'s and (b)'s server processes start
              during phase 23's untimed half.  A ``sparse`` JSON line ends
              it; the phase launches no kernel of the port's own.
+25. long_tail — the long tail of the port's modules on the train phase's
+             LM (bf16, adam lr 3e-4, Xavier from SEED, its batch).  (a)
+             Remat (``MXNET_BACKWARD_DO_MIRROR``) on and off in two
+             ``Module``s from one init, 1 + 1 warm-up steps, then 3 + 3 in
+             turns: step ms, tokens/s and each step's peak above its start;
+             a remat step launches K1 12 times (forward and recompute) and
+             K2, K3 6 times, an off step 6 of each; the losses and the
+             parameters after the steps the same bits both ways; the step
+             monitor's ``flops_per_step`` under remat within 10% of the
+             hand count with the forward counted twice.  After (b): the
+             two-phase ``forward_backward`` route one step each way (the
+             same bits, 12/6/6 launches with remat), then the
+             ``fused_step`` autotune site once in record mode on the off
+             Module: both candidates' roofline scores and the winner, and
+             the step runs the winner's remat.  (b) The NaiveEngine
+             (``MXNET_ENGINE_TYPE``) in a fresh Module with
+             ``MXNET_COMPILE_CACHE_DIR`` set, 1 + 3 steps and an inference
+             forward: the parameters the default engine's bits, no cache
+             entry, lookup or CUDA graph.  (c) Caffe: BVLC AlexNet's
+             deploy.prototxt (227², grouped convolutions, LRN) and seeded
+             blobs through ``mt.caffe.encode_caffemodel`` and ``convert``,
+             scored in float32 at batch 32 through ``Predictor``: ms a
+             batch and img/s, the output within 1e-4 of the port's CPU
+             route.  (d) The C ABI: ``libmxtpu_torch_capi`` built with g++
+             (beside (a)), driven through ctypes in this process:
+             ``MXTPUPredCreate`` (dev_type 2) over the LM's checkpoint, 1 x
+             4096 through ``SetInput``/``Forward``/``GetOutput``: ms a
+             forward, 6 K1 launches each, the host copy's ms, the output
+             within 1e-4 of ``Predictor``'s; ``examples/c_predict/demo.c``
+             compiled against the library and run as a process of its own
+             (dev_type 1, beside (c)) prints what the in-process route
+             gives.  (e) ``python -m mxnet_tpu_torch.tools.shard_probe`` at
+             the LM's widths under ``transformer_megatron`` on data=1 x
+             model=2 over ``[gpu(0)] * 2`` (a process beside (c) and (d)):
+             its per-device bytes phase 18's
+             ``mxtpu_params_sharded_bytes``; the embedding under
+             ``P(("data", "model"), None)`` on data=2 x model=2 over
+             ``[gpu(0)] * 4``: each piece the rule's row block, gathered bit
+             for bit; 3 SGD steps of the 2-layer float32 LM with that split
+             beside the Megatron rules, losses within 1e-3 of one
+             context's.  A ``long_tail`` JSON line ends it; the bf16 d=128
+             K1-K3 rows add (a)'s and (b)'s launches ("long_tail"), the
+             float32 d=128 rows (d)'s and (e)'s.
 
 Side by side, to keep the whole run well inside its time limit (each
 clock: line gives a phase's seconds and the script's so far):
@@ -703,6 +746,10 @@ clock: line gives a phase's seconds and the script's so far):
 - Phase 22's checkpoint is written before phase 20, and its two worker
   processes run, one after the other, beside phases 20 and 21; its
   output is printed where it is joined, after phase 21.
+- Phase 25 runs in the main sequence after phase 24 (its launches join
+  the kernel table); its C library builds beside its (a) and (b), and
+  the shard probe's process and the demo's run beside its (c) and (d),
+  which gate on results.
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
@@ -7143,6 +7190,10 @@ SHARD_BN_TOL = 1e-5
 SHARD_WORKERS = 2
 
 
+#: phase 18's parameter-bytes gauges by run tag, read by phase 25 (e)
+SHARD_READINGS = {}
+
+
 def shard_module(mt, net, mesh, shards, arg_params, compute_dtype,
                  optimizer_params, begin_num_update=0, optimizer="adam"):
     """The LM through ``Module`` over ``shards`` contexts of the card, laid
@@ -7251,6 +7302,7 @@ def shard_tp_run(torch, mt, batch, replay, tag, mesh_text, shards, warm,
           "(mxtpu_params_replicated_bytes)" % ((tag,) + gauges), flush=True)
     check(gauges[0] < gauges[1], "sharding %s: the sharded bytes are not "
           "below the replicated bytes" % tag)
+    SHARD_READINGS[tag] = gauges
     per_step = planned_attention(mod)
     batch_shards = mesh.shape[mesh.axis_names[0]]
     print("sharding %s: the plan runs attention %d times a step (%d layers "
@@ -12237,6 +12289,738 @@ def sparse_phase(torch, mt, started=None):
                         for s in ss] for t, ss in servers.items()},
         "walls_s": walls, "wall_s": wall}}, default=str), flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 25: the long tail
+# ---------------------------------------------------------------------------
+LT_WARMUP, LT_STEPS = 1, 3      # (a): each way, in turns
+LT_NAIVE_STEPS = 1 + 3          # (b)
+LT_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: (a): the remat step's K1 runs forward and recompute (12, 6, 6)
+LT_REMAT_LAUNCHES = {"flash_fwd": 2 * FULL["num_layers"],
+                     "flash_bwd_dq": FULL["num_layers"],
+                     "flash_bwd_dkv": FULL["num_layers"]}
+LT_FLOPS_TOL = 0.10             # (a): the cost model against the hand count
+# (c): BVLC AlexNet's published deploy.prototxt (models/bvlc_alexnet in
+# BVLC/caffe), its input batch set to ALEX_BATCH
+ALEX_BATCH = 32
+ALEX_PROTOTXT = """
+name: "AlexNet"
+layer { name: "data" type: "Input" top: "data"
+  input_param { shape: { dim: %d dim: 3 dim: 227 dim: 227 } } }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  convolution_param { num_output: 96 kernel_size: 11 stride: 4 } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "norm1" type: "LRN" bottom: "conv1" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layer { name: "pool1" type: "Pooling" bottom: "norm1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "conv2" type: "Convolution" bottom: "pool1" top: "conv2"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  convolution_param { num_output: 256 pad: 2 kernel_size: 5 group: 2 } }
+layer { name: "relu2" type: "ReLU" bottom: "conv2" top: "conv2" }
+layer { name: "norm2" type: "LRN" bottom: "conv2" top: "norm2"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layer { name: "pool2" type: "Pooling" bottom: "norm2" top: "pool2"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "conv3" type: "Convolution" bottom: "pool2" top: "conv3"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  convolution_param { num_output: 384 pad: 1 kernel_size: 3 } }
+layer { name: "relu3" type: "ReLU" bottom: "conv3" top: "conv3" }
+layer { name: "conv4" type: "Convolution" bottom: "conv3" top: "conv4"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  convolution_param { num_output: 384 pad: 1 kernel_size: 3 group: 2 } }
+layer { name: "relu4" type: "ReLU" bottom: "conv4" top: "conv4" }
+layer { name: "conv5" type: "Convolution" bottom: "conv4" top: "conv5"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  convolution_param { num_output: 256 pad: 1 kernel_size: 3 group: 2 } }
+layer { name: "relu5" type: "ReLU" bottom: "conv5" top: "conv5" }
+layer { name: "pool5" type: "Pooling" bottom: "conv5" top: "pool5"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "fc6" type: "InnerProduct" bottom: "pool5" top: "fc6"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  inner_product_param { num_output: 4096 } }
+layer { name: "relu6" type: "ReLU" bottom: "fc6" top: "fc6" }
+layer { name: "drop6" type: "Dropout" bottom: "fc6" top: "fc6"
+  dropout_param { dropout_ratio: 0.5 } }
+layer { name: "fc7" type: "InnerProduct" bottom: "fc6" top: "fc7"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  inner_product_param { num_output: 4096 } }
+layer { name: "relu7" type: "ReLU" bottom: "fc7" top: "fc7" }
+layer { name: "drop7" type: "Dropout" bottom: "fc7" top: "fc7"
+  dropout_param { dropout_ratio: 0.5 } }
+layer { name: "fc8" type: "InnerProduct" bottom: "fc7" top: "fc8"
+  param { lr_mult: 1 decay_mult: 1 } param { lr_mult: 2 decay_mult: 0 }
+  inner_product_param { num_output: 1000 } }
+layer { name: "prob" type: "Softmax" bottom: "fc8" top: "prob" }
+""" % ALEX_BATCH
+#: (c): the blobs' shapes (the grouped convolutions see half the channels)
+ALEX_BLOBS = {"conv1": (96, 3, 11, 11), "conv2": (256, 48, 5, 5),
+              "conv3": (384, 256, 3, 3), "conv4": (384, 192, 3, 3),
+              "conv5": (256, 192, 3, 3), "fc6": (4096, 9216),
+              "fc7": (4096, 4096), "fc8": (1000, 4096)}
+# per image: 2 x its 724,406,816 multiply-adds (conv1-5 105.4M, 223.9M,
+# 149.5M, 112.1M, 74.8M; fc6-8 37.7M, 16.8M, 4.1M)
+ALEX_GFLOP = 1.448813632
+ALEX_P100_IMG_S = 4883.77       # BASELINE.md: MXNet's AlexNet, batch 32
+ALEX_REPS = (2, 10)             # warm-up, timed batches
+LT_TOL = 1e-4                   # (c), (d)
+LT_CAPI_REPS = (1, 3)           # (d): warm-up, timed forwards
+LT_DEMO = (10, 6)               # (d): the demo's batch and input width
+LT_SHARD_TOL = 1e-3             # (e): as phase 18's limits
+LT_SHARD_SGD = {"learning_rate": 1e-3, "momentum": 0.9}
+LT_SHARD_STEPS = 3
+LT_PROBE_CTX = "gpu"            # (e): the probe's contexts
+
+
+class LtEnv:
+    """Environment variables set for a block, restored after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def lt_step(torch, mt, mod, batch, Y, two_phase=False):
+    """One train step: (ms on the host clock to a synchronize, the step's
+    peak device memory above its start in GB, the loss, its K1-K3
+    launches)."""
+    before = dict(mt.kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if two_phase:
+        mod._exec_group.forward_backward(batch)
+    else:
+        mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - start) / 1e9
+    return (ms, peak, lm_loss(torch, mod.get_outputs()[0], Y),
+            kernel_delta(mt, before))
+
+
+def lt_same_params(torch, a, b):
+    """Whether two LM Modules' parameters are the same bits."""
+    ea, eb = a._exec_group.execs[0], b._exec_group.execs[0]
+    return all(torch.equal(ea.arg_dict[n]._data, eb.arg_dict[n]._data)
+               for n in a._exec_group.param_names)
+
+
+def lt_lm(torch, mt, net):
+    """The train phase's Module: bf16, adam, Xavier from SEED."""
+    mt.random.seed(SEED)
+    return train_module(mt, net, None, (BATCH, FULL["seq_len"]),
+                        init=mt.init.Xavier(factor_type="in",
+                                            magnitude=2.34),
+                        compute_dtype="bfloat16")
+
+
+def lt_remat(torch, mt, net, batch, Y, card):
+    """(a): remat off and on in turns, from one init."""
+    from mxnet_tpu_torch.telemetry.step_monitor import fused_cost_analysis
+
+    mods = {False: lt_lm(torch, mt, net), True: lt_lm(torch, mt, net)}
+    check(lt_same_params(torch, mods[False], mods[True]), "long_tail (a): "
+          "the two Modules' inits differ")
+    want = {False: {n: FULL["num_layers"] for n in LT_NAMES},
+            True: LT_REMAT_LAUNCHES}
+    got = {False: [], True: []}
+    order = [False, True] * LT_WARMUP + [False, True, True, False, False,
+                                         True][:2 * LT_STEPS]
+    for on in order:
+        # the flag is read when a step key is first built: the remat
+        # Module's first step builds it with the flag on, and it stays so
+        with LtEnv(**({"MXNET_BACKWARD_DO_MIRROR": "1"} if on else {})):
+            step = lt_step(torch, mt, mods[on], batch, Y)
+        check(step[3] == want[on], "long_tail (a): a step with remat %s "
+              "launched %s, expected %s" % (on, step[3], want[on]))
+        check(np.isfinite(step[2]), "long_tail (a): a loss is not finite")
+        got[on].append(step)
+    losses = {on: [s[2] for s in got[on]] for on in got}
+    check(losses[True] == losses[False], "long_tail (a): remat on gave the "
+          "losses %s, off %s" % (losses[True], losses[False]))
+    check(lt_same_params(torch, mods[False], mods[True]), "long_tail (a): "
+          "the parameters after the steps differ with remat on and off")
+    ex_on = mods[True]._exec_group.execs[0]
+    check(all(ex_on._remat.values()) and ex_on._remat, "long_tail (a): the "
+          "remat Module's step keys %s" % ex_on._remat)
+    timed = {on: got[on][LT_WARMUP:] for on in got}
+    ms = {on: float(np.mean([s[0] for s in timed[on]])) for on in got}
+    peak = {on: max(s[1] for s in timed[on]) for on in got}
+    tokens = BATCH * FULL["seq_len"]
+    hand, attention, products = obs_hand_flops(net, FULL, BATCH)
+    # the recomputed forward adds 2 of the 6 product units and 2 of the
+    # attention's 7 (forward 2, backward 5)
+    hand_remat = hand * 8 / 6 + attention * 9 / 7
+    flops = {on: fused_cost_analysis(mods[on]._exec_group.execs[0])["flops"]
+             for on in got}
+    check(abs(flops[True] / hand_remat - 1) <= LT_FLOPS_TOL,
+          "long_tail (a): the cost model counts %.6g flops in a remat "
+          "step, the hand count with the forward twice %.6g"
+          % (flops[True], hand_remat))
+    for on in (False, True):
+        print("long_tail (a) remat %s (%s): step ms %s (mean %.2f), tokens/s "
+              "%.1f, the step's peak above its start %.3f GB, losses %s, "
+              "launches a step %s"
+              % ("on" if on else "off", card,
+                 ["%.2f" % s[0] for s in timed[on]], ms[on],
+                 tokens / ms[on] * 1e3, peak[on],
+                 ["%.6f" % s[2] for s in got[on]], want[on]), flush=True)
+    print("long_tail (a): on/off step %.4fx, peak %.4fx; losses and "
+          "parameters after %d steps the same bits; the step monitor's "
+          "flops_per_step %.6g off, %.6g on; the hand count with the "
+          "forward twice %.6g (%.4fx)"
+          % (ms[True] / ms[False], peak[True] / peak[False],
+             LT_WARMUP + LT_STEPS, flops[False], flops[True], hand_remat,
+             flops[True] / hand_remat), flush=True)
+    return mods, {"off_ms": [s[0] for s in timed[False]],
+                  "on_ms": [s[0] for s in timed[True]],
+                  "on_off": ms[True] / ms[False],
+                  "off_peak_gb": peak[False], "on_peak_gb": peak[True],
+                  "tokens_s_off": tokens / ms[False] * 1e3,
+                  "tokens_s_on": tokens / ms[True] * 1e3,
+                  "flops_off": flops[False], "flops_on": flops[True],
+                  "hand_remat": hand_remat}
+
+
+def lt_two_phase_and_site(torch, mt, mods, batch, Y, card):
+    """(a), after (b): the two-phase ``forward_backward`` route with remat
+    against it without, one step from the same parameters; then the
+    ``fused_step`` site once in record mode on the remat-off Module."""
+    import importlib
+
+    steps = {}
+    for on in (False, True):
+        with LtEnv(**({"MXNET_BACKWARD_DO_MIRROR": "1"} if on else {})):
+            steps[on] = lt_step(torch, mt, mods[on], batch, Y,
+                                two_phase=True)
+    check(steps[True][3] == LT_REMAT_LAUNCHES, "long_tail (a): the "
+          "two-phase remat step launched %s" % (steps[True][3],))
+    check(steps[True][2] == steps[False][2] and
+          lt_same_params(torch, mods[False], mods[True]), "long_tail (a): "
+          "the two-phase step with remat is not the bits of the one "
+          "without")
+    print("long_tail (a): the two-phase route, one step each way: %.2f ms "
+          "off, %.2f ms remat on, the same loss %.6f and parameters; remat "
+          "launches %s" % (steps[False][0], steps[True][0], steps[True][2],
+                           steps[True][3]), flush=True)
+    atdb = importlib.import_module("mxnet_tpu_torch.autotune.db")
+    tune_dir = tempfile.mkdtemp(prefix="lt_autotune_")
+    ex = mods[False]._exec_group.execs[0]
+    try:
+        with LtEnv(MXNET_AUTOTUNE="record", MXNET_AUTOTUNE_DIR=tune_dir):
+            mt.autotune.reset_for_tests()
+            ex._fused_sites.clear()   # the site is consulted again
+            ex._remat.clear()
+            t0 = time.perf_counter()
+            step = lt_step(torch, mt, mods[False], batch, Y)
+            site_s = time.perf_counter() - t0
+        entries = [e for e in atdb.ls_entries(tune_dir)
+                   if e["site"] == "fused_step"]
+        check(len(entries) == 1, "long_tail (a): the fused_step site "
+              "recorded %d entries" % len(entries))
+        win = atdb.show_winner(entries[0]["path"])
+    finally:
+        mt.autotune.reset_for_tests()
+        shutil.rmtree(tune_dir, ignore_errors=True)
+    scores = {int(c["remat"]): s for c, s in win["provenance"]["scores"]}
+    winner = bool(win["config"]["remat"])
+    (key,) = [k for k in ex._remat if k[0] == "fused"]
+    check(sorted(scores) == [0, 1], "long_tail (a): the site scored %s"
+          % scores)
+    check(ex._remat[key] == winner, "long_tail (a): the step runs remat "
+          "%s, the site's winner %s" % (ex._remat[key], winner))
+    check(step[3] == (LT_REMAT_LAUNCHES if winner else
+                      {n: FULL["num_layers"] for n in LT_NAMES}),
+          "long_tail (a): the step after the site launched %s" % step[3])
+    print("long_tail (a): the fused_step site in record mode (%s): roofline "
+          "ms remat off %.4f, on %.4f; winner %s; the step ran remat %s "
+          "(%s launches) in %.2f s, the site's scoring included"
+          % (card, scores[0], scores[1], win["config"], ex._remat[key],
+             step[3], site_s), flush=True)
+    return {"two_phase_ms": {"off": steps[False][0], "on": steps[True][0]},
+            "site_scores_ms": scores, "site_winner": win["config"],
+            "site_s": site_s}
+
+
+def lt_naive(torch, mt, net, batch, Y, ref, card):
+    """(b): the same LM under the NaiveEngine, the compile cache's
+    directory set, against the remat-off Module ``ref`` (LT_NAIVE_STEPS
+    steps from the same init)."""
+    from mxnet_tpu_torch import compile_cache
+
+    cache_dir = tempfile.mkdtemp(prefix="lt_cache_")
+    try:
+        with LtEnv(MXNET_ENGINE_TYPE="NaiveEngine",
+                   MXNET_COMPILE_CACHE_DIR=cache_dir):
+            compile_cache.reset_stats()
+            mod = lt_lm(torch, mt, net)
+            ex = mod._exec_group.execs[0]
+            check(ex._naive, "long_tail (b): the executor is not naive")
+            steps = [lt_step(torch, mt, mod, batch, Y)
+                     for _ in range(LT_NAIVE_STEPS)]
+            mod.forward(batch, is_train=False)
+            mod.get_outputs()[0].wait_to_read()
+            torch.cuda.synchronize()
+            stats = compile_cache.stats()
+            files = [f for _, _, fs in os.walk(cache_dir) for f in fs]
+        check(not files and stats["stores"] == 0 and stats["hits"] == 0
+              and stats["misses"] == 0, "long_tail (b): the NaiveEngine "
+              "made cache entries %s (stats %s)" % (files, stats))
+        check(not ex._jit_cache and ex._graph_pool is None, "long_tail (b): "
+              "the NaiveEngine made a wrapper or a CUDA graph")
+        for s in steps:
+            check(s[3] == {n: FULL["num_layers"] for n in LT_NAMES},
+                  "long_tail (b): a step launched %s" % s[3])
+        check(lt_same_params(torch, mod, ref), "long_tail (b): the "
+              "NaiveEngine's parameters are not the default engine's bits")
+        losses = [s[2] for s in steps]
+    finally:
+        compile_cache.reset_stats()
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    ms = float(np.mean([s[0] for s in steps[1:]]))
+    print("long_tail (b) NaiveEngine (%s): step ms %s (mean %.2f after the "
+          "first), losses %s, parameters the default engine's bits; no "
+          "cache entry (stats %s) and no CUDA graph, with an inference "
+          "forward too" % (card, ["%.2f" % s[0] for s in steps], ms,
+                           ["%.6f" % x for x in losses], stats), flush=True)
+    del mod, ex
+    return {"ms": [s[0] for s in steps], "losses": losses}
+
+
+def lt_alexnet_blobs(rng):
+    """Seeded AlexNet blobs: He-scaled N(0, 2 / fan-in) weights, zero
+    biases."""
+    blobs = {}
+    for name, shape in ALEX_BLOBS.items():
+        fan_in = int(np.prod(shape[1:]))
+        w = rng.standard_normal(shape, dtype=np.float32)
+        w *= np.float32(np.sqrt(2.0 / fan_in))
+        blobs[name] = [w, np.zeros(shape[0], np.float32)]
+    return blobs
+
+
+def lt_caffe(torch, mt, card):
+    """(c): AlexNet from its prototxt and a seeded caffemodel, scored in
+    float32 at batch ALEX_BATCH through ``Predictor`` on the card and on
+    the CPU route."""
+    rng = np.random.default_rng(SEED + 25)
+    t0 = time.perf_counter()
+    model = mt.caffe.encode_caffemodel(lt_alexnet_blobs(rng))
+    with mt.cpu(), mt.NameManager():
+        sym, args, aux = mt.caffe.convert_model(ALEX_PROTOTXT, model)
+    convert_s = time.perf_counter() - t0
+    x = rng.standard_normal((ALEX_BATCH, 3, 227, 227), dtype=np.float32)
+    shapes = {"data": x.shape}
+    params = dict(args)
+    params.update({"aux:" + k: v for k, v in aux.items()})
+    pred = mt.Predictor(sym, params, shapes, ctx=mt.gpu(0))
+    out = pred.forward(data=x)[0]
+    check(out.context == mt.gpu(0) and out.shape == (ALEX_BATCH, 1000),
+          "long_tail (c): AlexNet answered %s on %s" % (out.shape,
+                                                       out.context))
+    card_out = out.asnumpy()
+    for _ in range(ALEX_REPS[0]):
+        pred.forward(data=x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ALEX_REPS[1]):
+        pred.forward(data=x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ALEX_REPS[1] * 1e3
+    cpu = mt.Predictor(sym, params, shapes, ctx=mt.cpu())
+    t0 = time.perf_counter()
+    cpu_out = cpu.forward(data=x)[0].asnumpy()
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(card_out - cpu_out).max() / np.abs(cpu_out).max())
+    check(np.isfinite(card_out).all() and err <= LT_TOL, "long_tail (c): "
+          "AlexNet on the card within %.3g of the CPU route's" % err)
+    img_s = ALEX_BATCH / ms * 1e3
+    print("long_tail (c) Caffe AlexNet (%s): BVLC deploy.prototxt, %d "
+          "blobs (%d parameters) encoded and converted in %.2f s; float32 "
+          "batch %d through Predictor: %.3f ms a batch (mean of %d after "
+          "%d), %.1f img/s, %.1f TFLOP/s (BASELINE.md's P100 reading for "
+          "MXNet: %.2f img/s, a yardstick); the card within %.3g of the "
+          "CPU route's outputs (tolerance %g; CPU forward %.2f s)"
+          % (card, len(ALEX_BLOBS), sum(int(np.prod(s)) + s[0]
+                                        for s in ALEX_BLOBS.values()),
+             convert_s, ALEX_BATCH, ms, ALEX_REPS[1], ALEX_REPS[0], img_s,
+             ALEX_GFLOP * img_s / 1e3, ALEX_P100_IMG_S, err, LT_TOL, cpu_s),
+          flush=True)
+    return {"ms": ms, "img_s": img_s, "rel_err": err}
+
+
+def lt_capi_lib():
+    """Builds the port's C library (``native.capi_lib_path``); (path,
+    seconds)."""
+    from mxnet_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.capi_lib_path()
+    return path, time.perf_counter() - t0
+
+
+def lt_child_env():
+    """The environment of a program that embeds this interpreter: the
+    repository and this interpreter's import path on PYTHONPATH."""
+    paths = [os.path.abspath(".")] + [p for p in sys.path if p]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(paths))
+
+
+def lt_demo_data():
+    """examples/c_predict/demo.c's input batch."""
+    b, d = LT_DEMO
+    return np.array([((i % 7) - 3) / 3.0 for i in range(b * d)],
+                    np.float32).reshape(b, d)
+
+
+def lt_demo_checkpoint(mt, folder):
+    """A small MLP checkpoint the demo reads (seeded weights)."""
+    with mt.NameManager():
+        net = mt.sym.Variable("data")
+        net = mt.sym.FullyConnected(net, num_hidden=8, name="fc1")
+        net = mt.sym.Activation(net, act_type="relu")
+        net = mt.sym.FullyConnected(net, num_hidden=2, name="fc2")
+        net = mt.sym.SoftmaxOutput(net, name="softmax")
+    rng = np.random.default_rng(SEED + 251)
+    shapes = {"fc1_weight": (8, LT_DEMO[1]), "fc1_bias": (8,),
+              "fc2_weight": (2, 8), "fc2_bias": (2,)}
+    args = {k: mt.nd.array(rng.standard_normal(s, dtype=np.float32) * 0.5,
+                           mt.cpu()) for k, s in shapes.items()}
+    prefix = os.path.join(folder, "mlp")
+    mt.model.save_checkpoint(prefix, 3, net, args, {})
+    return prefix
+
+
+def lt_demo(lib_path, prefix):
+    """demo.c compiled against the port's library and run as a process of
+    its own (it asks for dev_type 1): its printed row."""
+    import sysconfig
+
+    exe = os.path.join(os.path.dirname(prefix), "demo")
+    libdir = sysconfig.get_config_var("LIBDIR")
+    build = subprocess.run(
+        ["gcc", "-O2", os.path.join("examples", "c_predict", "demo.c"),
+         "-I", "include", lib_path, "-Wl,-rpath," + libdir, "-o", exe],
+        capture_output=True, text=True)
+    check(build.returncode == 0, "long_tail (d): demo.c does not build: "
+          "%s" % build.stderr[-1500:])
+    run = subprocess.run([exe, prefix, "3"] + [str(v) for v in LT_DEMO],
+                         capture_output=True, text=True, timeout=300,
+                         env=lt_child_env())
+    check(run.returncode == 0, "long_tail (d): demo exited %d: %s"
+          % (run.returncode, run.stderr[-1500:]))
+    return run.stdout.strip()
+
+
+def lt_pred_create(lib, prefix, epoch, shapes, dev_type):
+    """MXTPUPredCreate over a checkpoint: the handle."""
+    import ctypes
+
+    with open(prefix + "-symbol.json") as f:
+        sym_json = f.read().encode()
+    with open(prefix + "-%04d.params" % epoch, "rb") as f:
+        params = f.read()
+    keys = (ctypes.c_char_p * len(shapes))(*[k.encode() for k in shapes])
+    dims = [d for s in shapes.values() for d in s]
+    indptr = [0]
+    for s in shapes.values():
+        indptr.append(indptr[-1] + len(s))
+    h = ctypes.c_void_p()
+    rc = lib.MXTPUPredCreate(
+        sym_json, params, len(params), dev_type, 0, len(shapes), keys,
+        (ctypes.c_uint32 * len(indptr))(*indptr),
+        (ctypes.c_uint32 * len(dims))(*dims), ctypes.byref(h))
+    check(rc == 0, "long_tail (d): MXTPUPredCreate: %s"
+          % lib.MXTPUGetLastError())
+    return h
+
+
+def lt_pred_output(lib, h):
+    """MXTPUPredGetOutputShape + MXTPUPredGetOutput of output 0: the host
+    array."""
+    import ctypes
+
+    sdata = ctypes.POINTER(ctypes.c_uint32)()
+    ndim = ctypes.c_uint32()
+    check(lib.MXTPUPredGetOutputShape(h, 0, ctypes.byref(sdata),
+                                      ctypes.byref(ndim)) == 0,
+          "long_tail (d): MXTPUPredGetOutputShape: %s"
+          % lib.MXTPUGetLastError())
+    shape = tuple(sdata[i] for i in range(ndim.value))
+    out = np.empty(shape, np.float32)
+    check(lib.MXTPUPredGetOutput(
+        h, 0, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        out.size) == 0, "long_tail (d): MXTPUPredGetOutput: %s"
+        % lib.MXTPUGetLastError())
+    return out
+
+
+def lt_pred_run(lib, h, name, x):
+    import ctypes
+
+    check(lib.MXTPUPredSetInput(
+        h, name.encode(), x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        x.size) == 0 and lib.MXTPUPredForward(h) == 0,
+        "long_tail (d): set input / forward: %s" % lib.MXTPUGetLastError())
+
+
+def lt_capi(torch, mt, net, params, lib_path, build_s, folder, small,
+            demo_job, card):
+    """(d): the full-width LM through the C ABI in this process on the
+    card, against ``Predictor``; the demo's row against the in-process
+    route at dev_type 1."""
+    import ctypes
+
+    lib = ctypes.CDLL(lib_path)
+    lib.MXTPUGetLastError.restype = ctypes.c_char_p
+    s = FULL["seq_len"]
+    prefix = os.path.join(folder, "lm")
+    t0 = time.perf_counter()
+    mt.model.save_checkpoint(prefix, 0, net, params, {})
+    save_s = time.perf_counter() - t0
+    shapes = {"data": (1, s), "softmax_label": (1, s)}
+    t0 = time.perf_counter()
+    h = lt_pred_create(lib, prefix, 0, shapes, 2)
+    create_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(SEED + 252).integers(
+        0, FULL["vocab_size"], (1, s)).astype(np.float32)
+    times = []
+    for i in range(sum(LT_CAPI_REPS)):
+        before = dict(mt.kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lt_pred_run(lib, h, "data", tokens)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        delta = kernel_delta(mt, before)
+        check(delta == {"flash_fwd": FULL["num_layers"], "flash_bwd_dq": 0,
+                        "flash_bwd_dkv": 0}, "long_tail (d): a C-ABI "
+              "forward launched %s" % delta)
+    t0 = time.perf_counter()
+    got = lt_pred_output(lib, h)
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    pred = mt.Predictor.from_checkpoint(prefix, 0, shapes)
+    ref = pred.forward(data=tokens)[0].asnumpy()
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    check(got.shape == ref.shape and err <= LT_TOL, "long_tail (d): the "
+          "C-ABI forward within %.3g of Predictor's" % err)
+    check(lib.MXTPUPredFree(h) == 0, "long_tail (d): MXTPUPredFree")
+    del pred
+    # dev_type 1 in this process, against the demo's process
+    hs = lt_pred_create(lib, small, 3, {"data": LT_DEMO,
+                                        "softmax_label": LT_DEMO[:1]}, 1)
+    lt_pred_run(lib, hs, "data", lt_demo_data())
+    row = lt_pred_output(lib, hs)[0]
+    lib.MXTPUPredFree(hs)
+    mine = ",".join("%g" % float(v) for v in row)
+    theirs = demo_job.result()
+    check(theirs == mine, "long_tail (d): the demo printed %r, the "
+          "in-process route at dev_type 1 %r" % (theirs, mine))
+    ms = float(np.mean(times[LT_CAPI_REPS[0]:]))
+    print("long_tail (d) C ABI (%s): libmxtpu_torch_capi built in %.2f s; "
+          "the LM's checkpoint written in %.2f s, MXTPUPredCreate "
+          "(dev_type 2, 1 x %d) %.2f s; forward %s ms (mean %.2f, %d K1 "
+          "launches each), the output's host copy (%d x %d float32) %.2f "
+          "ms; within %.3g of Predictor's on the card; the serve phase's "
+          "Predictor %.2f ms a request of %d x %d"
+          % (card, build_s, save_s, s, create_s,
+             ["%.2f" % t for t in times], ms, FULL["num_layers"],
+             got.shape[0], got.shape[1], copy_ms, err,
+             SERVE_READINGS.get("steady_ms", float("nan")), BATCH, s),
+          flush=True)
+    print("long_tail (d): examples/c_predict/demo.c against the port's "
+          "library in a process of its own (dev_type 1) printed %s, the "
+          "in-process route the same" % theirs, flush=True)
+    return {"forward_ms": times, "copy_ms": copy_ms, "create_s": create_s,
+            "rel_err": err, "demo": theirs, "build_s": build_s}
+
+
+def lt_probe_start():
+    """The shard probe at the LM's widths over [gpu(0)] * 2, in a process
+    of its own."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.shard_probe",
+           "--ctx", LT_PROBE_CTX,
+           "--model", "transformer", "--mesh", "data=1,model=2",
+           "--devices", "2", "--rules", "transformer_megatron",
+           "--steps", "0", "--batch-size", str(BATCH),
+           "--vocab", str(FULL["vocab_size"]),
+           "--seq-len", str(FULL["seq_len"]),
+           "--hidden", str(FULL["hidden"]),
+           "--layers", str(FULL["num_layers"]),
+           "--heads", str(FULL["num_heads"])]
+    return Background(lambda: subprocess.run(
+        cmd, capture_output=True, text=True, timeout=600,
+        env=lt_child_env()))
+
+
+def lt_shard(torch, mt, probe_job, emb, card):
+    """(e): the probe's bytes against phase 18's gauge; the embedding under
+    a tuple split; 3 float32 steps of the 2-layer LM with a tuple-split
+    dim against one context."""
+    from mxnet_tpu_torch import sharding
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+    from mxnet_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    run = probe_job.result()
+    check(run.returncode == 0, "long_tail (e): shard_probe exited %d: %s"
+          % (run.returncode, run.stderr[-1500:]))
+    rec = json.loads(run.stdout.strip().splitlines()[-1])
+    gauge = SHARD_READINGS.get("tp", (None,))[0]
+    check(rec["params_sharded_bytes"] == gauge, "long_tail (e): the probe's "
+          "per-device bytes %s, phase 18's gauge %s"
+          % (rec["params_sharded_bytes"], gauge))
+    print("long_tail (e): python -m mxnet_tpu_torch.tools.shard_probe at "
+          "the LM's widths, data=1 x model=2 over %s: %d bytes a device "
+          "(phase 18's mxtpu_params_sharded_bytes %s), %d replicated; the "
+          "walk's plan %s" % (rec["contexts"], rec["params_sharded_bytes"],
+                              gauge, rec["params_replicated_bytes"],
+                              rec["walk"]), flush=True)
+    # the embedding's rows over ("data", "model") on data=2 x model=2
+    mesh = sharding.build_mesh("data=2,model=2", devices=[mt.gpu(0)] * 4)
+    st = sharding.place(emb, mesh, P(("data", "model"), None))
+    rows = emb.shape[0] // 4
+    for (i, j), piece in sorted(st.shards.items()):
+        k = i * 2 + j
+        check(piece.is_cuda and torch.equal(piece, emb.narrow(
+            0, k * rows, rows)), "long_tail (e): coordinate %s's piece is "
+            "not rows %d:%d" % ((i, j), k * rows, (k + 1) * rows))
+    check(len(st.shards) == 4 and torch.equal(st.full(), emb),
+          "long_tail (e): the gathered embedding is not the array")
+    # 3 float32 steps with a tuple-split dim, against one context
+    b, s = BATCH, FULL["seq_len"]
+    with mt.NameManager():
+        lm = get_transformer_lm(**SHARD_F32)
+    init = {k[4:]: v for k, v in lm_params(
+        mt, lm, {"data": (b, s), "softmax_label": (b, s)},
+        np.random.default_rng(SEED), 0.02).items()}
+    batch, Y = obs_batch(mt, FULL, b)
+    rules = sharding.PartitionRules(
+        [(r"tok_embed_weight$", P(("data", "model"), None))]
+        + sharding.get_preset("transformer_megatron").rules,
+        fallback=P(), name="tuple_embed")
+    losses = {}
+    for tag in ("one", "tuple"):
+        torch.cuda.empty_cache()
+        if tag == "one":
+            mod = train_module(mt, lm, mt.gpu(0), (b, s), arg_params=init,
+                               optimizer="sgd",
+                               optimizer_params=LT_SHARD_SGD)
+            per_step = SHARD_F32["num_layers"]
+        else:
+            mod = mt.mod.Module(lm, label_names=("softmax_label",),
+                                context=[mt.gpu(0)] * 4)
+            mod.bind(data_shapes=[mt.io.DataDesc("data", (b, s))],
+                     label_shapes=[mt.io.DataDesc("softmax_label", (b, s))],
+                     mesh=mesh, partition_rules=rules)
+            mod.set_params(init, {})
+            mod.init_optimizer(optimizer="sgd",
+                               optimizer_params=LT_SHARD_SGD)
+            per_step = planned_attention(mod)
+            piece = mod._exec_group.execs[0].arg_dict[
+                "tok_embed_weight"]._data
+            check(sorted(tuple(p.shape) for p in piece.shards.values()) ==
+                  [(FULL["vocab_size"] // 4, FULL["hidden"])] * 4,
+                  "long_tail (e): the bound embedding's pieces")
+        losses[tag], _ = shard_steps(torch, mt, mod, batch, Y,
+                                     LT_SHARD_STEPS, "long_tail " + tag,
+                                     per_step)
+        del mod
+    rel = max(abs(a - c) / abs(c) for a, c in zip(losses["tuple"],
+                                                  losses["one"]))
+    check(rel <= LT_SHARD_TOL, "long_tail (e): the tuple-split LM's losses "
+          "%s, one context's %s" % (losses["tuple"], losses["one"]))
+    print("long_tail (e): tok_embed_weight under P((\"data\", \"model\"), "
+          "None) on data=2 x model=2 over [gpu(0)] * 4: 4 row blocks of %d, "
+          "gathered bit for bit; the 2-layer float32 LM with it (and the "
+          "Megatron rules) for %d steps: losses %s, one context's %s, "
+          "within %.3g (tolerance %g) (%s)"
+          % (rows, LT_SHARD_STEPS, ["%.6f" % x for x in losses["tuple"]],
+             ["%.6f" % x for x in losses["one"]], rel, LT_SHARD_TOL, card),
+          flush=True)
+    return {"probe_bytes": rec["params_sharded_bytes"],
+            "replicated_bytes": rec["params_replicated_bytes"],
+            "losses": losses, "rel": rel}
+
+
+def long_tail_phase(torch, mt):
+    """Phase 25 (module docstring).  Returns the phase's launches of
+    K1-K3: {"bf16": {"long_tail": {...}}, "f32": {"long_tail": {...}}}."""
+    from mxnet_tpu_torch.models.transformer import get_transformer_lm
+
+    card = card_and_limit()
+    t_phase = time.perf_counter()
+    walls = {}
+    folder = tempfile.mkdtemp(prefix="long_tail_")
+    try:
+        lib_job = Background(lt_capi_lib)
+        with mt.NameManager():
+            net = get_transformer_lm(**FULL)
+        batch, Y = obs_batch(mt, FULL, BATCH)
+        before = dict(mt.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        mods, remat = lt_remat(torch, mt, net, batch, Y, card)
+        walls["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        naive = lt_naive(torch, mt, net, batch, Y, mods[False], card)
+        walls["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        remat.update(lt_two_phase_and_site(torch, mt, mods, batch, Y, card))
+        walls["a (two-phase, site)"] = time.perf_counter() - t0
+        bf16 = kernel_delta(mt, before)
+        params, _ = mods[True].get_params()
+        emb = mods[True]._exec_group.execs[0].arg_dict[
+            "tok_embed_weight"]._data.clone()
+        del mods
+        gc_collect()
+        # beside (c): the probe's process, and the demo once the library
+        # is built
+        probe_job = lt_probe_start()
+        lib_path, build_s = lib_job.result()
+        small = lt_demo_checkpoint(mt, folder)
+        demo_job = Background(lt_demo, lib_path, small)
+        t0 = time.perf_counter()
+        alex = lt_caffe(torch, mt, card)
+        walls["c"] = time.perf_counter() - t0
+        before = dict(mt.kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        capi = lt_capi(torch, mt, net, params, lib_path, build_s, folder,
+                       small, demo_job, card)
+        walls["d"] = time.perf_counter() - t0
+        del params
+        gc_collect()
+        t0 = time.perf_counter()
+        shard = lt_shard(torch, mt, probe_job, emb, card)
+        walls["e"] = time.perf_counter() - t0
+        f32 = kernel_delta(mt, before)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print("long_tail: walls %s; phase %.1f s on %s"
+          % ({k: round(v, 2) for k, v in walls.items()}, wall, card),
+          flush=True)
+    print(json.dumps({"long_tail": {
+        "card": card, "remat": remat, "naive": naive, "alexnet": alex,
+        "capi": capi, "shard": shard, "launches": {"bf16": bf16,
+                                                   "f32": f32},
+        "walls_s": walls, "wall_s": wall}}, default=str), flush=True)
+    return {"bf16": {"long_tail": bf16}, "f32": {"long_tail": f32}}
+
+
 def device_op_group(event):
     """The group a device op of a profiler trace counts under."""
     name = event["name"]
@@ -12784,6 +13568,10 @@ def main_sequence(torch, mt, att, opts, jobs):
         raise
     sparse_phase(torch, mt, sparse_jobs)
     clock.mark("sparse")
+    lt_launches = long_tail_phase(torch, mt)
+    clock.mark("long_tail")
+    for tag in ("bf16", "f32"):
+        par_launches[tag].update(lt_launches[tag])
     for r in rtc_rows:
         r["launches_by_path"] = {
             "extend": r["launches"],

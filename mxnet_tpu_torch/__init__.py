@@ -56,8 +56,16 @@ step monitor over ``hlo_analysis``'s cost model of the eager plan) and
 ``guardian`` (the fused step's guard, skip → re-warm → rollback under
 ``Module.fit``) — and the sparse plane: ``sparse`` (``RowSparseArray``,
 the server-placed updaters, ``SparseParamPlane`` on the comm engine,
-``SparseEmbeddingModule``) over the servers' sharded row tables.  This
-package imports neither ``jax`` nor ``mxnet_tpu``.
+``SparseEmbeddingModule``) over the servers' sharded row tables — and
+the long tail: remat (``MXNET_BACKWARD_DO_MIRROR``) and the NaiveEngine
+(``MXNET_ENGINE_TYPE``) in the executor, ``Symbol.infer_shape_partial``/
+``eval``/``grad``, dims split over a tuple of mesh axes, ``caffe`` (the
+Caffe converter), ``capi_shim`` behind the C ABI (``libmxtpu_torch_capi``,
+built at first use; ``libinfo``), ``th`` (torch functions on NDArrays),
+``visualization``, ``contrib``, ``notebook``, ``log``, ``misc``, the doc
+and internal-op modules, and ``python -m mxnet_tpu_torch.tools.
+shard_probe``.  ``platform`` stays out of the default import, as in the
+JAX package.  This package imports neither ``jax`` nor ``mxnet_tpu``.
 """
 from . import base
 from .base import MXNetError
@@ -117,6 +125,16 @@ from . import autotune
 from . import rnn
 from . import monitor
 from . import monitor as mon
+from . import visualization
+from . import visualization as viz
+from . import contrib
+from . import torch as th
+from . import caffe
+from . import notebook
+from . import log
+from . import misc
+from . import libinfo
+from .libinfo import __version__
 from . import kvstore_server
 
 # server-role bootstrap, last so every module is loaded before requests

@@ -8,8 +8,8 @@ Following the TVM autotuning loop (arXiv 1802.04799):
   ``decode_engine`` and ``draft_k`` (``generation/engine.py``),
   ``flash_attention`` (``ops/attention.py``: the port's kernels pick
   their own tiles, so its winner sizes nothing; the key is kept so that
-  bundles carry its entry) and ``fused_step`` (``executor.py``: nothing
-  to choose until remat is ported, A.6b.3; it records the default);
+  bundles carry its entry) and ``fused_step`` (``executor.py``: remat
+  off or on; donation has no torch counterpart);
 * the :class:`.Tuner` scores candidates with a closed-form ``score_fn``
   or by the roofline over the cost model of the candidate's program
   (``build_fn``, ``hlo_analysis``: the eager plan counted on meta

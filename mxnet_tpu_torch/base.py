@@ -8,7 +8,8 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
-__all__ = ["MXNetError", "env", "register_env", "string_types", "mx_real_t"]
+__all__ = ["MXNetError", "env", "register_env", "string_types", "mx_real_t",
+           "naive_engine"]
 
 string_types = (str,)
 mx_real_t = np.float32
@@ -49,3 +50,20 @@ def env(name: str, default: Optional[Any] = None,
 register_env("CUDA_HOME", "/usr/local/cuda", str,
              "CUDA toolkit root; its bin/nvcc builds the hand-written "
              "kernels when nvcc is not on PATH.")
+
+# the engine and the backward's knobs (docs/how_to/env_var.md, the JAX
+# package's defaults)
+register_env("MXNET_ENGINE_TYPE", "ThreadedEnginePerDevice", str,
+             "Engine facade mode: ThreadedEnginePerDevice (asynchronous "
+             "device queue) or NaiveEngine (synchronous, blocks after every "
+             "op; debug).")
+register_env("MXNET_BACKWARD_DO_MIRROR", 0, int,
+             "Enable rematerialisation (torch.utils.checkpoint) in the "
+             "backward pass.")
+
+
+def naive_engine() -> bool:
+    """Whether ``MXNET_ENGINE_TYPE`` asks for the NaiveEngine (reference
+    src/engine/naive_engine.cc: every operation runs to its end when it
+    is pushed)."""
+    return env("MXNET_ENGINE_TYPE") == "NaiveEngine"

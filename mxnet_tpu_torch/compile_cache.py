@@ -691,7 +691,9 @@ class CachedFunction:
             "graph": ex._plan.fingerprint(),
             "compute_dtype": str(ex._compute_dtype),
             "cast_exclude": sorted(ex._cast_exclude),
-            "remat": int(env("MXNET_BACKWARD_DO_MIRROR", 0, int) or 0),
+            # the remat the executor fixed for this step key (the fused
+            # step's autotune winner), off for a key that has none
+            "remat": int(ex._remat.get(self._static_key, False)),
             "group2ctx": sorted(
                 (g, str(c)) for g, c in ex._group2ctx.items()),
             "sig": _signature(ex, args),

@@ -72,9 +72,27 @@ unless a caller such as the generation engine names another),
 of ``compile_cache.GRAPH_KINDS`` on the card (``"fwd"`` and the engine's
 prefill kinds) a CUDA graph captured at the first call and replayed after
 it (in ``_graph_pool``, which a replica's buckets share).  With the cache
-off nothing is wrapped.  ``fused_step`` consults the ``fused_step``
-autotune site once per step key; it has nothing to choose until remat is
-ported, so it records the default and the step ignores it.
+off nothing is wrapped.
+
+Remat (``MXNET_BACKWARD_DO_MIRROR``, read once per step key when the key's
+step is first built, as the JAX package reads it when it first traces the
+key): the differentiated run of the whole graph goes through non-reentrant
+``torch.utils.checkpoint``, so the forward keeps no residual and the
+backward runs it again to remake them, as ``jax.checkpoint`` of the whole
+differentiated function does.  The recompute draws from a generator of its
+own started from the state the forward started from, so a stochastic op
+makes the same draws twice, and its aux states are thrown away: aux is
+written once, from the first forward.  ``fused_step`` consults the
+``fused_step`` autotune site once per step key: in record mode it scores
+remat off and on by the roofline of the step's cost (``hlo_analysis`` on
+meta tensors, the recompute counted), and the step runs the winner's remat,
+which the step's compile-cache key carries.
+
+The NaiveEngine (``MXNET_ENGINE_TYPE=NaiveEngine``, read when the executor
+is built): no compile-cache entry and no CUDA graph, and the device is
+synchronized after every node of the plan, so an asynchronous fault
+surfaces at the node that caused it, and an error names that node and its
+op.
 
 The training guardian's step guard (``guardian.enabled()``, part of the
 fused step's key): the step reduces finiteness over every gradient and
@@ -97,8 +115,7 @@ on meta tensors, and sets ``_fused_new_compile`` for the step monitor.
 ``Executor.forward_backward``).
 
 Left out, with their reason: jit and buffer donation (PyTorch runs
-eagerly, and donation has no torch counterpart) and remat
-(``MXNET_BACKWARD_DO_MIRROR``).
+eagerly, and donation has no torch counterpart).
 """
 from __future__ import annotations
 
@@ -108,7 +125,7 @@ import torch
 
 from . import profiler as _prof
 from . import random as _random
-from .base import MXNetError, env
+from .base import MXNetError, env, naive_engine
 from .context import Context
 from .ops.param import torch_dtype
 from .ops import OpContext
@@ -244,7 +261,8 @@ class _GraphPlan:
         return placement
 
     def run(self, args: Dict[str, Any], aux: Dict[str, Any], is_train: bool,
-            device, generator=None, placement=None, dp=None, internals=None):
+            device, generator=None, placement=None, dp=None, internals=None,
+            sync=False):
         """Execute the graph on tensors of ``device``.  An intermediate is
         released as soon as its last reader has run, so peak memory follows
         the live activations (and, under autograd, what the backward keeps).
@@ -254,7 +272,8 @@ class _GraphPlan:
         every value is a ``_Value`` and ``dp`` runs each node over the
         shards; the outputs come back whole on the first context.  A list
         ``internals`` gets (node, output index, tensor) for every node
-        output, whole."""
+        output, whole.  With ``sync`` (the NaiveEngine) the device is
+        synchronized after every node."""
         vals: Dict[tuple, Any] = {}
         left = dict(self.readers)
         keep = set(self.output_entries)
@@ -268,17 +287,29 @@ class _GraphPlan:
                 continue
             ins = [vals[(id(p), idx)] for p, idx in n.inputs]
             aux_in = tuple(aux[a] for a in n.aux_names())
-            if dp is not None:
-                outs, aux_out = dp.apply(n, ins, aux_in, is_train, generator)
-            else:
-                dev = device
-                if placement and id(n) in placement:
-                    dev = placement[id(n)].torch_device()
-                    ins = [x.to(dev) for x in ins]
-                    aux_in = tuple(a.to(dev) for a in aux_in)
-                opctx = OpContext(is_train, generator if n.op.stochastic
-                                  else None, dev)
-                outs, aux_out = n.op.apply(opctx, n.attrs, ins, aux_in)
+            try:
+                if dp is not None:
+                    dev = dp.home
+                    outs, aux_out = dp.apply(n, ins, aux_in, is_train,
+                                             generator)
+                else:
+                    dev = device
+                    if placement and id(n) in placement:
+                        dev = placement[id(n)].torch_device()
+                        ins = [x.to(dev) for x in ins]
+                        aux_in = tuple(a.to(dev) for a in aux_in)
+                    opctx = OpContext(is_train, generator if n.op.stochastic
+                                      else None, dev)
+                    outs, aux_out = n.op.apply(opctx, n.attrs, ins, aux_in)
+                if sync and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            except Exception as exc:
+                if not sync:
+                    raise
+                # the NaiveEngine: an error, the op's own or the device
+                # queue's, names the node where it arose
+                raise MXNetError("node %s (op %s): %s: %s" % (
+                    n.name, n.op.name, type(exc).__name__, exc)) from exc
             del ins
             for i, o in enumerate(outs):
                 vals[(id(n), i)] = o
@@ -396,10 +427,17 @@ class Executor:
         self._cache_inputs = frozenset()
         # the step keys whose fused_step site has been consulted
         self._fused_sites = set()
+        # remat of each step key, fixed when the key's step is first built
+        self._remat: Dict[Any, bool] = {}
+        # the NaiveEngine: no compile cache, a device sync after each node
+        self._naive = naive_engine()
 
     def _cached(self, kind, key, fn):
         """``fn`` wrapped by the compile cache under ``kind`` (kept per
-        ``key``), or ``fn`` itself while the cache is off."""
+        ``key``), or ``fn`` itself while the cache is off or under the
+        NaiveEngine."""
+        if self._naive:
+            return fn
         hit = self._jit_cache.get(key)
         if hit is None:
             from . import compile_cache as _cc
@@ -453,7 +491,39 @@ class Executor:
         placed by ``group2ctx``, or over the data-parallel shards."""
         return self._plan.run(self._cast(args), aux, is_train,
                               device or self._ctx.torch_device(), generator,
-                              self._placement, self._dp, internals)
+                              self._placement, self._dp, internals,
+                              sync=self._naive and device is None)
+
+    def _remat_of(self, key):
+        """Remat of step key ``key``: ``MXNET_BACKWARD_DO_MIRROR`` as it is
+        when the key's step is first built."""
+        if key not in self._remat:
+            self._remat[key] = bool(env("MXNET_BACKWARD_DO_MIRROR", 0, int))
+        return self._remat[key]
+
+    def _remat_run(self, args, aux, is_train, generator, device):
+        """``_run`` of the differentiated arguments under non-reentrant
+        ``torch.utils.checkpoint``: the forward saves no residual and the
+        backward runs it again (whole-graph remat, ``jax.checkpoint(f)``).
+        The recompute draws from a fresh generator set to the state the
+        forward started from (``preserve_rng_state`` would restore only
+        the default generators), and its outputs and aux states are
+        dropped: only the first run's are returned."""
+        from torch.utils.checkpoint import checkpoint
+
+        state = None if generator is None else generator.get_state()
+        runs = []
+
+        def f(args):
+            gen = generator
+            if runs and state is not None:
+                gen = torch.Generator(device=generator.device)
+                gen.set_state(state)
+            runs.append(1)
+            return self._run(args, aux, is_train, gen, device=device)
+
+        return checkpoint(f, args, use_reentrant=False,
+                          preserve_rng_state=False)
 
     def _set_data_parallel(self, contexts, batch_names, group=False):
         """Run over ``contexts`` from now on, the arguments ``batch_names``
@@ -633,16 +703,21 @@ class Executor:
         return self._output_arrays
 
     def _grads(self, args, aux, diff_names, out_grads, is_train, generator,
-               device=None):
+               device=None, remat=False):
         """(outputs, new aux, {name: gradient}) of one differentiated
         forward of the tensors ``args``/``aux`` (the bound ones, or the
-        cost model's meta tensors) over the arguments ``diff_names``."""
+        cost model's meta tensors) over the arguments ``diff_names``; with
+        ``remat`` the forward is run again inside the backward."""
         leaves = {n: _map(args[n], lambda t: t.detach().requires_grad_(True))
                   for n in diff_names}
         args = {k: leaves.get(k, v) for k, v in args.items()}
         with torch.enable_grad():
-            outs, new_aux = self._run(args, aux, is_train, generator,
-                                      device=device)
+            if remat:
+                outs, new_aux = self._remat_run(args, aux, is_train,
+                                                generator, device)
+            else:
+                outs, new_aux = self._run(args, aux, is_train, generator,
+                                          device=device)
         if out_grads is None:
             ogs = [None] * len(outs)
         elif isinstance(out_grads, (list, tuple)):
@@ -684,11 +759,11 @@ class Executor:
             if set_outputs:
                 self.forward(is_train=is_train)
             return
-        outs, new_aux, grads = self._cached(
-            "fwdbwd", ("fwdbwd", is_train, tuple(diff_names)),
-            self._grads)(*self._bound(), diff_names=diff_names,
-                            out_grads=out_grads, is_train=is_train,
-                            generator=generator)
+        key = ("fwdbwd", is_train, tuple(diff_names))
+        outs, new_aux, grads = self._cached("fwdbwd", key, self._grads)(
+            *self._bound(), diff_names=diff_names, out_grads=out_grads,
+            is_train=is_train, generator=generator,
+            remat=self._remat_of(key))
         for name in diff_names:
             g = grads[name]
             held = self.grad_dict.get(name)
@@ -720,9 +795,6 @@ class Executor:
         key = ("fused", type(optimizer).__name__, tuple(param_names),
                ("guard", int(guard)))
         first_build = key not in self._fused_sites
-        if first_build:  # the site, once per step's key
-            self._fused_sites.add(key)
-            self._autotune_fused(key)
         infos = []
         for idx, name in enumerate(param_names):
             if self._grad_req.get(name, "null") == "null":
@@ -738,6 +810,13 @@ class Executor:
         states = [_tensors(updater.states[idx]) for _, idx in infos]
         step = dict(optimizer=optimizer, infos=infos,
                     t=optimizer.num_update, guard=guard)
+        if first_build:  # the site, once per step's key
+            self._fused_sites.add(key)
+            remat = self._remat_of(key)
+            tuned = self._autotune_fused(key, states, step, remat)
+            if tuned is not None:
+                self._remat[key] = bool(tuned.get("remat", remat))
+        step["remat"] = self._remat[key]
         with _prof.Frame("Executor.fused_step", "exec"):
             outs, new_aux, verdict = self._cached("fused", key, self._fused)(
                 *self._bound(), states=states,
@@ -778,13 +857,15 @@ class Executor:
         return (partial(self._fused, device=torch.device("meta"), **step),
                 (specs(args), specs(aux), specs(states)))
 
-    def _autotune_fused(self, stable_key):
-        """Consult the ``fused_step`` site for this step (autotune on).  Its
-        only candidate today is the default: remat is not ported
-        (ROADMAP.md A.6b.3) and donation has no torch counterpart, so a
-        record-mode run records the default under the step's key, as the
-        JAX package records its winner; the winner changes nothing here,
-        and neither the step nor its cache key reads it."""
+    def _autotune_fused(self, stable_key, states, step, env_remat):
+        """The ``fused_step`` site's config for this step, or None (autotune
+        off, or nothing recorded).  A record-mode miss scores each
+        candidate of ``spaces.fused_step(donate_allowed=False)`` (remat off
+        and on; donation has no torch counterpart) by the roofline of the
+        step it would run, counted by the cost model on meta tensors
+        (``build_fn``: ``_fused_abstract`` with the candidate's remat), as
+        the JAX package scores the lowered programs by XLA's cost
+        analysis.  Any failure leaves the step at ``env_remat``."""
         try:
             from . import autotune
 
@@ -797,33 +878,31 @@ class Executor:
                    "static": repr(stable_key),
                    "compute_dtype": str(self._compute_dtype),
                    "sig": repr(_signature(self, (args, aux))),
-                   "remat_env": int(env("MXNET_BACKWARD_DO_MIRROR", 0, int)
-                                    or 0),
+                   "remat_env": int(env_remat),
                    "donate_allowed": False}
 
-            def score(cand):
-                if cand["remat"]:
-                    raise MXNetError(
-                        "remat (MXNET_BACKWARD_DO_MIRROR) is not ported "
-                        "yet (ROADMAP.md A.6b.3)")
-                return 0.0
+            def build(cand):
+                return self._fused_abstract(
+                    states, dict(step, remat=bool(cand["remat"])))
 
             return autotune.get_or_tune(
                 "fused_step", key,
                 candidates=autotune.spaces.fused_step(donate_allowed=False),
-                score_fn=score, default=None)
+                build_fn=build, default=None)
         except Exception:
             return None
 
     def _fused(self, args, aux, states, optimizer, infos, t, guard=False,
-               generator=None, device=None):
+               generator=None, device=None, remat=False):
         """The fused step as a function of its tensors: the forward and
-        backward of ``args``/``aux`` and one list update of the parameters
-        ``infos`` names ((name, updater index)) and their ``states``, in
-        place.  Returns (outputs, new aux, the guard's verdict or None);
-        under the guard a non-finite step updates nothing."""
+        backward of ``args``/``aux`` (the forward run again in the backward
+        under ``remat``) and one list update of the parameters ``infos``
+        names ((name, updater index)) and their ``states``, in place.
+        Returns (outputs, new aux, the guard's verdict or None); under the
+        guard a non-finite step updates nothing."""
         outs, new_aux, grads = self._grads(
-            args, aux, [n for n, _ in infos], None, True, generator, device)
+            args, aux, [n for n, _ in infos], None, True, generator, device,
+            remat)
         verdict = None
         if guard:
             verdict = _guard_check(
@@ -838,6 +917,33 @@ class Executor:
             [grads.pop(name) for name, _ in infos], states,
             [t] * len(infos), owned_grads=True)
         return outs, new_aux, verdict
+
+    # ------------------------------------------------------------------
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor bound to the input shapes ``kwargs``, sharing
+        this one's plan and every array whose shape stays (the reference's
+        shared memory pool, graph_executor.cc:483-529); the others are
+        new zero-filled arrays."""
+        from . import ndarray as nd
+
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+        if arg_shapes is None:
+            raise MXNetError("cannot infer shapes for reshape")
+
+        def keep(cur, shape):
+            return cur if tuple(cur.shape) == tuple(shape) else \
+                nd.zeros(shape, self._ctx, dtype=cur.dtype)
+
+        args = {n: keep(self.arg_dict[n], s)
+                for n, s in zip(self._plan.arg_names, arg_shapes)}
+        aux = {n: keep(self.aux_dict[n], s)
+               for n, s in zip(self._plan.aux_names, aux_shapes)}
+        grads = {n: nd.zeros(args[n].shape, self._ctx, dtype=args[n].dtype)
+                 for n in self.grad_dict}
+        return Executor(self._symbol, self._ctx, args, grads or None,
+                        self._grad_req, aux, group2ctx=self._group2ctx,
+                        shared_exec=self)
 
     # ------------------------------------------------------------------
     def copy_params_from(self, arg_params, aux_params=None,
@@ -860,9 +966,16 @@ def _spec_layout(spec, lead, mesh):
     """(split, m) of an array stored under ``spec``: whether axis 0 splits
     over the leading (batch) axis, and the one other (dim, axis) split, if
     any; None when the walk cannot read the pieces as they lie (more
-    splits, the batch axis elsewhere), and then it gathers them."""
-    named = [(d, ax) for d, ax in enumerate(spec)
-             if ax is not None and mesh.shape[ax] > 1]
+    splits, a dim split over several axes of size above 1, the batch axis
+    elsewhere), and then it gathers them."""
+    from .parallel.mesh import entry_axes
+
+    named = []
+    for d, entry in enumerate(spec):
+        axes = [ax for ax in entry_axes(entry) if mesh.shape[ax] > 1]
+        if len(axes) > 1:
+            return None
+        named += [(d, ax) for ax in axes]
     split = bool(named) and named[0] == (0, lead)
     rest = named[1:] if split else named
     if len(rest) > 1 or any(ax == lead for _, ax in rest):

@@ -16,9 +16,9 @@ An opener is ``fn(uri, mode) -> file-like`` (binary modes get bytes;
 ``MXIndexedRecordIO`` and the record iterators open through ``open_uri``.
 
 ``atomic_write`` and the CRC32 sidecars are the crash-consistency pieces
-that checkpoint writers sit on.  The JAX package's ``atomic_write`` also
-fires its fault-injection layer (``faults``) at the site named by ``op``;
-that layer is not ported yet, so ``op`` only names the site here.
+that checkpoint writers sit on.  ``atomic_write`` fires the
+fault-injection layer (``faults``) at the site named by ``op``, as the JAX
+package's does.
 """
 from __future__ import annotations
 

@@ -1,8 +1,7 @@
 """Evaluation metrics — counterpart of ``mxnet_tpu/metric.py``:
 ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``,
 ``F1``, ``Perplexity``, ``MAE``, ``MSE``, ``RMSE``, ``CrossEntropy``,
-``Loss``, ``CustomMetric``, ``np`` and ``create``.  ``Torch`` waits for the
-port of ``torch.py``.
+``Loss``, ``Torch``, ``CustomMetric``, ``np`` and ``create``.
 
 ``update`` takes lists of label/pred NDArrays.  The per-row work (argmax,
 top k, picking each label's probability, the errors) runs in torch on the
@@ -23,6 +22,7 @@ from .ndarray import NDArray, _dense
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy", "Loss",
+           "Torch",
            "CustomMetric", "np", "create", "check_label_shapes"]
 
 
@@ -318,6 +318,13 @@ class Loss(EvalMetric):
             self.num_inst += int(numpy.prod(pred.shape))
 
 
+class Torch(Loss):
+    """The reference's metric.Torch: the mean of the outputs."""
+
+    def __init__(self, name="torch"):
+        super().__init__(name)
+
+
 class CustomMetric(EvalMetric):
     """A ``feval(label, pred)`` of numpy arrays, returning a value or a
     (sum, count) pair."""
@@ -370,7 +377,8 @@ def create(metric, **kwargs):
                "f1": F1, "mae": MAE, "mse": MSE, "rmse": RMSE,
                "top_k_accuracy": TopKAccuracy, "topkaccuracy": TopKAccuracy,
                "perplexity": Perplexity, "cross-entropy": CrossEntropy,
-               "loss": Loss, "composite": CompositeEvalMetric}
+               "loss": Loss, "torch": Torch,
+               "composite": CompositeEvalMetric}
     if isinstance(metric, string_types) and metric.lower() in metrics:
         return metrics[metric.lower()](**kwargs)
     raise ValueError("Metric must be either callable or in {}".format(

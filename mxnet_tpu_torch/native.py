@@ -36,6 +36,7 @@ import threading
 from .base import env
 
 __all__ = ["get_lib", "have_native", "native_status", "decoder_route",
+           "capi_lib_path",
            "nvjpeg_lib", "NativeRecordReader", "NativeRecordWriter",
            "NativePrefetchReader", "decode_jpeg_batch", "encode_jpeg"]
 
@@ -51,21 +52,23 @@ _LIBS = {}    # library name -> ctypes.CDLL, or None when it is unavailable
 _ERRORS = {}  # library name -> why it is unavailable
 
 
-def _lib_path(stem, sources, flags):
+def _lib_path(stem, sources, flags, deps=()):
     digest = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in list(sources) + list(deps):
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(_BUILD, "lib%s-%s.so" % (stem, digest.hexdigest()[:16]))
 
 
-def _compile(stem, cmd_head, sources, libs):
+def _compile(stem, cmd_head, sources, libs, deps=()):
     """Build ``sources`` into ``_build/lib<stem>-<hash>.so`` unless it is
-    there; the path, or raise OSError with the compiler's output."""
-    missing = [s for s in sources if not os.path.exists(s)]
+    there (the hash also covers the headers ``deps``); the path, or raise
+    OSError with the compiler's output."""
+    missing = [s for s in list(sources) + list(deps)
+               if not os.path.exists(s)]
     if missing:
         raise OSError("source missing: %s" % ", ".join(missing))
-    out = _lib_path(stem, sources, cmd_head + libs)
+    out = _lib_path(stem, sources, cmd_head + libs, deps)
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD, exist_ok=True)
@@ -163,6 +166,34 @@ def _build_nvjpeg():
     return _bind_nvjpeg(ctypes.CDLL(_compile(
         "nvjpeg_codec", head, [os.path.join(_CSRC, "nvjpeg_codec.cu")],
         ["-lnvjpeg"])))
+
+
+def capi_lib_path() -> str:
+    """The port's C ABI library, ``_build/libmxtpu_torch_capi-<hash>.so``,
+    built at first use with g++ from ``src/c_api.cc`` and
+    ``src/c_predict_api.cc`` as they are and ``csrc/capi_common.cc`` (the
+    port's copy of ``src/capi_common.cc``, which drives
+    ``mxnet_tpu_torch.capi_shim``), against this interpreter's headers and
+    libpython; ``-Bsymbolic`` keeps its calls inside itself beside the
+    JAX package's library in one process.  Raises OSError with the
+    compiler's output where it does not build (no fallback)."""
+    import sysconfig
+
+    inc = os.path.join(os.path.dirname(_SRC_DIR), "include")
+    libdir = sysconfig.get_config_var("LIBDIR")
+    head = ["g++"] + GXX_FLAGS + [
+        "-I", _SRC_DIR, "-I", inc, "-I", sysconfig.get_paths()["include"],
+        "-Wl,-Bsymbolic", "-L", libdir, "-Wl,-rpath," + libdir]
+    deps = [os.path.join(_SRC_DIR, "capi_common.h"),
+            os.path.join(inc, "mxtpu", "c_api.h"),
+            os.path.join(inc, "mxtpu", "c_predict_api.h")]
+    with _LOCK:
+        return _compile(
+            "mxtpu_torch_capi", head,
+            [os.path.join(_SRC_DIR, "c_predict_api.cc"),
+             os.path.join(_SRC_DIR, "c_api.cc"),
+             os.path.join(_CSRC, "capi_common.cc")],
+            ["-lpython" + sysconfig.get_config_var("LDVERSION")], deps)
 
 
 _BUILDERS = {"reader": _build_reader, "libjpeg": _build_libjpeg,

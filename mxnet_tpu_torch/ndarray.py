@@ -18,7 +18,9 @@ another.  An op runs on the context of its first NDArray input, else on its
 ``out=`` write into the existing tensor in place, so holders of the NDArray
 (executors, predictors) see the update; ``reshape``, ``T``, ``slice`` and
 basic indexing are views of the parent's storage, as in the reference.
-An op's result never aliases its inputs.
+An op's result never aliases its inputs.  Under the NaiveEngine
+(``MXNET_ENGINE_TYPE=NaiveEngine``) every op runs to its end on the device
+before the call returns, and an error names the op.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .base import MXNetError, mx_real_t
+from .base import MXNetError, mx_real_t, naive_engine
 from .context import Context, cpu, gpu, current_context
 from .ops import OpContext, registered_ops
 from .ops.param import TORCH_DTYPES, torch_dtype
@@ -459,9 +461,21 @@ def _invoke(op_name: str, args, kwargs):
     main_in = tensors[:len(tensors) - n_aux]
     aux_in = tuple(tensors[len(tensors) - n_aux:])
     gen = _random.generator(device) if op.stochastic else None
-    with torch.no_grad():
-        outs, aux_updates = op.apply(OpContext(False, gen, device), parsed,
-                                     main_in, aux_in)
+    naive = naive_engine()
+    try:
+        with torch.no_grad():
+            outs, aux_updates = op.apply(OpContext(False, gen, device),
+                                         parsed, main_in, aux_in)
+        if naive and device.type == "cuda":
+            torch.cuda.synchronize(device)
+    except Exception as exc:
+        if not naive:
+            raise
+        # the NaiveEngine: the op runs to its end on the device before the
+        # call returns, and an error, its own or the device queue's, names
+        # the op
+        raise MXNetError("op %s: %s: %s" % (op_name, type(exc).__name__,
+                                            exc)) from exc
     for holder, new in zip(inputs[len(inputs) - n_aux:], aux_updates):
         if isinstance(holder, NDArray) and new is not holder._data:
             holder._set(new)

@@ -142,18 +142,44 @@ def _spec(spec) -> PartitionSpec:
     return spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
 
 
+def entry_axes(entry):
+    """The mesh axes one PartitionSpec entry splits its dim over: () for
+    None, the axis itself, or a tuple of axes, the first one major
+    (``P(("data", "model"), ...)``, as JAX's ``NamedSharding`` splits)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def spec_axes(spec):
+    """Every mesh axis a spec names, in any entry."""
+    return {a for entry in _spec(spec) for a in entry_axes(entry)}
+
+
+def entry_split(entry, mesh: Mesh, coord=None):
+    """(ways, index): how many pieces the entry cuts its dim into (the
+    product of its axes' sizes) and, at ``coord``, which one (row-major
+    over the axes, the first one major)."""
+    ways, index = 1, 0
+    for a in entry_axes(entry):
+        n = int(mesh.shape[a])
+        ways *= n
+        if coord is not None:
+            index = index * n + coord[mesh.axis_names.index(a)]
+    return ways, index
+
+
 def _local_piece(x, spec, mesh: Mesh, coord):
     """Shard ``coord``'s piece of the global tensor ``x`` under ``spec``,
     on that shard's device (a view when it already lies there)."""
     for d, name in enumerate(_spec(spec)):
         if name is None:
             continue
-        n = mesh.shape[name]
+        n, k = entry_split(name, mesh, coord)
         if x.shape[d] % n:
             raise ValueError("dim %d of size %d does not split over mesh "
                              "axis %r of size %d" % (d, x.shape[d], name, n))
         size = x.shape[d] // n
-        k = coord[mesh.axis_names.index(name)]
         x = x.narrow(d, k * size, size)
     return x.to(mesh.torch_device(coord))
 
@@ -165,16 +191,19 @@ def _assemble(pieces, spec, mesh: Mesh):
     import torch
 
     spec = _spec(spec)
-    named = [(d, name) for d, name in enumerate(spec) if name is not None]
+    named = [(d, entry_axes(name)) for d, name in enumerate(spec)
+             if name is not None]
     device = mesh.torch_device(mesh.coords()[0])
 
     def build(level, fixed):
         if level == len(named):
             coord = tuple(fixed.get(a, 0) for a in mesh.axis_names)
             return pieces[coord].to(device)
-        d, name = named[level]
-        return torch.cat([build(level + 1, dict(fixed, **{name: k}))
-                          for k in range(mesh.shape[name])], dim=d)
+        d, axes = named[level]
+        # the pieces along a tuple of axes in row-major order over them
+        return torch.cat([build(level + 1, dict(fixed, **dict(zip(axes, k))))
+                          for k in np.ndindex(*[int(mesh.shape[a])
+                                                for a in axes])], dim=d)
 
     return build(0, {})
 
@@ -201,7 +230,7 @@ class ShardedTensor:
     def canonical(self, coord):
         """The coordinate holding ``coord``'s block: 0 on every axis the
         spec does not name."""
-        named = {name for name in self.spec if name is not None}
+        named = spec_axes(self.spec)
         return tuple(c if a in named else 0
                      for a, c in zip(self.mesh.axis_names, coord))
 
@@ -221,8 +250,7 @@ class ShardedTensor:
         first = self.shards[self.canonical((0,) * len(self.mesh.axis_names))]
         dims = list(first.shape)
         for d, name in enumerate(self.spec):
-            if name is not None:
-                dims[d] *= self.mesh.shape[name]
+            dims[d] *= entry_split(name, self.mesh)[0]
         return torch.Size(dims)
 
     @property

@@ -17,7 +17,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..base import MXNetError
-from ..parallel.mesh import PartitionSpec, ShardedTensor
+from ..parallel.mesh import (PartitionSpec, ShardedTensor, entry_axes,
+                             entry_split, spec_axes)
 
 __all__ = ["NamedSharding", "make_shardings", "shard_params",
            "gather_params", "validate_specs", "spec_shard_factor",
@@ -111,35 +112,34 @@ def _torch(x):
 
 def _block(x, spec, mesh, coord):
     """``coord``'s block of the global tensor ``x`` under ``spec``, on
-    that coordinate's device."""
+    that coordinate's device.  A dim split over a tuple of axes splits
+    over their product, the first axis major."""
     for d, ax in enumerate(tuple(spec)):
         if ax is None:
             continue
-        n = int(mesh.shape[ax])
+        n, k = entry_split(ax, mesh, coord)
         if x.shape[d] % n:
             raise MXNetError("dim %d of size %d does not split over mesh "
                              "axis %r of size %d" % (d, x.shape[d], ax, n))
         size = x.shape[d] // n
-        x = x.narrow(d, coord[mesh.axis_names.index(ax)] * size, size)
+        x = x.narrow(d, k * size, size)
     return x.to(mesh.torch_device(coord))
 
 
 def blocks(x, mesh, spec) -> ShardedTensor:
     """The tensor ``x`` as a ShardedTensor with one piece per distinct
     block (each a copy, never a view of ``x``).  A dim splits over one
-    mesh axis: a tuple of axes (the JAX package splits the dim over their
-    product) raises."""
+    mesh axis or over a tuple of axes (their product, the first major, as
+    JAX's ``NamedSharding`` splits it)."""
     import torch
 
     spec = spec if isinstance(spec, PartitionSpec) else PartitionSpec(*spec)
-    for ax in spec:
-        if isinstance(ax, (tuple, list)):
-            raise MXNetError("spec %s: the port splits a dim over one mesh "
-                             "axis, not %r" % (spec, ax))
-        if ax is not None and ax not in mesh.shape:
-            raise MXNetError("spec axis %r is not a mesh axis %s"
-                             % (ax, tuple(mesh.axis_names)))
-    named = {ax for ax in spec if ax is not None}
+    for entry in spec:
+        for ax in entry_axes(entry):
+            if ax not in mesh.shape:
+                raise MXNetError("spec axis %r is not a mesh axis %s"
+                                 % (ax, tuple(mesh.axis_names)))
+    named = spec_axes(spec)
     pieces = {}
     for coord in mesh.coords():
         if any(c and a not in named

@@ -9,7 +9,7 @@ parameter name; the first hit wins.  Scalars and single-element arrays
 short-circuit to replicated (there is nothing to split), and every
 resolution is explainable — :meth:`PartitionRules.explain` reports which
 rule claimed each parameter, so a layout regression is a diffable table
-(the JAX package's tools/shard_probe.py, not ported yet) instead of an
+(``python -m mxnet_tpu_torch.tools.shard_probe`` prints it) instead of an
 OOM three hours into a run.
 
 Presets encode the bench-model layouts:

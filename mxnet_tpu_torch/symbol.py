@@ -107,6 +107,65 @@ class Symbol:
             out.extend(n.aux_names())
         return out
 
+    def compose(self, **kwargs) -> "Symbol":
+        """Substitute free variable inputs by name with other symbols'
+        outputs, rebuilding the node DAG (the graph-level half of the
+        reference's MXSymbolCompose, c_api_symbolic.cc:200-260).  Unknown
+        names raise."""
+        args = set(self.list_arguments())
+        unknown = set(kwargs) - args
+        if unknown:
+            raise ValueError(
+                "compose: %s are not free arguments of this symbol "
+                "(free: %s)" % (sorted(unknown), sorted(args)))
+        sub = {k: v._outputs[0] for k, v in kwargs.items()}
+        memo: Dict[int, _Node] = {}
+
+        def sub_input(inp):
+            node, idx = inp
+            if node.is_variable and node.name in sub:
+                return sub[node.name]
+            return (rebuild(node), idx)
+
+        def rebuild(node):
+            got = memo.get(id(node))
+            if got is not None:
+                return got
+            if node.is_variable:
+                memo[id(node)] = node
+                return node
+            new = _Node(node.op, node.name, node.attrs,
+                        [sub_input(i) for i in node.inputs],
+                        node.attr_dict)
+            memo[id(node)] = new
+            return new
+
+        return Symbol([sub_input(o) for o in self._outputs])
+
+    def __call__(self, *args, **kwargs) -> "Symbol":
+        """Compose on inputs, ``x(y, z)`` / ``x(data=y)`` (reference
+        symbol.py:212-230): positional inputs map to ``list_arguments``
+        order, and mixing positional and keyword inputs raises.  Returns a
+        new symbol."""
+        kwargs.pop("name", None)  # the composed nodes keep their names
+        if args and kwargs:
+            raise TypeError(
+                "compose only accepts input Symbols either as positional "
+                "or keyword arguments, not both")
+        if args:
+            free = self.list_arguments()
+            if len(args) > len(free):
+                raise TypeError(
+                    "compose got %d positional inputs for %d free "
+                    "arguments %s" % (len(args), len(free), free))
+            kwargs = dict(zip(free, args))
+        return self.compose(**kwargs)
+
+    def get_internals(self) -> "Symbol":
+        """Every node output of the graph, in topological order."""
+        return Symbol([(n, i) for n in self._nodes()
+                       for i in range(n.num_outputs())])
+
     def __getitem__(self, index):
         if isinstance(index, str):
             names = self.list_outputs()
@@ -215,6 +274,12 @@ class Symbol:
         """(arg_shapes, out_shapes, aux_shapes) from the given input
         shapes, positional in ``list_arguments`` order or by name; all
         three are None when any argument or output stays unknown."""
+        arg_out, out_out, aux_out = self._infer_shapes(args, kwargs)
+        if any(s is None for s in arg_out + out_out):
+            return None, None, None
+        return arg_out, out_out, aux_out
+
+    def _infer_shapes(self, args, kwargs, tolerant=False):
         known: Dict[str, Tuple[int, ...]] = {}
         for name, shape in zip(self.list_arguments(), args):
             if shape is not None:
@@ -222,14 +287,18 @@ class Symbol:
         for k, v in kwargs.items():
             if v is not None:
                 known[k] = tuple(v)
-        shapes, aux_shapes = _forward_infer(self, known)
+        shapes, aux_shapes = _forward_infer(self, known, tolerant=tolerant)
         nodes = self._nodes()
         arg_out = [shapes.get((id(n), 0)) for n in nodes if n.is_variable]
         out_out = [shapes.get((id(node), idx)) for node, idx in self._outputs]
         aux_out = [aux_shapes.get(a) for n in nodes for a in n.aux_names()]
-        if any(s is None for s in arg_out + out_out):
-            return None, None, None
         return arg_out, out_out, aux_out
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As ``infer_shape``, but what the given shapes do not determine
+        is None in its list instead of all three lists being None (an op
+        that fails on the shapes it has leaves its outputs unknown)."""
+        return self._infer_shapes(args, kwargs, tolerant=True)
 
     def infer_type(self, *args, **kwargs):
         """(arg_types, out_types, aux_types) as numpy dtypes.  Arguments
@@ -336,6 +405,23 @@ class Symbol:
                      if reqs.get(n, "null") != "null"}
         return Executor(self, ctx, args, args_grad or None, grad_req, aux,
                         group2ctx=group2ctx, shared_exec=shared_exec)
+
+
+    # evaluation sugar
+    def eval(self, ctx=None, **kwargs):
+        """Bind the arrays ``kwargs`` on ``ctx`` (default: the current
+        context, ``gpu(0)`` unless set) and run ``forward``: the list of
+        outputs."""
+        from .context import current_context
+
+        ex = self.bind(ctx or current_context(), kwargs)
+        return ex.forward()
+
+    def grad(self, wrt: Sequence[str]) -> "Symbol":
+        raise MXNetError(
+            "Symbol.grad is not supported: gradients come from "
+            "Executor.backward (autograd), matching its deprecated status "
+            "in the reference")
 
 
 # ---------------------------------------------------------------------------
